@@ -1,0 +1,52 @@
+"""Device resolution and fp32 numerics for the PyTorch port.
+
+The port runs on a CUDA card unless the caller asks for the CPU. It never
+falls back to the CPU on its own: a missing card is an error that names the
+explicit ``device="cpu"`` spelling.
+
+cuDNN runs float32 convolutions in TF32 on Hopper by default, which keeps
+about three decimal digits and misses the reference's 1e-4 budget, so every
+path that puts the port on a CUDA device turns TF32 off for both cuDNN and
+matmuls first.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def use_strict_fp32() -> None:
+    """Turn TF32 off for cuDNN convolutions and cuBLAS matmuls."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the current CUDA device; raises when CUDA is absent.
+
+    A CUDA result also switches the process to strict fp32 numerics
+    (:func:`use_strict_fp32`).
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: repro_torch runs on a CUDA device "
+                "by default — pass device='cpu' to run the plain PyTorch "
+                "path on the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        use_strict_fp32()
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}: expected cuda or cpu")
+    return device
+
+
+def to_tensor(a, device) -> torch.Tensor:
+    """An array or tensor -> a float32 tensor on ``device`` (arrays are
+    copied, so read-only buffers such as exported JAX arrays are fine)."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.array(a, dtype=np.float32))
+    return a.to(device=device, dtype=torch.float32)

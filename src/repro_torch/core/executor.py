@@ -1,0 +1,681 @@
+"""Two-phase program execution: validate once, run many.
+
+* **Phase 1 — schedule validation** (:func:`validate_schedule`): replay the
+  instruction stream against *symbolic* buffer state only (slot tags, block
+  sets — no tensors). This enforces the handshake-FIFO discipline of
+  Sec. 4.1 — LOAD over a live slot, COMP before its LOADs, SAVE before
+  COMP, a missing final SAVE all raise :class:`HazardError` — and produces
+  the pipeline-statistics counters. It runs once per ``Program``. Ported
+  whole from the reference: every opcode validates, ELTWISE_ADD and
+  DEPTHWISE_CONV included.
+
+* **Phase 2 — lowering** (:func:`lower_program`): turn the validated
+  schedule into a function ``execute(params, x) -> y`` of tensor ops with
+  static Python control flow — per-layer blocked compute (the same
+  row-group/k-group blocks the COMP instructions name), assembled with
+  ``torch.cat``. PyTorch runs eagerly, so there is no trace: the function
+  is built once per cache entry and called per request.
+
+Backends: lowering emits each block's compute through one of two PE
+implementations, selected by ``backend=``:
+
+* ``"torch"`` — plain aten ops on any device (the reference's ``"xla"``).
+* ``"hopper"`` — the hand-written CUDA kernels (the reference's
+  ``"pallas"``): K1 for Spatial CONV, K3 + K2 + K4 for Winograd CONV, K2
+  for FC. On CPU tensors each kernel runs its plain PyTorch version.
+
+POOL blocks lower through ``F.max_pool2d`` on both backends: pooling is
+comparisons, not PE MACs. ELTWISE_ADD and DEPTHWISE_CONV validate but do not
+lower yet (ROADMAP Queue 1, item 3).
+
+Lowering optimizer (``opt_level``): ``opt_level=1`` runs
+:func:`analyze_program` first. A CONV layer whose blocks are provably
+equivalent to one whole-layer dispatch — every COMP block carries the same
+RELU bit, the k-groups contiguously tile [0, K), the row groups contiguously
+tile the output height — collapses to a single PE call over the full weight
+image. A layer whose RELU bits differ between blocks cannot fuse; on the
+torch backend with equal-sized k-groups it lowers to the stacked form (one
+PE call without ReLU plus a static per-block ReLU mask), and anything else —
+including every mixed-RELU layer on the hopper backend — keeps the literal
+blocked lowering. ``opt_level=0`` keeps the literal lowering everywhere.
+The verdicts equal the reference's for the matching backend.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.core import layouts
+from repro_torch.core.compiler import CompiledLayer, Program
+from repro_torch.core.hybrid_conv import (
+    BACKENDS,
+    dense,
+    hybrid_conv2d,
+    max_pool2d,
+    same_pad,
+)
+from repro_torch.core.isa import Opcode, unpack_dw_geom, unpack_fc_dims
+from repro_torch.core.winograd import (
+    transform_weights,
+    winograd_apply_pretransformed,
+)
+
+
+class HazardError(RuntimeError):
+    """Instruction-stream hazard: the handshake FIFO discipline was violated."""
+
+
+OPT_LEVELS = (0, 1)
+
+# what this slice does not lower yet, and where the ROADMAP tracks it
+_NOT_PORTED = {
+    "eltwise": "ELTWISE_ADD lowering is not ported yet (ROADMAP Queue 1, "
+               "item 3: eltwise_forward, with ResNet-18)",
+    "dw": "DEPTHWISE_CONV lowering is not ported yet (ROADMAP Queue 1, "
+          "item 3: depthwise_forward, with ResNet-18)",
+}
+
+
+def resolve_opt_level(opt_level: int) -> int:
+    """Validate the lowering-optimizer level (0 = literal per-block
+    lowering, 1 = fused whole-layer lowering where provably equivalent)."""
+    if opt_level not in OPT_LEVELS:
+        raise ValueError(
+            f"unknown opt_level {opt_level!r}: expected one of {OPT_LEVELS}")
+    return int(opt_level)
+
+
+def resolve_backend(backend: str) -> str:
+    """Validate the PE backend name ("torch" or "hopper")."""
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown backend {backend!r}: expected one of {BACKENDS}")
+    return backend
+
+
+def _fresh_stats() -> dict[str, int]:
+    return {"load_inp": 0, "load_wgt": 0, "load_bias": 0,
+            "comp": 0, "pool": 0, "fc": 0, "eltwise": 0, "dw": 0,
+            "save": 0, "inp_words": 0, "wgt_words": 0}
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: schedule validation (symbolic replay, no tensors)
+# ---------------------------------------------------------------------------
+
+def validate_schedule(program: Program) -> dict[str, int]:
+    """Replay the hazard/FIFO discipline once, without any compute.
+
+    Returns the pipeline statistics counters; raises :class:`HazardError`
+    on the first violation.
+    """
+    stats = _fresh_stats()
+    inp_tags: list[tuple | None] = [None, None]
+    wgt_tags: list[tuple | None] = [None, None]
+    bias_tag: tuple | None = None
+    out_blocks: set[tuple[int, int]] = set()
+    saved_any = False
+    cur_layer = -1
+
+    def flush(layer_id: int):
+        if out_blocks:
+            raise HazardError(
+                f"layer {layer_id}: {len(out_blocks)} COMP blocks never SAVEd")
+        if not saved_any:
+            raise HazardError(f"layer {layer_id}: no SAVE executed")
+
+    for ins in program.instructions:
+        cl = program.layers[ins.layer_id]
+        if ins.layer_id != cur_layer:
+            if cur_layer >= 0:
+                flush(cur_layer)
+            cur_layer = ins.layer_id
+            out_blocks = set()
+            saved_any = False
+
+        op = ins.opcode
+        if op == Opcode.LOAD_BIAS:
+            bias_tag = (ins.layer_id,)
+            stats["load_bias"] += 1
+        elif op == Opcode.LOAD_INP:
+            ih, slot = ins.buff_base >> 1, ins.buff_base & 1
+            inp_tags[slot] = (ins.layer_id, ih)
+            stats["load_inp"] += 1
+            stats["inp_words"] += ins.size
+        elif op == Opcode.LOAD_WGT:
+            kg, slot = ins.buff_base >> 1, ins.buff_base & 1
+            wgt_tags[slot] = (ins.layer_id, kg)
+            stats["load_wgt"] += 1
+            stats["wgt_words"] += ins.size
+        elif op == Opcode.COMP:
+            ih = ins.size & 0xFFF
+            kg = (ins.size >> 12) & 0xFFF
+            islot = (ins.size >> 24) & 1
+            wslot = (ins.size >> 25) & 1
+            if inp_tags[islot] != (ins.layer_id, ih):
+                raise HazardError(
+                    f"COMP L{ins.layer_id} row-group {ih}: input slot "
+                    f"{islot} holds {inp_tags[islot]}")
+            if wgt_tags[wslot] != (ins.layer_id, kg):
+                raise HazardError(
+                    f"COMP L{ins.layer_id} k-group {kg}: weight slot "
+                    f"{wslot} holds {wgt_tags[wslot]}")
+            if bias_tag != (ins.layer_id,):
+                raise HazardError(f"COMP L{ins.layer_id}: stale bias buffer")
+            out_blocks.add((ih, kg))
+            stats["comp"] += 1
+        elif op == Opcode.POOL:
+            islot = ins.buff_base & 1
+            cfg = (ins.pool_window, ins.pool_stride)
+            if cfg != (cl.spec.window, cl.spec.stride):
+                raise HazardError(
+                    f"POOL L{ins.layer_id}: word0 window/stride {cfg} "
+                    f"disagree with compiled spec "
+                    f"({cl.spec.window}, {cl.spec.stride})")
+            if inp_tags[islot] != (ins.layer_id, 0):
+                raise HazardError(
+                    f"POOL L{ins.layer_id}: input slot {islot} holds "
+                    f"{inp_tags[islot]}")
+            out_blocks.add((0, 0))
+            stats["pool"] += 1
+        elif op == Opcode.FC:
+            islot = ins.buff_base & 1
+            wslot = (ins.buff_base >> 1) & 1
+            dims = unpack_fc_dims(ins.size)
+            if dims != (cl.spec.d_in, cl.spec.d_out):
+                raise HazardError(
+                    f"FC L{ins.layer_id}: word3 dims {dims} disagree with "
+                    f"compiled spec ({cl.spec.d_in}, {cl.spec.d_out})")
+            if inp_tags[islot] != (ins.layer_id, 0):
+                raise HazardError(
+                    f"FC L{ins.layer_id}: input slot {islot} holds "
+                    f"{inp_tags[islot]}")
+            if wgt_tags[wslot] != (ins.layer_id, 0):
+                raise HazardError(
+                    f"FC L{ins.layer_id}: weight slot {wslot} holds "
+                    f"{wgt_tags[wslot]}")
+            if bias_tag != (ins.layer_id,):
+                raise HazardError(f"FC L{ins.layer_id}: stale bias buffer")
+            out_blocks.add((0, 0))
+            stats["fc"] += 1
+        elif op == Opcode.ELTWISE_ADD:
+            pslot = ins.buff_base & 1
+            sslot = (ins.buff_base >> 1) & 1
+            n_el = cl.spec.h * cl.spec.w * cl.spec.c
+            if ins.size != n_el:
+                raise HazardError(
+                    f"ELTWISE L{ins.layer_id}: word3 element count "
+                    f"{ins.size} disagrees with compiled spec ({n_el})")
+            if ins.dram_base != cl.skip_addr:
+                raise HazardError(
+                    f"ELTWISE L{ins.layer_id}: word2 skip base "
+                    f"{ins.dram_base} disagrees with compiled skip operand "
+                    f"({cl.skip_addr})")
+            if inp_tags[pslot] != (ins.layer_id, 0):
+                raise HazardError(
+                    f"ELTWISE L{ins.layer_id}: primary input slot {pslot} "
+                    f"holds {inp_tags[pslot]}")
+            if inp_tags[sslot] != (ins.layer_id, 1):
+                raise HazardError(
+                    f"ELTWISE L{ins.layer_id}: skip input slot {sslot} "
+                    f"holds {inp_tags[sslot]}")
+            out_blocks.add((0, 0))
+            stats["eltwise"] += 1
+        elif op == Opcode.DEPTHWISE_CONV:
+            islot = ins.buff_base & 1
+            wslot = (ins.buff_base >> 1) & 1
+            geom = unpack_dw_geom(ins.size)
+            if geom != (cl.spec.r, cl.spec.s, cl.spec.stride):
+                raise HazardError(
+                    f"DEPTHWISE L{ins.layer_id}: word3 geometry {geom} "
+                    f"disagrees with compiled spec "
+                    f"({cl.spec.r}, {cl.spec.s}, {cl.spec.stride})")
+            if inp_tags[islot] != (ins.layer_id, 0):
+                raise HazardError(
+                    f"DEPTHWISE L{ins.layer_id}: input slot {islot} holds "
+                    f"{inp_tags[islot]}")
+            if wgt_tags[wslot] != (ins.layer_id, 0):
+                raise HazardError(
+                    f"DEPTHWISE L{ins.layer_id}: weight slot {wslot} holds "
+                    f"{wgt_tags[wslot]}")
+            if bias_tag != (ins.layer_id,):
+                raise HazardError(
+                    f"DEPTHWISE L{ins.layer_id}: stale bias buffer")
+            out_blocks.add((0, 0))
+            stats["dw"] += 1
+        elif op == Opcode.SAVE:
+            ih = ins.size & 0xFFF
+            kg = (ins.size >> 12) & 0xFFF
+            if cl.kind != "conv":
+                need = [(0, 0)]
+            elif cl.plan.dataflow == "is":
+                need = [(ih, g) for g in range(len(cl.k_groups))]
+            else:
+                need = [(ih, kg)]
+            for key in need:
+                if key not in out_blocks:
+                    raise HazardError(
+                        f"SAVE L{ins.layer_id} block {key} not computed")
+                out_blocks.discard(key)
+            saved_any = True
+            stats["save"] += 1
+        else:
+            raise ValueError(op)
+
+    if cur_layer >= 0:
+        flush(cur_layer)
+    else:
+        raise HazardError("empty instruction stream")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: lowering to tensor ops
+# ---------------------------------------------------------------------------
+
+def slice_input_rows(cl: CompiledLayer, x_nhwc: torch.Tensor,
+                     ih: int) -> torch.Tensor:
+    """Input rows (plus halo) for output row group ``ih``."""
+    r0, r1 = cl.row_groups[ih]
+    return slice_input_span(cl, x_nhwc, r0, r1)
+
+
+def slice_input_span(cl: CompiledLayer, x_nhwc: torch.Tensor,
+                     r0: int, r1: int) -> torch.Tensor:
+    """Input rows (plus spec-derived halo) for output rows ``[r0, r1)``,
+    with the vertical padding materialized."""
+    spec = cl.spec
+    pad = (same_pad(spec.h, spec.r, spec.stride)[0]
+           if spec.padding.upper() == "SAME" else 0)
+    in_lo = r0 * spec.stride - pad
+    in_hi = (r1 - 1) * spec.stride + spec.r - pad
+    pad_top = max(0, -in_lo)
+    pad_bot = max(0, in_hi - spec.h)
+    sl = x_nhwc[:, max(0, in_lo):min(spec.h, in_hi)]
+    if pad_top or pad_bot:
+        sl = torch.nn.functional.pad(sl, (0, 0, 0, 0, pad_top, pad_bot))
+    return sl
+
+
+def width_pad(cl: CompiledLayer) -> tuple[int, int]:
+    """Horizontal conv padding (vertical halo is materialized by the slice)."""
+    if cl.spec.padding.upper() == "SAME":
+        return same_pad(cl.spec.w, cl.spec.s, cl.spec.stride)
+    return (0, 0)
+
+
+def conv_block_forward(cl: CompiledLayer, x_slab: torch.Tensor,
+                       w_grp: torch.Tensor, b_grp: torch.Tensor, relu: bool,
+                       *, backend: str = "torch") -> torch.Tensor:
+    """One COMP block on the selected PE backend (fp32).
+
+    ``x_slab`` is the row-group slice (halo included, vertical padding
+    materialized); ``w_grp`` the k-group slice of the DRAM weight image
+    (U-space for Winograd).
+    """
+    spec, plan = cl.spec, cl.plan
+    wpad = width_pad(cl)
+    if plan.mode == "wino":
+        x_p = torch.nn.functional.pad(x_slab, (0, 0, wpad[0], wpad[1]))
+        if backend == "hopper":
+            from repro_torch.kernels.winograd import (
+                winograd_apply_pretransformed_hopper,
+            )
+            return winograd_apply_pretransformed_hopper(
+                x_p, w_grp, b_grp, m=plan.m, relu=relu, padding="VALID",
+                dataflow=plan.dataflow)
+        return winograd_apply_pretransformed(
+            x_p, w_grp, b_grp, plan.m, relu=relu, padding="VALID")
+    # the aten lowering is dataflow-oblivious, so only the hopper PE gets
+    # the plan's dataflow
+    hopper = backend == "hopper"
+    return hybrid_conv2d(
+        x_slab, w_grp, b_grp, mode="spat",
+        dataflow=plan.dataflow if hopper else "is", stride=spec.stride,
+        relu=relu, padding=((0, 0), wpad), backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Lowering optimizer: per-layer block-structure analysis (opt_level=1)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerLowering:
+    """The optimizer's verdict for one layer.
+
+    ``kind``: ``"fused"`` (one whole-layer PE dispatch; ``relu`` holds the
+    uniform bit), ``"stacked"`` (mixed RELU bits over equal, contiguous
+    k-groups: one PE call plus a static per-block ReLU mask, torch backend
+    only), ``"block"`` (keep the literal per-block lowering; ``reason``
+    says why) or ``"single"`` (ELTWISE_ADD / DEPTHWISE_CONV, one dispatch
+    by construction).
+    """
+    kind: str
+    relu: bool | None = None
+    relu_blocks: tuple[tuple[bool, ...], ...] | None = None
+    reason: str = ""
+
+
+def _tiles_contiguously(groups, total: int) -> bool:
+    lo = 0
+    for a, b in groups:
+        if a != lo or b <= a:
+            return False
+        lo = b
+    return lo == total
+
+
+def _stream_overrides(program: Program):
+    """Per-block RELU bits and POOL configs, read off the instruction
+    stream — the stream is authoritative over the compiled specs."""
+    relu_bits: dict[tuple[int, int, int], bool] = {}
+    pool_cfg: dict[int, tuple[int, int]] = {}
+    for ins in program.instructions:
+        if ins.opcode == Opcode.COMP:
+            ih = ins.size & 0xFFF
+            kg = (ins.size >> 12) & 0xFFF
+            relu_bits[(ins.layer_id, ih, kg)] = ins.relu_flag
+        elif ins.opcode in (Opcode.FC, Opcode.ELTWISE_ADD,
+                            Opcode.DEPTHWISE_CONV):
+            relu_bits[(ins.layer_id, 0, 0)] = ins.relu_flag
+        elif ins.opcode == Opcode.POOL:
+            pool_cfg[ins.layer_id] = (ins.pool_window, ins.pool_stride)
+    return relu_bits, pool_cfg
+
+
+def analyze_layer(cl: CompiledLayer, relu_of, *,
+                  backend: str = "torch") -> LayerLowering:
+    """Decide how one CONV layer may lower under ``opt_level=1``.
+
+    ``relu_of(ih, kg)`` is the effective RELU bit of that COMP block.
+    Fusion is claimed only when the whole-layer dispatch is provably the
+    same math as the blocked assembly.
+    """
+    ho, _ = cl.spec.out_hw
+    if not _tiles_contiguously(cl.row_groups, ho):
+        return LayerLowering("block", reason="row groups do not tile H")
+    if not _tiles_contiguously(cl.k_groups, cl.spec.k):
+        return LayerLowering("block", reason="k-groups do not tile K")
+    bits = {(ih, kg): bool(relu_of(ih, kg))
+            for ih in range(len(cl.row_groups))
+            for kg in range(len(cl.k_groups))}
+    uniq = set(bits.values())
+    if len(uniq) == 1:
+        return LayerLowering("fused", relu=uniq.pop())
+    if backend == "hopper":
+        return LayerLowering(
+            "block", reason="mixed RELU bits: the hopper PE keeps the "
+                            "literal blocks")
+    sizes = {hi - lo for lo, hi in cl.k_groups}
+    if len(sizes) != 1:
+        return LayerLowering(
+            "block", reason="mixed RELU bits over unequal k-group sizes")
+    relu_blocks = tuple(
+        tuple(bits[(ih, kg)] for ih in range(len(cl.row_groups)))
+        for kg in range(len(cl.k_groups)))
+    return LayerLowering("stacked", relu_blocks=relu_blocks,
+                         reason="mixed RELU bits")
+
+
+def analyze_program(program: Program, *, backend: str = "torch",
+                    relu_bits: dict | None = None
+                    ) -> dict[int, LayerLowering]:
+    """One :class:`LayerLowering` verdict per CONV, ELTWISE and DEPTHWISE
+    layer (POOL and FC are one dispatch and stay implicit)."""
+    if relu_bits is None:
+        relu_bits, _ = _stream_overrides(program)
+    out = {}
+    for cl in program.layers:
+        if cl.kind == "eltwise":
+            out[cl.layer_id] = LayerLowering(
+                "single", reason="ELTWISE_ADD is one two-source dispatch")
+            continue
+        if cl.kind == "dw":
+            out[cl.layer_id] = LayerLowering(
+                "single", reason="DEPTHWISE_CONV is one grouped-conv "
+                                 "dispatch")
+            continue
+        if cl.kind != "conv":
+            continue
+        out[cl.layer_id] = analyze_layer(
+            cl,
+            lambda ih, kg, cl=cl: relu_bits.get((cl.layer_id, ih, kg),
+                                                cl.spec.relu),
+            backend=backend)
+    return out
+
+
+def _layer_forward_fused(cl: CompiledLayer, w_eff: torch.Tensor,
+                         bias: torch.Tensor, x: torch.Tensor, relu: bool, *,
+                         backend: str) -> torch.Tensor:
+    """One whole-layer PE dispatch — the blocked assembly collapsed to a
+    single virtual block covering all rows and the full weight image."""
+    ho, _ = cl.spec.out_hw
+    x_slab = slice_input_span(cl, x, 0, ho)
+    blk = conv_block_forward(cl, x_slab, w_eff, bias, relu, backend=backend)
+    return blk[:, :ho]
+
+
+def _layer_forward_stacked(cl: CompiledLayer, w_eff: torch.Tensor,
+                           bias: torch.Tensor, x: torch.Tensor,
+                           lowering: LayerLowering, *,
+                           backend: str) -> torch.Tensor:
+    """Mixed-RELU layer as one PE call without ReLU over the whole weight
+    image, then a static per-(k-group, row) ReLU mask. Output channels are
+    independent, so this equals the per-block assembly."""
+    ho, _ = cl.spec.out_hw
+    x_slab = slice_input_span(cl, x, 0, ho)
+    y = conv_block_forward(cl, x_slab, w_eff, bias, False,
+                           backend=backend)[:, :ho]
+    mask = torch.zeros((ho, cl.spec.k), dtype=torch.bool)
+    for kg, (lo, hi) in enumerate(cl.k_groups):
+        for ih, (r0, r1) in enumerate(cl.row_groups):
+            mask[r0:r1, lo:hi] = lowering.relu_blocks[kg][ih]
+    mask = mask.to(y.device)[None, :, None, :]
+    return torch.where(mask, torch.relu(y), y)
+
+
+def _layer_forward(cl: CompiledLayer, w_eff: torch.Tensor, bias: torch.Tensor,
+                   x_stored: torch.Tensor, relu_of, *, backend: str = "torch",
+                   lowering: LayerLowering | None = None) -> torch.Tensor:
+    """One layer as blocked compute over the compiled (row, k) groups.
+
+    ``w_eff`` is the DRAM-resident weight image: U-space ``(PT, PT, C, K)``
+    for Winograd layers, raw ``(R, S, C, K)`` for Spatial. ``relu_of(ih,
+    kg)`` is the COMP instruction's RELU bit for that block. ``lowering``
+    is the optimizer's verdict (``None`` = the literal blocked lowering).
+    """
+    spec = cl.spec
+    x = layouts.load_view(x_stored, cl.inp_layout, hw=(spec.h, spec.w))
+    if lowering is not None and lowering.kind == "fused":
+        y = _layer_forward_fused(cl, w_eff, bias, x, lowering.relu,
+                                 backend=backend)
+    elif lowering is not None and lowering.kind == "stacked":
+        y = _layer_forward_stacked(cl, w_eff, bias, x, lowering,
+                                   backend=backend)
+    else:
+        row_slabs = []
+        for ih, (r0, r1) in enumerate(cl.row_groups):
+            x_slab = slice_input_rows(cl, x, ih)
+            k_blocks = []
+            for kg, (lo, hi) in enumerate(cl.k_groups):
+                blk = conv_block_forward(
+                    cl, x_slab, w_eff[..., lo:hi].contiguous(), bias[lo:hi],
+                    relu_of(ih, kg), backend=backend)
+                k_blocks.append(blk[:, :r1 - r0])
+            row_slabs.append(k_blocks[0] if len(k_blocks) == 1
+                             else torch.cat(k_blocks, dim=-1))
+        y = (row_slabs[0] if len(row_slabs) == 1
+             else torch.cat(row_slabs, 1))
+    if cl.out_layout == "wino":
+        y = layouts.save_transform(y, "wino", cl.out_m)
+    return y
+
+
+def pool_forward(cl: CompiledLayer, x_stored: torch.Tensor,
+                 window: int, stride: int) -> torch.Tensor:
+    """One POOL block: identity LOAD view -> max pool, NHWC out. The
+    SAVE-side layout reorder is applied by the caller."""
+    x = layouts.load_view(x_stored, cl.inp_layout, hw=(cl.spec.h, cl.spec.w))
+    return max_pool2d(x, window=window, stride=stride)
+
+
+def fc_forward(cl: CompiledLayer, w: torch.Tensor, bias: torch.Tensor,
+               x_stored: torch.Tensor, relu: bool, *,
+               backend: str = "torch") -> torch.Tensor:
+    """One FC layer: identity LOAD view, flatten (NHWC order), dense PE."""
+    x = layouts.load_view(x_stored, cl.inp_layout)
+    x = x.reshape(x.shape[0], -1)
+    return dense(x, w, bias, relu=relu, backend=backend)
+
+
+def n_param_layers(program: Program) -> int:
+    """Layers that carry (w, bias) params — CONV, FC and DEPTHWISE."""
+    return sum(cl.kind not in ("pool", "eltwise") for cl in program.layers)
+
+
+def check_param_count(program: Program, params: list):
+    if len(params) != n_param_layers(program):
+        raise ValueError(
+            f"expected {n_param_layers(program)} (w, bias) entries — one per "
+            f"CONV/FC/DEPTHWISE layer in network order, POOL and ELTWISE "
+            f"layers carry no params — got {len(params)}")
+
+
+def check_lowerable(program: Program):
+    """Raise ``NotImplementedError`` for layer kinds this slice does not
+    lower, and ``ValueError`` for Winograd layers the runtime pre-transform
+    cannot take."""
+    for cl in program.layers:
+        if cl.kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"layer {cl.layer_id} ({cl.spec.name!r}): "
+                f"{_NOT_PORTED[cl.kind]}")
+        if cl.kind == "conv" and cl.plan.mode == "wino" \
+                and (cl.spec.r, cl.spec.s) != (3, 3):
+            raise ValueError(
+                f"layer {cl.layer_id}: the runtime pre-transform supports "
+                f"r = s = 3 (VGG family), got {cl.spec.r}x{cl.spec.s}")
+
+
+def to_dram_params(program: Program, params: list) -> list:
+    """Raw ``[(w, bias), ...]`` -> the DRAM weight image the executor
+    consumes: U-space ``(PT, PT, C, K)`` for Winograd CONV layers, raw for
+    Spatial CONV and FC. Done once, the paper's offline transform."""
+    check_param_count(program, params)
+    check_lowerable(program)
+    out = []
+    it = iter(params)
+    for cl in program.layers:
+        if cl.kind in ("pool", "eltwise"):
+            continue
+        w, b = next(it)
+        if cl.kind == "conv" and cl.plan.mode == "wino":
+            w = transform_weights(w, cl.plan.m)
+        out.append((w, b))
+    return out
+
+
+def lower_program(program: Program, *, backend: str = "torch",
+                  opt_level: int = 1
+                  ) -> Callable[[list, torch.Tensor], torch.Tensor]:
+    """Lower a validated schedule to ``execute(params, x_nhwc) -> y``.
+
+    ``params`` is the per-layer **DRAM weight image** (see
+    :func:`to_dram_params`), so requests never redo weight work.
+    ``backend`` selects the per-block PE; ``opt_level=1`` runs the lowering
+    optimizer and ``opt_level=0`` keeps the literal per-block lowering.
+    """
+    backend = resolve_backend(backend)
+    opt_level = resolve_opt_level(opt_level)
+    check_lowerable(program)
+
+    relu_bits, pool_cfg = _stream_overrides(program)
+    lowerings = (analyze_program(program, backend=backend,
+                                 relu_bits=relu_bits)
+                 if opt_level >= 1 else {})
+
+    # the stash holds every tensor a not-yet-executed consumer still needs,
+    # retired after its last consumer as the compiler's DRAM planner does
+    last_use: dict[int, int] = {}
+    for cl in program.layers:
+        last_use[cl.primary_src()] = cl.layer_id
+
+    def execute(params: list, x_nhwc: torch.Tensor) -> torch.Tensor:
+        cl0 = program.layers[0]
+        x = x_nhwc
+        if cl0.inp_layout == "wino":
+            x = layouts.save_transform(x, "wino", cl0.plan.m)
+        stash: dict[int, torch.Tensor] = {-1: x}
+        pi = 0
+        y = x
+        for cl in program.layers:
+            x_in = stash[cl.primary_src()]
+            if cl.kind == "pool":
+                window, stride = pool_cfg.get(
+                    cl.layer_id, (cl.spec.window, cl.spec.stride))
+                y = pool_forward(cl, x_in, window, stride)
+            elif cl.kind == "fc":
+                w_eff, b = params[pi]
+                pi += 1
+                y = fc_forward(cl, w_eff, b, x_in,
+                               relu_bits.get((cl.layer_id, 0, 0),
+                                             cl.spec.relu),
+                               backend=backend)
+            else:
+                w_eff, b = params[pi]
+                pi += 1
+                y = _layer_forward(
+                    cl, w_eff, b, x_in,
+                    lambda ih, kg, cl=cl: relu_bits.get((cl.layer_id, ih, kg),
+                                                        cl.spec.relu),
+                    backend=backend, lowering=lowerings.get(cl.layer_id))
+            # _layer_forward applies the SAVE-side reorder itself
+            if cl.kind != "conv" and cl.out_layout == "wino":
+                y = layouts.save_transform(y, "wino", cl.out_m)
+            stash[cl.layer_id] = y
+            for src in list(stash):
+                if last_use.get(src, -2) <= cl.layer_id and src != cl.layer_id:
+                    del stash[src]
+        return y
+
+    return execute
+
+
+# ---------------------------------------------------------------------------
+# Compiled executor: validation + lowering, with build accounting
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CompiledExecutor:
+    """The lowered executor for one ``(Program, batch, dtype, backend,
+    opt_level, device)`` entry."""
+    program: Program
+    stats: dict[str, int]          # schedule-validation pipeline counters
+    fn: Callable                   # execute(params, x)
+    build_count: int = 1           # lowerings behind this entry (always 1)
+    backend: str = "torch"
+    opt_level: int = 1
+    device: str = "cpu"
+
+    def __call__(self, params: list, x_nhwc: torch.Tensor) -> torch.Tensor:
+        """``params`` is the DRAM weight image (see :func:`to_dram_params`)."""
+        with torch.no_grad():
+            return self.fn(params, x_nhwc)
+
+
+def compile_executor(program: Program,
+                     stats: dict[str, int] | None = None, *,
+                     backend: str = "torch", opt_level: int = 1,
+                     device="cpu") -> CompiledExecutor:
+    """Validate (unless pre-validated stats are supplied) and lower."""
+    if stats is None:
+        stats = validate_schedule(program)
+    backend = resolve_backend(backend)
+    opt_level = resolve_opt_level(opt_level)
+    execute = lower_program(program, backend=backend, opt_level=opt_level)
+    return CompiledExecutor(program=program, stats=dict(stats), fn=execute,
+                            backend=backend, opt_level=opt_level,
+                            device=str(device))

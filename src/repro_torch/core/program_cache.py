@@ -1,0 +1,122 @@
+"""Compiled-program cache: one lowered executor per full key.
+
+The cache key is ``(program.schedule_key(), batch, dtype, param_dtypes,
+backend, opt_level, device)``:
+
+* ``schedule_key()`` is a content hash over the encoded 128-bit instruction
+  stream plus the per-layer geometry, bit-equal to the reference package's
+  key for the same specs and plans.
+* ``batch``, ``dtype`` and the per-layer weight dtypes name the request
+  shape the entry serves.
+* ``backend`` ("torch" | "hopper") and ``opt_level`` change the lowering
+  itself, and ``device`` where it runs, so each gets its own entry.
+
+Schedule validation runs **once per schedule key** (not per entry). Entries
+are LRU-evicted beyond ``maxsize``; a schedule's validation stats go with
+its last entry.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from collections import OrderedDict
+
+import torch
+
+from repro_torch.core.compiler import Program
+from repro_torch.core.executor import (
+    CompiledExecutor,
+    compile_executor,
+    resolve_backend,
+    resolve_opt_level,
+    validate_schedule,
+)
+
+
+@dataclasses.dataclass
+class CacheStats:
+    hits: int = 0
+    misses: int = 0
+    evictions: int = 0
+
+
+def cache_key(program: Program, *, batch: int, dtype,
+              param_dtypes: tuple = (), backend: str = "torch",
+              opt_level: int = 1, device="cpu") -> tuple:
+    """The cache-key tuple for one executor request, in resolved form."""
+    return (program.schedule_key(), int(batch), str(dtype),
+            tuple(param_dtypes), resolve_backend(backend),
+            resolve_opt_level(opt_level), str(torch.device(device)))
+
+
+class ProgramCache:
+    """LRU cache of :class:`CompiledExecutor` keyed by :func:`cache_key`."""
+
+    def __init__(self, maxsize: int = 64):
+        self.maxsize = maxsize
+        self.stats = CacheStats()
+        self._entries: OrderedDict[tuple, CompiledExecutor] = OrderedDict()
+        self._validated: dict[str, dict[str, int]] = {}
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def validate(self, program: Program) -> dict[str, int]:
+        """Hazard-check ``program`` once per schedule key; return counters."""
+        key = program.schedule_key()
+        with self._lock:
+            stats = self._validated.get(key)
+        if stats is None:
+            stats = validate_schedule(program)   # raises HazardError
+            with self._lock:
+                self._validated[key] = stats
+        return dict(stats)
+
+    def get(self, program: Program, *, batch: int, dtype,
+            param_dtypes: tuple = (), backend: str = "torch",
+            opt_level: int = 1, device="cpu") -> CompiledExecutor:
+        """The executor for ``program`` at this batch/dtype/backend/
+        opt_level/device (lowered on a miss)."""
+        key = cache_key(program, batch=batch, dtype=dtype,
+                        param_dtypes=param_dtypes, backend=backend,
+                        opt_level=opt_level, device=device)
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                self._entries.move_to_end(key)
+                self.stats.hits += 1
+                return entry
+        stats = self.validate(program)
+        entry = compile_executor(program, stats=stats, backend=key[4],
+                                 opt_level=key[5], device=key[6])
+        with self._lock:
+            # a racing thread may have built the same key meanwhile: first
+            # insert wins so every caller holds the same executor
+            existing = self._entries.get(key)
+            if existing is not None:
+                self.stats.hits += 1
+                return existing
+            self._entries[key] = entry
+            self.stats.misses += 1
+            while len(self._entries) > self.maxsize:
+                old_key, _ = self._entries.popitem(last=False)
+                self.stats.evictions += 1
+                skey = old_key[0]
+                if not any(k[0] == skey for k in self._entries):
+                    self._validated.pop(skey, None)
+        return entry
+
+    def clear(self):
+        with self._lock:
+            self._entries.clear()
+            self._validated.clear()
+            self.stats = CacheStats()
+
+
+_default = ProgramCache()
+
+
+def default_cache() -> ProgramCache:
+    """The process-wide cache used by ``HybridRuntime`` unless one is passed."""
+    return _default

@@ -1,0 +1,193 @@
+"""Shared helpers for the hand-written Hopper kernels.
+
+The CUDA C++ sources under ``repro_torch/csrc/`` build at first use into one
+shared library with a plain ``extern "C"`` interface, loaded with ``ctypes``:
+``nvcc`` compiles every source in parallel for ``sm_90a`` and links them
+into ``build/repro_torch/libhybriddnn_hopper_<digest>.so`` at the root of
+the checkout. The digest covers the sources and the flags, so a stale
+library is never loaded. A missing or failing ``nvcc`` raises with its
+stderr; nothing falls back.
+
+Each kernel wrapper dispatches on the device of its tensors only: a CPU
+tensor runs the kernel's plain PyTorch version (the analog of Pallas
+interpret mode), a CUDA tensor launches the kernel or raises. ``LAUNCHES``
+counts the launches of each kernel; :func:`launch` adds one per launch and
+nothing else touches the counts except :func:`reset_launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+KERNELS = ("conv_gemm_f32", "bmm_f32", "wino_input_transform_f32",
+           "wino_output_transform_f32")
+
+# launches per kernel since the last reset_launches()
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+# (pointer args, int64 args); every entry then takes the device index and
+# the stream, which launch() appends
+_SIGNATURES = {
+    # P, W, bias, Y, workspace; T, CRS, K, relu, ws
+    "conv_gemm_f32": (5, 5),
+    # A, B, bias, C, workspace; G, M, K, N, relu, ws
+    "bmm_f32": (5, 6),
+    "wino_input_transform_f32": (2, 3),   # tiles, V; T, C, m
+    "wino_output_transform_f32": (3, 4),  # M, bias, Y; T, K, m, relu
+}
+
+_lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()
+BUILD_LOG = ""          # nvcc's output (-Xptxas -v) from the last build
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the Hopper kernels build from "
+            f"{CSRC_DIR} at first use and need the CUDA toolkit")
+    return nvcc
+
+
+def build_library() -> Path:
+    """Compile the CUDA sources (one ``nvcc`` per source, all in parallel)
+    and link them into the digest-keyed shared library; return its path."""
+    global BUILD_LOG
+    lib_path = BUILD_DIR / f"libhybriddnn_hopper_{source_digest()}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            obj = Path(tmp) / f"{src.stem}.o"
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for src, _, proc in jobs:
+            out, err = proc.communicate()
+            log.append(f"== {src.name}\n{out}{err}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src.name} "
+                              f"(exit {proc.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             *[str(obj) for _, obj, _ in jobs], "-o", str(tmp_lib)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        os.replace(tmp_lib, lib_path)   # atomic: concurrent builds agree
+    BUILD_LOG = "".join(log)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            for name, (n_ptr, n_int) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [_P] * n_ptr + [_I] * (n_int + 1) + [_P]
+                fn.restype = ctypes.c_int
+            lib.gemm_f32_workspace.argtypes = [_I] * 5
+            lib.gemm_f32_workspace.restype = _I
+            lib.hybriddnn_error_string.argtypes = [ctypes.c_int]
+            lib.hybriddnn_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def on_cpu(name: str, *tensors: torch.Tensor | None) -> bool:
+    """Check a kernel's operands; True when they lie on the CPU (run the
+    plain version), False on CUDA (launch the kernel). Anything the kernel
+    does not take raises: mixed devices, another device type, a dtype other
+    than float32, or a non-contiguous tensor."""
+    present = [t for t in tensors if t is not None]
+    devices = {t.device for t in present}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands on several devices {devices}")
+    for t in present:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    device = devices.pop()
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    return False
+
+
+def gemm_workspace(g: int, m: int, k: int, n: int,
+                   device: torch.device) -> torch.Tensor | None:
+    """The split-K scratch the GEMM kernel needs for a (G, M, K, N) product
+    on ``device``, or None when it does not split K."""
+    size = library().gemm_f32_workspace(g, m, k, n, device.index)
+    if size == 0:
+        return None
+    return torch.empty(size, dtype=torch.float32, device=device)
+
+
+def launch(name: str, tensors: list[torch.Tensor | None],
+           sizes: list[int]) -> None:
+    """Launch kernel ``name`` on the current stream of its tensors' device;
+    raise if the launch is refused. Counts one launch."""
+    fn = getattr(library(), name)
+    device = next(t.device for t in tensors if t is not None)
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*ptrs, *[int(s) for s in sizes], device.index, stream)
+    if err != 0:
+        msg = library().hybriddnn_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed ({err}: {msg})")
+    LAUNCHES[name] += 1

@@ -1,0 +1,53 @@
+"""K2 ``bmm_f32``: batched fp32 GEMM with an optional bias/ReLU epilogue.
+
+Replaces ``src/repro/kernels/gemm/kernel.py::batched_matmul_kernel``:
+``(G, M, K) @ (G, K, N)`` with fp32 accumulation and an optional ``(G, N)``
+bias plus ReLU. On the main path it is the PT^2-batched Winograd GEMM
+(G = 36) and, with G = 1, every FC layer. The CUDA kernel
+(``csrc/gemm_f32.cu``, shared with K1) masks ragged edges itself, so
+nothing is padded; its note says what bounds it and what the design does
+about that.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import gemm_workspace, launch, on_cpu
+
+
+def bmm_ref(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
+            relu: bool = False, dataflow: str = "is") -> torch.Tensor:
+    """Plain PyTorch version of :func:`bmm_f32` (same signature)."""
+    y = torch.bmm(a, b)
+    if bias is not None:
+        y = y + bias[:, None, :]
+    if relu:
+        y = torch.relu(y)
+    return y
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
+            relu: bool = False, dataflow: str = "is") -> torch.Tensor:
+    """(G, M, K) @ (G, K, N) [+ bias (G, N)] [ReLU] -> (G, M, N), fp32.
+
+    ``dataflow`` ("is"/"ws") picks the kernel's output-tile raster order and
+    changes no numbers.
+    """
+    if dataflow not in ("is", "ws"):
+        raise ValueError(f"unknown dataflow {dataflow!r}")
+    if a.dim() != 3 or b.dim() != 3:
+        raise ValueError(f"bmm_f32 takes 3-D operands, got {a.shape}, {b.shape}")
+    g, m, k = a.shape
+    if b.shape[:2] != (g, k):
+        raise ValueError(f"bmm_f32 shape mismatch: {a.shape} @ {b.shape}")
+    n = b.shape[2]
+    if bias is not None and bias.shape != (g, n):
+        raise ValueError(f"bmm_f32 bias must be {(g, n)}, got {bias.shape}")
+    if on_cpu("bmm_f32", a, b, bias):
+        return bmm_ref(a, b, bias, relu, dataflow)
+    out = torch.empty((g, m, n), dtype=torch.float32, device=a.device)
+    if out.numel():
+        launch("bmm_f32", [a, b, bias, out,
+                           gemm_workspace(g, m, k, n, a.device)],
+               [g, m, k, n, relu, dataflow == "ws"])
+    return out

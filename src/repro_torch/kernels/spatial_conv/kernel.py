@@ -1,0 +1,52 @@
+"""K1 ``conv_gemm_f32``: the Spatial-mode PE, an im2col patch GEMM.
+
+Replaces ``src/repro/kernels/spatial_conv/kernel.py::conv_gemm_kernel``:
+``(T, C*R*S) @ (C*R*S, K)`` with fp32 accumulation and the bias add plus
+optional ReLU fused at the store. The CUDA kernel lives in
+``csrc/gemm_f32.cu`` and shares its templated body with K2; its note says
+what bounds it and what the design does about that. The IS/WS dataflow maps
+to the raster order of output tiles and changes no numbers.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import gemm_workspace, launch, on_cpu
+
+
+def conv_gemm_ref(patches: torch.Tensor, weights: torch.Tensor,
+                  bias: torch.Tensor | None = None, relu: bool = False,
+                  dataflow: str = "is") -> torch.Tensor:
+    """Plain PyTorch version of :func:`conv_gemm_f32` (same signature)."""
+    y = patches @ weights
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    return y
+
+
+def conv_gemm_f32(patches: torch.Tensor, weights: torch.Tensor,
+                  bias: torch.Tensor | None = None, relu: bool = False,
+                  dataflow: str = "is") -> torch.Tensor:
+    """(T, CRS) @ (CRS, K) [+ bias (K,)] [ReLU] -> (T, K), fp32."""
+    if dataflow not in ("is", "ws"):
+        raise ValueError(f"unknown dataflow {dataflow!r}")
+    if patches.dim() != 2 or weights.dim() != 2:
+        raise ValueError(f"conv_gemm_f32 takes 2-D operands, got "
+                         f"{patches.shape}, {weights.shape}")
+    t, crs = patches.shape
+    if weights.shape[0] != crs:
+        raise ValueError(f"conv_gemm_f32 shape mismatch: {patches.shape} @ "
+                         f"{weights.shape}")
+    k = weights.shape[1]
+    if bias is not None and bias.shape != (k,):
+        raise ValueError(f"conv_gemm_f32 bias must be {(k,)}, got {bias.shape}")
+    if on_cpu("conv_gemm_f32", patches, weights, bias):
+        return conv_gemm_ref(patches, weights, bias, relu, dataflow)
+    out = torch.empty((t, k), dtype=torch.float32, device=patches.device)
+    if out.numel():
+        launch("conv_gemm_f32", [patches, weights, bias, out,
+                                 gemm_workspace(1, t, crs, k, patches.device)],
+               [t, crs, k, relu, dataflow == "ws"])
+    return out

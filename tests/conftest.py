@@ -11,6 +11,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "multidevice: needs >1 device via a subprocess with "
         "forced host devices (excluded by default)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card and nvcc (skips without them)")
 
 
 @pytest.fixture

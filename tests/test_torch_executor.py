@@ -1,0 +1,298 @@
+"""The port's executor, runtime and API against the reference: schedule
+validation and hazards, optimizer verdicts, and reduced-VGG16 logits from
+both port backends at both opt levels against the reference's ``xla`` and
+``pallas`` (interpret-mode) executors. Tolerance ``rtol=atol=1e-4``, the
+reference's own fp32 budget (``tests/test_backend_pallas.py``)."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+from conftest import flip_first_comp  # noqa: E402
+from test_hazards import (  # noqa: E402
+    HAZARDS,
+    POOL_FC_HAZARDS,
+    _mutate,
+    _mutate_full,
+)
+
+from repro import api as r_api  # noqa: E402
+from repro.core import compiler as r_compiler  # noqa: E402
+from repro.core import executor as r_executor  # noqa: E402
+from repro.core import perf_model as r_pm  # noqa: E402
+from repro.core.hybrid_conv import ConvSpec as RConvSpec  # noqa: E402
+from repro.models import vgg as r_vgg  # noqa: E402
+from repro_torch import api as t_api  # noqa: E402
+from repro_torch.core import compiler as t_compiler  # noqa: E402
+from repro_torch.core import executor as t_executor  # noqa: E402
+from repro_torch.core import hybrid_conv as t_hc  # noqa: E402
+from repro_torch.core import perf_model as t_pm  # noqa: E402
+from repro_torch.core.program_cache import ProgramCache  # noqa: E402
+from repro_torch.core.runtime import HybridRuntime  # noqa: E402
+from repro_torch.kernels import common  # noqa: E402
+from repro_torch.models import vgg as t_vgg  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+BACKEND_PAIRS = [("torch", "xla"), ("hopper", "pallas")]
+
+
+def _mixed_plans():
+    """The reduced-VGG plan set of tests/test_backend_pallas.py: Winograd
+    (m=2) on even CONVs, IS/WS alternating, 2x2 row/k groups on the first
+    two CONVs."""
+    plans, ci = [], 0
+    for s in r_vgg.network_specs(img=32, scale=32, n_classes=10):
+        if isinstance(s, RConvSpec):
+            g = 2 if ci < 2 else 1
+            plans.append(("wino" if ci % 2 == 0 else "spat",
+                          "is" if ci % 2 else "ws", 2, g, g))
+            ci += 1
+        else:
+            plans.append(None)
+    return plans
+
+
+def _programs(plans):
+    r_specs = r_vgg.network_specs(img=32, scale=32, n_classes=10)
+    t_specs = t_vgg.network_specs(img=32, scale=32, n_classes=10)
+    r_prog = r_compiler.compile_network(
+        r_specs, [p and r_compiler.LayerPlan(*p) for p in plans])
+    t_prog = t_compiler.compile_network(
+        t_specs, [p and t_compiler.LayerPlan(*p) for p in plans])
+    return r_specs, t_specs, r_prog, t_prog
+
+
+def _to_port(r_prog):
+    """A reference Program's instructions/layers re-wrapped for the port's
+    validator (IntEnum opcodes compare by value)."""
+    return t_compiler.Program(list(r_prog.instructions), list(r_prog.layers),
+                              r_prog.dram_size_words)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: schedule validation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("net", ["reduced-mixed", "full-dse"])
+def test_validate_schedule_stats_match(net):
+    if net == "reduced-mixed":
+        _, _, r_prog, t_prog = _programs(_mixed_plans())
+    else:
+        r_specs = r_vgg.network_specs(224, 1, n_classes=1000)
+        t_specs = t_vgg.network_specs(224, 1, n_classes=1000)
+        r_prog = r_compiler.compile_network(
+            r_specs, r_pm.V5E.run_dse(r_specs, batch=8).plans)
+        t_prog = t_compiler.compile_network(
+            t_specs, t_pm.V5E.run_dse(t_specs, batch=8).plans)
+    assert t_executor.validate_schedule(t_prog) == \
+        r_executor.validate_schedule(r_prog)
+
+
+def _port_net(full: bool):
+    """test_hazards' nets, compiled by the port: two CONVs with 4 row
+    groups (ping-pong slots reused), or CONV -> POOL -> CONV -> FC."""
+    if full:
+        specs = [t_hc.ConvSpec("c1", 8, 8, 3, 4, relu=True),
+                 t_hc.PoolSpec("p1", 8, 8, 4),
+                 t_hc.ConvSpec("c2", 4, 4, 4, 4, relu=True),
+                 t_hc.FCSpec("f1", 4 * 4 * 4, 6, relu=False)]
+        plans = [t_compiler.LayerPlan("spat", "is"), None,
+                 t_compiler.LayerPlan("spat", "is"), None]
+    else:
+        specs = [t_hc.ConvSpec("c1", 16, 16, 3, 8, relu=True),
+                 t_hc.ConvSpec("c2", 16, 16, 8, 12, relu=False)]
+        plans = [t_compiler.LayerPlan("spat", "is", 2, 2, 4),
+                 t_compiler.LayerPlan("spat", "ws", 2, 2, 4)]
+    return specs, t_compiler.compile_network(specs, plans)
+
+
+@pytest.mark.parametrize("hazard", HAZARDS + POOL_FC_HAZARDS)
+def test_port_validation_raises_on_reference_hazards(hazard):
+    full = hazard in POOL_FC_HAZARDS
+    specs, prog = _port_net(full)
+    bad = _to_port((_mutate_full if full else _mutate)(prog, hazard))
+    with pytest.raises(t_executor.HazardError):
+        t_executor.validate_schedule(bad)
+    # and the runtime refuses the stream before any compute
+    rt = HybridRuntime(bad, device="cpu")
+    rt.load_params(t_api.random_params(specs, 0, "cpu"))
+    with pytest.raises(t_executor.HazardError):
+        rt.run(torch.zeros((1, specs[0].h, specs[0].w, specs[0].c)))
+
+
+# ---------------------------------------------------------------------------
+# The lowering optimizer's verdicts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("pair", BACKEND_PAIRS, ids=lambda p: p[0])
+def test_analyze_program_verdicts_match(pair, flip):
+    t_backend, r_backend = pair
+    _, _, r_prog, t_prog = _programs(_mixed_plans())
+    if flip:    # one COMP's RELU bit inverted: a mixed-RELU layer
+        r_prog = flip_first_comp(r_prog, 0)
+        t_prog = flip_first_comp(t_prog, 0)
+    r_v = r_executor.analyze_program(r_prog, backend=r_backend)
+    t_v = t_executor.analyze_program(t_prog, backend=t_backend)
+    assert {k: (v.kind, v.relu, v.relu_blocks) for k, v in t_v.items()} == \
+        {k: (v.kind, v.relu, v.relu_blocks) for k, v in r_v.items()}
+    if flip:
+        assert t_v[0].kind == ("block" if t_backend == "hopper"
+                               else "stacked")
+
+
+# ---------------------------------------------------------------------------
+# End to end: reduced-VGG16 logits against both reference executors
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def reference_logits():
+    """The reference's xla and pallas (interpret) logits, computed once."""
+    plans = _mixed_plans()
+    r_specs, t_specs, _, _ = _programs(plans)
+    r_params = r_api.random_params(r_specs, seed=0)
+    x = np.random.default_rng(0).standard_normal((2, 32, 32, 3)).astype(
+        np.float32)
+    r_plans = [p and r_compiler.LayerPlan(*p) for p in plans]
+    out = {}
+    for backend in ("xla", "pallas"):
+        acc = r_api.Accelerator.build(r_specs, plans=r_plans, params=r_params,
+                                      batch=2, backend=backend)
+        out[backend] = np.asarray(acc(jnp.asarray(x)))
+    params_np = [(np.asarray(w), np.asarray(b)) for w, b in r_params]
+    return t_specs, plans, params_np, x, out
+
+
+@pytest.mark.parametrize("opt_level", [0, 1])
+@pytest.mark.parametrize("pair", BACKEND_PAIRS, ids=lambda p: p[0])
+def test_reduced_vgg16_logits_match_reference(reference_logits, pair,
+                                              opt_level):
+    t_specs, plans, params_np, x, ref = reference_logits
+    t_backend, r_backend = pair
+    common.reset_launches()
+    acc = t_api.Accelerator.build(
+        t_specs, plans=[p and t_compiler.LayerPlan(*p) for p in plans],
+        params=t_api.params_from_numpy(params_np, "cpu"), batch=2,
+        backend=t_backend, opt_level=opt_level, device="cpu",
+        cache=ProgramCache())
+    y = acc(x).numpy()
+    assert y.shape == (2, 10) and np.isfinite(y).all()
+    # the matching reference backend, and the other one too
+    np.testing.assert_allclose(y, ref[r_backend], **TOL)
+    np.testing.assert_allclose(y, ref["xla" if r_backend == "pallas"
+                                      else "pallas"], **TOL)
+    # relative agreement, well inside the absolute budget on these logits
+    scale = np.abs(ref["xla"]).max()
+    assert np.abs(y - ref["xla"]).max() <= 1e-4 * scale
+    # the hopper backend on CPU tensors runs the plain versions only
+    assert common.LAUNCHES == dict.fromkeys(common.KERNELS, 0)
+
+
+def test_params_from_numpy_and_seeded_build_agree():
+    """Carried-across numpy weights and the port's own seeded draw make the
+    two packages compute the same logits."""
+    r_specs = r_vgg.network_specs(img=32, scale=32, n_classes=10)
+    t_specs = t_vgg.network_specs(img=32, scale=32, n_classes=10)
+    x = np.random.default_rng(5).standard_normal((1, 32, 32, 3)).astype(
+        np.float32)
+    r_acc = r_api.Accelerator.build(r_specs, r_pm.V5E, batch=1, seed=4)
+    y_ref = np.asarray(r_acc(jnp.asarray(x)))
+    carried = t_api.params_from_numpy(
+        [(np.asarray(w), np.asarray(b)) for w, b in r_acc.params], "cpu")
+    for params in (carried, None):
+        acc = t_api.Accelerator.build(t_specs, t_pm.V5E, batch=1, seed=4,
+                                      params=params, device="cpu")
+        assert [dataclasses.astuple(p) for p in acc.plans] == \
+            [dataclasses.astuple(p) for p in r_acc.plans]
+        np.testing.assert_allclose(acc(x).numpy(), y_ref, **TOL)
+
+
+def test_stride2_blocked_conv_matches_reference():
+    """A strided SAME conv split into row groups (the halo arithmetic the
+    reference fixed for strided layers) on both port backends."""
+    specs = [("c1", 12, 12, 3, 8, 3, 3, 2, "SAME", True),
+             ("c2", 6, 6, 8, 6, 3, 3, 1, "SAME", False)]
+    plans = [("spat", "is", 2, 2, 3), ("wino", "ws", 2, 1, 2)]
+    r_specs = [RConvSpec(*s) for s in specs]
+    t_specs = [t_hc.ConvSpec(*s) for s in specs]
+    r_params = r_api.random_params(r_specs, seed=2)
+    x = np.random.default_rng(2).standard_normal((2, 12, 12, 3)).astype(
+        np.float32)
+    r_prog = r_compiler.compile_network(
+        r_specs, [r_compiler.LayerPlan(*p) for p in plans])
+    r_rt = r_api.HybridRuntime(r_prog, opt_level=0)
+    r_rt.load_params(r_params)
+    y_ref = np.asarray(r_rt.run(jnp.asarray(x)))
+    t_prog = t_compiler.compile_network(
+        t_specs, [t_compiler.LayerPlan(*p) for p in plans])
+    for backend in ("torch", "hopper"):
+        for opt_level in (0, 1):
+            rt = HybridRuntime(t_prog, backend=backend, opt_level=opt_level,
+                               device="cpu")
+            rt.load_params([(np.asarray(w), np.asarray(b))
+                            for w, b in r_params])
+            np.testing.assert_allclose(rt.run(x).numpy(), y_ref, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# API contract
+# ---------------------------------------------------------------------------
+
+def test_program_cache_keys_and_validation():
+    _, t_specs, _, t_prog = _programs(_mixed_plans())
+    cache = ProgramCache()
+    e_t = cache.get(t_prog, batch=2, dtype=torch.float32, device="cpu")
+    e_h = cache.get(t_prog, batch=2, dtype=torch.float32, backend="hopper",
+                    device="cpu")
+    e_0 = cache.get(t_prog, batch=2, dtype=torch.float32, opt_level=0,
+                    device="cpu")
+    assert len({id(e_t), id(e_h), id(e_0)}) == 3 and len(cache) == 3
+    assert cache.get(t_prog, batch=2, dtype=torch.float32,
+                     device="cpu") is e_t
+    assert cache.stats.hits == 1 and cache.stats.misses == 3
+    assert e_t.build_count == 1 and e_h.backend == "hopper"
+    with pytest.raises(ValueError, match="unknown backend"):
+        cache.get(t_prog, batch=2, dtype=torch.float32, backend="pallas")
+    with pytest.raises(ValueError, match="opt_level"):
+        cache.get(t_prog, batch=2, dtype=torch.float32, opt_level=2)
+
+
+def test_build_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    specs = t_vgg.network_specs(img=32, scale=32, n_classes=10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_api.Accelerator.build(specs, t_pm.V5E, batch=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_api.random_params(specs)
+
+
+def test_unported_paths_name_their_roadmap_item():
+    specs = t_vgg.network_specs(img=32, scale=32, n_classes=10)
+    for kw in (dict(dtype="int8"), dict(segmented=True), dict(strict=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu",
+                                    **kw)
+    res_specs = [t_hc.ConvSpec("c1", 8, 8, 3, 4),
+                 t_hc.ConvSpec("c2", 8, 8, 4, 4, relu=False),
+                 t_hc.EltwiseSpec("e1", 8, 8, 4, skip_from=0)]
+    prog = t_compiler.compile_network(
+        res_specs, [t_compiler.LayerPlan(), t_compiler.LayerPlan(), None])
+    t_executor.validate_schedule(prog)      # validation is ported whole
+    with pytest.raises(NotImplementedError, match="ELTWISE_ADD"):
+        t_executor.lower_program(prog)
+
+
+def test_serve_cnn_answers_on_the_cpu(capsys):
+    from repro_torch.launch.serve import serve_cnn
+    ys = {backend: serve_cnn(batch=2, iters=1, backend=backend, device="cpu")
+          for backend in ("torch", "hopper")}
+    assert ys["hopper"].shape == (2, 10) and np.isfinite(ys["hopper"]).all()
+    np.testing.assert_allclose(ys["hopper"], ys["torch"], **TOL)
+    out = capsys.readouterr().out
+    assert "first request" in out and "images/s" in out
+    with pytest.raises(ValueError, match="vgg16"):
+        serve_cnn("resnet18", device="cpu")

@@ -1,0 +1,209 @@
+"""The port's kernel wrappers against the reference's Pallas ops (interpret
+mode on the CPU).
+
+On the CPU every ``hopper`` wrapper runs its kernel's plain version, so
+these cases exercise the wrappers' im2col, tiling, pad and crop arithmetic;
+``test_torch_gpu.py`` holds the CUDA kernels against the plain versions on
+a card.
+Tolerance: ``rtol=atol=1e-4``, the reference's own fp32 budget.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import winograd as r_wino  # noqa: E402
+from repro.kernels.gemm import batched_matmul as r_batched_matmul  # noqa: E402
+from repro.kernels.gemm import matmul as r_matmul  # noqa: E402
+from repro.kernels.gemm.kernel import batched_matmul_kernel  # noqa: E402
+from repro.kernels.spatial_conv import spatial_conv2d as r_spatial  # noqa: E402
+from repro.kernels.winograd import input_transform as r_input_tf  # noqa: E402
+from repro.kernels.winograd import output_transform as r_output_tf  # noqa: E402
+from repro.kernels.winograd import (  # noqa: E402
+    winograd_apply_pretransformed_pallas as r_wino_apply,
+)
+from repro_torch.core import winograd as t_wino  # noqa: E402
+from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.gemm import batched_matmul, matmul  # noqa: E402
+from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref  # noqa: E402
+from repro_torch.kernels.gemm.ref import batched_matmul_ref  # noqa: E402
+from repro_torch.kernels.spatial_conv import spatial_conv2d  # noqa: E402
+from repro_torch.kernels.spatial_conv.kernel import (  # noqa: E402
+    conv_gemm_f32,
+    conv_gemm_ref,
+)
+from repro_torch.kernels.spatial_conv.ref import spatial_conv2d_ref  # noqa: E402
+from repro_torch.kernels.winograd import (  # noqa: E402
+    input_transform,
+    output_transform,
+    winograd_apply_pretransformed_hopper,
+)
+from repro_torch.kernels.winograd.kernel import (  # noqa: E402
+    wino_input_transform_f32,
+    wino_input_transform_ref,
+    wino_output_transform_f32,
+    wino_output_transform_ref,
+)
+from repro_torch.kernels.winograd.ref import conv2d_ref  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _np(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _close(t_out, r_out, **tol):
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(r_out),
+                               **(tol or TOL))
+
+
+# ---------------------------------------------------------------------------
+# K1: spatial convolution (im2col + conv_gemm_f32)
+# ---------------------------------------------------------------------------
+
+CONV_CASES = [
+    # (h, w, c, k, r, stride, padding, relu)
+    (9, 9, 3, 8, 3, 1, "SAME", True),
+    (9, 9, 3, 8, 3, 1, "VALID", False),
+    (10, 10, 5, 7, 3, 2, "SAME", True),      # strided SAME: asymmetric pads
+    (11, 8, 4, 6, 3, 2, "VALID", False),
+    (8, 8, 4, 6, 3, 1, ((0, 0), (1, 1)), True),   # executor's explicit pads
+    (7, 9, 3, 5, 3, 1, ((1, 2), (0, 1)), False),  # asymmetric explicit pads
+    (12, 12, 6, 4, 1, 2, "SAME", False),     # 1x1 projection, stride 2
+]
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=str)
+def test_spatial_conv2d_matches_pallas(case):
+    h, w, c, k, r, stride, padding, relu = case
+    rng = np.random.default_rng(h * 100 + c)
+    x, g, b = _np(rng, 2, h, w, c), _np(rng, r, r, c, k), _np(rng, k)
+    y_ref = r_spatial(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                      stride=stride, padding=padding, relu=relu)
+    y = spatial_conv2d(torch.from_numpy(x), torch.from_numpy(g),
+                       torch.from_numpy(b), stride=stride, padding=padding,
+                       relu=relu)
+    _close(y, y_ref)
+    _close(spatial_conv2d_ref(torch.from_numpy(x), torch.from_numpy(g),
+                              torch.from_numpy(b), stride=stride,
+                              padding=padding, relu=relu), y_ref)
+
+
+def test_conv_gemm_plain_version_matches_pallas_kernel():
+    """conv_gemm_ref (the CPU path of K1) against the reference kernel body
+    at block-multiple shapes, with the fused bias + ReLU epilogue."""
+    from repro.kernels.spatial_conv.kernel import conv_gemm_kernel
+    rng = np.random.default_rng(1)
+    p, w, b = _np(rng, 16, 128), _np(rng, 128, 128), _np(rng, 128)
+    for relu, df in [(True, "is"), (False, "ws")]:
+        y_ref = conv_gemm_kernel(jnp.asarray(p), jnp.asarray(w),
+                                 jnp.asarray(b), bm=8, bn=128, bk=128,
+                                 dataflow=df, relu=relu)
+        args = [torch.from_numpy(a) for a in (p, w, b)]
+        _close(conv_gemm_ref(*args, relu, df), y_ref)
+        _close(conv_gemm_f32(*args, relu, df), y_ref)
+
+
+# ---------------------------------------------------------------------------
+# K2: batched GEMM
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("g,m,k,n", [(1, 16, 32, 24), (36, 20, 17, 9),
+                                     (1, 8, 300, 70), (36, 64, 64, 128)])
+@pytest.mark.parametrize("dataflow", ["is", "ws"])
+def test_batched_matmul_matches_pallas(g, m, k, n, dataflow):
+    rng = np.random.default_rng(g + m + k + n)
+    a, b = _np(rng, g, m, k), _np(rng, g, k, n)
+    y_ref = r_batched_matmul(jnp.asarray(a), jnp.asarray(b), dataflow=dataflow)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    _close(batched_matmul(ta, tb, dataflow=dataflow), y_ref)
+    _close(batched_matmul_ref(ta, tb), y_ref)
+    if g == 1:
+        _close(matmul(ta[0], tb[0]),
+               r_matmul(jnp.asarray(a[0]), jnp.asarray(b[0])))
+
+
+@pytest.mark.parametrize("g", [1, 36])
+@pytest.mark.parametrize("relu", [False, True])
+def test_bmm_bias_relu_matches_pallas_epilogue(g, relu):
+    rng = np.random.default_rng(g)
+    a, b, bias = _np(rng, g, 16, 128), _np(rng, g, 128, 128), _np(rng, g, 128)
+    y_ref = batched_matmul_kernel(jnp.asarray(a), jnp.asarray(b),
+                                  jnp.asarray(bias), bm=8, bn=128, bk=128,
+                                  relu=relu)
+    args = [torch.from_numpy(x) for x in (a, b, bias)]
+    _close(bmm_ref(*args, relu), y_ref)
+    _close(bmm_f32(*args, relu), y_ref)
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4: Winograd transforms and the pretransformed Winograd PE
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_winograd_transforms_match_pallas(m):
+    pt = m + 2
+    rng = np.random.default_rng(m)
+    tiles = _np(rng, 13, pt, pt, 11)
+    _close(input_transform(torch.from_numpy(tiles), m),
+           r_input_tf(jnp.asarray(tiles), m))
+    _close(wino_input_transform_ref(torch.from_numpy(tiles), m),
+           r_input_tf(jnp.asarray(tiles), m))
+    mm, bias = _np(rng, pt * pt, 13, 10), _np(rng, 10)
+    for relu in (False, True):
+        y_ref = r_output_tf(jnp.asarray(mm), jnp.asarray(bias), m, relu=relu)
+        _close(output_transform(torch.from_numpy(mm),
+                                torch.from_numpy(bias), m, relu), y_ref)
+        _close(wino_output_transform_ref(torch.from_numpy(mm),
+                                         torch.from_numpy(bias), m, relu),
+               y_ref)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+@pytest.mark.parametrize("relu", [False, True])
+def test_winograd_pretransformed_matches_pallas(m, padding, relu):
+    rng = np.random.default_rng(m * 10 + relu)
+    x, g, b = _np(rng, 2, 10, 11, 5), _np(rng, 3, 3, 5, 6), _np(rng, 6)
+    u = r_wino.transform_weights(jnp.asarray(g), m)
+    y_ref = r_wino_apply(jnp.asarray(x), u, jnp.asarray(b), m=m,
+                         padding=padding, relu=relu)
+    t_u = t_wino.transform_weights(torch.from_numpy(g), m)
+    np.testing.assert_allclose(t_u.numpy(), np.asarray(u), **TOL)
+    y = winograd_apply_pretransformed_hopper(
+        torch.from_numpy(x), t_u, torch.from_numpy(b), m=m, padding=padding,
+        relu=relu)
+    _close(y, y_ref)
+    # the torch backend's Winograd PE and the direct conv agree too
+    _close(t_wino.winograd_apply_pretransformed(
+        torch.from_numpy(x), t_u, torch.from_numpy(b), m, relu=relu,
+        padding=padding), y_ref)
+    _close(conv2d_ref(torch.from_numpy(x), torch.from_numpy(g), padding,
+                      torch.from_numpy(b), relu), y_ref)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    a = torch.zeros(2, 3, 4)
+    with pytest.raises(TypeError, match="float32"):
+        bmm_f32(a.double(), torch.zeros(2, 4, 5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        bmm_f32(a, torch.zeros(2, 5, 4).transpose(1, 2))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        bmm_f32(a, torch.zeros(2, 5, 5))
+    with pytest.raises(ValueError, match="m must be"):
+        wino_input_transform_f32(torch.zeros(1, 5, 5, 2), 3)
+    with pytest.raises(ValueError, match="meta"):
+        conv_gemm_f32(torch.zeros(2, 3, device="meta"),
+                      torch.zeros(3, 4, device="meta"))
+
+
+def test_cpu_wrappers_launch_no_kernel():
+    common.reset_launches()
+    x = torch.randn(1, 6, 6, 3)
+    spatial_conv2d(x, torch.randn(3, 3, 3, 4))
+    winograd_apply_pretransformed_hopper(x, torch.randn(6, 6, 3, 4), m=4)
+    matmul(torch.randn(2, 3), torch.randn(3, 4))
+    assert common.LAUNCHES == dict.fromkeys(common.KERNELS, 0)
