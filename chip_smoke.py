@@ -1,21 +1,29 @@
-"""Chip smoke test: the PyTorch port's main path on one CUDA card.
+"""Chip smoke test: the PyTorch port's main paths on one CUDA card.
 
     python3 chip_smoke.py
 
 Builds the hand-written Hopper kernels from ``src/repro_torch/csrc``, holds
-each kernel against its plain PyTorch version at every shape the main path
-gives it (and times kernel, plain version and the nearest single PyTorch
-call), then serves batch-8, 224x224, 1000-class VGG16 through
-``repro_torch.api.Accelerator`` with ``backend="hopper"``: one first request
-and several steady ones, with the kernel launch counts checked per request
-and the logits held against the ``backend="torch"`` (aten) accelerator on
-the same card. Any failure raises and exits non-zero; without a CUDA card,
-or without the repository beside it, the script exits non-zero before
+each kernel against its plain PyTorch version at every shape the main paths
+give it (and times kernel, plain version and the nearest single PyTorch
+call), then serves four main paths through ``repro_torch.api.Accelerator``
+with ``backend="hopper"``, batch 8, ``pm.V5E`` plans:
+
+* VGG16, 224x224, 1000 classes, fp32 (K1-K4);
+* the same VGG16 in int8, default calibration (K5);
+* ResNet-18 at full width, ``resnet18_specs(128, 1, n_classes=1000)``, fp32
+  (K1-K4) and int8 (K5).
+
+Each path answers one first request and several steady ones, with the
+launch counts set to 0 just before it and checked per request just after,
+and its logits held against the ``backend="torch"`` (aten) path on the same
+card: fp32 within ``1e-3 * max|logit|``, int8 bit for bit with the same
+params and sidecar. Any failure raises and exits non-zero; without a CUDA
+card, or without the repository beside it, the script exits non-zero before
 printing any result.
 
-Output: the card's name and power limit, one JSON line per (kernel, shape),
-the main-path timings, a ``{"kernels": [...]}`` summary line, and as the last
-line ``{"ok": true, "device": {...}}``.
+Output: the card's name and power limit, one JSON line per (kernel, layer),
+the timings of each path, a ``{"kernels": [...]}`` summary line, and as the
+last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -31,17 +39,30 @@ import numpy as np
 import torch
 
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth; they assume the 700 W power limit
+# cores, dense int8 on the tensor cores, and HBM3 bandwidth; they assume the
+# 700 W power limit
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
-BATCH, IMG, N_CLASSES = 8, 224, 1000
+BATCH, N_CLASSES = 8, 1000
 STEADY_REQUESTS = 10
 KERNEL_REPS = 10
-# per-request launches on the main path: 9 Spatial CONVs (K1); 4 Winograd
-# GEMMs + 3 FC (K2); 4 Winograd CONVs (K3, K4)
-EXPECTED_PER_REQUEST = {"conv_gemm_f32": 9, "bmm_f32": 7,
-                        "wino_input_transform_f32": 4,
-                        "wino_output_transform_f32": 4}
+# per-request launches on each main path, from its program (pm.V5E plans,
+# batch 8, opt_level 1: one dispatch per layer)
+PATHS = {
+    # 9 Spatial CONVs (K1); 4 Winograd GEMMs + 3 FC (K2); 4 Winograd CONVs
+    "vgg16_fp32": {"conv_gemm_f32": 9, "bmm_f32": 7,
+                   "wino_input_transform_f32": 4,
+                   "wino_output_transform_f32": 4},
+    # 13 CONVs + 3 FC, all Spatial under the int8 DSE
+    "vgg16_int8": {"qmm_i8": 16},
+    # 16 Spatial CONVs (K1); 4 Winograd GEMMs + 1 FC (K2); 4 Winograd CONVs
+    "resnet18_fp32": {"conv_gemm_f32": 16, "bmm_f32": 5,
+                      "wino_input_transform_f32": 4,
+                      "wino_output_transform_f32": 4},
+    # 20 CONVs + 1 FC
+    "resnet18_int8": {"qmm_i8": 21},
+}
 SOURCES = {
     "conv_gemm_f32": ("src/repro_torch/csrc/gemm_f32.cu",
                       "src/repro/kernels/spatial_conv/kernel.py:51"),
@@ -51,6 +72,8 @@ SOURCES = {
                                  "src/repro/kernels/winograd/kernel.py:52"),
     "wino_output_transform_f32": ("src/repro_torch/csrc/winograd_f32.cu",
                                   "src/repro/kernels/winograd/kernel.py:82"),
+    "qmm_i8": ("src/repro_torch/csrc/gemm_i8.cu",
+               "src/repro/kernels/gemm/int8.py:60"),
 }
 
 
@@ -69,7 +92,9 @@ def ptxas_summary(log: str) -> list[str]:
         if m := re.search(r"entry function '(\w+)'", line):
             mangled = m.group(1)
             base = re.search(r"(gemm_f32_kernel|splitk_reduce_kernel|"
-                             r"wino_input_kernel|wino_output_kernel)", mangled)
+                             r"wino_input_kernel|wino_output_kernel|"
+                             r"qmm_i8_kernel|qmm_splitk_reduce_kernel)",
+                             mangled)
             args = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E",
                                                    mangled)]
             name = (base.group(1) if base else mangled) + (
@@ -99,21 +124,28 @@ def time_ms(fn, reps: int = KERNEL_REPS) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(ops: float, nbytes: float, peak_ops: float) -> tuple[float, str]:
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_cases(program, batch: int):
-    """Every kernel call the main path makes per request, with its shapes:
+def kernel_cases(program, batch: int, dtype: str):
+    """Every kernel call a main path makes per request, with its shapes:
     ``(kernel, layer name, shape dict, launches)``, one entry per layer."""
     from repro_torch.core.winograd import pt_for
     from repro_torch.kernels.common import cdiv
     cases = []
     for cl in program.layers:
         s = cl.spec
-        if cl.kind == "fc":
+        if dtype == "int8" and cl.kind == "fc":
+            cases.append(("qmm_i8", s.name, dict(m=batch, k=s.d_in,
+                                                 n=s.d_out), 1))
+        elif dtype == "int8" and cl.kind == "conv":
+            ho, wo = s.out_hw
+            cases.append(("qmm_i8", s.name, dict(
+                m=batch * ho * wo, k=s.r * s.s * s.c, n=s.k), 1))
+        elif cl.kind == "fc":
             cases.append(("bmm_f32", s.name, dict(
                 g=1, m=batch, k=s.d_in, n=s.d_out, df="is"), 1))
         elif cl.kind == "conv" and cl.plan.mode == "spat":
@@ -135,8 +167,23 @@ def kernel_cases(program, batch: int):
     return cases
 
 
+def int_mm_padded(a: torch.Tensor, b: torch.Tensor):
+    """``torch._int_mm`` on zero-padded copies (cuBLASLt wants M > 16 and
+    K, N multiples of 8; zero padding is exact under zero point 0): a
+    yardstick for the product alone, without the epilogue."""
+    m, k = a.shape
+    n = b.shape[1]
+    mp, kp, np_ = max(m, 32), -(-k // 8) * 8, -(-n // 8) * 8
+    ap = torch.zeros((mp, kp), dtype=torch.int8, device=a.device)
+    bp = torch.zeros((kp, np_), dtype=torch.int8, device=b.device)
+    ap[:m, :k] = a
+    bp[:k, :n] = b
+    return lambda: torch._int_mm(ap, bp)
+
+
 def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     """Kernel vs plain version on the card at one shape; times all three."""
+    from repro_torch.kernels.gemm.int8 import qmm_i8, qmm_ref
     from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref
     from repro_torch.kernels.spatial_conv.kernel import (
         conv_gemm_f32,
@@ -152,14 +199,30 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     def rnd(*size):
         return torch.randn(*size, generator=gen, device="cuda")
 
-    lib = None
-    if name == "conv_gemm_f32":
+    lib, peak, exact = None, PEAK_FP32_FLOPS, False
+    if name == "qmm_i8":
+        m, k, n = shape["m"], shape["k"], shape["n"]
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
+                          generator=gen)
+        b = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda",
+                          generator=gen)
+        bias = torch.randint(-20000, 20000, (n,), dtype=torch.int32,
+                             device="cuda", generator=gen)
+        # multipliers that spread the int32 sums over the int8 range
+        mult = (torch.rand(n, generator=gen, device="cuda") + 0.5) / (
+            127.0 * k ** 0.5)
+        kern = lambda: qmm_i8(a, b, bias, mult, True)
+        plain = lambda: qmm_ref(a, b, bias, mult, True)
+        lib = int_mm_padded(a, b)            # the product alone
+        ops, peak, exact = 2.0 * m * k * n, PEAK_INT8_OPS, True
+        nbytes = m * k + k * n + m * n + 8.0 * n
+    elif name == "conv_gemm_f32":
         t, crs, k, df = shape["t"], shape["crs"], shape["k"], shape["df"]
         p, w, b = rnd(t, crs), rnd(crs, k), rnd(k)
         kern = lambda: conv_gemm_f32(p, w, b, True, df)
         plain = lambda: conv_gemm_ref(p, w, b, True, df)
         lib = lambda: torch.addmm(b, p, w)   # bias + GEMM (ReLU not fused)
-        flops = 2.0 * t * crs * k
+        ops = 2.0 * t * crs * k
         nbytes = 4.0 * (t * crs + crs * k + k + t * k)
     elif name == "bmm_f32":
         g, m, k, n, df = (shape[x] for x in ("g", "m", "k", "n", "df"))
@@ -167,7 +230,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         kern = lambda: bmm_f32(a, bm, None, False, df)
         plain = lambda: bmm_ref(a, bm, None, False, df)
         lib = lambda: torch.bmm(a, bm)
-        flops = 2.0 * g * m * k * n
+        ops = 2.0 * g * m * k * n
         nbytes = 4.0 * (g * m * k + g * k * n + g * m * n)
     elif name == "wino_input_transform_f32":
         t, c, m = shape["t"], shape["c"], shape["m"]
@@ -175,7 +238,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         d = rnd(t, pt, pt, c)
         kern = lambda: wino_input_transform_f32(d, m)
         plain = lambda: wino_input_transform_ref(d, m)
-        flops = 4.0 * pt ** 3 * t * c        # B^T d and (B^T d) B, dense
+        ops = 4.0 * pt ** 3 * t * c          # B^T d and (B^T d) B, dense
         nbytes = 4.0 * 2 * t * pt * pt * c
     else:
         t, k, m = shape["t"], shape["k"], shape["m"]
@@ -183,20 +246,132 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         mm, b = rnd(pt * pt, t, k), rnd(k)
         kern = lambda: wino_output_transform_f32(mm, b, m, True)
         plain = lambda: wino_output_transform_ref(mm, b, m, True)
-        flops = 2.0 * (m * pt * pt + m * m * pt) * t * k
+        ops = 2.0 * (m * pt * pt + m * m * pt) * t * k
         nbytes = 4.0 * (pt * pt * t * k + k + t * m * m * k)
     y, y_ref = kern(), plain()
     torch.cuda.synchronize()
-    err = float((y - y_ref).abs().max())
-    scale = max(1.0, float(y_ref.abs().max()))
-    tol = 1e-4 * scale
+    if exact:
+        err = float((y.int() - y_ref.int()).abs().max())
+        tol = 0.0
+    else:
+        err = float((y - y_ref).abs().max())
+        tol = 1e-4 * max(1.0, float(y_ref.abs().max()))
     if not err <= tol:
         raise AssertionError(f"{name} {shape}: max|diff| {err:.3e} > {tol:.3e}")
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = bound(ops, nbytes, peak)
     return dict(max_abs_err=err, tol=tol, ms=time_ms(kern),
                 plain_ms=time_ms(plain),
                 library_ms=None if lib is None else time_ms(lib),
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def path_specs(path: str):
+    from repro_torch.models import resnet, vgg
+    if path.startswith("vgg16"):
+        return vgg.network_specs(224, 1, n_classes=N_CLASSES), (224, 224, 3)
+    return resnet.resnet18_specs(128, 1, n_classes=N_CLASSES), (128, 128, 3)
+
+
+def serve_path(path: str, x: torch.Tensor, params=None) -> dict:
+    """Build ``path``'s accelerator on the hopper PE, answer one first and
+    ``STEADY_REQUESTS`` steady requests with the launch counts reset just
+    before, check them per request, and hold the logits against the torch
+    backend. Returns the accelerator, its outputs and timings."""
+    from repro_torch import api
+    from repro_torch.core import perf_model as pm
+    from repro_torch.core.runtime import HybridRuntime
+    from repro_torch.kernels import common
+
+    specs, _ = path_specs(path)
+    dtype = "int8" if path.endswith("int8") else "float32"
+    t0 = time.perf_counter()
+    acc = api.Accelerator.build(specs, pm.V5E, batch=BATCH, backend="hopper",
+                                dtype=dtype, params=params, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_requests = 1 + STEADY_REQUESTS
+
+    common.reset_launches()
+    t0 = time.perf_counter()
+    y = acc(x)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    first_counts = {k: v for k, v in common.LAUNCHES.items() if v}
+    t0 = time.perf_counter()
+    for _ in range(STEADY_REQUESTS):
+        y = acc(x)
+    torch.cuda.synchronize()
+    t_steady = (time.perf_counter() - t0) / STEADY_REQUESTS
+    launches = dict(common.LAUNCHES)
+
+    expected = PATHS[path]
+    if first_counts != expected:
+        raise AssertionError(f"{path}: launches per request {first_counts} "
+                             f"!= {expected}")
+    for name in common.KERNELS:
+        if launches[name] != expected.get(name, 0) * n_requests:
+            raise AssertionError(f"{path}: {name} launched {launches[name]} "
+                                 f"times over {n_requests} requests")
+    y_np = y.cpu().numpy()
+    if y_np.shape != (BATCH, N_CLASSES) or not np.isfinite(y_np).all():
+        raise AssertionError(f"{path}: logits shape {y_np.shape} or "
+                             f"non-finite values")
+
+    # the torch backend on the same card, same params (and sidecar)
+    if dtype == "int8":
+        rt = HybridRuntime(acc.program, backend="torch", device="cuda",
+                           quant=acc.quant)
+        rt.load_params(acc.params)
+        q = acc.quant.quantize_input(x)
+        y_i8 = acc.runtime.run(q)
+        y_ref_i8 = rt.run(q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEADY_REQUESTS):
+            y_ref_i8 = rt.run(q)
+        torch.cuda.synchronize()
+        t_ref = (time.perf_counter() - t0) / STEADY_REQUESTS
+        if not torch.equal(y_i8, y_ref_i8):
+            n_bad = int((y_i8 != y_ref_i8).sum())
+            raise AssertionError(f"{path}: int8 logits differ from "
+                                 f"backend='torch' in {n_bad} places")
+        err, tol = 0.0, 0.0
+    else:
+        ref = api.Accelerator.build(specs, pm.V5E, batch=BATCH,
+                                    backend="torch", params=acc.params,
+                                    device="cuda")
+        y_ref = ref(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEADY_REQUESTS):
+            y_ref = ref(x)
+        torch.cuda.synchronize()
+        t_ref = (time.perf_counter() - t0) / STEADY_REQUESTS
+        ref_np = y_ref.cpu().numpy()
+        err = float(np.abs(y_np - ref_np).max())
+        tol = 1e-3 * float(np.abs(ref_np).max())
+        if not err <= tol:
+            raise AssertionError(f"{path}: hopper vs torch logits max|diff| "
+                                 f"{err:.3e} > {tol:.3e}")
+        del ref
+    modes = sorted({cl.plan.mode for cl in acc.program.layers
+                    if cl.kind == "conv"})
+    calib = (f" (calibration {acc.calib_ms:.0f}ms)"
+             if acc.calib_ms is not None else "")
+    print(f"path {path}: batch {BATCH}, {acc.n_instructions} instructions, "
+          f"CONV modes {modes}; build {t_build * 1e3:.0f}ms{calib}; first "
+          f"request {t_first * 1e3:.1f}ms; steady {t_steady * 1e3:.2f}"
+          f"ms/batch ({BATCH / t_steady:.1f} images/s) over "
+          f"{STEADY_REQUESTS} requests; launches per request {first_counts};"
+          f" vs backend='torch' ({t_ref * 1e3:.2f}ms/batch): max|diff| "
+          f"{err:.3e} (tolerance {tol:.3e})", flush=True)
+    print(json.dumps({"path": path, "build_ms": t_build * 1e3,
+                      "calib_ms": acc.calib_ms, "first_ms": t_first * 1e3,
+                      "steady_ms": t_steady * 1e3,
+                      "torch_backend_ms": t_ref * 1e3,
+                      "launches_per_request": first_counts,
+                      "max_abs_diff_vs_torch": err, "tol": tol}), flush=True)
+    return dict(acc=acc, y=y, launches=launches, steady_ms=t_steady * 1e3)
 
 
 def main() -> int:
@@ -210,14 +385,13 @@ def main() -> int:
               f"of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch import api
     from repro_torch.compat import use_strict_fp32
     from repro_torch.core import perf_model as pm
     from repro_torch.core.compiler import compile_network
     from repro_torch.kernels import common
-    from repro_torch.models import vgg
 
     # -- phase 1: card, numerics, build ---------------------------------------
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
     use_strict_fp32()
@@ -230,96 +404,78 @@ def main() -> int:
         print(f"ptxas: {line}", flush=True)
 
     # -- phase 2: every kernel at every main-path shape vs its plain version --
-    specs = vgg.network_specs(IMG, 1, n_classes=N_CLASSES)
-    program = compile_network(specs, pm.V5E.run_dse(specs, batch=BATCH).plans)
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_kernel = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                              bound_ms=0.0, library_ms=None, bound_by={})
                   for name in common.KERNELS}
     seen: dict[tuple, dict] = {}
-    for name, layer, shape, n in kernel_cases(program, BATCH):
-        key = (name, tuple(sorted(shape.items())))
-        if key not in seen:
-            seen[key] = run_case(name, shape, gen)
-            torch.cuda.empty_cache()
-        r = seen[key]
-        print(json.dumps({"kernel": name, "layer": layer, **shape, **r}),
-              flush=True)
-        agg = per_kernel[name]
-        agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
-        for f in ("ms", "plain_ms", "bound_ms"):
-            agg[f] += n * r[f]
-        if r["library_ms"] is not None:
-            agg["library_ms"] = (agg["library_ms"] or 0.0) + n * r["library_ms"]
-        agg["bound_by"][r["bound_by"]] = (agg["bound_by"].get(r["bound_by"], 0)
-                                          + n * r["bound_ms"])
+    fields = ("ms", "plain_ms", "bound_ms", "library_ms")
+    for path in PATHS:
+        specs, _ = path_specs(path)
+        dtype = "int8" if path.endswith("int8") else "float32"
+        program = compile_network(
+            specs, pm.V5E.run_dse(specs, batch=BATCH, dtype=dtype).plans)
+        cases = kernel_cases(program, BATCH, dtype)
+        counted, per_path = {}, {}
+        for name, _, _, n in cases:
+            counted[name] = counted.get(name, 0) + n
+        if counted != PATHS[path]:
+            raise AssertionError(f"{path}: program gives launches {counted}, "
+                                 f"expected {PATHS[path]}")
+        for name, layer, shape, n in cases:
+            key = (name, tuple(sorted(shape.items())))
+            if key not in seen:
+                seen[key] = run_case(name, shape, gen)
+                torch.cuda.empty_cache()
+            r = seen[key]
+            print(json.dumps({"kernel": name, "path": path, "layer": layer,
+                              **shape, **r}), flush=True)
+            pk = per_path.setdefault(name, dict.fromkeys(fields, 0.0))
+            for f in fields:
+                pk[f] += n * (r[f] or 0.0)
+            agg = per_kernel[name]
+            agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
+            for f in ("ms", "plain_ms", "bound_ms"):
+                agg[f] += n * r[f]
+            if r["library_ms"] is not None:
+                agg["library_ms"] = ((agg["library_ms"] or 0.0)
+                                     + n * r["library_ms"])
+            agg["bound_by"][r["bound_by"]] = (
+                agg["bound_by"].get(r["bound_by"], 0) + n * r["bound_ms"])
+        # per-request sums of this path's kernel calls (library_ms 0: none)
+        print(json.dumps({"path_kernels": path, **per_path}), flush=True)
+    print(f"phase 2 (kernel checks): {time.perf_counter() - t_start:.1f}s "
+          f"since start", flush=True)
 
-    # -- phase 3: the main path through the user's entry points --------------
-    t0 = time.perf_counter()
-    acc = api.Accelerator.build(specs, pm.V5E, batch=BATCH, backend="hopper",
-                                device="cuda")
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        (BATCH, IMG, IMG, 3)).astype(np.float32)).cuda()
-    n_requests = 1 + STEADY_REQUESTS
-
-    common.reset_launches()
-    t0 = time.perf_counter()
-    y = acc(x)
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    first_counts = dict(common.LAUNCHES)
-    t0 = time.perf_counter()
-    for _ in range(STEADY_REQUESTS):
-        y = acc(x)
-    torch.cuda.synchronize()
-    t_steady = (time.perf_counter() - t0) / STEADY_REQUESTS
-    launches = dict(common.LAUNCHES)
-
-    if first_counts != EXPECTED_PER_REQUEST:
-        raise AssertionError(f"launches per request {first_counts} != "
-                             f"{EXPECTED_PER_REQUEST}")
-    for name, per in EXPECTED_PER_REQUEST.items():
-        if launches[name] != per * n_requests:
-            raise AssertionError(f"{name}: {launches[name]} launches over "
-                                 f"{n_requests} requests, want "
-                                 f"{per * n_requests}")
-    modes = [f"{cl.spec.name}:{cl.plan.mode}" for cl in acc.program.layers
-             if cl.kind == "conv"]
-    print(f"main path: VGG16 {IMG}x{IMG} batch {BATCH}, "
-          f"{acc.n_instructions} instructions, CONV modes {modes}; "
-          f"build {t_build * 1e3:.0f}ms; first request "
-          f"{t_first * 1e3:.1f}ms; steady {t_steady * 1e3:.2f}ms/batch "
-          f"({BATCH / t_steady:.1f} images/s) over {STEADY_REQUESTS} "
-          f"requests; launches per request {first_counts}", flush=True)
-
-    y_np = y.cpu().numpy()
-    if y_np.shape != (BATCH, N_CLASSES) or not np.isfinite(y_np).all():
-        raise AssertionError(f"logits shape {y_np.shape} or non-finite values")
-    acc_ref = api.Accelerator.build(specs, pm.V5E, batch=BATCH,
-                                    backend="torch", params=acc.params,
-                                    device="cuda")
-    y_ref = acc_ref(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(STEADY_REQUESTS):
-        y_ref = acc_ref(x)
-    torch.cuda.synchronize()
-    t_ref = (time.perf_counter() - t0) / STEADY_REQUESTS
-    ref_np = y_ref.cpu().numpy()
-    err = float(np.abs(y_np - ref_np).max())
-    tol = 1e-3 * float(np.abs(ref_np).max())
-    if not err <= tol:
-        raise AssertionError(f"hopper vs torch logits: max|diff| {err:.3e} > "
-                             f"{tol:.3e}")
-    print(f"logits vs backend='torch' on the card: max|diff| {err:.3e} "
-          f"(tolerance 1e-3 * max|logit| = {tol:.3e}); torch backend steady "
-          f"{t_ref * 1e3:.2f}ms/batch ({BATCH / t_ref:.1f} images/s)",
-          flush=True)
+    # -- phase 3: the main paths through the user's entry points -------------
+    xs = {}
+    for img in (224, 128):
+        xs[img] = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (BATCH, img, img, 3)).astype(np.float32)).cuda()
+    total = dict.fromkeys(common.KERNELS, 0)
+    results = {}
+    for path in PATHS:
+        _, (img, _, _) = path_specs(path)
+        # the int8 builds quantize the fp32 build's weights
+        fp32 = results.get(path.replace("int8", "fp32"))
+        results[path] = serve_path(path, xs[img],
+                                   params=fp32["acc"].params if fp32 else None)
+        for name, n in results[path]["launches"].items():
+            total[name] += n
+        if fp32 is not None:
+            y8 = results[path]["y"].argmax(-1)
+            agree = float((y8 == fp32["y"].argmax(-1)).float().mean())
+            print(f"path {path}: top-1 agreement of the dequantized int8 "
+                  f"logits with the fp32 hopper path: {agree:.3f} over "
+                  f"{BATCH} images (random weights)", flush=True)
+            fp32.pop("acc")
+        torch.cuda.empty_cache()
     kernel_ms = sum(a["ms"] for a in per_kernel.values())
-    print(f"kernel time per request (phase 2 sums): {kernel_ms:.2f}ms of "
-          f"{t_steady * 1e3:.2f}ms/batch", flush=True)
+    print(f"kernel time per request of each path, summed over the paths "
+          f"(phase 2): {kernel_ms:.2f}ms; steady ms/batch: "
+          + ", ".join(f"{p} {r['steady_ms']:.2f}" for p, r in results.items()),
+          flush=True)
+    print(f"whole run: {time.perf_counter() - t_start:.1f}s", flush=True)
 
     summary = []
     for name in common.KERNELS:
@@ -327,11 +483,11 @@ def main() -> int:
         source, replaces = SOURCES[name]
         summary.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": total[name],
             "max_abs_err": a["max_abs_err"], "ms": a["ms"],
             "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": max(a["bound_by"], key=a["bound_by"].get,
-                           default="bytes"),
+                            default="bytes"),
             "library_ms": a["library_ms"]})
     print(f"card: {card}")
     print(json.dumps({"kernels": summary}))

@@ -18,14 +18,18 @@ returns a callable accelerator.
 ``backend="hopper"`` through the hand-written CUDA kernels. ``device=None``
 means the CUDA card and raises when there is none; pass ``device="cpu"`` to
 run on the CPU (where ``"hopper"`` runs each kernel's plain version).
+``dtype="int8"`` builds a quantized accelerator (calibration, a
+``QuantSidecar``, int8 PEs through K5 on ``"hopper"``) that stays
+float-in/float-out.
 
-Not ported yet: int8 builds, the segmented path and the strict
-interpreter (each raises ``NotImplementedError`` naming its ROADMAP item),
-and ``summary``/``save_program``/``from_program``/``serve`` (ROADMAP
-Queue 1, items 6 and 8).
+Not ported yet: the segmented path and the strict interpreter (each raises
+``NotImplementedError`` naming its ROADMAP item), and
+``summary``/``save_program``/``from_program``/``serve`` (ROADMAP Queue 1,
+items 6 and 8).
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Protocol, Sequence, runtime_checkable
 
 import numpy as np
@@ -41,6 +45,7 @@ from repro_torch.core.hybrid_conv import (
     FCSpec,
 )
 from repro_torch.core.runtime import STRICT_NOT_PORTED, HybridRuntime
+from repro_torch.quant import QuantSidecar, calibrate, quantize_params
 
 
 @runtime_checkable
@@ -72,7 +77,9 @@ def _random_arrays(specs: Sequence[Any], seed: int) -> list:
 
 def params_from_numpy(params: Sequence, device) -> list:
     """The reference's ``[(w, b), ...]`` as numpy arrays (HWIO conv and
-    ``(d_in, d_out)`` FC weights) -> float32 tensors on ``device``."""
+    ``(d_in, d_out)`` FC weights) -> tensors on ``device``: floats become
+    float32, and a quantized image (int8 weights, int32 biases) keeps its
+    types."""
     return [tuple(to_tensor(a, torch.device(device)) for a in p)
             for p in params]
 
@@ -91,7 +98,9 @@ class Accelerator:
 
     def __init__(self, *, specs, plans, params, runtime: HybridRuntime,
                  program: Program, target=None, batch: int = 1,
-                 dse: DSEResult | None = None):
+                 dse: DSEResult | None = None,
+                 quant: QuantSidecar | None = None,
+                 calib_ms: float | None = None):
         self.specs = list(specs)
         self.plans = list(plans)
         self.params = params
@@ -100,6 +109,8 @@ class Accelerator:
         self.target = target
         self.batch = batch
         self.dse = dse
+        self.quant = quant          # QuantSidecar for int8 accelerators
+        self.calib_ms = calib_ms    # host time of the int8 calibration
 
     @property
     def backend(self) -> str:
@@ -120,18 +131,30 @@ class Accelerator:
               plans: Sequence[LayerPlan | None] | None = None,
               segmented: bool = False, strict: bool = False,
               cache=None, backend: str = "torch", opt_level: int = 1,
-              dtype: str = "float32", device=None) -> "Accelerator":
-        """DSE -> compile -> validate -> load weights, in one call (fp32).
+              dtype: str = "float32", calib=None,
+              observer: str = "percentile", device=None) -> "Accelerator":
+        """DSE -> compile -> validate -> load weights, in one call.
 
         ``plans`` overrides the DSE; ``params`` defaults to
         :func:`random_params` (``seed``). ``backend`` selects the PE and
         ``opt_level`` the lowering optimizer; both join the program-cache
         key. ``device=None`` resolves to CUDA and raises without it.
+
+        ``dtype="int8"`` builds a quantized accelerator: the DSE plans
+        against the target's int8 variant (Winograd gated off), ``calib``
+        (an (n, H, W, C) array or a list of batches; by default seeded
+        random data, bit for bit the reference's) drives post-training
+        calibration into a ``QuantSidecar`` (``observer``: ``"percentile"``
+        or ``"minmax"``), and the params are quantized (int8 weights, int32
+        biases). ``__call__`` stays float-in/float-out.
         """
-        if dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={dtype!r}: int8 accelerators are not ported yet "
-                f"(ROADMAP Queue 1, item 7: quant/ and the int8 executor)")
+        if dtype not in ("float32", "int8"):
+            raise ValueError(f"unsupported dtype {dtype!r}: expected "
+                             f"'float32' or 'int8'")
+        if dtype == "int8" and segmented:
+            raise ValueError("segmented accelerators are fp32-only — the "
+                             "int8 path needs the single-Program runtime "
+                             "(the sidecar is keyed to one schedule)")
         if segmented:
             raise NotImplementedError(
                 "segmented=True: the legacy multi-Program path is not "
@@ -148,30 +171,58 @@ class Accelerator:
                     f"target {target!r} does not implement the Target "
                     f"protocol (needs a run_dse(specs, batch) method) — pass "
                     f"e.g. pm.V5E, pm.VU9P, pm.PYNQ_Z1, or supply plans=")
-            dse = target.run_dse(specs, batch=batch)
+            # dtype is only passed when quantizing, so custom fp32 targets
+            # without the dtype parameter keep working
+            dse = (target.run_dse(specs, batch=batch, dtype=dtype)
+                   if dtype != "float32"
+                   else target.run_dse(specs, batch=batch))
             plans = list(dse.plans)
         else:
             plans = list(plans)
         if params is None:
             params = random_params(specs, seed, device)
+
+        quant, calib_ms = None, None
+        if dtype == "int8":
+            if calib is None:
+                # stand-in calibration data, seeded like random_params
+                s0 = specs[0]
+                shape = ((8, s0.d_in) if isinstance(s0, FCSpec)
+                         else (8, s0.h, s0.w, s0.c))
+                calib = np.random.default_rng(seed + 1).standard_normal(
+                    shape).astype(np.float32)
+            t0 = time.perf_counter()
+            quant = calibrate(specs, params, calib, observer=observer,
+                              device=device)
+            calib_ms = (time.perf_counter() - t0) * 1e3
+            params = quantize_params(specs, params, quant, device=device)
+
         program = compile_network(specs, plans)
         rt = HybridRuntime(program, backend=backend, opt_level=opt_level,
-                           cache=cache, device=device)
+                           cache=cache, device=device, quant=quant)
         rt.load_params(params)
         rt.cache.validate(program)      # schedule check once, at build time
         return cls(specs=specs, plans=plans, params=params, runtime=rt,
-                   program=program, target=target, batch=batch, dse=dse)
+                   program=program, target=target, batch=batch, dse=dse,
+                   quant=quant, calib_ms=calib_ms)
 
     # -- inference ----------------------------------------------------------
     def __call__(self, x) -> torch.Tensor:
         """One inference request. ``x``: (n, H, W, C) for CONV-first models,
         (n, D) for FC-first, as an array or tensor; runs on the
-        accelerator's device."""
-        return self.runtime.run(to_tensor(x, self.device))
+        accelerator's device. Quantized accelerators are float-in/float-out:
+        float inputs are quantized at the calibrated input scale (int8
+        inputs pass through) and the int8 logits are dequantized."""
+        if self.quant is not None:
+            y = self.runtime.run(to_tensor(x, self.device))
+            return self.quant.dequantize_output(y)
+        return self.runtime.run(to_tensor(x, self.device, torch.float32))
 
     @property
     def input_dtype(self) -> torch.dtype:
-        return torch.float32
+        """The stored weight type: float32, or int8 when quantized."""
+        params = self.runtime.dram_params()
+        return params[0][0].dtype if params else torch.float32
 
     @property
     def input_shape(self) -> tuple[int, ...]:

@@ -1,4 +1,5 @@
-"""Device resolution and fp32 numerics for the PyTorch port.
+"""Device resolution, numerics and host/device conversion for the PyTorch
+port.
 
 The port runs on a CUDA card unless the caller asks for the CPU. It never
 falls back to the CPU on its own: a missing card is an error that names the
@@ -44,9 +45,22 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def to_tensor(a, device) -> torch.Tensor:
-    """An array or tensor -> a float32 tensor on ``device`` (arrays are
-    copied, so read-only buffers such as exported JAX arrays are fine)."""
+def to_tensor(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """An array or tensor -> a tensor on ``device`` (arrays are copied, so
+    read-only buffers such as exported JAX arrays are fine).
+
+    Without ``dtype``, integer types are kept as they are (int8 weights and
+    activations, int32 biases) and floats become float32; ``dtype`` casts
+    to that type instead."""
     if not isinstance(a, torch.Tensor):
-        a = torch.from_numpy(np.array(a, dtype=np.float32))
-    return a.to(device=device, dtype=torch.float32)
+        a = torch.from_numpy(np.array(a))
+    if dtype is None:
+        dtype = a.dtype if not a.dtype.is_floating_point else torch.float32
+    return a.to(device=device, dtype=dtype)
+
+
+def to_numpy(a) -> np.ndarray:
+    """A tensor (on any device) or array -> a numpy array on the host."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

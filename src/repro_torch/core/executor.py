@@ -24,9 +24,16 @@ implementations, selected by ``backend=``:
   ``"pallas"``): K1 for Spatial CONV, K3 + K2 + K4 for Winograd CONV, K2
   for FC. On CPU tensors each kernel runs its plain PyTorch version.
 
-POOL blocks lower through ``F.max_pool2d`` on both backends: pooling is
-comparisons, not PE MACs. ELTWISE_ADD and DEPTHWISE_CONV validate but do not
-lower yet (ROADMAP Queue 1, item 3).
+POOL and ELTWISE_ADD blocks lower through plain aten ops on both backends:
+pooling is comparisons and the residual add is element-parallel, not PE
+MACs. DEPTHWISE_CONV validates but does not lower yet (ROADMAP Queue 1,
+item 3).
+
+``quant`` (a :class:`repro_torch.quant.QuantSidecar`) lowers every
+parameterized block through the int8 PE instead (``quant/execute.py``:
+K5 on ``"hopper"``, an exact float64 product on ``"torch"``), and the
+residual add through ``qeltwise``; the schedule, blocking and liveness walk
+are untouched.
 
 Lowering optimizer (``opt_level``): ``opt_level=1`` runs
 :func:`analyze_program` first. A CONV layer whose blocks are provably
@@ -61,6 +68,13 @@ from repro_torch.core.winograd import (
     transform_weights,
     winograd_apply_pretransformed,
 )
+from repro_torch.quant.execute import (
+    layer_multiplier,
+    qconv2d,
+    qdense,
+    qeltwise,
+)
+from repro_torch.quant.sidecar import LayerQuant, QuantSidecar
 
 
 class HazardError(RuntimeError):
@@ -69,12 +83,10 @@ class HazardError(RuntimeError):
 
 OPT_LEVELS = (0, 1)
 
-# what this slice does not lower yet, and where the ROADMAP tracks it
+# what the port does not lower yet, and where the ROADMAP tracks it
 _NOT_PORTED = {
-    "eltwise": "ELTWISE_ADD lowering is not ported yet (ROADMAP Queue 1, "
-               "item 3: eltwise_forward, with ResNet-18)",
     "dw": "DEPTHWISE_CONV lowering is not ported yet (ROADMAP Queue 1, "
-          "item 3: depthwise_forward, with ResNet-18)",
+          "item 3: depthwise_forward)",
 }
 
 
@@ -308,15 +320,32 @@ def width_pad(cl: CompiledLayer) -> tuple[int, int]:
 
 def conv_block_forward(cl: CompiledLayer, x_slab: torch.Tensor,
                        w_grp: torch.Tensor, b_grp: torch.Tensor, relu: bool,
-                       *, backend: str = "torch") -> torch.Tensor:
-    """One COMP block on the selected PE backend (fp32).
+                       *, backend: str = "torch",
+                       quant: LayerQuant | None = None,
+                       k_range: tuple[int, int] | None = None
+                       ) -> torch.Tensor:
+    """One COMP block on the selected PE backend.
 
     ``x_slab`` is the row-group slice (halo included, vertical padding
     materialized); ``w_grp`` the k-group slice of the DRAM weight image
-    (U-space for Winograd).
+    (U-space for Winograd). ``quant`` switches the block to the int8 PE
+    (int8 in and weights, int32 accumulate, fused requantize(+ReLU)
+    epilogue) — Spatial mode only. When ``w_grp``/``b_grp`` are a k-group
+    slice of the layer, ``k_range=(lo, hi)`` slices a per-channel
+    multiplier to match.
     """
     spec, plan = cl.spec, cl.plan
     wpad = width_pad(cl)
+    if quant is not None:
+        if plan.mode == "wino":
+            raise ValueError(
+                f"layer {cl.layer_id}: Winograd plans cannot execute int8 "
+                f"(the U-space transform is fp-only) — rebuild with "
+                f"dtype='int8' so the DSE falls back to spatial")
+        return qconv2d(x_slab, w_grp, b_grp,
+                       mult=layer_multiplier(quant, x_slab.device, k_range),
+                       stride=spec.stride, padding=((0, 0), wpad),
+                       relu=relu, backend=backend)
     if plan.mode == "wino":
         x_p = torch.nn.functional.pad(x_slab, (0, 0, wpad[0], wpad[1]))
         if backend == "hopper":
@@ -449,12 +478,17 @@ def analyze_program(program: Program, *, backend: str = "torch",
 
 def _layer_forward_fused(cl: CompiledLayer, w_eff: torch.Tensor,
                          bias: torch.Tensor, x: torch.Tensor, relu: bool, *,
-                         backend: str) -> torch.Tensor:
+                         backend: str,
+                         quant: LayerQuant | None = None) -> torch.Tensor:
     """One whole-layer PE dispatch — the blocked assembly collapsed to a
-    single virtual block covering all rows and the full weight image."""
+    single virtual block covering all rows and the full weight image.
+    Valid under ``quant`` too: integer accumulation is exact, so the fused
+    int32 sums equal the per-block sums bit for bit and the elementwise
+    requantize epilogue commutes with the block partition."""
     ho, _ = cl.spec.out_hw
     x_slab = slice_input_span(cl, x, 0, ho)
-    blk = conv_block_forward(cl, x_slab, w_eff, bias, relu, backend=backend)
+    blk = conv_block_forward(cl, x_slab, w_eff, bias, relu, backend=backend,
+                             quant=quant)
     return blk[:, :ho]
 
 
@@ -479,7 +513,8 @@ def _layer_forward_stacked(cl: CompiledLayer, w_eff: torch.Tensor,
 
 def _layer_forward(cl: CompiledLayer, w_eff: torch.Tensor, bias: torch.Tensor,
                    x_stored: torch.Tensor, relu_of, *, backend: str = "torch",
-                   lowering: LayerLowering | None = None) -> torch.Tensor:
+                   lowering: LayerLowering | None = None,
+                   quant: LayerQuant | None = None) -> torch.Tensor:
     """One layer as blocked compute over the compiled (row, k) groups.
 
     ``w_eff`` is the DRAM-resident weight image: U-space ``(PT, PT, C, K)``
@@ -489,9 +524,15 @@ def _layer_forward(cl: CompiledLayer, w_eff: torch.Tensor, bias: torch.Tensor,
     """
     spec = cl.spec
     x = layouts.load_view(x_stored, cl.inp_layout, hw=(spec.h, spec.w))
+    # the stacked form masks ReLU after the PE call — wrong under quant,
+    # where ReLU must precede the requantize epilogue; keep the literal
+    # blocked lowering for those (mixed-RELU) layers instead
+    if quant is not None and lowering is not None \
+            and lowering.kind == "stacked":
+        lowering = None
     if lowering is not None and lowering.kind == "fused":
         y = _layer_forward_fused(cl, w_eff, bias, x, lowering.relu,
-                                 backend=backend)
+                                 backend=backend, quant=quant)
     elif lowering is not None and lowering.kind == "stacked":
         y = _layer_forward_stacked(cl, w_eff, bias, x, lowering,
                                    backend=backend)
@@ -503,7 +544,8 @@ def _layer_forward(cl: CompiledLayer, w_eff: torch.Tensor, bias: torch.Tensor,
             for kg, (lo, hi) in enumerate(cl.k_groups):
                 blk = conv_block_forward(
                     cl, x_slab, w_eff[..., lo:hi].contiguous(), bias[lo:hi],
-                    relu_of(ih, kg), backend=backend)
+                    relu_of(ih, kg), backend=backend, quant=quant,
+                    k_range=(lo, hi))
                 k_blocks.append(blk[:, :r1 - r0])
             row_slabs.append(k_blocks[0] if len(k_blocks) == 1
                              else torch.cat(k_blocks, dim=-1))
@@ -524,11 +566,35 @@ def pool_forward(cl: CompiledLayer, x_stored: torch.Tensor,
 
 def fc_forward(cl: CompiledLayer, w: torch.Tensor, bias: torch.Tensor,
                x_stored: torch.Tensor, relu: bool, *,
-               backend: str = "torch") -> torch.Tensor:
-    """One FC layer: identity LOAD view, flatten (NHWC order), dense PE."""
+               backend: str = "torch",
+               quant: LayerQuant | None = None) -> torch.Tensor:
+    """One FC layer: identity LOAD view, flatten (NHWC order), dense PE
+    (the int8 GEMM PE when ``quant`` is set)."""
     x = layouts.load_view(x_stored, cl.inp_layout)
     x = x.reshape(x.shape[0], -1)
+    if quant is not None:
+        return qdense(x, w, bias,
+                      mult=layer_multiplier(quant, x.device), relu=relu,
+                      backend=backend)
     return dense(x, w, bias, relu=relu, backend=backend)
+
+
+def eltwise_forward(cl: CompiledLayer, x_stored: torch.Tensor,
+                    skip_stored: torch.Tensor, relu: bool,
+                    quant: LayerQuant | None = None) -> torch.Tensor:
+    """One ELTWISE_ADD block: two identity LOAD views -> add (+ ReLU), on
+    both backends. Under ``quant`` the two int8 operands carry different
+    scales, so the add runs through ``qeltwise`` (dequantize into output
+    units, add, ReLU, requantize)."""
+    hw = (cl.spec.h, cl.spec.w)
+    a = layouts.load_view(x_stored, cl.inp_layout, hw=hw)
+    b = layouts.load_view(skip_stored, cl.skip_layout, hw=hw)
+    if quant is not None:
+        return qeltwise(a, b, quant, relu)
+    y = a.to(torch.float32) + b.to(torch.float32)
+    if relu:
+        y = torch.relu(y)
+    return y.to(x_stored.dtype)
 
 
 def n_param_layers(program: Program) -> int:
@@ -579,7 +645,7 @@ def to_dram_params(program: Program, params: list) -> list:
 
 
 def lower_program(program: Program, *, backend: str = "torch",
-                  opt_level: int = 1
+                  opt_level: int = 1, quant: QuantSidecar | None = None
                   ) -> Callable[[list, torch.Tensor], torch.Tensor]:
     """Lower a validated schedule to ``execute(params, x_nhwc) -> y``.
 
@@ -587,21 +653,36 @@ def lower_program(program: Program, *, backend: str = "torch",
     :func:`to_dram_params`), so requests never redo weight work.
     ``backend`` selects the per-block PE; ``opt_level=1`` runs the lowering
     optimizer and ``opt_level=0`` keeps the literal per-block lowering.
+    ``quant`` lowers every parameterized block through the int8 PE: params
+    must then be the quantized image (``quant.quantize_params``) and
+    ``x_nhwc`` int8 at the sidecar's input scale.
     """
     backend = resolve_backend(backend)
     opt_level = resolve_opt_level(opt_level)
     check_lowerable(program)
+    if quant is not None:
+        for cl in program.layers:
+            if cl.kind == "conv" and cl.plan.mode == "wino":
+                raise ValueError(
+                    f"layer {cl.layer_id}: Winograd plans cannot execute "
+                    f"int8 — plan with the dtype='int8' DSE (wino falls "
+                    f"back to spatial)")
 
     relu_bits, pool_cfg = _stream_overrides(program)
     lowerings = (analyze_program(program, backend=backend,
                                  relu_bits=relu_bits)
                  if opt_level >= 1 else {})
 
-    # the stash holds every tensor a not-yet-executed consumer still needs,
-    # retired after its last consumer as the compiler's DRAM planner does
+    # the stash holds every tensor a not-yet-executed consumer still needs
+    # (a skip tensor stays live across its residual block), retired after
+    # its last consumer as the compiler's DRAM planner does
     last_use: dict[int, int] = {}
     for cl in program.layers:
-        last_use[cl.primary_src()] = cl.layer_id
+        srcs = {cl.primary_src()}
+        if cl.kind == "eltwise":
+            srcs.add(cl.skip_src)
+        for src in srcs:
+            last_use[src] = cl.layer_id
 
     def execute(params: list, x_nhwc: torch.Tensor) -> torch.Tensor:
         cl0 = program.layers[0]
@@ -613,17 +694,21 @@ def lower_program(program: Program, *, backend: str = "torch",
         y = x
         for cl in program.layers:
             x_in = stash[cl.primary_src()]
+            lq = quant.layers[cl.layer_id] if quant is not None else None
+            relu00 = (relu_bits.get((cl.layer_id, 0, 0), cl.spec.relu)
+                      if cl.kind != "pool" else False)
             if cl.kind == "pool":
                 window, stride = pool_cfg.get(
                     cl.layer_id, (cl.spec.window, cl.spec.stride))
                 y = pool_forward(cl, x_in, window, stride)
+            elif cl.kind == "eltwise":
+                y = eltwise_forward(cl, x_in, stash[cl.skip_src], relu00,
+                                    quant=lq)
             elif cl.kind == "fc":
                 w_eff, b = params[pi]
                 pi += 1
-                y = fc_forward(cl, w_eff, b, x_in,
-                               relu_bits.get((cl.layer_id, 0, 0),
-                                             cl.spec.relu),
-                               backend=backend)
+                y = fc_forward(cl, w_eff, b, x_in, relu00, backend=backend,
+                               quant=lq)
             else:
                 w_eff, b = params[pi]
                 pi += 1
@@ -631,7 +716,8 @@ def lower_program(program: Program, *, backend: str = "torch",
                     cl, w_eff, b, x_in,
                     lambda ih, kg, cl=cl: relu_bits.get((cl.layer_id, ih, kg),
                                                         cl.spec.relu),
-                    backend=backend, lowering=lowerings.get(cl.layer_id))
+                    backend=backend, lowering=lowerings.get(cl.layer_id),
+                    quant=lq)
             # _layer_forward applies the SAVE-side reorder itself
             if cl.kind != "conv" and cl.out_layout == "wino":
                 y = layouts.save_transform(y, "wino", cl.out_m)
@@ -651,7 +737,7 @@ def lower_program(program: Program, *, backend: str = "torch",
 @dataclasses.dataclass
 class CompiledExecutor:
     """The lowered executor for one ``(Program, batch, dtype, backend,
-    opt_level, device)`` entry."""
+    opt_level, device, quant)`` entry."""
     program: Program
     stats: dict[str, int]          # schedule-validation pipeline counters
     fn: Callable                   # execute(params, x)
@@ -669,13 +755,16 @@ class CompiledExecutor:
 def compile_executor(program: Program,
                      stats: dict[str, int] | None = None, *,
                      backend: str = "torch", opt_level: int = 1,
-                     device="cpu") -> CompiledExecutor:
-    """Validate (unless pre-validated stats are supplied) and lower."""
+                     device="cpu",
+                     quant: QuantSidecar | None = None) -> CompiledExecutor:
+    """Validate (unless pre-validated stats are supplied) and lower
+    (through the int8 PE when ``quant`` is set)."""
     if stats is None:
         stats = validate_schedule(program)
     backend = resolve_backend(backend)
     opt_level = resolve_opt_level(opt_level)
-    execute = lower_program(program, backend=backend, opt_level=opt_level)
+    execute = lower_program(program, backend=backend, opt_level=opt_level,
+                            quant=quant)
     return CompiledExecutor(program=program, stats=dict(stats), fn=execute,
                             backend=backend, opt_level=opt_level,
                             device=str(device))

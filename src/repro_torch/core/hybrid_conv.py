@@ -199,7 +199,7 @@ def _epilogue(y: torch.Tensor, bias, relu: bool) -> torch.Tensor:
     return y
 
 
-def _check_backend(backend: str):
+def check_backend(backend: str):
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}: expected one of {BACKENDS}")
@@ -236,7 +236,7 @@ def hybrid_conv2d(
     :func:`winograd.transform_weights` and then the pretransformed path,
     exactly as the executor runs U-space weights from DRAM.
     """
-    _check_backend(backend)
+    check_backend(backend)
     if backend == "torch" and dataflow != "is":
         # the aten lowering is dataflow-oblivious; a non-default value would
         # be silently ignored
@@ -271,9 +271,22 @@ def hybrid_conv2d(
 
 def max_pool2d(x_nhwc: torch.Tensor, window: int = 2,
                stride: int = 2) -> torch.Tensor:
-    """VALID max pooling, NHWC in/out."""
-    y = F.max_pool2d(x_nhwc.permute(0, 3, 1, 2), window, stride)
-    return y.permute(0, 2, 3, 1)
+    """VALID max pooling, NHWC in/out, any dtype: floats go through
+    ``F.max_pool2d``; integer maps (int8 activations, which CUDA's
+    ``max_pool2d`` does not take) take the max over the window's strided
+    views, which is exact."""
+    if x_nhwc.dtype.is_floating_point:
+        y = F.max_pool2d(x_nhwc.permute(0, 3, 1, 2), window, stride)
+        return y.permute(0, 2, 3, 1)
+    _, h, w, _ = x_nhwc.shape
+    ho, wo = (h - window) // stride + 1, (w - window) // stride + 1
+    y = None
+    for i in range(window):
+        for j in range(window):
+            v = x_nhwc[:, i:i + stride * (ho - 1) + 1:stride,
+                       j:j + stride * (wo - 1) + 1:stride]
+            y = v if y is None else torch.maximum(y, v)
+    return y.contiguous()
 
 
 def dense(x: torch.Tensor, w_ck: torch.Tensor,
@@ -281,7 +294,7 @@ def dense(x: torch.Tensor, w_ck: torch.Tensor,
           backend: str = "torch") -> torch.Tensor:
     """FC layer; the matmul routes through the shared GEMM PE on
     ``backend="hopper"``, and bias/ReLU follow it on both backends."""
-    _check_backend(backend)
+    check_backend(backend)
     if backend == "hopper":
         from repro_torch.kernels.gemm import matmul
         y = matmul(x.float(), w_ck.float())

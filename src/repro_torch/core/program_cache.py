@@ -1,7 +1,7 @@
 """Compiled-program cache: one lowered executor per full key.
 
 The cache key is ``(program.schedule_key(), batch, dtype, param_dtypes,
-backend, opt_level, device)``:
+backend, opt_level, device, quant digest)``:
 
 * ``schedule_key()`` is a content hash over the encoded 128-bit instruction
   stream plus the per-layer geometry, bit-equal to the reference package's
@@ -10,6 +10,8 @@ backend, opt_level, device)``:
   shape the entry serves.
 * ``backend`` ("torch" | "hopper") and ``opt_level`` change the lowering
   itself, and ``device`` where it runs, so each gets its own entry.
+* the quant sidecar's ``digest()`` (``None`` for fp32): two calibrations of
+  one Program never share an entry.
 
 Schedule validation runs **once per schedule key** (not per entry). Entries
 are LRU-evicted beyond ``maxsize``; a schedule's validation stats go with
@@ -42,11 +44,12 @@ class CacheStats:
 
 def cache_key(program: Program, *, batch: int, dtype,
               param_dtypes: tuple = (), backend: str = "torch",
-              opt_level: int = 1, device="cpu") -> tuple:
+              opt_level: int = 1, device="cpu", quant=None) -> tuple:
     """The cache-key tuple for one executor request, in resolved form."""
     return (program.schedule_key(), int(batch), str(dtype),
             tuple(param_dtypes), resolve_backend(backend),
-            resolve_opt_level(opt_level), str(torch.device(device)))
+            resolve_opt_level(opt_level), str(torch.device(device)),
+            quant.digest() if quant is not None else None)
 
 
 class ProgramCache:
@@ -75,12 +78,13 @@ class ProgramCache:
 
     def get(self, program: Program, *, batch: int, dtype,
             param_dtypes: tuple = (), backend: str = "torch",
-            opt_level: int = 1, device="cpu") -> CompiledExecutor:
+            opt_level: int = 1, device="cpu",
+            quant=None) -> CompiledExecutor:
         """The executor for ``program`` at this batch/dtype/backend/
-        opt_level/device (lowered on a miss)."""
+        opt_level/device/quant sidecar (lowered on a miss)."""
         key = cache_key(program, batch=batch, dtype=dtype,
                         param_dtypes=param_dtypes, backend=backend,
-                        opt_level=opt_level, device=device)
+                        opt_level=opt_level, device=device, quant=quant)
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None:
@@ -89,7 +93,8 @@ class ProgramCache:
                 return entry
         stats = self.validate(program)
         entry = compile_executor(program, stats=stats, backend=key[4],
-                                 opt_level=key[5], device=key[6])
+                                 opt_level=key[5], device=key[6],
+                                 quant=quant)
         with self._lock:
             # a racing thread may have built the same key meanwhile: first
             # insert wins so every caller holds the same executor

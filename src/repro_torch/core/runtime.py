@@ -10,6 +10,11 @@ DRAM is a word-addressed store (dict base-address -> tensor). Winograd-mode
 weights live in DRAM pre-transformed to U-space (Sec. 4.2.3), so LOAD_WGT
 traffic matches Eq. 9.
 
+``quant`` (a :class:`repro_torch.quant.QuantSidecar`) makes the runtime an
+int8 one: the DRAM image holds int8 weights and int32 biases, a float input
+is quantized at the sidecar's input scale (an int8 input passes through),
+and the output is the network's int8 logits.
+
 The reference's per-instruction interpreter (``strict=True``) is not ported
 yet: it raises ``NotImplementedError`` (ROADMAP Queue 1, item 4).
 """
@@ -46,18 +51,21 @@ class HybridRuntime:
     provably equivalent, 0 keeps the literal per-block lowering), ``cache``
     overrides the process-wide program cache, and ``device`` is where the
     DRAM image and the requests live (``None`` = CUDA, raising when it is
-    absent).
+    absent), and ``quant`` switches every parameterized block to the int8 PE
+    (params must then be the quantized image, ``quant.quantize_params``;
+    the sidecar's digest joins the program-cache key).
     """
 
     def __init__(self, program: Program, *, backend: str = "torch",
                  opt_level: int = 1, strict: bool = False, cache=None,
-                 device=None):
+                 device=None, quant=None):
         if strict:
             raise NotImplementedError(STRICT_NOT_PORTED)
         self.program = program
         self.backend = resolve_backend(backend)
         self.opt_level = resolve_opt_level(opt_level)
         self.device = resolve_device(device)
+        self.quant = quant
         self._cache = cache
         self.dram: dict[int, Any] = {}
         self._loaded = False
@@ -73,8 +81,9 @@ class HybridRuntime:
     # -- DRAM management ----------------------------------------------------
     def load_params(self, params: list[tuple[Any, Any]]):
         """params: [(w, bias), ...] — one entry per *parameterized* layer
-        (CONV and FC, in network order; POOL layers carry none), as tensors
-        or arrays. Winograd CONV layers store U-space weights."""
+        (CONV and FC, in network order; POOL and ELTWISE layers carry none),
+        as tensors or arrays; integer types stay as they are (int8 weights,
+        int32 biases). Winograd CONV layers store U-space weights."""
         check_param_count(self.program, params)
         check_lowerable(self.program)
         it = iter(params)
@@ -106,7 +115,7 @@ class HybridRuntime:
             self.program, batch=batch, dtype=dtype,
             param_dtypes=tuple(str(w.dtype) for w, _ in params),
             backend=self.backend, opt_level=self.opt_level,
-            device=self.device)
+            device=self.device, quant=self.quant)
         return entry, params
 
     def write_input(self, x_nhwc: torch.Tensor):
@@ -123,7 +132,8 @@ class HybridRuntime:
             raise RuntimeError("load_params must be called before run()")
         cl0 = self.program.layers[0]
         if x_nhwc is not None:
-            x_nhwc = to_tensor(x_nhwc, self.device)
+            x_nhwc = self._maybe_quantize_input(to_tensor(x_nhwc,
+                                                          self.device))
             self.write_input(x_nhwc)       # same DRAM contract as the device
         else:
             stored = self.dram[cl0.inp_addr]
@@ -136,3 +146,10 @@ class HybridRuntime:
         y = entry(params, x_nhwc)
         self.dram[self.program.layers[-1].out_addr] = y
         return y
+
+    def _maybe_quantize_input(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        """Quantized runtimes accept float inputs: quantize them at the
+        sidecar's input scale (an int8 input passes through unchanged)."""
+        if self.quant is not None and x_nhwc.dtype.is_floating_point:
+            return self.quant.quantize_input(x_nhwc)
+        return x_nhwc

@@ -28,7 +28,7 @@ from pathlib import Path
 import torch
 
 KERNELS = ("conv_gemm_f32", "bmm_f32", "wino_input_transform_f32",
-           "wino_output_transform_f32")
+           "wino_output_transform_f32", "qmm_i8")
 
 # launches per kernel since the last reset_launches()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -48,6 +48,8 @@ _SIGNATURES = {
     "bmm_f32": (5, 6),
     "wino_input_transform_f32": (2, 3),   # tiles, V; T, C, m
     "wino_output_transform_f32": (3, 4),  # M, bias, Y; T, K, m, relu
+    # A, B, bias, mult, C, workspace; M, K, N, relu
+    "qmm_i8": (6, 4),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -139,24 +141,34 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.gemm_f32_workspace.argtypes = [_I] * 5
             lib.gemm_f32_workspace.restype = _I
+            lib.qmm_i8_workspace.argtypes = [_I] * 4
+            lib.qmm_i8_workspace.restype = _I
             lib.hybriddnn_error_string.argtypes = [ctypes.c_int]
             lib.hybriddnn_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
 
 
-def on_cpu(name: str, *tensors: torch.Tensor | None) -> bool:
+def on_cpu(name: str, *tensors: torch.Tensor | None,
+           dtypes: torch.dtype | tuple = torch.float32) -> bool:
     """Check a kernel's operands; True when they lie on the CPU (run the
-    plain version), False on CUDA (launch the kernel). Anything the kernel
-    does not take raises: mixed devices, another device type, a dtype other
-    than float32, or a non-contiguous tensor."""
-    present = [t for t in tensors if t is not None]
-    devices = {t.device for t in present}
+    plain version), False on CUDA (launch the kernel). ``dtypes`` is the
+    type every operand must have, or one type per operand. Anything the
+    kernel does not take raises: mixed devices, another device type, a
+    wrong dtype, or a non-contiguous tensor."""
+    if not isinstance(dtypes, tuple):
+        dtypes = (dtypes,) * len(tensors)
+    if len(dtypes) != len(tensors):
+        raise ValueError(f"{name}: {len(tensors)} operands, "
+                         f"{len(dtypes)} dtypes")
+    present = [(t, d) for t, d in zip(tensors, dtypes) if t is not None]
+    devices = {t.device for t, _ in present}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on several devices {devices}")
-    for t in present:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    for t, dtype in present:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {str(dtype)[6:]}, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     device = devices.pop()
@@ -175,6 +187,16 @@ def gemm_workspace(g: int, m: int, k: int, n: int,
     if size == 0:
         return None
     return torch.empty(size, dtype=torch.float32, device=device)
+
+
+def qmm_workspace(m: int, k: int, n: int,
+                  device: torch.device) -> torch.Tensor | None:
+    """The int32 split-K scratch the int8 GEMM kernel needs for an
+    (M, K, N) product on ``device``, or None when it does not split K."""
+    size = library().qmm_i8_workspace(m, k, n, device.index)
+    if size == 0:
+        return None
+    return torch.empty(size, dtype=torch.int32, device=device)
 
 
 def launch(name: str, tensors: list[torch.Tensor | None],

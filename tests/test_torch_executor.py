@@ -272,18 +272,23 @@ def test_build_without_device_needs_cuda():
 
 def test_unported_paths_name_their_roadmap_item():
     specs = t_vgg.network_specs(img=32, scale=32, n_classes=10)
-    for kw in (dict(dtype="int8"), dict(segmented=True), dict(strict=True)):
+    for kw in (dict(segmented=True), dict(strict=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu",
                                     **kw)
+    dw_specs = [t_hc.ConvSpec("c1", 8, 8, 3, 4),
+                t_hc.DepthwiseSpec("d1", 8, 8, 4)]
+    prog = t_compiler.compile_network(
+        dw_specs, [t_compiler.LayerPlan(), None])
+    t_executor.validate_schedule(prog)      # validation is ported whole
+    with pytest.raises(NotImplementedError, match="DEPTHWISE_CONV"):
+        t_executor.lower_program(prog)
+    # ELTWISE_ADD lowers now (ResNet-18: tests/test_torch_resnet.py)
     res_specs = [t_hc.ConvSpec("c1", 8, 8, 3, 4),
                  t_hc.ConvSpec("c2", 8, 8, 4, 4, relu=False),
                  t_hc.EltwiseSpec("e1", 8, 8, 4, skip_from=0)]
-    prog = t_compiler.compile_network(
-        res_specs, [t_compiler.LayerPlan(), t_compiler.LayerPlan(), None])
-    t_executor.validate_schedule(prog)      # validation is ported whole
-    with pytest.raises(NotImplementedError, match="ELTWISE_ADD"):
-        t_executor.lower_program(prog)
+    t_executor.lower_program(t_compiler.compile_network(
+        res_specs, [t_compiler.LayerPlan(), t_compiler.LayerPlan(), None]))
 
 
 def test_serve_cnn_answers_on_the_cpu(capsys):
@@ -295,4 +300,4 @@ def test_serve_cnn_answers_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "first request" in out and "images/s" in out
     with pytest.raises(ValueError, match="vgg16"):
-        serve_cnn("resnet18", device="cpu")
+        serve_cnn("alexnet", device="cpu")

@@ -7,8 +7,11 @@ card host that has only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
 Every case carries the ``gpu`` marker and skips without a card. Tolerance:
-``1e-4 * max(1, max|ref|)`` per kernel (fp32 sums taken in another order),
-``1e-4 * max|logit|`` on the reduced-VGG16 logits.
+``1e-4 * max(1, max|ref|)`` per fp32 kernel (fp32 sums taken in another
+order), ``1e-4 * max|logit|`` on the reduced-VGG16 fp32 logits and
+``1e-3 * max|logit|`` on the ResNet-18 ones (Winograd against direct
+convolution over 20 layers); every int8 result bit for bit (integer sums
+are exact in any order).
 """
 import numpy as np
 import pytest
@@ -17,8 +20,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import api  # noqa: E402
 from repro_torch.core.compiler import LayerPlan  # noqa: E402
+from repro_torch.core.runtime import HybridRuntime  # noqa: E402
 from repro_torch.core.hybrid_conv import ConvSpec  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.gemm.int8 import qmm_i8, qmm_ref  # noqa: E402
 from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref  # noqa: E402
 from repro_torch.kernels.spatial_conv.kernel import (  # noqa: E402
     conv_gemm_f32,
@@ -30,7 +35,7 @@ from repro_torch.kernels.winograd.kernel import (  # noqa: E402
     wino_output_transform_f32,
     wino_output_transform_ref,
 )
-from repro_torch.models import vgg  # noqa: E402
+from repro_torch.models import resnet, vgg  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -122,7 +127,90 @@ def test_gpu_reduced_vgg16_hopper_matches_torch(cuda, opt_level):
     common.reset_launches()
     y = acc(x)
     torch.cuda.synchronize()
-    assert all(common.LAUNCHES.values())
+    # every fp32 kernel, and not the int8 GEMM
+    assert all(n for name, n in common.LAUNCHES.items() if name != "qmm_i8")
+    assert common.LAUNCHES["qmm_i8"] == 0
     y, y_ref = y.cpu().numpy(), ref(x).cpu().numpy()
     assert np.isfinite(y).all()
     assert np.abs(y - y_ref).max() <= 1e-4 * np.abs(y_ref).max()
+
+
+def _i8(*shape, device, gen=None):
+    return torch.randint(-127, 128, shape, dtype=torch.int8, device=device,
+                         generator=gen)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (33, 27, 10),          # byte-wise path: K and N not multiples of 4
+    (1000, 27, 64),        # the stem's K = 27 at a narrow N
+    (300, 1152, 128),      # word path, one K slab per split
+    (8, 25088, 1000),      # skinny FC tile with split K, N = 1000
+    (1568, 4608, 512),     # split K on the narrow tile
+    (2048, 576, 256),      # wide tile
+])
+def test_gpu_qmm_i8(cuda, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a, b = _i8(m, k, device=cuda, gen=gen), _i8(k, n, device=cuda, gen=gen)
+    bias = torch.randint(-50000, 50000, (n,), dtype=torch.int32,
+                         device=cuda, generator=gen)
+    mult = torch.rand(n, device=cuda, generator=gen) * 1e-4
+    before = common.LAUNCHES["qmm_i8"]
+    for relu in (False, True):
+        y = qmm_i8(a, b, bias, mult, relu)
+        torch.cuda.synchronize()
+        assert torch.equal(y, qmm_ref(a, b, bias, mult, relu))
+    assert common.LAUNCHES["qmm_i8"] == before + 2
+    # a misaligned A (one byte off) takes the byte-wise path
+    a_off = _i8(m * k + 1, device=cuda, gen=gen)[1:].view(m, k)
+    assert torch.equal(qmm_i8(a_off, b, bias, mult),
+                       qmm_ref(a_off, b, bias, mult))
+
+
+def test_gpu_qmm_i8_rounds_large_accumulators(cuda):
+    """|acc| above 2**24: the int32 -> float32 conversion rounds, and the
+    kernel must round exactly as the plain version does."""
+    k = 4608
+    a = torch.full((40, k), 127, dtype=torch.int8, device=cuda)
+    b = torch.full((k, 12), 127, dtype=torch.int8, device=cuda)
+    b[:, ::2] = -127
+    bias = torch.arange(12, dtype=torch.int32, device=cuda) * 7 + 1
+    mult = torch.full((12,), 1.7e-6, device=cuda)
+    y = qmm_i8(a, b, bias, mult)
+    assert torch.equal(y, qmm_ref(a, b, bias, mult))
+
+
+@pytest.mark.parametrize("model", ["vgg16", "resnet18"])
+def test_gpu_reduced_int8_hopper_matches_torch(cuda, model):
+    specs = (vgg.network_specs(img=32, scale=16, n_classes=10)
+             if model == "vgg16"
+             else resnet.resnet18_specs(img=32, scale=16, n_classes=10))
+    x = np.random.default_rng(0).standard_normal((2, 32, 32, 3)).astype(
+        np.float32)
+    ref = api.Accelerator.build(specs, batch=2, backend="torch",
+                                dtype="int8", device=cuda)
+    # the same program, sidecar and quantized params on the hopper PE
+    rt = HybridRuntime(ref.program, backend="hopper", device=cuda,
+                       quant=ref.quant)
+    rt.load_params(ref.params)
+    q = ref.quant.quantize_input(torch.from_numpy(x).to(cuda))
+    common.reset_launches()
+    y = rt.run(q)
+    torch.cuda.synchronize()
+    n_gemm = sum(cl.kind in ("conv", "fc") for cl in ref.program.layers)
+    assert common.LAUNCHES["qmm_i8"] == n_gemm
+    assert torch.equal(y, ref.runtime.run(q))
+
+
+@pytest.mark.parametrize("opt_level", [0, 1])
+def test_gpu_reduced_resnet18_fp32_hopper_matches_torch(cuda, opt_level):
+    specs = resnet.resnet18_specs(img=32, scale=16, n_classes=10)
+    x = np.random.default_rng(1).standard_normal((2, 32, 32, 3)).astype(
+        np.float32)
+    ref = api.Accelerator.build(specs, batch=2, backend="torch",
+                                device=cuda)
+    acc = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                params=ref.params, opt_level=opt_level,
+                                device=cuda)
+    y, y_ref = acc(x).cpu().numpy(), ref(x).cpu().numpy()
+    assert np.isfinite(y).all()
+    assert np.abs(y - y_ref).max() <= 1e-3 * np.abs(y_ref).max()

@@ -207,3 +207,87 @@ def test_cpu_wrappers_launch_no_kernel():
     winograd_apply_pretransformed_hopper(x, torch.randn(6, 6, 3, 4), m=4)
     matmul(torch.randn(2, 3), torch.randn(3, 4))
     assert common.LAUNCHES == dict.fromkeys(common.KERNELS, 0)
+
+
+# ---------------------------------------------------------------------------
+# K5: int8 GEMM with the fused requantize epilogue (bit for bit)
+# ---------------------------------------------------------------------------
+
+def _i8(rng, *shape):
+    return rng.integers(-127, 128, size=shape, dtype=np.int8)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 27, 10), (33, 27, 1000),
+                                   (100, 4608, 10), (8, 4608, 1000)])
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+def test_qmm_plain_version_matches_pallas_bitwise(m, k, n, per_channel, relu):
+    from repro.kernels.gemm.int8 import quantized_matmul as r_qmm
+
+    from repro_torch.kernels.gemm.int8 import quantized_matmul
+    rng = np.random.default_rng(m * k + n + per_channel)
+    a, b = _i8(rng, m, k), _i8(rng, k, n)
+    bias = rng.integers(-20000, 20000, size=n, dtype=np.int32)
+    mult = (rng.random(n).astype(np.float32) * np.float32(2e-4)
+            if per_channel else 7.3e-5)
+    y_ref = np.asarray(r_qmm(jnp.asarray(a), jnp.asarray(b),
+                             jnp.asarray(bias), mult=mult, relu=relu,
+                             interpret=True))
+    y = quantized_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                         torch.from_numpy(bias), mult=mult, relu=relu)
+    assert y.dtype == torch.int8
+    np.testing.assert_array_equal(y.numpy(), y_ref)
+
+
+def test_qmm_rounds_accumulators_above_2_24_like_pallas():
+    """|acc| up to 4608 * 127**2 ~ 7.4e7 > 2**24: the int32 -> float32
+    conversion rounds, identically in both packages."""
+    from repro.kernels.gemm.int8 import quantized_matmul as r_qmm
+
+    from repro_torch.kernels.gemm.int8 import qmm_i8, qmm_ref
+    k, n = 4608, 12
+    a = np.full((9, k), 127, np.int8)
+    a[1::2] = -127
+    b = np.full((k, n), 127, np.int8)
+    b[:, ::3] = -126
+    bias = np.arange(n, dtype=np.int32) * 7 + 1
+    mult = np.linspace(1e-6, 2e-6, n, dtype=np.float32)
+    y_ref = np.asarray(r_qmm(jnp.asarray(a), jnp.asarray(b),
+                             jnp.asarray(bias), mult=mult, interpret=True))
+    args = [torch.from_numpy(x) for x in (a, b, bias, mult)]
+    assert np.abs(a.astype(np.int64) @ b.astype(np.int64)).max() > 2 ** 24
+    np.testing.assert_array_equal(qmm_ref(*args).numpy(), y_ref)
+    np.testing.assert_array_equal(qmm_i8(*args).numpy(), y_ref)
+
+
+def test_qmm_wrapper_checks_operand_types():
+    from repro_torch.kernels.gemm.int8 import qmm_i8, quantized_matmul
+    a, b = torch.zeros(4, 8, dtype=torch.int8), torch.zeros(8, 3,
+                                                            dtype=torch.int8)
+    bias, mult = torch.zeros(3, dtype=torch.int32), torch.ones(3)
+    with pytest.raises(TypeError, match="int32"):
+        qmm_i8(a, b, bias.float(), mult)
+    with pytest.raises(TypeError, match="float32"):
+        qmm_i8(a, b, bias, mult.double())
+    with pytest.raises(TypeError, match="int8"):
+        quantized_matmul(a.float(), b, bias, mult=1.0)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        qmm_i8(a, b[:5], bias, mult)
+    with pytest.raises(ValueError, match="mult"):
+        quantized_matmul(a, b, bias, mult=np.ones(4, np.float32))
+    common.reset_launches()
+    assert quantized_matmul(a, b, bias, mult=0.5).shape == (4, 3)
+    assert common.LAUNCHES["qmm_i8"] == 0       # CPU: the plain version
+
+
+def test_on_cpu_checks_each_operands_dtype():
+    """The shared operand check takes one dtype per operand (a repair: it
+    accepted float32 only, so K5's int8/int32 operands could not pass)."""
+    i8 = torch.zeros(2, dtype=torch.int8)
+    f32 = torch.zeros(2)
+    assert common.on_cpu("k", i8, f32, dtypes=(torch.int8, torch.float32))
+    assert common.on_cpu("k", f32, None, f32)
+    with pytest.raises(TypeError, match="expected int8"):
+        common.on_cpu("k", f32, f32, dtypes=(torch.int8, torch.float32))
+    with pytest.raises(ValueError, match="dtypes"):
+        common.on_cpu("k", f32, dtypes=(torch.float32, torch.float32))
