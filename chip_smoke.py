@@ -4,26 +4,41 @@
 
 Builds the hand-written Hopper kernels from ``src/repro_torch/csrc``, holds
 each kernel against its plain PyTorch version at every shape the main paths
-give it (and times kernel, plain version and the nearest single PyTorch
-call), then serves four main paths through ``repro_torch.api.Accelerator``
-with ``backend="hopper"``, batch 8, ``pm.V5E`` plans:
+give it (fp32 within ``1e-4 * max(1, max|ref|)``, K5 bit for bit, K6 in
+bf16 element by element within ``2**-7 * |ref| + 1e-6``, one bf16 step;
+and times kernel, plain version and the nearest single PyTorch call),
+then serves four main paths through ``repro_torch.api.Accelerator`` with
+``backend="hopper"``, batch 8, ``pm.V5E`` plans:
 
 * VGG16, 224x224, 1000 classes, fp32 (K1-K4);
 * the same VGG16 in int8, default calibration (K5);
 * ResNet-18 at full width, ``resnet18_specs(128, 1, n_classes=1000)``, fp32
-  (K1-K4) and int8 (K5).
+  (K1-K4) and int8 (K5);
 
-Each path answers one first request and several steady ones, with the
+and a fifth through ``repro_torch.launch.serve.serve`` with
+``backend="hopper"``:
+
+* full-width minitron-8b in bf16 (32 layers, d_model 4096, vocab 256000,
+  random weights from seed 0), batch 2, a 4096-token prompt, 16 greedy
+  tokens: K6 once per layer of the prefill, never in a decode step.
+
+Each CNN path answers one first request and several steady ones, with the
 launch counts set to 0 just before it and checked per request just after,
 and its logits held against the ``backend="torch"`` (aten) path on the same
 card: fp32 within ``1e-3 * max|logit|``, int8 bit for bit with the same
-params and sidecar. Any failure raises and exits non-zero; without a CUDA
-card, or without the repository beside it, the script exits non-zero before
-printing any result.
+params and sidecar. The LM path's launches are counted the same way around
+its one served request (and per phase in a second prefill and one decode
+step), and its last-token prefill logits are held against
+``backend="torch"`` (the scan-flash attention, which rounds P to bf16)
+within ``5e-2 * max|logit|``. Any failure raises and exits non-zero;
+without a CUDA card, or without the repository beside it, the script exits
+non-zero before printing any result.
 
 Output: the card's name and power limit, one JSON line per (kernel, layer),
-the timings of each path, a ``{"kernels": [...]}`` summary line, and as the
-last line ``{"ok": true, "device": {...}}``.
+the timings of each path (for the LM also a ``torch.profiler`` breakdown
+of one prefill and one decode step: device busy time and the longest
+kernels), a ``{"kernels": [...]}`` summary line, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -39,9 +54,10 @@ import numpy as np
 import torch
 
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense int8 on the tensor cores, and HBM3 bandwidth; they assume the
-# 700 W power limit
+# cores, dense bf16 and int8 on the tensor cores, and HBM3 bandwidth; they
+# assume the 700 W power limit
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 BATCH, N_CLASSES = 8, 1000
@@ -62,7 +78,19 @@ PATHS = {
                       "wino_output_transform_f32": 4},
     # 20 CONVs + 1 FC
     "resnet18_int8": {"qmm_i8": 21},
+    # one K6 per layer of the prefill (prompt >= 2048 tokens); a decode
+    # step attends one token through the einsum branch
+    "minitron8b_bf16": {"flash_attention": 32},
 }
+LM_PATH = "minitron8b_bf16"
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "minitron-8b", 2, 4096, 16
+# hopper vs torch last-token prefill logits, relative to max|logit|: K6
+# keeps P in fp32 where the scan rounds it to bf16, over 32 layers
+LM_TOL = 5e-2
+# K6 in bf16 against its plain version, element by element: both compute
+# in fp32 and round once to bf16, so they differ by at most one bf16 step
+# (2**-7 of |ref|); the absolute term covers outputs near 0
+BF16_STEP, BF16_ABS = 2.0 ** -7, 1e-6
 SOURCES = {
     "conv_gemm_f32": ("src/repro_torch/csrc/gemm_f32.cu",
                       "src/repro/kernels/spatial_conv/kernel.py:51"),
@@ -74,6 +102,8 @@ SOURCES = {
                                   "src/repro/kernels/winograd/kernel.py:82"),
     "qmm_i8": ("src/repro_torch/csrc/gemm_i8.cu",
                "src/repro/kernels/gemm/int8.py:60"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:63"),
 }
 
 
@@ -93,10 +123,12 @@ def ptxas_summary(log: str) -> list[str]:
             mangled = m.group(1)
             base = re.search(r"(gemm_f32_kernel|splitk_reduce_kernel|"
                              r"wino_input_kernel|wino_output_kernel|"
-                             r"qmm_i8_kernel|qmm_splitk_reduce_kernel)",
-                             mangled)
+                             r"qmm_i8_kernel|qmm_splitk_reduce_kernel|"
+                             r"flash_attention_kernel)", mangled)
             args = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E",
                                                    mangled)]
+            if "bfloat16" in mangled:
+                args.insert(0, "bf16")
             name = (base.group(1) if base else mangled) + (
                 f"<{','.join(args)}>" if args else "")
         elif m := re.search(r"(\d+) bytes spill stores", line):
@@ -167,6 +199,28 @@ def kernel_cases(program, batch: int, dtype: str):
     return cases
 
 
+def lm_kernel_cases():
+    """K6's calls per request on the LM path (the prefill's shape, once per
+    layer) and three shapes off the path (launches 0): the prefill's shape
+    in fp32, ragged non-causal fp32, and ragged causal bf16 with
+    Sq < Skv."""
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    prefill = dict(b=LM_BATCH, h=cfg.n_heads, hkv=cfg.n_kv_heads,
+                   sq=LM_PROMPT, skv=LM_PROMPT + LM_GEN, d=cfg.head_dim,
+                   dtype="bf16", causal=True)
+    return [
+        ("flash_attention", "prefill", prefill, cfg.n_layers),
+        ("flash_attention", "prefill_fp32", dict(prefill, dtype="fp32"), 0),
+        ("flash_attention", "ragged_fp32", dict(
+            b=1, h=4, hkv=2, sq=333, skv=517, d=64, dtype="fp32",
+            causal=False), 0),
+        ("flash_attention", "ragged_bf16", dict(
+            b=2, h=8, hkv=2, sq=100, skv=230, d=128, dtype="bf16",
+            causal=True), 0),
+    ]
+
+
 def int_mm_padded(a: torch.Tensor, b: torch.Tensor):
     """``torch._int_mm`` on zero-padded copies (cuBLASLt wants M > 16 and
     K, N multiples of 8; zero padding is exact under zero point 0): a
@@ -183,6 +237,10 @@ def int_mm_padded(a: torch.Tensor, b: torch.Tensor):
 
 def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     """Kernel vs plain version on the card at one shape; times all three."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.gemm.int8 import qmm_i8, qmm_ref
     from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref
     from repro_torch.kernels.spatial_conv.kernel import (
@@ -199,8 +257,34 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     def rnd(*size):
         return torch.randn(*size, generator=gen, device="cuda")
 
-    lib, peak, exact = None, PEAK_FP32_FLOPS, False
-    if name == "qmm_i8":
+    lib, peak, exact, rel = None, PEAK_FP32_FLOPS, False, 1e-4
+    elementwise = False
+    extra = {}
+    if name == "flash_attention":
+        b, h, hkv, sq, skv, d = (shape[x] for x in
+                                 ("b", "h", "hkv", "sq", "skv", "d"))
+        causal = shape["causal"]
+        dt = torch.bfloat16 if shape["dtype"] == "bf16" else torch.float32
+        q = rnd(b, h, sq, d).to(dt)
+        k, v = rnd(b, hkv, skv, d).to(dt), rnd(b, hkv, skv, d).to(dt)
+        qf, kf, vf = (t.view(-1, t.shape[2], d) for t in (q, k, v))
+        kern = lambda: flash_attention_kernel(qf, kf, vf, causal=causal)
+        plain = lambda: flash_attention_ref(qf, kf, vf, causal=causal)
+        # the yardstick only: SDPA's is_causal is aligned at the top left too
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=h != hkv)
+        # 4 D operations (QK^T and PV, a multiply-add each) per unmasked
+        # (row, col) pair; each of Q, K, V, O moved once
+        pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
+                 else sq * skv)
+        ops = 4.0 * d * pairs * b * h
+        nbytes = q.element_size() * (2.0 * b * h * sq * d
+                                     + 2.0 * b * hkv * skv * d)
+        if dt == torch.bfloat16:
+            peak, elementwise = PEAK_BF16_FLOPS, True
+        extra["library_max_abs_diff"] = float(
+            (kern().view(b, h, sq, d).float() - lib().float()).abs().max())
+    elif name == "qmm_i8":
         m, k, n = shape["m"], shape["k"], shape["n"]
         a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
                           generator=gen)
@@ -253,16 +337,29 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     if exact:
         err = float((y.int() - y_ref.int()).abs().max())
         tol = 0.0
+    elif elementwise:
+        diff = (y.float() - y_ref.float()).abs()
+        lim = BF16_STEP * y_ref.float().abs() + BF16_ABS
+        # the worst element's share of its own limit; must not exceed 1
+        ratio = float((diff / lim).max())
+        err, tol = float(diff.max()), None
+        extra["worst_elem_ratio"] = ratio
+        if not ratio <= 1.0:
+            raise AssertionError(
+                f"{name} {shape}: an element differs by {ratio:.3f} x "
+                f"(2**-7 |ref| + {BF16_ABS:g}); max|diff| {err:.3e}")
+        del diff, lim
     else:
-        err = float((y - y_ref).abs().max())
-        tol = 1e-4 * max(1.0, float(y_ref.abs().max()))
-    if not err <= tol:
+        err = float((y.float() - y_ref.float()).abs().max())
+        tol = rel * max(1.0, float(y_ref.float().abs().max()))
+    if tol is not None and not err <= tol:
         raise AssertionError(f"{name} {shape}: max|diff| {err:.3e} > {tol:.3e}")
+    del y, y_ref
     bound_ms, bound_by = bound(ops, nbytes, peak)
     return dict(max_abs_err=err, tol=tol, ms=time_ms(kern),
                 plain_ms=time_ms(plain),
                 library_ms=None if lib is None else time_ms(lib),
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, **extra)
 
 
 def path_specs(path: str):
@@ -374,6 +471,143 @@ def serve_path(path: str, x: torch.Tensor, params=None) -> dict:
     return dict(acc=acc, y=y, launches=launches, steady_ms=t_steady * 1e3)
 
 
+def device_profile(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: its wall ms (ending in a
+    synchronise, profiler overhead included), the summed device time of
+    the kernels it ran, and its five longest kernels by name. A busy time
+    of 0 means the profiler saw no device activity: not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                n_kernels=sum(e.count for e in kernels),
+                top=[[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                     for e in top])
+
+
+def serve_lm(k6_ms: float) -> dict:
+    """Serve full-width minitron-8b (bf16, random weights from seed 0)
+    through ``launch.serve.serve`` on the hopper backend, with the launch
+    counts set to 0 just before and checked just after; check them per
+    phase on a second prefill and one decode step; hold the last-token
+    prefill logits against ``backend="torch"`` on the same params.
+    ``k6_ms`` is phase 2's K6 time per request (all layers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import serve
+    from repro_torch.train import steps
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = steps.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    kw = dict(reduced=False, batch=LM_BATCH, prompt_len=LM_PROMPT,
+              gen=LM_GEN, seed=0, device="cuda", params=params)
+
+    common.reset_launches()
+    out = serve(LM_ARCH, backend="hopper", **kw)
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)
+    expected = PATHS[LM_PATH]
+    for name in common.KERNELS:
+        if launches[name] != expected.get(name, 0):
+            raise AssertionError(f"{LM_PATH}: {name} launched "
+                                 f"{launches[name]} times in one request, "
+                                 f"expected {expected.get(name, 0)}")
+    y = out.prefill_logits.float()
+    if y.shape != (LM_BATCH, cfg.vocab_size) or not torch.isfinite(y).all():
+        raise AssertionError(f"{LM_PATH}: prefill logits {tuple(y.shape)} "
+                             f"or non-finite values")
+
+    # per phase, on the same prompts (serve draws them from seed 0)
+    prefill, decode = steps.make_serve_steps(cfg, backend="hopper")
+    cache = steps.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, "cuda")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)).cuda()
+    common.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompts, cache)
+    torch.cuda.synchronize()
+    warm_prefill_ms = (time.perf_counter() - t0) * 1e3
+    n_prefill = common.LAUNCHES["flash_attention"]
+    common.reset_launches()
+    decode(params, logits.argmax(-1)[:, None], cache, LM_PROMPT)
+    torch.cuda.synchronize()
+    n_decode = common.LAUNCHES["flash_attention"]
+    if (n_prefill, n_decode) != (cfg.n_layers, 0):
+        raise AssertionError(f"{LM_PATH}: K6 launched {n_prefill} times in "
+                             f"a prefill and {n_decode} in a decode step, "
+                             f"expected {cfg.n_layers} and 0")
+    repeat_diff = float((logits.float() - y).abs().max())
+    # where the device time goes, and how much of the wall time it fills
+    prof_prefill = device_profile(lambda: prefill(params, prompts, cache))
+    tok = logits.argmax(-1)[:, None]
+    prof_decode = device_profile(
+        lambda: decode(params, tok, cache, LM_PROMPT + 1))
+    del cache, logits
+
+    ref = serve(LM_ARCH, backend="torch", **kw)
+    y_ref = ref.prefill_logits.float()
+    err = float((y - y_ref).abs().max())
+    tol = LM_TOL * float(y_ref.abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{LM_PATH}: hopper vs torch prefill logits "
+                             f"max|diff| {err:.3e} > {tol:.3e}")
+    agree = float((out.tokens == ref.tokens).mean())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_tok = LM_BATCH * LM_PROMPT
+    print(f"path {LM_PATH}: batch {LM_BATCH}, prompt {LM_PROMPT}, "
+          f"{LM_GEN} greedy tokens; build (random weights) {build_ms:.0f}ms;"
+          f" prefill {out.prefill_ms:.1f}ms first, {warm_prefill_ms:.1f}ms "
+          f"again ({n_tok / warm_prefill_ms * 1e3:.0f} tokens/s); K6 "
+          f"{k6_ms:.1f}ms of it ({k6_ms / warm_prefill_ms:.1%}); decode "
+          f"{out.decode_ms_per_token:.2f}ms/token "
+          f"({LM_BATCH / out.decode_ms_per_token * 1e3:.1f} tokens/s); "
+          f"launches {launches} (prefill {n_prefill}, decode step "
+          f"{n_decode}); peak memory {peak_gb:.2f} GB; vs backend='torch' "
+          f"(prefill {ref.prefill_ms:.1f}ms, decode "
+          f"{ref.decode_ms_per_token:.2f}ms/token): max|diff| {err:.3e} "
+          f"(tolerance {tol:.3e}, max|logit| {float(y_ref.abs().max()):.3e})"
+          f", greedy tokens agree {agree:.3f}", flush=True)
+    for phase, pr in (("prefill", prof_prefill), ("decode step", prof_decode)):
+        print(f"path {LM_PATH} profile, one {phase}: wall "
+              f"{pr['wall_ms']:.1f}ms under the profiler, device busy "
+              f"{pr['device_busy_ms']:.2f}ms over {pr['n_kernels']} kernels;"
+              f" longest: " + "; ".join(f"{k} {ms:.2f}ms x{n}"
+                                        for k, ms, n in pr["top"]),
+              flush=True)
+    print(json.dumps({
+        "path": LM_PATH, "build_ms": build_ms,
+        "prefill_ms": out.prefill_ms, "warm_prefill_ms": warm_prefill_ms,
+        "decode_ms_per_token": out.decode_ms_per_token,
+        "k6_ms_per_prefill": k6_ms,
+        "torch_backend_prefill_ms": ref.prefill_ms,
+        "torch_backend_decode_ms_per_token": ref.decode_ms_per_token,
+        "launches_per_request": launches, "launches_prefill": n_prefill,
+        "launches_decode_step": n_decode, "peak_memory_gb": peak_gb,
+        "max_abs_diff_vs_torch": err, "tol": tol,
+        "repeat_prefill_max_abs_diff": repeat_diff,
+        "greedy_token_agreement": agree,
+        "profile_prefill": prof_prefill, "profile_decode_step": prof_decode}),
+        flush=True)
+    return dict(launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -411,11 +645,14 @@ def main() -> int:
     seen: dict[tuple, dict] = {}
     fields = ("ms", "plain_ms", "bound_ms", "library_ms")
     for path in PATHS:
-        specs, _ = path_specs(path)
-        dtype = "int8" if path.endswith("int8") else "float32"
-        program = compile_network(
-            specs, pm.V5E.run_dse(specs, batch=BATCH, dtype=dtype).plans)
-        cases = kernel_cases(program, BATCH, dtype)
+        if path == LM_PATH:
+            cases = lm_kernel_cases()
+        else:
+            specs, _ = path_specs(path)
+            dtype = "int8" if path.endswith("int8") else "float32"
+            program = compile_network(
+                specs, pm.V5E.run_dse(specs, batch=BATCH, dtype=dtype).plans)
+            cases = kernel_cases(program, BATCH, dtype)
         counted, per_path = {}, {}
         for name, _, _, n in cases:
             counted[name] = counted.get(name, 0) + n
@@ -455,6 +692,8 @@ def main() -> int:
     total = dict.fromkeys(common.KERNELS, 0)
     results = {}
     for path in PATHS:
+        if path == LM_PATH:
+            continue
         _, (img, _, _) = path_specs(path)
         # the int8 builds quantize the fp32 build's weights
         fp32 = results.get(path.replace("int8", "fp32"))
@@ -470,11 +709,19 @@ def main() -> int:
                   f"{BATCH} images (random weights)", flush=True)
             fp32.pop("acc")
         torch.cuda.empty_cache()
-    kernel_ms = sum(a["ms"] for a in per_kernel.values())
-    print(f"kernel time per request of each path, summed over the paths "
+    kernel_ms = sum(a["ms"] for name, a in per_kernel.items()
+                    if name != "flash_attention")
+    print(f"kernel time per request of each CNN path, summed over the paths "
           f"(phase 2): {kernel_ms:.2f}ms; steady ms/batch: "
           + ", ".join(f"{p} {r['steady_ms']:.2f}" for p, r in results.items()),
           flush=True)
+    del results, xs
+    torch.cuda.empty_cache()
+
+    # -- phase 4: the LM path through repro_torch.launch.serve ---------------
+    lm = serve_lm(k6_ms=per_kernel["flash_attention"]["ms"])
+    for name, n in lm["launches"].items():
+        total[name] += n
     print(f"whole run: {time.perf_counter() - t_start:.1f}s", flush=True)
 
     summary = []

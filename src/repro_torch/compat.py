@@ -15,6 +15,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# the PE implementations every entry point takes: plain aten ops, or the
+# hand-written CUDA kernels (their plain versions on CPU tensors)
+BACKENDS = ("torch", "hopper")
+
+
+def resolve_backend(backend: str) -> str:
+    """Validate the PE backend name ("torch" or "hopper")."""
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown backend {backend!r}: expected one of {BACKENDS}")
+    return backend
+
 
 def use_strict_fp32() -> None:
     """Turn TF32 off for cuDNN convolutions and cuBLAS matmuls."""

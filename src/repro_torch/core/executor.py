@@ -54,10 +54,10 @@ from typing import Callable
 
 import torch
 
+from repro_torch.compat import resolve_backend
 from repro_torch.core import layouts
 from repro_torch.core.compiler import CompiledLayer, Program
 from repro_torch.core.hybrid_conv import (
-    BACKENDS,
     dense,
     hybrid_conv2d,
     max_pool2d,
@@ -97,14 +97,6 @@ def resolve_opt_level(opt_level: int) -> int:
         raise ValueError(
             f"unknown opt_level {opt_level!r}: expected one of {OPT_LEVELS}")
     return int(opt_level)
-
-
-def resolve_backend(backend: str) -> str:
-    """Validate the PE backend name ("torch" or "hopper")."""
-    if backend not in BACKENDS:
-        raise ValueError(
-            f"unknown backend {backend!r}: expected one of {BACKENDS}")
-    return backend
 
 
 def _fresh_stats() -> dict[str, int]:
@@ -744,7 +736,9 @@ class CompiledExecutor:
     build_count: int = 1           # lowerings behind this entry (always 1)
     backend: str = "torch"
     opt_level: int = 1
-    device: str = "cpu"
+    # the device the executor's tensors live on; no default, so a card's
+    # executor is never labelled as the CPU's
+    device: str = dataclasses.field(kw_only=True)
 
     def __call__(self, params: list, x_nhwc: torch.Tensor) -> torch.Tensor:
         """``params`` is the DRAM weight image (see :func:`to_dram_params`)."""
@@ -755,7 +749,7 @@ class CompiledExecutor:
 def compile_executor(program: Program,
                      stats: dict[str, int] | None = None, *,
                      backend: str = "torch", opt_level: int = 1,
-                     device="cpu",
+                     device,
                      quant: QuantSidecar | None = None) -> CompiledExecutor:
     """Validate (unless pre-validated stats are supplied) and lower
     (through the int8 PE when ``quant`` is set)."""

@@ -21,11 +21,11 @@ from typing import Literal
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import resolve_backend
 from repro_torch.core import winograd as wino
 
 Mode = Literal["spat", "wino"]
 Dataflow = Literal["is", "ws"]
-BACKENDS = ("torch", "hopper")
 
 
 def same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -199,12 +199,6 @@ def _epilogue(y: torch.Tensor, bias, relu: bool) -> torch.Tensor:
     return y
 
 
-def check_backend(backend: str):
-    if backend not in BACKENDS:
-        raise ValueError(
-            f"unknown backend {backend!r}: expected one of {BACKENDS}")
-
-
 def conv2d_torch(x_nhwc: torch.Tensor, g_rsck: torch.Tensor, bias=None, *,
                  stride: int = 1, padding="SAME",
                  relu: bool = False) -> torch.Tensor:
@@ -236,7 +230,7 @@ def hybrid_conv2d(
     :func:`winograd.transform_weights` and then the pretransformed path,
     exactly as the executor runs U-space weights from DRAM.
     """
-    check_backend(backend)
+    resolve_backend(backend)
     if backend == "torch" and dataflow != "is":
         # the aten lowering is dataflow-oblivious; a non-default value would
         # be silently ignored
@@ -294,7 +288,7 @@ def dense(x: torch.Tensor, w_ck: torch.Tensor,
           backend: str = "torch") -> torch.Tensor:
     """FC layer; the matmul routes through the shared GEMM PE on
     ``backend="hopper"``, and bias/ReLU follow it on both backends."""
-    check_backend(backend)
+    resolve_backend(backend)
     if backend == "hopper":
         from repro_torch.kernels.gemm import matmul
         y = matmul(x.float(), w_ck.float())

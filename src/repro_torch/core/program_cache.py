@@ -25,11 +25,11 @@ from collections import OrderedDict
 
 import torch
 
+from repro_torch.compat import resolve_backend
 from repro_torch.core.compiler import Program
 from repro_torch.core.executor import (
     CompiledExecutor,
     compile_executor,
-    resolve_backend,
     resolve_opt_level,
     validate_schedule,
 )
@@ -44,7 +44,7 @@ class CacheStats:
 
 def cache_key(program: Program, *, batch: int, dtype,
               param_dtypes: tuple = (), backend: str = "torch",
-              opt_level: int = 1, device="cpu", quant=None) -> tuple:
+              opt_level: int = 1, device, quant=None) -> tuple:
     """The cache-key tuple for one executor request, in resolved form."""
     return (program.schedule_key(), int(batch), str(dtype),
             tuple(param_dtypes), resolve_backend(backend),
@@ -78,7 +78,7 @@ class ProgramCache:
 
     def get(self, program: Program, *, batch: int, dtype,
             param_dtypes: tuple = (), backend: str = "torch",
-            opt_level: int = 1, device="cpu",
+            opt_level: int = 1, device,
             quant=None) -> CompiledExecutor:
         """The executor for ``program`` at this batch/dtype/backend/
         opt_level/device/quant sidecar (lowered on a miss)."""

@@ -24,7 +24,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.compat import resolve_device, to_tensor
+from repro_torch.compat import resolve_backend, resolve_device, to_tensor
 from repro_torch.core import layouts
 from repro_torch.core.compiler import Program
 from repro_torch.core.executor import (  # noqa: F401  (HazardError re-export)
@@ -32,7 +32,6 @@ from repro_torch.core.executor import (  # noqa: F401  (HazardError re-export)
     _fresh_stats,
     check_lowerable,
     check_param_count,
-    resolve_backend,
     resolve_opt_level,
 )
 from repro_torch.core.winograd import transform_weights

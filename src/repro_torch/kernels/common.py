@@ -28,7 +28,7 @@ from pathlib import Path
 import torch
 
 KERNELS = ("conv_gemm_f32", "bmm_f32", "wino_input_transform_f32",
-           "wino_output_transform_f32", "qmm_i8")
+           "wino_output_transform_f32", "qmm_i8", "flash_attention")
 
 # launches per kernel since the last reset_launches()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -50,6 +50,8 @@ _SIGNATURES = {
     "wino_output_transform_f32": (3, 4),  # M, bias, Y; T, K, m, relu
     # A, B, bias, mult, C, workspace; M, K, N, relu
     "qmm_i8": (6, 4),
+    # Q, K, V, O; BH, group, Sq, Skv, D, kv_len, causal, bf16, scale bits
+    "flash_attention": (4, 9),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,0 +1,75 @@
+"""K6 ``flash_attention``: online-softmax attention, hand-written for Hopper.
+
+Replaces ``src/repro/kernels/flash_attention/kernel.py::
+flash_attention_kernel`` (body ``_fa_kernel``): ``(BH, Sq, D)`` queries
+against ``(BH / group, Skv, D)`` keys and values, fp32 running statistics,
+the causal mask aligned at the top left and the ``kv_len`` mask, fp32 or
+bf16 in and out, ``head_dim`` up to 128. The CUDA kernel
+(``csrc/flash_attention.cu``) maps each query head to its KV head itself
+(``bh // group``), so K and V are never repeated in memory, and masks the
+ragged Sq and Skv edges itself, so nothing is padded; its note says what
+bounds it and what the design does about that.
+"""
+from __future__ import annotations
+
+import struct
+
+import torch
+
+from repro_torch.kernels.common import launch, on_cpu
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+MAX_HEAD_DIM = 128
+
+
+def _check(q, k, v, kv_len):
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"flash_attention takes (BH, S, D) operands, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    bh, sq, d = q.shape
+    bhkv, skv, dk = k.shape
+    if v.shape != k.shape or dk != d:
+        raise ValueError(f"flash_attention shape mismatch: q {tuple(q.shape)}"
+                         f", k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if bhkv == 0 or bh % bhkv:
+        raise ValueError(f"flash_attention: {bhkv} KV heads do not divide "
+                         f"{bh} query heads")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {d} is not in 1.."
+                         f"{MAX_HEAD_DIM}; the kernel keeps a thread's "
+                         f"share of a 64 x {MAX_HEAD_DIM} output block in "
+                         f"registers")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if not 1 <= kv_len <= skv:
+        raise ValueError(f"flash_attention: kv_len {kv_len} not in 1..{skv}")
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           scale: float | None = None,
+                           kv_len: int | None = None) -> torch.Tensor:
+    """(BH, Sq, D) x (BHkv, Skv, D) -> (BH, Sq, D) in ``q.dtype``.
+
+    Query head ``i`` reads KV head ``i // (BH // BHkv)``. Columns at or past
+    ``kv_len`` (default Skv) are masked; ``causal`` masks every column
+    above the row (row ``i`` sees columns ``<= i``). ``scale`` defaults to
+    ``D ** -0.5``.
+    """
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    _check(q, k, v, kv_len)
+    if on_cpu("flash_attention", q, k, v, dtypes=q.dtype):
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                   kv_len=kv_len)
+    bh, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    scale = d ** -0.5 if scale is None else scale
+    scale_bits = struct.unpack("<I", struct.pack("<f", scale))[0]
+    out = torch.empty_like(q)
+    if sq:
+        launch("flash_attention", [q, k, v, out],
+               [bh, bh // bhkv, sq, skv, d, kv_len, causal,
+                q.dtype == torch.bfloat16, scale_bits])
+    return out

@@ -1,5 +1,18 @@
-"""CNN serving through the ported HybridDNN pipeline — DSE -> compile ->
-validated, cached executor — on a CUDA card by default:
+"""Serving entry points of the PyTorch port, on a CUDA card by default.
+
+LM serving (batched prefill, then greedy decode with a KV cache; the dense
+family, e.g. full-width minitron-8b on one H100):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b \
+      --no-reduced --batch 2 --prompt-len 4096 --gen 16 --backend hopper
+
+Prompts of 2048 tokens and more take the long-sequence attention: K6 with
+``--backend hopper``, the scan-flash port with ``--backend torch``. Prints
+the build (random weights from seed 0), prefill and per-token decode
+times.
+
+CNN serving through the ported HybridDNN pipeline — DSE -> compile ->
+validated, cached executor:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch vgg16 \
       --no-reduced --batch 8 --backend hopper [--dtype int8]
@@ -15,10 +28,14 @@ ms/batch and images/s.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
+
+from repro_torch.compat import resolve_backend, resolve_device
+from repro_torch.configs.base import get_config, list_archs
 
 CNN_TARGETS = {"tpu": "V5E", "vu9p": "VU9P", "pynq": "PYNQ_Z1"}
 # (img, scale) per arch: reduced, then full width (ResNet-18 at 128: the
@@ -29,6 +46,79 @@ SIZES = {"vgg16": ((64, 8), (224, 1)), "resnet18": ((64, 8), (128, 1))}
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@dataclasses.dataclass
+class LMServeResult:
+    """What :func:`serve` returns: the generated tokens (B, gen), the
+    prefill's last-token logits (B, V) on the device, and the timings."""
+    tokens: np.ndarray
+    prefill_logits: torch.Tensor
+    build_ms: float | None      # None when the caller passed ``params``
+    prefill_ms: float
+    decode_ms_per_token: float
+
+
+def serve(arch: str, *, reduced: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen: int = 16, seed: int = 0,
+          backend: str = "torch", device=None, params=None) -> LMServeResult:
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens (numpy
+    ``default_rng(seed)``, as the reference), then decode ``gen`` tokens
+    greedily. Weights are drawn from ``seed`` unless ``params`` (the tree
+    of ``train.steps.init_params``) is given. Prints and returns the
+    timings."""
+    from repro_torch.train import steps as steps_lib
+
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if cfg.family == "cnn":
+        raise ValueError(f"{arch} is a CNN: serve it with serve_cnn")
+    backend = resolve_backend(backend)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+
+    build_ms = None
+    if params is None:
+        t0 = time.perf_counter()
+        params = steps_lib.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        _sync(dev)
+        build_ms = (time.perf_counter() - t0) * 1e3
+    prefill_fn, decode_fn = steps_lib.make_serve_steps(cfg, backend=backend)
+    cache = steps_lib.init_cache(cfg, batch, prompt_len + gen, dev)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len),
+                           dtype=np.int32)
+
+    tokens = torch.from_numpy(prompts).to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill_fn(params, tokens, cache)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    prefill_logits = logits
+    outs = []
+    tok = logits.argmax(-1)[:, None]
+    t0 = time.perf_counter()
+    for i in range(gen):
+        outs.append(tok[:, 0])
+        logits, cache = decode_fn(params, tok, cache, prompt_len + i)
+        tok = logits.argmax(-1)[:, None]
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    gen_tokens = (torch.stack(outs, 1).cpu().numpy() if outs
+                  else np.zeros((batch, 0), np.int64))
+    per_token = t_decode / gen * 1e3 if gen else 0.0
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    built = f"build {build_ms:.0f}ms; " if build_ms is not None else ""
+    print(f"{cfg.name} ({'reduced' if reduced else 'full'}, {cfg.dtype}) "
+          f"on {dev} ({name}), backend {backend}: {built}prefill "
+          f"{prompt_len} toks x{batch}: {t_prefill * 1e3:.1f}ms; decode "
+          f"{gen} steps: {per_token:.2f}ms/tok")
+    return LMServeResult(tokens=gen_tokens, prefill_logits=prefill_logits,
+                         build_ms=build_ms, prefill_ms=t_prefill * 1e3,
+                         decode_ms_per_token=per_token)
 
 
 def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
@@ -93,18 +183,23 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", "--model", dest="arch", default="vgg16",
-                    choices=sorted(SIZES))
+                    choices=sorted(set(SIZES) | set(list_archs())),
+                    help="a CNN (vgg16, resnet18) or an LM of the registry")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="LM prompt tokens")
+    ap.add_argument("--gen", type=int, default=16,
+                    help="LM tokens to decode greedily")
     ap.add_argument("--iters", type=int, default=20,
                     help="steady-state requests to time")
     ap.add_argument("--target", default="tpu", choices=sorted(CNN_TARGETS),
                     help="DSE planning model (the reference's TPU v5e or "
                          "FPGA targets)")
     ap.add_argument("--backend", default="torch", choices=("torch", "hopper"),
-                    help="PE implementation: aten ops or the hand-written "
-                         "CUDA kernels")
+                    help="PE / long-sequence attention implementation: aten "
+                         "ops or the hand-written CUDA kernels")
     ap.add_argument("--opt-level", type=int, default=1, choices=(0, 1))
     ap.add_argument("--dtype", default="float32", choices=("float32", "int8"),
                     help="int8 calibrates on the request batch and serves "
@@ -112,6 +207,12 @@ def main():
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args()
+    if args.arch not in SIZES:
+        out = serve(args.arch, reduced=args.reduced, batch=args.batch,
+                    prompt_len=args.prompt_len, gen=args.gen,
+                    backend=args.backend, device=args.device)
+        print("tokens:", out.tokens.shape)
+        return
     y = serve_cnn(args.arch, reduced=args.reduced, batch=args.batch,
                   iters=args.iters, target=args.target, backend=args.backend,
                   opt_level=args.opt_level, dtype=args.dtype,

@@ -1,0 +1,224 @@
+"""Transformer building blocks of the LM side (port of the reference's
+``models/layers.py``), as functions over plain dicts of tensors.
+
+RMSNorm, RoPE, GQA attention with an optional KV cache, the scan-flash
+attention and SwiGLU, with the reference's bf16 rounding points. The
+reference's ``shard(...)`` constraints are dropped: the port runs on one
+device. At 2048 query tokens and more, attention takes the reference's
+long-sequence branch, where ``backend`` picks the implementation:
+``"torch"`` runs the port of ``_flash_attention_scan``, ``"hopper"`` runs
+K6 (``kernels/flash_attention``), whose causal mask is aligned at row 0.
+Below 2048 both backends run the reference's einsum branch, which is no
+Pallas kernel. MoE, the GELU MLP and cross-attention are not ported yet
+(ROADMAP Queue 1, item 11).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.compat import resolve_backend
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
+
+Params = dict[str, Any]
+
+NEG_INF = -1e30
+LONG_SEQ = 2048   # the reference's threshold for the scan-flash branch
+
+
+def _init(gen: torch.Generator, shape, *, scale=None, dtype=torch.float32,
+          device) -> torch.Tensor:
+    """Normal draws times ``scale`` (default fan-in ``shape[0] ** -0.5``)
+    in float32, then cast, as the reference's ``_init``."""
+    scale = scale if scale is not None else (shape[0] ** -0.5 if shape
+                                             else 1.0)
+    x = torch.randn(shape, generator=gen, device=device)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms / rope
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+    """fp32 variance reduction, normalize-multiply in ``x.dtype``."""
+    var = x.float().square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * w
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., S, H, D); positions: (..., S) integers."""
+    d = x.shape[-1]
+    half = d // 2
+    # log(theta) / half in fp32 as the reference takes it; a Python float
+    # of that value, so nothing is copied to the device (a host-to-device
+    # copy synchronises the stream, once per call)
+    step = float(torch.log(torch.tensor(theta, dtype=torch.float32)) / half)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) * step)
+    ang = positions[..., None].float() * freqs             # (..., S, half)
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional qk-norm / KV cache)
+# ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
+                   device) -> Params:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": _init(gen, (d, h * hd), dtype=dtype, device=device),
+        "wk": _init(gen, (d, kv * hd), dtype=dtype, device=device),
+        "wv": _init(gen, (d, kv * hd), dtype=dtype, device=device),
+        "wo": _init(gen, (h * hd, d), dtype=dtype, device=device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
+
+
+def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              positions=None, causal: bool = True, kv_cache=None,
+              cache_pos: int | None = None, backend: str = "torch"):
+    """Self-attention over x (B, S, D).
+
+    kv_cache: optional dict(k=(B, Smax, KV, hd), v=...). With ``cache_pos``
+    the new K/V are written into it IN PLACE at that position (the
+    reference donates the cache, so nothing else reads the old one) and
+    the queries attend to the whole cache; without, the cache is being
+    built and the result carries this call's K/V. Returns (out, cache).
+    """
+    backend = resolve_backend(backend)
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k = (x @ p["wk"]).reshape(b, s, kv, hd)
+    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    skv = s
+
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if kv_cache is not None:
+        if cache_pos is not None:   # decode: insert new K/V at position
+            kv_cache["k"][:, cache_pos:cache_pos + s] = k
+            kv_cache["v"][:, cache_pos:cache_pos + s] = v
+            new_cache = kv_cache
+            k, v = kv_cache["k"], kv_cache["v"]
+            skv = k.shape[1]
+        else:                        # prefill: cache is being built
+            new_cache = {"k": k, "v": v}
+
+    # GQA via grouped einsum: never materialize a repeated KV tensor
+    rep = h // kv
+    qg = q.reshape(b, s, kv, rep, hd)
+
+    row_offset = (cache_pos if (kv_cache is not None and cache_pos is not None)
+                  else (skv - s if causal else 0))
+    if s >= LONG_SEQ and backend == "hopper":
+        if causal and row_offset != 0:
+            raise NotImplementedError(
+                f"backend='hopper' attention over {s} queries at row offset "
+                f"{row_offset}: K6's causal mask is aligned at row 0 (the "
+                f"prefill of a prompt from position 0); a long chunk past "
+                f"position 0 is not supported (ROADMAP Queue 2, item 6)")
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal)
+        out = out.transpose(1, 2)                     # (B, S, H, hd)
+    elif s >= LONG_SEQ:
+        out = _flash_attention_scan(qg, k, v, causal=causal,
+                                    row_offset=row_offset)
+    else:
+        scale = hd ** -0.5
+        logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float() * scale
+        if causal:
+            rows_abs = row_offset + torch.arange(
+                s, device=x.device)[None, None, None, :, None]
+            col = torch.arange(skv, device=x.device)[None, None, None, None, :]
+            logits = torch.where(col <= rows_abs, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
+    out = out.reshape(b, s, h * hd) @ p["wo"]
+    return out, new_cache
+
+
+def _flash_attention_scan(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool, row_offset: int = 0,
+                          block: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV blocks of ``block`` (grouped GQA).
+
+    qg: (B, S, KV, R, D) grouped queries; k/v: (B, Skv, KV, D). The
+    reference's ``lax.scan`` becomes a loop; P is rounded to the query
+    dtype before the P V product, as there. Memory is O(S * block) per
+    head.
+    """
+    b, s, kv, r, d = qg.shape
+    skv = k.shape[1]
+    scale = d ** -0.5
+    nb = -(-skv // block)
+    pad = nb * block - skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kb = k.reshape(b, nb, block, kv, d)
+    vb = v.reshape(b, nb, block, kv, d)
+    rows = row_offset + torch.arange(s, device=qg.device)[
+        None, None, None, :, None]
+
+    m_prev = torch.full((b, kv, r, s, 1), NEG_INF, device=qg.device)
+    l_prev = torch.zeros((b, kv, r, s, 1), device=qg.device)
+    acc = torch.zeros((b, kv, r, s, d), device=qg.device)
+    for bi in range(nb):
+        sc = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb[:, bi]).float() * scale
+        cols = bi * block + torch.arange(block, device=qg.device)[
+            None, None, None, None, :]
+        valid = cols < skv
+        if causal:
+            valid = valid & (cols <= rows)
+        sc = torch.where(valid, sc, NEG_INF)
+        m_new = torch.maximum(m_prev, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m_prev - m_new)
+        l_prev = alpha * l_prev + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bgrqk,bkgd->bgrqd", p.to(qg.dtype), vb[:, bi]).float()
+        m_prev = m_new
+    out = (acc / l_prev).permute(0, 3, 1, 2, 4)   # (B, S, KV, R, D)
+    return out.to(qg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# FFN: SwiGLU (llama-family)
+# ---------------------------------------------------------------------------
+
+def init_swiglu(gen: torch.Generator, d: int, f: int, dtype,
+                device) -> Params:
+    return {
+        "w_gate": _init(gen, (d, f), dtype=dtype, device=device),
+        "w_up": _init(gen, (d, f), dtype=dtype, device=device),
+        "w_down": _init(gen, (f, d), dtype=dtype, device=device),
+    }
+
+
+def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    return (F.silu(g) * u) @ p["w_down"]
+

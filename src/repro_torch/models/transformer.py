@@ -1,0 +1,216 @@
+"""Decoder-only transformer LM, dense family (port of the reference's
+``models/transformer.py``, its dense part).
+
+The parameter tree is the reference's: ``embed``, ``final_norm``,
+``lm_head`` and ``layers``, a list (one entry per layer of a group) of
+trees whose leaves are stacked ``(n_groups, ...)``. The reference's scan
+over groups becomes a Python loop over views of those leaves. KV caches are
+``(n_groups, B, Smax, KV, hd)`` per period slot and are written in place
+(the reference donates them). The MoE and VLM families, which share this
+module in the reference, raise ``NotImplementedError`` (ROADMAP Queue 1,
+item 11).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.compat import to_tensor
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (
+    Params,
+    _init,
+    attention,
+    init_attention,
+    init_swiglu,
+    rms_norm,
+    swiglu,
+)
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
+            f"port serves the dense family (ROADMAP Queue 1, item 11)")
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of matching dict/list trees of tensors."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {key: _tree_map(fn, *(t[key] for t in trees)) for key in t0}
+    if isinstance(t0, (list, tuple)):
+        return [_tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+# ---------------------------------------------------------------------------
+# layer-group structure
+# ---------------------------------------------------------------------------
+
+def group_period(cfg: ModelConfig) -> int:
+    """Layers per group (lcm of the MoE and cross-attn periods)."""
+    p = 1
+    if cfg.n_experts and cfg.moe_every > 1:
+        p = math.lcm(p, cfg.moe_every)
+    if cfg.cross_attn_every:
+        p = math.lcm(p, cfg.cross_attn_every)
+    return p
+
+
+def _layer_kinds(cfg: ModelConfig) -> list[dict]:
+    """Description of each layer within one group."""
+    kinds = []
+    for layer_no in range(group_period(cfg)):
+        is_moe = bool(cfg.n_experts) and (layer_no % cfg.moe_every
+                                          == cfg.moe_every - 1)
+        is_cross = bool(cfg.cross_attn_every) and (
+            layer_no % cfg.cross_attn_every == cfg.cross_attn_every - 1)
+        kinds.append({"moe": is_moe, "cross": is_cross})
+    return kinds
+
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: dict, dtype,
+               device) -> Params:
+    if kind["moe"] or kind["cross"]:
+        raise NotImplementedError(
+            "MoE and cross-attention layers are not ported yet (ROADMAP "
+            "Queue 1, item 11)")
+    return {
+        "norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "attn": init_attention(gen, cfg, dtype, device),
+        "norm2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "ffn": init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype, device),
+    }
+
+
+def apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: dict, *,
+                positions=None, kv_cache=None, cache_pos=None,
+                causal: bool = True, backend: str = "torch"):
+    h, new_cache = attention(
+        p["attn"], rms_norm(x, p["norm"], cfg.norm_eps), cfg,
+        positions=positions, causal=causal, kv_cache=kv_cache,
+        cache_pos=cache_pos, backend=backend)
+    x = x + h
+    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + swiglu(p["ffn"], h2), new_cache
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Params:
+    """Random parameters at the reference's scales, drawn from
+    ``generator`` on ``device`` (which must be the generator's). Each
+    group's layer is drawn, then copied into the stacked leaves, so the
+    peak is the model plus one layer."""
+    _require_dense(cfg)
+    dtype = cfg.torch_dtype
+    kinds = _layer_kinds(cfg)
+    period = len(kinds)
+    n_groups = cfg.n_layers // period
+    assert n_groups * period == cfg.n_layers, \
+        f"n_layers {cfg.n_layers} not divisible by group period {period}"
+
+    layers: list = [None] * period
+    for g in range(n_groups):
+        for i in range(period):
+            layer = init_layer(generator, cfg, kinds[i], dtype, device)
+            if layers[i] is None:
+                layers[i] = _tree_map(
+                    lambda t: t.new_empty((n_groups, *t.shape)), layer)
+            _tree_map(lambda dst, src: dst[g].copy_(src), layers[i], layer)
+            del layer
+    return {
+        "embed": _init(generator, (cfg.vocab_size, cfg.d_model), scale=1.0,
+                       dtype=dtype, device=device),
+        "layers": layers,
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "lm_head": _init(generator, (cfg.d_model, cfg.vocab_size),
+                         dtype=dtype, device=device),
+    }
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device) -> Params:
+    """The reference's parameter tree with float32 numpy leaves (cast bf16
+    JAX arrays to float32 before ``np.asarray``) -> the same tree of
+    tensors in ``cfg.torch_dtype`` on ``device``."""
+    dtype, device = cfg.torch_dtype, torch.device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype != np.float32:
+            raise TypeError(f"params_from_numpy takes float32 leaves, got "
+                            f"{a.dtype}")
+        return to_tensor(a, device, dtype)
+    return _tree_map(leaf, tree)
+
+
+def _groups(params: Params, cfg: ModelConfig):
+    """(group index, [layer params of each period slot]) as views."""
+    period = len(params["layers"])
+    for g in range(cfg.n_layers // period):
+        yield g, [_tree_map(lambda t: t[g], params["layers"][i])
+                  for i in range(period)]
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            positions=None, backend: str = "torch") -> torch.Tensor:
+    """Prefill forward without a cache: (B, S) -> logits (B, S, V)."""
+    _require_dense(cfg)
+    kinds = _layer_kinds(cfg)
+    x = params["embed"][tokens.long()]
+    for _, group in _groups(params, cfg):
+        for i, p in enumerate(group):
+            x, _ = apply_layer(p, x, cfg, kinds[i], positions=positions,
+                               backend=backend)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# KV-cache serving path
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """Per period-slot stacked cache: list of dicts with (G, B, S, KV, hd)."""
+    _require_dense(cfg)
+    period = group_period(cfg)
+    n_groups = cfg.n_layers // period
+    shape = (n_groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
+            for _ in range(period)]
+
+
+def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
+                cfg: ModelConfig, *, backend: str = "torch"):
+    """One token for every sequence: token (B, 1) integers at position
+    ``pos``. Returns (logits (B, V), cache), the cache updated in place.
+    The same path serves prefill: token (B, S_prompt) with pos=0
+    (causality is cache-relative)."""
+    _require_dense(cfg)
+    kinds = _layer_kinds(cfg)
+    pos = int(pos)
+    s = token.shape[1]
+    x = params["embed"][token.long()]
+    positions = pos + torch.arange(s, device=x.device)[None, :]
+    for g, group in _groups(params, cfg):
+        for i, p in enumerate(group):
+            layer_cache = {"k": cache[i]["k"][g], "v": cache[i]["v"][g]}
+            x, _ = apply_layer(p, x, cfg, kinds[i], positions=positions,
+                               kv_cache=layer_cache, cache_pos=pos,
+                               backend=backend)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x[:, -1] @ params["lm_head"], cache
+
+
+def prefill(params: Params, tokens: torch.Tensor, cache, cfg: ModelConfig, *,
+            backend: str = "torch"):
+    """Fill the KV cache from a prompt; returns (last-token logits, cache)."""
+    return decode_step(params, tokens, cache, 0, cfg, backend=backend)

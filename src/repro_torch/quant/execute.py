@@ -27,12 +27,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.compat import to_numpy
+from repro_torch.compat import resolve_backend, to_numpy
 from repro_torch.core.hybrid_conv import (
     ConvSpec,
     DepthwiseSpec,
     FCSpec,
-    check_backend,
     explicit_pads,
 )
 from repro_torch.kernels.gemm.int8 import (
@@ -98,7 +97,7 @@ def qconv2d(x_i8: torch.Tensor, w_i8: torch.Tensor, b_i32: torch.Tensor, *,
             backend: str = "torch") -> torch.Tensor:
     """int8 spatial convolution, NHWC x HWIO -> NHWC int8 (Winograd is
     fp-only: the int8 DSE keeps Winograd plans off quantized builds)."""
-    check_backend(backend)
+    resolve_backend(backend)
     n, h, w, c = x_i8.shape
     r, s, _, k = w_i8.shape
     pads = explicit_pads(padding, h, w, r, s, stride)
@@ -120,7 +119,7 @@ def qconv2d(x_i8: torch.Tensor, w_i8: torch.Tensor, b_i32: torch.Tensor, *,
 def qdense(x_i8: torch.Tensor, w_i8: torch.Tensor, b_i32: torch.Tensor, *,
            mult, relu: bool = False, backend: str = "torch") -> torch.Tensor:
     """int8 FC through the shared GEMM PE (exact int32 accumulation)."""
-    check_backend(backend)
+    resolve_backend(backend)
     if backend == "hopper":
         return quantized_matmul(x_i8, w_i8, b_i32, mult=mult, relu=relu)
     return requantize(exact_int_matmul(x_i8, w_i8) + b_i32.to(torch.int32),

@@ -30,7 +30,11 @@ from repro_torch.core import compiler as t_compiler  # noqa: E402
 from repro_torch.core import executor as t_executor  # noqa: E402
 from repro_torch.core import hybrid_conv as t_hc  # noqa: E402
 from repro_torch.core import perf_model as t_pm  # noqa: E402
-from repro_torch.core.program_cache import ProgramCache  # noqa: E402
+from repro_torch.core.executor import (  # noqa: E402
+    CompiledExecutor,
+    compile_executor,
+)
+from repro_torch.core.program_cache import ProgramCache, cache_key  # noqa: E402
 from repro_torch.core.runtime import HybridRuntime  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.models import vgg as t_vgg  # noqa: E402
@@ -255,9 +259,27 @@ def test_program_cache_keys_and_validation():
     assert cache.stats.hits == 1 and cache.stats.misses == 3
     assert e_t.build_count == 1 and e_h.backend == "hopper"
     with pytest.raises(ValueError, match="unknown backend"):
-        cache.get(t_prog, batch=2, dtype=torch.float32, backend="pallas")
+        cache.get(t_prog, batch=2, dtype=torch.float32, backend="pallas",
+                  device="cpu")
     with pytest.raises(ValueError, match="opt_level"):
-        cache.get(t_prog, batch=2, dtype=torch.float32, opt_level=2)
+        cache.get(t_prog, batch=2, dtype=torch.float32, opt_level=2,
+                  device="cpu")
+
+
+def test_executor_and_cache_take_no_default_device():
+    """Each entry names its device: a default of "cpu" labelled a card's
+    executor as the CPU's (a repair)."""
+    _, _, _, t_prog = _programs(_mixed_plans())
+    with pytest.raises(TypeError, match="device"):
+        ProgramCache().get(t_prog, batch=2, dtype=torch.float32)
+    with pytest.raises(TypeError, match="device"):
+        cache_key(t_prog, batch=2, dtype=torch.float32)
+    with pytest.raises(TypeError, match="device"):
+        compile_executor(t_prog)
+    entry = compile_executor(t_prog, device="cpu")
+    assert entry.device == "cpu"
+    with pytest.raises(TypeError, match="device"):
+        CompiledExecutor(program=t_prog, stats=entry.stats, fn=entry.fn)
 
 
 def test_build_without_device_needs_cuda():

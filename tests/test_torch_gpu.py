@@ -11,7 +11,12 @@ Every case carries the ``gpu`` marker and skips without a card. Tolerance:
 order), ``1e-4 * max|logit|`` on the reduced-VGG16 fp32 logits and
 ``1e-3 * max|logit|`` on the ResNet-18 ones (Winograd against direct
 convolution over 20 layers); every int8 result bit for bit (integer sums
-are exact in any order).
+are exact in any order). K6 (flash attention): fp32 within
+``1e-4 * max(1, max|ref|)``, bf16 element by element within
+``2**-7 * |ref| + 1e-6`` (the kernel and its plain version both compute in
+fp32 and round once to bf16, so they differ by at most one bf16 step); the
+reduced LM's fp32 logits within ``1e-4 * max(1, max|logit|)`` of
+``backend="torch"``.
 """
 import numpy as np
 import pytest
@@ -35,7 +40,17 @@ from repro_torch.kernels.winograd.kernel import (  # noqa: E402
     wino_output_transform_f32,
     wino_output_transform_ref,
 )
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_kernel,
+)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref,
+)
+from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import resnet, vgg  # noqa: E402
+from repro_torch.train import steps  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -128,8 +143,9 @@ def test_gpu_reduced_vgg16_hopper_matches_torch(cuda, opt_level):
     y = acc(x)
     torch.cuda.synchronize()
     # every fp32 kernel, and not the int8 GEMM
-    assert all(n for name, n in common.LAUNCHES.items() if name != "qmm_i8")
-    assert common.LAUNCHES["qmm_i8"] == 0
+    assert all(n for name, n in common.LAUNCHES.items()
+               if name not in ("qmm_i8", "flash_attention"))
+    assert common.LAUNCHES["qmm_i8"] == common.LAUNCHES["flash_attention"] == 0
     y, y_ref = y.cpu().numpy(), ref(x).cpu().numpy()
     assert np.isfinite(y).all()
     assert np.abs(y - y_ref).max() <= 1e-4 * np.abs(y_ref).max()
@@ -214,3 +230,75 @@ def test_gpu_reduced_resnet18_fp32_hopper_matches_torch(cuda, opt_level):
     y, y_ref = acc(x).cpu().numpy(), ref(x).cpu().numpy()
     assert np.isfinite(y).all()
     assert np.abs(y - y_ref).max() <= 1e-3 * np.abs(y_ref).max()
+
+
+# ---------------------------------------------------------------------------
+# K6: flash attention, and the LM serving path
+# ---------------------------------------------------------------------------
+
+FA_GPU_CASES = [
+    # (b, h, hkv, sq, skv, d, causal)
+    (1, 2, 2, 64, 64, 16, True),
+    (2, 4, 2, 100, 100, 64, True),      # ragged, GQA 2
+    (1, 8, 2, 40, 72, 128, True),       # Sq < Skv, GQA 4
+    (2, 4, 1, 333, 517, 64, False),     # ragged, non-causal, GQA 4
+    (1, 4, 4, 130, 70, 128, True),      # Sq > Skv
+    (1, 2, 1, 300, 300, 16, False),
+    (1, 2, 2, 17, 5, 7, True),          # D not a multiple of 4
+]
+
+
+@pytest.mark.parametrize("case", FA_GPU_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_flash_attention(cuda, case, dtype):
+    b, h, hkv, sq, skv, d, causal = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(sum(case[:6]))
+    q = torch.randn(b, h, sq, d, device=cuda, generator=gen).to(dt)
+    k = torch.randn(b, hkv, skv, d, device=cuda, generator=gen).to(dt)
+    v = torch.randn(b, hkv, skv, d, device=cuda, generator=gen).to(dt)
+    before = common.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    ref = flash_attention_ref(q.reshape(b * h, sq, d),
+                              k.reshape(b * hkv, skv, d),
+                              v.reshape(b * hkv, skv, d),
+                              causal=causal).reshape(b, h, sq, d)
+    if dt == torch.float32:
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        assert float((out - ref).abs().max()) <= tol
+    else:
+        diff = (out.float() - ref.float()).abs()
+        assert bool((diff <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
+
+
+def test_gpu_flash_attention_kv_len_and_head_dim_limit(cuda):
+    q, k, v = (torch.randn(2, n, 64, device=cuda) for n in (30, 50, 50))
+    _gpu_close(flash_attention_kernel(q, k, v, causal=False, kv_len=33),
+               flash_attention_ref(q, k, v, causal=False, kv_len=33))
+    big = torch.zeros(2, 8, 160, device=cuda)
+    before = common.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head_dim 160"):
+        flash_attention_kernel(big, big, big)
+    assert common.LAUNCHES["flash_attention"] == before
+
+
+def test_gpu_reduced_lm_hopper_matches_torch(cuda):
+    """Reduced minitron-8b (fp32), a 2048-token prompt: the prefill's
+    attention runs K6 once per layer under hopper, the scan under torch."""
+    cfg = get_config("minitron-8b").reduced()
+    params = steps.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    common.reset_launches()
+    out = serve("minitron-8b", batch=2, prompt_len=2048, gen=4,
+                backend="hopper", device=cuda, params=params)
+    assert common.LAUNCHES["flash_attention"] == cfg.n_layers
+    ref = serve("minitron-8b", batch=2, prompt_len=2048, gen=4,
+                backend="torch", device=cuda, params=params)
+    assert common.LAUNCHES["flash_attention"] == cfg.n_layers
+    y, y_ref = out.prefill_logits, ref.prefill_logits
+    assert torch.isfinite(y).all()
+    tol = 1e-4 * max(1.0, float(y_ref.abs().max()))
+    assert float((y - y_ref).abs().max()) <= tol

@@ -5,7 +5,9 @@ On the CPU every ``hopper`` wrapper runs its kernel's plain version, so
 these cases exercise the wrappers' im2col, tiling, pad and crop arithmetic;
 ``test_torch_gpu.py`` holds the CUDA kernels against the plain versions on
 a card.
-Tolerance: ``rtol=atol=1e-4``, the reference's own fp32 budget.
+Tolerance: ``rtol=atol=1e-4``, the reference's own fp32 budget; for K6
+(flash attention) the reference's own attention budgets, ``rtol=atol=2e-4``
+in fp32 and ``3e-2`` in bf16 (``tests/test_kernels_attention.py``).
 """
 import numpy as np
 import pytest
@@ -15,6 +17,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import winograd as r_wino  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as r_flash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro.kernels.gemm import batched_matmul as r_batched_matmul  # noqa: E402
 from repro.kernels.gemm import matmul as r_matmul  # noqa: E402
 from repro.kernels.gemm.kernel import batched_matmul_kernel  # noqa: E402
@@ -26,6 +30,13 @@ from repro.kernels.winograd import (  # noqa: E402
 )
 from repro_torch.core import winograd as t_wino  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_kernel,
+)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref,
+)
 from repro_torch.kernels.gemm import batched_matmul, matmul  # noqa: E402
 from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref  # noqa: E402
 from repro_torch.kernels.gemm.ref import batched_matmul_ref  # noqa: E402
@@ -206,6 +217,7 @@ def test_cpu_wrappers_launch_no_kernel():
     spatial_conv2d(x, torch.randn(3, 3, 3, 4))
     winograd_apply_pretransformed_hopper(x, torch.randn(6, 6, 3, 4), m=4)
     matmul(torch.randn(2, 3), torch.randn(3, 4))
+    flash_attention(*(torch.randn(1, 2, 5, 8) for _ in range(3)))
     assert common.LAUNCHES == dict.fromkeys(common.KERNELS, 0)
 
 
@@ -291,3 +303,99 @@ def test_on_cpu_checks_each_operands_dtype():
         common.on_cpu("k", f32, f32, dtypes=(torch.int8, torch.float32))
     with pytest.raises(ValueError, match="dtypes"):
         common.on_cpu("k", f32, dtypes=(torch.float32, torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# K6: flash attention (top-left causal mask, kv_len mask, GQA in place)
+# ---------------------------------------------------------------------------
+
+FA_CASES = [
+    # (b, h, hkv, sq, skv, d)
+    (1, 2, 2, 64, 64, 32),
+    (2, 4, 2, 40, 72, 16),       # Sq < Skv: where ref.py and the kernel differ
+    (1, 8, 2, 100, 100, 32),     # GQA 4, ragged
+    (2, 4, 1, 37, 53, 64),       # GQA 4, ragged Sq < Skv
+    (1, 4, 4, 70, 45, 24),       # Sq > Skv
+]
+
+
+def _qkv(rng, b, h, hkv, sq, skv, d, dtype=np.float32):
+    q = rng.standard_normal((b, h, sq, d)).astype(dtype)
+    k = rng.standard_normal((b, hkv, skv, d)).astype(dtype)
+    v = rng.standard_normal((b, hkv, skv, d)).astype(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_pallas_kernel(case, causal):
+    rng = np.random.default_rng(sum(case))
+    q, k, v = _qkv(rng, *case)
+    ref = r_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=causal, bq=32, bk=32, interpret=True)
+    out = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("sq,skv", [(128, 128), (40, 72)])
+def test_flash_attention_bf16_matches_pallas_kernel(sq, skv):
+    rng = np.random.default_rng(sq + skv)
+    q, k, v = _qkv(rng, 1, 4, 2, sq, skv, 64)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    ref = np.asarray(r_flash(jq, jk, jv, bq=64, bk=64, interpret=True),
+                     np.float32)
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+                  for a in (jq, jk, jv))
+    out = flash_attention(tq, tk, tv)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_plain_version_is_top_left_causal_unlike_attention_ref():
+    """Sq == Skv: the port's plain version equals the reference oracle.
+    Sq < Skv: it follows the kernel's top-left mask, and the oracle's
+    bottom-right mask gives another result."""
+    rng = np.random.default_rng(3)
+    for sq, skv, same in ((48, 48, True), (40, 72, False)):
+        q, k, v = (a[0] for a in _qkv(rng, 1, 2, 2, sq, skv, 16))
+        oracle = np.asarray(attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v)))
+        out = flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)))
+        mask = np.tril(np.ones((sq, skv), bool))     # top left: col <= row
+        s = np.einsum("bqd,bkd->bqk", q, k) * 16 ** -0.5
+        s = np.where(mask, s, -1e30)
+        p = np.exp(s - s.max(-1, keepdims=True))
+        top_left = np.einsum("bqk,bkd->bqd", p / p.sum(-1, keepdims=True), v)
+        np.testing.assert_allclose(out.numpy(), top_left, rtol=2e-4,
+                                   atol=2e-4)
+        assert np.allclose(out.numpy(), oracle, atol=2e-4) == same
+
+
+def test_flash_attention_kv_len_masks_padded_columns():
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(a[0]) for a in _qkv(rng, 1, 2, 1, 30, 50, 8))
+    out = flash_attention_kernel(q, k, v, causal=False, kv_len=33)
+    ref = flash_attention_kernel(q, k[:, :33].contiguous(),
+                                 v[:, :33].contiguous(), causal=False)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take():
+    z = torch.zeros
+    with pytest.raises(ValueError, match="head_dim 160"):
+        flash_attention_kernel(z(2, 4, 160), z(2, 4, 160), z(2, 4, 160))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_kernel(*(z(2, 4, 8, dtype=torch.float16),) * 3)
+    with pytest.raises(ValueError, match="do not divide"):
+        flash_attention_kernel(z(3, 4, 8), z(2, 4, 8), z(2, 4, 8))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        flash_attention_kernel(z(2, 4, 8), z(2, 4, 8), z(2, 5, 8))
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_attention_kernel(z(2, 4, 8), z(2, 4, 8), z(2, 4, 8), kv_len=5)
+    with pytest.raises(TypeError, match="expected"):
+        flash_attention_kernel(z(2, 4, 8), z(2, 4, 8).double(), z(2, 4, 8))
+    with pytest.raises(ValueError, match="disagree"):
+        flash_attention(z(1, 4, 8, 16), z(1, 3, 8, 16), z(1, 3, 8, 16))
