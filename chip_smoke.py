@@ -124,7 +124,8 @@ def ptxas_summary(log: str) -> list[str]:
             base = re.search(r"(gemm_f32_kernel|splitk_reduce_kernel|"
                              r"wino_input_kernel|wino_output_kernel|"
                              r"qmm_i8_kernel|qmm_splitk_reduce_kernel|"
-                             r"flash_attention_kernel)", mangled)
+                             r"flash_attention_f32_kernel|"
+                             r"flash_attention_bf16_kernel)", mangled)
             args = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E",
                                                    mangled)]
             if "bfloat16" in mangled:
@@ -201,9 +202,10 @@ def kernel_cases(program, batch: int, dtype: str):
 
 def lm_kernel_cases():
     """K6's calls per request on the LM path (the prefill's shape, once per
-    layer) and three shapes off the path (launches 0): the prefill's shape
-    in fp32, ragged non-causal fp32, and ragged causal bf16 with
-    Sq < Skv."""
+    layer) and four shapes off the path (launches 0): the prefill's shape
+    in fp32, a chunk of half the prompt at row offset 2048 over the same
+    cache (chunked prefill), ragged non-causal fp32, and ragged causal bf16
+    with Sq < Skv."""
     from repro_torch.configs import get_config
     cfg = get_config(LM_ARCH)
     prefill = dict(b=LM_BATCH, h=cfg.n_heads, hkv=cfg.n_kv_heads,
@@ -212,6 +214,8 @@ def lm_kernel_cases():
     return [
         ("flash_attention", "prefill", prefill, cfg.n_layers),
         ("flash_attention", "prefill_fp32", dict(prefill, dtype="fp32"), 0),
+        ("flash_attention", "prefill_chunk", dict(
+            prefill, sq=LM_PROMPT // 2, row_offset=LM_PROMPT // 2), 0),
         ("flash_attention", "ragged_fp32", dict(
             b=1, h=4, hkv=2, sq=333, skv=517, d=64, dtype="fp32",
             causal=False), 0),
@@ -263,19 +267,27 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     if name == "flash_attention":
         b, h, hkv, sq, skv, d = (shape[x] for x in
                                  ("b", "h", "hkv", "sq", "skv", "d"))
-        causal = shape["causal"]
+        causal, off = shape["causal"], shape.get("row_offset", 0)
         dt = torch.bfloat16 if shape["dtype"] == "bf16" else torch.float32
         q = rnd(b, h, sq, d).to(dt)
         k, v = rnd(b, hkv, skv, d).to(dt), rnd(b, hkv, skv, d).to(dt)
         qf, kf, vf = (t.view(-1, t.shape[2], d) for t in (q, k, v))
-        kern = lambda: flash_attention_kernel(qf, kf, vf, causal=causal)
-        plain = lambda: flash_attention_ref(qf, kf, vf, causal=causal)
-        # the yardstick only: SDPA's is_causal is aligned at the top left too
+        kern = lambda: flash_attention_kernel(qf, kf, vf, causal=causal,
+                                              row_offset=off)
+        plain = lambda: flash_attention_ref(qf, kf, vf, causal=causal,
+                                            row_offset=off)
+        # the yardstick only: SDPA's is_causal is aligned at the top left
+        # too; a row offset takes an explicit mask
+        mask = None
+        if causal and off:
+            mask = (torch.arange(skv, device="cuda")[None, :]
+                    <= off + torch.arange(sq, device="cuda")[:, None])
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=h != hkv)
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=h != hkv)
         # 4 D operations (QK^T and PV, a multiply-add each) per unmasked
         # (row, col) pair; each of Q, K, V, O moved once
-        pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
+        pairs = (sum(min(i + 1 + off, skv) for i in range(sq)) if causal
                  else sq * skv)
         ops = 4.0 * d * pairs * b * h
         nbytes = q.element_size() * (2.0 * b * h * sq * d
@@ -356,10 +368,13 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         raise AssertionError(f"{name} {shape}: max|diff| {err:.3e} > {tol:.3e}")
     del y, y_ref
     bound_ms, bound_by = bound(ops, nbytes, peak)
-    return dict(max_abs_err=err, tol=tol, ms=time_ms(kern),
-                plain_ms=time_ms(plain),
+    ms = time_ms(kern)
+    # useful work per second, and the share of the bound the kernel reaches
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=time_ms(plain),
                 library_ms=None if lib is None else time_ms(lib),
-                bound_ms=bound_ms, bound_by=bound_by, **extra)
+                bound_ms=bound_ms, bound_by=bound_by,
+                useful_tflops=ops / ms * 1e-9, bound_share=bound_ms / ms,
+                **extra)
 
 
 def path_specs(path: str):
@@ -667,6 +682,15 @@ def main() -> int:
             r = seen[key]
             print(json.dumps({"kernel": name, "path": path, "layer": layer,
                               **shape, **r}), flush=True)
+            if name == "flash_attention":
+                err = (f"worst element {r['worst_elem_ratio']:.3f} of one "
+                       f"bf16 step" if "worst_elem_ratio" in r else
+                       f"max|diff| {r['max_abs_err']:.2e}")
+                print(f"K6 {layer}: {r['ms']:.3f}ms, "
+                      f"{r['useful_tflops']:.1f} TFLOP/s useful, "
+                      f"{r['bound_share']:.1%} of its bound "
+                      f"({r['bound_ms']:.3f}ms); SDPA {r['library_ms']:.3f}"
+                      f"ms, plain {r['plain_ms']:.3f}ms; {err}", flush=True)
             pk = per_path.setdefault(name, dict.fromkeys(fields, 0.0))
             for f in fields:
                 pk[f] += n * (r[f] or 0.0)

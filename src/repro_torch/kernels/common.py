@@ -50,8 +50,9 @@ _SIGNATURES = {
     "wino_output_transform_f32": (3, 4),  # M, bias, Y; T, K, m, relu
     # A, B, bias, mult, C, workspace; M, K, N, relu
     "qmm_i8": (6, 4),
-    # Q, K, V, O; BH, group, Sq, Skv, D, kv_len, causal, bf16, scale bits
-    "flash_attention": (4, 9),
+    # Q, K, V, O; BH, group, Sq, Skv, D, kv_len, causal, bf16, scale bits,
+    # row offset
+    "flash_attention": (4, 10),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -2,13 +2,16 @@
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py::
 flash_attention_kernel`` (body ``_fa_kernel``): ``(BH, Sq, D)`` queries
-against ``(BH / group, Skv, D)`` keys and values, fp32 running statistics,
-the causal mask aligned at the top left and the ``kv_len`` mask, fp32 or
-bf16 in and out, ``head_dim`` up to 128. The CUDA kernel
-(``csrc/flash_attention.cu``) maps each query head to its KV head itself
-(``bh // group``), so K and V are never repeated in memory, and masks the
-ragged Sq and Skv edges itself, so nothing is padded; its note says what
-bounds it and what the design does about that.
+against ``(BH / group, Skv, D)`` keys and values, fp32 running statistics
+and P, the causal mask aligned at the top left (shifted by ``row_offset``)
+and the ``kv_len`` mask, fp32 or bf16 in and out, ``head_dim`` up to 128.
+The CUDA kernel (``csrc/flash_attention.cu``) maps each query head to its
+KV head itself (``bh // group``), so K and V are never repeated in memory,
+and masks the ragged Sq and Skv edges itself, so nothing is padded. The
+dtype picks its body: bf16 runs on the tensor cores (``wgmma``, P split
+into three bf16 terms so that it stays fp32), fp32 on the FMA pipes (the
+tensor cores would round it to TF32). Its note says what bounds each and
+what the design does about that.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 MAX_HEAD_DIM = 128
 
 
-def _check(q, k, v, kv_len):
+def _check(q, k, v, kv_len, row_offset):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"flash_attention takes (BH, S, D) operands, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -45,24 +48,30 @@ def _check(q, k, v, kv_len):
                         f"{q.dtype}")
     if not 1 <= kv_len <= skv:
         raise ValueError(f"flash_attention: kv_len {kv_len} not in 1..{skv}")
+    if row_offset < 0:
+        raise ValueError(f"flash_attention: row_offset {row_offset} < 0 "
+                         f"leaves rows with no unmasked column")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            scale: float | None = None,
-                           kv_len: int | None = None) -> torch.Tensor:
+                           kv_len: int | None = None,
+                           row_offset: int = 0) -> torch.Tensor:
     """(BH, Sq, D) x (BHkv, Skv, D) -> (BH, Sq, D) in ``q.dtype``.
 
     Query head ``i`` reads KV head ``i // (BH // BHkv)``. Columns at or past
     ``kv_len`` (default Skv) are masked; ``causal`` masks every column
-    above the row (row ``i`` sees columns ``<= i``). ``scale`` defaults to
-    ``D ** -0.5``.
+    above the row shifted by ``row_offset`` (row ``i`` sees columns
+    ``<= i + row_offset``; non-causal calls ignore it). ``scale`` defaults
+    to ``D ** -0.5``.
     """
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
-    _check(q, k, v, kv_len)
+    row_offset = int(row_offset)
+    _check(q, k, v, kv_len, row_offset)
     if on_cpu("flash_attention", q, k, v, dtypes=q.dtype):
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
-                                   kv_len=kv_len)
+                                   kv_len=kv_len, row_offset=row_offset)
     bh, sq, d = q.shape
     bhkv, skv, _ = k.shape
     scale = d ** -0.5 if scale is None else scale
@@ -71,5 +80,5 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     if sq:
         launch("flash_attention", [q, k, v, out],
                [bh, bh // bhkv, sq, skv, d, kv_len, causal,
-                q.dtype == torch.bfloat16, scale_bits])
+                q.dtype == torch.bfloat16, scale_bits, row_offset])
     return out

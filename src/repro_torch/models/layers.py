@@ -7,9 +7,9 @@ reference's ``shard(...)`` constraints are dropped: the port runs on one
 device. At 2048 query tokens and more, attention takes the reference's
 long-sequence branch, where ``backend`` picks the implementation:
 ``"torch"`` runs the port of ``_flash_attention_scan``, ``"hopper"`` runs
-K6 (``kernels/flash_attention``), whose causal mask is aligned at row 0.
-Below 2048 both backends run the reference's einsum branch, which is no
-Pallas kernel. MoE, the GELU MLP and cross-attention are not ported yet
+K6 (``kernels/flash_attention``) with the causal mask shifted by the
+chunk's row offset, as the scan's. Below 2048 both backends run the
+reference's einsum branch, which is no Pallas kernel. MoE, the GELU MLP and cross-attention are not ported yet
 (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
@@ -133,14 +133,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     row_offset = (cache_pos if (kv_cache is not None and cache_pos is not None)
                   else (skv - s if causal else 0))
     if s >= LONG_SEQ and backend == "hopper":
-        if causal and row_offset != 0:
-            raise NotImplementedError(
-                f"backend='hopper' attention over {s} queries at row offset "
-                f"{row_offset}: K6's causal mask is aligned at row 0 (the "
-                f"prefill of a prompt from position 0); a long chunk past "
-                f"position 0 is not supported (ROADMAP Queue 2, item 6)")
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal)
+                              v.transpose(1, 2), causal=causal,
+                              row_offset=row_offset)
         out = out.transpose(1, 2)                     # (B, S, H, hd)
     elif s >= LONG_SEQ:
         out = _flash_attention_scan(qg, k, v, causal=causal,

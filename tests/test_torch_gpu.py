@@ -237,7 +237,7 @@ def test_gpu_reduced_resnet18_fp32_hopper_matches_torch(cuda, opt_level):
 # ---------------------------------------------------------------------------
 
 FA_GPU_CASES = [
-    # (b, h, hkv, sq, skv, d, causal)
+    # (b, h, hkv, sq, skv, d, causal[, row_offset])
     (1, 2, 2, 64, 64, 16, True),
     (2, 4, 2, 100, 100, 64, True),      # ragged, GQA 2
     (1, 8, 2, 40, 72, 128, True),       # Sq < Skv, GQA 4
@@ -245,27 +245,32 @@ FA_GPU_CASES = [
     (1, 4, 4, 130, 70, 128, True),      # Sq > Skv
     (1, 2, 1, 300, 300, 16, False),
     (1, 2, 2, 17, 5, 7, True),          # D not a multiple of 4
+    (2, 4, 2, 150, 260, 8, True),       # D 8: whole 16-byte rows
+    (1, 8, 2, 300, 1100, 128, True, 700),   # a chunk at row offset 700
+    (1, 4, 1, 2048, 2100, 128, True),   # long rows: 33 KV steps, GQA 4
+    (1, 2, 1, 2048, 4112, 128, True, 2048),  # a long chunk past 0
 ]
 
 
 @pytest.mark.parametrize("case", FA_GPU_CASES, ids=str)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gpu_flash_attention(cuda, case, dtype):
-    b, h, hkv, sq, skv, d, causal = case
+    b, h, hkv, sq, skv, d, causal, *rest = case
+    row_offset = rest[0] if rest else 0
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(sum(case[:6]))
     q = torch.randn(b, h, sq, d, device=cuda, generator=gen).to(dt)
     k = torch.randn(b, hkv, skv, d, device=cuda, generator=gen).to(dt)
     v = torch.randn(b, hkv, skv, d, device=cuda, generator=gen).to(dt)
     before = common.LAUNCHES["flash_attention"]
-    out = flash_attention(q, k, v, causal=causal)
+    out = flash_attention(q, k, v, causal=causal, row_offset=row_offset)
     torch.cuda.synchronize()
     assert common.LAUNCHES["flash_attention"] == before + 1
     assert out.dtype == dt and out.shape == q.shape
     ref = flash_attention_ref(q.reshape(b * h, sq, d),
                               k.reshape(b * hkv, skv, d),
-                              v.reshape(b * hkv, skv, d),
-                              causal=causal).reshape(b, h, sq, d)
+                              v.reshape(b * hkv, skv, d), causal=causal,
+                              row_offset=row_offset).reshape(b, h, sq, d)
     if dt == torch.float32:
         tol = 1e-4 * max(1.0, float(ref.abs().max()))
         assert float((out - ref).abs().max()) <= tol

@@ -28,6 +28,7 @@ from repro.kernels.winograd import output_transform as r_output_tf  # noqa: E402
 from repro.kernels.winograd import (  # noqa: E402
     winograd_apply_pretransformed_pallas as r_wino_apply,
 )
+from repro.models import layers as r_layers  # noqa: E402
 from repro_torch.core import winograd as t_wino  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -374,6 +375,65 @@ def test_plain_version_is_top_left_causal_unlike_attention_ref():
         assert np.allclose(out.numpy(), oracle, atol=2e-4) == same
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("row_offset", [0, 5, 40])
+def test_plain_version_with_row_offset_matches_reference_scan(row_offset,
+                                                              causal):
+    """The causal mask shifted by ``row_offset`` (a chunk whose first
+    position is ``row_offset``) against the reference's scan-flash, in its
+    grouped layout; non-causal calls ignore the offset."""
+    rng = np.random.default_rng(11 + row_offset)
+    b, s, g, r, d, skv = 2, 24, 2, 2, 16, 70
+    qg = rng.standard_normal((b, s, g, r, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, g, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, g, d)).astype(np.float32)
+    ref = r_layers._flash_attention_scan(
+        jnp.asarray(qg), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        row_offset=row_offset, block=16)
+    # the kernel's layout: query head g * r + i of batch b at b * H + ...
+    q_bh = torch.from_numpy(qg.transpose(0, 2, 3, 1, 4).reshape(-1, s, d))
+    k_bh, v_bh = (torch.from_numpy(a.transpose(0, 2, 1, 3).reshape(-1, skv, d))
+                  for a in (k, v))
+    for fn in (flash_attention_ref, flash_attention_kernel):
+        out = fn(q_bh, k_bh, v_bh, causal=causal, row_offset=row_offset)
+        out = out.reshape(b, g, r, s, d).permute(0, 3, 1, 2, 4)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _bf16_terms(p: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """fp32 ``p`` as ``n`` bf16 terms, each the bf16 rounding of what the
+    earlier terms leave (the split the bf16 kernel makes of P)."""
+    terms = []
+    for _ in range(n):
+        terms.append(p.bfloat16().float())
+        p = p - terms[-1]
+    return terms
+
+
+@pytest.mark.parametrize("n_terms,within_one_step", [(2, False), (3, True)])
+def test_bf16_kernel_needs_p_in_three_bf16_terms(n_terms, within_one_step):
+    """The bf16 kernel multiplies P V on bf16 tensor cores into fp32, and
+    the reference's P is fp32. Emulated here with exact products: P in
+    three bf16 terms keeps every output within one bf16 step of the plain
+    version; in two (16 bits of P) short causal rows whose output is near
+    0 leave it."""
+    rng = np.random.default_rng(0)
+    bh, sq, d = 64, 64, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, sq, d),
+                                                    dtype=np.float32))
+               .bfloat16() for _ in range(3))
+    ref = flash_attention_ref(q, k, v).float()
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * d ** -0.5
+    s = torch.where(torch.ones(sq, sq, dtype=torch.bool).tril(), s, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    acc = sum(torch.einsum("bqk,bkd->bqd", t.double(), v.double())
+              for t in _bf16_terms(p, n_terms))
+    out = (acc / p.double().sum(-1, keepdim=True)).float().bfloat16().float()
+    ratio = float(((out - ref).abs() / (2.0 ** -7 * ref.abs() + 1e-6)).max())
+    assert (ratio <= 1.0) == within_one_step, ratio
+
+
 def test_flash_attention_kv_len_masks_padded_columns():
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(a[0]) for a in _qkv(rng, 1, 2, 1, 30, 50, 8))
@@ -395,6 +455,9 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take():
         flash_attention_kernel(z(2, 4, 8), z(2, 4, 8), z(2, 5, 8))
     with pytest.raises(ValueError, match="kv_len"):
         flash_attention_kernel(z(2, 4, 8), z(2, 4, 8), z(2, 4, 8), kv_len=5)
+    with pytest.raises(ValueError, match="row_offset -1"):
+        flash_attention_kernel(z(2, 4, 8), z(2, 4, 8), z(2, 4, 8),
+                               row_offset=-1)
     with pytest.raises(TypeError, match="expected"):
         flash_attention_kernel(z(2, 4, 8), z(2, 4, 8).double(), z(2, 4, 8))
     with pytest.raises(ValueError, match="disagree"):

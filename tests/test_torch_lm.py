@@ -110,21 +110,48 @@ def test_rms_norm_and_rope_match_reference():
            rel=1e-5)
 
 
-def test_hopper_long_attention_past_position_0_raises():
-    cfg = get_config(ARCH).reduced()
-    gen = torch.Generator().manual_seed(0)
-    p = layers.init_attention(gen, cfg, torch.float32, "cpu")
-    x = torch.randn(1, layers.LONG_SEQ, cfg.d_model, generator=gen)
-    cache_shape = (1, layers.LONG_SEQ + 8, cfg.n_kv_heads, cfg.head_dim)
-    cache = {"k": torch.zeros(cache_shape), "v": torch.zeros(cache_shape)}
-    with pytest.raises(NotImplementedError, match="aligned at row 0"):
-        layers.attention(p, x, cfg, kv_cache=cache, cache_pos=5,
-                         backend="hopper")
-    out, _ = layers.attention(p, x, cfg, kv_cache=cache, cache_pos=5,
-                              backend="torch")
-    assert out.shape == x.shape and torch.isfinite(out).all()
+@pytest.mark.parametrize("backend", ["hopper", "torch"])
+@pytest.mark.parametrize("cache_pos", [5, 2048])
+def test_hopper_long_attention_past_position_0_matches_reference(
+        monkeypatch, cache_pos, backend):
+    """A causal chunk of 2048 queries written into a filled cache at
+    ``cache_pos`` (chunked prefill, or a long suffix appended to a cache):
+    ``hopper`` runs K6 (its plain version here) with the row offset,
+    ``torch`` the scan; both against the reference's attention with the
+    same cache, in fp32 (where the scan's bf16 rounding of P is a no-op)."""
+    r_cfg, cfg = r_get_config(ARCH).reduced(), get_config(ARCH).reduced()
+    rng = np.random.default_rng(cache_pos)
+    s, kv, hd = layers.LONG_SEQ, cfg.n_kv_heads, cfg.head_dim
+    np_p = jax.tree.map(lambda a: np.array(a, np.float32),
+                        r_layers.init_attention(jax.random.PRNGKey(1), r_cfg,
+                                                jnp.float32))
+    x = rng.standard_normal((1, s, cfg.d_model)).astype(np.float32)
+    pos = (cache_pos + np.arange(s, dtype=np.int32))[None]
+    ck, cv = (rng.standard_normal((1, cache_pos + s + 8, kv, hd))
+              .astype(np.float32) for _ in range(2))
+    ref, ref_cache = r_layers.attention(
+        jax.tree.map(jnp.asarray, np_p), jnp.asarray(x), r_cfg,
+        positions=jnp.asarray(pos),
+        kv_cache={"k": jnp.asarray(ck), "v": jnp.asarray(cv)},
+        cache_pos=cache_pos)
+    k6 = _counting(monkeypatch, "flash_attention")
+    p = {name: torch.from_numpy(a) for name, a in np_p.items()}
+    cache = {"k": torch.from_numpy(ck.copy()),
+             "v": torch.from_numpy(cv.copy())}
+    out, cache = layers.attention(p, torch.from_numpy(x), cfg,
+                                  positions=torch.from_numpy(pos),
+                                  kv_cache=cache, cache_pos=cache_pos,
+                                  backend=backend)
+    assert len(k6) == (1 if backend == "hopper" else 0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache[name].numpy(),
+                                   np.asarray(ref_cache[name]), rtol=1e-5,
+                                   atol=1e-5)
     with pytest.raises(ValueError, match="unknown backend"):
-        layers.attention(p, x[:, :4], cfg, backend="pallas")
+        layers.attention(p, torch.from_numpy(x[:, :4]), cfg,
+                         backend="pallas")
 
 
 # ---------------------------------------------------------------------------
