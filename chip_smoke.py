@@ -6,7 +6,9 @@ Builds the hand-written Hopper kernels from ``src/repro_torch/csrc``, holds
 each kernel against its plain PyTorch version at every shape the main paths
 give it (fp32 within ``1e-4 * max(1, max|ref|)``, K5 bit for bit, K6 in
 bf16 element by element within ``2**-7 * |ref| + 1e-6``, one bf16 step;
-and times kernel, plain version and the nearest single PyTorch call),
+K1/K2 must take the tensor-core route, 3xTF32, at every call with M >= 64
+and K, N multiples of 4; and times kernel, plain version and the nearest
+single PyTorch call),
 then serves four main paths through ``repro_torch.api.Accelerator`` with
 ``backend="hopper"``, batch 8, ``pm.V5E`` plans:
 
@@ -34,7 +36,9 @@ within ``5e-2 * max|logit|``. Any failure raises and exits non-zero;
 without a CUDA card, or without the repository beside it, the script exits
 non-zero before printing any result.
 
-Output: the card's name and power limit, one JSON line per (kernel, layer),
+Output: the card's name and power limit, one JSON line per (kernel, layer)
+(for K1/K2 with its ``route``, its bound at three TF32 products per product,
+and ``fma_bound_ms``, the bound on the fp32 FMA pipes),
 the timings of each path (for the LM also a ``torch.profiler`` breakdown
 of one prefill and one decode step: device busy time and the longest
 kernels), a ``{"kernels": [...]}`` summary line, and as the last line
@@ -54,9 +58,10 @@ import numpy as np
 import torch
 
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense bf16 and int8 on the tensor cores, and HBM3 bandwidth; they
-# assume the 700 W power limit
+# cores, dense TF32, bf16 and int8 on the tensor cores, and HBM3 bandwidth;
+# they assume the 700 W power limit
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
@@ -121,7 +126,8 @@ def ptxas_summary(log: str) -> list[str]:
     for line in log.splitlines():
         if m := re.search(r"entry function '(\w+)'", line):
             mangled = m.group(1)
-            base = re.search(r"(gemm_f32_kernel|splitk_reduce_kernel|"
+            base = re.search(r"(gemm_f32_kernel|gemm_tc_kernel|"
+                             r"splitk_reduce_kernel|"
                              r"wino_input_kernel|wino_output_kernel|"
                              r"qmm_i8_kernel|qmm_splitk_reduce_kernel|"
                              r"flash_attention_f32_kernel|"
@@ -139,6 +145,13 @@ def ptxas_summary(log: str) -> list[str]:
                        f"spilled")
             name, spill = None, "?"
     return out
+
+
+def ptxas_warnings(log: str) -> list[str]:
+    """``nvcc``'s warnings about the build, such as ptxas serializing the
+    wgmma of a kernel (which costs the tensor cores their overlap)."""
+    return [line.strip() for line in log.splitlines()
+            if "warning" in line.lower() or "performance loss" in line.lower()]
 
 
 def time_ms(fn, reps: int = KERNEL_REPS) -> float:
@@ -241,6 +254,7 @@ def int_mm_padded(a: torch.Tensor, b: torch.Tensor):
 
 def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     """Kernel vs plain version on the card at one shape; times all three."""
+    from repro_torch.kernels import common
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_kernel,
     )
@@ -264,6 +278,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     lib, peak, exact, rel = None, PEAK_FP32_FLOPS, False, 1e-4
     elementwise = False
     extra = {}
+    gemm = None      # (M, K, N) of a K1/K2 call
     if name == "flash_attention":
         b, h, hkv, sq, skv, d = (shape[x] for x in
                                  ("b", "h", "hkv", "sq", "skv", "d"))
@@ -320,6 +335,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         lib = lambda: torch.addmm(b, p, w)   # bias + GEMM (ReLU not fused)
         ops = 2.0 * t * crs * k
         nbytes = 4.0 * (t * crs + crs * k + k + t * k)
+        gemm = (t, crs, k)
     elif name == "bmm_f32":
         g, m, k, n, df = (shape[x] for x in ("g", "m", "k", "n", "df"))
         a, bm = rnd(g, m, k), rnd(g, k, n)
@@ -328,6 +344,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         lib = lambda: torch.bmm(a, bm)
         ops = 2.0 * g * m * k * n
         nbytes = 4.0 * (g * m * k + g * k * n + g * m * n)
+        gemm = (m, k, n)
     elif name == "wino_input_transform_f32":
         t, c, m = shape["t"], shape["c"], shape["m"]
         pt = m + 2
@@ -346,6 +363,15 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         nbytes = 4.0 * (pt * pt * t * k + k + t * m * m * k)
     y, y_ref = kern(), plain()
     torch.cuda.synchronize()
+    if gemm is not None:
+        # the tensor cores take every call with M >= 64 and K, N multiples
+        # of 4 (these operands are 16-byte aligned); the FMA body the rest
+        m_, k_, n_ = gemm
+        expected_tc = m_ >= 64 and k_ % 4 == 0 and n_ % 4 == 0
+        route = common.last_route(name)
+        if (route == "tc3xtf32") != expected_tc:
+            raise AssertionError(f"{name} {shape}: route {route}")
+        extra["route"] = route
     if exact:
         err = float((y.int() - y_ref.int()).abs().max())
         tol = 0.0
@@ -367,7 +393,13 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     if tol is not None and not err <= tol:
         raise AssertionError(f"{name} {shape}: max|diff| {err:.3e} > {tol:.3e}")
     del y, y_ref
-    bound_ms, bound_by = bound(ops, nbytes, peak)
+    if gemm is not None:
+        # an fp32-accurate product on the tensor cores takes three TF32
+        # products (3xTF32); the bound on the fp32 FMA pipes beside it
+        bound_ms, bound_by = bound(3.0 * ops, nbytes, PEAK_TF32_FLOPS)
+        extra["fma_bound_ms"] = bound(ops, nbytes, PEAK_FP32_FLOPS)[0]
+    else:
+        bound_ms, bound_by = bound(ops, nbytes, peak)
     ms = time_ms(kern)
     # useful work per second, and the share of the bound the kernel reaches
     return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=time_ms(plain),
@@ -651,6 +683,8 @@ def main() -> int:
           f"{Path(lib_path).name}", flush=True)
     for line in ptxas_summary(common.BUILD_LOG):
         print(f"ptxas: {line}", flush=True)
+    for line in ptxas_warnings(common.BUILD_LOG):
+        print(f"nvcc: {line}", flush=True)
 
     # -- phase 2: every kernel at every main-path shape vs its plain version --
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -77,6 +77,8 @@
 
 #include <type_traits>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 constexpr int kMaxD = 128;
@@ -323,86 +325,10 @@ constexpr int kWarpgroup = 128;          // threads of one warpgroup
 constexpr int kTcThreads = 2 * kWarpgroup;
 constexpr int kPSteps = kTileKV / 16;    // k16 steps of P V
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk c (8 bf16 along D) of row r in a tile of
-// `rows` rows: D splits into 64-column halves of rows x 128 bytes, and in a
-// half chunk c of row r sits at chunk c ^ (r % 8), the 128-byte swizzle
-// (tiles start 1024-byte aligned).
-__device__ __forceinline__ uint32_t swizzled(int rows, int r, int c) {
-  return static_cast<uint32_t>((c >> 3) * rows * 128 + r * 128 +
-                               (((c & 7) ^ (r & 7)) << 4));
-}
-
-// A wgmma shared-memory descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets (16-byte units).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// K-major tile (rows along M or N, D contiguous): 8-row groups 1024 bytes
-// apart; the leading offset is unused under the swizzle.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return smem_desc(addr, 16, 1024);
-}
-
 // The V tile as the B operand of P V, MN-major (D contiguous): 8 KV rows
 // (along K) 1024 bytes apart, 64-column halves of D kTileKV * 128 apart.
 __device__ __forceinline__ uint64_t vtile_desc(uint32_t addr) {
   return smem_desc(addr, kTileKV * 128, 1024);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// this thread's shared-memory writes become visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N of this warpgroup's wgmma groups are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma still reads or writes across this point.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // D (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), A and B bf16 in shared
@@ -527,14 +453,6 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t& t1,
   x -= bf16_lo(t2);
   y -= bf16_hi(t2);
   t3 = bf16x2_bits(x, y);
-}
-
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a,
-                                             uint32_t b, uint32_t c,
-                                             uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(a), "r"(b), "r"(c), "r"(d)
-               : "memory");
 }
 
 // rows [row0, row0 + ROWS) of a (n_rows, d) bf16 matrix into a swizzled

@@ -17,6 +17,7 @@ nothing else touches the counts except :func:`reset_launches`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,6 +33,13 @@ KERNELS = ("conv_gemm_f32", "bmm_f32", "wino_input_transform_f32",
 
 # launches per kernel since the last reset_launches()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+# the routes of the fp32 GEMM body (csrc/gemm_f32.cu), by gemm_f32_route's
+# code
+GEMM_ROUTES = ("fma", "fma_splitk", "tc3xtf32")
+# the operands' addresses and sizes of the last launch of each fp32 GEMM
+# entry, from which last_route() names the route it took
+_LAST_GEMM: dict[str, tuple] = {}
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -57,7 +65,9 @@ _SIGNATURES = {
 
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()
-BUILD_LOG = ""          # nvcc's output (-Xptxas -v) from the last build
+# nvcc's output (-Xptxas -v) from the build of the loaded library, kept
+# beside it, so a later process that finds the library built reads it too
+BUILD_LOG = ""
 
 
 def cdiv(a: int, b: int) -> int:
@@ -97,7 +107,10 @@ def build_library() -> Path:
     and link them into the digest-keyed shared library; return its path."""
     global BUILD_LOG
     lib_path = BUILD_DIR / f"libhybriddnn_hopper_{source_digest()}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
+        if log_path.exists():
+            BUILD_LOG = log_path.read_text()
         return lib_path
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -127,8 +140,11 @@ def build_library() -> Path:
             capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        BUILD_LOG = "".join(log)
+        tmp_log = Path(tmp) / log_path.name
+        tmp_log.write_text(BUILD_LOG)
+        os.replace(tmp_log, log_path)
         os.replace(tmp_lib, lib_path)   # atomic: concurrent builds agree
-    BUILD_LOG = "".join(log)
     return lib_path
 
 
@@ -144,6 +160,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.gemm_f32_workspace.argtypes = [_I] * 5
             lib.gemm_f32_workspace.restype = _I
+            lib.gemm_f32_route.argtypes = [_P] * 4 + [_I] * 5
+            lib.gemm_f32_route.restype = ctypes.c_int
             lib.qmm_i8_workspace.argtypes = [_I] * 4
             lib.qmm_i8_workspace.restype = _I
             lib.hybriddnn_error_string.argtypes = [ctypes.c_int]
@@ -182,14 +200,40 @@ def on_cpu(name: str, *tensors: torch.Tensor | None,
     return False
 
 
+@functools.lru_cache(maxsize=1024)
+def _gemm_workspace_floats(g: int, m: int, k: int, n: int, index: int) -> int:
+    return library().gemm_f32_workspace(g, m, k, n, index)
+
+
 def gemm_workspace(g: int, m: int, k: int, n: int,
                    device: torch.device) -> torch.Tensor | None:
     """The split-K scratch the GEMM kernel needs for a (G, M, K, N) product
     on ``device``, or None when it does not split K."""
-    size = library().gemm_f32_workspace(g, m, k, n, device.index)
+    size = _gemm_workspace_floats(g, m, k, n, device.index)
     if size == 0:
         return None
     return torch.empty(size, dtype=torch.float32, device=device)
+
+
+def launch_gemm(name: str, tensors: list[torch.Tensor | None],
+                sizes: list[int], g: int, m: int, k: int, n: int) -> None:
+    """Launch an fp32 GEMM entry (``conv_gemm_f32`` or ``bmm_f32``; its
+    tensors A, B, bias, out, workspace) and keep what decides its route
+    (shape and alignment) for :func:`last_route`."""
+    launch(name, tensors, sizes)
+    a, b, _, out, ws = tensors
+    _LAST_GEMM[name] = (a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                        None if ws is None else ws.data_ptr(), g, m, k, n,
+                        a.device.index)
+
+
+def last_route(name: str) -> str | None:
+    """The route (``GEMM_ROUTES``) of the last launch of fp32 GEMM entry
+    ``name`` (``conv_gemm_f32`` or ``bmm_f32``), as the kernel library
+    decides it; None before the first launch."""
+    if name not in _LAST_GEMM:
+        return None
+    return GEMM_ROUTES[library().gemm_f32_route(*_LAST_GEMM[name])]
 
 
 def qmm_workspace(m: int, k: int, n: int,

@@ -19,13 +19,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import statistics
 import struct
 import subprocess
 
 import torch
 
-from repro_torch.kernels import common
+from repro_torch.kernels import common, variants
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 SOURCE = common.CSRC_DIR / "flash_attention.cu"
@@ -84,56 +83,31 @@ VARIANTS = {
 
 def variant_source(name: str) -> str:
     src = SOURCE.read_text()
-    for passage, replacement in VARIANTS[name][1]:
+    passages = VARIANTS[name][1]
+    for passage, replacement in passages:
         if passage is None:
             src = src.replace("expf(", replacement)
-            continue
-        if src.count(passage) != 1:
-            raise RuntimeError(f"variant {name}: passage not found once in "
-                               f"{SOURCE.name}:\n{passage}")
-        src = src.replace(passage, replacement)
-    return src
+    return variants.replace_passages(
+        src, [p for p in passages if p[0] is not None],
+        f"variant {name} of {SOURCE.name}")
 
 
 def build(names: list[str]) -> dict[str, ctypes.CDLL]:
     """The committed source and each variant, one nvcc each, in parallel."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, jobs = common._nvcc(), {}
-    for name in names:
-        cu = OUT_DIR / f"{name}.cu"
-        cu.write_text(SOURCE.read_text() if name == "committed"
-                      else variant_source(name))
-        jobs[name] = subprocess.Popen(
-            [nvcc, *common.NVCC_FLAGS, "-shared", str(cu), "-o",
-             str(cu.with_suffix(".so"))],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    built = variants.compile_sources(
+        {name: SOURCE.read_text() if name == "committed"
+         else variant_source(name) for name in names}, OUT_DIR)
     libs = {}
-    for name, proc in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
-        lib = ctypes.CDLL(str(OUT_DIR / f"{name}.so"))
+    for name, (so, log) in built.items():
+        if so is None:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        lib = ctypes.CDLL(str(so))
         fn = lib.flash_attention
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 11
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
-
-
-def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def main(argv=None) -> int:
@@ -174,7 +148,7 @@ def main(argv=None) -> int:
         run(libs[name])
         torch.cuda.synchronize()
         ratio = float(((out.float() - ref).abs() / lim).max())
-        ms = time_ms(lambda: run(libs[name]), args.reps)
+        ms = variants.time_ms(lambda: run(libs[name]), args.reps)
         what = VARIANTS[name][0] if name in VARIANTS else "as committed"
         print(f"{name}: {ms:.3f} ms, {ops / ms * 1e-9:.1f} TFLOP/s useful, "
               f"worst element {ratio:.3f} of one bf16 step ({what})",

@@ -4,15 +4,18 @@ Replaces ``src/repro/kernels/gemm/kernel.py::batched_matmul_kernel``:
 ``(G, M, K) @ (G, K, N)`` with fp32 accumulation and an optional ``(G, N)``
 bias plus ReLU. On the main path it is the PT^2-batched Winograd GEMM
 (G = 36) and, with G = 1, every FC layer. The CUDA kernel
-(``csrc/gemm_f32.cu``, shared with K1) masks ragged edges itself, so
-nothing is padded; its note says what bounds it and what the design does
-about that.
+(``csrc/gemm_f32.cu``, shared with K1) runs 3xTF32 on the tensor cores
+(``wgmma``) where M >= 64, K and N are multiples of 4 and the operands
+16-byte aligned (the Winograd GEMMs), and the fp32 FMA pipes else (the
+M = 8 FC layers); ``common.last_route`` names the route of the last launch.
+It masks ragged edges itself, so nothing is padded; its note says what
+bounds it and what the design does about that.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import gemm_workspace, launch, on_cpu
+from repro_torch.kernels.common import gemm_workspace, launch_gemm, on_cpu
 
 
 def bmm_ref(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
@@ -47,7 +50,7 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
         return bmm_ref(a, b, bias, relu, dataflow)
     out = torch.empty((g, m, n), dtype=torch.float32, device=a.device)
     if out.numel():
-        launch("bmm_f32", [a, b, bias, out,
-                           gemm_workspace(g, m, k, n, a.device)],
-               [g, m, k, n, relu, dataflow == "ws"])
+        launch_gemm("bmm_f32", [a, b, bias, out,
+                                gemm_workspace(g, m, k, n, a.device)],
+                    [g, m, k, n, relu, dataflow == "ws"], g, m, k, n)
     return out

@@ -3,15 +3,18 @@
 Replaces ``src/repro/kernels/spatial_conv/kernel.py::conv_gemm_kernel``:
 ``(T, C*R*S) @ (C*R*S, K)`` with fp32 accumulation and the bias add plus
 optional ReLU fused at the store. The CUDA kernel lives in
-``csrc/gemm_f32.cu`` and shares its templated body with K2; its note says
-what bounds it and what the design does about that. The IS/WS dataflow maps
-to the raster order of output tiles and changes no numbers.
+``csrc/gemm_f32.cu`` and shares its bodies with K2: 3xTF32 on the tensor
+cores (``wgmma``) where M >= 64, CRS and K are multiples of 4 and the
+operands 16-byte aligned, the fp32 FMA pipes else (K = 27 of the first
+CONV); ``common.last_route`` names the route of the last launch. Its note
+says what bounds it and what the design does about that. The IS/WS dataflow
+maps to the raster order of output tiles and changes no numbers.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import gemm_workspace, launch, on_cpu
+from repro_torch.kernels.common import gemm_workspace, launch_gemm, on_cpu
 
 
 def conv_gemm_ref(patches: torch.Tensor, weights: torch.Tensor,
@@ -46,7 +49,8 @@ def conv_gemm_f32(patches: torch.Tensor, weights: torch.Tensor,
         return conv_gemm_ref(patches, weights, bias, relu, dataflow)
     out = torch.empty((t, k), dtype=torch.float32, device=patches.device)
     if out.numel():
-        launch("conv_gemm_f32", [patches, weights, bias, out,
-                                 gemm_workspace(1, t, crs, k, patches.device)],
-               [t, crs, k, relu, dataflow == "ws"])
+        launch_gemm("conv_gemm_f32",
+                    [patches, weights, bias, out,
+                     gemm_workspace(1, t, crs, k, patches.device)],
+                    [t, crs, k, relu, dataflow == "ws"], 1, t, crs, k)
     return out

@@ -8,8 +8,9 @@ card host that has only PyTorch:
 
 Every case carries the ``gpu`` marker and skips without a card. Tolerance:
 ``1e-4 * max(1, max|ref|)`` per fp32 kernel (fp32 sums taken in another
-order), ``1e-4 * max|logit|`` on the reduced-VGG16 fp32 logits and
-``1e-3 * max|logit|`` on the ResNet-18 ones (Winograd against direct
+order; for K1/K2 on the tensor cores also the 3xTF32 split, which leaves
+about 2**-22 of each product), ``1e-4 * max|logit|`` on the reduced-VGG16
+fp32 logits and ``1e-3 * max|logit|`` on the ResNet-18 ones (Winograd against direct
 convolution over 20 layers); every int8 result bit for bit (integer sums
 are exact in any order). K6 (flash attention): fp32 within
 ``1e-4 * max(1, max|ref|)``, bf16 element by element within
@@ -78,26 +79,56 @@ def _misaligned(*shape, device):
     return torch.randn(n + 1, device=device)[1:].view(*shape)
 
 
-@pytest.mark.parametrize("t,crs,k", [(37, 5, 3), (1000, 27, 64),
-                                     (300, 1152, 130)])
-def test_gpu_conv_gemm(cuda, t, crs, k):
+# (shape, the route the kernel takes for 16-byte aligned operands): every
+# route of csrc/gemm_f32.cu. tc3xtf32 where M >= 64 and K, N are multiples
+# of 4 (here with M not a multiple of 64, N not one of the tile, K not one of
+# the 32-float slab, BN 64 and 128, split K), the FMA body else (K = 27,
+# M < 64, N % 4 != 0, the M = 8 FC layers).
+CONV_GEMM_CASES = [
+    pytest.param(37, 5, 3, "fma", id="37-5-3"),
+    pytest.param(1000, 27, 64, "fma", id="1000-27-64"),
+    pytest.param(300, 1152, 130, "fma_splitk", id="300-1152-130"),
+    pytest.param(20000, 64, 68, "tc3xtf32", id="20000-64-68"),
+    pytest.param(9000, 36, 60, "tc3xtf32", id="9000-36-60"),
+    pytest.param(300, 1152, 196, "tc3xtf32", id="300-1152-196"),
+    pytest.param(1568, 4608, 512, "tc3xtf32", id="1568-4608-512"),
+]
+
+
+@pytest.mark.parametrize("t,crs,k,route", CONV_GEMM_CASES)
+def test_gpu_conv_gemm(cuda, t, crs, k, route):
     p, w, b = (torch.randn(*s, device=cuda) for s in ((t, crs), (crs, k), (k,)))
     before = common.LAUNCHES["conv_gemm_f32"]
     for relu, df in [(True, "is"), (False, "ws")]:
         _gpu_close(conv_gemm_f32(p, w, b, relu, df),
                    conv_gemm_ref(p, w, b, relu, df))
+        assert common.last_route("conv_gemm_f32") == route
     assert common.LAUNCHES["conv_gemm_f32"] == before + 2
 
 
-@pytest.mark.parametrize("g,m,k,n", [(2, 5, 3, 7), (36, 392, 256, 512),
-                                     (1, 8, 4096, 1000), (1, 17, 9, 65)])
-def test_gpu_bmm(cuda, g, m, k, n):
+BMM_CASES = [
+    pytest.param(2, 5, 3, 7, "fma", id="2-5-3-7"),
+    pytest.param(36, 392, 256, 512, "tc3xtf32", id="36-392-256-512"),
+    pytest.param(1, 8, 4096, 1000, "fma_splitk", id="1-8-4096-1000"),
+    pytest.param(1, 17, 9, 65, "fma", id="1-17-9-65"),
+    pytest.param(36, 2048, 64, 64, "tc3xtf32", id="36-2048-64-64"),
+    pytest.param(36, 200, 68, 100, "tc3xtf32", id="36-200-68-100"),
+    pytest.param(1, 8, 25088, 4096, "fma_splitk", id="1-8-25088-4096"),
+]
+
+
+@pytest.mark.parametrize("g,m,k,n,route", BMM_CASES)
+def test_gpu_bmm(cuda, g, m, k, n, route):
     a, b, bias = (torch.randn(*s, device=cuda)
                   for s in ((g, m, k), (g, k, n), (g, n)))
     _gpu_close(bmm_f32(a, b), bmm_ref(a, b))
+    assert common.last_route("bmm_f32") == route
     _gpu_close(bmm_f32(a, b, bias, True, "ws"), bmm_ref(a, b, bias, True))
+    assert common.last_route("bmm_f32") == route
+    # a pointer 4 bytes off a 16-byte boundary: the FMA body's scalar path
     a_off = _misaligned(g, m, k, device=cuda)
     _gpu_close(bmm_f32(a_off, b, bias), bmm_ref(a_off, b, bias))
+    assert common.last_route("bmm_f32") in ("fma", "fma_splitk")
 
 
 @pytest.mark.parametrize("m", [2, 4])

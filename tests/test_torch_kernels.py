@@ -434,6 +434,56 @@ def test_bf16_kernel_needs_p_in_three_bf16_terms(n_terms, within_one_step):
     assert (ratio <= 1.0) == within_one_step, ratio
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to the
+    nearest of 10 mantissa bits, ties away from zero, by integer operations
+    on the bits (adding half of the dropped 13 bits rounds the magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo, both TF32, as the GEMM kernel splits each operand; the
+    subtraction is exact in fp32."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+@pytest.mark.parametrize("n_products,holds", [(1, False), (3, True)])
+def test_fp32_gemm_needs_three_tf32_products(n_products, holds):
+    """The fp32 GEMM kernel (K1, K2) multiplies on TF32 tensor cores into an
+    fp32 accumulator, and is held to ``1e-4 * max(1, max|ref|)`` of the
+    fp32 plain version. Emulated here with exact products (float64) at a
+    conv10-like shape cut in M (128 x 4608 x 64): one TF32 product
+    (hi * hi) misses that bound; three (lo * hi + hi * lo + hi * hi) hold
+    it."""
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal((128, 4608), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((4608, 64), dtype=np.float32))
+    ref = conv_gemm_ref(a, b)
+    (a_hi, a_lo), (b_hi, b_lo) = _tf32_split(a), _tf32_split(b)
+    terms = [(a_hi, b_hi)] if n_products == 1 else [
+        (a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
+    out = sum(x.double() @ y.double() for x, y in terms).float()
+    err = float((out - ref).abs().max())
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    assert (err <= tol) == holds, (err, tol)
+
+
+def test_tf32_hi_lo_split_rebuilds_fp32():
+    """hi + lo rebuilds every fp32 value to within 2**-22 of it (hi keeps 11
+    significant bits, lo the next 11), over normal values of many scales."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.standard_normal(1 << 16) * np.exp2(
+        rng.integers(-60, 60, 1 << 16))).astype(np.float32))
+    hi, lo = _tf32_split(x)
+    for part in (hi, lo):   # both are TF32: the low 13 bits are zero
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    rel = ((hi.double() + lo.double() - x.double()).abs()
+           / x.double().abs()).max()
+    assert float(rel) <= 2.0 ** -22, float(rel)
+
+
 def test_flash_attention_kv_len_masks_padded_columns():
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(a[0]) for a in _qkv(rng, 1, 2, 1, 30, 50, 8))
