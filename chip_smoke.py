@@ -7,8 +7,9 @@ each kernel against its plain PyTorch version at every shape the main paths
 give it (fp32 within ``1e-4 * max(1, max|ref|)``, K5 bit for bit, K6 in
 bf16 element by element within ``2**-7 * |ref| + 1e-6``, one bf16 step;
 K1/K2 must take the tensor-core route, 3xTF32, at every call with M >= 64
-and K, N multiples of 4; and times kernel, plain version and the nearest
-single PyTorch call),
+and K, N multiples of 4, and K5 its int8 tensor-core route, ``tc_s8``, at
+every call with M >= 64 and K, N multiples of 16; and times kernel, plain
+version and the nearest single PyTorch call),
 then serves four main paths through ``repro_torch.api.Accelerator`` with
 ``backend="hopper"``, batch 8, ``pm.V5E`` plans:
 
@@ -37,8 +38,9 @@ without a CUDA card, or without the repository beside it, the script exits
 non-zero before printing any result.
 
 Output: the card's name and power limit, one JSON line per (kernel, layer)
-(for K1/K2 with its ``route``, its bound at three TF32 products per product,
-and ``fma_bound_ms``, the bound on the fp32 FMA pipes),
+(for K1/K2/K5 with its ``route``; for K1/K2 its bound at three TF32
+products per product, and ``fma_bound_ms``, the bound on the fp32 FMA
+pipes),
 the timings of each path (for the LM also a ``torch.profiler`` breakdown
 of one prefill and one decode step: device busy time and the longest
 kernels), a ``{"kernels": [...]}`` summary line, and as the last line
@@ -127,9 +129,10 @@ def ptxas_summary(log: str) -> list[str]:
         if m := re.search(r"entry function '(\w+)'", line):
             mangled = m.group(1)
             base = re.search(r"(gemm_f32_kernel|gemm_tc_kernel|"
-                             r"splitk_reduce_kernel|"
+                             r"qmm_splitk_reduce_kernel|splitk_reduce_kernel|"
                              r"wino_input_kernel|wino_output_kernel|"
-                             r"qmm_i8_kernel|qmm_splitk_reduce_kernel|"
+                             r"qmm_i8_kernel|qmm_tc_kernel|"
+                             r"transpose_i8_kernel|"
                              r"flash_attention_f32_kernel|"
                              r"flash_attention_bf16_kernel)", mangled)
             args = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E",
@@ -278,7 +281,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     lib, peak, exact, rel = None, PEAK_FP32_FLOPS, False, 1e-4
     elementwise = False
     extra = {}
-    gemm = None      # (M, K, N) of a K1/K2 call
+    gemm = None      # (M, K, N) of a K1/K2/K5 call
     if name == "flash_attention":
         b, h, hkv, sq, skv, d = (shape[x] for x in
                                  ("b", "h", "hkv", "sq", "skv", "d"))
@@ -327,6 +330,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         lib = int_mm_padded(a, b)            # the product alone
         ops, peak, exact = 2.0 * m * k * n, PEAK_INT8_OPS, True
         nbytes = m * k + k * n + m * n + 8.0 * n
+        gemm = (m, k, n)
     elif name == "conv_gemm_f32":
         t, crs, k, df = shape["t"], shape["crs"], shape["k"], shape["df"]
         p, w, b = rnd(t, crs), rnd(crs, k), rnd(k)
@@ -365,11 +369,13 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     torch.cuda.synchronize()
     if gemm is not None:
         # the tensor cores take every call with M >= 64 and K, N multiples
-        # of 4 (these operands are 16-byte aligned); the FMA body the rest
+        # of 4 (K1/K2) or of 16 (K5) (these operands are 16-byte aligned);
+        # the FMA or dp4a body the rest
         m_, k_, n_ = gemm
-        expected_tc = m_ >= 64 and k_ % 4 == 0 and n_ % 4 == 0
+        mult_of, tc_route = (16, "tc_s8") if exact else (4, "tc3xtf32")
+        expected_tc = m_ >= 64 and k_ % mult_of == 0 and n_ % mult_of == 0
         route = common.last_route(name)
-        if (route == "tc3xtf32") != expected_tc:
+        if (route == tc_route) != expected_tc:
             raise AssertionError(f"{name} {shape}: route {route}")
         extra["route"] = route
     if exact:
@@ -393,7 +399,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     if tol is not None and not err <= tol:
         raise AssertionError(f"{name} {shape}: max|diff| {err:.3e} > {tol:.3e}")
     del y, y_ref
-    if gemm is not None:
+    if gemm is not None and not exact:
         # an fp32-accurate product on the tensor cores takes three TF32
         # products (3xTF32); the bound on the fp32 FMA pipes beside it
         bound_ms, bound_by = bound(3.0 * ops, nbytes, PEAK_TF32_FLOPS)

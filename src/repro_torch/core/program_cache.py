@@ -15,7 +15,10 @@ backend, opt_level, device, quant digest)``:
 
 Schedule validation runs **once per schedule key** (not per entry). Entries
 are LRU-evicted beyond ``maxsize``; a schedule's validation stats go with
-its last entry.
+its last entry. The validation table itself is LRU-bounded at
+``validated_maxsize`` (default ``4 * maxsize``) and never drops a schedule
+that still has live entries, so validate-only callers cannot grow it
+without limit.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ class CacheStats:
     hits: int = 0
     misses: int = 0
     evictions: int = 0
+    validated_evictions: int = 0    # validation-stat entries dropped
 
 
 def cache_key(program: Program, *, batch: int, dtype,
@@ -55,26 +59,55 @@ def cache_key(program: Program, *, batch: int, dtype,
 class ProgramCache:
     """LRU cache of :class:`CompiledExecutor` keyed by :func:`cache_key`."""
 
-    def __init__(self, maxsize: int = 64):
+    def __init__(self, maxsize: int = 64,
+                 validated_maxsize: int | None = None):
         self.maxsize = maxsize
+        # one small counters dict per schedule; 4x the entry budget covers
+        # every schedule with live entries plus validate-only callers
+        self.validated_maxsize = (4 * maxsize if validated_maxsize is None
+                                  else validated_maxsize)
         self.stats = CacheStats()
         self._entries: OrderedDict[tuple, CompiledExecutor] = OrderedDict()
-        self._validated: dict[str, dict[str, int]] = {}
+        self._validated: OrderedDict[str, dict[str, int]] = OrderedDict()
         self._lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    @property
+    def validated_size(self) -> int:
+        """Schedules with cached validation stats (at most
+        ``validated_maxsize`` plus those with live entries)."""
+        return len(self._validated)
 
     def validate(self, program: Program) -> dict[str, int]:
         """Hazard-check ``program`` once per schedule key; return counters."""
         key = program.schedule_key()
         with self._lock:
             stats = self._validated.get(key)
+            if stats is not None:
+                self._validated.move_to_end(key)
         if stats is None:
             stats = validate_schedule(program)   # raises HazardError
             with self._lock:
                 self._validated[key] = stats
+                self._validated.move_to_end(key)
+                self._evict_validated_locked()
         return dict(stats)
+
+    def _evict_validated_locked(self):
+        """LRU-bound the validation table; never drop a schedule that still
+        has live entries."""
+        if len(self._validated) <= self.validated_maxsize:
+            return
+        live = {k[0] for k in self._entries}
+        for skey in list(self._validated):
+            if len(self._validated) <= self.validated_maxsize:
+                break
+            if skey in live:
+                continue
+            del self._validated[skey]
+            self.stats.validated_evictions += 1
 
     def get(self, program: Program, *, batch: int, dtype,
             param_dtypes: tuple = (), backend: str = "torch",
@@ -107,9 +140,12 @@ class ProgramCache:
             while len(self._entries) > self.maxsize:
                 old_key, _ = self._entries.popitem(last=False)
                 self.stats.evictions += 1
+                # a schedule's validation stats go with its last entry
                 skey = old_key[0]
-                if not any(k[0] == skey for k in self._entries):
-                    self._validated.pop(skey, None)
+                if (skey in self._validated
+                        and not any(k[0] == skey for k in self._entries)):
+                    del self._validated[skey]
+                    self.stats.validated_evictions += 1
         return entry
 
     def clear(self):

@@ -35,10 +35,11 @@ KERNELS = ("conv_gemm_f32", "bmm_f32", "wino_input_transform_f32",
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # the routes of the fp32 GEMM body (csrc/gemm_f32.cu), by gemm_f32_route's
-# code
+# code, and of the int8 GEMM (csrc/gemm_i8.cu), by qmm_i8_route's
 GEMM_ROUTES = ("fma", "fma_splitk", "tc3xtf32")
-# the operands' addresses and sizes of the last launch of each fp32 GEMM
-# entry, from which last_route() names the route it took
+QMM_ROUTES = ("dp4a", "dp4a_bytes", "tc_s8")
+# the operands' addresses and sizes of the last launch of each GEMM entry,
+# from which last_route() names the route it took
 _LAST_GEMM: dict[str, tuple] = {}
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -164,6 +165,8 @@ def library() -> ctypes.CDLL:
             lib.gemm_f32_route.restype = ctypes.c_int
             lib.qmm_i8_workspace.argtypes = [_I] * 4
             lib.qmm_i8_workspace.restype = _I
+            lib.qmm_i8_route.argtypes = [_P] * 4 + [_I] * 3
+            lib.qmm_i8_route.restype = ctypes.c_int
             lib.hybriddnn_error_string.argtypes = [ctypes.c_int]
             lib.hybriddnn_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -216,31 +219,40 @@ def gemm_workspace(g: int, m: int, k: int, n: int,
 
 
 def launch_gemm(name: str, tensors: list[torch.Tensor | None],
-                sizes: list[int], g: int, m: int, k: int, n: int) -> None:
-    """Launch an fp32 GEMM entry (``conv_gemm_f32`` or ``bmm_f32``; its
-    tensors A, B, bias, out, workspace) and keep what decides its route
-    (shape and alignment) for :func:`last_route`."""
+                sizes: list[int], route_sizes: tuple[int, ...]) -> None:
+    """Launch a GEMM entry (``conv_gemm_f32``, ``bmm_f32``: A, B, bias, out,
+    workspace; ``qmm_i8``: A, B, bias, mult, out, workspace) and keep what
+    decides its route for :func:`last_route`: the operands' addresses and
+    ``route_sizes``, the sizes its route function takes after them."""
     launch(name, tensors, sizes)
-    a, b, _, out, ws = tensors
+    a, b, out, ws = tensors[0], tensors[1], tensors[-2], tensors[-1]
     _LAST_GEMM[name] = (a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                        None if ws is None else ws.data_ptr(), g, m, k, n,
-                        a.device.index)
+                        None if ws is None else ws.data_ptr(), *route_sizes)
 
 
 def last_route(name: str) -> str | None:
-    """The route (``GEMM_ROUTES``) of the last launch of fp32 GEMM entry
-    ``name`` (``conv_gemm_f32`` or ``bmm_f32``), as the kernel library
-    decides it; None before the first launch."""
+    """The route of the last launch of GEMM entry ``name``, as the kernel
+    library decides it: ``GEMM_ROUTES`` for ``conv_gemm_f32`` and
+    ``bmm_f32``, ``QMM_ROUTES`` for ``qmm_i8``; None before the first
+    launch."""
     if name not in _LAST_GEMM:
         return None
+    if name == "qmm_i8":
+        return QMM_ROUTES[library().qmm_i8_route(*_LAST_GEMM[name])]
     return GEMM_ROUTES[library().gemm_f32_route(*_LAST_GEMM[name])]
+
+
+@functools.lru_cache(maxsize=1024)
+def _qmm_workspace_words(m: int, k: int, n: int, index: int) -> int:
+    return library().qmm_i8_workspace(m, k, n, index)
 
 
 def qmm_workspace(m: int, k: int, n: int,
                   device: torch.device) -> torch.Tensor | None:
-    """The int32 split-K scratch the int8 GEMM kernel needs for an
-    (M, K, N) product on ``device``, or None when it does not split K."""
-    size = library().qmm_i8_workspace(m, k, n, device.index)
+    """The int32 scratch the int8 GEMM kernel needs for an (M, K, N)
+    product on ``device`` (split-K partials, and the transposed B of the
+    tensor-core route), or None when it needs none."""
+    size = _qmm_workspace_words(m, k, n, device.index)
     if size == 0:
         return None
     return torch.empty(size, dtype=torch.int32, device=device)

@@ -9,14 +9,16 @@ multiplier per output channel. It is the int8 PE of every quantized CONV
 (over im2col patches, ``quant/execute.py::qconv2d``) and FC layer
 (``qdense``). The CUDA kernel (``csrc/gemm_i8.cu``) masks its ragged edges,
 so nothing is padded; its note says what bounds it and what the design does
-about that.
+about that. Calls with M >= 64, K and N multiples of 16 and 16-byte aligned
+operands take the int8 tensor cores (route ``tc_s8``); the rest the
+``__dp4a`` body (``common.last_route("qmm_i8")`` names the route).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import launch, on_cpu, qmm_workspace
+from repro_torch.kernels.common import launch_gemm, on_cpu, qmm_workspace
 
 _DTYPES = (torch.int8, torch.int8, torch.int32, torch.float32)
 
@@ -68,9 +70,9 @@ def qmm_i8(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
         return qmm_ref(a, b, bias, mult, relu)
     out = torch.empty((m, n), dtype=torch.int8, device=a.device)
     if out.numel():
-        launch("qmm_i8", [a, b, bias, mult, out,
-                          qmm_workspace(m, k, n, a.device)],
-               [m, k, n, relu])
+        launch_gemm("qmm_i8", [a, b, bias, mult, out,
+                               qmm_workspace(m, k, n, a.device)],
+                    [m, k, n, relu], (m, k, n))
     return out
 
 

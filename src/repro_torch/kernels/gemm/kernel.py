@@ -52,5 +52,6 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
     if out.numel():
         launch_gemm("bmm_f32", [a, b, bias, out,
                                 gemm_workspace(g, m, k, n, a.device)],
-                    [g, m, k, n, relu, dataflow == "ws"], g, m, k, n)
+                    [g, m, k, n, relu, dataflow == "ws"],
+                    (g, m, k, n, a.device.index))
     return out

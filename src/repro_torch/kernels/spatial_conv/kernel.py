@@ -52,5 +52,6 @@ def conv_gemm_f32(patches: torch.Tensor, weights: torch.Tensor,
         launch_gemm("conv_gemm_f32",
                     [patches, weights, bias, out,
                      gemm_workspace(1, t, crs, k, patches.device)],
-                    [t, crs, k, relu, dataflow == "ws"], 1, t, crs, k)
+                    [t, crs, k, relu, dataflow == "ws"],
+                    (1, t, crs, k, patches.device.index))
     return out

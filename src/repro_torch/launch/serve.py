@@ -182,12 +182,12 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", "--model", dest="arch", default="vgg16",
+    ap.add_argument("--arch", "--model", dest="arch", required=True,
                     choices=sorted(set(SIZES) | set(list_archs())),
                     help="a CNN (vgg16, resnet18) or an LM of the registry")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32,
                     help="LM prompt tokens")
     ap.add_argument("--gen", type=int, default=16,

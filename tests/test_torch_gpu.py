@@ -187,30 +187,54 @@ def _i8(*shape, device, gen=None):
                          generator=gen)
 
 
-@pytest.mark.parametrize("m,k,n", [
-    (33, 27, 10),          # byte-wise path: K and N not multiples of 4
-    (1000, 27, 64),        # the stem's K = 27 at a narrow N
-    (300, 1152, 128),      # word path, one K slab per split
-    (8, 25088, 1000),      # skinny FC tile with split K, N = 1000
-    (1568, 4608, 512),     # split K on the narrow tile
-    (2048, 576, 256),      # wide tile
-])
-def test_gpu_qmm_i8(cuda, m, k, n):
+# (shape, the route K5 takes for 16-byte aligned operands): every route of
+# csrc/gemm_i8.cu. tc_s8 where M >= 64 and K, N are multiples of 16 (here
+# with ragged M, a K tail short of the 128-byte slab, K below one slab, split
+# K, BN 64 and 128, ragged N in both); dp4a (32-bit words) or dp4a_bytes
+# (byte-wise) else: K = 27, N % 4 != 0, M < 64, K or N not a multiple of 16,
+# the M = 8 FC layers.
+QMM_CASES = [
+    pytest.param(33, 27, 10, "dp4a_bytes", id="33-27-10"),
+    pytest.param(1000, 27, 64, "dp4a_bytes", id="1000-27-64"),
+    pytest.param(300, 1152, 128, "tc_s8", id="300-1152-128"),
+    pytest.param(8, 25088, 1000, "dp4a", id="8-25088-1000"),
+    pytest.param(1568, 4608, 512, "tc_s8", id="1568-4608-512"),
+    pytest.param(2048, 576, 256, "tc_s8", id="2048-576-256"),
+    pytest.param(1000, 576, 128, "tc_s8", id="1000-576-128"),
+    pytest.param(512, 4608, 512, "tc_s8", id="512-4608-512"),
+    pytest.param(32768, 576, 64, "tc_s8", id="32768-576-64"),
+    pytest.param(8192, 64, 128, "tc_s8", id="8192-64-128"),
+    pytest.param(200, 32, 48, "tc_s8", id="200-32-48"),
+    pytest.param(130, 144, 144, "tc_s8", id="130-144-144"),
+    pytest.param(60, 1152, 128, "dp4a", id="60-1152-128"),
+    pytest.param(300, 1156, 132, "dp4a", id="300-1156-132"),
+    pytest.param(20000, 580, 260, "dp4a", id="20000-580-260"),
+]
+
+
+@pytest.mark.parametrize("m,k,n,route", QMM_CASES)
+def test_gpu_qmm_i8(cuda, m, k, n, route):
     gen = torch.Generator(device=cuda).manual_seed(m + k + n)
     a, b = _i8(m, k, device=cuda, gen=gen), _i8(k, n, device=cuda, gen=gen)
     bias = torch.randint(-50000, 50000, (n,), dtype=torch.int32,
                          device=cuda, generator=gen)
     mult = torch.rand(n, device=cuda, generator=gen) * 1e-4
+    # multipliers that spread the sums over the int8 range (few clamp)
+    spread = (torch.rand(n, device=cuda, generator=gen) + 0.5) / (
+        127.0 * k ** 0.5)
     before = common.LAUNCHES["qmm_i8"]
-    for relu in (False, True):
-        y = qmm_i8(a, b, bias, mult, relu)
+    for relu, mu in [(False, mult), (True, mult), (False, spread),
+                     (True, spread)]:
+        y = qmm_i8(a, b, bias, mu, relu)
         torch.cuda.synchronize()
-        assert torch.equal(y, qmm_ref(a, b, bias, mult, relu))
-    assert common.LAUNCHES["qmm_i8"] == before + 2
+        assert torch.equal(y, qmm_ref(a, b, bias, mu, relu))
+        assert common.last_route("qmm_i8") == route
+    assert common.LAUNCHES["qmm_i8"] == before + 4
     # a misaligned A (one byte off) takes the byte-wise path
     a_off = _i8(m * k + 1, device=cuda, gen=gen)[1:].view(m, k)
     assert torch.equal(qmm_i8(a_off, b, bias, mult),
                        qmm_ref(a_off, b, bias, mult))
+    assert common.last_route("qmm_i8") == "dp4a_bytes"
 
 
 def test_gpu_qmm_i8_rounds_large_accumulators(cuda):

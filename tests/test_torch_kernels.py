@@ -231,7 +231,11 @@ def _i8(rng, *shape):
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 27, 10), (33, 27, 1000),
-                                   (100, 4608, 10), (8, 4608, 1000)])
+                                   (100, 4608, 10), (8, 4608, 1000),
+                                   # shapes of the tensor-core route: a K
+                                   # tail short of its 128-byte slab,
+                                   # ragged M, N 64 and ragged N past 128
+                                   (200, 576, 64), (130, 144, 144)])
 @pytest.mark.parametrize("per_channel", [False, True])
 @pytest.mark.parametrize("relu", [False, True])
 def test_qmm_plain_version_matches_pallas_bitwise(m, k, n, per_channel, relu):
