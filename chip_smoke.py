@@ -8,8 +8,11 @@ give it (fp32 within ``1e-4 * max(1, max|ref|)``, K5 bit for bit, K6 in
 bf16 element by element within ``2**-7 * |ref| + 1e-6``, one bf16 step;
 K1/K2 must take the tensor-core route, 3xTF32, at every call with M >= 64
 and K, N multiples of 4, and K5 its int8 tensor-core route, ``tc_s8``, at
-every call with M >= 64 and K, N multiples of 16; and times kernel, plain
-version and the nearest single PyTorch call),
+every call with M >= 64 and K, N multiples of 16; K3/K4 through their
+NHWC fronts at the geometry the executor gives them, on the float4 route
+wherever the channels come in fours, and off the paths through the tiles
+fronts, at m = 2 and at a ragged geometry; and times kernel, plain version
+and the nearest single PyTorch call),
 then serves four main paths through ``repro_torch.api.Accelerator`` with
 ``backend="hopper"``, batch 8, ``pm.V5E`` plans:
 
@@ -38,7 +41,7 @@ without a CUDA card, or without the repository beside it, the script exits
 non-zero before printing any result.
 
 Output: the card's name and power limit, one JSON line per (kernel, layer)
-(for K1/K2/K5 with its ``route``; for K1/K2 its bound at three TF32
+(for K1-K5 with its ``route``; for K1/K2 its bound at three TF32
 products per product, and ``fma_bound_ms``, the bound on the fp32 FMA
 pipes),
 the timings of each path (for the LM also a ``torch.profiler`` breakdown
@@ -130,7 +133,9 @@ def ptxas_summary(log: str) -> list[str]:
             mangled = m.group(1)
             base = re.search(r"(gemm_f32_kernel|gemm_tc_kernel|"
                              r"qmm_splitk_reduce_kernel|splitk_reduce_kernel|"
-                             r"wino_input_kernel|wino_output_kernel|"
+                             r"wino_input_vec_kernel|wino_input_scalar_kernel|"
+                             r"wino_output_vec_kernel|"
+                             r"wino_output_scalar_kernel|"
                              r"qmm_i8_kernel|qmm_tc_kernel|"
                              r"transpose_i8_kernel|"
                              r"flash_attention_f32_kernel|"
@@ -182,6 +187,7 @@ def bound(ops: float, nbytes: float, peak_ops: float) -> tuple[float, str]:
 def kernel_cases(program, batch: int, dtype: str):
     """Every kernel call a main path makes per request, with its shapes:
     ``(kernel, layer name, shape dict, launches)``, one entry per layer."""
+    from repro_torch.core.executor import width_pad
     from repro_torch.core.winograd import pt_for
     from repro_torch.kernels.common import cdiv
     cases = []
@@ -203,17 +209,43 @@ def kernel_cases(program, batch: int, dtype: str):
                 t=batch * ho * wo, crs=s.r * s.s * s.c, k=s.k,
                 df=cl.plan.dataflow), 1))
         elif cl.kind == "conv":
+            # K3 reads the executor's slab (the vertical pad materialized,
+            # ho + 2 rows) with the width pad as geometry; K4 writes the
+            # (N, Ho, Wo, K) output
             m = cl.plan.m
             ho, wo = s.out_hw
             t = batch * cdiv(ho, m) * cdiv(wo, m)
             pt2 = pt_for(m) ** 2
-            cases.append(("wino_input_transform_f32", s.name,
-                          dict(t=t, c=s.c, m=m), 1))
+            cases.append(("wino_input_transform_f32", s.name, dict(
+                n=batch, h=ho + 2, w=s.w, c=s.c, m=m,
+                pad=((0, 0), width_pad(cl))), 1))
             cases.append(("bmm_f32", s.name, dict(
                 g=pt2, m=t, k=s.c, n=s.k, df=cl.plan.dataflow), 1))
-            cases.append(("wino_output_transform_f32", s.name,
-                          dict(t=t, k=s.k, m=m), 1))
+            cases.append(("wino_output_transform_f32", s.name, dict(
+                n=batch, ho=ho, wo=wo, k=s.k, m=m), 1))
     return cases
+
+
+def wino_offpath_cases():
+    """K3/K4 off the main paths (launches 0): the reference's tiles-layout
+    fronts at ResNet-18's s1 shape (batch 8 at 64x64: 2048 tiles of 64
+    channels), the NHWC fronts at m = 2 on the same layer, and a ragged
+    geometry (Ho, Wo not multiples of m, C = K = 5, odd pads: the scalar
+    route)."""
+    s1 = dict(n=BATCH, h=66, w=64, c=64, m=4, pad=((0, 0), (1, 1)))
+    ragged = dict(n=2, h=13, w=11, c=5, m=4, pad=((1, 2), (0, 1)))
+    return [
+        ("wino_input_transform_f32", "s1_tiles",
+         dict(layout="tiles", t=2048, c=64, m=4), 0),
+        ("wino_output_transform_f32", "s1_tiles",
+         dict(layout="tiles", t=2048, k=64, m=4), 0),
+        ("wino_input_transform_f32", "s1_m2", dict(s1, m=2), 0),
+        ("wino_output_transform_f32", "s1_m2",
+         dict(n=BATCH, ho=64, wo=64, k=64, m=2), 0),
+        ("wino_input_transform_f32", "ragged", ragged, 0),
+        ("wino_output_transform_f32", "ragged",
+         dict(n=2, ho=14, wo=10, k=5, m=4), 0),
+    ]
 
 
 def lm_kernel_cases():
@@ -268,10 +300,15 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         conv_gemm_f32,
         conv_gemm_ref,
     )
+    from repro_torch.core.winograd import tile_input, transform_matrices
     from repro_torch.kernels.winograd.kernel import (
         wino_input_transform_f32,
+        wino_input_transform_nhwc_f32,
+        wino_input_transform_nhwc_ref,
         wino_input_transform_ref,
         wino_output_transform_f32,
+        wino_output_transform_nhwc_f32,
+        wino_output_transform_nhwc_ref,
         wino_output_transform_ref,
     )
 
@@ -350,23 +387,67 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         nbytes = 4.0 * (g * m * k + g * k * n + g * m * n)
         gemm = (m, k, n)
     elif name == "wino_input_transform_f32":
-        t, c, m = shape["t"], shape["c"], shape["m"]
+        c, m = shape["c"], shape["m"]
         pt = m + 2
-        d = rnd(t, pt, pt, c)
-        kern = lambda: wino_input_transform_f32(d, m)
-        plain = lambda: wino_input_transform_ref(d, m)
+        bt = torch.from_numpy(transform_matrices(m)[0]).cuda()
+        if shape.get("layout") == "tiles":
+            t = shape["t"]
+            tiles = rnd(t, pt, pt, c)
+            kern = lambda: wino_input_transform_f32(tiles, m)
+            plain = lambda: wino_input_transform_ref(tiles, m)
+            in_floats = t * pt * pt * c
+        else:
+            # x read once, V written once
+            n, h, w, pad = shape["n"], shape["h"], shape["w"], shape["pad"]
+            x = rnd(n, h, w, c)
+            kern = lambda: wino_input_transform_nhwc_f32(x, m, pad)
+            plain = lambda: wino_input_transform_nhwc_ref(x, m, pad)
+            (top, bottom), (left, right) = pad
+            tiles, (nh, nw) = tile_input(torch.nn.functional.pad(
+                x, (0, 0, left, right, top, bottom)), m)
+            t, in_floats = n * nh * nw, n * h * w * c
+        # the yardstick, one fp32 call: V (PT^2, T, C) from tiles already
+        # gathered (the gather not counted)
+        kron = torch.kron(bt, bt)
+        tiles_flat = tiles.reshape(t, pt * pt, c)
+        lib = lambda: torch.einsum("ij,tjc->itc", kron, tiles_flat)
         ops = 4.0 * pt ** 3 * t * c          # B^T d and (B^T d) B, dense
-        nbytes = 4.0 * 2 * t * pt * pt * c
+        nbytes = 4.0 * (in_floats + pt * pt * t * c)
+        channels = c
     else:
-        t, k, m = shape["t"], shape["k"], shape["m"]
+        k, m = shape["k"], shape["m"]
         pt = m + 2
-        mm, b = rnd(pt * pt, t, k), rnd(k)
-        kern = lambda: wino_output_transform_f32(mm, b, m, True)
-        plain = lambda: wino_output_transform_ref(mm, b, m, True)
+        at = torch.from_numpy(transform_matrices(m)[2]).cuda()
+        if shape.get("layout") == "tiles":
+            t = shape["t"]
+            mm, b = rnd(pt * pt, t, k), rnd(k)
+            kern = lambda: wino_output_transform_f32(mm, b, m, True)
+            plain = lambda: wino_output_transform_ref(mm, b, m, True)
+            out_floats = t * m * m * k
+        else:
+            # M and bias read once, the cropped Y written once
+            out = (shape["n"], shape["ho"], shape["wo"])
+            t = out[0] * common.cdiv(out[1], m) * common.cdiv(out[2], m)
+            mm, b = rnd(pt * pt, t, k), rnd(k)
+            kern = lambda: wino_output_transform_nhwc_f32(mm, b, m, out, True)
+            plain = lambda: wino_output_transform_nhwc_ref(mm, b, m, out,
+                                                           True)
+            out_floats = out[0] * out[1] * out[2] * k
+        # the yardstick, one fp32 call: (T, m^2, K), no bias, no ReLU
+        kron = torch.kron(at, at)
+        lib = lambda: torch.einsum("ij,jtk->tik", kron, mm)
         ops = 2.0 * (m * pt * pt + m * m * pt) * t * k
-        nbytes = 4.0 * (pt * pt * t * k + k + t * m * m * k)
+        nbytes = 4.0 * (pt * pt * t * k + k + out_floats)
+        channels = k
     y, y_ref = kern(), plain()
     torch.cuda.synchronize()
+    if name.startswith("wino_"):
+        # float4 accesses wherever the channels come in fours (these
+        # operands are 16-byte aligned), the scalar body else
+        route = common.last_route(name)
+        if route != ("vec4" if channels % 4 == 0 else "scalar"):
+            raise AssertionError(f"{name} {shape}: route {route}")
+        extra["route"] = route
     if gemm is not None:
         # the tensor cores take every call with M >= 64 and K, N multiples
         # of 4 (K1/K2) or of 16 (K5) (these operands are 16-byte aligned);
@@ -708,6 +789,8 @@ def main() -> int:
             program = compile_network(
                 specs, pm.V5E.run_dse(specs, batch=BATCH, dtype=dtype).plans)
             cases = kernel_cases(program, BATCH, dtype)
+            if path == "resnet18_fp32":
+                cases += wino_offpath_cases()
         counted, per_path = {}, {}
         for name, _, _, n in cases:
             counted[name] = counted.get(name, 0) + n

@@ -339,14 +339,15 @@ def conv_block_forward(cl: CompiledLayer, x_slab: torch.Tensor,
                        stride=spec.stride, padding=((0, 0), wpad),
                        relu=relu, backend=backend)
     if plan.mode == "wino":
-        x_p = torch.nn.functional.pad(x_slab, (0, 0, wpad[0], wpad[1]))
         if backend == "hopper":
+            # K3 takes the width pad as geometry: no padded copy of the slab
             from repro_torch.kernels.winograd import (
                 winograd_apply_pretransformed_hopper,
             )
             return winograd_apply_pretransformed_hopper(
-                x_p, w_grp, b_grp, m=plan.m, relu=relu, padding="VALID",
-                dataflow=plan.dataflow)
+                x_slab, w_grp, b_grp, m=plan.m, relu=relu,
+                padding=((0, 0), wpad), dataflow=plan.dataflow)
+        x_p = torch.nn.functional.pad(x_slab, (0, 0, wpad[0], wpad[1]))
         return winograd_apply_pretransformed(
             x_p, w_grp, b_grp, plan.m, relu=relu, padding="VALID")
     # the aten lowering is dataflow-oblivious, so only the hopper PE gets

@@ -809,8 +809,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
       kv_len > skv || row_offset < 0 || bh > INT32_MAX ||
       (sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t dev_err = cudaSetDevice(static_cast<int>(device));
-  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   const uint32_t bits = static_cast<uint32_t>(scale_bits);
   float scale;
   memcpy(&scale, &bits, sizeof scale);

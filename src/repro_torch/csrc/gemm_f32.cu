@@ -1013,8 +1013,8 @@ cudaError_t gemm_dispatch(const float* A, const float* B, const float* bias,
   if (G <= 0 || M <= 0 || N <= 0 || K < 0) return cudaErrorInvalidValue;
   // launch on the device of the caller's stream, whatever this runtime's
   // current device is
-  const cudaError_t dev_err = cudaSetDevice(static_cast<int>(device));
-  if (dev_err != cudaSuccess) return dev_err;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   const bool tc = takes_tc(A, B, C, workspace, M, K, N);
   const Plan p = plan_gemm(tc, G, M, K, N, static_cast<int>(device));
   const bool vec = K % 4 == 0 && N % 4 == 0 && aligned16(A) &&

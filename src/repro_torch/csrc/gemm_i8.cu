@@ -821,8 +821,8 @@ int qmm_i8(const int8_t* a, const int8_t* b, const int32_t* bias,
     return static_cast<int>(cudaErrorInvalidValue);
   // launch on the device of the caller's stream, whatever this runtime's
   // current device is
-  const cudaError_t dev_err = cudaSetDevice(static_cast<int>(device));
-  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   const int64_t sms = sm_count(static_cast<int>(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int r = static_cast<int>(relu != 0);

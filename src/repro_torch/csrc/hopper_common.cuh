@@ -1,5 +1,6 @@
 // Shared-memory, copy and wgmma helpers of the tensor-core bodies (K1/K2 in
-// gemm_f32.cu, K5 in gemm_i8.cu, K6 in flash_attention.cu).
+// gemm_f32.cu, K5 in gemm_i8.cu, K6 in flash_attention.cu; the copies also
+// in winograd_f32.cu, K3/K4), and the device scope of every entry point.
 //
 // Tiles for wgmma live in shared memory with the 128-byte swizzle: a row of
 // a tile is 128 bytes (32 fp32/tf32, 64 bf16 or 128 int8 along K), 8-row
@@ -13,6 +14,33 @@
 #include <stdint.h>
 
 namespace {
+
+// Makes `device` the calling thread's current device for the guard's
+// life, calling cudaSetDevice only when another one is current, and gives
+// the caller's device back after. Every entry point launches under one, so
+// a kernel runs on the device of the caller's stream and the caller's
+// current device is the same after the call as before it.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int64_t device) {
+    int current = -1;
+    err_ = cudaGetDevice(&current);
+    if (err_ == cudaSuccess && current != device) {
+      err_ = cudaSetDevice(static_cast<int>(device));
+      if (err_ == cudaSuccess) previous_ = current;
+    }
+  }
+  ~DeviceScope() {
+    if (previous_ >= 0) cudaSetDevice(previous_);
+  }
+  DeviceScope(const DeviceScope&) = delete;
+  DeviceScope& operator=(const DeviceScope&) = delete;
+  cudaError_t error() const { return err_; }
+
+ private:
+  cudaError_t err_ = cudaSuccess;
+  int previous_ = -1;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -35,12 +35,23 @@ KERNELS = ("conv_gemm_f32", "bmm_f32", "wino_input_transform_f32",
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # the routes of the fp32 GEMM body (csrc/gemm_f32.cu), by gemm_f32_route's
-# code, and of the int8 GEMM (csrc/gemm_i8.cu), by qmm_i8_route's
+# code, of the int8 GEMM (csrc/gemm_i8.cu), by qmm_i8_route's, and of the
+# Winograd transforms (csrc/winograd_f32.cu), by wino_f32_route's
 GEMM_ROUTES = ("fma", "fma_splitk", "tc3xtf32")
 QMM_ROUTES = ("dp4a", "dp4a_bytes", "tc_s8")
-# the operands' addresses and sizes of the last launch of each GEMM entry,
-# from which last_route() names the route it took
-_LAST_GEMM: dict[str, tuple] = {}
+WINO_ROUTES = ("scalar", "vec4")
+# each entry with several routes: the library function that names its route
+# and the names of its codes
+_ROUTES = {
+    "conv_gemm_f32": ("gemm_f32_route", GEMM_ROUTES),
+    "bmm_f32": ("gemm_f32_route", GEMM_ROUTES),
+    "qmm_i8": ("qmm_i8_route", QMM_ROUTES),
+    "wino_input_transform_f32": ("wino_f32_route", WINO_ROUTES),
+    "wino_output_transform_f32": ("wino_f32_route", WINO_ROUTES),
+}
+# the route function's arguments (operand addresses and sizes) for the last
+# launch of each such entry, from which last_route() names the route
+_LAST_ROUTE: dict[str, tuple] = {}
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -55,8 +66,10 @@ _SIGNATURES = {
     "conv_gemm_f32": (5, 5),
     # A, B, bias, C, workspace; G, M, K, N, relu, ws
     "bmm_f32": (5, 6),
-    "wino_input_transform_f32": (2, 3),   # tiles, V; T, C, m
-    "wino_output_transform_f32": (3, 4),  # M, bias, Y; T, K, m, relu
+    # x, V; N, H, W, C, pad top, pad left, nh, nw, m
+    "wino_input_transform_f32": (2, 9),
+    # M, bias, Y; N, Ho, Wo, K, nh, nw, m, relu
+    "wino_output_transform_f32": (3, 8),
     # A, B, bias, mult, C, workspace; M, K, N, relu
     "qmm_i8": (6, 4),
     # Q, K, V, O; BH, group, Sq, Skv, D, kv_len, causal, bf16, scale bits,
@@ -66,6 +79,8 @@ _SIGNATURES = {
 
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()
+# each entry of _SIGNATURES, resolved from the library once
+_entries: dict[str, ctypes._CFuncPtr] = {}
 # nvcc's output (-Xptxas -v) from the build of the loaded library, kept
 # beside it, so a later process that finds the library built reads it too
 BUILD_LOG = ""
@@ -167,6 +182,8 @@ def library() -> ctypes.CDLL:
             lib.qmm_i8_workspace.restype = _I
             lib.qmm_i8_route.argtypes = [_P] * 4 + [_I] * 3
             lib.qmm_i8_route.restype = ctypes.c_int
+            lib.wino_f32_route.argtypes = [_P] * 3 + [_I]
+            lib.wino_f32_route.restype = ctypes.c_int
             lib.hybriddnn_error_string.argtypes = [ctypes.c_int]
             lib.hybriddnn_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -224,22 +241,21 @@ def launch_gemm(name: str, tensors: list[torch.Tensor | None],
     workspace; ``qmm_i8``: A, B, bias, mult, out, workspace) and keep what
     decides its route for :func:`last_route`: the operands' addresses and
     ``route_sizes``, the sizes its route function takes after them."""
-    launch(name, tensors, sizes)
     a, b, out, ws = tensors[0], tensors[1], tensors[-2], tensors[-1]
-    _LAST_GEMM[name] = (a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                        None if ws is None else ws.data_ptr(), *route_sizes)
+    launch(name, tensors, sizes,
+           route_args=(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                       None if ws is None else ws.data_ptr(), *route_sizes))
 
 
 def last_route(name: str) -> str | None:
-    """The route of the last launch of GEMM entry ``name``, as the kernel
+    """The route of the last launch of entry ``name``, as the kernel
     library decides it: ``GEMM_ROUTES`` for ``conv_gemm_f32`` and
-    ``bmm_f32``, ``QMM_ROUTES`` for ``qmm_i8``; None before the first
-    launch."""
-    if name not in _LAST_GEMM:
+    ``bmm_f32``, ``QMM_ROUTES`` for ``qmm_i8``, ``WINO_ROUTES`` for the
+    Winograd transforms; None before the first launch."""
+    if name not in _LAST_ROUTE:
         return None
-    if name == "qmm_i8":
-        return QMM_ROUTES[library().qmm_i8_route(*_LAST_GEMM[name])]
-    return GEMM_ROUTES[library().gemm_f32_route(*_LAST_GEMM[name])]
+    fn, names = _ROUTES[name]
+    return names[getattr(library(), fn)(*_LAST_ROUTE[name])]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -258,17 +274,31 @@ def qmm_workspace(m: int, k: int, n: int,
     return torch.empty(size, dtype=torch.int32, device=device)
 
 
-def launch(name: str, tensors: list[torch.Tensor | None],
-           sizes: list[int]) -> None:
+def _entry(name: str) -> ctypes._CFuncPtr:
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(library(), name)
+    return fn
+
+
+def launch(name: str, tensors: list[torch.Tensor | None], sizes: list[int],
+           route_args: tuple | None = None) -> None:
     """Launch kernel ``name`` on the current stream of its tensors' device;
-    raise if the launch is refused. Counts one launch."""
-    fn = getattr(library(), name)
-    device = next(t.device for t in tensors if t is not None)
-    ptrs = [None if t is None else t.data_ptr() for t in tensors]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, *[int(s) for s in sizes], device.index, stream)
+    raise if the launch is refused. Counts one launch. The entry itself
+    makes that device current for the launch and gives the caller's back
+    (``DeviceScope`` in ``csrc/hopper_common.cuh``). ``route_args``, for an
+    entry with several routes, are its route function's arguments, kept
+    for :func:`last_route`."""
+    fn = _entry(name)
+    index = next(t.device for t in tensors if t is not None).index
+    # the raw handle of the device's current stream, without the Stream
+    # object torch.cuda.current_stream builds on every call
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    err = fn(*[None if t is None else t.data_ptr() for t in tensors],
+             *[int(s) for s in sizes], index, stream)
     if err != 0:
         msg = library().hybriddnn_error_string(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed ({err}: {msg})")
+    if route_args is not None:
+        _LAST_ROUTE[name] = route_args
     LAUNCHES[name] += 1

@@ -1,5 +1,6 @@
 """Building and timing variants of a CUDA source, for the kernel breakdowns
-(``flash_attention/breakdown.py``, ``gemm/breakdown.py``): each variant is
+(``flash_attention/breakdown.py``, ``gemm/breakdown.py``,
+``winograd/breakdown.py``): each variant is
 a source of ``csrc/`` with a few passages replaced, compiled beside the
 committed one into its own shared library. Needs ``nvcc`` and a CUDA card.
 """
@@ -59,3 +60,22 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> float | None:
+    """Device time per call of the kernels ``fn`` launches, from
+    ``torch.profiler`` (CUPTI) over ``reps`` calls after one: no host time
+    in it, where ``time_ms`` holds the launch too for a kernel shorter than
+    its host path. None where the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / reps / 1e3 if total else None

@@ -6,19 +6,60 @@ Replace ``src/repro/kernels/winograd/kernel.py::input_transform_kernel``
 ``(T, m, m, K)``, with the bias add and ReLU fused). The CUDA kernels live
 in ``csrc/winograd_f32.cu``; their note says what bounds them and what the
 design does about that.
+
+Each kernel takes NHWC geometry, so each has two fronts:
+
+* the reference's contract, on the tiles layouts
+  (:func:`wino_input_transform_f32`, :func:`wino_output_transform_f32`);
+* the Winograd PE's, on the images themselves
+  (:func:`wino_input_transform_nhwc_f32` reads the tiles straight out of the
+  unpadded input, :func:`wino_output_transform_nhwc_f32` writes the cropped
+  NHWC output), so nothing pads, gathers, permutes or crops in between.
+
+Both fronts of a kernel count under its one ``LAUNCHES`` key, and
+``common.last_route`` names the route it took: ``vec4`` (float4 accesses,
+for channels in fours and 16-byte aligned operands) or ``scalar``. Each
+front has its plain PyTorch version beside it.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.winograd import SUPPORTED_M, pt_for, transform_matrices
-from repro_torch.kernels.common import launch, on_cpu
+from repro_torch.core.winograd import (
+    R_WINO,
+    SUPPORTED_M,
+    pt_for,
+    tile_input,
+    transform_matrices,
+)
+from repro_torch.kernels.common import cdiv, launch, on_cpu
+
+Pads = tuple[tuple[int, int], tuple[int, int]]
+NO_PAD: Pads = ((0, 0), (0, 0))
 
 
 def _check_m(m: int):
     if m not in SUPPORTED_M:
         raise ValueError(f"Winograd m must be one of {SUPPORTED_M}, got {m}")
 
+
+def wino_grid(h: int, w: int, m: int, pad_hw: Pads = NO_PAD
+              ) -> tuple[int, int, int, int]:
+    """``(Ho, Wo, nh, nw)``: the output of a VALID 3x3 convolution of an
+    ``h x w`` image padded by ``pad_hw = ((top, bottom), (left, right))``,
+    and the ``nh x nw`` grid of m x m tiles that covers it."""
+    (top, bottom), (left, right) = pad_hw
+    ho, wo = h + top + bottom - R_WINO + 1, w + left + right - R_WINO + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"{h}x{w} padded by {pad_hw} is smaller than the "
+                         f"{R_WINO}x{R_WINO} kernel")
+    return ho, wo, cdiv(ho, m), cdiv(wo, m)
+
+
+# ---------------------------------------------------------------------------
+# K3: the input transform
+# ---------------------------------------------------------------------------
 
 def wino_input_transform_ref(tiles: torch.Tensor, m: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`wino_input_transform_f32`."""
@@ -28,8 +69,32 @@ def wino_input_transform_ref(tiles: torch.Tensor, m: int) -> torch.Tensor:
     return v.reshape(pt * pt, t, c)
 
 
+def wino_input_transform_nhwc_ref(x: torch.Tensor, m: int,
+                                  pad_hw: Pads = NO_PAD) -> torch.Tensor:
+    """Plain PyTorch version of :func:`wino_input_transform_nhwc_f32`:
+    ``F.pad``, ``tile_input`` and the einsum."""
+    (top, bottom), (left, right) = pad_hw
+    tiles, _ = tile_input(F.pad(x, (0, 0, left, right, top, bottom)), m)
+    pt, c = pt_for(m), x.shape[3]
+    return wino_input_transform_ref(tiles.reshape(-1, pt, pt, c), m)
+
+
+def _launch_input(x: torch.Tensor, m: int, geom: tuple[int, ...],
+                  t: int) -> torch.Tensor:
+    """K3 on x (N, H, W, C) with ``geom`` = (N, H, W, C, pad top, pad left,
+    nh, nw): V (PT^2, T, C)."""
+    pt, c = pt_for(m), geom[3]
+    out = torch.empty((pt * pt, t, c), dtype=torch.float32, device=x.device)
+    if out.numel():
+        launch("wino_input_transform_f32", [x, out], [*geom, m],
+               route_args=(x.data_ptr(), out.data_ptr(), None, c))
+    return out
+
+
 def wino_input_transform_f32(tiles: torch.Tensor, m: int) -> torch.Tensor:
-    """(T, PT, PT, C) -> V (PT^2, T, C), PT = m + 2, fp32."""
+    """(T, PT, PT, C) -> V (PT^2, T, C), PT = m + 2, fp32: the reference's
+    contract (its tiles are K3's images with N = T, H = W = PT, no pad, one
+    tile each)."""
     _check_m(m)
     pt = pt_for(m)
     if tiles.dim() != 4 or tiles.shape[1:3] != (pt, pt):
@@ -37,12 +102,31 @@ def wino_input_transform_f32(tiles: torch.Tensor, m: int) -> torch.Tensor:
     if on_cpu("wino_input_transform_f32", tiles):
         return wino_input_transform_ref(tiles, m)
     t, _, _, c = tiles.shape
-    out = torch.empty((pt * pt, t, c), dtype=torch.float32,
-                      device=tiles.device)
-    if out.numel():
-        launch("wino_input_transform_f32", [tiles, out], [t, c, m])
-    return out
+    return _launch_input(tiles, m, (t, pt, pt, c, 0, 0, 1, 1), t)
 
+
+def wino_input_transform_nhwc_f32(x: torch.Tensor, m: int,
+                                  pad_hw: Pads = NO_PAD) -> torch.Tensor:
+    """x (N, H, W, C), fp32 -> V (PT^2, N nh nw, C): the input transform of
+    every tile that ``tile_input(F.pad(x, pad_hw), m)`` would form, read
+    straight out of x (zeros outside it); ``(nh, nw)`` from
+    :func:`wino_grid`."""
+    _check_m(m)
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC, got {x.shape}")
+    if min(min(p) for p in pad_hw) < 0:
+        raise ValueError(f"pads must be >= 0, got {pad_hw}")
+    n, h, w, c = x.shape
+    _, _, nh, nw = wino_grid(h, w, m, pad_hw)
+    if on_cpu("wino_input_transform_f32", x):
+        return wino_input_transform_nhwc_ref(x, m, pad_hw)
+    (top, _), (left, _) = pad_hw
+    return _launch_input(x, m, (n, h, w, c, top, left, nh, nw), n * nh * nw)
+
+
+# ---------------------------------------------------------------------------
+# K4: the output transform (+ bias, ReLU)
+# ---------------------------------------------------------------------------
 
 def wino_output_transform_ref(m_arr: torch.Tensor,
                               bias: torch.Tensor | None, m: int,
@@ -59,21 +143,73 @@ def wino_output_transform_ref(m_arr: torch.Tensor,
     return y
 
 
-def wino_output_transform_f32(m_arr: torch.Tensor,
-                              bias: torch.Tensor | None, m: int,
-                              relu: bool = False) -> torch.Tensor:
-    """M (PT^2, T, K) [+ bias (K,)] [ReLU] -> Y (T, m, m, K), fp32."""
+def wino_output_transform_nhwc_ref(m_arr: torch.Tensor,
+                                   bias: torch.Tensor | None, m: int,
+                                   out_nhw: tuple[int, int, int],
+                                   relu: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`wino_output_transform_nhwc_f32`:
+    the einsum, then the tile scatter and the crop."""
+    n, ho, wo = out_nhw
+    nh, nw = cdiv(ho, m), cdiv(wo, m)
+    k = m_arr.shape[2]
+    y = wino_output_transform_ref(m_arr, bias, m, relu)
+    y = y.reshape(n, nh, nw, m, m, k).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(n, nh * m, nw * m, k)[:, :ho, :wo].contiguous()
+
+
+def _check_output(m_arr: torch.Tensor, bias: torch.Tensor | None, m: int):
     _check_m(m)
     pt = pt_for(m)
     if m_arr.dim() != 3 or m_arr.shape[0] != pt * pt:
         raise ValueError(f"M must be ({pt * pt}, T, K), got {m_arr.shape}")
-    _, t, k = m_arr.shape
+    k = m_arr.shape[2]
     if bias is not None and bias.shape != (k,):
         raise ValueError(f"bias must be {(k,)}, got {bias.shape}")
-    if on_cpu("wino_output_transform_f32", m_arr, bias):
-        return wino_output_transform_ref(m_arr, bias, m, relu)
-    out = torch.empty((t, m, m, k), dtype=torch.float32, device=m_arr.device)
+
+
+def _launch_output(m_arr: torch.Tensor, bias: torch.Tensor | None, m: int,
+                   relu: bool, out: torch.Tensor,
+                   geom: tuple[int, ...]) -> torch.Tensor:
+    """K4 into ``out`` with ``geom`` = (N, Ho, Wo, K, nh, nw)."""
     if out.numel():
         launch("wino_output_transform_f32", [m_arr, bias, out],
-               [t, k, m, relu])
+               [*geom, m, relu],
+               route_args=(m_arr.data_ptr(), out.data_ptr(),
+                           None if bias is None else bias.data_ptr(),
+                           geom[3]))
     return out
+
+
+def wino_output_transform_f32(m_arr: torch.Tensor,
+                              bias: torch.Tensor | None, m: int,
+                              relu: bool = False) -> torch.Tensor:
+    """M (PT^2, T, K) [+ bias (K,)] [ReLU] -> Y (T, m, m, K), fp32: the
+    reference's contract (K4's output images with N = T, Ho = Wo = m, one
+    tile each)."""
+    _check_output(m_arr, bias, m)
+    if on_cpu("wino_output_transform_f32", m_arr, bias):
+        return wino_output_transform_ref(m_arr, bias, m, relu)
+    _, t, k = m_arr.shape
+    out = torch.empty((t, m, m, k), dtype=torch.float32, device=m_arr.device)
+    return _launch_output(m_arr, bias, m, relu, out, (t, m, m, k, 1, 1))
+
+
+def wino_output_transform_nhwc_f32(m_arr: torch.Tensor,
+                                   bias: torch.Tensor | None, m: int,
+                                   out_nhw: tuple[int, int, int],
+                                   relu: bool = False) -> torch.Tensor:
+    """M (PT^2, N nh nw, K) [+ bias (K,)] [ReLU] -> Y (N, Ho, Wo, K), fp32,
+    ``out_nhw = (N, Ho, Wo)``: each tile's m x m outputs written into the
+    NHWC image where ``transform_output`` and the crop place them."""
+    _check_output(m_arr, bias, m)
+    n, ho, wo = out_nhw
+    nh, nw = cdiv(ho, m), cdiv(wo, m)
+    _, t, k = m_arr.shape
+    if min(out_nhw) < 1 or t != n * nh * nw:
+        raise ValueError(f"M holds {t} tiles; an (N, Ho, Wo) = {out_nhw} "
+                         f"output takes {n * nh * nw}")
+    if on_cpu("wino_output_transform_f32", m_arr, bias):
+        return wino_output_transform_nhwc_ref(m_arr, bias, m, out_nhw, relu)
+    out = torch.empty((n, ho, wo, k), dtype=torch.float32,
+                      device=m_arr.device)
+    return _launch_output(m_arr, bias, m, relu, out, (n, ho, wo, k, nh, nw))

@@ -3,25 +3,30 @@ Hopper kernels.
 
 Pipeline (the paper's COMP-module datapath, Sec. 4.2):
 
-  tile extract (strided view + copy)           — LOAD manager addressing
-  -> wino_input_transform_f32 (K3)             — LOAD manager online B^T d B
+  wino_input_transform_f32 (K3), NHWC front    — LOAD manager addressing
+                                                 and online B^T d B
   -> bmm_f32, batch PT^2 (K2)                  — the PE, Eq. 2
-  -> wino_output_transform_f32 (K4, bias+ReLU) — SAVE manager A^T M A
-  -> tile scatter + crop to NHWC               — SAVE manager layout write
+  -> wino_output_transform_f32 (K4), NHWC front — SAVE manager A^T M A
+                                                 (bias + ReLU) and layout
+                                                 write
 
-The kernels mask their own edges, so unlike the reference nothing is padded
-to block multiples; only ``tile_input``'s geometric pad (so the tile grid
-covers the output) remains.
+K3 reads its tiles straight out of the unpadded input (the pads are
+geometry, zeros outside the image) and K4 writes the cropped NHWC output,
+so nothing pads, gathers, permutes or crops the activation in between.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.winograd import R_WINO, pad_for_conv, pt_for, tile_input
+from repro_torch.core.hybrid_conv import explicit_pads
+from repro_torch.core.winograd import R_WINO, pt_for
 from repro_torch.kernels.gemm.kernel import bmm_f32
 from repro_torch.kernels.winograd.kernel import (
+    wino_grid,
     wino_input_transform_f32,
+    wino_input_transform_nhwc_f32,
     wino_output_transform_f32,
+    wino_output_transform_nhwc_f32,
 )
 
 
@@ -44,27 +49,26 @@ def winograd_apply_pretransformed_hopper(
     bias: torch.Tensor | None = None,
     *,
     m: int = 4,
-    padding: str = "SAME",
+    padding="SAME",
     relu: bool = False,
     dataflow: str = "is",
 ) -> torch.Tensor:
     """Winograd conv from U-space weights (r = s = 3, stride 1), fp32.
 
-    The executor's ``backend="hopper"`` COMP path: tile extract -> K3 ->
-    the PT^2-batched K2 GEMM -> K4 with the bias/ReLU epilogue fused ->
-    scatter/crop back to NHWC. ``dataflow`` goes to the GEMM's raster order.
+    The executor's ``backend="hopper"`` COMP path: K3 on the NHWC input ->
+    the PT^2-batched K2 GEMM -> K4 with the bias/ReLU epilogue fused, into
+    the NHWC output. ``padding`` is "SAME", "VALID" or explicit ``((top,
+    bottom), (left, right))`` pads, which K3 takes as geometry.
+    ``dataflow`` goes to the GEMM's raster order.
     """
     pt, _, c, k = u_ptck.shape
     if pt != pt_for(m):
         raise ValueError(f"U tile {pt} does not match m={m}")
-    x = pad_for_conv(x_nhwc, padding)
-    n = x.shape[0]
-    ho, wo = x.shape[1] - R_WINO + 1, x.shape[2] - R_WINO + 1
-    tiles, (nh, nw) = tile_input(x, m)
-    t = n * nh * nw
-    v = input_transform(tiles.reshape(t, pt, pt, c), m)           # (PT^2, T, C)
+    n, h, w, _ = x_nhwc.shape
+    pad_hw = explicit_pads(padding, h, w, R_WINO, R_WINO, 1)
+    ho, wo, _, _ = wino_grid(h, w, m, pad_hw)
+    v = wino_input_transform_nhwc_f32(x_nhwc.contiguous(), m, pad_hw)
     mm = bmm_f32(v, u_ptck.reshape(pt * pt, c, k).contiguous(),
                  dataflow=dataflow)                               # (PT^2, T, K)
-    y = output_transform(mm, bias, m, relu)                       # (T, m, m, K)
-    y = y.reshape(n, nh, nw, m, m, k).permute(0, 1, 3, 2, 4, 5)
-    return y.reshape(n, nh * m, nw * m, k)[:, :ho, :wo, :]
+    return wino_output_transform_nhwc_f32(
+        mm, None if bias is None else bias.contiguous(), m, (n, ho, wo), relu)

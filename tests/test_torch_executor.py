@@ -195,6 +195,82 @@ def test_reduced_vgg16_logits_match_reference(reference_logits, pair,
     assert common.LAUNCHES == dict.fromkeys(common.KERNELS, 0)
 
 
+def guard_hopper_winograd_copies(monkeypatch) -> dict:
+    """While a ``hopper`` Winograd block runs (``conv_block_forward`` on a
+    ``wino`` plan), make ``F.pad``, ``tile_input`` and ``pad_for_conv``
+    raise, except inside the kernels' plain versions: on the CPU they stand
+    in for K3 and K4, which read and write the NHWC images themselves.
+    Returns the count of Winograd blocks watched (``"blocks"``)."""
+    from repro_torch.core import winograd as t_wino
+    from repro_torch.kernels.winograd import kernel as t_wk
+
+    state = {"pe": 0, "plain": 0, "blocks": 0}
+
+    def forbidden(name, fn):
+        def call(*a, **kw):
+            if state["pe"] and not state["plain"]:
+                raise AssertionError(f"{name} on the hopper Winograd path")
+            return fn(*a, **kw)
+        return call
+
+    def plain(fn):
+        def call(*a, **kw):
+            state["plain"] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                state["plain"] -= 1
+        return call
+
+    block_forward = t_executor.conv_block_forward
+
+    def watched_block(cl, *a, **kw):
+        watched = cl.plan.mode == "wino" and kw.get("backend") == "hopper"
+        state["pe"] += watched
+        state["blocks"] += watched
+        try:
+            return block_forward(cl, *a, **kw)
+        finally:
+            state["pe"] -= watched
+
+    monkeypatch.setattr(t_executor, "conv_block_forward", watched_block)
+    monkeypatch.setattr(torch.nn.functional, "pad",
+                        forbidden("F.pad", torch.nn.functional.pad))
+    for mod in (t_wino, t_wk):
+        monkeypatch.setattr(mod, "tile_input",
+                            forbidden("tile_input", t_wino.tile_input))
+    monkeypatch.setattr(t_wino, "pad_for_conv",
+                        forbidden("pad_for_conv", t_wino.pad_for_conv))
+    for name in ("wino_input_transform_nhwc_ref", "wino_input_transform_ref",
+                 "wino_output_transform_nhwc_ref",
+                 "wino_output_transform_ref"):
+        monkeypatch.setattr(t_wk, name, plain(getattr(t_wk, name)))
+    return state
+
+
+@pytest.mark.parametrize("opt_level", [0, 1])
+def test_reduced_vgg16_hopper_winograd_copies_nothing(reference_logits,
+                                                      monkeypatch, opt_level):
+    """Between the input slab and K3, and after K4, nothing on the hopper
+    Winograd path pads, gathers or copies the activation; the logits still
+    match the reference's."""
+    t_specs, plans, params_np, x, ref = reference_logits
+    state = guard_hopper_winograd_copies(monkeypatch)
+    acc = t_api.Accelerator.build(
+        t_specs, plans=[p and t_compiler.LayerPlan(*p) for p in plans],
+        params=t_api.params_from_numpy(params_np, "cpu"), batch=2,
+        backend="hopper", opt_level=opt_level, device="cpu",
+        cache=ProgramCache())
+    y = acc(x).numpy()
+    assert state["blocks"] >= 3
+    np.testing.assert_allclose(y, ref["pallas"], **TOL)
+    assert np.abs(y - ref["xla"]).max() <= 1e-4 * np.abs(ref["xla"]).max()
+    # the guard is live: the same call outside the kernels' plain versions
+    state["pe"] += 1
+    with pytest.raises(AssertionError, match="F.pad"):
+        torch.nn.functional.pad(torch.zeros(1, 2), (1, 1))
+
+
 def test_params_from_numpy_and_seeded_build_agree():
     """Carried-across numpy weights and the port's own seeded draw make the
     two packages compute the same logits."""

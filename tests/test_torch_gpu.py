@@ -36,9 +36,14 @@ from repro_torch.kernels.spatial_conv.kernel import (  # noqa: E402
     conv_gemm_ref,
 )
 from repro_torch.kernels.winograd.kernel import (  # noqa: E402
+    wino_grid,
     wino_input_transform_f32,
+    wino_input_transform_nhwc_f32,
+    wino_input_transform_nhwc_ref,
     wino_input_transform_ref,
     wino_output_transform_f32,
+    wino_output_transform_nhwc_f32,
+    wino_output_transform_nhwc_ref,
     wino_output_transform_ref,
 )
 from repro_torch.configs import get_config  # noqa: E402
@@ -141,6 +146,93 @@ def test_gpu_winograd_transforms(cuda, m):
         48, device=cuda)
     _gpu_close(wino_output_transform_f32(mm, bias, m, True),
                wino_output_transform_ref(mm, bias, m, True))
+
+
+# (N, H, W, C, K, pads, m): K3's input and K4's output geometry. A ragged
+# one (Ho, Wo not multiples of m, odd pads) with C = K = 5 (the scalar
+# route) and with C = 12, K = 8 (float4), and ResNet-18's s1 layer at batch
+# 8 as the executor gives it (the slab's 66 rows, the width pad as
+# geometry; float4).
+WINO_NHWC_CASES = [
+    pytest.param(2, 13, 11, 5, 5, ((1, 2), (0, 1)), m, id=f"ragged-c5-m{m}")
+    for m in (2, 4)
+] + [
+    pytest.param(2, 13, 11, 12, 8, ((1, 2), (0, 1)), 4, id="ragged-c12-m4"),
+    pytest.param(3, 9, 10, 16, 20, ((0, 0), (0, 0)), 2, id="valid-c16-m2"),
+    pytest.param(8, 66, 64, 64, 64, ((0, 0), (1, 1)), 4, id="resnet18-s1"),
+]
+
+
+def _route(channels):
+    return "vec4" if channels % 4 == 0 else "scalar"
+
+
+@pytest.mark.parametrize("n,h,w,c,k,pad,m", WINO_NHWC_CASES)
+def test_gpu_winograd_nhwc_fronts(cuda, n, h, w, c, k, pad, m):
+    pt = m + 2
+    ho, wo, nh, nw = wino_grid(h, w, m, pad)
+    t = n * nh * nw
+    x = torch.randn(n, h, w, c, device=cuda)
+    before = dict(common.LAUNCHES)
+    _gpu_close(wino_input_transform_nhwc_f32(x, m, pad),
+               wino_input_transform_nhwc_ref(x, m, pad))
+    assert common.last_route("wino_input_transform_f32") == _route(c)
+    mm, bias = (torch.randn(pt * pt, t, k, device=cuda),
+                torch.randn(k, device=cuda))
+    for relu in (False, True):
+        _gpu_close(
+            wino_output_transform_nhwc_f32(mm, bias, m, (n, ho, wo), relu),
+            wino_output_transform_nhwc_ref(mm, bias, m, (n, ho, wo), relu))
+        assert common.last_route("wino_output_transform_f32") == _route(k)
+    _gpu_close(wino_output_transform_nhwc_f32(mm, None, m, (n, ho, wo)),
+               wino_output_transform_nhwc_ref(mm, None, m, (n, ho, wo)))
+    # the reference's tiles layouts, on the same kernels
+    tiles = torch.randn(t, pt, pt, c, device=cuda)
+    _gpu_close(wino_input_transform_f32(tiles, m),
+               wino_input_transform_ref(tiles, m))
+    assert common.last_route("wino_input_transform_f32") == _route(c)
+    _gpu_close(wino_output_transform_f32(mm, bias, m, True),
+               wino_output_transform_ref(mm, bias, m, True))
+    assert common.last_route("wino_output_transform_f32") == _route(k)
+    assert common.LAUNCHES["wino_input_transform_f32"] == (
+        before["wino_input_transform_f32"] + 2)
+    assert common.LAUNCHES["wino_output_transform_f32"] == (
+        before["wino_output_transform_f32"] + 4)
+
+
+def test_gpu_winograd_misaligned_takes_scalar_route(cuda):
+    """Channels in fours but a pointer 4 bytes off a 16-byte boundary: the
+    scalar route, with the same results."""
+    x = _misaligned(2, 10, 9, 8, device=cuda)
+    pad = ((1, 1), (1, 1))
+    _gpu_close(wino_input_transform_nhwc_f32(x, 4, pad),
+               wino_input_transform_nhwc_ref(x, 4, pad))
+    assert common.last_route("wino_input_transform_f32") == "scalar"
+    mm = _misaligned(36, 2 * 3 * 3, 8, device=cuda)
+    _gpu_close(wino_output_transform_nhwc_f32(mm, None, 4, (2, 10, 9)),
+               wino_output_transform_nhwc_ref(mm, None, 4, (2, 10, 9)))
+    assert common.last_route("wino_output_transform_f32") == "scalar"
+
+
+def test_gpu_launch_keeps_the_current_device(cuda):
+    """common.launch no longer enters torch.cuda.device: each entry makes
+    its tensors' device current for the launch and gives the caller's back
+    (K2, K3, K5 and K6 here, one per source file)."""
+    before = torch.cuda.current_device()
+    a, b = torch.randn(1, 64, 64, device=cuda), torch.randn(1, 64, 64,
+                                                            device=cuda)
+    bmm_f32(a, b)
+    assert torch.cuda.current_device() == before
+    wino_input_transform_nhwc_f32(torch.randn(1, 6, 6, 4, device=cuda), 4)
+    assert torch.cuda.current_device() == before
+    i8 = torch.ones(64, 64, dtype=torch.int8, device=cuda)
+    qmm_i8(i8, i8, torch.zeros(64, dtype=torch.int32, device=cuda),
+           torch.ones(64, device=cuda), True)
+    assert torch.cuda.current_device() == before
+    q = torch.randn(2, 16, 64, device=cuda)
+    flash_attention_kernel(q, q, q, causal=True)
+    torch.cuda.synchronize()
+    assert torch.cuda.current_device() == before
 
 
 def _mixed_plans(specs):

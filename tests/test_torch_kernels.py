@@ -9,6 +9,8 @@ Tolerance: ``rtol=atol=1e-4``, the reference's own fp32 budget; for K6
 (flash attention) the reference's own attention budgets, ``rtol=atol=2e-4``
 in fp32 and ``3e-2`` in bf16 (``tests/test_kernels_attention.py``).
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -27,6 +29,12 @@ from repro.kernels.winograd import input_transform as r_input_tf  # noqa: E402
 from repro.kernels.winograd import output_transform as r_output_tf  # noqa: E402
 from repro.kernels.winograd import (  # noqa: E402
     winograd_apply_pretransformed_pallas as r_wino_apply,
+)
+from repro.kernels.winograd.kernel import (  # noqa: E402
+    input_transform_kernel as r_input_kernel,
+)
+from repro.kernels.winograd.ops import (  # noqa: E402
+    _finish_output as r_finish_output,
 )
 from repro.models import layers as r_layers  # noqa: E402
 from repro_torch.core import winograd as t_wino  # noqa: E402
@@ -53,9 +61,14 @@ from repro_torch.kernels.winograd import (  # noqa: E402
     winograd_apply_pretransformed_hopper,
 )
 from repro_torch.kernels.winograd.kernel import (  # noqa: E402
+    wino_grid,
     wino_input_transform_f32,
+    wino_input_transform_nhwc_f32,
+    wino_input_transform_nhwc_ref,
     wino_input_transform_ref,
     wino_output_transform_f32,
+    wino_output_transform_nhwc_f32,
+    wino_output_transform_nhwc_ref,
     wino_output_transform_ref,
 )
 from repro_torch.kernels.winograd.ref import conv2d_ref  # noqa: E402
@@ -156,15 +169,16 @@ def test_bmm_bias_relu_matches_pallas_epilogue(g, relu):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("m", [2, 4])
-def test_winograd_transforms_match_pallas(m):
+@pytest.mark.parametrize("t,c,k", [(13, 11, 10), (6, 64, 8)])
+def test_winograd_transforms_match_pallas(m, t, c, k):
     pt = m + 2
     rng = np.random.default_rng(m)
-    tiles = _np(rng, 13, pt, pt, 11)
+    tiles = _np(rng, t, pt, pt, c)
     _close(input_transform(torch.from_numpy(tiles), m),
            r_input_tf(jnp.asarray(tiles), m))
     _close(wino_input_transform_ref(torch.from_numpy(tiles), m),
            r_input_tf(jnp.asarray(tiles), m))
-    mm, bias = _np(rng, pt * pt, 13, 10), _np(rng, 10)
+    mm, bias = _np(rng, pt * pt, t, k), _np(rng, k)
     for relu in (False, True):
         y_ref = r_output_tf(jnp.asarray(mm), jnp.asarray(bias), m, relu=relu)
         _close(output_transform(torch.from_numpy(mm),
@@ -174,15 +188,32 @@ def test_winograd_transforms_match_pallas(m):
                y_ref)
 
 
+# SAME, VALID, the executor's width-only pad (the slab carries the vertical
+# one) and odd explicit pads
+WINO_PADDINGS = ["SAME", "VALID", ((0, 0), (1, 1)), ((1, 2), (0, 1))]
+
+
+def _explicit(padding):
+    return {"SAME": ((1, 1), (1, 1)), "VALID": ((0, 0), (0, 0))}.get(
+        padding, padding) if isinstance(padding, str) else padding
+
+
 @pytest.mark.parametrize("m", [2, 4])
-@pytest.mark.parametrize("padding", ["SAME", "VALID"])
+@pytest.mark.parametrize("padding", WINO_PADDINGS, ids=str)
 @pytest.mark.parametrize("relu", [False, True])
 def test_winograd_pretransformed_matches_pallas(m, padding, relu):
     rng = np.random.default_rng(m * 10 + relu)
     x, g, b = _np(rng, 2, 10, 11, 5), _np(rng, 3, 3, 5, 6), _np(rng, 6)
     u = r_wino.transform_weights(jnp.asarray(g), m)
-    y_ref = r_wino_apply(jnp.asarray(x), u, jnp.asarray(b), m=m,
-                         padding=padding, relu=relu)
+    # the reference takes SAME/VALID: explicit pads go in as a padded input
+    (top, bottom), (left, right) = _explicit(padding)
+    x_ref = np.pad(x, ((0, 0), (top, bottom), (left, right), (0, 0)))
+    y_ref = r_wino_apply(jnp.asarray(x_ref), u, jnp.asarray(b), m=m,
+                         padding="VALID", relu=relu)
+    if isinstance(padding, str):
+        np.testing.assert_allclose(np.asarray(y_ref), np.asarray(r_wino_apply(
+            jnp.asarray(x), u, jnp.asarray(b), m=m, padding=padding,
+            relu=relu)), **TOL)
     t_u = t_wino.transform_weights(torch.from_numpy(g), m)
     np.testing.assert_allclose(t_u.numpy(), np.asarray(u), **TOL)
     y = winograd_apply_pretransformed_hopper(
@@ -190,11 +221,89 @@ def test_winograd_pretransformed_matches_pallas(m, padding, relu):
         relu=relu)
     _close(y, y_ref)
     # the torch backend's Winograd PE and the direct conv agree too
+    x_t, pad_t = ((x, padding) if isinstance(padding, str)
+                  else (x_ref, "VALID"))
     _close(t_wino.winograd_apply_pretransformed(
-        torch.from_numpy(x), t_u, torch.from_numpy(b), m, relu=relu,
-        padding=padding), y_ref)
-    _close(conv2d_ref(torch.from_numpy(x), torch.from_numpy(g), padding,
-                      torch.from_numpy(b), relu), y_ref)
+        torch.from_numpy(x_t), t_u, torch.from_numpy(b), m, relu=relu,
+        padding=pad_t), y_ref)
+    _close(conv2d_ref(torch.from_numpy(x), torch.from_numpy(g),
+                      _explicit(padding), torch.from_numpy(b), relu), y_ref)
+
+
+def _reference_nhwc_fronts(x, mm, bias, m, padding, relu):
+    """The reference's side of K3's and K4's NHWC fronts: its tile_input
+    on the padded input, then input_transform_kernel (interpret mode); its
+    output_transform_kernel, then _finish_output's reshape, transpose and
+    crop."""
+    (top, bottom), (left, right) = _explicit(padding)
+    xp = jnp.pad(jnp.asarray(x), ((0, 0), (top, bottom), (left, right),
+                                  (0, 0)))
+    tiles, (nh, nw) = r_wino.tile_input(xp, m)
+    n, c, pt = x.shape[0], x.shape[3], m + 2
+    t = n * nh * nw
+    v = r_input_kernel(tiles.reshape(t, pt, pt, c), m=m, bt=t, bc=c,
+                       interpret=True)
+    ho, wo = xp.shape[1] - 2, xp.shape[2] - 2
+    k = mm.shape[2]
+    y = r_finish_output(jnp.asarray(mm), jnp.asarray(bias), m=m, bt=t, bk=k,
+                        relu=relu, interpret=True, geom=(n, nh, nw, t, t),
+                        ho=ho, wo=wo, k=k, kp=k, out_dtype=jnp.float32)
+    return v, y, (ho, wo, nh, nw)
+
+
+def _check_nhwc_fronts(n, h, w, c, k, m, padding, relu, seed):
+    rng = np.random.default_rng(seed)
+    pad = _explicit(padding)
+    ho, wo, nh, nw = wino_grid(h, w, m, pad)
+    x = _np(rng, n, h, w, c)
+    mm, bias = _np(rng, (m + 2) ** 2, n * nh * nw, k), _np(rng, k)
+    v_ref, y_ref, grid = _reference_nhwc_fronts(x, mm, bias, m, padding, relu)
+    assert grid == (ho, wo, nh, nw)
+    tx, tm, tb = (torch.from_numpy(a) for a in (x, mm, bias))
+    _close(wino_input_transform_nhwc_f32(tx, m, pad), v_ref)
+    _close(wino_input_transform_nhwc_ref(tx, m, pad), v_ref)
+    _close(wino_output_transform_nhwc_f32(tm, tb, m, (n, ho, wo), relu),
+           y_ref)
+    _close(wino_output_transform_nhwc_ref(tm, tb, m, (n, ho, wo), relu),
+           y_ref)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("padding", WINO_PADDINGS, ids=str)
+def test_winograd_nhwc_fronts_match_pallas(m, padding):
+    """K3's and K4's NHWC fronts (on the CPU, their plain versions)
+    against the reference's tile gather, kernels and scatter/crop, at a
+    ragged size (Ho, Wo not multiples of m under most pads)."""
+    _check_nhwc_fronts(2, 10, 11, 5, 6, m, padding, relu=m == 4, seed=m)
+
+
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+except ImportError:       # hypothesis is optional, as in test_properties.py
+    given = None
+
+if given is not None:
+    @settings(max_examples=12, deadline=None)
+    @given(n=st.integers(1, 2), h=st.integers(1, 9), w=st.integers(1, 9),
+           c=st.integers(1, 6), k=st.integers(1, 5), m=st.sampled_from([2, 4]),
+           padding=st.sampled_from(WINO_PADDINGS), relu=st.booleans())
+    def test_winograd_nhwc_fronts_property(n, h, w, c, k, m, padding, relu):
+        """Any small geometry the padded input covers with a 3x3 kernel,
+        Ho and Wo multiples of m or not."""
+        (top, bottom), (left, right) = _explicit(padding)
+        if h + top + bottom < 3 or w + left + right < 3:
+            return
+        _check_nhwc_fronts(n, h, w, c, k, m, padding, relu, seed=h * w + c)
+
+
+def test_hopper_winograd_pe_copies_nothing_in_between():
+    """x -> K3 -> K2 -> K4 -> y: the PE itself gathers, pads, permutes
+    and crops nothing (its kernels read and write the NHWC images)."""
+    src = inspect.getsource(winograd_apply_pretransformed_hopper)
+    body = src[src.index('"""', src.index('"""') + 3):]
+    for word in ("tile_input", "pad_for_conv", "F.pad", "permute", "[:,"):
+        assert word not in body, word
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -207,6 +316,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         bmm_f32(a, torch.zeros(2, 5, 5))
     with pytest.raises(ValueError, match="m must be"):
         wino_input_transform_f32(torch.zeros(1, 5, 5, 2), 3)
+    with pytest.raises(ValueError, match="smaller than"):
+        wino_input_transform_nhwc_f32(torch.zeros(1, 2, 5, 2), 4)
+    with pytest.raises(ValueError, match="takes 8"):
+        wino_output_transform_nhwc_f32(torch.zeros(36, 7, 2), None, 4,
+                                       (2, 8, 8))
     with pytest.raises(ValueError, match="meta"):
         conv_gemm_f32(torch.zeros(2, 3, device="meta"),
                       torch.zeros(3, 4, device="meta"))

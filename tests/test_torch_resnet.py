@@ -155,6 +155,28 @@ def test_reduced_resnet18_logits_match_reference(reference_resnet, pair,
     assert common.LAUNCHES == dict.fromkeys(common.KERNELS, 0)
 
 
+@pytest.mark.parametrize("opt_level", [0, 1])
+def test_reduced_resnet18_hopper_winograd_copies_nothing(reference_resnet,
+                                                         monkeypatch,
+                                                         opt_level):
+    """The hopper Winograd blocks of reduced ResNet-18 (7 layers) pad,
+    gather and copy nothing around K3 and K4; the logits still match the
+    reference's."""
+    from test_torch_executor import guard_hopper_winograd_copies
+
+    t_specs, t_plans, params_np, x, ref = reference_resnet
+    state = guard_hopper_winograd_copies(monkeypatch)
+    acc = t_api.Accelerator.build(
+        t_specs, plans=t_plans, params=t_api.params_from_numpy(params_np,
+                                                               "cpu"),
+        batch=2, backend="hopper", opt_level=opt_level, device="cpu",
+        cache=ProgramCache())
+    y = acc(x).numpy()
+    assert state["blocks"] >= 7
+    np.testing.assert_allclose(y, ref["pallas"], **TOL)
+    np.testing.assert_allclose(y, ref["oracle"], **TOL)
+
+
 def test_reference_forward_matches_reference(reference_resnet):
     t_specs, _, params_np, x, ref = reference_resnet
     params = t_api.params_from_numpy(params_np, "cpu")
