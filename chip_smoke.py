@@ -13,16 +13,26 @@ NHWC fronts at the geometry the executor gives them, on the float4 route
 wherever the channels come in fours, and off the paths through the tiles
 fronts, at m = 2 and at a ragged geometry; and times kernel, plain version
 and the nearest single PyTorch call),
-then serves four main paths through ``repro_torch.api.Accelerator`` with
+then serves six CNN paths through ``repro_torch.api.Accelerator`` with
 ``backend="hopper"``, batch 8, ``pm.V5E`` plans:
 
 * VGG16, 224x224, 1000 classes, fp32 (K1-K4);
 * the same VGG16 in int8, default calibration (K5);
 * ResNet-18 at full width, ``resnet18_specs(128, 1, n_classes=1000)``, fp32
   (K1-K4) and int8 (K5);
+* the reference's depthwise chain (conv -> depthwise -> depthwise,
+  stride 2 -> pool -> FC, ``tests/test_residual_ops.py``) at 56x56x128,
+  fp32 (K1, K2) and int8 (K5): a check input for DEPTHWISE_CONV, also held
+  to the same program on the CPU (fp32 within ``1e-3 * max|logit|``, int8
+  bit for bit), since both backends share the depthwise op;
 
-and a fifth through ``repro_torch.launch.serve.serve`` with
-``backend="hopper"``:
+then, on each of the six, the strict per-instruction interpreter
+(``HybridRuntime(strict=True, backend="hopper")`` on the served program,
+params and sidecar: one kernel call per COMP block and per FC), held bit
+for bit to an ``opt_level=0`` hopper executor on the same DRAM image, and
+to the served path (int8 bit for bit, fp32 within ``1e-3 * max|logit|``),
+with one request of each under ``torch.profiler``; and a last path through
+``repro_torch.launch.serve.serve`` with ``backend="hopper"``:
 
 * full-width minitron-8b in bf16 (32 layers, d_model 4096, vocab 256000,
   random weights from seed 0), batch 2, a 4096-token prompt, 16 greedy
@@ -40,14 +50,21 @@ within ``5e-2 * max|logit|``. Any failure raises and exits non-zero;
 without a CUDA card, or without the repository beside it, the script exits
 non-zero before printing any result.
 
+Phase 2 also holds every kernel at the shapes of the interpreter's calls
+(``*_strict`` paths: per COMP block, the block's rows and k-group); the
+summary's times sum the four CNN model paths and the LM path only, its
+launches every counted request of the run.
+
 Output: the card's name and power limit, one JSON line per (kernel, layer)
 (for K1-K5 with its ``route``; for K1/K2 its bound at three TF32
 products per product, and ``fma_bound_ms``, the bound on the fp32 FMA
 pipes),
-the timings of each path (for the LM also a ``torch.profiler`` breakdown
-of one prefill and one decode step: device busy time and the longest
-kernels), a ``{"kernels": [...]}`` summary line, and as the last line
-``{"ok": true, "device": {...}}``.
+the timings of each path (for the interpreter, its requests beside the
+served and ``opt_level=0`` executors', and the kernels whose device time
+differs most between the two under the profiler; for the LM also a
+``torch.profiler`` breakdown of one prefill and one decode step: device
+busy time and the longest kernels), a ``{"kernels": [...]}`` summary
+line, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -88,11 +105,22 @@ PATHS = {
                       "wino_output_transform_f32": 4},
     # 20 CONVs + 1 FC
     "resnet18_int8": {"qmm_i8": 21},
+    # the reference's depthwise chain (tests/test_residual_ops.py) at
+    # 56x56x128, a check input for DEPTHWISE_CONV: one Spatial CONV and the
+    # FC on the PE, the two depthwise layers in aten
+    "dwchain_fp32": {"conv_gemm_f32": 1, "bmm_f32": 1},
+    "dwchain_int8": {"qmm_i8": 2},
     # one K6 per layer of the prefill (prompt >= 2048 tokens); a decode
     # step attends one token through the einsum branch
     "minitron8b_bf16": {"flash_attention": 32},
 }
 LM_PATH = "minitron8b_bf16"
+# kept out of the summary's times, which sum the model paths
+DW_PATHS = ("dwchain_fp32", "dwchain_int8")
+# phase 4: the strict interpreter on each CNN path, with its own launch
+# counts and kernel shapes (phase 2): one PE call per COMP block and per
+# FC, the opt_level=0 executor's calls
+STRICT_PATHS = {f"{p}_strict": p for p in PATHS if p != LM_PATH}
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "minitron-8b", 2, 4096, 16
 # hopper vs torch last-token prefill logits, relative to max|logit|: K6
 # keeps P in fp32 where the scan rounds it to bf16, over 32 layers
@@ -184,46 +212,83 @@ def bound(ops: float, nbytes: float, peak_ops: float) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_cases(program, batch: int, dtype: str):
-    """Every kernel call a main path makes per request, with its shapes:
-    ``(kernel, layer name, shape dict, launches)``, one entry per layer."""
+def pe_calls(program, per_block: bool):
+    """The PE dispatches of one request: ``(layer, label, rows, k)`` per
+    CONV layer (the fused lowering, ``opt_level=1``) or, with
+    ``per_block``, per COMP block (the strict interpreter and the
+    ``opt_level=0`` executor: the block's output rows and k-group width);
+    ``rows`` and ``k`` are None for an FC layer."""
+    from repro_torch.core.isa import Opcode
+    calls = []
+    if not per_block:
+        for cl in program.layers:
+            if cl.kind == "conv":
+                calls.append((cl, cl.spec.name, cl.spec.out_hw[0],
+                              cl.spec.k))
+            elif cl.kind == "fc":
+                calls.append((cl, cl.spec.name, None, None))
+        return calls
+    for ins in program.instructions:
+        cl = program.layers[ins.layer_id]
+        if ins.opcode == Opcode.COMP:
+            ih, kg = ins.size & 0xFFF, (ins.size >> 12) & 0xFFF
+            (r0, r1), (lo, hi) = cl.row_groups[ih], cl.k_groups[kg]
+            calls.append((cl, f"{cl.spec.name}[{ih},{kg}]", r1 - r0,
+                          hi - lo))
+        elif ins.opcode == Opcode.FC:
+            calls.append((cl, cl.spec.name, None, None))
+    return calls
+
+
+def kernel_cases(program, batch: int, dtype: str, per_block: bool = False):
+    """Every kernel call a path makes per request, with its shapes:
+    ``(kernel, label, shape dict, launches)``, one entry per PE dispatch
+    (:func:`pe_calls`)."""
     from repro_torch.core.executor import width_pad
     from repro_torch.core.winograd import pt_for
     from repro_torch.kernels.common import cdiv
     cases = []
-    for cl in program.layers:
+    for cl, label, rows, k in pe_calls(program, per_block):
         s = cl.spec
         if dtype == "int8" and cl.kind == "fc":
-            cases.append(("qmm_i8", s.name, dict(m=batch, k=s.d_in,
-                                                 n=s.d_out), 1))
-        elif dtype == "int8" and cl.kind == "conv":
-            ho, wo = s.out_hw
-            cases.append(("qmm_i8", s.name, dict(
-                m=batch * ho * wo, k=s.r * s.s * s.c, n=s.k), 1))
+            cases.append(("qmm_i8", label, dict(m=batch, k=s.d_in,
+                                                n=s.d_out), 1))
+        elif dtype == "int8":
+            wo = s.out_hw[1]
+            cases.append(("qmm_i8", label, dict(
+                m=batch * rows * wo, k=s.r * s.s * s.c, n=k), 1))
         elif cl.kind == "fc":
-            cases.append(("bmm_f32", s.name, dict(
+            cases.append(("bmm_f32", label, dict(
                 g=1, m=batch, k=s.d_in, n=s.d_out, df="is"), 1))
-        elif cl.kind == "conv" and cl.plan.mode == "spat":
-            ho, wo = s.out_hw
-            cases.append(("conv_gemm_f32", s.name, dict(
-                t=batch * ho * wo, crs=s.r * s.s * s.c, k=s.k,
+        elif cl.plan.mode == "spat":
+            wo = s.out_hw[1]
+            cases.append(("conv_gemm_f32", label, dict(
+                t=batch * rows * wo, crs=s.r * s.s * s.c, k=k,
                 df=cl.plan.dataflow), 1))
-        elif cl.kind == "conv":
+        else:
             # K3 reads the executor's slab (the vertical pad materialized,
-            # ho + 2 rows) with the width pad as geometry; K4 writes the
-            # (N, Ho, Wo, K) output
+            # rows + 2) with the width pad as geometry; K4 writes the
+            # (N, rows, Wo, k) block
             m = cl.plan.m
-            ho, wo = s.out_hw
-            t = batch * cdiv(ho, m) * cdiv(wo, m)
+            wo = s.out_hw[1]
+            t = batch * cdiv(rows, m) * cdiv(wo, m)
             pt2 = pt_for(m) ** 2
-            cases.append(("wino_input_transform_f32", s.name, dict(
-                n=batch, h=ho + 2, w=s.w, c=s.c, m=m,
+            cases.append(("wino_input_transform_f32", label, dict(
+                n=batch, h=rows + 2, w=s.w, c=s.c, m=m,
                 pad=((0, 0), width_pad(cl))), 1))
-            cases.append(("bmm_f32", s.name, dict(
-                g=pt2, m=t, k=s.c, n=s.k, df=cl.plan.dataflow), 1))
-            cases.append(("wino_output_transform_f32", s.name, dict(
-                n=batch, ho=ho, wo=wo, k=s.k, m=m), 1))
+            cases.append(("bmm_f32", label, dict(
+                g=pt2, m=t, k=s.c, n=k, df=cl.plan.dataflow), 1))
+            cases.append(("wino_output_transform_f32", label, dict(
+                n=batch, ho=rows, wo=wo, k=k, m=m), 1))
     return cases
+
+
+def case_launches(cases) -> dict:
+    """Launches per request of each kernel in ``cases``."""
+    counted = {}
+    for name, _, _, n in cases:
+        counted[name] = counted.get(name, 0) + n
+    return counted
 
 
 def wino_offpath_cases():
@@ -496,8 +561,28 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
                 **extra)
 
 
+def dw_chain_specs() -> list:
+    """The reference's depthwise chain (conv -> depthwise -> depthwise,
+    stride 2 -> FC, ``tests/test_residual_ops.py``) at a card's width, with
+    a pool so the FC input fits the ISA's 16-bit FC dims."""
+    from repro_torch.core.hybrid_conv import (
+        ConvSpec,
+        DepthwiseSpec,
+        FCSpec,
+        PoolSpec,
+    )
+    return [ConvSpec("c1", 56, 56, 64, 128, relu=True),
+            DepthwiseSpec("d1", 56, 56, 128, relu=True),
+            DepthwiseSpec("d2", 56, 56, 128, stride=2),
+            PoolSpec("p1", 28, 28, 128),
+            FCSpec("f1", 14 * 14 * 128, N_CLASSES)]
+
+
 def path_specs(path: str):
+    """A CNN path's layer specs and its input's (H, W, C)."""
     from repro_torch.models import resnet, vgg
+    if path in DW_PATHS:
+        return dw_chain_specs(), (56, 56, 64)
     if path.startswith("vgg16"):
         return vgg.network_specs(224, 1, n_classes=N_CLASSES), (224, 224, 3)
     return resnet.resnet18_specs(128, 1, n_classes=N_CLASSES), (128, 128, 3)
@@ -585,6 +670,22 @@ def serve_path(path: str, x: torch.Tensor, params=None) -> dict:
             raise AssertionError(f"{path}: hopper vs torch logits max|diff| "
                                  f"{err:.3e} > {tol:.3e}")
         del ref
+    if any(cl.kind == "dw" for cl in acc.program.layers):
+        # both backends run the same depthwise op, so the card's is held to
+        # the CPU's, which the CPU tests pin to the reference
+        cpu = HybridRuntime(acc.program, backend="torch", device="cpu",
+                            quant=acc.quant)
+        cpu.load_params([(w.cpu(), b.cpu()) for w, b in acc.params])
+        inp = acc.quant.quantize_input(x) if dtype == "int8" else x
+        y_card, y_cpu = acc.runtime.run(inp).cpu(), cpu.run(inp.cpu())
+        err_cpu = float((y_card.float() - y_cpu.float()).abs().max())
+        tol_cpu = 0.0 if dtype == "int8" else 1e-3 * float(
+            y_cpu.abs().max())
+        if not err_cpu <= tol_cpu:
+            raise AssertionError(f"{path}: card vs CPU logits max|diff| "
+                                 f"{err_cpu:.3e} > {tol_cpu:.3e}")
+        print(f"path {path}: vs the same program on the CPU max|diff| "
+              f"{err_cpu:.3e} (tolerance {tol_cpu:.3e})", flush=True)
     modes = sorted({cl.plan.mode for cl in acc.program.layers
                     if cl.kind == "conv"})
     calib = (f" (calibration {acc.calib_ms:.0f}ms)"
@@ -605,11 +706,166 @@ def serve_path(path: str, x: torch.Tensor, params=None) -> dict:
     return dict(acc=acc, y=y, launches=launches, steady_ms=t_steady * 1e3)
 
 
-def device_profile(fn) -> dict:
+def path_program(path: str):
+    """The program a phase-2 path runs, its dtype and whether it makes one
+    PE call per COMP block (the interpreter's paths)."""
+    from repro_torch.core import perf_model as pm
+    from repro_torch.core.compiler import compile_network
+    base = STRICT_PATHS.get(path, path)
+    specs = path_specs(base)[0]
+    dtype = "int8" if base.endswith("int8") else "float32"
+    program = compile_network(
+        specs, pm.V5E.run_dse(specs, batch=BATCH, dtype=dtype).plans)
+    return program, dtype, path in STRICT_PATHS
+
+
+def timed_requests(run, inp: torch.Tensor) -> tuple:
+    """``STEADY_REQUESTS`` requests of ``run``, each timed on the host
+    clock to a synchronise, with the launch counts set to 0 just before
+    the first and read just after the last: (last output, ms per request,
+    launches per request, or None where a count is not a multiple)."""
+    from repro_torch.kernels import common
+    common.reset_launches()
+    times = []
+    for _ in range(STEADY_REQUESTS):
+        t0 = time.perf_counter()
+        y = run(inp)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    per_request = {k: (v // STEADY_REQUESTS if v % STEADY_REQUESTS == 0
+                       else None)
+                   for k, v in common.LAUNCHES.items() if v}
+    return y, times, per_request
+
+
+def fmt_ms(times: list) -> str:
+    """Median [min-max] of per-request times."""
+    return (f"{statistics.median(times):.2f} [{min(times):.2f}-"
+            f"{max(times):.2f}]")
+
+
+def kernel_delta(a: dict, b: dict, n: int = 5) -> list:
+    """The ``n`` kernel names whose device time differs most between two
+    profiles (:func:`device_profile` ``by_kernel``): ``[name, ms of a minus
+    ms of b, calls of a minus calls of b]``."""
+    rows = []
+    for k in {*a, *b}:
+        (ms_a, n_a), (ms_b, n_b) = a.get(k, (0.0, 0)), b.get(k, (0.0, 0))
+        rows.append([k, ms_a - ms_b, n_a - n_b])
+    return sorted(rows, key=lambda r: -abs(r[1]))[:n]
+
+
+def hold_strict(label: str, acc, inp: torch.Tensor) -> dict:
+    """``acc``'s program, params and sidecar on the strict interpreter with
+    ``backend="hopper"``: one warm request, then ``STEADY_REQUESTS`` timed
+    ones with the launch counts set to 0 just before and read just after
+    (per request they must equal one PE call per COMP block and per FC),
+    held bit for bit to an ``opt_level=0`` hopper executor on the same DRAM
+    image (the same calls, timed the same way), and to the served
+    ``opt_level=1`` executor: int8 bit for bit, fp32 within
+    ``1e-3 * max|logit|``. One request of each under ``torch.profiler``
+    says where the interpreter's extra time goes."""
+    from repro_torch.core.runtime import HybridRuntime
+
+    int8 = acc.quant is not None
+    st = HybridRuntime(acc.program, strict=True, backend="hopper",
+                       device="cuda", quant=acc.quant)
+    st.load_params(acc.params)
+    ex0 = HybridRuntime(acc.program, backend="hopper", opt_level=0,
+                        device="cuda", quant=acc.quant)
+    ex0.load_params(acc.params)
+    st.run(inp)
+    ex0.run(inp)
+    torch.cuda.synchronize()
+    y, interp_ms, launches = timed_requests(st.run, inp)
+    expected = case_launches(kernel_cases(
+        acc.program, BATCH, "int8" if int8 else "float32", per_block=True))
+    if launches != expected:
+        raise AssertionError(f"{label}: interpreter launches per request "
+                             f"{launches} != one per COMP block and FC "
+                             f"{expected}")
+    y0, opt0_ms, launches0 = timed_requests(ex0.run, inp)
+    if launches0 != launches:
+        raise AssertionError(f"{label}: opt_level=0 executor launches "
+                             f"{launches0} != interpreter's {launches}")
+    if not torch.equal(y, y0):
+        raise AssertionError(
+            f"{label}: interpreter differs from the opt_level=0 executor in "
+            f"{int((y != y0).sum())} places, max|diff| "
+            f"{float((y.float() - y0.float()).abs().max()):.3e}")
+    y1 = acc.runtime.run(inp)
+    torch.cuda.synchronize()
+    if int8:
+        if not torch.equal(y, y1):
+            raise AssertionError(f"{label}: int8 interpreter differs from the "
+                                 f"served executor in "
+                                 f"{int((y != y1).sum())} places")
+        err, tol = 0.0, 0.0
+    else:
+        err = float((y - y1).abs().max())
+        tol = 1e-3 * float(y1.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"{label}: interpreter vs served executor "
+                                 f"max|diff| {err:.3e} > {tol:.3e}")
+    if not torch.isfinite(y.float()).all():
+        raise AssertionError(f"{label}: non-finite interpreter output")
+    prof = {"interp": device_profile(lambda: st.run(inp), by_kernel=True),
+            "opt0": device_profile(lambda: ex0.run(inp), by_kernel=True)}
+    delta = kernel_delta(prof["interp"].pop("by_kernel"),
+                         prof["opt0"].pop("by_kernel"))
+    return dict(y=y, launches=launches, interp_ms=interp_ms,
+                opt0_ms=opt0_ms, max_abs_diff_vs_served=err, tol=tol,
+                equal_to_served=err == 0, profile=prof,
+                device_delta=delta)
+
+
+def interpret_path(path: str, served: dict, x: torch.Tensor,
+                   card: str) -> dict:
+    """Phase 4 (a): the strict interpreter on ``path``'s served program,
+    params and sidecar (:func:`hold_strict`). Every kernel the served
+    executor launches must launch on the interpreted request too."""
+    acc = served["acc"]
+    inp = acc.quant.quantize_input(x) if acc.quant is not None else x
+    r = hold_strict(f"{path}_strict", acc, inp)
+    missing = [k for k in PATHS[path] if not r["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"{path}_strict: {missing} never launched")
+    pi, p0 = r["profile"]["interp"], r["profile"]["opt0"]
+    print(f"path {path}_strict ({card}): batch {BATCH}, interpreted "
+          f"requests {fmt_ms(r['interp_ms'])}ms against the served "
+          f"executor's steady {served['steady_ms']:.2f}ms/batch and the "
+          f"opt_level=0 executor's {fmt_ms(r['opt0_ms'])}ms over "
+          f"{STEADY_REQUESTS} requests; launches per interpreted request "
+          f"{r['launches']} (served executor {PATHS[path]}); bit-equal to "
+          f"opt_level=0; vs the served executor max|diff| "
+          f"{r['max_abs_diff_vs_served']:.3e} (equal: "
+          f"{r['equal_to_served']}, tolerance {r['tol']:.3e})", flush=True)
+    print(f"path {path}_strict profile, one request: interpreter wall "
+          f"{pi['wall_ms']:.2f}ms, device busy {pi['device_busy_ms']:.3f}ms "
+          f"over {pi['n_kernels']} kernels; opt_level=0 wall "
+          f"{p0['wall_ms']:.2f}ms, device busy {p0['device_busy_ms']:.3f}ms "
+          f"over {p0['n_kernels']} kernels; largest device differences: "
+          + "; ".join(f"{k[:60]} {ms:+.3f}ms {n:+d} calls"
+                      for k, ms, n in r["device_delta"]), flush=True)
+    print(json.dumps({"path": f"{path}_strict", "card": card,
+                      "interp_ms": r["interp_ms"], "opt0_ms": r["opt0_ms"],
+                      "served_steady_ms": served["steady_ms"],
+                      "launches_per_request": r["launches"],
+                      "served_launches_per_request": PATHS[path],
+                      "max_abs_diff_vs_served": r["max_abs_diff_vs_served"],
+                      "equal_to_served": r["equal_to_served"],
+                      "tol": r["tol"], "profile": r["profile"],
+                      "device_delta_vs_opt0": r["device_delta"]}),
+          flush=True)
+    return r
+
+
+def device_profile(fn, by_kernel: bool = False) -> dict:
     """Run ``fn`` once under ``torch.profiler``: its wall ms (ending in a
     synchronise, profiler overhead included), the summed device time of
-    the kernels it ran, and its five longest kernels by name. A busy time
-    of 0 means the profiler saw no device activity: not measured."""
+    the kernels it ran, and its five longest kernels by name (with
+    ``by_kernel``, every kernel name's device ms and calls too). A busy
+    time of 0 means the profiler saw no device activity: not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -624,10 +880,14 @@ def device_profile(fn) -> dict:
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                n_kernels=sum(e.count for e in kernels),
-                top=[[e.key[:80], e.self_device_time_total / 1e3, e.count]
-                     for e in top])
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+               n_kernels=sum(e.count for e in kernels),
+               top=[[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                    for e in top])
+    if by_kernel:
+        out["by_kernel"] = {e.key: (e.self_device_time_total / 1e3, e.count)
+                            for e in kernels}
+    return out
 
 
 def serve_lm(k6_ms: float) -> dict:
@@ -754,8 +1014,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     from repro_torch.compat import use_strict_fp32
-    from repro_torch.core import perf_model as pm
-    from repro_torch.core.compiler import compile_network
     from repro_torch.kernels import common
 
     # -- phase 1: card, numerics, build ---------------------------------------
@@ -780,21 +1038,16 @@ def main() -> int:
                   for name in common.KERNELS}
     seen: dict[tuple, dict] = {}
     fields = ("ms", "plain_ms", "bound_ms", "library_ms")
-    for path in PATHS:
+    for path in [*PATHS, *STRICT_PATHS]:
         if path == LM_PATH:
             cases = lm_kernel_cases()
         else:
-            specs, _ = path_specs(path)
-            dtype = "int8" if path.endswith("int8") else "float32"
-            program = compile_network(
-                specs, pm.V5E.run_dse(specs, batch=BATCH, dtype=dtype).plans)
-            cases = kernel_cases(program, BATCH, dtype)
+            program, dtype, per_block = path_program(path)
+            cases = kernel_cases(program, BATCH, dtype, per_block)
             if path == "resnet18_fp32":
                 cases += wino_offpath_cases()
-        counted, per_path = {}, {}
-        for name, _, _, n in cases:
-            counted[name] = counted.get(name, 0) + n
-        if counted != PATHS[path]:
+        counted, per_path = case_launches(cases), {}
+        if path in PATHS and counted != PATHS[path]:
             raise AssertionError(f"{path}: program gives launches {counted}, "
                                  f"expected {PATHS[path]}")
         for name, layer, shape, n in cases:
@@ -819,6 +1072,8 @@ def main() -> int:
                 pk[f] += n * (r[f] or 0.0)
             agg = per_kernel[name]
             agg["max_abs_err"] = max(agg["max_abs_err"], r["max_abs_err"])
+            if path not in PATHS or path in DW_PATHS:
+                continue     # the summary's times: the served model paths
             for f in ("ms", "plain_ms", "bound_ms"):
                 agg[f] += n * r[f]
             if r["library_ms"] is not None:
@@ -832,19 +1087,20 @@ def main() -> int:
           f"since start", flush=True)
 
     # -- phase 3: the main paths through the user's entry points -------------
-    xs = {}
-    for img in (224, 128):
-        xs[img] = torch.from_numpy(np.random.default_rng(1).standard_normal(
-            (BATCH, img, img, 3)).astype(np.float32)).cuda()
+    xs = {}           # one batch of images per input shape
     total = dict.fromkeys(common.KERNELS, 0)
     results = {}
     for path in PATHS:
         if path == LM_PATH:
             continue
-        _, (img, _, _) = path_specs(path)
+        shape = path_specs(path)[1]
+        if shape not in xs:
+            xs[shape] = torch.from_numpy(np.random.default_rng(1)
+                                         .standard_normal((BATCH, *shape))
+                                         .astype(np.float32)).cuda()
         # the int8 builds quantize the fp32 build's weights
         fp32 = results.get(path.replace("int8", "fp32"))
-        results[path] = serve_path(path, xs[img],
+        results[path] = serve_path(path, xs[shape],
                                    params=fp32["acc"].params if fp32 else None)
         for name, n in results[path]["launches"].items():
             total[name] += n
@@ -854,18 +1110,29 @@ def main() -> int:
             print(f"path {path}: top-1 agreement of the dequantized int8 "
                   f"logits with the fp32 hopper path: {agree:.3f} over "
                   f"{BATCH} images (random weights)", flush=True)
-            fp32.pop("acc")
         torch.cuda.empty_cache()
     kernel_ms = sum(a["ms"] for name, a in per_kernel.items()
                     if name != "flash_attention")
-    print(f"kernel time per request of each CNN path, summed over the paths "
+    print(f"kernel time per request of each CNN model path, summed over the "
+          f"paths "
           f"(phase 2): {kernel_ms:.2f}ms; steady ms/batch: "
           + ", ".join(f"{p} {r['steady_ms']:.2f}" for p, r in results.items()),
           flush=True)
+
+    # -- phase 4: the strict interpreter on every CNN path --------------------
+    for path, served in results.items():
+        r = interpret_path(path, served, xs[path_specs(path)[1]], card)
+        for name, n in r["launches"].items():
+            total[name] += n * STEADY_REQUESTS
+        served.pop("acc")
+        del r
+        torch.cuda.empty_cache()
+    print(f"phase 4 (interpreter): {time.perf_counter() - t_start:.1f}s "
+          f"since start", flush=True)
     del results, xs
     torch.cuda.empty_cache()
 
-    # -- phase 4: the LM path through repro_torch.launch.serve ---------------
+    # -- phase 5: the LM path through repro_torch.launch.serve ---------------
     lm = serve_lm(k6_ms=per_kernel["flash_attention"]["ms"])
     for name, n in lm["launches"].items():
         total[name] += n

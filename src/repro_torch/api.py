@@ -20,12 +20,14 @@ means the CUDA card and raises when there is none; pass ``device="cpu"`` to
 run on the CPU (where ``"hopper"`` runs each kernel's plain version).
 ``dtype="int8"`` builds a quantized accelerator (calibration, a
 ``QuantSidecar``, int8 PEs through K5 on ``"hopper"``) that stays
-float-in/float-out.
+float-in/float-out. ``strict=True`` answers through the per-instruction
+interpreter instead of the cached executor, and ``strict_request()`` gives
+any accelerator an interpreted request on the ``torch`` PE, the oracle the
+executor is held to.
 
-Not ported yet: the segmented path and the strict interpreter (each raises
-``NotImplementedError`` naming its ROADMAP item), and
-``summary``/``save_program``/``from_program``/``serve`` (ROADMAP Queue 1,
-items 6 and 8).
+Not ported yet: the segmented path (it raises ``NotImplementedError``
+naming its ROADMAP item), and ``summary``/``save_program``/
+``from_program``/``serve`` (ROADMAP Queue 1, items 6 and 8).
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from repro_torch.core.hybrid_conv import (
     DepthwiseSpec,
     FCSpec,
 )
-from repro_torch.core.runtime import STRICT_NOT_PORTED, HybridRuntime
+from repro_torch.core.runtime import HybridRuntime
 from repro_torch.quant import QuantSidecar, calibrate, quantize_params
 
 
@@ -147,6 +149,10 @@ class Accelerator:
         calibration into a ``QuantSidecar`` (``observer``: ``"percentile"``
         or ``"minmax"``), and the params are quantized (int8 weights, int32
         biases). ``__call__`` stays float-in/float-out.
+
+        ``strict=True`` answers every request through the per-instruction
+        interpreter (on ``backend``'s PE) and skips the build-time schedule
+        validation: the interpreter checks the hazards per instruction.
         """
         if dtype not in ("float32", "int8"):
             raise ValueError(f"unsupported dtype {dtype!r}: expected "
@@ -160,8 +166,6 @@ class Accelerator:
                 "segmented=True: the legacy multi-Program path is not "
                 "ported (ROADMAP Queue 1, item 6); the single-Program path "
                 "serves the whole network")
-        if strict:
-            raise NotImplementedError(STRICT_NOT_PORTED)
         device = resolve_device(device)
         specs = list(specs)
         dse = None
@@ -199,9 +203,11 @@ class Accelerator:
 
         program = compile_network(specs, plans)
         rt = HybridRuntime(program, backend=backend, opt_level=opt_level,
-                           cache=cache, device=device, quant=quant)
+                           strict=strict, cache=cache, device=device,
+                           quant=quant)
         rt.load_params(params)
-        rt.cache.validate(program)      # schedule check once, at build time
+        if not strict:
+            rt.cache.validate(program)  # schedule check once, at build time
         return cls(specs=specs, plans=plans, params=params, runtime=rt,
                    program=program, target=target, batch=batch, dse=dse,
                    quant=quant, calib_ms=calib_ms)
@@ -235,3 +241,16 @@ class Accelerator:
     @property
     def n_instructions(self) -> int:
         return len(self.program.instructions)
+
+    def strict_request(self):
+        """A per-instruction-interpreter request fn over the same Program
+        and params, on this accelerator's device: the hazard-faithful
+        baseline for comparisons. It always runs the ``torch`` PE, whatever
+        this accelerator's ``backend``, so it is the oracle for the
+        ``hopper`` path too. A quantized accelerator's interpreter carries
+        the same sidecar, so its int8 outputs compare bit for bit with the
+        raw executor's (``runtime.run``)."""
+        rt = HybridRuntime(self.program, strict=True, device=self.device,
+                           quant=self.quant)
+        rt.load_params(self.params)
+        return rt.run

@@ -7,7 +7,8 @@
   COMP, a missing final SAVE all raise :class:`HazardError` — and produces
   the pipeline-statistics counters. It runs once per ``Program``. Ported
   whole from the reference: every opcode validates, ELTWISE_ADD and
-  DEPTHWISE_CONV included.
+  DEPTHWISE_CONV included. The walk (:class:`ScheduleWalk`) is the strict
+  interpreter's too, which supplies the data through its hooks.
 
 * **Phase 2 — lowering** (:func:`lower_program`): turn the validated
   schedule into a function ``execute(params, x) -> y`` of tensor ops with
@@ -24,16 +25,20 @@ implementations, selected by ``backend=``:
   ``"pallas"``): K1 for Spatial CONV, K3 + K2 + K4 for Winograd CONV, K2
   for FC. On CPU tensors each kernel runs its plain PyTorch version.
 
-POOL and ELTWISE_ADD blocks lower through plain aten ops on both backends:
-pooling is comparisons and the residual add is element-parallel, not PE
-MACs. DEPTHWISE_CONV validates but does not lower yet (ROADMAP Queue 1,
-item 3).
+POOL, ELTWISE_ADD and DEPTHWISE_CONV blocks lower through plain aten ops
+on both backends: pooling is comparisons, the residual add and the
+per-channel depthwise conv are element-parallel, not PE MACs.
+
+The per-block helpers (:func:`conv_block_forward`, :func:`fc_forward`,
+:func:`pool_forward`, :func:`eltwise_forward`, :func:`depthwise_forward`,
+:func:`slice_input_rows`) are shared with the strict interpreter
+(``core/runtime.py``), so the two paths cannot drift.
 
 ``quant`` (a :class:`repro_torch.quant.QuantSidecar`) lowers every
 parameterized block through the int8 PE instead (``quant/execute.py``:
-K5 on ``"hopper"``, an exact float64 product on ``"torch"``), and the
-residual add through ``qeltwise``; the schedule, blocking and liveness walk
-are untouched.
+K5 on ``"hopper"``, an exact float64 product on ``"torch"``; the depthwise
+conv through ``qdepthwise`` on both), and the residual add through
+``qeltwise``; the schedule, blocking and liveness walk are untouched.
 
 Lowering optimizer (``opt_level``): ``opt_level=1`` runs
 :func:`analyze_program` first. A CONV layer whose blocks are provably
@@ -59,6 +64,7 @@ from repro_torch.core import layouts
 from repro_torch.core.compiler import CompiledLayer, Program
 from repro_torch.core.hybrid_conv import (
     dense,
+    depthwise_conv2d,
     hybrid_conv2d,
     max_pool2d,
     same_pad,
@@ -72,6 +78,7 @@ from repro_torch.quant.execute import (
     layer_multiplier,
     qconv2d,
     qdense,
+    qdepthwise,
     qeltwise,
 )
 from repro_torch.quant.sidecar import LayerQuant, QuantSidecar
@@ -82,12 +89,6 @@ class HazardError(RuntimeError):
 
 
 OPT_LEVELS = (0, 1)
-
-# what the port does not lower yet, and where the ROADMAP tracks it
-_NOT_PORTED = {
-    "dw": "DEPTHWISE_CONV lowering is not ported yet (ROADMAP Queue 1, "
-          "item 3: depthwise_forward)",
-}
 
 
 def resolve_opt_level(opt_level: int) -> int:
@@ -109,6 +110,213 @@ def _fresh_stats() -> dict[str, int]:
 # Phase 1: schedule validation (symbolic replay, no tensors)
 # ---------------------------------------------------------------------------
 
+class ScheduleWalk:
+    """One replay of an instruction stream under the handshake-FIFO
+    discipline of Sec. 4.1: ping-pong input and weight slots and a bias
+    buffer, each tagged with the (layer, group) it holds, and the blocks the
+    current layer has computed but not yet saved. :meth:`walk` raises
+    :class:`HazardError` at the first instruction that breaks it and adds
+    to ``stats`` per instruction.
+
+    The hooks supply the data: what a LOAD puts in its slot, the block a
+    compute opcode makes from its slots' data, and what SAVE and the end of
+    a layer do with the blocks. Here they carry none: the symbolic pass of
+    :func:`validate_schedule`. The strict interpreter (``core/runtime.py``)
+    overrides them with DRAM reads and the per-block PE helpers, so the two
+    share one hazard contract.
+    """
+
+    def load(self, cl: CompiledLayer, ins, group: int):
+        """LOAD_BIAS, LOAD_INP (row group ``group``) or LOAD_WGT (k-group
+        ``group``): the slot's data."""
+        return None
+
+    def comp(self, cl, ins, x, w, bias, ih: int, kg: int):
+        return None
+
+    def pool(self, cl, ins, x):
+        return None
+
+    def fc(self, cl, ins, x, w, bias):
+        return None
+
+    def eltwise(self, cl, ins, x, skip):
+        return None
+
+    def depthwise(self, cl, ins, x, w, bias):
+        return None
+
+    def save(self, cl, ins, blocks: list) -> None:
+        """SAVE of ``blocks`` (all of a row group's k-groups under IS
+        dataflow, one block otherwise)."""
+
+    def flush(self, cl) -> None:
+        """The end of layer ``cl``, every block of it saved."""
+
+    def walk(self, program: Program, stats: dict[str, int]) -> None:
+        inp: list[tuple] = [(None, None), (None, None)]   # (tag, data)
+        wgt: list[tuple] = [(None, None), (None, None)]
+        bias: tuple = (None, None)
+        blocks: dict[tuple[int, int], object] = {}
+        saved = False
+        cur_layer = -1
+
+        for ins in program.instructions:
+            cl = program.layers[ins.layer_id]
+            lid = ins.layer_id
+            if lid != cur_layer:
+                if cur_layer >= 0:
+                    self._end_layer(program.layers[cur_layer], blocks, saved)
+                cur_layer = lid
+                blocks = {}
+                saved = False
+
+            op = ins.opcode
+            if op == Opcode.LOAD_BIAS:
+                bias = ((lid,), self.load(cl, ins, 0))
+                stats["load_bias"] += 1
+            elif op == Opcode.LOAD_INP:
+                ih, slot = ins.buff_base >> 1, ins.buff_base & 1
+                inp[slot] = ((lid, ih), self.load(cl, ins, ih))
+                stats["load_inp"] += 1
+                stats["inp_words"] += ins.size
+            elif op == Opcode.LOAD_WGT:
+                kg, slot = ins.buff_base >> 1, ins.buff_base & 1
+                wgt[slot] = ((lid, kg), self.load(cl, ins, kg))
+                stats["load_wgt"] += 1
+                stats["wgt_words"] += ins.size
+            elif op == Opcode.COMP:
+                ih = ins.size & 0xFFF
+                kg = (ins.size >> 12) & 0xFFF
+                islot = (ins.size >> 24) & 1
+                wslot = (ins.size >> 25) & 1
+                if inp[islot][0] != (lid, ih):
+                    raise HazardError(
+                        f"COMP L{lid} row-group {ih}: input slot "
+                        f"{islot} holds {inp[islot][0]}")
+                if wgt[wslot][0] != (lid, kg):
+                    raise HazardError(
+                        f"COMP L{lid} k-group {kg}: weight slot "
+                        f"{wslot} holds {wgt[wslot][0]}")
+                if bias[0] != (lid,):
+                    raise HazardError(f"COMP L{lid}: stale bias buffer")
+                blocks[(ih, kg)] = self.comp(cl, ins, inp[islot][1],
+                                             wgt[wslot][1], bias[1], ih, kg)
+                stats["comp"] += 1
+            elif op == Opcode.POOL:
+                islot = ins.buff_base & 1
+                cfg = (ins.pool_window, ins.pool_stride)
+                if cfg != (cl.spec.window, cl.spec.stride):
+                    raise HazardError(
+                        f"POOL L{lid}: word0 window/stride {cfg} "
+                        f"disagree with compiled spec "
+                        f"({cl.spec.window}, {cl.spec.stride})")
+                if inp[islot][0] != (lid, 0):
+                    raise HazardError(
+                        f"POOL L{lid}: input slot {islot} holds "
+                        f"{inp[islot][0]}")
+                blocks[(0, 0)] = self.pool(cl, ins, inp[islot][1])
+                stats["pool"] += 1
+            elif op == Opcode.FC:
+                islot = ins.buff_base & 1
+                wslot = (ins.buff_base >> 1) & 1
+                dims = unpack_fc_dims(ins.size)
+                if dims != (cl.spec.d_in, cl.spec.d_out):
+                    raise HazardError(
+                        f"FC L{lid}: word3 dims {dims} disagree with "
+                        f"compiled spec ({cl.spec.d_in}, {cl.spec.d_out})")
+                if inp[islot][0] != (lid, 0):
+                    raise HazardError(
+                        f"FC L{lid}: input slot {islot} holds "
+                        f"{inp[islot][0]}")
+                if wgt[wslot][0] != (lid, 0):
+                    raise HazardError(
+                        f"FC L{lid}: weight slot {wslot} holds "
+                        f"{wgt[wslot][0]}")
+                if bias[0] != (lid,):
+                    raise HazardError(f"FC L{lid}: stale bias buffer")
+                blocks[(0, 0)] = self.fc(cl, ins, inp[islot][1],
+                                         wgt[wslot][1], bias[1])
+                stats["fc"] += 1
+            elif op == Opcode.ELTWISE_ADD:
+                pslot = ins.buff_base & 1
+                sslot = (ins.buff_base >> 1) & 1
+                n_el = cl.spec.h * cl.spec.w * cl.spec.c
+                if ins.size != n_el:
+                    raise HazardError(
+                        f"ELTWISE L{lid}: word3 element count "
+                        f"{ins.size} disagrees with compiled spec ({n_el})")
+                if ins.dram_base != cl.skip_addr:
+                    raise HazardError(
+                        f"ELTWISE L{lid}: word2 skip base "
+                        f"{ins.dram_base} disagrees with compiled skip operand "
+                        f"({cl.skip_addr})")
+                if inp[pslot][0] != (lid, 0):
+                    raise HazardError(
+                        f"ELTWISE L{lid}: primary input slot {pslot} "
+                        f"holds {inp[pslot][0]}")
+                if inp[sslot][0] != (lid, 1):
+                    raise HazardError(
+                        f"ELTWISE L{lid}: skip input slot {sslot} "
+                        f"holds {inp[sslot][0]}")
+                blocks[(0, 0)] = self.eltwise(cl, ins, inp[pslot][1],
+                                              inp[sslot][1])
+                stats["eltwise"] += 1
+            elif op == Opcode.DEPTHWISE_CONV:
+                islot = ins.buff_base & 1
+                wslot = (ins.buff_base >> 1) & 1
+                geom = unpack_dw_geom(ins.size)
+                if geom != (cl.spec.r, cl.spec.s, cl.spec.stride):
+                    raise HazardError(
+                        f"DEPTHWISE L{lid}: word3 geometry {geom} "
+                        f"disagrees with compiled spec "
+                        f"({cl.spec.r}, {cl.spec.s}, {cl.spec.stride})")
+                if inp[islot][0] != (lid, 0):
+                    raise HazardError(
+                        f"DEPTHWISE L{lid}: input slot {islot} holds "
+                        f"{inp[islot][0]}")
+                if wgt[wslot][0] != (lid, 0):
+                    raise HazardError(
+                        f"DEPTHWISE L{lid}: weight slot {wslot} holds "
+                        f"{wgt[wslot][0]}")
+                if bias[0] != (lid,):
+                    raise HazardError(
+                        f"DEPTHWISE L{lid}: stale bias buffer")
+                blocks[(0, 0)] = self.depthwise(cl, ins, inp[islot][1],
+                                                wgt[wslot][1], bias[1])
+                stats["dw"] += 1
+            elif op == Opcode.SAVE:
+                ih = ins.size & 0xFFF
+                kg = (ins.size >> 12) & 0xFFF
+                if cl.kind != "conv":
+                    need = [(0, 0)]
+                elif cl.plan.dataflow == "is":
+                    need = [(ih, g) for g in range(len(cl.k_groups))]
+                else:
+                    need = [(ih, kg)]
+                for key in need:
+                    if key not in blocks:
+                        raise HazardError(
+                            f"SAVE L{lid} block {key} not computed")
+                self.save(cl, ins, [blocks.pop(key) for key in need])
+                saved = True
+                stats["save"] += 1
+            else:
+                raise ValueError(op)
+
+        if cur_layer < 0:
+            raise HazardError("empty instruction stream")
+        self._end_layer(program.layers[cur_layer], blocks, saved)
+
+    def _end_layer(self, cl, blocks: dict, saved: bool) -> None:
+        if blocks:
+            raise HazardError(
+                f"layer {cl.layer_id}: {len(blocks)} COMP blocks never SAVEd")
+        if not saved:
+            raise HazardError(f"layer {cl.layer_id}: no SAVE executed")
+        self.flush(cl)
+
+
 def validate_schedule(program: Program) -> dict[str, int]:
     """Replay the hazard/FIFO discipline once, without any compute.
 
@@ -116,162 +324,7 @@ def validate_schedule(program: Program) -> dict[str, int]:
     on the first violation.
     """
     stats = _fresh_stats()
-    inp_tags: list[tuple | None] = [None, None]
-    wgt_tags: list[tuple | None] = [None, None]
-    bias_tag: tuple | None = None
-    out_blocks: set[tuple[int, int]] = set()
-    saved_any = False
-    cur_layer = -1
-
-    def flush(layer_id: int):
-        if out_blocks:
-            raise HazardError(
-                f"layer {layer_id}: {len(out_blocks)} COMP blocks never SAVEd")
-        if not saved_any:
-            raise HazardError(f"layer {layer_id}: no SAVE executed")
-
-    for ins in program.instructions:
-        cl = program.layers[ins.layer_id]
-        if ins.layer_id != cur_layer:
-            if cur_layer >= 0:
-                flush(cur_layer)
-            cur_layer = ins.layer_id
-            out_blocks = set()
-            saved_any = False
-
-        op = ins.opcode
-        if op == Opcode.LOAD_BIAS:
-            bias_tag = (ins.layer_id,)
-            stats["load_bias"] += 1
-        elif op == Opcode.LOAD_INP:
-            ih, slot = ins.buff_base >> 1, ins.buff_base & 1
-            inp_tags[slot] = (ins.layer_id, ih)
-            stats["load_inp"] += 1
-            stats["inp_words"] += ins.size
-        elif op == Opcode.LOAD_WGT:
-            kg, slot = ins.buff_base >> 1, ins.buff_base & 1
-            wgt_tags[slot] = (ins.layer_id, kg)
-            stats["load_wgt"] += 1
-            stats["wgt_words"] += ins.size
-        elif op == Opcode.COMP:
-            ih = ins.size & 0xFFF
-            kg = (ins.size >> 12) & 0xFFF
-            islot = (ins.size >> 24) & 1
-            wslot = (ins.size >> 25) & 1
-            if inp_tags[islot] != (ins.layer_id, ih):
-                raise HazardError(
-                    f"COMP L{ins.layer_id} row-group {ih}: input slot "
-                    f"{islot} holds {inp_tags[islot]}")
-            if wgt_tags[wslot] != (ins.layer_id, kg):
-                raise HazardError(
-                    f"COMP L{ins.layer_id} k-group {kg}: weight slot "
-                    f"{wslot} holds {wgt_tags[wslot]}")
-            if bias_tag != (ins.layer_id,):
-                raise HazardError(f"COMP L{ins.layer_id}: stale bias buffer")
-            out_blocks.add((ih, kg))
-            stats["comp"] += 1
-        elif op == Opcode.POOL:
-            islot = ins.buff_base & 1
-            cfg = (ins.pool_window, ins.pool_stride)
-            if cfg != (cl.spec.window, cl.spec.stride):
-                raise HazardError(
-                    f"POOL L{ins.layer_id}: word0 window/stride {cfg} "
-                    f"disagree with compiled spec "
-                    f"({cl.spec.window}, {cl.spec.stride})")
-            if inp_tags[islot] != (ins.layer_id, 0):
-                raise HazardError(
-                    f"POOL L{ins.layer_id}: input slot {islot} holds "
-                    f"{inp_tags[islot]}")
-            out_blocks.add((0, 0))
-            stats["pool"] += 1
-        elif op == Opcode.FC:
-            islot = ins.buff_base & 1
-            wslot = (ins.buff_base >> 1) & 1
-            dims = unpack_fc_dims(ins.size)
-            if dims != (cl.spec.d_in, cl.spec.d_out):
-                raise HazardError(
-                    f"FC L{ins.layer_id}: word3 dims {dims} disagree with "
-                    f"compiled spec ({cl.spec.d_in}, {cl.spec.d_out})")
-            if inp_tags[islot] != (ins.layer_id, 0):
-                raise HazardError(
-                    f"FC L{ins.layer_id}: input slot {islot} holds "
-                    f"{inp_tags[islot]}")
-            if wgt_tags[wslot] != (ins.layer_id, 0):
-                raise HazardError(
-                    f"FC L{ins.layer_id}: weight slot {wslot} holds "
-                    f"{wgt_tags[wslot]}")
-            if bias_tag != (ins.layer_id,):
-                raise HazardError(f"FC L{ins.layer_id}: stale bias buffer")
-            out_blocks.add((0, 0))
-            stats["fc"] += 1
-        elif op == Opcode.ELTWISE_ADD:
-            pslot = ins.buff_base & 1
-            sslot = (ins.buff_base >> 1) & 1
-            n_el = cl.spec.h * cl.spec.w * cl.spec.c
-            if ins.size != n_el:
-                raise HazardError(
-                    f"ELTWISE L{ins.layer_id}: word3 element count "
-                    f"{ins.size} disagrees with compiled spec ({n_el})")
-            if ins.dram_base != cl.skip_addr:
-                raise HazardError(
-                    f"ELTWISE L{ins.layer_id}: word2 skip base "
-                    f"{ins.dram_base} disagrees with compiled skip operand "
-                    f"({cl.skip_addr})")
-            if inp_tags[pslot] != (ins.layer_id, 0):
-                raise HazardError(
-                    f"ELTWISE L{ins.layer_id}: primary input slot {pslot} "
-                    f"holds {inp_tags[pslot]}")
-            if inp_tags[sslot] != (ins.layer_id, 1):
-                raise HazardError(
-                    f"ELTWISE L{ins.layer_id}: skip input slot {sslot} "
-                    f"holds {inp_tags[sslot]}")
-            out_blocks.add((0, 0))
-            stats["eltwise"] += 1
-        elif op == Opcode.DEPTHWISE_CONV:
-            islot = ins.buff_base & 1
-            wslot = (ins.buff_base >> 1) & 1
-            geom = unpack_dw_geom(ins.size)
-            if geom != (cl.spec.r, cl.spec.s, cl.spec.stride):
-                raise HazardError(
-                    f"DEPTHWISE L{ins.layer_id}: word3 geometry {geom} "
-                    f"disagrees with compiled spec "
-                    f"({cl.spec.r}, {cl.spec.s}, {cl.spec.stride})")
-            if inp_tags[islot] != (ins.layer_id, 0):
-                raise HazardError(
-                    f"DEPTHWISE L{ins.layer_id}: input slot {islot} holds "
-                    f"{inp_tags[islot]}")
-            if wgt_tags[wslot] != (ins.layer_id, 0):
-                raise HazardError(
-                    f"DEPTHWISE L{ins.layer_id}: weight slot {wslot} holds "
-                    f"{wgt_tags[wslot]}")
-            if bias_tag != (ins.layer_id,):
-                raise HazardError(
-                    f"DEPTHWISE L{ins.layer_id}: stale bias buffer")
-            out_blocks.add((0, 0))
-            stats["dw"] += 1
-        elif op == Opcode.SAVE:
-            ih = ins.size & 0xFFF
-            kg = (ins.size >> 12) & 0xFFF
-            if cl.kind != "conv":
-                need = [(0, 0)]
-            elif cl.plan.dataflow == "is":
-                need = [(ih, g) for g in range(len(cl.k_groups))]
-            else:
-                need = [(ih, kg)]
-            for key in need:
-                if key not in out_blocks:
-                    raise HazardError(
-                        f"SAVE L{ins.layer_id} block {key} not computed")
-                out_blocks.discard(key)
-            saved_any = True
-            stats["save"] += 1
-        else:
-            raise ValueError(op)
-
-    if cur_layer >= 0:
-        flush(cur_layer)
-    else:
-        raise HazardError("empty instruction stream")
+    ScheduleWalk().walk(program, stats)
     return stats
 
 
@@ -590,6 +643,23 @@ def eltwise_forward(cl: CompiledLayer, x_stored: torch.Tensor,
     return y.to(x_stored.dtype)
 
 
+def depthwise_forward(cl: CompiledLayer, w: torch.Tensor, bias: torch.Tensor,
+                      x_stored: torch.Tensor, relu: bool,
+                      quant: LayerQuant | None = None) -> torch.Tensor:
+    """One DEPTHWISE_CONV block: identity LOAD view -> per-channel conv, on
+    both backends (``qdepthwise``, with its per-tensor multiplier, under
+    ``quant``)."""
+    x = layouts.load_view(x_stored, cl.inp_layout, hw=(cl.spec.h, cl.spec.w))
+    if quant is not None:
+        return qdepthwise(x, w, bias,
+                          mult=layer_multiplier(quant, x.device),
+                          stride=cl.spec.stride, padding=cl.spec.padding,
+                          relu=relu)
+    return depthwise_conv2d(x, w, bias, stride=cl.spec.stride,
+                            padding=cl.spec.padding, relu=relu,
+                            out_dtype=x_stored.dtype)
+
+
 def n_param_layers(program: Program) -> int:
     """Layers that carry (w, bias) params — CONV, FC and DEPTHWISE."""
     return sum(cl.kind not in ("pool", "eltwise") for cl in program.layers)
@@ -604,14 +674,9 @@ def check_param_count(program: Program, params: list):
 
 
 def check_lowerable(program: Program):
-    """Raise ``NotImplementedError`` for layer kinds this slice does not
-    lower, and ``ValueError`` for Winograd layers the runtime pre-transform
+    """Raise ``ValueError`` for Winograd layers the runtime pre-transform
     cannot take."""
     for cl in program.layers:
-        if cl.kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"layer {cl.layer_id} ({cl.spec.name!r}): "
-                f"{_NOT_PORTED[cl.kind]}")
         if cl.kind == "conv" and cl.plan.mode == "wino" \
                 and (cl.spec.r, cl.spec.s) != (3, 3):
             raise ValueError(
@@ -622,7 +687,8 @@ def check_lowerable(program: Program):
 def to_dram_params(program: Program, params: list) -> list:
     """Raw ``[(w, bias), ...]`` -> the DRAM weight image the executor
     consumes: U-space ``(PT, PT, C, K)`` for Winograd CONV layers, raw for
-    Spatial CONV and FC. Done once, the paper's offline transform."""
+    Spatial CONV, FC and DEPTHWISE. Done once, the paper's offline
+    transform."""
     check_param_count(program, params)
     check_lowerable(program)
     out = []
@@ -702,6 +768,10 @@ def lower_program(program: Program, *, backend: str = "torch",
                 pi += 1
                 y = fc_forward(cl, w_eff, b, x_in, relu00, backend=backend,
                                quant=lq)
+            elif cl.kind == "dw":
+                w_eff, b = params[pi]
+                pi += 1
+                y = depthwise_forward(cl, w_eff, b, x_in, relu00, quant=lq)
             else:
                 w_eff, b = params[pi]
                 pi += 1

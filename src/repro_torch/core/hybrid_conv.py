@@ -200,14 +200,16 @@ def _epilogue(y: torch.Tensor, bias, relu: bool) -> torch.Tensor:
 
 
 def conv2d_torch(x_nhwc: torch.Tensor, g_rsck: torch.Tensor, bias=None, *,
-                 stride: int = 1, padding="SAME",
-                 relu: bool = False) -> torch.Tensor:
-    """Direct convolution through ``F.conv2d`` (NHWC in/out, HWIO weights)."""
+                 stride: int = 1, padding="SAME", relu: bool = False,
+                 groups: int = 1) -> torch.Tensor:
+    """Direct convolution through ``F.conv2d`` (NHWC in/out, HWIO weights;
+    ``groups`` splits the channels as ``F.conv2d``'s does)."""
     r, s = g_rsck.shape[:2]
     (pt, pb), (pl, pr) = explicit_pads(padding, x_nhwc.shape[1],
                                        x_nhwc.shape[2], r, s, stride)
     x = F.pad(x_nhwc.float(), (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
-    y = F.conv2d(x, g_rsck.float().permute(3, 2, 0, 1), stride=stride)
+    y = F.conv2d(x, g_rsck.float().permute(3, 2, 0, 1), stride=stride,
+                 groups=groups)
     return _epilogue(y.permute(0, 2, 3, 1), bias, relu)
 
 
@@ -261,6 +263,25 @@ def hybrid_conv2d(
         return conv2d_torch(x_nhwc, g_rsck, bias, stride=stride,
                             padding=padding, relu=relu)
     raise ValueError(f"unknown mode {mode!r}")
+
+
+def depthwise_conv2d(x_nhwc: torch.Tensor, g_rs1c: torch.Tensor,
+                     bias: torch.Tensor | None = None, *, stride: int = 1,
+                     padding="SAME", relu: bool = False,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Depthwise convolution: one (r, s) filter per channel, HWIO kernel
+    ``(r, s, 1, C)``, fp32 accumulate. Like POOL it is element-parallel
+    work, not a PE GEMM, so both backends run this one aten op (a grouped
+    ``F.conv2d``). SAME is padded explicitly (stride-aware, asymmetric
+    under stride 2 on even maps, as the reference's ``"SAME"``)."""
+    _, _, one, c = g_rs1c.shape
+    if one != 1 or c != x_nhwc.shape[-1]:
+        raise ValueError(
+            f"depthwise kernel must be (r, s, 1, C={x_nhwc.shape[-1]}), "
+            f"got {tuple(g_rs1c.shape)}")
+    y = conv2d_torch(x_nhwc, g_rs1c, bias, stride=stride, padding=padding,
+                     relu=relu, groups=c)
+    return y.to(out_dtype or x_nhwc.dtype)
 
 
 def max_pool2d(x_nhwc: torch.Tensor, window: int = 2,

@@ -23,7 +23,11 @@ the request batch, as the reference does, and serves the int8 accelerator.
 ``--device cpu`` runs the same flow on the CPU (``hopper`` then runs each
 kernel's plain version). Prints the build time (and, for int8, the
 calibration time inside it), the first request's time and the steady-state
-ms/batch and images/s.
+ms/batch and images/s. ``--compare-interpreter`` then times one request
+through the strict per-instruction interpreter (``strict_request``: the
+``torch`` PE, the same params and sidecar) against the steady executor and
+prints the slowdown and ``max |diff|`` of the logits (int8: ``0.00e+00``,
+compared after dequantization).
 """
 from __future__ import annotations
 
@@ -124,9 +128,12 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
 def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
               iters: int = 20, seed: int = 0, target: str = "tpu",
               backend: str = "torch", opt_level: int = 1,
-              dtype: str = "float32", device=None) -> np.ndarray:
+              dtype: str = "float32", device=None,
+              compare_interpreter: bool = False) -> np.ndarray:
     """Build the accelerator, answer one first request and ``iters`` steady
-    requests, print the timings and return the last logits."""
+    requests, print the timings and return the last logits.
+    ``compare_interpreter`` also times one interpreted request against the
+    steady executor (after one warm-up) and prints ``max |diff|``."""
     from repro_torch import api
     from repro_torch.core import perf_model as pm
     from repro_torch.models import resnet, vgg
@@ -177,6 +184,21 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
     print(f"first request: {t_first * 1e3:.1f}ms; steady: "
           f"{t_steady * 1e3:.2f}ms/batch{batch} "
           f"({batch / t_steady:.1f} images/s) over {iters} requests")
+    if compare_interpreter:
+        strict_request = acc.strict_request()
+        strict_request(x)
+        _sync(acc.device)
+        t0 = time.perf_counter()
+        y_i = strict_request(x)
+        _sync(acc.device)
+        t_interp = time.perf_counter() - t0
+        if acc.quant is not None:       # both paths emit int8: compare in
+            y_i = acc.quant.dequantize_output(y_i)   # the dequantized space
+        err = float((y - y_i).abs().max())
+        print(f"interpreter: {t_interp * 1e3:.1f}ms/batch "
+              f"({t_interp / t_steady:.1f}x slower than cached executor; "
+              f"max |diff| {err:.2e}; max |logit| "
+              f"{float(y_i.abs().max()):.2e})")
     return y.cpu().numpy()
 
 
@@ -206,6 +228,9 @@ def main():
                          "the quantized accelerator (K5 on hopper)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--compare-interpreter", action="store_true",
+                    help="also time one request through the strict "
+                         "per-instruction interpreter and print max |diff|")
     args = ap.parse_args()
     if args.arch not in SIZES:
         out = serve(args.arch, reduced=args.reduced, batch=args.batch,
@@ -216,7 +241,8 @@ def main():
     y = serve_cnn(args.arch, reduced=args.reduced, batch=args.batch,
                   iters=args.iters, target=args.target, backend=args.backend,
                   opt_level=args.opt_level, dtype=args.dtype,
-                  device=args.device)
+                  device=args.device,
+                  compare_interpreter=args.compare_interpreter)
     print("logits:", y.shape)
 
 

@@ -29,6 +29,7 @@ from repro_torch.core.hybrid_conv import (
     FCSpec,
     PoolSpec,
     dense,
+    depthwise_conv2d,
     hybrid_conv2d,
     max_pool2d,
 )
@@ -111,9 +112,10 @@ def replay_stash(specs, params, x_nhwc: torch.Tensor) -> dict:
             if spec.relu:
                 y = torch.relu(y)
         elif isinstance(spec, DepthwiseSpec):
-            raise NotImplementedError(
-                "depthwise_conv2d is not ported yet (ROADMAP Queue 1, "
-                "item 1)")
+            w, b = params[pi]
+            pi += 1
+            y = depthwise_conv2d(stash[i - 1], w, b, stride=spec.stride,
+                                 padding=spec.padding, relu=spec.relu)
         elif isinstance(spec, FCSpec):
             w, b = params[pi]
             pi += 1

@@ -4,12 +4,13 @@ Replays the spec chain in fp32 with the same stash-based walk as
 ``models.resnet.reference_forward`` (``replay_stash``), so every topology
 the compiler accepts calibrates, ``inp_from`` forks and ``skip_from``
 residuals included, and feeds one observer per produced tensor. Weight
-scales come straight from ``|w|_max`` per output channel for CONV/FC;
-POOL layers are pinned to scale passthrough (``max()`` commutes with a
-positive rescale, so the pooled int8 map is the pooled fp map quantized at
-the input scale). The scale arithmetic is the reference's, in numpy on host
-copies: equal weights give bit-equal weight scales, and activation scales
-differ only by the last bits of the fp32 replay.
+scales come straight from ``|w|_max`` per output channel for CONV/FC and
+per tensor for DEPTHWISE; POOL layers are pinned to scale passthrough
+(``max()`` commutes with a positive rescale, so the pooled int8 map is the
+pooled fp map quantized at the input scale). The scale arithmetic is the
+reference's, in numpy on host copies: equal weights give bit-equal weight
+scales, and activation scales differ only by the last bits of the fp32
+replay.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from repro_torch.core.hybrid_conv import (
     FCSpec,
     PoolSpec,
 )
-from repro_torch.quant.execute import QDEPTHWISE_NOT_PORTED, params_device
+from repro_torch.optim.compression import quantize_int8
+from repro_torch.quant.execute import params_device
 from repro_torch.quant.observers import make_observer
 from repro_torch.quant.sidecar import LayerQuant, QuantSidecar
 
@@ -46,8 +48,6 @@ def calibrate(specs: Sequence, params, calib_data, *,
                else list(calib_data))
     if not batches:
         raise ValueError("calibrate needs at least one sample batch")
-    if any(isinstance(s, DepthwiseSpec) for s in specs):
-        raise NotImplementedError(QDEPTHWISE_NOT_PORTED)
     device = (torch.device(device) if device is not None
               else params_device(params))
     params_t = [tuple(to_tensor(a, device) for a in p) for p in params]
@@ -92,6 +92,13 @@ def calibrate(specs: Sequence, params, calib_data, *,
             layers.append(LayerQuant("eltwise", out_scale(i - 1),
                                      obs[i].scale,
                                      skip_scale=out_scale(spec.skip_from)))
+        elif isinstance(spec, DepthwiseSpec):
+            # per tensor: the HWIO weight's output axis is a singleton, so a
+            # per-channel vector would not broadcast over the grouped conv
+            _, ws = quantize_int8(to_numpy(params[pi][0]))
+            pi += 1
+            layers.append(LayerQuant("dw", out_scale(i - 1), obs[i].scale,
+                                     wgt_scale=float(ws)))
         elif isinstance(spec, FCSpec):
             ws = channel_scales(params[pi][0])
             pi += 1

@@ -13,6 +13,8 @@ reference's ``"xla"``) runs the product in float64 and casts it to int32:
 exact on every device, because each partial sum is an integer of magnitude
 at most ``K * 127**2``, far below 2**53, and aten has no integer conv on
 CUDA while on the CPU an int8 conv or matmul returns int8 and wraps.
+``qdepthwise`` takes that float64 route on both backends: depthwise is
+element-parallel work, not a PE GEMM, and has no kernel.
 
 Scales enter the arithmetic as float32 tensors on the operands' device (a
 division or multiplication by a Python scalar may be rewritten by CUDA aten
@@ -42,9 +44,6 @@ from repro_torch.kernels.gemm.int8 import (
 )
 from repro_torch.kernels.spatial_conv.ops import im2col
 from repro_torch.quant.sidecar import LayerQuant, QuantSidecar
-
-QDEPTHWISE_NOT_PORTED = ("int8 depthwise convolution (qdepthwise) is not "
-                         "ported yet (ROADMAP Queue 1, item 7)")
 
 
 def params_device(params) -> torch.device:
@@ -109,11 +108,19 @@ def qconv2d(x_i8: torch.Tensor, w_i8: torch.Tensor, b_i32: torch.Tensor, *,
         y = quantized_matmul(patches, w_i8.reshape(r * s * c, k), b_i32,
                              mult=mult, relu=relu)
         return y.reshape(n, ho, wo, k)
+    acc = _exact_conv(x_i8, w_i8, stride, pads)
+    return requantize(acc + b_i32.to(torch.int32), mult, relu)
+
+
+def _exact_conv(x_i8: torch.Tensor, w_i8: torch.Tensor, stride: int, pads,
+                groups: int = 1) -> torch.Tensor:
+    """The exact int32 sums of an int8 NHWC x HWIO convolution (explicit
+    ``pads``): the product in float64, rounded."""
     (pt, pb), (pl, pr) = pads
     xd = F.pad(x_i8.double(), (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
-    y = F.conv2d(xd, w_i8.double().permute(3, 2, 0, 1), stride=stride)
-    acc = torch.round(y).permute(0, 2, 3, 1).to(torch.int32)
-    return requantize(acc + b_i32.to(torch.int32), mult, relu)
+    y = F.conv2d(xd, w_i8.double().permute(3, 2, 0, 1), stride=stride,
+                 groups=groups)
+    return torch.round(y).permute(0, 2, 3, 1).to(torch.int32)
 
 
 def qdense(x_i8: torch.Tensor, w_i8: torch.Tensor, b_i32: torch.Tensor, *,
@@ -139,11 +146,17 @@ def qeltwise(a_i8: torch.Tensor, b_i8: torch.Tensor, lq: LayerQuant,
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
 
 
-def qdepthwise(x_i8, w_i8, b_i32, *, mult, stride: int = 1, padding="SAME",
-               relu: bool = False):
-    """int8 depthwise convolution: not ported yet (no model of the port's
-    slices has a depthwise layer)."""
-    raise NotImplementedError(QDEPTHWISE_NOT_PORTED)
+def qdepthwise(x_i8: torch.Tensor, w_i8: torch.Tensor, b_i32: torch.Tensor,
+               *, mult, stride: int = 1, padding="SAME",
+               relu: bool = False) -> torch.Tensor:
+    """int8 depthwise convolution, NHWC x ``(r, s, 1, C)`` -> NHWC int8:
+    an exact grouped conv (float64, rounded to int32) + requantize. No
+    kernel on either backend, as the fp32 depthwise."""
+    _, h, w, c = x_i8.shape
+    r, s = w_i8.shape[:2]
+    acc = _exact_conv(x_i8, w_i8, stride,
+                      explicit_pads(padding, h, w, r, s, stride), groups=c)
+    return requantize(acc + b_i32.to(torch.int32), mult, relu)
 
 
 def quantize_params(specs, params, sidecar: QuantSidecar,

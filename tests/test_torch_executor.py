@@ -4,6 +4,7 @@ both port backends at both opt levels against the reference's ``xla`` and
 ``pallas`` (interpret-mode) executors. Tolerance ``rtol=atol=1e-4``, the
 reference's own fp32 budget (``tests/test_backend_pallas.py``)."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -15,8 +16,13 @@ from conftest import flip_first_comp  # noqa: E402
 from test_hazards import (  # noqa: E402
     HAZARDS,
     POOL_FC_HAZARDS,
+    RESIDUAL_HAZARDS,
+    _full_net,
     _mutate,
     _mutate_full,
+    _mutate_residual,
+    _net,
+    _residual_net,
 )
 
 from repro import api as r_api  # noqa: E402
@@ -95,36 +101,72 @@ def test_validate_schedule_stats_match(net):
         r_executor.validate_schedule(r_prog)
 
 
-def _port_net(full: bool):
-    """test_hazards' nets, compiled by the port: two CONVs with 4 row
-    groups (ping-pong slots reused), or CONV -> POOL -> CONV -> FC."""
-    if full:
-        specs = [t_hc.ConvSpec("c1", 8, 8, 3, 4, relu=True),
-                 t_hc.PoolSpec("p1", 8, 8, 4),
-                 t_hc.ConvSpec("c2", 4, 4, 4, 4, relu=True),
-                 t_hc.FCSpec("f1", 4 * 4 * 4, 6, relu=False)]
-        plans = [t_compiler.LayerPlan("spat", "is"), None,
-                 t_compiler.LayerPlan("spat", "is"), None]
-    else:
-        specs = [t_hc.ConvSpec("c1", 16, 16, 3, 8, relu=True),
-                 t_hc.ConvSpec("c2", 16, 16, 8, 12, relu=False)]
-        plans = [t_compiler.LayerPlan("spat", "is", 2, 2, 4),
-                 t_compiler.LayerPlan("spat", "ws", 2, 2, 4)]
-    return specs, t_compiler.compile_network(specs, plans)
+# test_hazards' three nets and their mutators: two CONVs with 4 row groups
+# (ping-pong slots reused); CONV -> POOL -> CONV -> FC; CONV -> CONV ->
+# ELTWISE(skip = conv0) -> DEPTHWISE
+HAZARD_NETS = {"conv": (_net, _mutate), "full": (_full_net, _mutate_full),
+               "residual": (_residual_net, _mutate_residual)}
+HAZARD_CASES = ([("conv", h) for h in HAZARDS]
+                + [("full", h) for h in POOL_FC_HAZARDS]
+                + [("residual", h) for h in RESIDUAL_HAZARDS])
 
 
-@pytest.mark.parametrize("hazard", HAZARDS + POOL_FC_HAZARDS)
-def test_port_validation_raises_on_reference_hazards(hazard):
-    full = hazard in POOL_FC_HAZARDS
-    specs, prog = _port_net(full)
-    bad = _to_port((_mutate_full if full else _mutate)(prog, hazard))
+@functools.lru_cache(maxsize=None)
+def _port_net(kind: str):
+    """One of test_hazards' nets compiled by the port, with the
+    reference's params and input (drawn from ``jax.random``) carried
+    across as numpy arrays."""
+    specs, plans, params, x = HAZARD_NETS[kind][0]()
+    t_specs = [getattr(t_hc, type(s).__name__)(**dataclasses.asdict(s))
+               for s in specs]
+    prog = t_compiler.compile_network(
+        t_specs, [p and t_compiler.LayerPlan(*dataclasses.astuple(p))
+                  for p in plans])
+    return (t_specs, prog, [(np.asarray(w), np.asarray(b)) for w, b in params],
+            np.asarray(x))
+
+
+@pytest.mark.parametrize("kind,hazard", HAZARD_CASES,
+                         ids=[h for _, h in HAZARD_CASES])
+def test_port_validation_raises_on_reference_hazards(kind, hazard):
+    """Every one of the reference's 25 mutated streams raises
+    ``HazardError`` in the port's validation pass, in its executor before
+    any compute, and in its strict interpreter."""
+    specs, prog, params, x = _port_net(kind)
+    bad = _to_port(HAZARD_NETS[kind][1](prog, hazard))
     with pytest.raises(t_executor.HazardError):
         t_executor.validate_schedule(bad)
-    # and the runtime refuses the stream before any compute
-    rt = HybridRuntime(bad, device="cpu")
-    rt.load_params(t_api.random_params(specs, 0, "cpu"))
+    # the runtime refuses the stream before any compute: nothing lowered
+    cache = ProgramCache()
+    rt = HybridRuntime(bad, device="cpu", cache=cache)
+    rt.load_params(params)
     with pytest.raises(t_executor.HazardError):
-        rt.run(torch.zeros((1, specs[0].h, specs[0].w, specs[0].c)))
+        rt.run(x)
+    assert len(cache) == 0
+    st = HybridRuntime(bad, strict=True, device="cpu")
+    st.load_params(params)
+    with pytest.raises(t_executor.HazardError):
+        st.run(x)
+
+
+@pytest.mark.parametrize("kind", list(HAZARD_NETS))
+def test_port_good_streams_pass_all_three_paths(kind):
+    """tests/test_hazards.py:99, :206, :327 on the port: the unmutated
+    streams pass validation, the executor and the interpreter, with the
+    reference's stats on all three."""
+    specs, prog, params, x = _port_net(kind)
+    stats = t_executor.validate_schedule(prog)
+    r_specs, r_plans, _, _ = HAZARD_NETS[kind][0]()
+    assert stats == r_executor.validate_schedule(
+        r_compiler.compile_network(r_specs, r_plans))
+    rt = HybridRuntime(prog, opt_level=0, device="cpu", cache=ProgramCache())
+    rt.load_params(params)
+    y = rt.run(x)
+    assert rt.stats == stats
+    st = HybridRuntime(prog, strict=True, device="cpu")
+    st.load_params(params)
+    assert torch.equal(st.run(x), y)
+    assert st.stats == stats
 
 
 # ---------------------------------------------------------------------------
@@ -370,18 +412,21 @@ def test_build_without_device_needs_cuda():
 
 def test_unported_paths_name_their_roadmap_item():
     specs = t_vgg.network_specs(img=32, scale=32, n_classes=10)
-    for kw in (dict(segmented=True), dict(strict=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu",
-                                    **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu",
+                                segmented=True)
+    # the strict interpreter is ported (tests/test_torch_strict.py)
+    acc = t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu",
+                                  strict=True)
+    assert acc.runtime.strict
+    # DEPTHWISE_CONV lowers now (tests/test_torch_depthwise.py)
     dw_specs = [t_hc.ConvSpec("c1", 8, 8, 3, 4),
                 t_hc.DepthwiseSpec("d1", 8, 8, 4)]
     prog = t_compiler.compile_network(
         dw_specs, [t_compiler.LayerPlan(), None])
     t_executor.validate_schedule(prog)      # validation is ported whole
-    with pytest.raises(NotImplementedError, match="DEPTHWISE_CONV"):
-        t_executor.lower_program(prog)
-    # ELTWISE_ADD lowers now (ResNet-18: tests/test_torch_resnet.py)
+    t_executor.lower_program(prog)
+    # ELTWISE_ADD lowers too (ResNet-18: tests/test_torch_resnet.py)
     res_specs = [t_hc.ConvSpec("c1", 8, 8, 3, 4),
                  t_hc.ConvSpec("c2", 8, 8, 4, 4, relu=False),
                  t_hc.EltwiseSpec("e1", 8, 8, 4, skip_from=0)]

@@ -27,7 +27,12 @@ torch = pytest.importorskip("torch")
 from repro_torch import api  # noqa: E402
 from repro_torch.core.compiler import LayerPlan  # noqa: E402
 from repro_torch.core.runtime import HybridRuntime  # noqa: E402
-from repro_torch.core.hybrid_conv import ConvSpec  # noqa: E402
+from repro_torch.core.hybrid_conv import (  # noqa: E402
+    ConvSpec,
+    DepthwiseSpec,
+    FCSpec,
+    PoolSpec,
+)
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.gemm.int8 import qmm_i8, qmm_ref  # noqa: E402
 from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref  # noqa: E402
@@ -377,6 +382,91 @@ def test_gpu_reduced_resnet18_fp32_hopper_matches_torch(cuda, opt_level):
     y, y_ref = acc(x).cpu().numpy(), ref(x).cpu().numpy()
     assert np.isfinite(y).all()
     assert np.abs(y - y_ref).max() <= 1e-3 * np.abs(y_ref).max()
+
+
+# ---------------------------------------------------------------------------
+# The strict interpreter and the depthwise path on the card
+# ---------------------------------------------------------------------------
+
+def _held_strict(acc, inp, cuda):
+    """``acc``'s program on the hopper interpreter and the opt_level=0
+    hopper executor: the same kernel calls, the same bits."""
+    st = HybridRuntime(acc.program, strict=True, backend="hopper",
+                       device=cuda, quant=acc.quant)
+    st.load_params(acc.params)
+    ex0 = HybridRuntime(acc.program, backend="hopper", opt_level=0,
+                        device=cuda, quant=acc.quant)
+    ex0.load_params(acc.params)
+    common.reset_launches()
+    y = st.run(inp)
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)
+    common.reset_launches()
+    y0 = ex0.run(inp)
+    torch.cuda.synchronize()
+    assert launches == common.LAUNCHES and any(launches.values())
+    assert torch.equal(y, y0)
+    return y
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("model", ["vgg16", "resnet18"])
+def test_gpu_strict_interpreter_hopper_matches_opt0(cuda, model, dtype):
+    """Reduced models (VGG16 fp32 on the Winograd/grouped plans of the test
+    above), the interpreter bit for bit against the opt_level=0 executor,
+    int8 also against the served opt_level=1 one."""
+    if model == "vgg16":
+        specs = vgg.network_specs(img=32, scale=32, n_classes=10)
+        plans = _mixed_plans(specs) if dtype == "float32" else None
+    else:
+        specs = resnet.resnet18_specs(img=32, scale=16, n_classes=10)
+        plans = None
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)).to(cuda)
+    acc = api.Accelerator.build(specs, plans=plans, batch=2,
+                                backend="hopper", dtype=dtype, device=cuda)
+    inp = x if acc.quant is None else acc.quant.quantize_input(x)
+    y = _held_strict(acc, inp, cuda)
+    y1 = acc.runtime.run(inp)
+    if acc.quant is not None:
+        assert torch.equal(y, y1)
+    else:
+        assert float((y - y1).abs().max()) <= 1e-4 * float(y1.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_gpu_depthwise_chain_hopper_matches_torch(cuda, dtype):
+    """The reference's conv -> depthwise -> depthwise(stride 2) -> FC chain
+    (with a pool): hopper against torch (fp32 within 1e-4 max|logit|, int8
+    bit for bit) and the interpreter against opt_level=0."""
+    specs = [ConvSpec("c1", 16, 16, 8, 16), DepthwiseSpec("d1", 16, 16, 16),
+             DepthwiseSpec("d2", 16, 16, 16, stride=2),
+             PoolSpec("p1", 8, 8, 16), FCSpec("f1", 4 * 4 * 16, 10)]
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 16, 16, 8)).astype(np.float32)).to(cuda)
+    if dtype == "int8":
+        acc = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                    dtype=dtype, device=cuda)
+        # the same program, sidecar and int8 params on the torch PE
+        ref = HybridRuntime(acc.program, backend="torch", device=cuda,
+                            quant=acc.quant)
+        ref.load_params(acc.params)
+        q = acc.quant.quantize_input(x)
+        common.reset_launches()
+        y = acc.runtime.run(q)
+        assert common.LAUNCHES["qmm_i8"] == 2
+        assert torch.equal(y, ref.run(q))
+        _held_strict(acc, q, cuda)
+    else:
+        ref = api.Accelerator.build(specs, batch=2, backend="torch",
+                                    device=cuda)
+        acc = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                    params=ref.params, device=cuda)
+        y, y_ref = acc(x), ref(x)
+        assert torch.isfinite(y).all()
+        assert float((y - y_ref).abs().max()) <= \
+            1e-4 * float(y_ref.abs().max())
+        _held_strict(acc, x, cuda)
 
 
 # ---------------------------------------------------------------------------

@@ -285,8 +285,16 @@ def test_qdense_and_qeltwise_match_reference(per_channel):
                      relu).numpy(),
             np.asarray(r_exec.qeltwise(jnp.asarray(a), jnp.asarray(s),
                                        lq, relu)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qdepthwise(None, None, None, mult=1.0)
+    # qdepthwise is ported (tests/test_torch_depthwise.py): per-tensor mult
+    w = rng.integers(-127, 128, (3, 3, 1, 6), dtype=np.int8)
+    bd = rng.integers(-3000, 3000, 6, dtype=np.int32)
+    for relu in (False, True):
+        np.testing.assert_array_equal(
+            qdepthwise(torch.from_numpy(a), torch.from_numpy(w),
+                       torch.from_numpy(bd), mult=3.1e-3, relu=relu).numpy(),
+            np.asarray(r_exec.qdepthwise(jnp.asarray(a), jnp.asarray(w),
+                                         jnp.asarray(bd), mult=3.1e-3,
+                                         relu=relu)))
 
 
 # ---------------------------------------------------------------------------
