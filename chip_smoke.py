@@ -26,6 +26,23 @@ then serves six CNN paths through ``repro_torch.api.Accelerator`` with
   to the same program on the CPU (fp32 within ``1e-3 * max|logit|``, int8
   bit for bit), since both backends share the depthwise op;
 
+then serves the four model paths (VGG16 and ResNet-18, fp32 and int8)
+through a ``ServingSession`` over the same accelerators (phase 3b):
+``acc.serve(max_batch=8, warmup=True)``, a bulk ``run_many`` of 16
+requests of 8 images (each bit for bit ``acc(x)`` on the same batch), then
+64 single images arriving at 80 % of the direct path's images/s (each held
+to its row of ``acc(x)``: int8 bit for bit, fp32 within
+``1e-3 * max|logit|``), every session ending with ``degraded == 0``,
+``errors == 0`` and ``submitted == requests + errors + shed``, its launch
+counts the per-request launches times its batches; on ResNet-18 fp32 one
+injected ``execute`` error on a hopper batch (``degraded == 1``, within
+``1e-3 * max|logit|`` of ``backend="torch"``) and one cursed request
+(``isolated == 1``, innocents bit for bit); ``save_program`` /
+``from_program`` of VGG16 int8 and ResNet-18 fp32 (bit for bit) and
+VGG16's ``summary()``; and VGG16 fp32 ``segmented=True`` (5 segment
+Programs, host maxpool, FC tail on K2; launches per request equal to the
+single Program's, logits within ``1e-3 * max|logit|``);
+
 then, on each of the six, the strict per-instruction interpreter
 (``HybridRuntime(strict=True, backend="hopper")`` on the served program,
 params and sidecar: one kernel call per COMP block and per FC), held bit
@@ -121,6 +138,12 @@ DW_PATHS = ("dwchain_fp32", "dwchain_int8")
 # counts and kernel shapes (phase 2): one PE call per COMP block and per
 # FC, the opt_level=0 executor's calls
 STRICT_PATHS = {f"{p}_strict": p for p in PATHS if p != LM_PATH}
+# phase 3b: the four model paths through a ServingSession (max_batch 8):
+# a bulk run of 16 requests of 8 images, then 64 single images arriving
+# at 80 % of the direct path's images/s
+SESSION_PATHS = ("vgg16_fp32", "vgg16_int8", "resnet18_fp32",
+                 "resnet18_int8")
+SESSION_BULK, SESSION_ARRIVALS, SESSION_LOAD = 16, 64, 0.8
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "minitron-8b", 2, 4096, 16
 # hopper vs torch last-token prefill logits, relative to max|logit|: K6
 # keeps P in fp32 where the scan rounds it to bf16, over 32 layers
@@ -706,6 +729,314 @@ def serve_path(path: str, x: torch.Tensor, params=None) -> dict:
     return dict(acc=acc, y=y, launches=launches, steady_ms=t_steady * 1e3)
 
 
+def session_launches_per_batch(acc, x: torch.Tensor, buckets) -> dict:
+    """Each bucket's launches per batch, from ``acc(x[:b])`` (the same
+    cached executor entry the session runs for bucket ``b``): the expected
+    growth of the counts for one session batch in that bucket."""
+    from repro_torch.kernels import common
+    out = {}
+    for b in buckets:
+        common.reset_launches()
+        acc(x[:b])
+        torch.cuda.synchronize()
+        out[b] = {k: v for k, v in common.LAUNCHES.items() if v}
+    return out
+
+
+def check_session_launches(label: str, counts: dict, batches: int,
+                           per_bucket: dict, per_request: dict) -> None:
+    """The counts a session run left must be phase 3's per-request launches
+    times the session's batches: every bucket launches the batch-8
+    request's kernels (one dispatch per layer)."""
+    odd = {b: c for b, c in per_bucket.items() if c != per_request}
+    if odd:
+        raise AssertionError(f"{label}: buckets launching unlike the batch-8 "
+                             f"request {per_request}: {odd}")
+    expected = {k: v * batches for k, v in per_request.items()}
+    if counts != expected:
+        raise AssertionError(f"{label}: launches {counts} over {batches} "
+                             f"session batches, expected {expected}")
+
+
+def serve_session_path(path: str, served: dict, x: torch.Tensor,
+                       card: str) -> dict:
+    """Phase 3b on one CNN model path, over phase 3's accelerator, in two
+    sessions of ``acc.serve(max_batch=8, warmup=True)`` (so each one's
+    latency window holds one traffic pattern): (1) bulk: ``run_many`` of
+    16 requests of 8 images, each result bit for bit ``acc(x)`` on the
+    same batch (same bucket, offset 0, the same entry); (2) arrivals: 64
+    single images submitted by this thread at an open-loop Poisson rate of
+    80 % of the direct path's images/s (seeded gaps), each result held to
+    ``acc(x)``'s row for that image (int8 bit for bit, fp32 within
+    ``1e-3 * max|logit|``: another bucket may take another route). Both
+    runs have the launch counts set to 0 just before and read just after,
+    and each session must end with ``degraded == 0``, ``errors == 0`` and
+    ``submitted == requests + errors + shed``. Also times the host staging
+    of one batch (``_stage``: the request checks and, for int8, the
+    quantization), the host work the session adds per batch."""
+    from repro_torch.kernels import common
+
+    acc, per_request = served["acc"], PATHS[path]
+    int8 = acc.quant is not None
+    rng = np.random.default_rng(11)
+    batches = [torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(
+        np.float32)) for _ in range(SESSION_BULK)]
+    direct = [acc(b.cuda()).cpu().numpy() for b in batches]
+    host = [b.numpy() for b in batches]
+    torch.cuda.synchronize()
+    direct_ips = BATCH / (served["steady_ms"] / 1e3)
+
+    # (1) bulk
+    t0 = time.perf_counter()
+    session = acc.serve(max_batch=BATCH, warmup=True)
+    warm_s = time.perf_counter() - t0
+    try:
+        per_bucket = session_launches_per_batch(acc, x, session.buckets)
+        stage_ms = []
+        for b in host[:5]:
+            t0 = time.perf_counter()
+            session._stage(b)
+            stage_ms.append((time.perf_counter() - t0) * 1e3)
+        common.reset_launches()
+        t0 = time.perf_counter()
+        outs = session.run_many(host)
+        bulk_s = time.perf_counter() - t0
+        bulk_launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    finally:
+        session.close()
+    bulk_st = session.stats
+    check_session_ledger(f"{path} session bulk", bulk_st)
+    check_session_launches(f"{path} session bulk", bulk_launches,
+                           bulk_st.batches, {BATCH: per_bucket[BATCH]},
+                           per_request)
+    for i, (got, ref) in enumerate(zip(outs, direct)):
+        if not np.array_equal(got, ref):
+            raise AssertionError(
+                f"{path} session bulk: request {i} differs from acc(x) in "
+                f"{int((got != ref).sum())} places, max|diff| "
+                f"{float(np.abs(got - ref).max()):.3e}")
+
+    # (2) open-loop arrivals of single images
+    images = np.concatenate(host)[:SESSION_ARRIVALS]
+    refs = np.concatenate(direct)[:SESSION_ARRIVALS]
+    rate = SESSION_LOAD * direct_ips
+    at = np.cumsum(rng.exponential(1.0 / rate, SESSION_ARRIVALS))
+    session = acc.serve(max_batch=BATCH, warmup=True)
+    try:
+        common.reset_launches()
+        futs = []
+        t0 = time.perf_counter()
+        for img, t_at in zip(images, at):
+            delay = t0 + t_at - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            futs.append(session.submit(img))
+        rows = np.stack([f.result(timeout=120) for f in futs])
+        arrive_s = time.perf_counter() - t0
+        arrive_launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    finally:
+        session.close()
+    st = session.stats
+    check_session_ledger(f"{path} session arrivals", st)
+    check_session_launches(f"{path} session arrivals", arrive_launches,
+                           st.batches, per_bucket, per_request)
+    if int8:
+        if not np.array_equal(rows, refs):
+            raise AssertionError(
+                f"{path} session arrivals: int8 logits differ from acc(x)'s "
+                f"rows in {int((rows != refs).sum())} places")
+        err, tol = 0.0, 0.0
+    else:
+        err = float(np.abs(rows - refs).max())
+        tol = 1e-3 * float(np.abs(refs).max())
+        if not err <= tol:
+            raise AssertionError(f"{path} session arrivals: max|diff| "
+                                 f"{err:.3e} > {tol:.3e}")
+    n_images = SESSION_BULK * BATCH
+    bulk_ips = n_images / bulk_s
+    bulk_ms = bulk_s * 1e3 / bulk_st.batches
+    print(f"path {path} session ({card}): warmup of buckets "
+          f"{session.buckets} {warm_s * 1e3:.0f}ms (compile_ms "
+          f"{bulk_st.compile_ms:.0f}); bulk run_many of {SESSION_BULK} x "
+          f"{BATCH} images {bulk_s * 1e3:.1f}ms = {bulk_ms:.2f}ms/batch "
+          f"({bulk_ips:.1f} images/s) against the direct path's "
+          f"{served['steady_ms']:.2f}ms/batch ({direct_ips:.1f} images/s), "
+          f"{bulk_st.batches} batches, bit-equal to acc(x); host staging "
+          f"{fmt_ms(stage_ms)}ms a batch; launches {bulk_launches}",
+          flush=True)
+    print(f"path {path} session arrivals ({card}): {SESSION_ARRIVALS} single "
+          f"images at {rate:.1f} images/s ({SESSION_LOAD:.0%} of direct), "
+          f"over {arrive_s * 1e3:.1f}ms: latency p50 {st.p50_ms():.2f}ms "
+          f"p95 {st.p95_ms():.2f}ms, queue wait p50 {st.wait_p50_ms():.2f}"
+          f"ms p95 {st.wait_p95_ms():.2f}ms, {st.batches} batches, "
+          f"{st.padded_rows} padded rows, occupancy {st.occupancy():.3f}; "
+          f"vs acc(x) rows max|diff| {err:.3e} (tolerance {tol:.3e}); "
+          f"launches {arrive_launches}; ledger submitted {st.submitted} = "
+          f"requests {st.requests} + errors {st.errors} + shed {st.shed}, "
+          f"degraded {st.degraded}", flush=True)
+    print(json.dumps({"path": path, "phase": "session", "card": card,
+                      "bulk_ms_per_batch": bulk_ms,
+                      "bulk_images_per_s": bulk_ips,
+                      "direct_ms_per_batch": served["steady_ms"],
+                      "host_staging_ms_per_batch": stage_ms,
+                      "arrival_rate_images_per_s": rate,
+                      "arrival_s": arrive_s,
+                      "latency_p50_ms": st.p50_ms(),
+                      "latency_p95_ms": st.p95_ms(),
+                      "wait_p50_ms": st.wait_p50_ms(),
+                      "wait_p95_ms": st.wait_p95_ms(),
+                      "arrival_batches": st.batches,
+                      "padded_rows": st.padded_rows,
+                      "occupancy": st.occupancy(),
+                      "compile_ms": bulk_st.compile_ms,
+                      "arrival_max_abs_diff": err, "tol": tol,
+                      "per_bucket_launches": {str(b): c for b, c
+                                              in per_bucket.items()}}),
+          flush=True)
+    launches = dict.fromkeys(common.KERNELS, 0)
+    for counts in (bulk_launches, arrive_launches):
+        for k, v in counts.items():
+            launches[k] += v
+    return dict(launches=launches)
+
+
+def check_session_ledger(label: str, st) -> None:
+    """A clean session: every request answered, none degraded, isolated
+    or retried, no restart, and ``submitted == requests + errors +
+    shed``."""
+    if (st.submitted != st.requests + st.errors + st.shed or st.errors
+            or st.degraded or st.isolated or st.retries
+            or st.watchdog_restarts):
+        raise AssertionError(f"{label}: unclean ledger {st}")
+
+
+def session_faults(served: dict, x: torch.Tensor, card: str) -> None:
+    """Phase 3b faults on ResNet-18 fp32, one ``FaultPlan`` each: one
+    ``execute`` error on a hopper batch is re-run on the torch lowering
+    (``degraded == 1``; its results within ``1e-3 * max|logit|`` of the
+    torch backend), and one request-bound ("cursed") fault is isolated by
+    bisection (``isolated == 1``; the innocent co-batched results equal a
+    fault-free run bit for bit)."""
+    from repro_torch.core.runtime import HybridRuntime
+    from repro_torch.serving import FaultPlan, FaultSpec, InjectedFault
+
+    acc = served["acc"]
+    imgs = list(x.cpu().numpy())
+    torch_rt = HybridRuntime(acc.program, backend="torch", device="cuda")
+    torch_rt.load_params(acc.params)
+    y_torch = torch_rt.run(x).cpu().numpy()
+    kw = dict(max_batch=BATCH, buckets=(BATCH,), max_wait_ms=50.0,
+              warmup=True)
+    plan = FaultPlan([FaultSpec(site="execute", kind="error", at=(0,),
+                                match=(("backend", "hopper"),))])
+    with acc.serve(fault_plan=plan, **kw) as s:
+        rows = np.stack([f.result(timeout=120)
+                         for f in s.submit_many(imgs)])
+        st = s.stats
+    err = float(np.abs(rows - y_torch).max())
+    tol = 1e-3 * float(np.abs(y_torch).max())
+    if not (st.degraded == 1 and st.isolated == 0 and st.errors == 0
+            and st.requests == BATCH and err <= tol
+            and st.submitted == st.requests + st.errors + st.shed):
+        raise AssertionError(f"session degradation: degraded {st.degraded}, "
+                             f"isolated {st.isolated}, errors {st.errors}, "
+                             f"max|diff| vs torch {err:.3e} > {tol:.3e}?")
+    print(f"session faults ({card}): one execute error on a hopper batch "
+          f"-> degraded {st.degraded}, isolated {st.isolated}; the batch on "
+          f"the torch lowering vs backend='torch' max|diff| {err:.3e} "
+          f"(tolerance {tol:.3e})", flush=True)
+    with acc.serve(**kw) as s:
+        clean = [f.result(timeout=120) for f in s.submit_many(imgs)]
+    cursed = 3
+    plan = FaultPlan([FaultSpec(site="execute", kind="error",
+                                requests=(cursed,), message="cursed")])
+    with acc.serve(fault_plan=plan, **kw) as s:
+        futs = s.submit_many(imgs)
+        for i, f in enumerate(futs):
+            if i == cursed:
+                try:
+                    f.result(timeout=120)
+                except InjectedFault:
+                    continue
+                raise AssertionError("the cursed request was not isolated")
+            if not np.array_equal(f.result(timeout=120), clean[i]):
+                raise AssertionError(f"session isolation: innocent request "
+                                     f"{i} differs from the fault-free run")
+        st = s.stats
+    if not (st.isolated == 1 and st.degraded == 0 and st.errors == 1
+            and st.submitted == st.requests + st.errors + st.shed):
+        raise AssertionError(f"session isolation: {st}")
+    print(f"session faults ({card}): one cursed request -> isolated "
+          f"{st.isolated} after {st.retries} bisection retries, degraded "
+          f"{st.degraded}; {BATCH - 1} innocent co-batched results bit-equal "
+          f"to the fault-free run", flush=True)
+
+
+def session_persistence(results: dict, xs: dict, card: str) -> None:
+    """Phase 3b persistence: ``save_program`` / ``from_program(backend=
+    "hopper")`` of VGG16 int8 and ResNet-18 fp32 built on the card; the
+    reloaded accelerator's logits equal the original's bit for bit. Then
+    ``summary()`` of VGG16."""
+    from repro_torch import api
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for path in ("vgg16_int8", "resnet18_fp32"):
+        acc = results[path]["acc"]
+        x = xs[path_specs(path)[1]]
+        saved = acc.save_program(str(out_dir / f"{path}.json"))
+        again = api.Accelerator.from_program(saved, params=acc.params,
+                                             backend="hopper",
+                                             device="cuda")
+        y, y2 = acc(x), again(x)
+        if not torch.equal(y, y2):
+            raise AssertionError(f"{path}: reloaded program differs in "
+                                 f"{int((y != y2).sum())} places")
+        print(f"path {path} persistence ({card}): save_program -> "
+              f"from_program(backend='hopper'): {again.n_instructions} "
+              f"instructions, logits bit-equal to the original "
+              f"({Path(saved).stat().st_size} bytes)", flush=True)
+    print(results["vgg16_fp32"]["acc"].summary(), flush=True)
+
+
+def session_segmented(served: dict, x: torch.Tensor, card: str) -> dict:
+    """Phase 3b segmented: VGG16 fp32 with ``segmented=True`` on hopper,
+    the served params: 5 segment Programs, a host maxpool between them,
+    the FC tail on K2. Prints its max difference from the single-Program
+    logits and its ms/batch, and checks its launches per request against
+    the single Program's."""
+    from repro_torch import api
+    from repro_torch.kernels import common
+    acc = served["acc"]
+    seg = api.Accelerator.build(acc.specs, plans=acc.plans,
+                                params=acc.params, batch=BATCH,
+                                backend="hopper", segmented=True,
+                                device="cuda")
+    seg(x)
+    torch.cuda.synchronize()
+    y, times, per_request = timed_requests(seg, x)
+    if per_request != PATHS["vgg16_fp32"]:
+        raise AssertionError(f"segmented VGG16: launches per request "
+                             f"{per_request} != {PATHS['vgg16_fp32']}")
+    err = float((y - acc(x)).abs().max())
+    tol = 1e-3 * float(y.abs().max())
+    if not err <= tol:
+        raise AssertionError(f"segmented VGG16 vs single Program max|diff| "
+                             f"{err:.3e} > {tol:.3e}")
+    print(f"path vgg16_fp32 segmented ({card}): "
+          f"{len(seg.segment_runtimes)} segment Programs "
+          f"({seg.n_instructions} instructions) + host maxpool + FC tail on "
+          f"K2: {fmt_ms(times)}ms/batch over {STEADY_REQUESTS} requests "
+          f"against the single Program's {served['steady_ms']:.2f}; vs the "
+          f"single-Program logits max|diff| {err:.3e}; launches per request "
+          f"{per_request}", flush=True)
+    print(json.dumps({"path": "vgg16_fp32_segmented", "card": card,
+                      "ms": times, "single_program_ms": served["steady_ms"],
+                      "max_abs_diff_vs_single_program": err,
+                      "launches_per_request": per_request}), flush=True)
+    return dict(launches={k: v * STEADY_REQUESTS
+                          for k, v in per_request.items()})
+
+
 def path_program(path: str):
     """The program a phase-2 path runs, its dtype and whether it makes one
     PE call per COMP block (the interpreter's paths)."""
@@ -1118,6 +1449,24 @@ def main() -> int:
           f"(phase 2): {kernel_ms:.2f}ms; steady ms/batch: "
           + ", ".join(f"{p} {r['steady_ms']:.2f}" for p, r in results.items()),
           flush=True)
+
+    # -- phase 3b: the four model paths through a ServingSession ------------
+    t_3b = time.perf_counter()
+    for path in SESSION_PATHS:
+        r = serve_session_path(path, results[path],
+                               xs[path_specs(path)[1]], card)
+        for name, n in r["launches"].items():
+            total[name] += n
+    session_faults(results["resnet18_fp32"],
+                   xs[path_specs("resnet18_fp32")[1]], card)
+    session_persistence(results, xs, card)
+    r = session_segmented(results["vgg16_fp32"],
+                          xs[path_specs("vgg16_fp32")[1]], card)
+    for name, n in r["launches"].items():
+        total[name] += n
+    torch.cuda.empty_cache()
+    print(f"phase 3b (sessions): {time.perf_counter() - t_3b:.1f}s; "
+          f"{time.perf_counter() - t_start:.1f}s since start", flush=True)
 
     # -- phase 4: the strict interpreter on every CNN path --------------------
     for path, served in results.items():

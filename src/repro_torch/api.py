@@ -7,6 +7,7 @@
     specs = vgg.network_specs(224, 1, n_classes=1000)
     acc = api.Accelerator.build(specs, pm.V5E, batch=8, backend="hopper")
     logits = acc(x)                 # cached, validated executor on the card
+    print(acc.summary())            # per-layer mode/dataflow/latency table
 
 ``Accelerator.build`` runs the DSE through the ``Target`` protocol
 (``pm.V5E``, ``pm.VU9P``, ``pm.PYNQ_Z1`` — the reference's planning models,
@@ -23,31 +24,90 @@ run on the CPU (where ``"hopper"`` runs each kernel's plain version).
 float-in/float-out. ``strict=True`` answers through the per-instruction
 interpreter instead of the cached executor, and ``strict_request()`` gives
 any accelerator an interpreted request on the ``torch`` PE, the oracle the
-executor is held to.
+executor is held to. ``segmented=True`` builds the legacy multi-Program
+path (one Program per CONV segment, a host maxpool between segments, the
+FC tail through ``hybrid_conv.dense``).
 
-Not ported yet: the segmented path (it raises ``NotImplementedError``
-naming its ROADMAP item), and ``summary``/``save_program``/
-``from_program``/``serve`` (ROADMAP Queue 1, items 6 and 8).
+``Accelerator.save_program`` / ``Accelerator.from_program`` persist the
+compiled instruction stream (plus specs, plans, the DSE verdict and the
+int8 sidecar) as the reference's ``hybriddnn-program/v1`` document, so a
+program saved by either package loads in the other; the loader recompiles
+and verifies the stream bit for bit.
+
+``Accelerator.serve()`` opens a :class:`ServingSession`: a
+continuous-batching request queue that coalesces requests into device
+batches padded up to a fixed set of bucket sizes (one cached executor per
+bucket), stages them in pinned host buffers, keeps up to three batches in
+flight on one CUDA stream, and carries the reference's failure model
+(deadlines, bounded admission, poisoned-batch bisection, NaN quarantine,
+``hopper`` -> ``torch`` degradation, a supervising watchdog). ``Fleet``
+serves several models over one shared slot pool.
+
+Not ported yet: sharded serving over several devices (``mesh=``; ROADMAP
+Queue 1, item 8) and AOT bundles (``save_program(aot=True)``; item 9).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import itertools
+import json
+import logging
+import os
+import threading
 import time
+from collections import deque
+from concurrent.futures import Future, InvalidStateError
 from typing import Any, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import torch
 
-from repro_torch.compat import resolve_device, to_tensor
+from repro_torch.compat import (
+    resolve_backend,
+    resolve_device,
+    to_numpy,
+    to_tensor,
+)
 from repro_torch.core import perf_model as pm
-from repro_torch.core.compiler import LayerPlan, Program, compile_network
-from repro_torch.core.dse import DSEResult
+from repro_torch.core.compiler import (
+    NO_PLAN,
+    LayerPlan,
+    Program,
+    compile_network,
+)
+from repro_torch.core.dse import DSEResult, FPGACandidate, TPUCandidate
+from repro_torch.core.executor import resolve_opt_level
 from repro_torch.core.hybrid_conv import (
     ConvSpec,
     DepthwiseSpec,
+    EltwiseSpec,
     FCSpec,
+    PoolSpec,
+    dense,
+    max_pool2d,
 )
 from repro_torch.core.runtime import HybridRuntime
 from repro_torch.quant import QuantSidecar, calibrate, quantize_params
+from repro_torch.serving import (
+    DeadlineExceeded,
+    DeadlineTable,
+    NumericsError,
+    Overloaded,
+    PipelineCrashed,
+    ThreadSupervisor,
+)
+
+PROGRAM_FORMAT = "hybriddnn-program/v1"
+
+log = logging.getLogger("repro_torch.serving")
+
+
+class ProgramLoadError(ValueError):
+    """A saved program that cannot be loaded: truncated or non-JSON file,
+    unknown format version, instruction-stream or quant-sidecar digest
+    mismatch, or a directory without ``program.json``. Subclasses
+    ``ValueError`` so callers that catch the broad class keep working."""
 
 
 @runtime_checkable
@@ -94,37 +154,199 @@ def random_params(specs: Sequence[Any], seed: int = 0, device=None) -> list:
                              resolve_device(device))
 
 
-class Accelerator:
-    """A built accelerator: DSE verdict + ONE compiled Program + the cached,
-    validated executor behind ``__call__``, on one device."""
 
-    def __init__(self, *, specs, plans, params, runtime: HybridRuntime,
-                 program: Program, target=None, batch: int = 1,
-                 dse: DSEResult | None = None,
+
+def _conv_segments_of(specs) -> list[int]:
+    """Consecutive-CONV run lengths between maxpools (VGG16: [2,2,3,3,3]).
+
+    The segmented request glues segments with a host-side maxpool, so the
+    chain must be ``(CONV+ POOL)+ FC*`` — anything else (trailing CONVs
+    without a pool, a pool before any CONV, CONVs after the FC tail) gets a
+    descriptive error instead of an opaque crash downstream."""
+    segments, run, seen_fc = [], 0, False
+    for s in specs:
+        if isinstance(s, (EltwiseSpec, DepthwiseSpec)):
+            raise ValueError(
+                f"segmented path: {type(s).__name__} {s.name!r} — residual "
+                f"adds and depthwise convs need the single-Program path "
+                f"(segmented=False); the legacy glue only handles "
+                f"(CONV+ POOL)+ FC*")
+        if isinstance(s, ConvSpec):
+            if s.inp_from is not None:
+                raise ValueError(
+                    f"segmented path: CONV {s.name!r} reroutes its input "
+                    f"(inp_from={s.inp_from}) — skip wiring needs the "
+                    f"single-Program path (segmented=False)")
+            if seen_fc:
+                raise ValueError("segmented path: CONV after the FC tail")
+            run += 1
+        elif isinstance(s, PoolSpec):
+            if seen_fc:
+                raise ValueError("segmented path: POOL after the FC tail")
+            if run == 0:
+                raise ValueError(
+                    "segmented path: maxpool without a preceding CONV "
+                    "segment — the chain must be (CONV+ POOL)+ FC*")
+            segments.append(run)
+            run = 0
+        else:
+            seen_fc = True
+    if run:
+        raise ValueError(
+            "segmented path: trailing CONV segment without a maxpool — "
+            "use the single-Program path (segmented=False) for this chain")
+    if not segments:
+        raise ValueError("segmented path: no CONV+POOL segment in the chain")
+    return segments
+
+
+def build_segmented_request(specs, plans, params, *, strict: bool = False,
+                            cache=None, backend: str = "torch",
+                            opt_level: int = 1, device=None):
+    """The legacy multi-Program path: one compiled Program per CONV segment,
+    a host-side 2x2 maxpool between segments, and the FC tail outside the
+    runtime (``hybrid_conv.dense``: K2 on ``backend="hopper"``). Kept as
+    ``Accelerator.build(..., segmented=True)``. ``strict=True`` builds the
+    segment runtimes on the per-instruction interpreter; ``cache``
+    overrides the process-wide program cache for every segment runtime;
+    ``backend`` selects the PE of the segment runtimes AND the FC tail;
+    ``opt_level`` is each segment executor's lowering level; ``device``
+    (``None`` = the CUDA card) is where the weights and requests live.
+    Returns ``(request, runtimes, n_instructions)``."""
+    resolve_backend(backend)       # reject bad knobs before building
+    resolve_opt_level(opt_level)
+    device = resolve_device(device)
+
+    # params align with the non-pool specs, in network order
+    nonpool = [s for s in specs if not isinstance(s, PoolSpec)]
+    if len(nonpool) != len(params):
+        raise ValueError(f"segmented path: {len(params)} param pairs for "
+                         f"{len(nonpool)} CONV/FC layers")
+    conv_specs = [s for s in specs if isinstance(s, ConvSpec)]
+    conv_plans = [p for s, p in zip(specs, plans) if isinstance(s, ConvSpec)]
+    conv_params = [p for s, p in zip(nonpool, params)
+                   if isinstance(s, ConvSpec)]
+    pool_specs = [s for s in specs if isinstance(s, PoolSpec)]
+    fc_specs = [s for s in nonpool if isinstance(s, FCSpec)]
+    fc_params = [tuple(to_tensor(a, device) for a in p)
+                 for s, p in zip(nonpool, params) if isinstance(s, FCSpec)]
+
+    runtimes, idx, n_instr = [], 0, 0
+    for n in _conv_segments_of(specs):
+        program = compile_network(conv_specs[idx:idx + n],
+                                  conv_plans[idx:idx + n])
+        rt = HybridRuntime(program, strict=strict, cache=cache,
+                           backend=backend, opt_level=opt_level,
+                           device=device)
+        rt.load_params(conv_params[idx:idx + n])
+        runtimes.append(rt)
+        n_instr += len(program.instructions)
+        idx += n
+
+    def request(x):
+        x = to_tensor(x, device, torch.float32)
+        with torch.no_grad():
+            for rt, ps in zip(runtimes, pool_specs):
+                x = max_pool2d(rt.run(x), ps.window, ps.stride).contiguous()
+            x = x.reshape(x.shape[0], -1)
+            for s, (w, b) in zip(fc_specs, fc_params):
+                x = dense(x, w, b, relu=s.relu, backend=backend)
+        return x
+
+    return request, runtimes, n_instr
+
+
+# ---------------------------------------------------------------------------
+# Program (de)serialization helpers
+# ---------------------------------------------------------------------------
+
+_SPEC_KINDS = {"conv": ConvSpec, "pool": PoolSpec, "fc": FCSpec,
+               "eltwise": EltwiseSpec, "dw": DepthwiseSpec}
+
+
+def _spec_to_dict(spec) -> dict:
+    kind = next(k for k, cls in _SPEC_KINDS.items()
+                if type(spec) is cls)
+    return {"kind": kind, **dataclasses.asdict(spec)}
+
+
+def _spec_from_dict(d: dict):
+    d = dict(d)
+    return _SPEC_KINDS[d.pop("kind")](**d)
+
+
+def _hw_to_dict(hw) -> dict:
+    if isinstance(hw, TPUCandidate):
+        return {"type": "tpu", **dataclasses.asdict(hw)}
+    if isinstance(hw, FPGACandidate):
+        return {"type": "fpga", **dataclasses.asdict(hw)}
+    return {"type": "other", "repr": repr(hw)}
+
+
+def _hw_from_dict(d: dict):
+    d = dict(d)
+    typ = d.pop("type")
+    if typ == "tpu":
+        return TPUCandidate(**d)
+    if typ == "fpga":
+        return FPGACandidate(**d)
+    return d.get("repr")
+
+
+def _fmt_t(seconds: float) -> str:
+    if seconds < 1e-3:
+        return f"{seconds * 1e6:8.1f} us"
+    if seconds < 1.0:
+        return f"{seconds * 1e3:8.2f} ms"
+    return f"{seconds:8.3f} s "
+
+
+def _aot_not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: AOT bundles are not ported (ROADMAP Queue 1, item 9); "
+        f"save and load the plain program.json document instead")
+
+
+# ---------------------------------------------------------------------------
+# The façade
+# ---------------------------------------------------------------------------
+
+class Accelerator:
+    """A built accelerator: DSE verdict + ONE compiled Program (or, when
+    segmented, one per CONV segment) + the cached, validated executor behind
+    ``__call__``, on one device.
+
+    Construct with :meth:`build` (the full flow) or :meth:`from_program`
+    (reuse a saved instruction stream, skipping the DSE). :meth:`summary`
+    prints the per-layer DSE verdict, :meth:`save_program` persists the
+    compiled stream, and :meth:`serve` opens a batching
+    :class:`ServingSession`."""
+
+    def __init__(self, *, specs, plans, params, request, device,
+                 target=None, batch: int = 1,
+                 program: Program | None = None,
+                 runtime: HybridRuntime | None = None,
+                 dse: DSEResult | None = None, segmented: bool = False,
+                 segment_runtimes: list | None = None,
+                 backend: str = "torch", opt_level: int = 1,
                  quant: QuantSidecar | None = None,
                  calib_ms: float | None = None):
         self.specs = list(specs)
         self.plans = list(plans)
         self.params = params
-        self.runtime = runtime
-        self.program = program
         self.target = target
         self.batch = batch
+        self.program = program
+        self.runtime = runtime
         self.dse = dse
+        self.segmented = segmented
+        self.segment_runtimes = segment_runtimes
+        self.backend = backend
+        self.opt_level = opt_level
+        self.device = device
         self.quant = quant          # QuantSidecar for int8 accelerators
         self.calib_ms = calib_ms    # host time of the int8 calibration
-
-    @property
-    def backend(self) -> str:
-        return self.runtime.backend
-
-    @property
-    def opt_level(self) -> int:
-        return self.runtime.opt_level
-
-    @property
-    def device(self) -> torch.device:
-        return self.runtime.device
+        self._request = request
 
     # -- construction -------------------------------------------------------
     @classmethod
@@ -153,6 +375,8 @@ class Accelerator:
         ``strict=True`` answers every request through the per-instruction
         interpreter (on ``backend``'s PE) and skips the build-time schedule
         validation: the interpreter checks the hazards per instruction.
+        ``segmented=True`` builds the legacy multi-Program path instead
+        (:func:`build_segmented_request`; fp32 only).
         """
         if dtype not in ("float32", "int8"):
             raise ValueError(f"unsupported dtype {dtype!r}: expected "
@@ -161,11 +385,6 @@ class Accelerator:
             raise ValueError("segmented accelerators are fp32-only — the "
                              "int8 path needs the single-Program runtime "
                              "(the sidecar is keyed to one schedule)")
-        if segmented:
-            raise NotImplementedError(
-                "segmented=True: the legacy multi-Program path is not "
-                "ported (ROADMAP Queue 1, item 6); the single-Program path "
-                "serves the whole network")
         device = resolve_device(device)
         specs = list(specs)
         dse = None
@@ -201,6 +420,16 @@ class Accelerator:
             calib_ms = (time.perf_counter() - t0) * 1e3
             params = quantize_params(specs, params, quant, device=device)
 
+        common = dict(specs=specs, plans=plans, params=params, target=target,
+                      batch=batch, dse=dse, backend=backend,
+                      opt_level=opt_level, device=device)
+        if segmented:
+            request, seg_rts, _ = build_segmented_request(
+                specs, plans, params, strict=strict, cache=cache,
+                backend=backend, opt_level=opt_level, device=device)
+            return cls(request=request, segmented=True,
+                       segment_runtimes=seg_rts, **common)
+
         program = compile_network(specs, plans)
         rt = HybridRuntime(program, backend=backend, opt_level=opt_level,
                            strict=strict, cache=cache, device=device,
@@ -208,9 +437,8 @@ class Accelerator:
         rt.load_params(params)
         if not strict:
             rt.cache.validate(program)  # schedule check once, at build time
-        return cls(specs=specs, plans=plans, params=params, runtime=rt,
-                   program=program, target=target, batch=batch, dse=dse,
-                   quant=quant, calib_ms=calib_ms)
+        return cls(request=rt.run, program=program, runtime=rt, quant=quant,
+                   calib_ms=calib_ms, **common)
 
     # -- inference ----------------------------------------------------------
     def __call__(self, x) -> torch.Tensor:
@@ -220,13 +448,15 @@ class Accelerator:
         float inputs are quantized at the calibrated input scale (int8
         inputs pass through) and the int8 logits are dequantized."""
         if self.quant is not None:
-            y = self.runtime.run(to_tensor(x, self.device))
+            y = self._request(to_tensor(x, self.device))
             return self.quant.dequantize_output(y)
-        return self.runtime.run(to_tensor(x, self.device, torch.float32))
+        return self._request(to_tensor(x, self.device, torch.float32))
 
     @property
     def input_dtype(self) -> torch.dtype:
         """The stored weight type: float32, or int8 when quantized."""
+        if self.runtime is None:
+            return torch.float32       # segmented: fp32 only
         params = self.runtime.dram_params()
         return params[0][0].dtype if params else torch.float32
 
@@ -240,17 +470,1700 @@ class Accelerator:
 
     @property
     def n_instructions(self) -> int:
-        return len(self.program.instructions)
+        if self.program is not None:
+            return len(self.program.instructions)
+        return sum(len(rt.program.instructions)
+                   for rt in self.segment_runtimes or [])
 
     def strict_request(self):
-        """A per-instruction-interpreter request fn over the same Program
+        """A per-instruction-interpreter request fn over the same Program(s)
         and params, on this accelerator's device: the hazard-faithful
         baseline for comparisons. It always runs the ``torch`` PE, whatever
         this accelerator's ``backend``, so it is the oracle for the
         ``hopper`` path too. A quantized accelerator's interpreter carries
         the same sidecar, so its int8 outputs compare bit for bit with the
         raw executor's (``runtime.run``)."""
+        if self.segmented:
+            return build_segmented_request(
+                self.specs, self.plans, self.params, strict=True,
+                device=self.device)[0]
         rt = HybridRuntime(self.program, strict=True, device=self.device,
                            quant=self.quant)
         rt.load_params(self.params)
         return rt.run
+
+    # -- reporting ----------------------------------------------------------
+    def _hw_desc(self) -> str:
+        if self.dse is None:
+            return "plans supplied (no DSE)"
+        hw = self.dse.hw
+        if isinstance(hw, TPUCandidate):
+            return (f"blocks=({hw.bm},{hw.bk},{hw.bn}) m={hw.m} | DSE over "
+                    f"{self.dse.candidates_searched} candidates")
+        if isinstance(hw, FPGACandidate):
+            return (f"PI={hw.pi} PO={hw.po} PT={hw.pt} NI={hw.ni} | DSE over "
+                    f"{self.dse.candidates_searched} candidates")
+        return str(hw)
+
+    def summary(self) -> str:
+        """Per-layer plan/latency table — the DSE verdict, human-readable;
+        the reference's text character for character."""
+        # target is an instance with .name, or the bare name string a
+        # from_program-restored accelerator carries
+        tname = (self.target if isinstance(self.target, str)
+                 else getattr(self.target, "name", None)) or "-"
+        kind_of = {ConvSpec: "conv", PoolSpec: "pool", FCSpec: "fc",
+                   EltwiseSpec: "eltwise", DepthwiseSpec: "dw"}
+        head = (f"{len(self.specs)} layers as "
+                + (f"{len(self.segment_runtimes)} segment Programs + host "
+                   f"glue" if self.segmented else
+                   f"ONE Program ({self.n_instructions} instructions)"))
+        lines = [f"Accelerator[{tname}]: {head}",
+                 f"  {self._hw_desc()}, batch={self.batch}",
+                 f"  {'layer':<12}{'kind':<9}{'dtype':<9}{'mode':<6}"
+                 f"{'df':<4}{'m':>2}{'g_h':>5}{'g_k':>5}"
+                 f"  {'latency':>11}{'share':>8}"]
+        lats = self.dse.layer_latencies if self.dse else None
+        total = self.dse.total_latency if self.dse else None
+        for i, (s, p) in enumerate(zip(self.specs, self.plans)):
+            kind = kind_of[type(s)]
+            p = p or NO_PLAN
+            mode, df, m = (p.mode, p.dataflow, str(p.m)) \
+                if kind == "conv" else ("-", "-", "-")
+            gh, gk = ((str(p.g_h), str(p.g_k)) if kind == "conv"
+                      else ("-", "-"))
+            # precision per layer: "int8+rq" = int8 math with the fused
+            # requantize epilogue, "int8" = scale-passthrough (pool)
+            if self.quant is None:
+                dt = "fp32"
+            else:
+                dt = ("int8+rq" if self.quant.layers[i].requantize
+                      else "int8")
+            lat = _fmt_t(lats[i]) if lats else "          -"
+            share = (f"{100 * lats[i] / total:6.1f}%"
+                     if lats and total else "      -")
+            lines.append(f"  {s.name:<12}{kind:<9}{dt:<9}{mode:<6}{df:<4}"
+                         f"{m:>2}{gh:>5}{gk:>5}  {lat}{share}")
+        if total is not None:
+            macs = sum(s.macs for s in self.specs)
+            scale = self.batch if isinstance(self.dse.hw, TPUCandidate) else 1
+            gops = 2.0 * macs * scale / total / 1e9
+            lines.append(f"  est. total {_fmt_t(total).strip()} "
+                         f"({gops:.1f} effective GOPS)")
+        return "\n".join(lines)
+
+    # -- persistence --------------------------------------------------------
+    def save_program(self, path: str, *, aot: bool = False,
+                     buckets: Sequence[int] | None = None) -> str:
+        """Persist the compiled instruction stream + specs/plans + DSE
+        verdict (+ the int8 sidecar, digest-bound to this schedule) as the
+        reference's ``hybriddnn-program/v1`` JSON document, key for key, so
+        :meth:`from_program` — of either package — rebuilds this
+        accelerator without re-running the DSE. Params are NOT saved (they
+        are the model's weights — supply them at load time). ``aot=True``
+        (a bundle of compiled executors) is not ported."""
+        if aot:
+            raise _aot_not_ported("save_program(aot=True)")
+        if self.program is None:
+            raise ValueError("segmented accelerators hold multiple Programs; "
+                             "save_program supports the single-Program path")
+        doc = {
+            "format": PROGRAM_FORMAT,
+            "target": (self.target if isinstance(self.target, str)
+                       else getattr(self.target, "name", None)),
+            "batch": self.batch,
+            "specs": [_spec_to_dict(s) for s in self.specs],
+            "plans": [dataclasses.asdict(cl.plan)
+                      for cl in self.program.layers],
+            "instructions": self.program.instruction_image().tolist(),
+            "dse": None if self.dse is None else {
+                "hw": _hw_to_dict(self.dse.hw),
+                "layer_latencies": [float(v)
+                                    for v in self.dse.layer_latencies],
+                "total_latency": float(self.dse.total_latency),
+                "candidates_searched": self.dse.candidates_searched,
+            },
+            # the sidecar rides beside the instruction stream (int8 never
+            # changes the ISA); its digest binds it to this schedule, so a
+            # sidecar pasted from another calibration is refused at load
+            "quant": None if self.quant is None else {
+                "sidecar": self.quant.to_dict(),
+                "digest": self.quant.digest(self.program.schedule_key()),
+            },
+        }
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        return path
+
+    @classmethod
+    def from_program(cls, path: str, *, params: list | None = None,
+                     strict: bool = False, cache=None,
+                     backend: str = "torch", opt_level: int = 1,
+                     device=None) -> "Accelerator":
+        """Rebuild an accelerator from a saved program — no DSE.
+
+        The layer chain is recompiled from the saved specs/plans and the
+        stream is verified bit for bit against the saved instruction image.
+        ``params`` is required: saved programs carry no weights (pass
+        ``api.random_params(specs, seed)`` for stand-ins); an int8 program
+        takes fp32 weights (quantized here by the sidecar's scales) or the
+        quantized image. ``backend``/``opt_level``/``device`` are chosen
+        as in :meth:`build`: the saved stream is agnostic to all three.
+
+        ``path`` may be a directory holding ``program.json``; one with an
+        ``aot/`` bundle is refused (not ported). Malformed input —
+        truncated/non-JSON file, unknown format version, instruction-stream
+        drift, a quant sidecar whose digest is bound to another schedule,
+        a directory without ``program.json`` — raises
+        :class:`ProgramLoadError`.
+        """
+        if params is None:
+            raise ValueError(
+                "saved programs carry no weights — pass params=[...] "
+                "(api.random_params(specs, seed) for stand-ins)")
+        doc_path = path
+        if os.path.isdir(path):
+            doc_path = os.path.join(path, "program.json")
+            if not os.path.exists(doc_path):
+                raise ProgramLoadError(
+                    f"{path}: directory is not an AOT bundle — no "
+                    f"program.json inside")
+            if os.path.isdir(os.path.join(path, "aot")):
+                raise _aot_not_ported(f"{path}: an AOT bundle")
+        try:
+            with open(doc_path) as f:
+                doc = json.load(f)
+        except json.JSONDecodeError as e:
+            raise ProgramLoadError(
+                f"{doc_path}: truncated or not JSON ({e}) — the save was "
+                f"interrupted or the file corrupted in transit") from e
+        if doc.get("format") != PROGRAM_FORMAT:
+            raise ProgramLoadError(
+                f"{doc_path}: not a {PROGRAM_FORMAT} file "
+                f"(format={doc.get('format')!r})")
+        device = resolve_device(device)
+        specs = [_spec_from_dict(d) for d in doc["specs"]]
+        plans = [LayerPlan(**d) for d in doc["plans"]]
+        program = compile_network(specs, plans)
+        image = np.asarray(doc["instructions"], np.uint32).reshape(-1, 4)
+        if not np.array_equal(program.instruction_image(), image):
+            raise ProgramLoadError(
+                f"{doc_path}: saved instruction stream does not match its "
+                f"recompilation (compiler or schedule drift) — re-run "
+                f"Accelerator.build and save again")
+        params = [tuple(to_tensor(a, device) for a in p) for p in params]
+        quant = None
+        if doc.get("quant"):
+            q = doc["quant"]
+            quant = QuantSidecar.from_dict(q["sidecar"])
+            if quant.digest(program.schedule_key()) != q.get("digest"):
+                raise ProgramLoadError(
+                    f"{doc_path}: quant sidecar digest does not match this "
+                    f"program's schedule — the sidecar was edited or "
+                    f"belongs to a different calibration/program; re-run "
+                    f"Accelerator.build(dtype='int8') and save again")
+            # fp32 weights are quantized here, deterministically (the
+            # sidecar fixes every scale); an int8 image passes through
+            if params[0][0].dtype != torch.int8:
+                params = quantize_params(specs, params, quant, device=device)
+        dse = None
+        if doc.get("dse"):
+            d = doc["dse"]
+            dse = DSEResult(hw=_hw_from_dict(d["hw"]), plans=plans,
+                            layer_latencies=d["layer_latencies"],
+                            total_latency=d["total_latency"],
+                            candidates_searched=d["candidates_searched"])
+        rt = HybridRuntime(program, backend=backend, opt_level=opt_level,
+                           strict=strict, cache=cache, device=device,
+                           quant=quant)
+        rt.load_params(params)
+        if not strict:
+            rt.cache.validate(program)
+        return cls(specs=specs, plans=plans, params=params, request=rt.run,
+                   device=device, target=doc.get("target"),
+                   batch=doc.get("batch", 1), program=program, runtime=rt,
+                   dse=dse, backend=backend, opt_level=opt_level,
+                   quant=quant)
+
+    # -- serving ------------------------------------------------------------
+    def serve(self, **kwargs) -> "ServingSession":
+        """Open a :class:`ServingSession` over this accelerator — a
+        padding-bucketed request-batching queue (see the class docs)."""
+        return ServingSession(self, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Serving: the request-batching queue (NI-instances analog)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SessionStats:
+    requests: int = 0        # requests completed
+    batches: int = 0         # executor invocations
+    padded_rows: int = 0     # zero rows added to reach a bucket size
+    dispatched_rows: int = 0  # real (non-pad) rows sent to the device
+    # -- failure model -----------------------------------------------------
+    # the accounting invariant every session maintains and the chaos soak
+    # asserts: submitted == requests + errors + shed. A request lands in
+    # exactly one of the three; deadline_exceeded is the subset of errors
+    # failed by the deadline enforcer, isolated the subset quarantined
+    # individually (poisoned-batch bisection or a numerics guard hit).
+    submitted: int = 0           # requests accepted by submit()/run_many()
+    errors: int = 0              # requests resolved with an exception
+    deadline_exceeded: int = 0   # ... of which: missed their deadline_ms
+    shed: int = 0                # refused at admission (queue_limit)
+    retries: int = 0             # bisection re-dispatches after a failure
+    isolated: int = 0            # requests individually quarantined
+    degraded: int = 0            # batches recovered on the torch backend
+    watchdog_restarts: int = 0   # pipeline restarts after a dead thread
+    # first-use cost per bucket: the executor's lowering and, on the card,
+    # the kernel library's build on the first launch of the process
+    # (warmup or first batch). warm_load_ms is the reference's AOT
+    # warm-start counter; it stays 0 until AOT bundles are ported.
+    compile_ms: float = 0.0
+    warm_load_ms: float = 0.0
+    # device index -> batches dispatched there
+    device_batches: dict = dataclasses.field(default_factory=dict)
+    # per-request latency samples (submit -> result ready), most recent
+    # window only. Appends (drain thread) and percentile reads (any caller)
+    # share _lat_lock: sorting a deque the drain thread is appending to
+    # would raise "deque mutated during iteration".
+    latencies_ms: deque = dataclasses.field(
+        default_factory=lambda: deque(maxlen=4096))
+    # per-request queue-wait samples (submit -> admitted into a dispatched
+    # device batch) — the scheduler-health metric
+    waits_ms: deque = dataclasses.field(
+        default_factory=lambda: deque(maxlen=4096))
+    _lat_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False)
+
+    def bump(self, name: str, k: int = 1):
+        """Thread-safe counter increment — the failure counters are bumped
+        from the worker, drain, supervisor AND caller threads, and a bare
+        ``+=`` read-modify-write can drop updates across them."""
+        with self._lat_lock:
+            setattr(self, name, getattr(self, name) + k)
+
+    def record_latencies(self, ms_list):
+        """Batch append — one lock acquisition per device batch."""
+        with self._lat_lock:
+            self.latencies_ms.extend(ms_list)
+
+    def record_waits(self, ms_list):
+        with self._lat_lock:
+            self.waits_ms.extend(ms_list)
+
+    def _pct(self, xs_deque, q: float) -> float:
+        with self._lat_lock:
+            xs = sorted(xs_deque)
+        if not xs:
+            return 0.0
+        return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    def p50_ms(self) -> float:
+        """Median request latency over the recent window."""
+        return self._pct(self.latencies_ms, 0.50)
+
+    def p95_ms(self) -> float:
+        """95th-percentile request latency over the recent window."""
+        return self._pct(self.latencies_ms, 0.95)
+
+    def wait_p50_ms(self) -> float:
+        """Median queue wait (submit -> dispatch) over the recent window."""
+        return self._pct(self.waits_ms, 0.50)
+
+    def wait_p95_ms(self) -> float:
+        """95th-percentile queue wait over the recent window."""
+        return self._pct(self.waits_ms, 0.95)
+
+    def occupancy(self) -> float:
+        """Real-row fraction of all dispatched device rows (1.0 = no
+        padding waste)."""
+        total = self.dispatched_rows + self.padded_rows
+        return self.dispatched_rows / total if total else 1.0
+
+
+class _SlotPool:
+    """FIFO-fair counting semaphore over device-pipeline slots.
+
+    Each :class:`ServingSession` bounds its outstanding device batches with
+    one of these (the classic triple buffer: one syncing, one executing,
+    one staged). A :class:`Fleet` shares ONE pool across every tenant
+    session, so device time round-robins between models: dispatch workers
+    queue FIFO for the next free slot.
+    """
+
+    def __init__(self, capacity: int):
+        if capacity < 1:
+            raise ValueError("slot pool capacity must be >= 1")
+        self.capacity = int(capacity)
+        self._free = self.capacity
+        self._cv = threading.Condition()
+        self._waiters: deque = deque()
+        self._subscribers: list[threading.Condition] = []
+
+    def subscribe(self, cv: threading.Condition):
+        """Register a condition to notify on every release — session
+        admitters sleep on their own ``_cv`` while the pipeline is full, so
+        a freed slot must wake them there."""
+        with self._cv:
+            self._subscribers.append(cv)
+
+    def busy(self) -> bool:
+        """Lock-free hint: any slot taken — the device still has dispatched
+        work in flight."""
+        return self._free < self.capacity
+
+    def acquire(self, cancelled=None, blocking: bool = True) -> bool:
+        """Block for a slot; returns True once acquired. ``cancelled`` (a
+        nullary predicate, polled while waiting) lets a dispatch worker
+        abandon the wait when its pipeline generation is retired. Returns
+        False when cancelled. ``blocking=False`` takes a slot only when one
+        is free and nobody queues ahead, else returns False at once."""
+        token = object()
+        with self._cv:
+            if not blocking:
+                if self._free <= 0 or self._waiters:
+                    return False
+                self._free -= 1
+                return True
+            self._waiters.append(token)
+            while self._free <= 0 or self._waiters[0] is not token:
+                if cancelled is not None and cancelled():
+                    self._waiters.remove(token)
+                    self._cv.notify_all()   # next in line may now be eligible
+                    return False
+                self._cv.wait(None if cancelled is None else 0.05)
+            self._waiters.popleft()
+            self._free -= 1
+            if self._free > 0:
+                self._cv.notify_all()   # next waiter in line may also go
+            return True
+
+    def release(self):
+        with self._cv:
+            # clamp: watchdog crash-recovery frees slots on behalf of dead
+            # threads; a presumed-dead thread's late release must not
+            # inflate the pool past its capacity
+            self._free = min(self._free + 1, self.capacity)
+            self._cv.notify_all()
+        for cv in self._subscribers:
+            with cv:
+                cv.notify_all()
+
+
+class _Request:
+    """One staged request flowing through the session pipeline."""
+
+    __slots__ = ("x", "single", "fut", "t_submit", "rid", "deadline",
+                 "deadline_ms", "off")
+
+    def __init__(self, x, single: bool, fut: Future | None,
+                 t_submit: float, rid: int,
+                 deadline: float | None = None,
+                 deadline_ms: float | None = None):
+        self.x = x                    # staged host array (k, *input_shape)
+        self.single = single          # un-batched submit: scatter row 0
+        self.fut = fut                # None on run_many's inline bulk path
+        self.t_submit = t_submit
+        self.rid = rid                # session-unique id (fault targeting)
+        self.deadline = deadline      # absolute monotonic, None = none
+        self.deadline_ms = deadline_ms
+        self.off = 0                  # row offset inside its staged bucket
+
+
+class _Stage:
+    """One entry of a bucket's staging ring: a host input buffer (pinned
+    on a CUDA session, so its copy to the card is asynchronous), the entry's
+    own device input buffer (steady batches allocate no fresh input) and a
+    pinned host buffer for the logits, made at the entry's first batch."""
+
+    __slots__ = ("host_t", "host", "dev", "out")
+
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
+        pin = device.type == "cuda"
+        self.host_t = torch.empty(shape, dtype=dtype, pin_memory=pin)
+        self.host = self.host_t.numpy()   # the numpy view callers fill
+        self.dev = torch.empty(shape, dtype=dtype, device=device)
+        self.out: torch.Tensor | None = None
+
+
+class _InFlight:
+    """A launched batch's logits: the asynchronous copy into a pinned host
+    buffer and the event recorded after it on the session's stream. The
+    drainer waits on this event only, never on the stream."""
+
+    __slots__ = ("out", "event")
+
+    def __init__(self, out: torch.Tensor, event):
+        self.out = out
+        self.event = event
+
+
+_NUMPY_DTYPES = {torch.float32: np.float32, torch.int8: np.int8}
+
+
+class ServingSession:
+    """Padding-bucketed request-batching queue over the cached executor,
+    with pipelined dispatch.
+
+    Callers ``submit()`` single items (H, W, C) or small batches
+    (n, H, W, C) and get a ``Future``; a dispatch worker coalesces pending
+    requests into device batches of at most ``max_batch`` items, pads each
+    batch up to the nearest size in ``buckets`` (one cached executor per
+    bucket), runs the accelerator's executor entry directly, and scatters
+    the rows back to the futures in submission order.
+
+    The hot path is **pipelined**, the software analog of the paper's
+    LOAD/COMP/SAVE overlap. The dispatch worker stages a batch in a pinned
+    host buffer, copies it to the entry's device input buffer
+    (``non_blocking``), launches the executor, enqueues the logits' copy
+    into a pinned host buffer and records a CUDA event — all on ONE stream
+    (the one current when the session opened), since the kernels read the
+    thread's current stream and their workspaces come from the caching
+    allocator. A separate drain thread waits on each batch's event only
+    and resolves its futures, so host staging of batch i+1 overlaps the
+    device work of batch i. Outstanding device batches are hard-capped at
+    the slot pool's capacity (3: one being drained, one executing, one
+    staged). Staging is a ring of buffers per bucket, one per pipeline
+    slot: an entry is refilled only after its batch's slot was released
+    (drained), so no copy in flight ever reads a buffer being refilled.
+
+    The session inherits the accelerator's PE ``backend`` and lowering
+    ``opt_level``: per-bucket executors come from
+    ``HybridRuntime.executor_entry``. Segmented and strict accelerators
+    serve through ``acc(x)``. On the CPU the same pipeline runs
+    synchronously (no pinned memory, no events).
+
+    ``mesh``: ``None`` or ``"host"`` on one device serves unsharded; more
+    devices raise ``NotImplementedError`` (sharded serving is ROADMAP
+    Queue 1, item 8).
+
+    ``scheduler`` selects the admission policy:
+
+    * ``"continuous"`` (default) — the admitter fills the next in-flight
+      device batch straight from the pending queue. The batching window
+      (``max_wait_ms``) only caps the wait while a device slot is FREE;
+      while the pipeline is full it keeps admitting into the open batch.
+    * ``"bucketed"`` — the legacy fixed-window policy: cut the batch when
+      the window expires regardless of pipeline state.
+
+    ``stats`` records request/batch counts, the first-use time of each
+    bucket (``compile_ms``), recent windows of per-request latency
+    (``p50_ms()`` / ``p95_ms()``) and queue wait (``wait_p50_ms()``),
+    per-device batch counts and padding ``occupancy()``. ``slot_pool``
+    shares the pipeline slots with other sessions (a :class:`Fleet`).
+
+    **Failure model** (the reference's):
+
+    * ``deadline_ms`` (session default, overridable per ``submit``) — a
+      request not drained by its deadline resolves with
+      :class:`repro_torch.serving.DeadlineExceeded`.
+    * ``queue_limit`` + ``on_overload`` (``"shed"`` | ``"block"``) —
+      bounded admission: past the limit, ``"shed"`` returns a future
+      pre-failed with :class:`repro_torch.serving.Overloaded`; ``"block"``
+      makes ``submit`` wait for queue space.
+    * poisoned-batch isolation — a failed coalesced batch is bisected and
+      re-dispatched at the SAME bucket size with the excluded rows zeroed
+      in place, so innocent co-batched requests still succeed bit for bit
+      as in a fault-free run; the offender fails with the causal exception
+      (``stats.retries`` / ``stats.isolated``).
+    * backend degradation — on a ``backend="hopper"`` execution failure
+      the whole batch is re-dispatched once through the ``torch`` lowering
+      (``stats.degraded``, with a warning) before bisection. It catches
+      Python-level failures (a refused launch, an injected fault); a
+      sticky CUDA error leaves the context unusable, so the retry fails
+      too and the batch falls through to bisection and typed errors.
+    * ``guard_numerics`` — per-request NaN/Inf quarantine at drain time
+      (:class:`repro_torch.serving.NumericsError`).
+    * supervision — a per-session watchdog thread enforces deadlines and
+      watches the dispatch/drain threads; a dead (or, with
+      ``hang_after_s``, silent) thread fails every queued/in-flight future
+      with :class:`repro_torch.serving.PipelineCrashed`, frees its slots
+      and restarts the pipeline (``stats.watchdog_restarts``).
+    * ``fault_plan`` — a :class:`repro_torch.serving.FaultPlan` wired into
+      the pipeline boundaries for deterministic fault injection.
+
+    The accounting invariant across all of the above:
+    ``stats.submitted == stats.requests + stats.errors + stats.shed``
+    once every accepted future has resolved.
+    """
+
+    SCHEDULERS = ("continuous", "bucketed")
+
+    def __init__(self, acc: Accelerator, *, max_batch: int = 8,
+                 buckets: Sequence[int] | None = None, mesh=None,
+                 max_wait_ms: float = 5.0, warmup: bool = False,
+                 scheduler: str = "continuous",
+                 slot_pool: _SlotPool | None = None,
+                 deadline_ms: float | None = None,
+                 queue_limit: int | None = None,
+                 on_overload: str = "shed",
+                 guard_numerics: bool = False,
+                 fault_plan=None,
+                 supervise: bool = True,
+                 hang_after_s: float | None = None):
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if scheduler not in self.SCHEDULERS:
+            raise ValueError(f"unknown scheduler {scheduler!r}: expected "
+                             f"one of {self.SCHEDULERS}")
+        if on_overload not in ("shed", "block"):
+            raise ValueError(f"on_overload must be 'shed' or 'block', "
+                             f"got {on_overload!r}")
+        if queue_limit is not None and queue_limit < 1:
+            raise ValueError("queue_limit must be >= 1")
+        self._device = acc.device
+        self._n_devices = _mesh_device_count(mesh, self._device)
+        if self._n_devices > 1:
+            raise NotImplementedError(
+                f"mesh={mesh!r} spans {self._n_devices} devices: sharded "
+                f"serving is not ported (ROADMAP Queue 1, item 8, mesh); "
+                f"pass mesh=None to serve on one device")
+        self.acc = acc
+        self.scheduler = scheduler
+        self.max_batch = int(max_batch)
+        if buckets is None:
+            buckets, b = [], 1
+            while b < self.max_batch:
+                buckets.append(b)
+                b *= 2
+            buckets.append(self.max_batch)
+        self.buckets = tuple(sorted({int(b) for b in buckets}))
+        if self.buckets[-1] < self.max_batch or self.buckets[0] < 1:
+            raise ValueError(
+                f"buckets {self.buckets} must cover max_batch={max_batch}")
+        self.stats = SessionStats()
+        # resolve once: input_dtype/input_shape walk the param image
+        self._in_torch_dtype = acc.input_dtype
+        self._in_dtype = np.dtype(_NUMPY_DTYPES[self._in_torch_dtype])
+        self._in_shape = tuple(acc.input_shape)
+        # quantized accelerators keep the session float-in/float-out:
+        # floats are quantized host-side at staging (so the device batch is
+        # int8 end to end) and int8 logits dequantized at drain
+        self._quant = acc.quant
+        self._single_rank = len(self._in_shape)
+        self._max_wait = max(0.0, max_wait_ms) / 1e3
+        self._pending: deque = deque()
+        self._cv = threading.Condition()
+        self._closed = False
+        # every device operation of the session runs on this one stream
+        self._cuda = self._device.type == "cuda"
+        self._stream = (torch.cuda.current_stream(self._device)
+                        if self._cuda else None)
+        self._device_id = self._device.index if self._cuda else 0
+
+        # -- failure model state --------------------------------------------
+        self._deadline_default = (None if deadline_ms is None
+                                  else max(0.0, float(deadline_ms)))
+        self.queue_limit = queue_limit
+        self.on_overload = on_overload
+        self._guard_numerics = bool(guard_numerics)
+        self._faults = fault_plan
+        self._rid_counter = itertools.count()
+        self._deadlines = DeadlineTable()
+        self._backend_tag = acc.backend
+        self._fallback_entries: dict[int, Any] = {}  # lazy torch degradation
+        self._fallback_lock = threading.Lock()
+        # pipeline generation: bumped by the watchdog on restart; stale
+        # threads check it and stand down without touching shared state
+        self._gen = 0
+        self._life_lock = threading.Lock()   # serializes restart vs close
+        self._closed_done = False
+        self._worker_exited_clean = False
+        # slot bookkeeping the watchdog uses to free a dead thread's slots:
+        # flags only ever flip in the owning thread, and are only read by
+        # the watchdog after that thread is confirmed dead/joined
+        self._worker_holds_slot = False
+        self._drain_popped_unreleased = False
+        # the group a pipeline thread is working on, visible so a crash
+        # mid-dispatch / mid-deliver cannot strand futures
+        self._worker_group: list | None = None
+        self._drain_group: list | None = None
+        self._thread_exc: BaseException | None = None   # causal, for restart
+        self._sup = (ThreadSupervisor(("dispatch", "drain"),
+                                      hang_after_s=hang_after_s)
+                     if supervise else None)
+        self._sup_cv = threading.Condition()
+        self._sup_stop = False
+        self._sup_thread: threading.Thread | None = None
+
+        # hot path: one cached executor entry per bucket (validated once,
+        # lowered once per bucket). Falls back to acc(x) for segmented /
+        # strict accelerators.
+        self._entries: dict[int, Any] = {}
+        self._params = None
+        rt = acc.runtime
+        if rt is not None and not rt.strict:
+            for b in self.buckets:
+                self._entries[b], self._params = rt.executor_entry(
+                    b, self._in_torch_dtype)
+
+        # completion pipeline: dispatched-but-unresolved batches, FIFO,
+        # bounded by the slot pool (a hard cap: the drainer holds its slot
+        # until the batch's logits are on the host)
+        self._inflight: deque = deque()
+        self._inflight_cv = threading.Condition()
+        # serializes staging+dispatch between the worker thread and
+        # run_many's inline bulk path
+        self._dispatch_mutex = threading.Lock()
+        self._slots = slot_pool if slot_pool is not None else _SlotPool(3)
+        self._slots.subscribe(self._cv)   # full-pipeline admitters sleep
+                                          # on _cv; wake them on slot free
+
+        # staging: a ring per bucket, one entry per pipeline slot, cycled
+        # per dispatch. The ring size MUST be >= the slot capacity: an
+        # entry is only refilled once its batch's slot has been released
+        # (drained), so neither the asynchronous host->device copy of its
+        # input nor the device->host copy of its logits can race a refill.
+        self._staging = {b: self._new_ring(b) for b in self.buckets}
+        self._staging_flip: dict[int, int] = {b: 0 for b in self.buckets}
+        # run_many's inline bulk path gets its OWN ring: the worker and the
+        # bulk path each release slots FIFO within themselves but interleave
+        # arbitrarily across threads (lazily built)
+        self._staging_bulk: dict[int, list] = {}
+        self._bulk_flip: dict[int, int] = {}
+
+        self._warm: set[int] = set()
+        if warmup:   # first use of every bucket now, not on a request
+            for b in self.buckets:
+                t0 = time.monotonic()
+                with self._on_stream():
+                    self._run_bucket(torch.zeros(
+                        (b, *self._in_shape), dtype=self._in_torch_dtype,
+                        device=self._device))
+                    if self._cuda:
+                        self._stream.synchronize()
+                self.stats.compile_ms += (time.monotonic() - t0) * 1e3
+                self._warm.add(b)
+
+        self._start_pipeline_threads()
+        if supervise:
+            self._sup_thread = threading.Thread(
+                target=self._supervise, daemon=True,
+                name="hybriddnn-serving-watchdog")
+            self._sup_thread.start()
+
+    def _new_ring(self, bucket: int) -> list[_Stage]:
+        return [_Stage((bucket, *self._in_shape), self._in_torch_dtype,
+                       self._device)
+                for _ in range(self._slots.capacity)]
+
+    def _on_stream(self):
+        """The session's stream as the calling thread's current stream."""
+        return (torch.cuda.stream(self._stream) if self._cuda
+                else contextlib.nullcontext())
+
+    def _start_pipeline_threads(self):
+        """(Re)start the dispatch + drain pair for the current generation.
+        Thread targets take the generation by value: a restarted pipeline
+        must never process state a stale thread still thinks it owns."""
+        gen = self._gen
+        self._worker_exited_clean = False
+        self._dispatch_thread = threading.Thread(
+            target=self._worker, args=(gen,), daemon=True,
+            name=f"hybriddnn-serving-g{gen}")
+        self._drain_thread = threading.Thread(
+            target=self._drainer, args=(gen,), daemon=True,
+            name=f"hybriddnn-serving-drain-g{gen}")
+        self._dispatch_thread.start()
+        self._drain_thread.start()
+
+    # -- client side --------------------------------------------------------
+    def _stage(self, x) -> tuple[np.ndarray, bool]:
+        """Validate + host-stage one request (no device work, no locks)."""
+        x = to_numpy(x)
+        if self._quant is not None and np.issubdtype(x.dtype, np.floating):
+            # round-and-clip by the calibrated input scale, the reference's
+            # host arithmetic (equal to quant.quantize_input bit for bit):
+            # a bare dtype cast would TRUNCATE floats and skip the clip
+            x = np.clip(
+                np.round(x.astype(np.float32)
+                         / np.float32(self._quant.input_scale)),
+                -127, 127).astype(self._in_dtype)
+        else:
+            x = np.asarray(x, self._in_dtype)
+        if x.ndim == self._single_rank:
+            x, single = x[None], True
+        elif x.ndim == self._single_rank + 1:
+            single = False
+        else:
+            raise ValueError(
+                f"request rank {x.ndim} does not match input shape "
+                f"{self._in_shape} (+ optional batch dim)")
+        if not 1 <= x.shape[0] <= self.max_batch:
+            raise ValueError(
+                f"request batch {x.shape[0]} must be between 1 and "
+                f"max_batch={self.max_batch}")
+        if tuple(x.shape[1:]) != self._in_shape:
+            # reject here, not in the worker: a malformed item would fail
+            # the batch assembly and poison every co-batched request
+            raise ValueError(
+                f"request item shape {tuple(x.shape[1:])} does not match "
+                f"the accelerator input shape {self.acc.input_shape}")
+        return x, single
+
+    def _make_request(self, x, fut: Future | None, now: float,
+                      deadline_ms: float | None) -> _Request:
+        """Stage + wrap one request; assigns its session-unique id and
+        resolves its absolute deadline. The fault harness's ``staging``
+        site fires here, on the caller's thread, against a private copy of
+        the staged array."""
+        xs, single = self._stage(x)
+        rid = next(self._rid_counter)
+        if self._faults is not None:
+            xs = self._faults.visit(
+                "staging", payload=np.array(xs), requests=(rid,),
+                rows={rid: (0, xs.shape[0])})
+        dl_ms = (self._deadline_default if deadline_ms is None
+                 else max(0.0, float(deadline_ms)))
+        dl = None if dl_ms is None else now + dl_ms / 1e3
+        return _Request(xs, single, fut, now, rid, dl, dl_ms)
+
+    def _queue_full(self) -> bool:
+        """Caller holds ``_cv``. Compacts already-resolved (deadline-
+        expired/cancelled) entries out of the queue before refusing."""
+        if len(self._pending) < self.queue_limit:
+            return False
+        self._pending = deque(
+            r for r in self._pending
+            if r.fut is None or not r.fut.done())
+        return len(self._pending) >= self.queue_limit
+
+    def _enqueue(self, reqs: list[_Request]):
+        """Admission control: bounded queue with shed-or-block overflow,
+        deadline registration, exact ``submitted`` accounting."""
+        st = self.stats
+        notify_sup = False
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("ServingSession is closed")
+            for req in reqs:
+                if self.queue_limit is not None and self._queue_full():
+                    if self.on_overload == "block":
+                        while self._queue_full() and not self._closed:
+                            self._cv.wait(0.05)
+                        if self._closed:
+                            raise RuntimeError("ServingSession is closed")
+                    else:
+                        st.bump("submitted")
+                        st.bump("shed")
+                        req.fut.set_exception(Overloaded(
+                            f"pending queue at queue_limit="
+                            f"{self.queue_limit}; request shed"))
+                        continue
+                st.bump("submitted")
+                self._pending.append(req)
+                if req.deadline is not None:
+                    if self._deadlines.add(req.deadline, req):
+                        notify_sup = True
+            self._cv.notify()
+        if notify_sup and self._sup_thread is not None:
+            with self._sup_cv:   # new earliest deadline: shorten the nap
+                self._sup_cv.notify_all()
+
+    def submit(self, x, *, deadline_ms: float | None = None) -> Future:
+        """Enqueue one request; returns a Future of the result (a single
+        item's logits for single-item requests, a batch for batched ones),
+        as a float32 numpy array.
+
+        The request is staged host-side (numpy): no device work happens on
+        the caller's thread. ``deadline_ms`` overrides the session default
+        for this request. With a ``queue_limit`` and a full queue,
+        ``on_overload="shed"`` returns a future pre-failed with
+        :class:`repro_torch.serving.Overloaded`; ``"block"`` waits."""
+        now = time.monotonic()
+        req = self._make_request(x, Future(), now, deadline_ms)
+        self._enqueue([req])
+        return req.fut
+
+    def submit_many(self, xs, *, deadline_ms: float | None = None
+                    ) -> list[Future]:
+        """Enqueue a whole request list under ONE lock acquisition.
+        Validation happens before anything enqueues, so a malformed request
+        poisons nothing."""
+        now = time.monotonic()
+        reqs = [self._make_request(x, Future(), now, deadline_ms)
+                for x in xs]
+        self._enqueue(reqs)
+        return [r.fut for r in reqs]
+
+    def __call__(self, x):
+        """Synchronous convenience: submit + wait."""
+        return self.submit(x).result()
+
+    def run_many(self, xs) -> list:
+        """Run a whole request list; returns results in request order.
+
+        Bulk traffic takes an inline pipelined path: the calling thread
+        stages and dispatches full device batches itself (same executor
+        entries, same slot pool, same stats), keeping up to the pool's
+        capacity in flight and draining oldest-first. Concurrent
+        ``submit()`` traffic stays correct (the dispatch mutex serializes
+        staging; the shared slot pool keeps device arbitration FIFO-fair),
+        it just isn't co-batched with the bulk run."""
+        t0 = time.monotonic()
+        reqs = [self._make_request(x, None, t0, None) for x in xs]
+        if not reqs:
+            return []
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("ServingSession is closed")
+        self.stats.bump("submitted", len(reqs))
+        # cut [start, end) item groups of <= max_batch rows
+        groups, start, n = [], 0, 0
+        for i, r in enumerate(reqs):
+            k = r.x.shape[0]
+            if n + k > self.max_batch:
+                groups.append((start, i, n))
+                start, n = i, 0
+            n += k
+        groups.append((start, len(reqs), n))
+        out: list = [None] * len(reqs)
+        errs: list[Exception] = []
+        inflight: deque = deque()   # (start, end, y, bucket, stage)
+
+        def _deliver_bulk(s0, outcomes):
+            st = self.stats
+            for i, (r, ok, val) in enumerate(outcomes):
+                if ok:
+                    gexc = self._guard(r, val)
+                    if gexc is None:
+                        out[s0 + i] = val[0] if r.single else val
+                        st.bump("requests")
+                        continue
+                    st.bump("isolated")
+                    val = gexc
+                errs.append(val)
+                st.bump("errors")
+
+        def _sync_oldest():
+            s0, e0, y, bucket, stage = inflight.popleft()
+            group = reqs[s0:e0]
+            try:
+                if self._faults is not None:
+                    self._faults.visit(
+                        "drain", requests=[r.rid for r in group])
+                y_np = self._to_host(y)          # host sync (+ dequant)
+            except Exception as exc:  # noqa: BLE001 — recover per request
+                # recover BEFORE releasing the slot: the staging ring must
+                # not refill the entry until the bisection has re-read it
+                try:
+                    _deliver_bulk(s0, self._recover(group, bucket,
+                                                    stage.host, exc))
+                finally:
+                    self._slots.release()
+                return
+            self._slots.release()
+            done_t = time.monotonic()
+            self.stats.bump("batches")
+            _deliver_bulk(
+                s0, [(r, True, y_np[r.off:r.off + r.x.shape[0]])
+                     for r in group])
+            self.stats.record_latencies(
+                [(done_t - t0) * 1e3] * (e0 - s0))
+
+        try:
+            for s0, e0, n in groups:
+                # never wait for a slot while holding one: another bulk
+                # caller holding the rest would wait on ours (the reference
+                # deadlocks so under concurrent run_many callers)
+                acquired = False
+                while inflight and not acquired:
+                    acquired = self._slots.acquire(blocking=False)
+                    if not acquired:
+                        _sync_oldest()
+                if not acquired:
+                    self._slots.acquire()
+                group = reqs[s0:e0]
+                bucket = stage = None
+                try:
+                    with self._dispatch_mutex:
+                        bucket, stage = self._stage_group(group, n,
+                                                          bulk=True)
+                    y = self._launch(bucket, stage, group)
+                except Exception as e:  # noqa: BLE001 — recover per request
+                    try:
+                        if stage is None:
+                            raise    # staging failed: nothing to recover
+                        _deliver_bulk(
+                            s0, self._recover(group, bucket, stage.host, e))
+                    finally:
+                        self._slots.release()
+                    continue
+                except BaseException:
+                    self._slots.release()
+                    raise
+                inflight.append((s0, e0, y, bucket, stage))
+        finally:
+            while inflight:     # release EVERY held slot even on error
+                try:
+                    _sync_oldest()
+                except Exception as e:  # noqa: BLE001 — keep draining
+                    errs.append(e)
+        if errs:
+            self._raise_joined(errs)
+        return out
+
+    @staticmethod
+    def _raise_joined(errs: list[Exception]):
+        """Raise the first error; the rest are attached as notes and
+        ``secondary_errors``, and logged — a multi-slot failure must not
+        silently swallow every error after the first."""
+        first, rest = errs[0], errs[1:]
+        for e in rest:
+            log.error("serving: additional in-flight batch failure "
+                      "(suppressed by %r): %r", first, e)
+            first.add_note(f"additionally failed: {e!r}")
+        first.secondary_errors = tuple(rest)
+        raise first
+
+    def close(self):
+        """Drain and shut down. Idempotent, and safe mid-failure: joins are
+        bounded, a missing drain sentinel is re-queued, and whatever is
+        left queued/in-flight afterwards is failed with
+        :class:`repro_torch.serving.PipelineCrashed` and its device slots
+        returned to the pool."""
+        with self._life_lock:
+            if self._closed_done:
+                return
+            with self._cv:
+                self._closed = True
+                self._cv.notify_all()
+            self._dispatch_thread.join(timeout=60.0)
+            if not self._worker_exited_clean:
+                # the worker died without queueing the drain sentinel
+                # (crashed or stale): queue it so the drainer can exit
+                with self._inflight_cv:
+                    self._inflight.append(None)
+                    self._inflight_cv.notify_all()
+            self._drain_thread.join(timeout=60.0)
+            exc = PipelineCrashed("ServingSession closed while its "
+                                  "pipeline was down")
+            exc.__cause__ = self._thread_exc
+            self._fail_all_queued(exc)
+            self._closed_done = True
+        if self._sup_thread is not None:
+            with self._sup_cv:
+                self._sup_stop = True
+                self._sup_cv.notify_all()
+            self._sup_thread.join(timeout=10.0)
+
+    def _fail_all_queued(self, exc):
+        """Fail every queued + in-flight request and return their pipeline
+        slots. Only called with the pipeline threads dead or joined (close
+        after join; watchdog after gen retirement)."""
+        with self._cv:
+            pending = list(self._pending)
+            self._pending.clear()
+            self._cv.notify_all()
+        with self._inflight_cv:
+            items = [it for it in self._inflight if it is not None]
+            self._inflight.clear()
+            self._inflight_cv.notify_all()
+        for _ in range(len(items)):
+            self._slots.release()
+        # a dead thread's locals: its held slot, and the group it popped
+        # from the shared deques but never handed off/delivered
+        stranded = []
+        if not self._dispatch_thread.is_alive():
+            if self._worker_holds_slot:
+                self._worker_holds_slot = False
+                self._slots.release()
+            if self._worker_group:
+                stranded.extend(self._worker_group)
+                self._worker_group = None
+        if not self._drain_thread.is_alive():
+            if self._drain_popped_unreleased:
+                self._drain_popped_unreleased = False
+                self._slots.release()
+            if self._drain_group:
+                stranded.extend(self._drain_group)
+                self._drain_group = None
+        for it in items:
+            for r in it[0]:
+                self._reject_req(r, exc)
+        for r in stranded:
+            self._reject_req(r, exc)
+        for r in pending:
+            self._reject_req(r, exc)
+        return len(items) + (1 if stranded else 0), len(pending)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    # -- dispatch side ------------------------------------------------------
+    def _take_group(self, gen: int):
+        """Admit pending requests into one device batch (<= max_batch).
+
+        ``"bucketed"``: cut when ``max_wait_ms`` expires, whatever the
+        pipeline is doing. ``"continuous"``: the window only caps the wait
+        while the device pipeline is IDLE — while any batch is in flight
+        the admitter keeps folding arrivals into the open batch until the
+        pipeline drains or the batch fills, up to a hard cap of several
+        windows (so a co-tenant keeping the shared pool busy never starves
+        a straggler). Already-resolved requests are dropped, the hold is
+        capped at the earliest deadline in the open batch, and a retired
+        generation hands its partial batch back and stands down.
+
+        Returns ``(group, n, stale)``.
+        """
+        continuous = self.scheduler == "continuous"
+        with self._cv:
+            while (not self._pending and not self._closed
+                   and self._gen == gen):
+                self._beat("dispatch")
+                self._cv.wait(0.25)
+            if self._gen != gen:
+                return None, 0, True
+            if not self._pending:
+                return None, 0, False    # closed and drained
+            group, n = [], 0
+            deadline = time.monotonic() + self._max_wait
+            hard_deadline = deadline + 8 * self._max_wait
+            while True:
+                while (self._pending
+                       and n + self._pending[0].x.shape[0] <= self.max_batch):
+                    r = self._pending.popleft()
+                    if r.fut is not None and r.fut.done():
+                        continue     # expired/cancelled while queued
+                    group.append(r)
+                    n += r.x.shape[0]
+                self._cv.notify_all()    # queue shrank: wake blocked admitters
+                if (n >= self.max_batch or self._pending or self._closed
+                        or self._gen != gen):
+                    break                # full, head won't fit, or draining
+                dls = [r.deadline for r in group if r.deadline is not None]
+                batch_cap = min(dls) if dls else None
+                now = time.monotonic()
+                if batch_cap is not None and now >= batch_cap:
+                    break                # earliest deadline reached: cut
+                if (continuous and self._slots.busy() and now < hard_deadline
+                        and (batch_cap is None or now < batch_cap)):
+                    self._cv.wait(0.005)     # device busy: keep admitting
+                    continue
+                timeout = deadline - now
+                if batch_cap is not None:
+                    timeout = min(timeout, batch_cap - now)
+                if timeout <= 0:
+                    break                # batching window expired
+                self._cv.wait(timeout)
+            if self._gen != gen:
+                # retired mid-take: hand the batch to the new pipeline
+                self._pending.extendleft(reversed(group))
+                return None, 0, True
+            return group, n, False
+
+    def _to_host(self, y) -> np.ndarray:
+        """Wait for one launched batch's logits and return them as a host
+        array of its own (a copy: the pinned buffer is refilled by the
+        ring's next batch); dequantize int8 logits to fp32.
+
+        Dequantization is gated on the ARRAY dtype, not just the session:
+        the ``acc(x)`` path of segmented/strict accelerators already
+        returns dequantized fp32."""
+        if isinstance(y, _InFlight):
+            y.event.synchronize()          # this batch only, not the stream
+            y_np = y.out.numpy().copy()
+        else:
+            y_np = to_numpy(y)
+        if self._quant is not None and y_np.dtype == np.int8:
+            return (y_np.astype(np.float32)
+                    * np.float32(self._quant.output_scale))
+        return y_np
+
+    def _run_bucket(self, x: torch.Tensor) -> torch.Tensor:
+        entry = self._entries.get(x.shape[0])
+        if entry is not None:
+            return entry(self._params, x)
+        return self.acc(x)
+
+    def _stage_group(self, group, n, *, bulk: bool = False):
+        """Assemble one device batch into the staging ring — no dispatch.
+
+        Records each request's row offset (``req.off``) so a failed batch
+        can be bisected at the same offsets. Returns ``(bucket, stage)``;
+        ``_launch`` dispatches it."""
+        bucket = next(b for b in self.buckets if b >= n)
+        if bulk:
+            ring = self._staging_bulk.get(bucket)
+            if ring is None:
+                ring = self._staging_bulk[bucket] = self._new_ring(bucket)
+                self._bulk_flip[bucket] = 0
+            flips = self._bulk_flip
+        else:
+            ring, flips = self._staging[bucket], self._staging_flip
+        stage = ring[flips[bucket]]
+        flips[bucket] = (flips[bucket] + 1) % len(ring)
+        buf = stage.host
+        off = 0
+        for r in group:
+            k = r.x.shape[0]
+            buf[off:off + k] = r.x
+            r.off = off
+            off += k
+        if bucket > n:
+            buf[n:] = 0
+            self.stats.padded_rows += bucket - n
+        self.stats.dispatched_rows += n
+        now = time.monotonic()
+        self.stats.record_waits([(now - r.t_submit) * 1e3 for r in group])
+        self.stats.device_batches[self._device_id] = \
+            self.stats.device_batches.get(self._device_id, 0) + 1
+        return bucket, stage
+
+    def _launch(self, bucket, stage: _Stage, group):
+        """Launch a staged batch — no host sync. The fault harness's
+        ``dispatch`` and ``execute`` sites fire here. On the card: the
+        staged input's asynchronous copy into the entry's device buffer,
+        the executor, the logits' asynchronous copy into the entry's pinned
+        output buffer and an event, all on the session's stream; the drain
+        thread (or the bulk path) waits on the event."""
+        if self._faults is not None:
+            rids = [r.rid for r in group]
+            self._faults.visit("dispatch", requests=rids)
+            self._faults.visit(
+                "execute", payload=stage.host, requests=rids,
+                rows={r.rid: (r.off, r.x.shape[0]) for r in group},
+                backend=self._backend_tag)
+        first_use = bucket not in self._warm
+        t0 = time.monotonic()
+        with self._on_stream():
+            stage.dev.copy_(stage.host_t, non_blocking=True)
+            y = self._run_bucket(stage.dev)
+            if self._cuda:
+                if (stage.out is None or stage.out.shape != y.shape
+                        or stage.out.dtype != y.dtype):
+                    stage.out = torch.empty(y.shape, dtype=y.dtype,
+                                            pin_memory=True)
+                stage.out.copy_(y, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self._stream)
+                y = _InFlight(stage.out, event)
+        if first_use:
+            self.stats.compile_ms += (time.monotonic() - t0) * 1e3
+            self._warm.add(bucket)
+        return y
+
+    # -- failure handling ---------------------------------------------------
+    def _beat(self, name: str):
+        if self._sup is not None:
+            self._sup.beat(name)
+
+    def _guard(self, req: _Request, rows):
+        """``guard_numerics``: the NumericsError for non-finite output rows
+        of this request, else None."""
+        if not self._guard_numerics:
+            return None
+        rows = np.asarray(rows)
+        if (np.issubdtype(rows.dtype, np.floating)
+                and not np.all(np.isfinite(rows))):
+            return NumericsError(
+                f"request {req.rid}: non-finite values in its output rows "
+                f"quarantined (guard_numerics=True)")
+        return None
+
+    def _reject_req(self, req: _Request, exc: BaseException) -> bool:
+        """Resolve ``req`` with ``exc``; True when THIS call resolved it.
+        The set_exception winner does the error accounting, so a request
+        racing the deadline enforcer against the drain thread is counted
+        exactly once."""
+        if req.fut is None:
+            return False    # bulk path: run_many accounts for it inline
+        try:
+            req.fut.set_exception(exc)
+        except InvalidStateError:
+            return False
+        st = self.stats
+        with st._lat_lock:
+            st.errors += 1
+            if isinstance(exc, DeadlineExceeded):
+                st.deadline_exceeded += 1
+        return True
+
+    def _resolve_req(self, req: _Request, rows) -> bool:
+        """Resolve ``req`` with its output rows (numerics-guarded); True
+        when this call delivered the result."""
+        gexc = self._guard(req, rows)
+        if gexc is not None:
+            if self._reject_req(req, gexc):
+                self.stats.bump("isolated")
+            return False
+        try:
+            req.fut.set_result(rows[0] if req.single else rows)
+        except InvalidStateError:
+            return False    # expired/cancelled first; already accounted
+        return True
+
+    def _deliver(self, group, y_np):
+        """Scatter a drained batch's rows to its futures + count it."""
+        done_t = time.monotonic()
+        n_ok, lats = 0, []
+        for r in group:
+            rows = y_np[r.off:r.off + r.x.shape[0]]
+            if self._resolve_req(r, rows):
+                n_ok += 1
+                lats.append((done_t - r.t_submit) * 1e3)
+        st = self.stats
+        st.bump("batches")
+        if n_ok:
+            st.bump("requests", n_ok)
+            st.record_latencies(lats)
+
+    def _deliver_outcomes(self, group, outcomes):
+        """Resolve per-request recovery outcomes ``(req, ok, rows|exc)``."""
+        done_t = time.monotonic()
+        n_ok, lats = 0, []
+        for r, ok, val in outcomes:
+            if ok:
+                if self._resolve_req(r, val):
+                    n_ok += 1
+                    lats.append((done_t - r.t_submit) * 1e3)
+            else:
+                self._reject_req(r, val)
+        if n_ok:
+            self.stats.bump("requests", n_ok)
+            self.stats.record_latencies(lats)
+
+    def _fallback_entry(self, bucket: int):
+        """The lazily-lowered ``torch`` degradation executor for ``bucket``
+        — same Program, same params, keyed separately in the program cache.
+        Raises for strict/segmented accelerators (no cached-entry hot path
+        to degrade onto)."""
+        with self._fallback_lock:
+            pair = self._fallback_entries.get(bucket)
+            if pair is None:
+                rt = self.acc.runtime
+                if rt is None or rt.strict or not self._entries:
+                    raise RuntimeError("no torch fallback entry available")
+                pair = rt.executor_entry(bucket, self._in_torch_dtype,
+                                         backend="torch")
+                self._fallback_entries[bucket] = pair
+            return pair
+
+    def _execute_staged(self, bucket, buf, group, *, fallback: bool = False):
+        """Synchronously execute an already-staged host buffer — the
+        recovery path (degradation and bisection retries). Re-visits the
+        fault plan's ``execute`` site so request-bound ("cursed") faults
+        keep firing on retry and the bisection converges on the
+        offender."""
+        if self._faults is not None:
+            buf = self._faults.visit(
+                "execute", payload=buf, requests=[r.rid for r in group],
+                rows={r.rid: (r.off, r.x.shape[0]) for r in group},
+                backend="torch" if fallback else self._backend_tag)
+        with self._on_stream():
+            x = torch.from_numpy(buf).to(self._device)
+            if fallback:
+                entry, params = self._fallback_entry(bucket)
+                y = entry(params, x)
+            else:
+                y = self._run_bucket(x)
+            return self._to_host(y)
+
+    def _recover(self, group, bucket, buf, exc):
+        """Per-request outcomes for a failed device batch.
+
+        Order of escalation: (1) a ``backend="hopper"`` failure re-runs the
+        WHOLE batch once through the ``torch`` lowering
+        (``stats.degraded``); (2) bisection — re-dispatch each half **at
+        the same bucket size with the other half's rows zeroed in place**,
+        recursing into halves that still fail until the offender is alone.
+        Same bucket + same row offsets means the innocent rows run through
+        the identical cached executor at identical positions, so their
+        results are bit-identical to a fault-free run. Runs on the thread
+        that detected the failure while the batch's pipeline slot is still
+        held (the staging buffer must survive the re-reads).
+
+        Returns ``[(req, ok, rows_or_exc), ...]`` in group order.
+        """
+        if self._backend_tag == "hopper":
+            try:
+                y_np = self._execute_staged(bucket, buf, group,
+                                            fallback=True)
+                self.stats.bump("degraded")
+                log.warning(
+                    "serving: batch of %d requests re-dispatched on the "
+                    "torch backend after a hopper failure: %r",
+                    len(group), exc)
+                return [(r, True, y_np[r.off:r.off + r.x.shape[0]])
+                        for r in group]
+            except Exception as e2:  # noqa: BLE001 — fall through to bisect
+                log.warning("serving: torch fallback also failed (%r); "
+                            "bisecting the batch", e2)
+        return self._bisect(group, bucket, buf, exc)
+
+    def _bisect(self, group, bucket, buf, exc):
+        if len(group) == 1:
+            self.stats.bump("isolated")
+            log.warning("serving: request %d isolated as the batch "
+                        "offender: %r", group[0].rid, exc)
+            return [(group[0], False, exc)]
+        mid = len(group) // 2
+        outcomes = []
+        for part in (group[:mid], group[mid:]):
+            part_buf = np.zeros_like(buf)
+            for r in part:
+                k = r.x.shape[0]
+                part_buf[r.off:r.off + k] = buf[r.off:r.off + k]
+            self.stats.bump("retries")
+            try:
+                y_np = self._execute_staged(bucket, part_buf, part)
+            except Exception as e:  # noqa: BLE001 — recurse on the half
+                outcomes.extend(self._bisect(part, bucket, part_buf, e))
+                continue
+            outcomes.extend((r, True, y_np[r.off:r.off + r.x.shape[0]])
+                            for r in part)
+        return outcomes
+
+    def _worker(self, gen: int):
+        """Dispatch loop: batch i+1 is staged and launched while batch i is
+        still executing on the device (the drain thread owns completion).
+
+        Crash containment: any escaping exception (including the fault
+        harness's ``ThreadKilled``, a BaseException) is recorded as the
+        causal ``_thread_exc`` and the thread dies — the supervisor
+        detects the dead thread, fails stranded futures and restarts the
+        pipeline under a new generation. A retired (stale-generation)
+        worker hands unstarted work back to the queue and stands down."""
+        try:
+            while True:
+                group, n, stale = self._take_group(gen)
+                if stale:
+                    return
+                if group is None:
+                    with self._inflight_cv:   # closed: wake the drain thread
+                        self._inflight.append(None)
+                        self._inflight_cv.notify_all()
+                    self._worker_exited_clean = True
+                    return
+                if not group:
+                    continue    # every admitted request had already expired
+                # the group now lives only in this thread: publish it so the
+                # watchdog can fail its futures if we die before handoff
+                self._worker_group = group
+                self._beat("dispatch")
+                # acquire the pipeline slot BEFORE launching, so at most
+                # pool-capacity device batches are ever outstanding. The
+                # wait is cancellable on generation retirement.
+                if not self._slots.acquire(
+                        cancelled=lambda: self._gen != gen):
+                    with self._cv:
+                        self._pending.extendleft(reversed(group))
+                    self._worker_group = None
+                    return
+                self._worker_holds_slot = True
+                bucket = stage = None
+                try:
+                    with self._dispatch_mutex:
+                        bucket, stage = self._stage_group(group, n)
+                    y = self._launch(bucket, stage, group)
+                except Exception as e:  # noqa: BLE001 — recover per request
+                    try:
+                        outcomes = (self._recover(group, bucket, stage.host,
+                                                  e)
+                                    if stage is not None else None)
+                    finally:
+                        self._slots.release()
+                        self._worker_holds_slot = False
+                    if outcomes is None:    # staging failed: nothing staged
+                        self._fail_group(group, e)
+                    else:
+                        self._deliver_outcomes(group, outcomes)
+                    self._worker_group = None
+                    continue
+                retired = False
+                with self._inflight_cv:
+                    if self._gen != gen:
+                        retired = True    # watchdog owns cleanup now
+                    else:
+                        self._inflight.append((group, y, bucket, stage))
+                        self._worker_holds_slot = False
+                        self._worker_group = None
+                        self._inflight_cv.notify_all()
+                if retired:
+                    self._slots.release()
+                    self._worker_holds_slot = False
+                    with self._cv:
+                        self._pending.extendleft(reversed(group))
+                    self._worker_group = None
+                    return
+        except BaseException as e:  # noqa: BLE001 — watchdog handles it
+            self._thread_exc = e
+            log.error("serving: dispatch worker died: %r", e)
+
+    # -- completion side ----------------------------------------------------
+    def _drainer(self, gen: int):
+        """Completion loop: wait for the oldest in-flight batch's logits,
+        scatter its rows back to the futures in submission order. The
+        batch is PEEKED, drained, and only then released — releasing the
+        slot first would let a later batch refill its ring entry while its
+        copies may still be running.
+
+        A drain failure triggers per-request recovery (degradation /
+        bisection — see ``_recover``) BEFORE the slot is released. A
+        retired generation abandons its peeked batch untouched: after the
+        generation bump the watchdog owns every in-flight item."""
+        try:
+            while True:
+                with self._inflight_cv:
+                    while not self._inflight and self._gen == gen:
+                        self._beat("drain")
+                        self._inflight_cv.wait(0.25)
+                    if self._gen != gen:
+                        return
+                    item = self._inflight[0]     # peek: slot stays occupied
+                if item is None:
+                    return
+                self._beat("drain")
+                group, y, bucket, stage = item
+                exc = None
+                try:
+                    if self._faults is not None:
+                        self._faults.visit(
+                            "drain", requests=[r.rid for r in group])
+                    y_np = self._to_host(y)  # the one wait per batch
+                                             # (+ dequant for int8 sessions)
+                except Exception as e:  # noqa: BLE001 — device error lands here
+                    exc = e
+                outcomes = (None if exc is None
+                            else self._recover(group, bucket, stage.host,
+                                               exc))
+                with self._inflight_cv:
+                    if self._gen != gen or not self._inflight:
+                        return               # retired mid-sync: abandon
+                    self._inflight.popleft()     # only this thread pops
+                    self._drain_popped_unreleased = True
+                    self._drain_group = group    # local-only until delivered
+                    self._inflight_cv.notify_all()
+                self._slots.release()            # batch done: free the slot
+                self._drain_popped_unreleased = False
+                if outcomes is not None:
+                    self._deliver_outcomes(group, outcomes)
+                else:
+                    self._deliver(group, y_np)
+                self._drain_group = None
+        except BaseException as e:  # noqa: BLE001 — watchdog handles it
+            self._thread_exc = e
+            log.error("serving: drain thread died: %r", e)
+
+    def _fail_group(self, group, e):
+        for r in group:
+            self._reject_req(r, e)
+
+    # -- supervision --------------------------------------------------------
+    def _supervise(self):
+        """Watchdog loop (own thread): enforce request deadlines and watch
+        the pipeline threads. Sleeps until the earliest registered
+        deadline (or a 50ms poll tick), fails due requests with
+        ``DeadlineExceeded``, and restarts the pipeline when a
+        dispatch/drain thread is dead — or silent past ``hang_after_s``
+        while the session has work."""
+        while True:
+            with self._sup_cv:
+                if self._sup_stop:
+                    return
+                timeout = 0.05
+                nxt = self._deadlines.next_at()
+                if nxt is not None:
+                    timeout = min(timeout, max(0.001, nxt - time.monotonic()))
+                self._sup_cv.wait(timeout)
+                if self._sup_stop:
+                    return
+            now = time.monotonic()
+            expired = False
+            for req in self._deadlines.pop_due(now):
+                if req.fut is not None and not req.fut.done():
+                    if self._reject_req(req, DeadlineExceeded(
+                            f"request {req.rid} missed its "
+                            f"{req.deadline_ms:.1f}ms deadline")):
+                        expired = True
+            if expired:
+                with self._cv:
+                    self._cv.notify_all()    # free queue space / admitters
+            if self._closed:
+                continue    # keep enforcing deadlines until close() stops us
+            if self._sup is not None:
+                with self._cv:
+                    busy = bool(self._pending)
+                if not busy:
+                    with self._inflight_cv:
+                        busy = any(it is not None for it in self._inflight)
+                self._sup.update_busy(busy, now=now)
+                hung = self._sup.hung(now=now)
+            else:
+                hung = []
+            dead = [name for name, t
+                    in (("dispatch", self._dispatch_thread),
+                        ("drain", self._drain_thread))
+                    if not t.is_alive()]
+            if dead or hung:
+                self._restart_pipeline(hung)
+
+    def _restart_pipeline(self, hung):
+        """Retire the current pipeline generation, fail every queued and
+        in-flight future with ``PipelineCrashed`` (causal exception
+        chained), return the dead threads' device slots to the pool, and
+        start fresh dispatch/drain threads. Serialized against ``close``
+        by ``_life_lock``; re-validates liveness under the lock so a
+        concurrent clean shutdown is never mistaken for a crash."""
+        with self._life_lock:
+            if self._closed or self._sup_stop or self._closed_done:
+                return
+            old = (self._dispatch_thread, self._drain_thread)
+            dead = [name for name, t in zip(("dispatch", "drain"), old)
+                    if not t.is_alive()]
+            if not dead and not hung:
+                return
+            causal = self._thread_exc
+            exc = PipelineCrashed(
+                f"pipeline thread(s) {dead or hung} "
+                f"{'died' if dead else 'hung'}; the watchdog failed this "
+                f"request and restarted the pipeline")
+            exc.__cause__ = causal
+            with self._cv:
+                self._gen += 1           # retire survivors
+                self._cv.notify_all()
+            with self._inflight_cv:
+                self._inflight_cv.notify_all()
+            for t in old:
+                t.join(timeout=15.0)
+            n_inflight, n_pending = self._fail_all_queued(exc)
+            self._thread_exc = None
+            self.stats.bump("watchdog_restarts")
+            log.warning(
+                "serving: watchdog restarted the pipeline (gen %d) after "
+                "%s %s; failed %d in-flight batch(es) + %d queued "
+                "request(s) with PipelineCrashed (causal: %r)",
+                self._gen, dead or hung, "died" if dead else "hung",
+                n_inflight, n_pending, causal)
+            if self._sup is not None:
+                self._sup.update_busy(False)     # re-arm hang detection
+            self._start_pipeline_threads()
+
+
+def _mesh_device_count(mesh, device: torch.device) -> int:
+    """Devices a session's ``mesh`` spans: ``None`` -> 1, ``"host"`` ->
+    every local device of the accelerator's kind, a sequence of devices
+    -> its length."""
+    if mesh is None:
+        return 1
+    if mesh == "host":
+        return torch.cuda.device_count() if device.type == "cuda" else 1
+    if isinstance(mesh, (list, tuple)):
+        return len(mesh)
+    raise TypeError(f"mesh must be None, 'host' or a sequence of devices, "
+                    f"got {mesh!r}")
+
+
+# ---------------------------------------------------------------------------
+# Fleet: multi-model tenancy over one process / one device pool
+# ---------------------------------------------------------------------------
+
+class Fleet:
+    """Several :class:`Accelerator` models served from ONE process over one
+    device-slot pool — the paper's NI-instances analog taken to a rack.
+
+    Each model gets its own :class:`ServingSession` (own pending queue, own
+    staging buffers, own stats), but every session shares one FIFO-fair
+    slot pool, so device time round-robins between tenant models instead
+    of one model's burst starving the rest, and one program cache (the
+    process-wide ``core.program_cache.default_cache()`` unless the
+    accelerators were built against another). ``mesh`` is ``None`` (or
+    ``"host"`` on one device); sharding is ROADMAP Queue 1, item 8.
+
+    ::
+
+        fleet = api.Fleet({"vgg16": acc_vgg, "resnet18": acc_res},
+                          max_batch=8)
+        fut = fleet.submit("resnet18", x)       # routed to that model
+        y = fleet("vgg16", x)                   # submit + wait
+
+    A model's requests run through exactly the cached executor entries
+    its standalone session would use: co-tenancy only changes *when* a
+    batch gets a device slot, never what it computes.
+    """
+
+    def __init__(self, accelerators, *, mesh=None, max_batch: int = 8,
+                 buckets: Sequence[int] | None = None,
+                 max_wait_ms: float = 5.0, warmup: bool = False,
+                 scheduler: str = "continuous", max_inflight: int = 3,
+                 deadline_ms: float | None = None,
+                 queue_limit: int | None = None,
+                 on_overload: str = "shed",
+                 guard_numerics: bool = False,
+                 fault_plan=None,
+                 supervise: bool = True,
+                 hang_after_s: float | None = None):
+        items = dict(accelerators)
+        if not items:
+            raise ValueError("Fleet needs at least one named Accelerator")
+        self.mesh = mesh
+        self._pool = _SlotPool(max_inflight)
+        self.sessions: dict[str, ServingSession] = {}
+        try:
+            for name, acc in items.items():
+                # the failure model is per-session (own deadlines, queue
+                # bound, watchdog) over the SHARED slot pool
+                self.sessions[name] = ServingSession(
+                    acc, max_batch=max_batch, buckets=buckets, mesh=mesh,
+                    max_wait_ms=max_wait_ms, warmup=warmup,
+                    scheduler=scheduler, slot_pool=self._pool,
+                    deadline_ms=deadline_ms, queue_limit=queue_limit,
+                    on_overload=on_overload, guard_numerics=guard_numerics,
+                    fault_plan=fault_plan, supervise=supervise,
+                    hang_after_s=hang_after_s)
+        except BaseException:
+            self.close()      # no tenant's threads outlive a failed build
+            raise
+
+    @property
+    def models(self) -> tuple[str, ...]:
+        return tuple(self.sessions)
+
+    def _session(self, model: str) -> ServingSession:
+        try:
+            return self.sessions[model]
+        except KeyError:
+            raise ValueError(f"unknown model {model!r}: fleet serves "
+                             f"{sorted(self.sessions)}") from None
+
+    def submit(self, model: str, x) -> Future:
+        """Enqueue one request for ``model``; returns its Future."""
+        return self._session(model).submit(x)
+
+    def __call__(self, model: str, x):
+        """Synchronous convenience: submit + wait."""
+        return self.submit(model, x).result()
+
+    def run_many(self, requests) -> list:
+        """``requests``: iterable of ``(model, x)`` pairs. Every request is
+        submitted first — so co-tenant models contend for device slots the
+        way live traffic would — then gathered in submission order."""
+        pairs = [(m, x) for m, x in requests]
+        by_model: dict[str, list] = {}
+        for m, x in pairs:
+            by_model.setdefault(m, []).append(x)
+        futs_by_model = {m: iter(self._session(m).submit_many(xs))
+                         for m, xs in by_model.items()}
+        futs = [next(futs_by_model[m]) for m, _ in pairs]
+        return [f.result() for f in futs]
+
+    def stats(self) -> dict[str, SessionStats]:
+        """Per-model :class:`SessionStats`, keyed by model name."""
+        return {name: s.stats for name, s in self.sessions.items()}
+
+    def close(self):
+        for s in self.sessions.values():
+            s.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

@@ -21,9 +21,14 @@ validated, cached executor:
 ``resnet18_specs(128, 1, n_classes=1000)``). ``--dtype int8`` calibrates on
 the request batch, as the reference does, and serves the int8 accelerator.
 ``--device cpu`` runs the same flow on the CPU (``hopper`` then runs each
-kernel's plain version). Prints the build time (and, for int8, the
-calibration time inside it), the first request's time and the steady-state
-ms/batch and images/s. ``--compare-interpreter`` then times one request
+kernel's plain version). Prints the DSE verdict (``Accelerator.summary``),
+the build time (and, for int8, the calibration time inside it), the first
+request's time and the steady-state ms/batch and images/s. ``--session``
+also drives ``batch * iters`` single-image requests through a
+``ServingSession`` (``--scheduler``, ``--deadline-ms``, ``--queue-limit``;
+``--mesh none|host``, one device only) and prints its throughput,
+latency percentiles and failure-model counters; ``--segmented`` (VGG16,
+fp32) builds the legacy multi-Program path instead. ``--compare-interpreter`` then times one request
 through the strict per-instruction interpreter (``strict_request``: the
 ``torch`` PE, the same params and sidecar) against the steady executor and
 prints the slowdown and ``max |diff|`` of the logits (int8: ``0.00e+00``,
@@ -129,11 +134,19 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
               iters: int = 20, seed: int = 0, target: str = "tpu",
               backend: str = "torch", opt_level: int = 1,
               dtype: str = "float32", device=None,
-              compare_interpreter: bool = False) -> np.ndarray:
+              compare_interpreter: bool = False, segmented: bool = False,
+              session: bool = False, mesh: str = "host",
+              scheduler: str = "continuous",
+              deadline_ms: float | None = None,
+              queue_limit: int | None = None) -> np.ndarray:
     """Build the accelerator, answer one first request and ``iters`` steady
     requests, print the timings and return the last logits.
     ``compare_interpreter`` also times one interpreted request against the
-    steady executor (after one warm-up) and prints ``max |diff|``."""
+    steady executor (after one warm-up) and prints ``max |diff|``.
+    ``segmented`` builds the legacy multi-Program path (VGG16 only);
+    ``session`` also serves ``batch * iters`` single images through a
+    :class:`~repro_torch.api.ServingSession` (``mesh``, ``scheduler``,
+    ``deadline_ms``, ``queue_limit``) and prints its statistics."""
     from repro_torch import api
     from repro_torch.core import perf_model as pm
     from repro_torch.models import resnet, vgg
@@ -144,6 +157,11 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
                          f"got {arch!r}")
     if target not in CNN_TARGETS:
         raise ValueError(f"--target must be one of {sorted(CNN_TARGETS)}")
+    if segmented and arch == "resnet18":
+        raise ValueError(
+            "--segmented is the legacy conv-segment path (host-side maxpool "
+            "glue between linear CONV runs) — a residual topology has no "
+            "such segmentation; resnet18 serves single-Program only")
     iters = max(1, iters)
     img, scale = SIZES[arch][0 if reduced else 1]
     n_classes = 10 if reduced else 1000
@@ -158,10 +176,11 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
     # of calibrating on a training-set slice
     acc = api.Accelerator.build(
         specs, getattr(pm, CNN_TARGETS[target]), batch=batch, seed=seed,
-        backend=backend, opt_level=opt_level, dtype=dtype,
-        calib=x_np if dtype == "int8" else None, device=device)
+        segmented=segmented, backend=backend, opt_level=opt_level,
+        dtype=dtype, calib=x_np if dtype == "int8" else None, device=device)
     _sync(acc.device)
     t_build = time.perf_counter() - t0
+    print(acc.summary())
     name = (torch.cuda.get_device_name(acc.device)
             if acc.device.type == "cuda" else "cpu")
     calib = (f" (calibration {acc.calib_ms:.0f}ms)"
@@ -184,6 +203,9 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
     print(f"first request: {t_first * 1e3:.1f}ms; steady: "
           f"{t_steady * 1e3:.2f}ms/batch{batch} "
           f"({batch / t_steady:.1f} images/s) over {iters} requests")
+    if session:
+        _serve_session(acc, x_np, iters, mesh=mesh, scheduler=scheduler,
+                       deadline_ms=deadline_ms, queue_limit=queue_limit)
     if compare_interpreter:
         strict_request = acc.strict_request()
         strict_request(x)
@@ -200,6 +222,42 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
               f"max |diff| {err:.2e}; max |logit| "
               f"{float(y_i.abs().max()):.2e})")
     return y.cpu().numpy()
+
+
+def _serve_session(acc, x_np: np.ndarray, iters: int, *, mesh: str,
+                   scheduler: str, deadline_ms: float | None,
+                   queue_limit: int | None):
+    """``len(x_np) * iters`` single images through a ServingSession with
+    one bucket of the accelerator's batch; prints its statistics."""
+    batch = x_np.shape[0]
+    with acc.serve(max_batch=batch, buckets=(batch,), warmup=True,
+                   mesh=None if mesh == "none" else mesh,
+                   scheduler=scheduler, deadline_ms=deadline_ms,
+                   queue_limit=queue_limit) as s:
+        n_req = batch * iters
+        # requests materialized host-side before timing, like clients
+        # arriving with their own arrays
+        reqs = [x_np[i % batch] for i in range(n_req)]
+        t0 = time.perf_counter()
+        s.run_many(reqs)
+        dt = time.perf_counter() - t0
+        st = s.stats
+        print(f"ServingSession[{scheduler}, mesh={mesh}]: {n_req} requests "
+              f"in {dt * 1e3:.1f}ms ({n_req / dt:.1f} req/s, {st.batches} "
+              f"device batches, {st.padded_rows} padded rows, occupancy "
+              f"{st.occupancy():.3f}; latency p50 {st.p50_ms():.2f}ms "
+              f"p95 {st.p95_ms():.2f}ms; queue wait p50 "
+              f"{st.wait_p50_ms():.2f}ms p95 {st.wait_p95_ms():.2f}ms; "
+              f"compile {st.compile_ms:.0f}ms)")
+        per_dev = ", ".join(f"{d}: {n}" for d, n in
+                            sorted(st.device_batches.items()))
+        print(f"  per-device batches: {{{per_dev}}}")
+        # the liveness ledger: submitted == completed + errors + shed
+        print(f"  failure model: submitted {st.submitted} = completed "
+              f"{st.requests} + errors {st.errors} + shed {st.shed}; "
+              f"deadline_exceeded {st.deadline_exceeded}, retries "
+              f"{st.retries}, isolated {st.isolated}, degraded "
+              f"{st.degraded}, watchdog restarts {st.watchdog_restarts}")
 
 
 def main():
@@ -231,6 +289,25 @@ def main():
     ap.add_argument("--compare-interpreter", action="store_true",
                     help="also time one request through the strict "
                          "per-instruction interpreter and print max |diff|")
+    ap.add_argument("--segmented", action="store_true",
+                    help="legacy multi-Program CNN path (one Program per "
+                         "CONV segment, host-side maxpool/FC glue)")
+    ap.add_argument("--session", action="store_true",
+                    help="also drive single-image requests through the "
+                         "batching ServingSession")
+    ap.add_argument("--mesh", default="host", choices=("none", "host"),
+                    help="ServingSession devices: one device either way "
+                         "(sharding over several is not ported)")
+    ap.add_argument("--scheduler", default="continuous",
+                    choices=("continuous", "bucketed"),
+                    help="ServingSession admission policy: 'continuous' "
+                         "keeps admitting while the device pipeline is "
+                         "busy; 'bucketed' is the legacy fixed window")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline for the ServingSession")
+    ap.add_argument("--queue-limit", type=int, default=None,
+                    help="bound the ServingSession's pending queue; "
+                         "overflow requests are shed with Overloaded")
     args = ap.parse_args()
     if args.arch not in SIZES:
         out = serve(args.arch, reduced=args.reduced, batch=args.batch,
@@ -242,7 +319,11 @@ def main():
                   iters=args.iters, target=args.target, backend=args.backend,
                   opt_level=args.opt_level, dtype=args.dtype,
                   device=args.device,
-                  compare_interpreter=args.compare_interpreter)
+                  compare_interpreter=args.compare_interpreter,
+                  segmented=args.segmented, session=args.session,
+                  mesh=args.mesh, scheduler=args.scheduler,
+                  deadline_ms=args.deadline_ms,
+                  queue_limit=args.queue_limit)
     print("logits:", y.shape)
 
 

@@ -89,6 +89,23 @@ def resnet18_specs(img: int = 64, scale: int = 8, *, n_classes: int = 10
     return specs
 
 
+def accelerator(*, img: int = 64, scale: int = 8, n_classes: int = 10,
+                target=None, batch: int = 4, seed: int = 0,
+                backend: str = "torch", opt_level: int = 1, device=None,
+                **kwargs):
+    """One-call reduced-ResNet-18 accelerator: ``resnet18_specs`` ->
+    ``api.Accelerator.build`` (DSE -> compile -> validate) on the TPU
+    planning model by default. Extra keywords pass straight to
+    ``build``."""
+    from repro_torch import api
+    from repro_torch.core import perf_model as pm
+    specs = resnet18_specs(img, scale, n_classes=n_classes)
+    return api.Accelerator.build(
+        specs, target if target is not None else pm.V5E, batch=batch,
+        seed=seed, backend=backend, opt_level=opt_level, device=device,
+        **kwargs)
+
+
 def replay_stash(specs, params, x_nhwc: torch.Tensor) -> dict:
     """One fp32 forward pass with plain ops (``backend="torch"``), keeping
     every intermediate: ``{-1: input, i: output of spec i}``. ``params`` is

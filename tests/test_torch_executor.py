@@ -412,9 +412,15 @@ def test_build_without_device_needs_cuda():
 
 def test_unported_paths_name_their_roadmap_item():
     specs = t_vgg.network_specs(img=32, scale=32, n_classes=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu",
-                                segmented=True)
+    acc = t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 9"):
+        acc.save_program("unused.json", aot=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
+        acc.serve(max_batch=1, mesh=["cpu", "cpu"])
+    # the segmented path is ported (tests/test_torch_segmented.py)
+    seg = t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu",
+                                  segmented=True)
+    assert seg.segmented and len(seg.segment_runtimes) == 5
     # the strict interpreter is ported (tests/test_torch_strict.py)
     acc = t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu",
                                   strict=True)

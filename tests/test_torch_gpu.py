@@ -544,3 +544,90 @@ def test_gpu_reduced_lm_hopper_matches_torch(cuda):
     assert torch.isfinite(y).all()
     tol = 1e-4 * max(1.0, float(y_ref.abs().max()))
     assert float((y - y_ref).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# the ServingSession, persistence and the segmented path on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("model", ["vgg16", "resnet18"])
+def test_gpu_session_bulk_equals_direct_call(cuda, model, dtype):
+    """Reduced models through a hopper ServingSession: full-bucket bulk
+    results equal ``acc(x)`` bit for bit (same entry, offset 0), coalesced
+    single images stay within 1e-3 max|logit| of their row (int8 bit for
+    bit), no batch degraded, and the kernels launched once per layer per
+    batch."""
+    build = vgg.network_specs if model == "vgg16" else resnet.resnet18_specs
+    specs = build(32, 16, n_classes=10)
+    acc = api.Accelerator.build(specs, batch=4, backend="hopper",
+                                dtype=dtype, device=cuda)
+    x = np.random.default_rng(5).standard_normal(
+        (8, 32, 32, 3)).astype(np.float32)
+    y_direct = [acc(x[i:i + 4]).cpu().numpy() for i in (0, 4)]
+    torch.cuda.synchronize()
+    common.reset_launches()
+    acc(x[:4])
+    per_batch = {k: v for k, v in common.LAUNCHES.items() if v}
+    with acc.serve(max_batch=4, buckets=(1, 2, 4), warmup=True) as s:
+        common.reset_launches()
+        out = s.run_many([x[:4], x[4:]])
+        assert {k: v for k, v in common.LAUNCHES.items() if v} == \
+            {k: 2 * v for k, v in per_batch.items()}
+        futs = s.submit_many(list(x))
+        rows = [f.result(timeout=120) for f in futs]
+        st = s.stats
+    for got, ref in zip(out, y_direct):
+        np.testing.assert_array_equal(got, ref)
+    ref_rows = np.concatenate(y_direct)
+    if dtype == "int8":
+        np.testing.assert_array_equal(np.stack(rows), ref_rows)
+    else:
+        assert np.abs(np.stack(rows) - ref_rows).max() <= \
+            1e-3 * np.abs(ref_rows).max()
+    assert st.degraded == 0 and st.errors == 0
+    assert st.submitted == st.requests + st.errors + st.shed == 10
+
+
+def test_gpu_session_degrades_an_injected_hopper_failure(cuda):
+    from repro_torch.serving import FaultPlan, FaultSpec
+    specs = resnet.resnet18_specs(32, 16, n_classes=10)
+    acc = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                device=cuda)
+    x = np.random.default_rng(6).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)
+    plan = FaultPlan([FaultSpec(site="execute", kind="error", at=(0,),
+                                match=(("backend", "hopper"),))])
+    with acc.serve(max_batch=2, buckets=(2,), warmup=True,
+                   fault_plan=plan) as s:
+        y = s.run_many([x])[0]
+        st = s.stats
+    ref = acc(x).cpu().numpy()
+    assert st.degraded == 1 and st.isolated == 0 and st.errors == 0
+    assert np.abs(y - ref).max() <= 1e-3 * np.abs(ref).max()
+
+
+def test_gpu_save_and_load_program_bit_for_bit(cuda, tmp_path):
+    specs = vgg.network_specs(32, 16, n_classes=10)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)).to(cuda)
+    for dtype in ("float32", "int8"):
+        acc = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                    dtype=dtype, device=cuda)
+        path = acc.save_program(str(tmp_path / f"{dtype}.json"))
+        again = api.Accelerator.from_program(path, params=acc.params,
+                                             backend="hopper", device=cuda)
+        assert torch.equal(again(x), acc(x))
+
+
+def test_gpu_segmented_vgg16_matches_single_program(cuda):
+    specs = vgg.network_specs(32, 16, n_classes=10)
+    acc = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                device=cuda)
+    seg = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                params=acc.params, segmented=True,
+                                device=cuda)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)).to(cuda)
+    y, y_seg = acc(x), seg(x)
+    assert float((y - y_seg).abs().max()) <= 1e-4 * float(y.abs().max())
