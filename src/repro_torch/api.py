@@ -40,11 +40,13 @@ batches padded up to a fixed set of bucket sizes (one cached executor per
 bucket), stages them in pinned host buffers, keeps up to three batches in
 flight on one CUDA stream, and carries the reference's failure model
 (deadlines, bounded admission, poisoned-batch bisection, NaN quarantine,
-``hopper`` -> ``torch`` degradation, a supervising watchdog). ``Fleet``
-serves several models over one shared slot pool.
+a supervising watchdog). ``Fleet`` serves several models over one shared
+slot pool.
 
 Not ported yet: sharded serving over several devices (``mesh=``; ROADMAP
-Queue 1, item 8) and AOT bundles (``save_program(aot=True)``; item 9).
+Queue 1, item 8) and AOT bundles (``save_program(aot=True)``; item 9). The
+reference's ``pallas`` -> ``xla`` degradation is deliberately not ported:
+a failed ``hopper`` batch is never re-run on the aten lowering (ROADMAP).
 """
 from __future__ import annotations
 
@@ -714,7 +716,9 @@ class SessionStats:
     shed: int = 0                # refused at admission (queue_limit)
     retries: int = 0             # bisection re-dispatches after a failure
     isolated: int = 0            # requests individually quarantined
-    degraded: int = 0            # batches recovered on the torch backend
+    # the reference's pallas -> xla re-runs; kept for the stats surface, it
+    # stays 0: a failed hopper batch is bisected, never re-run on aten
+    degraded: int = 0
     watchdog_restarts: int = 0   # pipeline restarts after a dead thread
     # first-use cost per bucket: the executor's lowering and, on the card,
     # the kernel library's build on the first launch of the process
@@ -873,12 +877,19 @@ class _Request:
 
 
 class _Stage:
-    """One entry of a bucket's staging ring: a host input buffer (pinned
-    on a CUDA session, so its copy to the card is asynchronous), the entry's
-    own device input buffer (steady batches allocate no fresh input) and a
-    pinned host buffer for the logits, made at the entry's first batch."""
+    """One staging entry of a bucket: a host input buffer (pinned on a CUDA
+    session, so its copy to the card is asynchronous), the entry's own
+    device input buffer (steady batches allocate no fresh input) and a
+    pinned host buffer for the logits, made at warmup or at the entry's
+    first batch.
 
-    __slots__ = ("host_t", "host", "dev", "out")
+    An entry is bound to one pipeline slot: taken when its batch is staged
+    and given back only where that batch's slot is released. ``fence`` is
+    an event recorded when an entry comes back before its batch's copies
+    were waited for (a failed launch or drain); the next taker waits on it
+    before refilling the buffers."""
+
+    __slots__ = ("host_t", "host", "dev", "out", "fence")
 
     def __init__(self, shape, dtype: torch.dtype, device: torch.device):
         pin = device.type == "cuda"
@@ -886,6 +897,7 @@ class _Stage:
         self.host = self.host_t.numpy()   # the numpy view callers fill
         self.dev = torch.empty(shape, dtype=dtype, device=device)
         self.out: torch.Tensor | None = None
+        self.fence = None
 
 
 class _InFlight:
@@ -925,9 +937,11 @@ class ServingSession:
     and resolves its futures, so host staging of batch i+1 overlaps the
     device work of batch i. Outstanding device batches are hard-capped at
     the slot pool's capacity (3: one being drained, one executing, one
-    staged). Staging is a ring of buffers per bucket, one per pipeline
-    slot: an entry is refilled only after its batch's slot was released
-    (drained), so no copy in flight ever reads a buffer being refilled.
+    staged). Each batch stages into an entry bound to its pipeline slot:
+    taken from the bucket's free list when the batch is staged, given back
+    only where the batch's slot is released (its logits copied out), so no
+    copy in flight ever reads or writes a buffer being refilled, whatever
+    order batches complete in (concurrent ``run_many`` callers, failures).
 
     The session inherits the accelerator's PE ``backend`` and lowering
     ``opt_level``: per-bucket executors come from
@@ -968,12 +982,10 @@ class ServingSession:
       in place, so innocent co-batched requests still succeed bit for bit
       as in a fault-free run; the offender fails with the causal exception
       (``stats.retries`` / ``stats.isolated``).
-    * backend degradation — on a ``backend="hopper"`` execution failure
-      the whole batch is re-dispatched once through the ``torch`` lowering
-      (``stats.degraded``, with a warning) before bisection. It catches
-      Python-level failures (a refused launch, an injected fault); a
-      sticky CUDA error leaves the context unusable, so the retry fails
-      too and the batch falls through to bisection and typed errors.
+    * no backend degradation — the reference re-runs a failed ``pallas``
+      batch on ``xla``; here a failed ``hopper`` batch goes straight to
+      bisection and typed errors, never to the aten lowering
+      (``stats.degraded`` stays 0).
     * ``guard_numerics`` — per-request NaN/Inf quarantine at drain time
       (:class:`repro_torch.serving.NumericsError`).
     * supervision — a per-session watchdog thread enforces deadlines and
@@ -1063,8 +1075,6 @@ class ServingSession:
         self._rid_counter = itertools.count()
         self._deadlines = DeadlineTable()
         self._backend_tag = acc.backend
-        self._fallback_entries: dict[int, Any] = {}  # lazy torch degradation
-        self._fallback_lock = threading.Lock()
         # pipeline generation: bumped by the watchdog on restart; stale
         # threads check it and stand down without touching shared state
         self._gen = 0
@@ -1111,29 +1121,31 @@ class ServingSession:
         self._slots.subscribe(self._cv)   # full-pipeline admitters sleep
                                           # on _cv; wake them on slot free
 
-        # staging: a ring per bucket, one entry per pipeline slot, cycled
-        # per dispatch. The ring size MUST be >= the slot capacity: an
-        # entry is only refilled once its batch's slot has been released
-        # (drained), so neither the asynchronous host->device copy of its
-        # input nor the device->host copy of its logits can race a refill.
-        self._staging = {b: self._new_ring(b) for b in self.buckets}
-        self._staging_flip: dict[int, int] = {b: 0 for b in self.buckets}
-        # run_many's inline bulk path gets its OWN ring: the worker and the
-        # bulk path each release slots FIFO within themselves but interleave
-        # arbitrarily across threads (lazily built)
-        self._staging_bulk: dict[int, list] = {}
-        self._bulk_flip: dict[int, int] = {}
+        # staging: a free list of entries per bucket, shared by the worker
+        # and run_many's bulk path. An entry is held from staging until its
+        # batch's slot is released, so neither the asynchronous host->device
+        # copy of its input nor the device->host copy of its logits can race
+        # a refill. At most pool-capacity entries of a bucket are held at
+        # once: that many are made here (pinned allocations stay off the
+        # request path), more only to replace an entry a failure dropped
+        self._free_stages: dict[int, list[_Stage]] = {
+            b: [self._new_stage(b) for _ in range(self._slots.capacity)]
+            for b in self.buckets}
+        self._stage_lock = threading.Lock()
 
         self._warm: set[int] = set()
         if warmup:   # first use of every bucket now, not on a request
             for b in self.buckets:
                 t0 = time.monotonic()
                 with self._on_stream():
-                    self._run_bucket(torch.zeros(
+                    y = self._run_bucket(torch.zeros(
                         (b, *self._in_shape), dtype=self._in_torch_dtype,
                         device=self._device))
                     if self._cuda:
                         self._stream.synchronize()
+                        for stage in self._free_stages[b]:
+                            stage.out = torch.empty(
+                                y.shape, dtype=y.dtype, pin_memory=True)
                 self.stats.compile_ms += (time.monotonic() - t0) * 1e3
                 self._warm.add(b)
 
@@ -1144,10 +1156,37 @@ class ServingSession:
                 name="hybriddnn-serving-watchdog")
             self._sup_thread.start()
 
-    def _new_ring(self, bucket: int) -> list[_Stage]:
-        return [_Stage((bucket, *self._in_shape), self._in_torch_dtype,
-                       self._device)
-                for _ in range(self._slots.capacity)]
+    def _new_stage(self, bucket: int) -> _Stage:
+        with self._on_stream():   # the device buffer lives on this stream
+            return _Stage((bucket, *self._in_shape), self._in_torch_dtype,
+                          self._device)
+
+    def _take_stage(self, bucket: int) -> _Stage:
+        """A free staging entry of ``bucket`` for a batch whose slot the
+        caller holds (a new one when a failure dropped the free ones)."""
+        with self._stage_lock:
+            free = self._free_stages[bucket]
+            stage = free.pop() if free else None
+        if stage is None:
+            return self._new_stage(bucket)
+        if stage.fence is not None:
+            stage.fence.synchronize()   # its failed batch's copies are done
+            stage.fence = None
+        return stage
+
+    def _give_stage(self, bucket: int, stage: _Stage, *, settled: bool):
+        """Return a batch's entry where its slot is released. ``settled``:
+        the batch's event was waited for, so no copy touches the entry any
+        more; otherwise fence it behind the work queued so far."""
+        if not settled and self._cuda:
+            try:
+                fence = torch.cuda.Event()
+                fence.record(self._stream)
+            except RuntimeError:
+                return      # the context is unusable: drop the entry
+            stage.fence = fence
+        with self._stage_lock:
+            self._free_stages[bucket].append(stage)
 
     def _on_stream(self):
         """The session's stream as the calling thread's current stream."""
@@ -1346,14 +1385,16 @@ class ServingSession:
                         "drain", requests=[r.rid for r in group])
                 y_np = self._to_host(y)          # host sync (+ dequant)
             except Exception as exc:  # noqa: BLE001 — recover per request
-                # recover BEFORE releasing the slot: the staging ring must
-                # not refill the entry until the bisection has re-read it
+                # bisect BEFORE giving the entry back: it must not be
+                # refilled until the bisection has re-read it
                 try:
-                    _deliver_bulk(s0, self._recover(group, bucket,
-                                                    stage.host, exc))
+                    _deliver_bulk(s0, self._bisect(group, bucket,
+                                                   stage.host, exc))
                 finally:
+                    self._give_stage(bucket, stage, settled=False)
                     self._slots.release()
                 return
+            self._give_stage(bucket, stage, settled=True)
             self._slots.release()
             done_t = time.monotonic()
             self.stats.bump("batches")
@@ -1379,16 +1420,17 @@ class ServingSession:
                 bucket = stage = None
                 try:
                     with self._dispatch_mutex:
-                        bucket, stage = self._stage_group(group, n,
-                                                          bulk=True)
+                        bucket, stage = self._stage_group(group, n)
                     y = self._launch(bucket, stage, group)
                 except Exception as e:  # noqa: BLE001 — recover per request
                     try:
                         if stage is None:
                             raise    # staging failed: nothing to recover
                         _deliver_bulk(
-                            s0, self._recover(group, bucket, stage.host, e))
+                            s0, self._bisect(group, bucket, stage.host, e))
                     finally:
+                        if stage is not None:
+                            self._give_stage(bucket, stage, settled=False)
                         self._slots.release()
                     continue
                 except BaseException:
@@ -1561,7 +1603,7 @@ class ServingSession:
     def _to_host(self, y) -> np.ndarray:
         """Wait for one launched batch's logits and return them as a host
         array of its own (a copy: the pinned buffer is refilled by the
-        ring's next batch); dequantize int8 logits to fp32.
+        entry's next batch); dequantize int8 logits to fp32.
 
         Dequantization is gated on the ARRAY dtype, not just the session:
         the ``acc(x)`` path of segmented/strict accelerators already
@@ -1582,23 +1624,16 @@ class ServingSession:
             return entry(self._params, x)
         return self.acc(x)
 
-    def _stage_group(self, group, n, *, bulk: bool = False):
-        """Assemble one device batch into the staging ring — no dispatch.
+    def _stage_group(self, group, n):
+        """Assemble one device batch into a staging entry — no dispatch.
+        The caller holds the batch's slot and gives the entry back where it
+        releases that slot.
 
         Records each request's row offset (``req.off``) so a failed batch
         can be bisected at the same offsets. Returns ``(bucket, stage)``;
         ``_launch`` dispatches it."""
         bucket = next(b for b in self.buckets if b >= n)
-        if bulk:
-            ring = self._staging_bulk.get(bucket)
-            if ring is None:
-                ring = self._staging_bulk[bucket] = self._new_ring(bucket)
-                self._bulk_flip[bucket] = 0
-            flips = self._bulk_flip
-        else:
-            ring, flips = self._staging[bucket], self._staging_flip
-        stage = ring[flips[bucket]]
-        flips[bucket] = (flips[bucket] + 1) % len(ring)
+        stage = self._take_stage(bucket)
         buf = stage.host
         off = 0
         for r in group:
@@ -1729,75 +1764,33 @@ class ServingSession:
             self.stats.bump("requests", n_ok)
             self.stats.record_latencies(lats)
 
-    def _fallback_entry(self, bucket: int):
-        """The lazily-lowered ``torch`` degradation executor for ``bucket``
-        — same Program, same params, keyed separately in the program cache.
-        Raises for strict/segmented accelerators (no cached-entry hot path
-        to degrade onto)."""
-        with self._fallback_lock:
-            pair = self._fallback_entries.get(bucket)
-            if pair is None:
-                rt = self.acc.runtime
-                if rt is None or rt.strict or not self._entries:
-                    raise RuntimeError("no torch fallback entry available")
-                pair = rt.executor_entry(bucket, self._in_torch_dtype,
-                                         backend="torch")
-                self._fallback_entries[bucket] = pair
-            return pair
-
-    def _execute_staged(self, bucket, buf, group, *, fallback: bool = False):
+    def _execute_staged(self, bucket, buf, group):
         """Synchronously execute an already-staged host buffer — the
-        recovery path (degradation and bisection retries). Re-visits the
-        fault plan's ``execute`` site so request-bound ("cursed") faults
-        keep firing on retry and the bisection converges on the
-        offender."""
+        bisection's retries. Re-visits the fault plan's ``execute`` site so
+        request-bound ("cursed") faults keep firing on retry and the
+        bisection converges on the offender."""
         if self._faults is not None:
             buf = self._faults.visit(
                 "execute", payload=buf, requests=[r.rid for r in group],
                 rows={r.rid: (r.off, r.x.shape[0]) for r in group},
-                backend="torch" if fallback else self._backend_tag)
+                backend=self._backend_tag)
         with self._on_stream():
             x = torch.from_numpy(buf).to(self._device)
-            if fallback:
-                entry, params = self._fallback_entry(bucket)
-                y = entry(params, x)
-            else:
-                y = self._run_bucket(x)
-            return self._to_host(y)
+            return self._to_host(self._run_bucket(x))
 
-    def _recover(self, group, bucket, buf, exc):
-        """Per-request outcomes for a failed device batch.
-
-        Order of escalation: (1) a ``backend="hopper"`` failure re-runs the
-        WHOLE batch once through the ``torch`` lowering
-        (``stats.degraded``); (2) bisection — re-dispatch each half **at
-        the same bucket size with the other half's rows zeroed in place**,
-        recursing into halves that still fail until the offender is alone.
-        Same bucket + same row offsets means the innocent rows run through
-        the identical cached executor at identical positions, so their
-        results are bit-identical to a fault-free run. Runs on the thread
-        that detected the failure while the batch's pipeline slot is still
-        held (the staging buffer must survive the re-reads).
+    def _bisect(self, group, bucket, buf, exc):
+        """Per-request outcomes for a failed device batch: re-dispatch each
+        half **at the same bucket size with the other half's rows zeroed in
+        place**, recursing into halves that still fail until the offender
+        is alone. Same bucket + same row offsets means the innocent rows
+        run through the identical cached executor at identical positions,
+        so their results are bit-identical to a fault-free run. Runs on the
+        thread that detected the failure while the batch's pipeline slot
+        and staging entry are still held (the buffer must survive the
+        re-reads).
 
         Returns ``[(req, ok, rows_or_exc), ...]`` in group order.
         """
-        if self._backend_tag == "hopper":
-            try:
-                y_np = self._execute_staged(bucket, buf, group,
-                                            fallback=True)
-                self.stats.bump("degraded")
-                log.warning(
-                    "serving: batch of %d requests re-dispatched on the "
-                    "torch backend after a hopper failure: %r",
-                    len(group), exc)
-                return [(r, True, y_np[r.off:r.off + r.x.shape[0]])
-                        for r in group]
-            except Exception as e2:  # noqa: BLE001 — fall through to bisect
-                log.warning("serving: torch fallback also failed (%r); "
-                            "bisecting the batch", e2)
-        return self._bisect(group, bucket, buf, exc)
-
-    def _bisect(self, group, bucket, buf, exc):
         if len(group) == 1:
             self.stats.bump("isolated")
             log.warning("serving: request %d isolated as the batch "
@@ -1864,10 +1857,11 @@ class ServingSession:
                     y = self._launch(bucket, stage, group)
                 except Exception as e:  # noqa: BLE001 — recover per request
                     try:
-                        outcomes = (self._recover(group, bucket, stage.host,
-                                                  e)
+                        outcomes = (self._bisect(group, bucket, stage.host, e)
                                     if stage is not None else None)
                     finally:
+                        if stage is not None:
+                            self._give_stage(bucket, stage, settled=False)
                         self._slots.release()
                         self._worker_holds_slot = False
                     if outcomes is None:    # staging failed: nothing staged
@@ -1886,6 +1880,7 @@ class ServingSession:
                         self._worker_group = None
                         self._inflight_cv.notify_all()
                 if retired:
+                    self._give_stage(bucket, stage, settled=False)
                     self._slots.release()
                     self._worker_holds_slot = False
                     with self._cv:
@@ -1901,11 +1896,11 @@ class ServingSession:
         """Completion loop: wait for the oldest in-flight batch's logits,
         scatter its rows back to the futures in submission order. The
         batch is PEEKED, drained, and only then released — releasing the
-        slot first would let a later batch refill its ring entry while its
-        copies may still be running.
+        slot first would let a later batch refill its staging entry while
+        its copies may still be running.
 
-        A drain failure triggers per-request recovery (degradation /
-        bisection — see ``_recover``) BEFORE the slot is released. A
+        A drain failure triggers per-request recovery (bisection — see
+        ``_bisect``) BEFORE the slot and the entry are given back. A
         retired generation abandons its peeked batch untouched: after the
         generation bump the watchdog owns every in-flight item."""
         try:
@@ -1931,8 +1926,8 @@ class ServingSession:
                 except Exception as e:  # noqa: BLE001 — device error lands here
                     exc = e
                 outcomes = (None if exc is None
-                            else self._recover(group, bucket, stage.host,
-                                               exc))
+                            else self._bisect(group, bucket, stage.host,
+                                              exc))
                 with self._inflight_cv:
                     if self._gen != gen or not self._inflight:
                         return               # retired mid-sync: abandon
@@ -1940,6 +1935,7 @@ class ServingSession:
                     self._drain_popped_unreleased = True
                     self._drain_group = group    # local-only until delivered
                     self._inflight_cv.notify_all()
+                self._give_stage(bucket, stage, settled=exc is None)
                 self._slots.release()            # batch done: free the slot
                 self._drain_popped_unreleased = False
                 if outcomes is not None:

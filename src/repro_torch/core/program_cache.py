@@ -44,9 +44,6 @@ class CacheStats:
     misses: int = 0
     evictions: int = 0
     validated_evictions: int = 0    # validation-stat entries dropped
-    fallbacks: int = 0              # degraded-backend entry requests (the
-                                    # serving layer's hopper->torch recovery
-                                    # path; hits AND misses both count)
 
 
 def cache_key(program: Program, *, batch: int, dtype,
@@ -115,18 +112,9 @@ class ProgramCache:
     def get(self, program: Program, *, batch: int, dtype,
             param_dtypes: tuple = (), backend: str = "torch",
             opt_level: int = 1, device,
-            quant=None, fallback: bool = False) -> CompiledExecutor:
+            quant=None) -> CompiledExecutor:
         """The executor for ``program`` at this batch/dtype/backend/
-        opt_level/device/quant sidecar (lowered on a miss).
-
-        ``fallback`` marks a degradation request (the serving layer
-        re-keying a failed ``hopper`` batch onto the ``torch`` lowering):
-        ``backend`` is already in the key, so the healthy and fallback
-        executors coexist, and the flag is only counted
-        (``stats.fallbacks``)."""
-        if fallback:
-            with self._lock:
-                self.stats.fallbacks += 1
+        opt_level/device/quant sidecar (lowered on a miss)."""
         key = cache_key(program, batch=batch, dtype=dtype,
                         param_dtypes=param_dtypes, backend=backend,
                         opt_level=opt_level, device=device, quant=quant)

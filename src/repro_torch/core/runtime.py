@@ -134,32 +134,19 @@ class HybridRuntime:
                 for cl in self.program.layers
                 if cl.kind not in ("pool", "eltwise")]
 
-    def executor_entry(self, batch: int, dtype=torch.float32, *,
-                       backend: str | None = None):
+    def executor_entry(self, batch: int, dtype=torch.float32):
         """The cached executor + DRAM weight image for (batch, dtype).
-
-        The serving hot path: a caller holding a fixed parameter set
-        (``api.ServingSession``) invokes ``entry(params, x)`` directly,
-        skipping the per-request DRAM writes ``run`` performs. Schedule
-        validation still runs (once per schedule key, cached).
-
-        ``backend`` overrides the runtime's own backend for this one entry:
-        the serving layer's degradation path re-dispatches a failed
-        ``hopper`` batch through ``backend="torch"``. The DRAM weight image
-        is shared (the backend changes the lowering, never the weights), and
-        the cache counts the request in ``stats.fallbacks``."""
+        Schedule validation runs once per schedule key (cached)."""
         if self.strict:
             raise RuntimeError(
                 "strict interpreter mode has no cached executor entry")
         params = self.dram_params()
         self.stats = self.cache.validate(self.program)
-        is_fallback = backend is not None and backend != self.backend
         entry = self.cache.get(
             self.program, batch=batch, dtype=dtype,
             param_dtypes=tuple(str(w.dtype) for w, _ in params),
-            backend=self.backend if backend is None else backend,
-            opt_level=self.opt_level, device=self.device, quant=self.quant,
-            fallback=is_fallback)
+            backend=self.backend, opt_level=self.opt_level,
+            device=self.device, quant=self.quant)
         return entry, params
 
     def write_input(self, x_nhwc: torch.Tensor):

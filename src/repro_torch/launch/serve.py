@@ -25,10 +25,11 @@ kernel's plain version). Prints the DSE verdict (``Accelerator.summary``),
 the build time (and, for int8, the calibration time inside it), the first
 request's time and the steady-state ms/batch and images/s. ``--session``
 also drives ``batch * iters`` single-image requests through a
-``ServingSession`` (``--scheduler``, ``--deadline-ms``, ``--queue-limit``;
-``--mesh none|host``, one device only) and prints its throughput,
-latency percentiles and failure-model counters; ``--segmented`` (VGG16,
-fp32) builds the legacy multi-Program path instead. ``--compare-interpreter`` then times one request
+``ServingSession`` on one device (``--scheduler``, ``--deadline-ms``,
+``--queue-limit``; the reference's ``--mesh`` waits for sharded serving)
+and prints its throughput, latency percentiles and failure-model
+counters; ``--segmented`` (VGG16, fp32) builds the legacy multi-Program
+path instead. ``--compare-interpreter`` then times one request
 through the strict per-instruction interpreter (``strict_request``: the
 ``torch`` PE, the same params and sidecar) against the steady executor and
 prints the slowdown and ``max |diff|`` of the logits (int8: ``0.00e+00``,
@@ -135,7 +136,7 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
               backend: str = "torch", opt_level: int = 1,
               dtype: str = "float32", device=None,
               compare_interpreter: bool = False, segmented: bool = False,
-              session: bool = False, mesh: str = "host",
+              session: bool = False,
               scheduler: str = "continuous",
               deadline_ms: float | None = None,
               queue_limit: int | None = None) -> np.ndarray:
@@ -145,7 +146,7 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
     steady executor (after one warm-up) and prints ``max |diff|``.
     ``segmented`` builds the legacy multi-Program path (VGG16 only);
     ``session`` also serves ``batch * iters`` single images through a
-    :class:`~repro_torch.api.ServingSession` (``mesh``, ``scheduler``,
+    :class:`~repro_torch.api.ServingSession` on one device (``scheduler``,
     ``deadline_ms``, ``queue_limit``) and prints its statistics."""
     from repro_torch import api
     from repro_torch.core import perf_model as pm
@@ -204,7 +205,7 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
           f"{t_steady * 1e3:.2f}ms/batch{batch} "
           f"({batch / t_steady:.1f} images/s) over {iters} requests")
     if session:
-        _serve_session(acc, x_np, iters, mesh=mesh, scheduler=scheduler,
+        _serve_session(acc, x_np, iters, scheduler=scheduler,
                        deadline_ms=deadline_ms, queue_limit=queue_limit)
     if compare_interpreter:
         strict_request = acc.strict_request()
@@ -224,14 +225,12 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
     return y.cpu().numpy()
 
 
-def _serve_session(acc, x_np: np.ndarray, iters: int, *, mesh: str,
-                   scheduler: str, deadline_ms: float | None,
+def _serve_session(acc, x_np: np.ndarray, iters: int, *, scheduler: str, deadline_ms: float | None,
                    queue_limit: int | None):
     """``len(x_np) * iters`` single images through a ServingSession with
     one bucket of the accelerator's batch; prints its statistics."""
     batch = x_np.shape[0]
     with acc.serve(max_batch=batch, buckets=(batch,), warmup=True,
-                   mesh=None if mesh == "none" else mesh,
                    scheduler=scheduler, deadline_ms=deadline_ms,
                    queue_limit=queue_limit) as s:
         n_req = batch * iters
@@ -242,7 +241,7 @@ def _serve_session(acc, x_np: np.ndarray, iters: int, *, mesh: str,
         s.run_many(reqs)
         dt = time.perf_counter() - t0
         st = s.stats
-        print(f"ServingSession[{scheduler}, mesh={mesh}]: {n_req} requests "
+        print(f"ServingSession[{scheduler}]: {n_req} requests "
               f"in {dt * 1e3:.1f}ms ({n_req / dt:.1f} req/s, {st.batches} "
               f"device batches, {st.padded_rows} padded rows, occupancy "
               f"{st.occupancy():.3f}; latency p50 {st.p50_ms():.2f}ms "
@@ -295,9 +294,6 @@ def main():
     ap.add_argument("--session", action="store_true",
                     help="also drive single-image requests through the "
                          "batching ServingSession")
-    ap.add_argument("--mesh", default="host", choices=("none", "host"),
-                    help="ServingSession devices: one device either way "
-                         "(sharding over several is not ported)")
     ap.add_argument("--scheduler", default="continuous",
                     choices=("continuous", "bucketed"),
                     help="ServingSession admission policy: 'continuous' "
@@ -321,7 +317,7 @@ def main():
                   device=args.device,
                   compare_interpreter=args.compare_interpreter,
                   segmented=args.segmented, session=args.session,
-                  mesh=args.mesh, scheduler=args.scheduler,
+                  scheduler=args.scheduler,
                   deadline_ms=args.deadline_ms,
                   queue_limit=args.queue_limit)
     print("logits:", y.shape)

@@ -1,8 +1,10 @@
 """The port's fault-tolerant serving tier (a port of
 ``tests/test_fault_injection.py``), on both port backends on the CPU:
 deterministic fault injection (``repro_torch.serving.faults``), deadlines,
-bounded admission, poisoned-batch isolation, thread supervision and
-``hopper`` -> ``torch`` degradation (the reference's ``pallas`` -> ``xla``).
+bounded admission, poisoned-batch isolation and thread supervision. The
+reference's ``pallas`` -> ``xla`` degradation is not ported: a failed
+``hopper`` batch is bisected on ``hopper`` and never re-run on the ``torch``
+lowering.
 
 The load-bearing property is the **liveness invariant**: under every
 seeded :class:`FaultPlan` — including plans that kill a pipeline thread —
@@ -20,7 +22,9 @@ closes in a ``with`` block or a ``finally``.
 """
 import dataclasses
 import logging
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -208,8 +212,6 @@ def test_innocent_requests_bitwise_identical_after_isolation(acc):
                    warmup=True) as s:
         ref = [np.asarray(f.result(timeout=60))
                for f in s.submit_many(xs)]
-    # cursed on every backend: the degradation retry re-visits "execute"
-    # and fails too, so the batch falls through to bisection
     plan = FaultPlan([FaultSpec(site="execute", kind="error", requests=(2,),
                                 message="cursed")])
     with acc.serve(max_batch=4, buckets=(4,), max_wait_ms=20.0, warmup=True,
@@ -295,50 +297,101 @@ def test_serve_rejects_bad_failure_kwargs(acc):
         acc.serve(max_batch=2, queue_limit=0)
 
 
-# -- graceful degradation ----------------------------------------------------
+# -- no degradation: a failed hopper batch is bisected on hopper -------------
 
-def test_hopper_failure_degrades_to_torch_whole_batch(acc_hopper, caplog):
+def test_hopper_failure_is_bisected_never_degraded(acc_hopper):
+    """A one-shot ``execute`` error on a hopper batch of two requests: each
+    half re-runs on the same hopper entry at the same bucket and offsets, so
+    both requests come back bit for bit, and no executor is lowered for the
+    torch backend."""
+    xs = _x(seed=7, n=2)
+    kw = dict(max_batch=2, buckets=(2,), max_wait_ms=20.0, warmup=True)
+    with acc_hopper.serve(**kw) as s:
+        ref = [np.asarray(f.result(timeout=60)) for f in s.submit_many(xs)]
     plan = FaultPlan([FaultSpec(site="execute", kind="error", at=(0,),
                                 match=(("backend", "hopper"),))])
     cache = acc_hopper.runtime.cache
-    fb0 = cache.stats.fallbacks
-    with caplog.at_level(logging.WARNING, logger="repro_torch.serving"):
-        with acc_hopper.serve(max_batch=2, buckets=(2,), max_wait_ms=1.0,
-                              warmup=True, fault_plan=plan) as s:
-            y = np.asarray(s.submit(_x()).result(timeout=60))
-            st = s.stats
-    # the whole batch succeeded on the torch lowering: degradation, not
-    # isolation — and the cache counted the degraded-entry request
-    assert st.degraded == 1 and st.isolated == 0 and _balanced(st)
-    assert cache.stats.fallbacks > fb0
-    assert any("re-dispatched on the torch backend" in r.getMessage()
-               for r in caplog.records)
-    with acc_hopper.serve(max_batch=2, buckets=(2,), max_wait_ms=1.0,
-                          warmup=True) as s:
-        y_clean = np.asarray(s.submit(_x()).result(timeout=60))
-        assert s.stats.degraded == 0
-    np.testing.assert_allclose(y, y_clean, atol=1e-5, rtol=1e-5)
+    with acc_hopper.serve(fault_plan=plan, **kw) as s:
+        misses = cache.stats.misses
+        got = [np.asarray(f.result(timeout=60)) for f in s.submit_many(xs)]
+        st = s.stats
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    assert len(plan.fired()) == 1 and plan.counts()["execute"] == 3
+    assert (st.retries, st.isolated, st.errors, st.degraded) == (2, 0, 0, 0)
+    assert _balanced(st) and cache.stats.misses == misses
 
 
-def test_refused_kernel_launch_degrades_to_torch(acc_hopper, monkeypatch):
+def test_refused_kernel_launch_fails_typed_never_torch(acc_hopper,
+                                                       monkeypatch):
     """A wrapper that refuses its launch (a Python-level failure) in every
-    hopper GEMM: each batch, bulk or coalesced, is re-run on the torch
-    lowering and counted, never quietly."""
+    hopper GEMM: each request, bulk or coalesced, fails with the wrapper's
+    own error after bisection; nothing is re-run on the torch lowering."""
     def refuse(*args, **kwargs):
         raise RuntimeError("kernel launch failed (refused)")
 
-    y_ref = acc_hopper(_x(n=2)).numpy()
     monkeypatch.setattr(conv_ops, "conv_gemm_f32", refuse)
     monkeypatch.setattr(gemm_ops, "bmm_f32", refuse)
     with pytest.raises(RuntimeError, match="refused"):
         acc_hopper(_x(n=2))
+    cache = acc_hopper.runtime.cache
     with acc_hopper.serve(max_batch=2, buckets=(2,), max_wait_ms=1.0) as s:
-        bulk = s.run_many(list(_x(n=2)))
-        single = s.submit(_x(n=2)).result(timeout=60)
+        misses = cache.stats.misses
+        with pytest.raises(RuntimeError, match="refused"):
+            s.run_many(list(_x(n=2)))
+        with pytest.raises(RuntimeError, match="refused"):
+            s.submit(_x(n=2)).result(timeout=60)
         st = s.stats
-    assert st.degraded == 2 and st.errors == 0 and _balanced(st)
-    np.testing.assert_allclose(np.stack(bulk), y_ref, atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(single, y_ref, atol=1e-5, rtol=1e-5)
+    assert (st.requests, st.errors, st.isolated, st.degraded) == (0, 3, 3, 0)
+    assert _balanced(st) and cache.stats.misses == misses
+
+
+# -- staging entries are bound to pipeline slots --------------------------------
+
+def test_staging_entries_stay_bound_to_their_slots(acc, monkeypatch):
+    """Three concurrent ``run_many`` callers, coalesced ``submit`` traffic
+    and a one-shot ``execute`` error in the middle of the stream: no
+    staging entry is handed to a batch while another batch holds it, at
+    most pool-capacity entries are held at once, every entry comes back,
+    and every bulk result equals a fault-free run bit for bit."""
+    held, seen, peak, lock = set(), set(), [0], threading.Lock()
+    take, give = api.ServingSession._take_stage, api.ServingSession._give_stage
+
+    def checked_take(self, bucket):
+        stage = take(self, bucket)
+        with lock:
+            assert id(stage) not in held, "entry handed out while held"
+            held.add(id(stage))
+            seen.add(id(stage))
+            peak[0] = max(peak[0], len(held))
+        return stage
+
+    def checked_give(self, bucket, stage, *, settled):
+        with lock:
+            held.remove(id(stage))
+        give(self, bucket, stage, settled=settled)
+
+    callers = [list(_x(seed=20 + c, n=8)) for c in range(3)]
+    kw = dict(max_batch=2, buckets=(2,), max_wait_ms=1.0, warmup=True)
+    with acc.serve(**kw) as s:
+        refs = [s.run_many(xs) for xs in callers]
+    monkeypatch.setattr(api.ServingSession, "_take_stage", checked_take)
+    monkeypatch.setattr(api.ServingSession, "_give_stage", checked_give)
+    plan = FaultPlan([FaultSpec(site="execute", kind="error", at=(5,))])
+    with acc.serve(fault_plan=plan, **kw) as s:
+        with ThreadPoolExecutor(3) as pool:
+            bulk = [pool.submit(s.run_many, xs) for xs in callers]
+            singles = s.submit_many(list(_x(seed=30, n=6)))
+            outs = [f.result(timeout=120) for f in bulk]
+            for f in singles:
+                assert np.isfinite(f.result(timeout=120)).all()
+        st = s.stats
+    for out, ref in zip(outs, refs):
+        for a, b in zip(out, ref):
+            np.testing.assert_array_equal(a, b)
+    assert len(plan.fired()) == 1 and st.retries == 2 and st.errors == 0
+    assert st.requests == 30 and _balanced(st)
+    assert not held and 1 <= peak[0] <= 3 and len(seen) <= 3
 
 
 # -- run_many under faults ----------------------------------------------------

@@ -428,7 +428,7 @@ def test_serve_cli_session_prints_the_ledger(capsys):
               device="cpu", session=True, scheduler="bucketed",
               deadline_ms=60_000.0, queue_limit=64)
     out = capsys.readouterr().out
-    assert "ServingSession[bucketed, mesh=host]: 4 requests" in out
+    assert "ServingSession[bucketed]: 4 requests" in out
     assert ("failure model: submitted 4 = completed 4 + errors 0 + shed 0"
             in out)
     assert "degraded 0" in out
