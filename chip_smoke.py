@@ -11,8 +11,14 @@ and K, N multiples of 4, and K5 its int8 tensor-core route, ``tc_s8``, at
 every call with M >= 64 and K, N multiples of 16; K3/K4 through their
 NHWC fronts at the geometry the executor gives them, on the float4 route
 wherever the channels come in fours, and off the paths through the tiles
-fronts, at m = 2 and at a ragged geometry; and times kernel, plain version
-and the nearest single PyTorch call),
+fronts, at m = 2 and at a ragged geometry, and as the decomposed 5x5 and
+7x7 convolutions call them: K3 per 3x3 piece at its signed offset, K2 per
+piece, one K4; and times kernel, plain version and the nearest single
+PyTorch call), runs those decomposed convolutions end to end
+(``kernels.winograd.winograd_conv2d``) against ``F.conv2d`` within
+``1e-4 * max(1, max|ref|)``, and times a kernel wrapper's host cost on its
+direct launch route against its ``torch.ops.repro_torch`` op (the route
+an exported program takes),
 then serves six CNN paths through ``repro_torch.api.Accelerator`` with
 ``backend="hopper"``, batch 8, ``pm.V5E`` plans:
 
@@ -27,7 +33,8 @@ then serves six CNN paths through ``repro_torch.api.Accelerator`` with
   bit for bit), since both backends share the depthwise op;
 
 then serves the four model paths (VGG16 and ResNet-18, fp32 and int8)
-through a ``ServingSession`` over the same accelerators (phase 3b):
+through a ``ServingSession`` over the same accelerators (phase 3b), from
+a settled heap (``api.settled_heap``, as a serving process runs):
 ``acc.serve(max_batch=8, warmup=True)``, a bulk ``run_many`` of 16
 requests of 8 images (each bit for bit ``acc(x)`` on the same batch), then
 two windows of 4096 single images arriving open-loop, at 80 % of the direct
@@ -35,7 +42,9 @@ path's images/s and at 80 % of what the session sustained (the lower of
 its bulk rate and the first window's served rate; each held to its row of
 ``acc(x)``: int8 bit for bit, fp32 within
 ``1e-3 * max|logit|``; the served rate beside the offered one, and no
-latency percentile where the session fell behind), every session ending
+latency percentile where the session fell behind; each window traced by
+``serving.trace.SessionTrace``: device busy share, device ms per bucket,
+garbage-collection pauses, the slowest requests' parts), every session ending
 with ``errors == 0``, no retry, ``submitted == requests + errors + shed``,
 its launch counts the per-request launches times its batches; on
 ResNet-18 fp32 a one-shot ``execute`` error in the middle of a ``run_many``
@@ -58,6 +67,20 @@ with one request of each under ``torch.profiler``; and a last path through
 * full-width minitron-8b in bf16 (32 layers, d_model 4096, vocab 256000,
   random weights from seed 0), batch 2, a 4096-token prompt, 16 greedy
   tokens: K6 once per layer of the prefill, never in a decode step.
+
+On the card every executor entry runs as CUDA graphs: a path's first
+request is the entry's warm-up run and the capture of its graph, and each
+path's direct entry is held ``torch.equal`` to its uncaptured lowering
+(``entry.fn``), both timed, with the capture's host time and
+``torch.cuda.memory_reserved()`` after it; the session buckets run on
+graphs captured at their warmup; the persistence check shows a reloaded
+program sharing the direct entry and other weights capturing a graph of
+their own. An AOT phase saves VGG16 int8 and ResNet-18 fp32 with
+``save_program(aot=True)``, reloads each into a fresh ``ProgramCache``
+(the plain program's build and first request against the bundle's load
+and first request, bit-equal; a session over it with ``compile_ms == 0``)
+and reloads once under a stale fingerprint (a warning, a fresh build,
+bit-equal).
 
 Each CNN path answers one first request and several steady ones, with the
 launch counts set to 0 just before it and checked per request just after,
@@ -90,7 +113,9 @@ line, and as the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import logging
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -346,6 +371,132 @@ def wino_offpath_cases():
     ]
 
 
+# the decomposed convolutions of phase 2 (off the served paths: compiled
+# layers stay 3x3): ResNet-18's s1 geometry, batch 8 at 32x32 with 64
+# channels in and out, F(4, 3), SAME, with 5x5 and 7x7 kernels
+DECOMP = dict(n=BATCH, h=32, w=32, c=64, k=64, m=4)
+
+
+def wino_decomposed_cases():
+    """K3/K2/K4 as ``kernels.winograd.winograd_conv2d`` calls them for a 5x5
+    and a 7x7 kernel (launches 0): K3 once per 3x3 piece at its signed
+    offset (pad minus the piece's offset) over the full conv's tile grid,
+    K2 once per piece, K4 once per conv."""
+    d = DECOMP
+    m, ho = d["m"], d["h"]
+    grid = (-(-ho // m), -(-d["w"] // m))
+    t = d["n"] * grid[0] * grid[1]
+    cases = []
+    for r in (5, 7):
+        pad = (r - 1) // 2
+        for oh in range(0, r, 3):
+            for ow in range(0, r, 3):
+                cases.append(("wino_input_transform_f32",
+                              f"decomp{r}x{r}[{oh},{ow}]", dict(
+                                  n=d["n"], h=d["h"], w=d["w"], c=d["c"],
+                                  m=m, pad=((pad - oh, 0), (pad - ow, 0)),
+                                  grid=grid), 0))
+                cases.append(("bmm_f32", f"decomp{r}x{r}[{oh},{ow}]", dict(
+                    g=(m + 2) ** 2, m=t, k=d["c"], n=d["k"], df="is"), 0))
+        cases.append(("wino_output_transform_f32", f"decomp{r}x{r}", dict(
+            n=d["n"], ho=ho, wo=d["w"], k=d["k"], m=m), 0))
+    return cases
+
+
+def decomposed_conv_check(card: str) -> dict:
+    """Phase 2: the decomposed 5x5 and 7x7 convolutions end to end
+    (``winograd_conv2d`` on the card: K3 and K2 per piece, one K4) against
+    the direct convolution (``F.conv2d``, TF32 off) within
+    ``1e-4 * max(1, max|ref|)``, with their launches and times."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.winograd import winograd_conv2d
+    from repro_torch.kernels.winograd.ref import conv2d_ref
+    d = DECOMP
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for r in (5, 7):
+        x = torch.randn(d["n"], d["h"], d["w"], d["c"], device="cuda",
+                        generator=gen)
+        w = torch.randn(r, r, d["c"], d["k"], device="cuda",
+                        generator=gen) / r
+        b = torch.randn(d["k"], device="cuda", generator=gen)
+        common.reset_launches()
+        y = winograd_conv2d(x, w, b, m=d["m"], relu=True)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in common.LAUNCHES.items() if v}
+        pieces = (-(-r // 3)) ** 2
+        want = {"wino_input_transform_f32": pieces, "bmm_f32": pieces,
+                "wino_output_transform_f32": 1}
+        if counts != want:
+            raise AssertionError(f"decomposed {r}x{r}: launches {counts} "
+                                 f"!= {want}")
+        y_ref = conv2d_ref(x, w, "SAME", b, relu=True)
+        err = float((y - y_ref).abs().max())
+        tol = 1e-4 * max(1.0, float(y_ref.abs().max()))
+        if not err <= tol:
+            raise AssertionError(f"decomposed {r}x{r}: vs F.conv2d max|diff| "
+                                 f"{err:.3e} > {tol:.3e}")
+        ms = time_ms(lambda: winograd_conv2d(x, w, b, m=d["m"], relu=True))
+        conv_ms = time_ms(lambda: conv2d_ref(x, w, "SAME", b, relu=True))
+        common.reset_launches()
+        out[f"{r}x{r}"] = dict(pieces=pieces, launches=counts,
+                               max_abs_diff_vs_conv2d=err, tol=tol, ms=ms,
+                               conv2d_ms=conv_ms)
+        print(f"decomposed Winograd {r}x{r} ({card}): {pieces} pieces, "
+              f"launches {counts}; vs F.conv2d max|diff| {err:.3e} "
+              f"(tolerance {tol:.3e}); {ms:.3f}ms against F.conv2d's "
+              f"{conv_ms:.3f}ms", flush=True)
+    print(json.dumps({"phase": "decomposed_winograd", "card": card,
+                      "shape": DECOMP, **out}), flush=True)
+    return out
+
+
+def dispatcher_cost(card: str) -> dict:
+    """Host us per call of a kernel wrapper on the direct launch route
+    against the same call through its ``torch.ops.repro_torch`` op (the
+    route a traced or loaded AOT program takes), K2 and K5 at small
+    shapes: 200 calls each, no synchronisation inside, in turns, median of
+    five."""
+    from repro_torch.kernels.gemm.int8 import qmm_i8
+    from repro_torch.kernels.gemm.kernel import bmm_f32
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    a = torch.randn(1, 64, 64, device="cuda", generator=gen)
+    b = torch.randn(1, 64, 64, device="cuda", generator=gen)
+    qa = torch.randint(-127, 128, (64, 64), dtype=torch.int8, device="cuda",
+                       generator=gen)
+    qbias = torch.zeros(64, dtype=torch.int32, device="cuda")
+    qmult = torch.full((64,), 1e-3, device="cuda")
+    routes = {
+        "bmm_f32 wrapper": lambda: bmm_f32(a, b),
+        "bmm_f32 op": lambda: torch.ops.repro_torch.bmm_f32(a, b, None,
+                                                            False, False),
+        "qmm_i8 wrapper": lambda: qmm_i8(qa, qa, qbias, qmult, False),
+        "qmm_i8 op": lambda: torch.ops.repro_torch.qmm_i8(qa, qa, qbias,
+                                                          qmult, False),
+    }
+    times = {k: [] for k in routes}
+    for _ in range(5):
+        for name, fn in routes.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            times[name].append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+    us = {k: statistics.median(v) for k, v in times.items()}
+    extra = {k: us[f"{k} op"] - us[f"{k} wrapper"]
+             for k in ("bmm_f32", "qmm_i8")}
+    print(f"dispatcher ({card}): host us per call, wrapper -> launch vs "
+          f"torch.ops.repro_torch op: "
+          + "; ".join(f"{k} {us[k + ' wrapper']:.1f} vs {us[k + ' op']:.1f}"
+                      f" (+{extra[k]:.1f})" for k in extra), flush=True)
+    print(json.dumps({"phase": "dispatcher", "card": card, "host_us": us,
+                      "op_extra_us": extra}), flush=True)
+    return us
+
+
 def lm_kernel_cases():
     """K6's calls per request on the LM path (the prefill's shape, once per
     layer) and four shapes off the path (launches 0): the prefill's shape
@@ -400,6 +551,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     )
     from repro_torch.core.winograd import tile_input, transform_matrices
     from repro_torch.kernels.winograd.kernel import (
+        signed_offset_tiles,
         wino_input_transform_f32,
         wino_input_transform_nhwc_f32,
         wino_input_transform_nhwc_ref,
@@ -497,12 +649,18 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         else:
             # x read once, V written once
             n, h, w, pad = shape["n"], shape["h"], shape["w"], shape["pad"]
+            grid = shape.get("grid")
             x = rnd(n, h, w, c)
-            kern = lambda: wino_input_transform_nhwc_f32(x, m, pad)
-            plain = lambda: wino_input_transform_nhwc_ref(x, m, pad)
+            kern = lambda: wino_input_transform_nhwc_f32(x, m, pad, grid)
+            plain = lambda: wino_input_transform_nhwc_ref(x, m, pad, grid)
             (top, bottom), (left, right) = pad
-            tiles, (nh, nw) = tile_input(torch.nn.functional.pad(
-                x, (0, 0, left, right, top, bottom)), m)
+            if grid is None:
+                tiles, (nh, nw) = tile_input(torch.nn.functional.pad(
+                    x, (0, 0, left, right, top, bottom)), m)
+            else:
+                # a decomposition piece's shifted windows (signed offset)
+                nh, nw = grid
+                tiles = signed_offset_tiles(x, m, top, left, grid)
             t, in_floats = n * nh * nw, n * h * w * c
         # the yardstick, one fp32 call: V (PT^2, T, C) from tiles already
         # gathered (the gather not counted)
@@ -640,12 +798,14 @@ def serve_path(path: str, x: torch.Tensor, params=None) -> dict:
     t_build = time.perf_counter() - t0
     n_requests = 1 + STEADY_REQUESTS
 
+    reserved_before_mb = torch.cuda.memory_reserved() / 2 ** 20
     common.reset_launches()
     t0 = time.perf_counter()
-    y = acc(x)
+    y = acc(x)            # the warm-up run, then the capture of its graph
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     first_counts = {k: v for k, v in common.LAUNCHES.items() if v}
+    reserved_mb = torch.cuda.memory_reserved() / 2 ** 20
     t0 = time.perf_counter()
     for _ in range(STEADY_REQUESTS):
         y = acc(x)
@@ -719,6 +879,7 @@ def serve_path(path: str, x: torch.Tensor, params=None) -> dict:
                                  f"{err_cpu:.3e} > {tol_cpu:.3e}")
         print(f"path {path}: vs the same program on the CPU max|diff| "
               f"{err_cpu:.3e} (tolerance {tol_cpu:.3e})", flush=True)
+    graph = capture_check(path, acc, x)
     modes = sorted({cl.plan.mode for cl in acc.program.layers
                     if cl.kind == "conv"})
     calib = (f" (calibration {acc.calib_ms:.0f}ms)"
@@ -729,14 +890,52 @@ def serve_path(path: str, x: torch.Tensor, params=None) -> dict:
           f"ms/batch ({BATCH / t_steady:.1f} images/s) over "
           f"{STEADY_REQUESTS} requests; launches per request {first_counts};"
           f" vs backend='torch' ({t_ref * 1e3:.2f}ms/batch): max|diff| "
-          f"{err:.3e} (tolerance {tol:.3e})", flush=True)
+          f"{err:.3e} (tolerance {tol:.3e}); captured entry "
+          f"{graph['captured_ms']:.3f}ms/batch against the uncaptured "
+          f"entry.fn's {graph['uncaptured_ms']:.3f} (torch.equal), capture "
+          f"{graph['capture_ms']:.1f}ms, memory reserved after it "
+          f"{reserved_mb:.0f} MiB ({reserved_before_mb:.0f} before the "
+          f"first request)", flush=True)
     print(json.dumps({"path": path, "build_ms": t_build * 1e3,
                       "calib_ms": acc.calib_ms, "first_ms": t_first * 1e3,
                       "steady_ms": t_steady * 1e3,
                       "torch_backend_ms": t_ref * 1e3,
                       "launches_per_request": first_counts,
-                      "max_abs_diff_vs_torch": err, "tol": tol}), flush=True)
+                      "max_abs_diff_vs_torch": err, "tol": tol,
+                      "memory_reserved_mib_after_capture": reserved_mb,
+                      "memory_reserved_mib_before": reserved_before_mb,
+                      **graph}), flush=True)
     return dict(acc=acc, y=y, launches=launches, steady_ms=t_steady * 1e3)
+
+
+def capture_check(path: str, acc, x: torch.Tensor) -> dict:
+    """The direct entry of ``path``'s accelerator, captured by its first
+    request: its replays against its uncaptured lowering (``entry.fn``) on
+    the same DRAM image and input, ``torch.equal``, each timed over
+    ``STEADY_REQUESTS`` batches (host clock, ending in a synchronise)."""
+    entry, params = acc.runtime.executor_entry(BATCH, acc.input_dtype)
+    inp = acc.quant.quantize_input(x) if acc.quant is not None else x
+    if entry.trace_count != 1:
+        raise AssertionError(f"{path}: direct entry captured "
+                             f"{entry.trace_count} times, expected 1")
+    with torch.no_grad():
+        y_graph, y_fn = entry(params, inp), entry.fn(params, inp)
+        if not torch.equal(y_graph, y_fn):
+            raise AssertionError(
+                f"{path}: captured entry differs from entry.fn in "
+                f"{int((y_graph != y_fn).sum())} places")
+        times = {}
+        for name, fn in (("captured_ms", entry), ("uncaptured_ms", entry.fn),
+                         ("captured_ms_again", entry)):
+            fn(params, inp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STEADY_REQUESTS):
+                fn(params, inp)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) / STEADY_REQUESTS * 1e3
+    return dict(times, capture_ms=entry.last_capture_ms,
+                trace_count=entry.trace_count)
 
 
 def session_launches_per_batch(acc, x: torch.Tensor, buckets) -> dict:
@@ -798,6 +997,11 @@ def serve_session_path(path: str, served: dict, x: torch.Tensor,
     session = acc.serve(max_batch=BATCH, warmup=True)
     warm_s = time.perf_counter() - t0
     try:
+        # every bucket entry captured once, at the warmup, and replayed
+        traces = {b: e.trace_count for b, e in session._entries.items()}
+        if set(traces.values()) != {1} or not all(
+                e.donate_input for e in session._entries.values()):
+            raise AssertionError(f"{path} session: bucket captures {traces}")
         per_bucket = session_launches_per_batch(acc, x, session.buckets)
         stage_ms = []
         for b in host[:5]:
@@ -812,6 +1016,9 @@ def serve_session_path(path: str, served: dict, x: torch.Tensor,
     finally:
         session.close()
     bulk_st = session.stats
+    traces_after = {b: e.trace_count for b, e in session._entries.items()}
+    if traces_after != traces:
+        raise AssertionError(f"{path} session: recaptured {traces_after}")
     check_session_ledger(f"{path} session bulk", bulk_st)
     check_session_launches(f"{path} session bulk", bulk_launches,
                            bulk_st.batches, {BATCH: per_bucket[BATCH]},
@@ -828,7 +1035,8 @@ def serve_session_path(path: str, served: dict, x: torch.Tensor,
     print(f"path {path} session ({card}): warmup of buckets "
           f"{session.buckets} {warm_s * 1e3:.0f}ms (compile_ms "
           f"{bulk_st.compile_ms:.0f}); bulk run_many of {SESSION_BULK} x "
-          f"{BATCH} images {bulk_s * 1e3:.1f}ms = {bulk_ms:.2f}ms/batch "
+          f"{BATCH} images on captured buckets (one graph each) "
+          f"{bulk_s * 1e3:.1f}ms = {bulk_ms:.2f}ms/batch "
           f"({bulk_ips:.1f} images/s) against the direct path's "
           f"{served['steady_ms']:.2f}ms/batch ({direct_ips:.1f} images/s), "
           f"{bulk_st.batches} batches, bit-equal to acc(x); host staging "
@@ -863,6 +1071,8 @@ def serve_session_path(path: str, served: dict, x: torch.Tensor,
               f"{w['occupancy']:.3f}; vs acc(x) rows max|diff| "
               f"{w['max_abs_diff']:.3e} (tolerance {w['tol']:.3e}); ledger "
               f"clean", flush=True)
+        print(f"path {path} session trace ({card}): {trace_line(w['trace'])}",
+              flush=True)
     print(json.dumps({"path": path, "phase": "session", "card": card,
                       "bulk_ms_per_batch": bulk_ms,
                       "bulk_images_per_s": bulk_ips,
@@ -888,24 +1098,31 @@ def arrival_window(label: str, acc, images: np.ndarray, refs: np.ndarray,
     window is overloaded, and its percentiles would only measure the
     window's length, so none is reported."""
     from repro_torch.kernels import common
+    from repro_torch.serving.trace import SessionTrace
     pick = rng.integers(len(images), size=SESSION_ARRIVALS)
     at = np.cumsum(rng.exponential(1.0 / rate, SESSION_ARRIVALS))
     session = acc.serve(max_batch=BATCH, warmup=True)
+    trace = SessionTrace().attach(session)
     try:
         common.reset_launches()
         futs = []
-        t0 = time.perf_counter()
+        t0, tm0 = time.perf_counter(), time.monotonic()
         for i, t_at in zip(pick, at):
             delay = t0 + t_at - time.perf_counter()
             if delay > 0:
                 time.sleep(delay)
             futs.append(session.submit(images[i]))
         submit_s = time.perf_counter() - t0
-        rows = np.stack([f.result(timeout=300) for f in futs])
+        got = [f.result(timeout=300) for f in futs]
+        # the window ends with its last result, before any host work on
+        # the results (stacking 4096 rows took about 1 % of a 0.8 s window)
         window_s = time.perf_counter() - t0
+        tm1 = time.monotonic()
+        rows = np.stack(got)
         counts = {k: v for k, v in common.LAUNCHES.items() if v}
     finally:
         session.close()
+        trace.detach()
     st = session.stats
     check_session_ledger(label, st)
     check_session_launches(label, counts, st.batches, per_bucket,
@@ -933,7 +1150,25 @@ def arrival_window(label: str, acc, images: np.ndarray, refs: np.ndarray,
             "wait_p95_ms": None if overloaded else st.wait_p95_ms(),
             "batches": st.batches, "padded_rows": st.padded_rows,
             "occupancy": st.occupancy(), "max_abs_diff": err, "tol": tol,
-            "launches": counts}
+            "launches": counts, "trace": trace.summary(tm0, tm1)}
+
+
+def trace_line(t: dict) -> str:
+    """One window's ``SessionTrace`` summary in a line."""
+    busy = t["device_busy_share"]
+    parts = ", ".join(f"{k[:-3]} {v:.2f}" for k, v in
+                      t["tail_parts_ms"].items())
+    return (f"p99 {t['latency_p99_ms']:.2f}ms max "
+            f"{t['latency_max_ms']:.2f}ms; device busy "
+            f"{'not measured' if busy is None else f'{busy:.3f}'} of the "
+            f"window; device ms by bucket {t['device_ms_by_bucket']}; "
+            f"{t['gc_pauses']} gc pauses, {t['gc_ms']:.1f}ms in all, longest "
+            f"{t['gc_max_ms']:.1f}ms (of 5ms or more, as (at s, ms, "
+            f"generation, collected): {t['gc_long_pauses']}); "
+            f"{t['tail_share_in_pause']} of the "
+            f"{t['tail_requests']} slowest requests inside a pause of 5ms or "
+            f"more; their mean ms: {parts}; tail bursts {t['tail_bursts']}; "
+            f"longest gaps between batches {t['top_gaps']}")
 
 
 def check_session_ledger(label: str, st) -> None:
@@ -1045,15 +1280,155 @@ def session_persistence(results: dict, xs: dict, card: str) -> None:
         again = api.Accelerator.from_program(saved, params=acc.params,
                                              backend="hopper",
                                              device="cuda")
+        entry = acc.runtime.executor_entry(BATCH, acc.input_dtype)[0]
+        traces = entry.trace_count
         y, y2 = acc(x), again(x)
         if not torch.equal(y, y2):
             raise AssertionError(f"{path}: reloaded program differs in "
                                  f"{int((y != y2).sum())} places")
+        # the reload shares the direct entry (one schedule, one cache);
+        # another set of weights must make it capture a graph of its own,
+        # never replay the original's
+        if again.runtime.executor_entry(BATCH, acc.input_dtype)[0] \
+                is not entry:
+            raise AssertionError(f"{path}: the reload took another entry")
+        reload_traces = entry.trace_count
+        other = api.Accelerator.from_program(
+            saved, params=api.random_params(acc.specs, seed=5,
+                                            device="cuda"),
+            backend="hopper", device="cuda")
+        y3 = other(x)
+        inp = acc.quant.quantize_input(x) if acc.quant is not None else x
+        with torch.no_grad():
+            y3_fn = entry.fn(other.runtime.dram_params(), inp)
+        if other.quant is not None:
+            y3_fn = other.quant.dequantize_output(y3_fn)
+        if (entry.trace_count != reload_traces + 1 or not torch.equal(y3, y3_fn)
+                or torch.equal(y3, y) or not torch.equal(acc(x), y)):
+            raise AssertionError(
+                f"{path}: new weights: trace_count {entry.trace_count} "
+                f"(was {reload_traces}), equal to entry.fn "
+                f"{torch.equal(y3, y3_fn)}, equal to the original's "
+                f"{torch.equal(y3, y)}")
         print(f"path {path} persistence ({card}): save_program -> "
               f"from_program(backend='hopper'): {again.n_instructions} "
               f"instructions, logits bit-equal to the original "
-              f"({Path(saved).stat().st_size} bytes)", flush=True)
+              f"({Path(saved).stat().st_size} bytes); the shared direct "
+              f"entry's captures: {traces} before the reload, "
+              f"{reload_traces} after it (a new graph wherever the reload "
+              f"made new weight tensors), {entry.trace_count} after other "
+              f"weights (their logits equal entry.fn on them and differ "
+              f"from the original's, which still replays bit-equal)",
+              flush=True)
     print(results["vgg16_fp32"]["acc"].summary(), flush=True)
+
+
+class _Records(logging.Handler):
+    """Keeps the messages logged to it."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def session_aot(results: dict, xs: dict, card: str) -> None:
+    """The AOT phase: VGG16 int8 and ResNet-18 fp32 saved with
+    ``save_program(aot=True)`` (buckets 1, 2, 4, 8 and the direct entry)
+    and reloaded into a fresh ``ProgramCache``: the build of the plain
+    program plus its first request against the bundle's load plus its
+    first request, both bit-equal to the served accelerator; a session
+    over the loaded accelerator reports ``compile_ms == 0``. Then one
+    reload under a stale fingerprint (another torch version) warns,
+    builds fresh and answers bit for bit."""
+    from repro_torch import api
+    from repro_torch.core import aot
+    from repro_torch.core.program_cache import ProgramCache
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    records = _Records()
+    logging.getLogger("repro_torch.aot").addHandler(records)
+    try:
+        for path in ("vgg16_int8", "resnet18_fp32"):
+            acc = results[path]["acc"]
+            x = xs[path_specs(path)[1]]
+            y = acc(x)
+            plain = acc.save_program(str(out_dir / f"{path}.json"))
+            bundle = out_dir / f"{path}.bundle"
+            shutil.rmtree(bundle, ignore_errors=True)
+            t0 = time.perf_counter()
+            acc.save_program(str(bundle), aot=True)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            size = sum(f.stat().st_size for f in bundle.rglob("*"))
+            timed = {}
+            for name, src in (("build", plain), ("warm_load", str(bundle))):
+                cache = ProgramCache()
+                t0 = time.perf_counter()
+                again = api.Accelerator.from_program(
+                    src, params=acc.params, backend="hopper", device="cuda",
+                    cache=cache)
+                y2 = again(x)
+                torch.cuda.synchronize()
+                timed[name] = (time.perf_counter() - t0) * 1e3
+                if not torch.equal(y, y2):
+                    raise AssertionError(f"{path} aot: {name} differs from "
+                                         f"the served logits")
+                if cache.stats.aot_loads != (name == "warm_load"):
+                    raise AssertionError(f"{path} aot: {name} loaded "
+                                         f"{cache.stats.aot_loads}")
+            with again.serve(max_batch=BATCH, warmup=True) as s:
+                outs = s.run_many([x.cpu().numpy()])
+                st = s.stats
+            if (st.compile_ms != 0.0 or not st.warm_load_ms > 0
+                    or cache.stats.aot_loads != 5
+                    or not np.array_equal(outs[0], y.cpu().numpy())):
+                raise AssertionError(f"{path} aot session: {st}, "
+                                     f"{cache.stats}")
+            entry = again.runtime.executor_entry(BATCH, acc.input_dtype)[0]
+            print(f"path {path} aot ({card}): save_program(aot=True) "
+                  f"{save_ms:.0f}ms, {size} bytes (5 artifacts); plain "
+                  f"program build + first request {timed['build']:.0f}ms "
+                  f"against the bundle's load + first request "
+                  f"{timed['warm_load']:.0f}ms, both bit-equal; a session "
+                  f"over it: compile_ms {st.compile_ms}, warm_load_ms "
+                  f"{st.warm_load_ms:.0f}, bit-equal; the loaded direct "
+                  f"entry captured {entry.trace_count} graph", flush=True)
+            print(json.dumps({"path": path, "phase": "aot", "card": card,
+                              "save_ms": save_ms, "bundle_bytes": size,
+                              "build_first_request_ms": timed["build"],
+                              "warm_load_first_request_ms":
+                                  timed["warm_load"],
+                              "session_warm_load_ms": st.warm_load_ms,
+                              "session_compile_ms": st.compile_ms}),
+                  flush=True)
+
+        # a stale fingerprint: another torch version
+        path = "resnet18_fp32"
+        acc, x = results[path]["acc"], xs[path_specs(path)[1]]
+        fingerprint = aot.environment_fingerprint
+        aot.environment_fingerprint = lambda device="cpu": dict(
+            fingerprint(device), torch_version="0.0.0")
+        try:
+            records.messages.clear()
+            cache = ProgramCache()
+            stale = api.Accelerator.from_program(
+                str(out_dir / f"{path}.bundle"), params=acc.params,
+                backend="hopper", device="cuda", cache=cache)
+            y_stale = stale(x)
+        finally:
+            aot.environment_fingerprint = fingerprint
+        warned = [m for m in records.messages if "torch_version" in m]
+        if (not warned or cache.stats.aot_loads != 0
+                or not torch.equal(y_stale, acc(x))):
+            raise AssertionError(f"stale aot reload: warnings "
+                                 f"{records.messages}, {cache.stats}")
+        print(f"path {path} aot stale ({card}): a reload under another "
+              f"torch version logged '{warned[0][:160]}...' and built fresh,"
+              f" bit-equal", flush=True)
+    finally:
+        logging.getLogger("repro_torch.aot").removeHandler(records)
 
 
 def session_segmented(served: dict, x: torch.Tensor, card: str) -> dict:
@@ -1434,7 +1809,7 @@ def main() -> int:
             program, dtype, per_block = path_program(path)
             cases = kernel_cases(program, BATCH, dtype, per_block)
             if path == "resnet18_fp32":
-                cases += wino_offpath_cases()
+                cases += wino_offpath_cases() + wino_decomposed_cases()
         counted, per_path = case_launches(cases), {}
         if path in PATHS and counted != PATHS[path]:
             raise AssertionError(f"{path}: program gives launches {counted}, "
@@ -1472,6 +1847,8 @@ def main() -> int:
                 agg["bound_by"].get(r["bound_by"], 0) + n * r["bound_ms"])
         # per-request sums of this path's kernel calls (library_ms 0: none)
         print(json.dumps({"path_kernels": path, **per_path}), flush=True)
+    decomposed_conv_check(card)
+    dispatcher_cost(card)
     print(f"phase 2 (kernel checks): {time.perf_counter() - t_start:.1f}s "
           f"since start", flush=True)
 
@@ -1509,15 +1886,22 @@ def main() -> int:
           flush=True)
 
     # -- phase 3b: the four model paths through a ServingSession ------------
+    from repro_torch.api import settled_heap
     t_3b = time.perf_counter()
-    for path in SESSION_PATHS:
-        r = serve_session_path(path, results[path],
-                               xs[path_specs(path)[1]], card)
-        for name, n in r["launches"].items():
-            total[name] += n
+    # the sessions' traffic from a settled heap, as a serving process runs
+    # it (one full collection first, then everything alive frozen out of
+    # the collector): over an unsettled heap a full collection stops every
+    # thread for 83-237 ms inside a window (PERF.md §6)
+    with settled_heap():
+        for path in SESSION_PATHS:
+            r = serve_session_path(path, results[path],
+                                   xs[path_specs(path)[1]], card)
+            for name, n in r["launches"].items():
+                total[name] += n
     session_faults(results["resnet18_fp32"],
                    xs[path_specs("resnet18_fp32")[1]], card)
     session_persistence(results, xs, card)
+    session_aot(results, xs, card)
     r = session_segmented(results["vgg16_fp32"],
                           xs[path_specs("vgg16_fp32")[1]], card)
     for name, n in r["launches"].items():
@@ -1537,6 +1921,10 @@ def main() -> int:
     print(f"phase 4 (interpreter): {time.perf_counter() - t_start:.1f}s "
           f"since start", flush=True)
     del results, xs
+    # the cached entries hold their CUDA graphs, whose pools and weights
+    # the LM needs the room of
+    from repro_torch.core.program_cache import default_cache
+    default_cache().clear()
     torch.cuda.empty_cache()
 
     # -- phase 5: the LM path through repro_torch.launch.serve ---------------

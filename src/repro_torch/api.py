@@ -43,15 +43,22 @@ flight on one CUDA stream, and carries the reference's failure model
 a supervising watchdog). ``Fleet`` serves several models over one shared
 slot pool.
 
+``save_program(path, aot=True)`` writes an AOT bundle: ``program.json``
+plus ``aot/``, one ``torch.export`` artifact per serving bucket and the
+direct entry (``core/aot.py``); ``from_program(bundle)`` loads each entry
+from it when its key and environment match, and builds afresh otherwise.
+On a card every executor entry runs as CUDA graphs (``core/executor.py``).
+
 Not ported yet: sharded serving over several devices (``mesh=``; ROADMAP
-Queue 1, item 8) and AOT bundles (``save_program(aot=True)``; item 9). The
-reference's ``pallas`` -> ``xla`` degradation is deliberately not ported:
-a failed ``hopper`` batch is never re-run on the aten lowering (ROADMAP).
+Queue 1, item 8). The reference's ``pallas`` -> ``xla`` degradation is
+deliberately not ported: a failed ``hopper`` batch is never re-run on the
+aten lowering (ROADMAP).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import logging
@@ -295,18 +302,22 @@ def _hw_from_dict(d: dict):
     return d.get("repr")
 
 
+def _pow2_buckets(max_batch: int) -> list[int]:
+    """The default session buckets: powers of two below ``max_batch``,
+    then ``max_batch`` itself."""
+    buckets, b = [], 1
+    while b < max_batch:
+        buckets.append(b)
+        b *= 2
+    return buckets + [max_batch]
+
+
 def _fmt_t(seconds: float) -> str:
     if seconds < 1e-3:
         return f"{seconds * 1e6:8.1f} us"
     if seconds < 1.0:
         return f"{seconds * 1e3:8.2f} ms"
     return f"{seconds:8.3f} s "
-
-
-def _aot_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: AOT bundles are not ported (ROADMAP Queue 1, item 9); "
-        f"save and load the plain program.json document instead")
 
 
 # ---------------------------------------------------------------------------
@@ -562,10 +573,16 @@ class Accelerator:
         reference's ``hybriddnn-program/v1`` JSON document, key for key, so
         :meth:`from_program` — of either package — rebuilds this
         accelerator without re-running the DSE. Params are NOT saved (they
-        are the model's weights — supply them at load time). ``aot=True``
-        (a bundle of compiled executors) is not ported."""
-        if aot:
-            raise _aot_not_ported("save_program(aot=True)")
+        are the model's weights — supply them at load time).
+
+        ``aot=True`` writes a **bundle directory** instead: ``program.json``
+        (the same document) plus ``aot/`` holding one ``torch.export``
+        artifact per executor entry — every serving ``bucket`` with
+        ``donate_input=True`` (the :class:`ServingSession` hot path;
+        default: the session's power-of-two buckets up to ``self.batch``)
+        and the direct entry at ``self.batch`` with ``False``. A bundle
+        loaded by :meth:`from_program` serves without lowering; see
+        ``repro_torch.core.aot`` for the keying and fallback."""
         if self.program is None:
             raise ValueError("segmented accelerators hold multiple Programs; "
                              "save_program supports the single-Program path")
@@ -593,8 +610,29 @@ class Accelerator:
                 "digest": self.quant.digest(self.program.schedule_key()),
             },
         }
-        with open(path, "w") as f:
+        if not aot:
+            with open(path, "w") as f:
+                json.dump(doc, f)
+            return path
+        rt = self.runtime
+        if rt is None or rt.strict:
+            raise ValueError("aot=True needs the cached-executor runtime — "
+                             "strict-interpreter accelerators have no "
+                             "compiled executable to export")
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "program.json"), "w") as f:
             json.dump(doc, f)
+        aot_dir = os.path.join(path, "aot")
+        if buckets is None:
+            buckets = _pow2_buckets(self.batch)
+        in_shape = tuple(self.input_shape)
+        dt = self.input_dtype
+        for b in sorted({int(b) for b in buckets}):
+            # the serving hot path: bucket entries take the staged input
+            rt.export_aot(aot_dir, (b, *in_shape), dt, donate_input=True)
+        # the direct acc(x) path: batch-sized, no donation
+        rt.export_aot(aot_dir, (self.batch, *in_shape), dt,
+                      donate_input=False)
         return path
 
     @classmethod
@@ -612,8 +650,12 @@ class Accelerator:
         quantized image. ``backend``/``opt_level``/``device`` are chosen
         as in :meth:`build`: the saved stream is agnostic to all three.
 
-        ``path`` may be a directory holding ``program.json``; one with an
-        ``aot/`` bundle is refused (not ported). Malformed input —
+        ``path`` may be a directory holding ``program.json``: an AOT
+        bundle written by ``save_program(..., aot=True)``, whose ``aot/``
+        the runtime loads executor entries from whenever the full artifact
+        key (this host's device, torch and CUDA versions and kernel digest
+        included) matches; stale artifacts fall back to a fresh build with
+        the reason logged on ``repro_torch.aot``. Malformed input —
         truncated/non-JSON file, unknown format version, instruction-stream
         drift, a quant sidecar whose digest is bound to another schedule,
         a directory without ``program.json`` — raises
@@ -623,6 +665,7 @@ class Accelerator:
             raise ValueError(
                 "saved programs carry no weights — pass params=[...] "
                 "(api.random_params(specs, seed) for stand-ins)")
+        aot_dir = None
         doc_path = path
         if os.path.isdir(path):
             doc_path = os.path.join(path, "program.json")
@@ -630,8 +673,8 @@ class Accelerator:
                 raise ProgramLoadError(
                     f"{path}: directory is not an AOT bundle — no "
                     f"program.json inside")
-            if os.path.isdir(os.path.join(path, "aot")):
-                raise _aot_not_ported(f"{path}: an AOT bundle")
+            d = os.path.join(path, "aot")
+            aot_dir = d if os.path.isdir(d) else None
         try:
             with open(doc_path) as f:
                 doc = json.load(f)
@@ -677,7 +720,7 @@ class Accelerator:
                             candidates_searched=d["candidates_searched"])
         rt = HybridRuntime(program, backend=backend, opt_level=opt_level,
                            strict=strict, cache=cache, device=device,
-                           quant=quant)
+                           quant=quant, aot_dir=aot_dir)
         rt.load_params(params)
         if not strict:
             rt.cache.validate(program)
@@ -720,10 +763,11 @@ class SessionStats:
     # stays 0: a failed hopper batch is bisected, never re-run on aten
     degraded: int = 0
     watchdog_restarts: int = 0   # pipeline restarts after a dead thread
-    # first-use cost per bucket: the executor's lowering and, on the card,
-    # the kernel library's build on the first launch of the process
-    # (warmup or first batch). warm_load_ms is the reference's AOT
-    # warm-start counter; it stays 0 until AOT bundles are ported.
+    # first-use cost per bucket (warmup or first batch): on the card the
+    # entry's warm-up run and CUDA-graph capture, and the kernel library's
+    # build on the first launch of the process. It counts to warm_load_ms
+    # when the bucket's entry was loaded from an AOT bundle (with the
+    # artifact's load when the session opens), to compile_ms otherwise.
     compile_ms: float = 0.0
     warm_load_ms: float = 0.0
     # device index -> batches dispatched there
@@ -878,10 +922,11 @@ class _Request:
 
 class _Stage:
     """One staging entry of a bucket: a host input buffer (pinned on a CUDA
-    session, so its copy to the card is asynchronous), the entry's own
-    device input buffer (steady batches allocate no fresh input) and a
-    pinned host buffer for the logits, made at warmup or at the entry's
-    first batch.
+    session, so its copy to the card is asynchronous), a device input
+    buffer for a bucket served through ``acc(x)`` (segmented and strict
+    accelerators; an executor entry copies the pinned buffer straight into
+    its CUDA graph's static input) and a pinned host buffer for the
+    logits, made at warmup or at the entry's first batch.
 
     An entry is bound to one pipeline slot: taken when its batch is staged
     and given back only where that batch's slot is released. ``fence`` is
@@ -891,11 +936,13 @@ class _Stage:
 
     __slots__ = ("host_t", "host", "dev", "out", "fence")
 
-    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device,
+                 device_buffer: bool):
         pin = device.type == "cuda"
         self.host_t = torch.empty(shape, dtype=dtype, pin_memory=pin)
         self.host = self.host_t.numpy()   # the numpy view callers fill
-        self.dev = torch.empty(shape, dtype=dtype, device=device)
+        self.dev = (torch.empty(shape, dtype=dtype, device=device)
+                    if device_buffer else None)
         self.out: torch.Tensor | None = None
         self.fence = None
 
@@ -915,6 +962,25 @@ class _InFlight:
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.int8: np.int8}
 
 
+@contextlib.contextmanager
+def settled_heap():
+    """Serve inside this block from a settled heap: one full garbage
+    collection first, then every object alive at that point is frozen
+    out of the collector until the block ends (``gc.freeze``). A full
+    collection stops every thread of the process; over an unsettled heap
+    it took 83-237 ms on the H100 host, long enough to queue a window's
+    slowest twentieth of requests behind it (``PERF.md`` §6). Wrap
+    the traffic of a serving process after its accelerators are built and
+    warm (the serve CLI's ``--session`` does); the freeze is process-wide,
+    so do not nest it."""
+    gc.collect()
+    gc.freeze()
+    try:
+        yield
+    finally:
+        gc.unfreeze()
+
+
 class ServingSession:
     """Padding-bucketed request-batching queue over the cached executor,
     with pipelined dispatch.
@@ -928,12 +994,14 @@ class ServingSession:
 
     The hot path is **pipelined**, the software analog of the paper's
     LOAD/COMP/SAVE overlap. The dispatch worker stages a batch in a pinned
-    host buffer, copies it to the entry's device input buffer
-    (``non_blocking``), launches the executor, enqueues the logits' copy
-    into a pinned host buffer and records a CUDA event — all on ONE stream
-    (the one current when the session opened), since the kernels read the
-    thread's current stream and their workspaces come from the caching
-    allocator. A separate drain thread waits on each batch's event only
+    host buffer and hands it to the bucket's executor entry
+    (``donate_input=True``), which copies it (``non_blocking``) straight
+    into its CUDA graph's static input and replays the graph; the worker
+    then enqueues the logits' copy into a pinned host buffer and records a
+    CUDA event — all on ONE stream (the one current when the session
+    opened), since the kernels and the graph replays read the thread's
+    current stream, and every batch of a bucket shares the graph's static
+    buffers, which only that stream's order keeps apart. A separate drain thread waits on each batch's event only
     and resolves its futures, so host staging of batch i+1 overlaps the
     device work of batch i. Outstanding device batches are hard-capped at
     the slot pool's capacity (3: one being drained, one executing, one
@@ -963,7 +1031,8 @@ class ServingSession:
       the window expires regardless of pipeline state.
 
     ``stats`` records request/batch counts, the first-use time of each
-    bucket (``compile_ms``), recent windows of per-request latency
+    bucket (``compile_ms``, or ``warm_load_ms`` for an entry loaded from an
+    AOT bundle), recent windows of per-request latency
     (``p50_ms()`` / ``p95_ms()``) and queue wait (``wait_p50_ms()``),
     per-device batch counts and padding ``occupancy()``. ``slot_pool``
     shares the pipeline slots with other sessions (a :class:`Fleet`).
@@ -1036,11 +1105,7 @@ class ServingSession:
         self.scheduler = scheduler
         self.max_batch = int(max_batch)
         if buckets is None:
-            buckets, b = [], 1
-            while b < self.max_batch:
-                buckets.append(b)
-                b *= 2
-            buckets.append(self.max_batch)
+            buckets = _pow2_buckets(self.max_batch)
         self.buckets = tuple(sorted({int(b) for b in buckets}))
         if self.buckets[-1] < self.max_batch or self.buckets[0] < 1:
             raise ValueError(
@@ -1099,15 +1164,20 @@ class ServingSession:
         self._sup_thread: threading.Thread | None = None
 
         # hot path: one cached executor entry per bucket (validated once,
-        # lowered once per bucket). Falls back to acc(x) for segmented /
-        # strict accelerators.
+        # lowered or loaded once per bucket), taking the staged input
+        # (donate_input). Falls back to acc(x) for segmented / strict
+        # accelerators. With an AOT bundle the artifact loads HERE, inside
+        # executor_entry -> cache.get: it counts as warm-load time
         self._entries: dict[int, Any] = {}
         self._params = None
         rt = acc.runtime
         if rt is not None and not rt.strict:
             for b in self.buckets:
+                t0 = time.monotonic()
                 self._entries[b], self._params = rt.executor_entry(
-                    b, self._in_torch_dtype)
+                    b, self._in_torch_dtype, donate_input=True)
+                if self._entries[b].aot_loaded:
+                    self.stats.warm_load_ms += (time.monotonic() - t0) * 1e3
 
         # completion pipeline: dispatched-but-unresolved batches, FIFO,
         # bounded by the slot pool (a hard cap: the drainer holds its slot
@@ -1146,8 +1216,7 @@ class ServingSession:
                         for stage in self._free_stages[b]:
                             stage.out = torch.empty(
                                 y.shape, dtype=y.dtype, pin_memory=True)
-                self.stats.compile_ms += (time.monotonic() - t0) * 1e3
-                self._warm.add(b)
+                self._count_first_use(b, t0)
 
         self._start_pipeline_threads()
         if supervise:
@@ -1159,7 +1228,20 @@ class ServingSession:
     def _new_stage(self, bucket: int) -> _Stage:
         with self._on_stream():   # the device buffer lives on this stream
             return _Stage((bucket, *self._in_shape), self._in_torch_dtype,
-                          self._device)
+                          self._device,
+                          device_buffer=bucket not in self._entries)
+
+    def _count_first_use(self, bucket: int, t0: float):
+        """A bucket's first-use stall counts to ``warm_load_ms`` when its
+        entry was loaded from an AOT bundle (nothing was lowered), to
+        ``compile_ms`` otherwise."""
+        dt = (time.monotonic() - t0) * 1e3
+        entry = self._entries.get(bucket)
+        if entry is not None and entry.aot_loaded:
+            self.stats.warm_load_ms += dt
+        else:
+            self.stats.compile_ms += dt
+        self._warm.add(bucket)
 
     def _take_stage(self, bucket: int) -> _Stage:
         """A free staging entry of ``bucket`` for a batch whose slot the
@@ -1654,10 +1736,12 @@ class ServingSession:
     def _launch(self, bucket, stage: _Stage, group):
         """Launch a staged batch — no host sync. The fault harness's
         ``dispatch`` and ``execute`` sites fire here. On the card: the
-        staged input's asynchronous copy into the entry's device buffer,
-        the executor, the logits' asynchronous copy into the entry's pinned
-        output buffer and an event, all on the session's stream; the drain
-        thread (or the bulk path) waits on the event."""
+        staged input's asynchronous copy into the bucket entry's graph
+        input (or, through ``acc(x)``, into the staging entry's device
+        buffer), the graph's replay, the logits' asynchronous copy into the
+        staging entry's pinned output buffer and an event, all on the
+        session's stream; the drain thread (or the bulk path) waits on the
+        event."""
         if self._faults is not None:
             rids = [r.rid for r in group]
             self._faults.visit("dispatch", requests=rids)
@@ -1668,8 +1752,11 @@ class ServingSession:
         first_use = bucket not in self._warm
         t0 = time.monotonic()
         with self._on_stream():
-            stage.dev.copy_(stage.host_t, non_blocking=True)
-            y = self._run_bucket(stage.dev)
+            if stage.dev is None:
+                y = self._entries[bucket](self._params, stage.host_t)
+            else:
+                stage.dev.copy_(stage.host_t, non_blocking=True)
+                y = self.acc(stage.dev)
             if self._cuda:
                 if (stage.out is None or stage.out.shape != y.shape
                         or stage.out.dtype != y.dtype):
@@ -1680,8 +1767,7 @@ class ServingSession:
                 event.record(self._stream)
                 y = _InFlight(stage.out, event)
         if first_use:
-            self.stats.compile_ms += (time.monotonic() - t0) * 1e3
-            self._warm.add(bucket)
+            self._count_first_use(bucket, t0)
         return y
 
     # -- failure handling ---------------------------------------------------

@@ -55,12 +55,17 @@ The verdicts equal the reference's for the matching backend.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
+import weakref
+from collections import OrderedDict
 from typing import Callable
 
 import torch
 
 from repro_torch.compat import resolve_backend
 from repro_torch.core import layouts
+from repro_torch.core import winograd as wino
 from repro_torch.core.compiler import CompiledLayer, Program
 from repro_torch.core.hybrid_conv import (
     dense,
@@ -70,6 +75,11 @@ from repro_torch.core.hybrid_conv import (
     same_pad,
 )
 from repro_torch.core.isa import Opcode, unpack_dw_geom, unpack_fc_dims
+from repro_torch.kernels.common import (
+    add_launches,
+    holding_constants,
+    recording_launches,
+)
 from repro_torch.core.winograd import (
     transform_weights,
     winograd_apply_pretransformed,
@@ -549,12 +559,13 @@ def _layer_forward_stacked(cl: CompiledLayer, w_eff: torch.Tensor,
     x_slab = slice_input_span(cl, x, 0, ho)
     y = conv_block_forward(cl, x_slab, w_eff, bias, False,
                            backend=backend)[:, :ho]
-    mask = torch.zeros((ho, cl.spec.k), dtype=torch.bool)
+    # filled on the device (no host copy, so a CUDA graph can capture it)
+    mask = torch.zeros((ho, cl.spec.k), dtype=torch.bool, device=y.device)
     for kg, (lo, hi) in enumerate(cl.k_groups):
         for ih, (r0, r1) in enumerate(cl.row_groups):
-            mask[r0:r1, lo:hi] = lowering.relu_blocks[kg][ih]
-    mask = mask.to(y.device)[None, :, None, :]
-    return torch.where(mask, torch.relu(y), y)
+            if lowering.relu_blocks[kg][ih]:
+                mask[r0:r1, lo:hi] = True
+    return torch.where(mask[None, :, None, :], torch.relu(y), y)
 
 
 def _layer_forward(cl: CompiledLayer, w_eff: torch.Tensor, bias: torch.Tensor,
@@ -620,7 +631,7 @@ def fc_forward(cl: CompiledLayer, w: torch.Tensor, bias: torch.Tensor,
     x = x.reshape(x.shape[0], -1)
     if quant is not None:
         return qdense(x, w, bias,
-                      mult=layer_multiplier(quant, x.device), relu=relu,
+                      mult=layer_multiplier(quant, x.device, None), relu=relu,
                       backend=backend)
     return dense(x, w, bias, relu=relu, backend=backend)
 
@@ -652,7 +663,7 @@ def depthwise_forward(cl: CompiledLayer, w: torch.Tensor, bias: torch.Tensor,
     x = layouts.load_view(x_stored, cl.inp_layout, hw=(cl.spec.h, cl.spec.w))
     if quant is not None:
         return qdepthwise(x, w, bias,
-                          mult=layer_multiplier(quant, x.device),
+                          mult=layer_multiplier(quant, x.device, None),
                           stride=cl.spec.stride, padding=cl.spec.padding,
                           relu=relu)
     return depthwise_conv2d(x, w, bias, stride=cl.spec.stride,
@@ -794,33 +805,240 @@ def lower_program(program: Program, *, backend: str = "torch",
 
 
 # ---------------------------------------------------------------------------
-# Compiled executor: validation + lowering, with build accounting
+# Compiled executor: validation + lowering, captured into CUDA graphs
 # ---------------------------------------------------------------------------
+
+# graphs an entry keeps, one per (stream, weight set) it served most
+# recently; the least recently replayed one is dropped past this bound (its
+# pool memory returns to the stream's pool)
+GRAPHS_PER_ENTRY = 4
+
+# one private memory pool, one capture stream and one lock per (device,
+# stream): every graph replayed on a stream shares its pool (captured on
+# one side stream, so the allocator can hand one capture's freed blocks to
+# the next), and a replay holds the lock from the copy into its static
+# input to the copy out of its static output, so replays on the stream
+# never interleave and no output is read after another graph reused its
+# memory. Graphs replayed on different streams never share a pool.
+_stream_pools: dict[tuple[int, int], tuple] = {}
+_stream_pools_lock = threading.Lock()
+
+
+def _stream_pool(device: torch.device, stream):
+    """``(pool, capture stream, lock)`` of the graphs replayed on
+    ``stream``."""
+    key = (device.index, stream.cuda_stream)
+    with _stream_pools_lock:
+        got = _stream_pools.get(key)
+        if got is None:
+            got = _stream_pools[key] = (torch.cuda.graph_pool_handle(),
+                                        torch.cuda.Stream(device),
+                                        threading.Lock())
+    return got
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One capture of an entry: the graph, its static input and output,
+    weak references to the params it was captured over, the cached device
+    constants the capture read (kept: the cache may evict them while the
+    graph reads their addresses), the kernel launches the capture recorded
+    and its stream's lock."""
+    graph: "torch.cuda.CUDAGraph"
+    x: torch.Tensor
+    y: torch.Tensor
+    params: tuple
+    constants: list
+    launches: dict[str, int]
+    lock: threading.Lock
+
+    def alive(self) -> bool:
+        """Every param it was captured over is still referenced outside
+        the graph. A dead one may have freed its memory, so the graph is
+        dropped, never replayed."""
+        return all(ref() is not None for ref in self.params)
+
+
+def _params_key(params: list) -> tuple:
+    return tuple(t.data_ptr() for p in params for t in p)
+
+
+class _GraphTable:
+    """An entry's graphs by ``(stream, data_ptr of every param)``: at most
+    ``bound``, the least recently used dropped first, and a graph whose
+    params died dropped at the next lookup or insert."""
+
+    def __init__(self, bound: int):
+        self.bound = bound
+        self._graphs: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def get(self, key):
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is None:
+                return None
+            if not g.alive():
+                del self._graphs[key]
+                return None
+            self._graphs.move_to_end(key)
+            return g
+
+    def put(self, key, g) -> None:
+        with self._lock:
+            for k in [k for k, v in self._graphs.items() if not v.alive()]:
+                del self._graphs[k]
+            self._graphs[key] = g
+            while len(self._graphs) > self.bound:
+                self._graphs.popitem(last=False)
+
 
 @dataclasses.dataclass
 class CompiledExecutor:
-    """The lowered executor for one ``(Program, batch, dtype, backend,
-    opt_level, device, quant)`` entry."""
+    """The executor for one ``(Program, batch, dtype, backend, opt_level,
+    donate_input, device, quant)`` entry.
+
+    On a CUDA device an entry runs as CUDA graphs, the port's counterpart
+    of the reference's trace-once ``jax.jit``: the first call on a stream
+    over a set of weights runs the lowered function once uncaptured (the
+    warm-up: kernel attributes, allocator, device constants) and returns
+    its result, then captures the function into one ``torch.cuda.CUDAGraph``
+    with a static input and output; later calls copy ``x`` into the static
+    input, replay the graph and return a clone of the static output, which
+    the caller owns. The graph reads the weights by address, so it is kept
+    per ``(stream, data_ptr of every param)``: a call over other weights (a
+    reloaded program of the same schedule) captures anew, and a graph is
+    never replayed over weights it was not captured with, nor once one of
+    them is no longer referenced outside it (``GRAPHS_PER_ENTRY`` graphs at
+    most, least recently used dropped first). It keeps the cached device
+    constants its capture read (the requantize multipliers). ``trace_count``
+    counts the captures (0 on the CPU, where ``fn`` runs as it is). A
+    failed capture raises; nothing falls back to the uncaptured path.
+
+    ``donate_input`` (the reference's input donation) marks an entry whose
+    caller hands over its input buffer until the batch completes: it may
+    pass a pinned host tensor, copied straight into the static input on
+    the caller's stream (the serving session's staging). ``aot_loaded``:
+    ``fn`` came from an AOT bundle (``core/aot.py``), not a lowering
+    (``build_count`` 0).
+    """
     program: Program
     stats: dict[str, int]          # schedule-validation pipeline counters
-    fn: Callable                   # execute(params, x)
-    build_count: int = 1           # lowerings behind this entry (always 1)
+    fn: Callable                   # execute(params, x), uncaptured
+    build_count: int = 1           # lowerings behind this entry (0 or 1)
     backend: str = "torch"
     opt_level: int = 1
+    donate_input: bool = False     # the caller hands x over (see above)
+    aot_loaded: bool = False       # fn deserialized from an AOT bundle
     # the device the executor's tensors live on; no default, so a card's
     # executor is never labelled as the CPU's
     device: str = dataclasses.field(kw_only=True)
+    _graphs: _GraphTable = dataclasses.field(
+        default_factory=lambda: _GraphTable(GRAPHS_PER_ENTRY), repr=False)
+    _trace_count: int = dataclasses.field(default=0, repr=False)
+    # host ms from the capture's start to its end, of the last capture
+    last_capture_ms: float = dataclasses.field(default=0.0, repr=False)
+    _capture_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False)
+
+    @property
+    def trace_count(self) -> int:
+        """CUDA-graph captures behind this entry (the retrace probe)."""
+        return self._trace_count
 
     def __call__(self, params: list, x_nhwc: torch.Tensor) -> torch.Tensor:
-        """``params`` is the DRAM weight image (see :func:`to_dram_params`)."""
+        """``params`` is the DRAM weight image (see :func:`to_dram_params`);
+        on a CUDA entry ``x_nhwc`` may lie on the card or, pinned, on the
+        host."""
         with torch.no_grad():
-            return self.fn(params, x_nhwc)
+            if not self.device.startswith("cuda"):
+                return self.fn(params, x_nhwc)
+            return self._replay(params, x_nhwc)
+
+    def _replay(self, params: list, x: torch.Tensor) -> torch.Tensor:
+        device = torch.device(self.device)
+        stream = torch.cuda.current_stream(device)
+        key = (stream.cuda_stream, _params_key(params))
+        while (g := self._graphs.get(key)) is None:
+            y = self._capture(key, params, x, device, stream)
+            if y is not None:
+                return y
+            # another thread captured it first: look it up again
+        if tuple(x.shape) != tuple(g.x.shape) or x.dtype != g.x.dtype:
+            raise ValueError(f"executor entry takes {tuple(g.x.shape)} "
+                             f"{g.x.dtype}, got {tuple(x.shape)} {x.dtype}")
+        with g.lock:
+            if x.data_ptr() != g.x.data_ptr():
+                g.x.copy_(x, non_blocking=True)
+            g.graph.replay()
+            y = g.y.clone()
+            add_launches(g.launches)
+        return y
+
+    def _capture(self, key, params: list, x: torch.Tensor,
+                 device: torch.device, stream) -> torch.Tensor:
+        """Warm up, then capture this entry's graph for ``key``; returns the
+        warm-up's result, or None when another thread captured ``key``
+        meanwhile."""
+        pool, side, lock = _stream_pool(device, stream)
+        with self._capture_lock, lock:
+            if self._graphs.get(key) is not None:
+                return None
+            # the warm-up: its result answers this call
+            x_dev = x.to(device, non_blocking=True)
+            y = self.fn(params, x_dev)
+            static_x = torch.empty_like(x_dev)
+            static_x.copy_(x_dev)
+            graph = torch.cuda.CUDAGraph()
+            side.wait_stream(stream)
+            # thread-local capture: the session's drain thread and other
+            # streams keep working (event waits, pinned copies) meanwhile
+            t0 = time.perf_counter()
+            with (torch.cuda.stream(side), recording_launches() as counts,
+                  holding_constants() as constants):
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    static_y = self.fn(params, static_x)
+                finally:
+                    graph.capture_end()
+            stream.wait_stream(side)
+            self.last_capture_ms = (time.perf_counter() - t0) * 1e3
+            self._graphs.put(key, _Graph(
+                graph, static_x, static_y,
+                tuple(weakref.ref(t) for p in params for t in p), constants,
+                {k: v for k, v in counts.items() if v}, lock))
+            self._trace_count += 1
+        return y
+
+
+def warm_device_constants(program: Program, *, backend: str,
+                          device, quant: QuantSidecar | None = None) -> None:
+    """Make the device constants the lowered function reads (requantize
+    multipliers, the torch backend's Winograd matrices) before its first
+    call, so neither a CUDA graph's capture nor ``torch.export``'s trace
+    creates one."""
+    device = torch.device(device)
+    for cl in program.layers:
+        if quant is not None and cl.kind in ("conv", "fc", "dw"):
+            lq = quant.layers[cl.layer_id]
+            layer_multiplier(lq, device, None)
+            if cl.kind == "conv":
+                for lo, hi in cl.k_groups:
+                    layer_multiplier(lq, device, (lo, hi))
+        if (cl.kind == "conv" and cl.plan.mode == "wino"
+                and backend == "torch"):
+            for which in range(3):
+                wino._matrix(cl.plan.m, which, device)
 
 
 def compile_executor(program: Program,
                      stats: dict[str, int] | None = None, *,
                      backend: str = "torch", opt_level: int = 1,
-                     device,
+                     donate_input: bool = False, device,
                      quant: QuantSidecar | None = None) -> CompiledExecutor:
     """Validate (unless pre-validated stats are supplied) and lower
     (through the int8 PE when ``quant`` is set)."""
@@ -830,6 +1048,9 @@ def compile_executor(program: Program,
     opt_level = resolve_opt_level(opt_level)
     execute = lower_program(program, backend=backend, opt_level=opt_level,
                             quant=quant)
+    warm_device_constants(program, backend=backend, device=device,
+                          quant=quant)
     return CompiledExecutor(program=program, stats=dict(stats), fn=execute,
                             backend=backend, opt_level=opt_level,
+                            donate_input=bool(donate_input),
                             device=str(device))

@@ -228,9 +228,11 @@ def hybrid_conv2d(
 ) -> torch.Tensor:
     """Run one convolution on the hybrid PE in the requested mode (fp32).
 
-    Winograd mode takes 3x3 kernels at stride 1: the weights go through
+    Winograd mode runs at stride 1. A 3x3 kernel goes through
     :func:`winograd.transform_weights` and then the pretransformed path,
-    exactly as the executor runs U-space weights from DRAM.
+    exactly as the executor runs U-space weights from DRAM; any other R x S
+    through the kernel decomposition (``winograd_conv2d_reference`` on
+    ``"torch"``, ``kernels.winograd.winograd_conv2d`` on ``"hopper"``).
     """
     resolve_backend(backend)
     if backend == "torch" and dataflow != "is":
@@ -244,6 +246,15 @@ def hybrid_conv2d(
             raise ValueError("Winograd mode requires stride 1")
         if not isinstance(padding, str):
             raise ValueError("Winograd mode takes 'SAME' or 'VALID' padding")
+        if tuple(g_rsck.shape[:2]) != (wino.R_WINO, wino.R_WINO):
+            if backend == "hopper":
+                from repro_torch.kernels.winograd import winograd_conv2d
+                return winograd_conv2d(x_nhwc, g_rsck, bias, m=m,
+                                       padding=padding, relu=relu,
+                                       dataflow=dataflow)
+            y = wino.winograd_conv2d_reference(x_nhwc, g_rsck, m=m,
+                                               padding=padding)
+            return _epilogue(y, bias, relu)
         u = wino.transform_weights(g_rsck, m)
         if backend == "hopper":
             from repro_torch.kernels.winograd import (

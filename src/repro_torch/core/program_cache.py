@@ -1,17 +1,27 @@
 """Compiled-program cache: one lowered executor per full key.
 
 The cache key is ``(program.schedule_key(), batch, dtype, param_dtypes,
-backend, opt_level, device, quant digest)``:
+backend, opt_level, donate_input, device, quant digest)``:
 
 * ``schedule_key()`` is a content hash over the encoded 128-bit instruction
   stream plus the per-layer geometry, bit-equal to the reference package's
   key for the same specs and plans.
 * ``batch``, ``dtype`` and the per-layer weight dtypes name the request
-  shape the entry serves.
+  shape the entry serves (dtype names as the reference spells them:
+  ``"float32"``, ``"int8"``).
 * ``backend`` ("torch" | "hopper") and ``opt_level`` change the lowering
   itself, and ``device`` where it runs, so each gets its own entry.
+* ``donate_input``, in the reference's position: a donating entry's caller
+  hands its input buffer over (a serving session's staging), and its CUDA
+  graphs' static buffers are never shared with the direct ``acc(x)`` entry.
 * the quant sidecar's ``digest()`` (``None`` for fp32): two calibrations of
   one Program never share an entry.
+
+Every component is a content digest or a resolved scalar, so the key is the
+same in every process; ``core/aot.py`` keys its artifacts by it.
+``aot_dir`` names an AOT bundle: a miss loads the entry's exported program
+from it when its artifact key matches (``stats.aot_loads``), and otherwise
+lowers afresh with the reason logged.
 
 Schedule validation runs **once per schedule key** (not per entry). Entries
 are LRU-evicted beyond ``maxsize``; a schedule's validation stats go with
@@ -44,15 +54,23 @@ class CacheStats:
     misses: int = 0
     evictions: int = 0
     validated_evictions: int = 0    # validation-stat entries dropped
+    aot_loads: int = 0              # misses served from a disk artifact
+
+
+def dtype_name(dtype) -> str:
+    """``torch.float32``, ``"float32"`` or a numpy dtype -> ``"float32"``."""
+    return str(dtype).removeprefix("torch.")
 
 
 def cache_key(program: Program, *, batch: int, dtype,
               param_dtypes: tuple = (), backend: str = "torch",
-              opt_level: int = 1, device, quant=None) -> tuple:
+              opt_level: int = 1, donate_input: bool = False, device,
+              quant=None) -> tuple:
     """The cache-key tuple for one executor request, in resolved form."""
-    return (program.schedule_key(), int(batch), str(dtype),
-            tuple(param_dtypes), resolve_backend(backend),
-            resolve_opt_level(opt_level), str(torch.device(device)),
+    return (program.schedule_key(), int(batch), dtype_name(dtype),
+            tuple(dtype_name(d) for d in param_dtypes),
+            resolve_backend(backend), resolve_opt_level(opt_level),
+            bool(donate_input), str(torch.device(device)),
             quant.digest() if quant is not None else None)
 
 
@@ -111,13 +129,15 @@ class ProgramCache:
 
     def get(self, program: Program, *, batch: int, dtype,
             param_dtypes: tuple = (), backend: str = "torch",
-            opt_level: int = 1, device,
-            quant=None) -> CompiledExecutor:
+            opt_level: int = 1, donate_input: bool = False, device,
+            quant=None, aot_dir: str | None = None) -> CompiledExecutor:
         """The executor for ``program`` at this batch/dtype/backend/
-        opt_level/device/quant sidecar (lowered on a miss)."""
+        opt_level/donation/device/quant sidecar (lowered on a miss, or
+        loaded from the AOT bundle ``aot_dir`` when it holds this key)."""
         key = cache_key(program, batch=batch, dtype=dtype,
                         param_dtypes=param_dtypes, backend=backend,
-                        opt_level=opt_level, device=device, quant=quant)
+                        opt_level=opt_level, donate_input=donate_input,
+                        device=device, quant=quant)
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None:
@@ -125,9 +145,21 @@ class ProgramCache:
                 self.stats.hits += 1
                 return entry
         stats = self.validate(program)
-        entry = compile_executor(program, stats=stats, backend=key[4],
-                                 opt_level=key[5], device=key[6],
-                                 quant=quant)
+        entry = None
+        if aot_dir is not None:
+            from repro_torch.core import aot
+            fn = aot.load_entry(aot_dir, key)
+            if fn is not None:
+                entry = CompiledExecutor(
+                    program=program, stats=dict(stats), fn=fn,
+                    build_count=0, backend=key[4], opt_level=key[5],
+                    donate_input=key[6], aot_loaded=True, device=key[7])
+                with self._lock:
+                    self.stats.aot_loads += 1
+        if entry is None:
+            entry = compile_executor(program, stats=stats, backend=key[4],
+                                     opt_level=key[5], donate_input=key[6],
+                                     device=key[7], quant=quant)
         with self._lock:
             # a racing thread may have built the same key meanwhile: first
             # insert wins so every caller holds the same executor

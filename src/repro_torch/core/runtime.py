@@ -78,18 +78,21 @@ class HybridRuntime:
     CUDA, raising when it is absent), and ``quant`` switches every
     parameterized block to the int8 PE (params must then be the quantized
     image, ``quant.quantize_params``; the sidecar's digest joins the
-    program-cache key).
+    program-cache key). ``aot_dir`` names an AOT bundle's artifact
+    directory (``core/aot.py``): executor entries load from it on a cache
+    miss when their key matches.
     """
 
     def __init__(self, program: Program, *, backend: str = "torch",
                  opt_level: int = 1, strict: bool = False, cache=None,
-                 device=None, quant=None):
+                 device=None, quant=None, aot_dir: str | None = None):
         self.program = program
         self.backend = resolve_backend(backend)
         self.opt_level = resolve_opt_level(opt_level)
         self.strict = strict
         self.device = resolve_device(device)
         self.quant = quant
+        self.aot_dir = aot_dir
         self._cache = cache
         self.dram: dict[int, Any] = {}
         self._loaded = False
@@ -134,9 +137,17 @@ class HybridRuntime:
                 for cl in self.program.layers
                 if cl.kind not in ("pool", "eltwise")]
 
-    def executor_entry(self, batch: int, dtype=torch.float32):
+    def executor_entry(self, batch: int, dtype=torch.float32, *,
+                       donate_input: bool = False):
         """The cached executor + DRAM weight image for (batch, dtype).
-        Schedule validation runs once per schedule key (cached)."""
+        Schedule validation runs once per schedule key (cached).
+
+        The serving hot path: a caller holding a fixed parameter set (the
+        ``ServingSession``) invokes ``entry(params, x)`` directly.
+        ``donate_input=True`` asks for the entry whose caller hands its
+        input buffer over until the batch completes (the session's pinned
+        staging, copied straight into the entry's CUDA graph); the direct
+        ``run`` path keeps ``False``."""
         if self.strict:
             raise RuntimeError(
                 "strict interpreter mode has no cached executor entry")
@@ -146,8 +157,37 @@ class HybridRuntime:
             self.program, batch=batch, dtype=dtype,
             param_dtypes=tuple(str(w.dtype) for w, _ in params),
             backend=self.backend, opt_level=self.opt_level,
-            device=self.device, quant=self.quant)
+            donate_input=donate_input, device=self.device, quant=self.quant,
+            aot_dir=self.aot_dir)
         return entry, params
+
+    def export_aot(self, aot_dir: str, x_shape, dtype, *,
+                   donate_input: bool = False) -> str:
+        """Export the executor for input shape ``x_shape`` (batch leading)
+        into ``aot_dir``, keyed by the full program-cache key plus the
+        environment fingerprint (``core/aot.py``); returns the artifact
+        digest. The export traces fake tensors: no device math runs."""
+        from repro_torch.core import aot
+        from repro_torch.core.executor import compile_executor
+        from repro_torch.core.program_cache import cache_key
+
+        batch = int(x_shape[0])
+        entry, params = self.executor_entry(batch, dtype,
+                                            donate_input=donate_input)
+        if entry.aot_loaded:
+            # a loaded program holds no lowered function to trace: lower
+            # one, so re-exporting a warm-loaded runtime still works
+            entry = compile_executor(
+                self.program, stats=self.stats, backend=self.backend,
+                opt_level=self.opt_level, donate_input=donate_input,
+                device=self.device, quant=self.quant)
+        key = cache_key(
+            self.program, batch=batch, dtype=dtype,
+            param_dtypes=tuple(str(w.dtype) for w, _ in params),
+            backend=self.backend, opt_level=self.opt_level,
+            donate_input=donate_input, device=self.device, quant=self.quant)
+        return aot.save_entry(aot_dir, entry, params, tuple(x_shape), dtype,
+                              key)
 
     def write_input(self, x_nhwc: torch.Tensor):
         cl0 = self.program.layers[0]

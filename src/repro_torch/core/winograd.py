@@ -12,10 +12,12 @@ and, summed over input channels, the element-wise products split into
 
 which is a batched matmul with leading batch PT^2.
 
-Supported: F(2x2, 3x3) (PT=4) and F(4x4, 3x3) (PT=6). The transforms here
-are the ``backend="torch"`` PE (plain tensor ops on any device); the
-``backend="hopper"`` PE runs the same three stages through the CUDA kernels
-in ``repro_torch.kernels.winograd``.
+Supported: F(2x2, 3x3) (PT=4) and F(4x4, 3x3) (PT=6); larger kernels go
+through the paper's kernel decomposition (Sec. 4.2.5,
+:func:`decompose_kernel`). The transforms here are the ``backend="torch"``
+PE (plain tensor ops on any device); the ``backend="hopper"`` PE runs the
+same three stages through the CUDA kernels in
+``repro_torch.kernels.winograd``.
 
 Layout conventions: feature maps NHWC, kernels HWIO (R, S, C, K).
 """
@@ -84,13 +86,25 @@ def transform_matrices(m: int, dtype=np.float32):
     return (np.asarray(bt, dtype), np.asarray(g, dtype), np.asarray(at, dtype))
 
 
-def _matrix(m: int, which: int, device) -> torch.Tensor:
+@functools.lru_cache(None)
+def _matrix(m: int, which: int, device: torch.device) -> torch.Tensor:
+    """One transform matrix on ``device``, made once per device and never
+    evicted: a request copies nothing from the host, and a CUDA graph may
+    read it by address for as long as the process lives."""
     return torch.from_numpy(transform_matrices(m)[which]).to(device)
 
 
 def pt_for(m: int) -> int:
     """Input tile size PT = m + r - 1."""
     return m + R_WINO - 1
+
+
+def mult_reduction(m: int, r: int = R_WINO) -> float:
+    """Multiplication reduction of F(m,r) vs direct conv: (m*r)^2 / (m+r-1)^2.
+
+    Paper example: F(4x4,3x3) needs 36 mults/tile vs 144 direct -> 4.0x.
+    """
+    return float((m * r) ** 2) / float((m + r - 1) ** 2)
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +118,23 @@ def transform_weights(g_rsck: torch.Tensor, m: int) -> torch.Tensor:
         raise ValueError(f"Winograd weights must be 3x3, got {r}x{s}")
     gm = _matrix(m, 1, g_rsck.device)
     return torch.einsum("ir,rsck,js->ijck", gm, g_rsck.float(), gm)
+
+
+def decompose_kernel(g_rsck: torch.Tensor, m: int
+                     ) -> list[tuple[int, int, torch.Tensor]]:
+    """Paper Sec. 4.2.5 kernel decomposition for R, S > r.
+
+    Splits an (R, S, C, K) kernel into ceil(R/r) x ceil(S/r) zero-padded
+    (r, r, C, K) sub-kernels. Returns a list of ``(offset_h, offset_w,
+    subkernel)``, the offsets being the input shift at which the
+    sub-kernel's partial conv output accumulates.
+    """
+    r = R_WINO
+    rr, ss = g_rsck.shape[:2]
+    nh, nw = -(-rr // r), -(-ss // r)
+    gp = F.pad(g_rsck, (0, 0, 0, 0, 0, nw * r - ss, 0, nh * r - rr))
+    return [(i * r, j * r, gp[i * r:(i + 1) * r, j * r:(j + 1) * r])
+            for i in range(nh) for j in range(nw)]
 
 
 # ---------------------------------------------------------------------------
@@ -192,3 +223,51 @@ def winograd_apply_pretransformed(
     if relu:
         y = torch.relu(y)
     return y
+
+
+def winograd_conv2d_reference(x_nhwc: torch.Tensor, g_rsck: torch.Tensor,
+                              m: int = 4, padding="SAME") -> torch.Tensor:
+    """End-to-end Winograd convolution (stride 1), fp32, plain tensor ops:
+    the oracle and the ``backend="torch"`` path of ``hybrid_conv2d``.
+
+    Handles R, S != 3 through the kernel decomposition: the input is padded
+    once (``padding`` is "SAME", "VALID" or ``((top, bottom), (left,
+    right))``), then extended so every shifted sub-kernel sees a full
+    window, and the pieces' outputs are summed.
+    """
+    rr, ss, c, k = g_rsck.shape
+    if isinstance(padding, str):
+        if padding.upper() == "SAME":
+            ph, pw = (rr - 1) // 2, (ss - 1) // 2
+            pad = ((ph, rr - 1 - ph), (pw, ss - 1 - pw))
+        elif padding.upper() == "VALID":
+            pad = ((0, 0), (0, 0))
+        else:
+            raise ValueError(padding)
+    else:
+        pad = padding
+    (top, bottom), (left, right) = pad
+    x = F.pad(x_nhwc.float(), (0, 0, left, right, top, bottom))
+    n = x.shape[0]
+    ho, wo = x.shape[1] - rr + 1, x.shape[2] - ss + 1
+
+    if (rr, ss) == (R_WINO, R_WINO):
+        pieces = [(0, 0, g_rsck)]
+    else:
+        pieces = decompose_kernel(g_rsck, m)
+        # pad the input so every shifted sub-conv sees a full window
+        extra_h = (-(-rr // R_WINO)) * R_WINO - rr
+        extra_w = (-(-ss // R_WINO)) * R_WINO - ss
+        x = F.pad(x, (0, 0, 0, extra_w, 0, extra_h))
+
+    pt = pt_for(m)
+    acc = None
+    for oh, ow, sub in pieces:
+        xs = x[:, oh:oh + ho + R_WINO - 1, ow:ow + wo + R_WINO - 1, :]
+        tiles, (nh, nw) = tile_input(xs, m)
+        v = transform_input(tiles, m)                          # (PT^2, T, C)
+        u = transform_weights(sub, m).reshape(pt * pt, c, k)
+        mm = torch.bmm(v, u)                                   # the PT^2 GEMMs
+        y = transform_output(mm, m, n, nh, nw)[:, :ho, :wo, :]
+        acc = y if acc is None else acc + y
+    return acc

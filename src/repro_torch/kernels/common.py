@@ -11,11 +11,21 @@ stderr; nothing falls back.
 Each kernel wrapper dispatches on the device of its tensors only: a CPU
 tensor runs the kernel's plain PyTorch version (the analog of Pallas
 interpret mode), a CUDA tensor launches the kernel or raises. ``LAUNCHES``
-counts the launches of each kernel; :func:`launch` adds one per launch and
-nothing else touches the counts except :func:`reset_launches`.
+counts the launches of each kernel; :func:`launch` adds one per launch,
+:func:`add_launches` adds a CUDA graph's recorded launches at each replay,
+and nothing else touches the counts except :func:`reset_launches`.
+
+The five CNN kernels are also ``torch.library`` ops in the ``repro_torch``
+namespace (``torch.ops.repro_torch.<name>``), each with a fake
+implementation, so ``torch.export`` can trace an executor through them
+(``core/aot.py``): their CUDA implementation is the same launch, their CPU
+one the plain version. A wrapper takes the op only while it is traced
+(:func:`traced`); eager calls and CUDA-graph captures go straight to the
+launch, which skips the dispatcher's host time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -86,6 +96,12 @@ _entries: dict[str, ctypes._CFuncPtr] = {}
 BUILD_LOG = ""
 
 
+# while a thread captures a CUDA graph, its launches are recorded here
+# (the kernels run at each replay, not at the capture), and the cached
+# device constants the capture reads are kept here
+_recording = threading.local()
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -93,6 +109,57 @@ def cdiv(a: int, b: int) -> int:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Count a replayed CUDA graph's launches (recorded at its capture)."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's launches go into the yielded dict
+    instead of ``LAUNCHES``: a CUDA graph's capture enqueues its kernels
+    without running them."""
+    counts = dict.fromkeys(KERNELS, 0)
+    prev = getattr(_recording, "counts", None)
+    _recording.counts = counts
+    try:
+        yield counts
+    finally:
+        _recording.counts = prev
+
+
+@contextlib.contextmanager
+def holding_constants():
+    """Within the block, every cached device constant this thread reads
+    through :func:`hold` goes into the yielded list: a CUDA graph reads
+    them by address, so its capture keeps them for as long as the graph
+    lives, whatever the cache they came from evicts meanwhile."""
+    held: list[torch.Tensor] = []
+    prev = getattr(_recording, "held", None)
+    _recording.held = held
+    try:
+        yield held
+    finally:
+        _recording.held = prev
+
+
+def hold(t: torch.Tensor) -> torch.Tensor:
+    """``t``, a cached device constant, kept by the capture in progress on
+    this thread, if any (see :func:`holding_constants`)."""
+    held = getattr(_recording, "held", None)
+    if held is not None:
+        held.append(t)
+    return t
+
+
+def traced(t: torch.Tensor) -> bool:
+    """True when ``t`` is not a plain tensor: ``torch.export`` is tracing
+    the wrapper with fake tensors, so it must emit the kernel's
+    ``torch.ops.repro_torch`` op instead of launching."""
+    return type(t) is not torch.Tensor
 
 
 def _sources() -> list[Path]:
@@ -301,4 +368,5 @@ def launch(name: str, tensors: list[torch.Tensor | None], sizes: list[int],
         raise RuntimeError(f"{name}: kernel launch failed ({err}: {msg})")
     if route_args is not None:
         _LAST_ROUTE[name] = route_args
-    LAUNCHES[name] += 1
+    counts = getattr(_recording, "counts", None)
+    (LAUNCHES if counts is None else counts)[name] += 1

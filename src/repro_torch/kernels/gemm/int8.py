@@ -18,7 +18,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import launch_gemm, on_cpu, qmm_workspace
+from repro_torch.kernels.common import (
+    launch_gemm,
+    on_cpu,
+    qmm_workspace,
+    traced,
+)
 
 _DTYPES = (torch.int8, torch.int8, torch.int32, torch.float32)
 
@@ -66,14 +71,42 @@ def qmm_i8(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
     if bias.shape != (n,) or mult.shape != (n,):
         raise ValueError(f"qmm_i8 bias and mult must be {(n,)}, got "
                          f"{bias.shape} and {mult.shape}")
+    if traced(a):
+        return torch.ops.repro_torch.qmm_i8(a, b, bias, mult, relu)
     if on_cpu("qmm_i8", a, b, bias, mult, dtypes=_DTYPES):
         return qmm_ref(a, b, bias, mult, relu)
+    return _launch(a, b, bias, mult, relu)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+            mult: torch.Tensor, relu: bool) -> torch.Tensor:
+    m, k = a.shape
+    n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.int8, device=a.device)
     if out.numel():
         launch_gemm("qmm_i8", [a, b, bias, mult, out,
                                qmm_workspace(m, k, n, a.device)],
                     [m, k, n, relu], (m, k, n))
     return out
+
+
+# the exportable op: CPU runs the plain version, CUDA the same launch
+@torch.library.custom_op("repro_torch::qmm_i8", mutates_args=(),
+                         device_types="cpu")
+def _qmm_op(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+            mult: torch.Tensor, relu: bool) -> torch.Tensor:
+    return qmm_ref(a, b, bias, mult, relu)
+
+
+@_qmm_op.register_kernel("cuda")
+def _(a, b, bias, mult, relu):
+    on_cpu("qmm_i8", a, b, bias, mult, dtypes=_DTYPES)
+    return _launch(a, b, bias, mult, relu)
+
+
+@_qmm_op.register_fake
+def _(a, b, bias, mult, relu):
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=torch.int8)
 
 
 def multiplier_vector(mult, n: int, device) -> torch.Tensor:

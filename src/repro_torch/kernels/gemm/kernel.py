@@ -13,9 +13,16 @@ bounds it and what the design does about that.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels.common import gemm_workspace, launch_gemm, on_cpu
+from repro_torch.kernels.common import (
+    gemm_workspace,
+    launch_gemm,
+    on_cpu,
+    traced,
+)
 
 
 def bmm_ref(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
@@ -27,6 +34,18 @@ def bmm_ref(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
     if relu:
         y = torch.relu(y)
     return y
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None,
+            relu: bool, ws: bool) -> torch.Tensor:
+    g, m, k = a.shape
+    n = b.shape[2]
+    out = torch.empty((g, m, n), dtype=torch.float32, device=a.device)
+    if out.numel():
+        launch_gemm("bmm_f32", [a, b, bias, out,
+                                gemm_workspace(g, m, k, n, a.device)],
+                    [g, m, k, n, relu, ws], (g, m, k, n, a.device.index))
+    return out
 
 
 def bmm_f32(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
@@ -46,12 +65,28 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
     n = b.shape[2]
     if bias is not None and bias.shape != (g, n):
         raise ValueError(f"bmm_f32 bias must be {(g, n)}, got {bias.shape}")
+    if traced(a):
+        return torch.ops.repro_torch.bmm_f32(a, b, bias, relu,
+                                             dataflow == "ws")
     if on_cpu("bmm_f32", a, b, bias):
         return bmm_ref(a, b, bias, relu, dataflow)
-    out = torch.empty((g, m, n), dtype=torch.float32, device=a.device)
-    if out.numel():
-        launch_gemm("bmm_f32", [a, b, bias, out,
-                                gemm_workspace(g, m, k, n, a.device)],
-                    [g, m, k, n, relu, dataflow == "ws"],
-                    (g, m, k, n, a.device.index))
-    return out
+    return _launch(a, b, bias, relu, dataflow == "ws")
+
+
+# the exportable op: CPU runs the plain version, CUDA the same launch
+@torch.library.custom_op("repro_torch::bmm_f32", mutates_args=(),
+                         device_types="cpu")
+def _bmm_op(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
+            relu: bool, ws: bool) -> torch.Tensor:
+    return bmm_ref(a, b, bias, relu)
+
+
+@_bmm_op.register_kernel("cuda")
+def _(a, b, bias, relu, ws):
+    on_cpu("bmm_f32", a, b, bias)
+    return _launch(a, b, bias, relu, ws)
+
+
+@_bmm_op.register_fake
+def _(a, b, bias, relu, ws):
+    return a.new_empty((a.shape[0], a.shape[1], b.shape[2]))

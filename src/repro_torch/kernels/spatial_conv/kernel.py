@@ -12,9 +12,16 @@ maps to the raster order of output tiles and changes no numbers.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels.common import gemm_workspace, launch_gemm, on_cpu
+from repro_torch.kernels.common import (
+    gemm_workspace,
+    launch_gemm,
+    on_cpu,
+    traced,
+)
 
 
 def conv_gemm_ref(patches: torch.Tensor, weights: torch.Tensor,
@@ -29,6 +36,20 @@ def conv_gemm_ref(patches: torch.Tensor, weights: torch.Tensor,
     return y
 
 
+def _launch(patches: torch.Tensor, weights: torch.Tensor,
+            bias: torch.Tensor | None, relu: bool, ws: bool) -> torch.Tensor:
+    t, crs = patches.shape
+    k = weights.shape[1]
+    out = torch.empty((t, k), dtype=torch.float32, device=patches.device)
+    if out.numel():
+        launch_gemm("conv_gemm_f32",
+                    [patches, weights, bias, out,
+                     gemm_workspace(1, t, crs, k, patches.device)],
+                    [t, crs, k, relu, ws],
+                    (1, t, crs, k, patches.device.index))
+    return out
+
+
 def conv_gemm_f32(patches: torch.Tensor, weights: torch.Tensor,
                   bias: torch.Tensor | None = None, relu: bool = False,
                   dataflow: str = "is") -> torch.Tensor:
@@ -38,20 +59,36 @@ def conv_gemm_f32(patches: torch.Tensor, weights: torch.Tensor,
     if patches.dim() != 2 or weights.dim() != 2:
         raise ValueError(f"conv_gemm_f32 takes 2-D operands, got "
                          f"{patches.shape}, {weights.shape}")
-    t, crs = patches.shape
+    crs = patches.shape[1]
     if weights.shape[0] != crs:
         raise ValueError(f"conv_gemm_f32 shape mismatch: {patches.shape} @ "
                          f"{weights.shape}")
     k = weights.shape[1]
     if bias is not None and bias.shape != (k,):
         raise ValueError(f"conv_gemm_f32 bias must be {(k,)}, got {bias.shape}")
+    if traced(patches):
+        return torch.ops.repro_torch.conv_gemm_f32(
+            patches, weights, bias, relu, dataflow == "ws")
     if on_cpu("conv_gemm_f32", patches, weights, bias):
         return conv_gemm_ref(patches, weights, bias, relu, dataflow)
-    out = torch.empty((t, k), dtype=torch.float32, device=patches.device)
-    if out.numel():
-        launch_gemm("conv_gemm_f32",
-                    [patches, weights, bias, out,
-                     gemm_workspace(1, t, crs, k, patches.device)],
-                    [t, crs, k, relu, dataflow == "ws"],
-                    (1, t, crs, k, patches.device.index))
-    return out
+    return _launch(patches, weights, bias, relu, dataflow == "ws")
+
+
+# the exportable op: CPU runs the plain version, CUDA the same launch
+@torch.library.custom_op("repro_torch::conv_gemm_f32", mutates_args=(),
+                         device_types="cpu")
+def _conv_gemm_op(patches: torch.Tensor, weights: torch.Tensor,
+                  bias: Optional[torch.Tensor], relu: bool,
+                  ws: bool) -> torch.Tensor:
+    return conv_gemm_ref(patches, weights, bias, relu)
+
+
+@_conv_gemm_op.register_kernel("cuda")
+def _(patches, weights, bias, relu, ws):
+    on_cpu("conv_gemm_f32", patches, weights, bias)
+    return _launch(patches, weights, bias, relu, ws)
+
+
+@_conv_gemm_op.register_fake
+def _(patches, weights, bias, relu, ws):
+    return patches.new_empty((patches.shape[0], weights.shape[1]))

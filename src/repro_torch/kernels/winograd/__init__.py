@@ -8,7 +8,8 @@ from repro_torch.kernels.winograd.ops import (
     input_transform,
     output_transform,
     winograd_apply_pretransformed_hopper,
+    winograd_conv2d,
 )
 
 __all__ = ["input_transform", "output_transform",
-           "winograd_apply_pretransformed_hopper"]
+           "winograd_apply_pretransformed_hopper", "winograd_conv2d"]

@@ -23,6 +23,8 @@ front has its plain PyTorch version beside it.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -33,7 +35,7 @@ from repro_torch.core.winograd import (
     tile_input,
     transform_matrices,
 )
-from repro_torch.kernels.common import cdiv, launch, on_cpu
+from repro_torch.kernels.common import cdiv, launch, on_cpu, traced
 
 Pads = tuple[tuple[int, int], tuple[int, int]]
 NO_PAD: Pads = ((0, 0), (0, 0))
@@ -69,14 +71,40 @@ def wino_input_transform_ref(tiles: torch.Tensor, m: int) -> torch.Tensor:
     return v.reshape(pt * pt, t, c)
 
 
+def signed_offset_tiles(x: torch.Tensor, m: int, top: int, left: int,
+                        grid: tuple[int, int]) -> torch.Tensor:
+    """The (T, PT, PT, C) windows K3 reads over an explicit tile ``grid``
+    with x at the signed offset ``(top, left)``, zeros outside x: cut out
+    of a zero canvas the grid covers."""
+    n, h, w, c = x.shape
+    pt = pt_for(m)
+    nh, nw = grid
+    hp, wp = (nh - 1) * m + pt, (nw - 1) * m + pt
+    canvas = x.new_zeros((n, hp, wp, c))
+    # x's rows and columns that land on the canvas
+    y0, y1 = max(0, -top), min(h, hp - top)
+    x0, x1 = max(0, -left), min(w, wp - left)
+    if y0 < y1 and x0 < x1:
+        canvas[:, y0 + top:y1 + top, x0 + left:x1 + left] = x[:, y0:y1,
+                                                              x0:x1]
+    tiles = canvas.unfold(1, pt, m).unfold(2, pt, m).permute(0, 1, 2, 4, 5, 3)
+    return tiles.reshape(-1, pt, pt, c)
+
+
 def wino_input_transform_nhwc_ref(x: torch.Tensor, m: int,
-                                  pad_hw: Pads = NO_PAD) -> torch.Tensor:
+                                  pad_hw: Pads = NO_PAD,
+                                  grid: tuple[int, int] | None = None
+                                  ) -> torch.Tensor:
     """Plain PyTorch version of :func:`wino_input_transform_nhwc_f32`:
-    ``F.pad``, ``tile_input`` and the einsum."""
-    (top, bottom), (left, right) = pad_hw
-    tiles, _ = tile_input(F.pad(x, (0, 0, left, right, top, bottom)), m)
+    ``F.pad``, ``tile_input`` and the einsum; with an explicit ``grid``,
+    :func:`signed_offset_tiles` and the einsum."""
     pt, c = pt_for(m), x.shape[3]
-    return wino_input_transform_ref(tiles.reshape(-1, pt, pt, c), m)
+    (top, bottom), (left, right) = pad_hw
+    if grid is None:
+        tiles, _ = tile_input(F.pad(x, (0, 0, left, right, top, bottom)), m)
+        return wino_input_transform_ref(tiles.reshape(-1, pt, pt, c), m)
+    return wino_input_transform_ref(
+        signed_offset_tiles(x, m, top, left, grid), m)
 
 
 def _launch_input(x: torch.Tensor, m: int, geom: tuple[int, ...],
@@ -106,21 +134,38 @@ def wino_input_transform_f32(tiles: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def wino_input_transform_nhwc_f32(x: torch.Tensor, m: int,
-                                  pad_hw: Pads = NO_PAD) -> torch.Tensor:
+                                  pad_hw: Pads = NO_PAD,
+                                  grid: tuple[int, int] | None = None
+                                  ) -> torch.Tensor:
     """x (N, H, W, C), fp32 -> V (PT^2, N nh nw, C): the input transform of
     every tile that ``tile_input(F.pad(x, pad_hw), m)`` would form, read
     straight out of x (zeros outside it); ``(nh, nw)`` from
-    :func:`wino_grid`."""
+    :func:`wino_grid`.
+
+    With an explicit ``grid = (nh, nw)``, tile ``(th, tw)`` is the PT x PT
+    window at ``(th m - top, tw m - left)`` of x, and the pads above and to
+    the left may be negative: a shifted window, as each piece of a
+    decomposed kernel reads (``ops.winograd_conv2d``); the pads below and to
+    the right are then unused."""
     _check_m(m)
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got {x.shape}")
-    if min(min(p) for p in pad_hw) < 0:
-        raise ValueError(f"pads must be >= 0, got {pad_hw}")
     n, h, w, c = x.shape
-    _, _, nh, nw = wino_grid(h, w, m, pad_hw)
-    if on_cpu("wino_input_transform_f32", x):
-        return wino_input_transform_nhwc_ref(x, m, pad_hw)
+    if grid is None:
+        if min(min(p) for p in pad_hw) < 0:
+            raise ValueError(f"pads must be >= 0 without a grid, got "
+                             f"{pad_hw}")
+        _, _, nh, nw = wino_grid(h, w, m, pad_hw)
+    else:
+        nh, nw = (int(v) for v in grid)
+        if nh < 1 or nw < 1:
+            raise ValueError(f"grid must be at least 1 x 1, got {grid}")
     (top, _), (left, _) = pad_hw
+    if traced(x):
+        return torch.ops.repro_torch.wino_input_transform_nhwc_f32(
+            x, m, top, left, nh, nw)
+    if on_cpu("wino_input_transform_f32", x):
+        return wino_input_transform_nhwc_ref(x, m, pad_hw, grid)
     return _launch_input(x, m, (n, h, w, c, top, left, nh, nw), n * nh * nw)
 
 
@@ -208,8 +253,63 @@ def wino_output_transform_nhwc_f32(m_arr: torch.Tensor,
     if min(out_nhw) < 1 or t != n * nh * nw:
         raise ValueError(f"M holds {t} tiles; an (N, Ho, Wo) = {out_nhw} "
                          f"output takes {n * nh * nw}")
+    if traced(m_arr):
+        return torch.ops.repro_torch.wino_output_transform_nhwc_f32(
+            m_arr, bias, m, n, ho, wo, relu)
     if on_cpu("wino_output_transform_f32", m_arr, bias):
         return wino_output_transform_nhwc_ref(m_arr, bias, m, out_nhw, relu)
+    return _launch_output_nhwc(m_arr, bias, m, (n, ho, wo), relu)
+
+
+def _launch_output_nhwc(m_arr: torch.Tensor, bias: torch.Tensor | None,
+                        m: int, out_nhw: tuple[int, int, int],
+                        relu: bool) -> torch.Tensor:
+    n, ho, wo = out_nhw
+    k = m_arr.shape[2]
     out = torch.empty((n, ho, wo, k), dtype=torch.float32,
                       device=m_arr.device)
-    return _launch_output(m_arr, bias, m, relu, out, (n, ho, wo, k, nh, nw))
+    return _launch_output(m_arr, bias, m, relu, out,
+                          (n, ho, wo, k, cdiv(ho, m), cdiv(wo, m)))
+
+
+# ---------------------------------------------------------------------------
+# The exportable ops of the NHWC fronts: CPU runs the plain versions, CUDA
+# the same launches
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::wino_input_transform_nhwc_f32",
+                         mutates_args=(), device_types="cpu")
+def _input_op(x: torch.Tensor, m: int, top: int, left: int, nh: int,
+              nw: int) -> torch.Tensor:
+    return wino_input_transform_nhwc_ref(x, m, ((top, 0), (left, 0)),
+                                         (nh, nw))
+
+
+@_input_op.register_kernel("cuda")
+def _(x, m, top, left, nh, nw):
+    n, h, w, c = x.shape
+    on_cpu("wino_input_transform_f32", x)
+    return _launch_input(x, m, (n, h, w, c, top, left, nh, nw), n * nh * nw)
+
+
+@_input_op.register_fake
+def _(x, m, top, left, nh, nw):
+    return x.new_empty((pt_for(m) ** 2, x.shape[0] * nh * nw, x.shape[3]))
+
+
+@torch.library.custom_op("repro_torch::wino_output_transform_nhwc_f32",
+                         mutates_args=(), device_types="cpu")
+def _output_op(m_arr: torch.Tensor, bias: Optional[torch.Tensor], m: int,
+               n: int, ho: int, wo: int, relu: bool) -> torch.Tensor:
+    return wino_output_transform_nhwc_ref(m_arr, bias, m, (n, ho, wo), relu)
+
+
+@_output_op.register_kernel("cuda")
+def _(m_arr, bias, m, n, ho, wo, relu):
+    on_cpu("wino_output_transform_f32", m_arr, bias)
+    return _launch_output_nhwc(m_arr, bias, m, (n, ho, wo), relu)
+
+
+@_output_op.register_fake
+def _(m_arr, bias, m, n, ho, wo, relu):
+    return m_arr.new_empty((n, ho, wo, m_arr.shape[2]))

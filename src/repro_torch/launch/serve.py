@@ -228,11 +228,14 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
 def _serve_session(acc, x_np: np.ndarray, iters: int, *, scheduler: str, deadline_ms: float | None,
                    queue_limit: int | None):
     """``len(x_np) * iters`` single images through a ServingSession with
-    one bucket of the accelerator's batch; prints its statistics."""
+    one bucket of the accelerator's batch, from a settled heap
+    (``api.settled_heap``); prints its statistics."""
+    from repro_torch import api
     batch = x_np.shape[0]
-    with acc.serve(max_batch=batch, buckets=(batch,), warmup=True,
-                   scheduler=scheduler, deadline_ms=deadline_ms,
-                   queue_limit=queue_limit) as s:
+    with api.settled_heap(), acc.serve(
+            max_batch=batch, buckets=(batch,), warmup=True,
+            scheduler=scheduler, deadline_ms=deadline_ms,
+            queue_limit=queue_limit) as s:
         n_req = batch * iters
         # requests materialized host-side before timing, like clients
         # arriving with their own arrays

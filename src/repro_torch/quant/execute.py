@@ -36,6 +36,7 @@ from repro_torch.core.hybrid_conv import (
     FCSpec,
     explicit_pads,
 )
+from repro_torch.kernels.common import hold
 from repro_torch.kernels.gemm.int8 import (
     exact_int_matmul,
     multiplier_vector,
@@ -61,13 +62,20 @@ def _f32_scalar(value: float, device) -> torch.Tensor:
                       device=device)
 
 
-@functools.lru_cache(maxsize=1024)
 def layer_multiplier(lq: LayerQuant, device: torch.device,
                      k_range: tuple[int, int] | None = None) -> torch.Tensor:
     """``lq.multiplier`` as a float32 tensor on ``device`` (0-dim for a
     per-tensor weight scale, ``(K,)`` per channel), sliced to the k-group
     ``k_range`` when per-channel. Built once per (layer, device, k-group),
-    so steady requests make no host-to-device copy."""
+    so steady requests make no host-to-device copy. The cache is bounded:
+    a CUDA graph captured over the tensor keeps it (``common.hold``), so
+    an eviction never frees memory a graph still reads."""
+    return hold(_layer_multiplier(lq, device, k_range))
+
+
+@functools.lru_cache(maxsize=1024)
+def _layer_multiplier(lq: LayerQuant, device: torch.device,
+                      k_range: tuple[int, int] | None) -> torch.Tensor:
     mult = lq.multiplier
     if np.ndim(mult) == 0:
         return _f32_scalar(mult, device)

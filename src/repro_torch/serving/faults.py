@@ -17,8 +17,8 @@ Sites (see ``docs/ARCHITECTURE.md`` "Failure model")::
     dispatch  worker thread, before a batch launches         no payload
     execute   just before the PE executor runs a batch       payload: staged buffer
     drain     drain thread, before the host sync             no payload
-    aot_load  the AOT artifact load (not ported yet: ROADMAP  no payload
-              Queue 1, item 9; nothing visits it until then)
+    aot_load  core/aot.load_entry, inside the warn-and-      no payload
+              rebuild try-block (``aot.set_fault_hook``)
 
 Kinds: ``error`` (raise :class:`InjectedFault`), ``delay`` (sleep
 ``delay_ms``), ``nan``/``inf`` (overwrite payload rows), ``kill`` (raise
@@ -189,9 +189,8 @@ class FaultPlan:
             return dict(self._counters)
 
     def aot_hook(self):
-        """A callable routing AOT artifact loads through this plan's
-        ``aot_load`` site (the hook the reference's ``core.aot`` takes; the
-        port's AOT loader is ROADMAP Queue 1, item 9)."""
+        """The callable ``core.aot.set_fault_hook`` expects: routes AOT
+        artifact loads through this plan's ``aot_load`` site."""
         return lambda digest: self.visit("aot_load", digest=digest)
 
 

@@ -5,6 +5,7 @@ both port backends at both opt levels against the reference's ``xla`` and
 reference's own fp32 budget (``tests/test_backend_pallas.py``)."""
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -400,6 +401,61 @@ def test_executor_and_cache_take_no_default_device():
         CompiledExecutor(program=t_prog, stats=entry.stats, fn=entry.fn)
 
 
+def _table_graph(params):
+    import threading
+    import weakref
+    return t_executor._Graph(None, None, None,
+                             tuple(weakref.ref(t) for t in params), [], {},
+                             threading.Lock())
+
+
+def test_graph_table_drops_least_recent_and_dead_graphs():
+    """An entry's graphs: a lookup makes a graph the most recent, the
+    least recently used goes past the bound, and a graph whose params
+    are no longer referenced outside it is never handed out again."""
+    table = t_executor._GraphTable(2)
+    wa, wb, wc = (torch.zeros(2) for _ in range(3))
+    ga, gb, gc = (_table_graph([w]) for w in (wa, wb, wc))
+    table.put("a", ga)
+    table.put("b", gb)
+    assert table.get("a") is ga          # "a" is now the most recent
+    table.put("c", gc)
+    assert table.get("b") is None and len(table) == 2
+    assert table.get("a") is ga and table.get("c") is gc
+    del wa
+    assert table.get("a") is None and len(table) == 1
+    del wc
+    table.put("b", gb)                   # a put purges dead graphs too
+    assert len(table) == 1 and table.get("b") is gb
+
+
+def test_capture_holds_the_multipliers_it_reads():
+    """What a capture reads from the bounded multiplier cache is kept
+    with the graph: an int8 lowering run under ``holding_constants``
+    keeps every multiplier it used, and clearing the cache leaves them
+    to the holder."""
+    from repro_torch.quant import execute as q_execute
+    specs = t_vgg.network_specs(img=32, scale=32, n_classes=10)
+    acc = t_api.Accelerator.build(specs, t_pm.V5E, batch=1, dtype="int8",
+                                  device="cpu", cache=ProgramCache())
+    entry, params = acc.runtime.executor_entry(1, acc.input_dtype)
+    x = torch.zeros((1, 32, 32, 3), dtype=torch.int8)
+    with common.holding_constants() as held:
+        y = entry.fn(params, x)
+    assert held and all(t.dtype == torch.float32 for t in held)
+    lq = acc.quant.layers[acc.program.layers[-1].layer_id]
+    mult = q_execute.layer_multiplier(lq, torch.device("cpu"))
+    assert any(t is mult for t in held)
+    q_execute._layer_multiplier.cache_clear()
+    assert q_execute.layer_multiplier(lq, torch.device("cpu")) is not mult
+    assert torch.equal(entry.fn(params, x), y)
+    # outside a capture nothing is kept
+    with common.holding_constants() as held:
+        pass
+    q_execute.layer_multiplier(lq, torch.device("cpu"))
+    assert held == []
+
+
 def test_build_without_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")
@@ -410,11 +466,21 @@ def test_build_without_device_needs_cuda():
         t_api.random_params(specs)
 
 
-def test_unported_paths_name_their_roadmap_item():
+def test_unported_paths_name_their_roadmap_item(tmp_path):
     specs = t_vgg.network_specs(img=32, scale=32, n_classes=10)
-    acc = t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 9"):
-        acc.save_program("unused.json", aot=True)
+    acc = t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu",
+                                  cache=ProgramCache())
+    # AOT bundles are ported (tests/test_torch_aot.py): a bundle of the
+    # direct entry and the bucket-1 entry, loaded back bit for bit
+    bundle = acc.save_program(str(tmp_path / "bundle"), aot=True)
+    assert sorted(os.listdir(bundle)) == ["aot", "program.json"]
+    cache = ProgramCache()
+    again = t_api.Accelerator.from_program(bundle, params=acc.params,
+                                           cache=cache, device="cpu")
+    x = np.random.default_rng(0).standard_normal((1, 32, 32, 3)).astype(
+        np.float32)
+    np.testing.assert_array_equal(again(x).numpy(), acc(x).numpy())
+    assert cache.stats.aot_loads == 1
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
         acc.serve(max_batch=1, mesh=["cpu", "cpu"])
     # the segmented path is ported (tests/test_torch_segmented.py)

@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import api  # noqa: E402
 from repro_torch.core.compiler import LayerPlan  # noqa: E402
+from repro_torch.core.program_cache import ProgramCache  # noqa: E402
 from repro_torch.core.runtime import HybridRuntime  # noqa: E402
 from repro_torch.core.hybrid_conv import (  # noqa: E402
     ConvSpec,
@@ -662,3 +663,234 @@ def test_gpu_segmented_vgg16_matches_single_program(cuda):
     x = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (2, 32, 32, 3)).astype(np.float32)).to(cuda)
     assert torch.equal(seg(x), acc(x))
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs per cache entry, AOT bundles and the decomposed Winograd conv
+# ---------------------------------------------------------------------------
+
+def _entry_input(acc, x):
+    x = torch.from_numpy(x).to(acc.device)
+    return acc.quant.quantize_input(x) if acc.quant is not None else x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("model", ["vgg16", "resnet18"])
+def test_gpu_captured_entry_equals_uncaptured(cuda, model, dtype):
+    """A hopper entry's CUDA graph answers bit for bit as its uncaptured
+    lowering (``entry.fn``), replays add the launches its capture
+    recorded, and the first call (warm-up, then capture) launches one
+    request's kernels for real."""
+    build = vgg.network_specs if model == "vgg16" else resnet.resnet18_specs
+    specs = build(32, 16, n_classes=10)
+    acc = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                dtype=dtype, device=cuda,
+                                cache=ProgramCache())
+    rng = np.random.default_rng(11)
+    entry, params = acc.runtime.executor_entry(2, acc.input_dtype)
+    assert entry.trace_count == 0
+    x = _entry_input(acc, rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32))
+    common.reset_launches()
+    y0 = entry(params, x)
+    torch.cuda.synchronize()
+    per_request = {k: v for k, v in common.LAUNCHES.items() if v}
+    assert per_request and entry.trace_count == 1
+    assert torch.equal(y0, entry.fn(params, x))
+    for seed in (12, 13):
+        x = _entry_input(acc, np.random.default_rng(seed).standard_normal(
+            (2, 32, 32, 3)).astype(np.float32))
+        common.reset_launches()
+        y = entry(params, x)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in common.LAUNCHES.items() if v} == \
+            per_request
+        assert torch.equal(y, entry.fn(params, x))
+    assert entry.trace_count == 1          # replays, no new capture
+    # the caller owns what it gets back: a later replay leaves it alone
+    keep = y.clone()
+    entry(params, _entry_input(acc, rng.standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)))
+    torch.cuda.synchronize()
+    assert torch.equal(y, keep)
+
+
+def test_gpu_new_weights_capture_a_new_graph(cuda):
+    """Two accelerators of one program share a cache entry; the second's
+    weights make the entry capture again, and neither ever replays the
+    other's graph."""
+    specs = resnet.resnet18_specs(32, 16, n_classes=10)
+    cache = ProgramCache()
+    a = api.Accelerator.build(specs, batch=2, backend="hopper", seed=0,
+                              device=cuda, cache=cache)
+    b = api.Accelerator.build(specs, batch=2, backend="hopper", seed=1,
+                              plans=a.plans, device=cuda, cache=cache)
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)).to(cuda)
+    ya, yb = a(x), b(x)
+    entry, pa = a.runtime.executor_entry(2)
+    assert b.runtime.executor_entry(2)[0] is entry
+    pb = b.runtime.dram_params()
+    assert entry.trace_count == 2
+    for _ in range(2):
+        assert torch.equal(a(x), ya) and torch.equal(b(x), yb)
+    assert torch.equal(ya, entry.fn(pa, x))
+    assert torch.equal(yb, entry.fn(pb, x))
+    assert not torch.equal(ya, yb)
+    assert entry.trace_count == 2
+
+
+def test_gpu_graph_keeps_its_multipliers_past_an_eviction(cuda):
+    """An int8 graph reads its requantize multipliers by address, and the
+    bounded cache they came from may evict them. Cleared, with other
+    tensors taking the freed memory, the replay still equals the first
+    answer and the uncaptured lowering bit for bit."""
+    from repro_torch.quant import execute as q_execute
+    specs = vgg.network_specs(32, 16, n_classes=10)
+    acc = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                dtype="int8", device=cuda,
+                                cache=ProgramCache())
+    entry, params = acc.runtime.executor_entry(2, acc.input_dtype)
+    x = _entry_input(acc, np.random.default_rng(18).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    y0 = entry(params, x)
+    assert torch.equal(entry(params, x), y0) and entry.trace_count == 1
+    q_execute._layer_multiplier.cache_clear()
+    junk = [torch.full((128,), 1e6, device=cuda) for _ in range(4096)]
+    torch.cuda.synchronize()
+    y = entry(params, x)
+    torch.cuda.synchronize()
+    assert entry.trace_count == 1
+    assert torch.equal(y, y0) and torch.equal(y, entry.fn(params, x))
+    del junk
+
+
+def test_gpu_dropped_weights_drop_their_graph(cuda):
+    """A graph is kept only while the weights it was captured over are
+    referenced outside it: once they are gone it is dropped, and other
+    weights capture a graph of their own."""
+    import gc
+    specs = resnet.resnet18_specs(32, 16, n_classes=10)
+    acc = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                device=cuda, cache=ProgramCache())
+    entry, params = acc.runtime.executor_entry(2)
+    x = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)).to(cuda)
+    y = entry(params, x)
+    first = [tuple(t.clone() for t in p) for p in params]
+    assert torch.equal(entry(first, x), y)
+    assert entry.trace_count == 2 and len(entry._graphs) == 2
+    del first
+    gc.collect()
+    second = [tuple(t.clone() for t in p) for p in params]
+    assert torch.equal(entry(second, x), y)     # its own capture
+    assert entry.trace_count == 3 and len(entry._graphs) == 2
+    assert torch.equal(entry(second, x), y)
+    assert torch.equal(entry(params, x), y) and entry.trace_count == 3
+
+
+def test_gpu_session_buckets_replay_captured_graphs(cuda):
+    """A session's bucket entries (donate_input) are captured at warmup
+    and take the pinned staging buffer straight into their graph."""
+    specs = vgg.network_specs(32, 16, n_classes=10)
+    acc = api.Accelerator.build(specs, batch=4, backend="hopper",
+                                device=cuda, cache=ProgramCache())
+    x = np.random.default_rng(15).standard_normal(
+        (4, 32, 32, 3)).astype(np.float32)
+    y = acc(x).cpu().numpy()
+    with acc.serve(max_batch=4, buckets=(2, 4), warmup=True) as s:
+        entries = dict(s._entries)
+        assert all(e.donate_input and e.trace_count == 1
+                   for e in entries.values())
+        assert all(st.dev is None for st in s._free_stages[4])
+        out = s.run_many([x, x])
+    for got in out:
+        np.testing.assert_array_equal(got, y)
+    assert all(e.trace_count == 1 for e in entries.values())
+
+
+def test_gpu_aot_bundle_loads_and_captures(cuda, tmp_path):
+    specs = vgg.network_specs(32, 16, n_classes=10)
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)).to(cuda)
+    for dtype in ("float32", "int8"):
+        acc = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                    dtype=dtype, device=cuda,
+                                    cache=ProgramCache())
+        y = acc(x)
+        bundle = acc.save_program(str(tmp_path / dtype), aot=True)
+        cache = ProgramCache()
+        again = api.Accelerator.from_program(bundle, params=acc.params,
+                                             backend="hopper", device=cuda,
+                                             cache=cache)
+        common.reset_launches()
+        assert torch.equal(again(x), y)
+        assert any(common.LAUNCHES.values())
+        assert torch.equal(again(x), y)
+        entry, _ = again.runtime.executor_entry(2, again.input_dtype)
+        assert entry.aot_loaded and entry.trace_count == 1
+        assert cache.stats.aot_loads == 1
+
+
+@pytest.mark.parametrize("r,s", [(5, 5), (7, 7), (5, 3)])
+@pytest.mark.parametrize("m", [2, 4])
+def test_gpu_decomposed_winograd_conv(cuda, r, s, m):
+    """The decomposed conv through K3 (one per piece, signed offsets), K2
+    and one K4 against its plain version on the card and against the
+    direct convolution."""
+    from repro_torch.kernels.winograd import winograd_conv2d
+    from repro_torch.kernels.winograd.ref import conv2d_ref
+    g = torch.Generator(device=cuda).manual_seed(r * s + m)
+    x = torch.randn(2, 19, 17, 20, device=cuda, generator=g)
+    w = torch.randn(r, s, 20, 24, device=cuda, generator=g)
+    b = torch.randn(24, device=cuda, generator=g)
+    pieces = -(-r // 3) * -(-s // 3)
+    for padding in ("SAME", "VALID"):
+        common.reset_launches()
+        y = winograd_conv2d(x, w, b, m=m, padding=padding, relu=True)
+        torch.cuda.synchronize()
+        assert common.LAUNCHES["wino_input_transform_f32"] == pieces
+        assert common.LAUNCHES["bmm_f32"] == pieces
+        assert common.LAUNCHES["wino_output_transform_f32"] == 1
+        y_plain = winograd_conv2d(x.cpu(), w.cpu(), b.cpu(), m=m,
+                                  padding=padding, relu=True)
+        _gpu_close(y, y_plain.to(cuda))
+        _gpu_close(y, conv2d_ref(x, w, padding, b, relu=True))
+
+
+def test_gpu_concurrent_direct_calls_share_one_graph(cuda):
+    """Eight threads call ``acc(x)`` at once on one stream, all through
+    the direct entry's one graph (its static input and output shared):
+    every result equals the single-threaded one bit for bit, and the
+    counts grow by one request's launches per call."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+    specs = resnet.resnet18_specs(32, 16, n_classes=10)
+    acc = api.Accelerator.build(specs, batch=2, backend="hopper",
+                                device=cuda, cache=ProgramCache())
+    rng = np.random.default_rng(17)
+    xs = [torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32)).to(cuda) for _ in range(16)]
+    refs = [acc(x) for x in xs]
+    torch.cuda.synchronize()
+    common.reset_launches()
+    acc(xs[0])
+    torch.cuda.synchronize()
+    per_call = {k: v for k, v in common.LAUNCHES.items() if v}
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        common.reset_launches()
+        with ThreadPoolExecutor(8) as pool:
+            futs = [pool.submit(lambda i: [(i, acc(xs[i]).cpu())
+                                           for _ in range(4)], i)
+                    for i in range(16)]
+            outs = [r for f in futs for r in f.result(timeout=120)]
+    finally:
+        sys.setswitchinterval(interval)
+    for i, y in outs:
+        assert torch.equal(y, refs[i].cpu())
+    assert {k: v for k, v in common.LAUNCHES.items() if v} == \
+        {k: 64 * v for k, v in per_call.items()}
+    entry, _ = acc.runtime.executor_entry(2)
+    assert entry.trace_count == 1

@@ -216,9 +216,8 @@ def test_missing_params_and_aot_are_refused(int8_doc, tmp_path):
     path, params, acc = int8_doc
     with pytest.raises(ValueError, match="carry no weights"):
         t_api.Accelerator.from_program(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        acc.save_program(str(tmp_path / "bundle"), aot=True)
-    # a bundle directory: program.json loads, an aot/ inside is refused
+    # a bundle directory: program.json loads, and so does one with an
+    # empty aot/ inside (no artifact: every entry is built fresh)
     bundle = tmp_path / "bundle"
     bundle.mkdir()
     (bundle / "program.json").write_text(open(path).read())
@@ -226,9 +225,20 @@ def test_missing_params_and_aot_are_refused(int8_doc, tmp_path):
                                             device="cpu")
     np.testing.assert_array_equal(loaded(_x()).numpy(), acc(_x()).numpy())
     os.mkdir(bundle / "aot")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        t_api.Accelerator.from_program(str(bundle), params=params,
-                                       device="cpu")
+    cache = ProgramCache()
+    loaded = t_api.Accelerator.from_program(str(bundle), params=params,
+                                            device="cpu", cache=cache)
+    np.testing.assert_array_equal(loaded(_x()).numpy(), acc(_x()).numpy())
+    assert cache.stats.aot_loads == 0 and cache.stats.misses == 1
+    # save_program(aot=True) writes the int8 bundle (tests/test_torch_aot.py
+    # holds its loads); a strict accelerator has no executor to export
+    saved = acc.save_program(str(tmp_path / "int8_bundle"), aot=True)
+    assert json.load(open(os.path.join(saved, "program.json"))) == \
+        json.load(open(path))
+    strict = t_api.Accelerator.from_program(path, params=params,
+                                            device="cpu", strict=True)
+    with pytest.raises(ValueError, match="strict-interpreter"):
+        strict.save_program(str(tmp_path / "strict"), aot=True)
     assert issubclass(t_api.ProgramLoadError, ValueError)   # broad callers
 
 

@@ -457,3 +457,29 @@ if HAVE_HYPOTHESIS:
                                           scheduler, seed=seed)
         _check_routing(results, refs)
         _check_accounting(stats, sum(b for b, _ in trace))
+
+
+# -- the session trace and the settled heap ------------------------------------
+
+def test_session_trace_accounts_for_every_request(acc):
+    """``serving.trace.run_window`` wraps a session's own methods: every
+    request lands in a traced batch, its latency splits into the parts
+    the trace names, and the CPU records no device time."""
+    from repro_torch.serving.trace import run_window
+    images = np.stack(_requests(8, seed=5))
+    s = run_window(acc, images, 2000.0, 40, clients=2, max_batch=MAX_BATCH)
+    assert s["requests"] == 40 and 10 <= s["batches"] <= 40
+    assert s["latency_p50_ms"] <= s["latency_p95_ms"] <= s["latency_max_ms"]
+    assert s["device_busy_share"] is None and s["device_ms_by_bucket"] == {}
+    assert s["tail_requests"] >= 2
+    assert set(s["tail_parts_ms"]) == {"queue_ms", "slot_ms", "launch_ms",
+                                       "launch_to_drained_ms", "deliver_ms"}
+    assert sum(b["requests"] for b in s["tail_bursts"]) <= s["tail_requests"]
+    assert s["served_images_per_s"] > 0 and s["clients"] == 2
+
+
+def test_settled_heap_freezes_only_inside_the_block():
+    import gc
+    with api.settled_heap():
+        assert gc.get_freeze_count() > 0
+    assert gc.get_freeze_count() == 0
