@@ -82,6 +82,28 @@ and first request, bit-equal; a session over it with ``compile_ms == 0``)
 and reloads once under a stale fingerprint (a warning, a fresh build,
 bit-equal).
 
+Then (phase 3c) F3's rotation: five ResNet-18 fp32 accelerators of one
+program with distinct weights called in turn for three rounds on one
+stream capture once each (5 graphs), every answer ``torch.equal`` to
+``entry.fn``, timed against one tenant alone, with ``memory_reserved``
+per further graph; the mesh on the one card: ``make_fleet_mesh()`` and
+``make_host_mesh()`` alias the unsharded entry and ``mesh="host"`` serves
+bit for bit as ``mesh=None``; each of the four model paths through a
+session over a two-replica mesh ``(cuda:0, cuda:0)``, ``buckets=(4, 8)``,
+``run_many`` of 16 x 8 + 3 images against the unsharded session (int8 bit
+for bit, fp32 within ``1e-3 * max|logit|``; both positions counted, twice
+a shard's launches per batch, bulk ms/batch of both), a straggler bucket
+on position 0, a ``Fleet`` of VGG16 int8 and ResNet-18 fp32 over the mesh
+bit for bit their standalone sessions, and ``python -m
+repro_torch.launch.serve --arch resnet18 --no-reduced --session --mesh
+host`` to its end. Phase 3d saves VGG16 fp32's params from the card
+(``checkpoint.save``, blocking and async, ms and bytes), restores them
+onto ``cuda:0`` and ``cpu`` bit for bit (a rebuilt accelerator's captured
+logits ``torch.equal`` to the original's), runs ``run_with_recovery`` over
+10 steps summing ResNet-18 hopper logits with one failure at step 7 (one
+restart, the final state ``torch.equal`` to a run without failure) and
+``elastic_restore``s onto placements over the mesh's devices.
+
 Each CNN path answers one first request and several steady ones, with the
 launch counts set to 0 just before it and checked per request just after,
 and its logits held against the ``backend="torch"`` (aten) path on the same
@@ -114,6 +136,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import re
 import shutil
 import statistics
@@ -1470,6 +1493,379 @@ def session_segmented(served: dict, x: torch.Tensor, card: str) -> dict:
                           for k, v in per_request.items()})
 
 
+def f3_rotation(served: dict, x: torch.Tensor, card: str) -> dict:
+    """Phase 3c, F3: five ResNet-18 fp32 accelerators of one program with
+    distinct weights (seeds 0-4), in a program cache of their own, called
+    in rotation on one stream for three rounds. The shared entry captures
+    once per weight set (5 graphs, not one a call), every answer is
+    ``torch.equal`` to ``entry.fn`` on the same weights, and the calls of
+    rounds 2-3 (each synchronised) are timed against one tenant's captured
+    calls alone; ``memory_reserved`` after the first tenant's capture and
+    after all five says what each further live graph costs."""
+    from repro_torch import api
+    from repro_torch.core import perf_model as pm
+    from repro_torch.core.program_cache import ProgramCache
+    from repro_torch.kernels import common
+
+    acc0 = served["acc"]
+    cache = ProgramCache()
+    accs = [api.Accelerator.build(acc0.specs, pm.V5E, batch=BATCH,
+                                  backend="hopper", seed=seed,
+                                  plans=acc0.plans, device="cuda",
+                                  cache=cache) for seed in range(5)]
+    entry = accs[0].runtime.executor_entry(BATCH)[0]
+
+    def call(acc) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = acc(x)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        # the comparison's launches go to a throwaway count, not the path's
+        with torch.no_grad(), common.recording_launches():
+            y_fn = entry.fn(acc.runtime.dram_params(), x)
+        if not torch.equal(y, y_fn):
+            raise AssertionError(f"F3: tenant's answer differs from "
+                                 f"entry.fn in {int((y != y_fn).sum())} "
+                                 f"places")
+        return dt
+
+    def memory() -> tuple:
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_reserved() / 2 ** 20,
+                torch.cuda.memory_allocated() / 2 ** 20)
+
+    (reserved0, alloc0) = memory()
+    common.reset_launches()
+    call(accs[0])
+    (reserved1, alloc1) = memory()
+    single = [call(accs[0]) for _ in range(10)]
+    rounds = [[call(acc) for acc in accs] for _ in range(3)]
+    (reserved5, alloc5) = memory()
+    launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    n_calls = 1 + len(single) + 3 * len(accs)
+    expected = {k: v * n_calls for k, v in PATHS["resnet18_fp32"].items()}
+    if launches != expected:
+        raise AssertionError(f"F3: launches {launches} over {n_calls} calls, "
+                             f"expected {expected}")
+    if entry.trace_count != 5 or len(entry._graphs) != 5:
+        raise AssertionError(f"F3: {entry.trace_count} captures, "
+                             f"{len(entry._graphs)} graphs kept for five "
+                             f"tenants in rotation (expected 5 and 5)")
+    rot = [dt for r in rounds[1:] for dt in r]
+    print(f"F3 rotation ({card}): five ResNet-18 fp32 tenants of one "
+          f"program, three rounds on one stream: {entry.trace_count} "
+          f"captures, every answer torch.equal to entry.fn; rounds 2-3 "
+          f"{statistics.mean(rot):.3f}ms a call (median "
+          f"{statistics.median(rot):.3f}, max {max(rot):.3f}; round 1 "
+          f"with four captures {fmt_ms(rounds[0])}) against one tenant "
+          f"alone {statistics.mean(single):.3f}ms (median "
+          f"{statistics.median(single):.3f}); memory reserved "
+          f"{reserved0:.0f} MiB before, {reserved1:.0f} after the first "
+          f"capture, {reserved5:.0f} after five "
+          f"({(reserved5 - reserved1) / 4:.1f} MiB a further live graph; "
+          f"allocated {alloc0:.1f}, {alloc1:.1f}, {alloc5:.1f} MiB: "
+          f"{(alloc5 - alloc1) / 4:.2f} a further graph)", flush=True)
+    print(json.dumps({"phase": "f3_rotation", "card": card,
+                      "captures": entry.trace_count,
+                      "rotation_ms": rot, "round1_ms": rounds[0],
+                      "single_tenant_ms": single,
+                      "reserved_mib": [reserved0, reserved1, reserved5],
+                      "allocated_mib": [alloc0, alloc1, alloc5]}),
+          flush=True)
+    return dict(launches=launches)
+
+
+MESH_BUCKETS = (4, 8)
+
+
+def mesh_requests(x: torch.Tensor) -> list:
+    """Phase 3c's bulk traffic: 16 requests of 8 images and one of 3,
+    seeded; each request fills a batch of its own."""
+    rng = np.random.default_rng(17)
+    shape = tuple(x.shape[1:])
+    return ([rng.standard_normal((BATCH, *shape)).astype(np.float32)
+             for _ in range(SESSION_BULK)]
+            + [rng.standard_normal((3, *shape)).astype(np.float32)])
+
+
+def timed_run_many(session, reqs) -> tuple:
+    from repro_torch.kernels import common
+    common.reset_launches()
+    t0 = time.perf_counter()
+    out = session.run_many(reqs)
+    dt = time.perf_counter() - t0
+    return (np.concatenate(out), dt,
+            {k: v for k, v in common.LAUNCHES.items() if v})
+
+
+def sharded_sessions(results: dict, xs: dict, card: str) -> dict:
+    """Phase 3c, the mesh on the one card. (1) Keying: ``make_fleet_mesh()``
+    and ``make_host_mesh()`` span one position here and alias the
+    unsharded entry (``is``), and a session with ``mesh="host"`` is bit for
+    bit the one with ``mesh=None``. (2) Each model path through a session
+    over a two-replica mesh ``(cuda:0, cuda:0)``, ``buckets=(4, 8)``,
+    against the unsharded session on the same requests (16 of 8 images and
+    one of 3): int8 bit for bit, fp32 within ``1e-3 * max|logit|``;
+    ``device_batches`` counts every batch on both positions; the launches
+    are twice a shard's (one dispatch a layer) per batch; bulk ms/batch of
+    both. A session with ``buckets=(3, 8)`` sends the 3-image request to
+    the single-device entry: counted on position 0 only. (3) A ``Fleet``
+    of VGG16 int8 and ResNet-18 fp32 over the mesh, bit for bit their
+    standalone sharded sessions. (4) The serve CLI with ``--mesh host``."""
+    from repro_torch.compat import make_mesh
+    from repro_torch.launch.mesh import make_fleet_mesh, make_host_mesh
+    from repro_torch import api
+
+    launches: dict = {}
+    acc = results["resnet18_fp32"]["acc"]
+    rt = acc.runtime
+    e0 = rt.executor_entry(BATCH)[0]
+    for name, m in (("make_fleet_mesh()", make_fleet_mesh()),
+                    ("make_host_mesh()", make_host_mesh())):
+        if m.size != 1 or rt.executor_entry(BATCH, mesh=m)[0] is not e0:
+            raise AssertionError(f"{name} on one card must alias the "
+                                 f"unsharded entry")
+    reqs = mesh_requests(xs[path_specs("resnet18_fp32")[1]])[:4]
+    outs = {}
+    for mesh in (None, "host"):
+        with acc.serve(max_batch=BATCH, buckets=MESH_BUCKETS, warmup=True,
+                       mesh=mesh) as s:
+            outs[mesh] = np.concatenate(s.run_many(reqs))
+            if s._sharded_entries:
+                raise AssertionError("mesh='host' on one card sharded")
+    if not np.array_equal(outs[None], outs["host"]):
+        raise AssertionError("mesh='host' differs from mesh=None")
+    print(f"mesh keying ({card}): make_fleet_mesh() and make_host_mesh() "
+          f"span 1 position and alias the unsharded entry; a session with "
+          f"mesh='host' bit-equal to mesh=None", flush=True)
+
+    mesh = make_mesh((2,), ("batch",), devices=["cuda:0", "cuda:0"])
+    standalone, rows = {}, []
+    for path in SESSION_PATHS:
+        acc = results[path]["acc"]
+        reqs = mesh_requests(xs[path_specs(path)[1]])
+        with acc.serve(max_batch=BATCH, buckets=MESH_BUCKETS,
+                       warmup=True) as s:
+            ref, t_ref, _ = timed_run_many(s, reqs)
+        with acc.serve(max_batch=BATCH, buckets=MESH_BUCKETS, warmup=True,
+                       mesh=mesh) as s:
+            captures = {b: e.trace_count
+                        for b, e in s._sharded_entries.items()}
+            got, t_got, counts = timed_run_many(s, reqs)
+            st = s.stats
+        n_batches = len(reqs)
+        check_session_ledger(f"{path} sharded session", st)
+        if st.device_batches != {0: n_batches, 1: n_batches} or \
+                captures != {b: 1 for b in MESH_BUCKETS}:
+            raise AssertionError(f"{path} sharded: device_batches "
+                                 f"{st.device_batches}, captures {captures}")
+        expected = {k: 2 * n_batches * v for k, v in PATHS[path].items()}
+        if counts != expected:
+            raise AssertionError(f"{path} sharded: launches {counts}, "
+                                 f"expected {expected}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        err = float(np.abs(got - ref).max())
+        tol = 0.0 if path.endswith("int8") else 1e-3 * float(
+            np.abs(ref).max())
+        if not err <= tol:
+            raise AssertionError(f"{path} sharded vs unsharded session: "
+                                 f"max|diff| {err:.3e} > {tol:.3e}")
+        standalone[path] = got
+        ms_got, ms_ref = t_got * 1e3 / n_batches, t_ref * 1e3 / n_batches
+        rows.append(dict(path=path, sharded_ms_per_batch=ms_got,
+                         unsharded_ms_per_batch=ms_ref, max_abs_diff=err,
+                         tol=tol, device_batches=st.device_batches))
+        print(f"path {path} sharded session ({card}): two replicas on one "
+              f"card, buckets {MESH_BUCKETS} both sharded (one graph a "
+              f"bucket); run_many of {SESSION_BULK} x {BATCH} + 3 images "
+              f"{ms_got:.2f}ms/batch against unsharded {ms_ref:.2f}; "
+              f"max|diff| {err:.3e} (tolerance {tol:.3e}); device_batches "
+              f"{st.device_batches}; launches {counts} = 2 shards x "
+              f"{n_batches} batches x {PATHS[path]}", flush=True)
+    acc = results["resnet18_int8"]["acc"]
+    reqs = mesh_requests(xs[path_specs("resnet18_int8")[1]])
+    with acc.serve(max_batch=BATCH, buckets=(3, BATCH), mesh=mesh) as s:
+        got = np.concatenate(s.run_many(reqs))
+        st = s.stats
+    n = len(reqs)
+    if st.device_batches != {0: n, 1: n - 1} or \
+            not np.array_equal(got, standalone["resnet18_int8"]):
+        raise AssertionError(f"straggler bucket: device_batches "
+                             f"{st.device_batches}")
+    print(f"mesh straggler ({card}): resnet18_int8 with buckets (3, 8): the "
+          f"3-image request on the single-device entry, device_batches "
+          f"{st.device_batches}, bit-equal", flush=True)
+
+    fleet_paths = {"vgg16_int8": "v", "resnet18_fp32": "r"}
+    accs = {tag: results[p]["acc"] for p, tag in fleet_paths.items()}
+    pairs = [(tag, r) for p, tag in fleet_paths.items()
+             for r in mesh_requests(xs[path_specs(p)[1]])]
+    with api.Fleet(accs, mesh=mesh, max_batch=BATCH, buckets=MESH_BUCKETS,
+                   warmup=True) as fleet:
+        res = fleet.run_many(pairs)
+    n = len(res) // 2
+    for (p, tag), part in zip(fleet_paths.items(), (res[:n], res[n:])):
+        if not np.array_equal(np.concatenate(part), standalone[p]):
+            raise AssertionError(f"Fleet over the mesh: {p} differs from "
+                                 f"its standalone sharded session")
+    print(f"Fleet over the mesh ({card}): VGG16 int8 and ResNet-18 fp32, "
+          f"bit-equal to their standalone sharded sessions", flush=True)
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "resnet18", "--no-reduced", "--session", "--mesh", "host"]
+    src = str(Path(__file__).resolve().parent / "src")
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": src})
+    if r.returncode != 0 or "per-device batches (mesh=host)" not in r.stdout:
+        raise AssertionError(f"serve --mesh host: rc {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    tail = [ln for ln in r.stdout.splitlines()
+            if "ServingSession" in ln or "per-device" in ln]
+    print(f"serve CLI ({card}): {' '.join(cmd[2:])} ran to its end in "
+          f"{time.perf_counter() - t0:.1f}s: {' | '.join(tail)}", flush=True)
+    print(json.dumps({"phase": "sharded_sessions", "card": card,
+                      "paths": rows}, default=str), flush=True)
+    return dict(launches=launches)
+
+
+def checkpoint_recovery(results: dict, xs: dict, card: str) -> dict:
+    """Phase 3d: ``checkpoint.save`` of full-width VGG16 fp32 ``acc.params``
+    from the card, blocking and async (ms and bytes each); ``restore`` onto
+    ``cuda:0`` and onto ``cpu`` (bit for bit), and an accelerator rebuilt
+    from the restored params serving captured logits ``torch.equal`` to the
+    original's; ``run_with_recovery`` over 10 steps whose state sums
+    ResNet-18 hopper logits on the card, one failure injected at step 7
+    (``restarts == 1``, the final state ``torch.equal`` to a run without
+    failure); ``elastic_restore`` onto placements over a two-replica
+    mesh's devices."""
+    from repro_torch import api
+    from repro_torch.checkpoint import elastic_restore, run_with_recovery
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.compat import make_mesh
+    from repro_torch.core import perf_model as pm
+    from repro_torch.kernels import common
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    acc = results["vgg16_fp32"]["acc"]
+    x = xs[path_specs("vgg16_fp32")[1]]
+    params = acc.params
+    timings = {}
+    for mode in ("blocking", "async"):
+        d = root / mode
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = ckpt.save(str(d), 1, params, blocking=mode == "blocking")
+        t_call = (time.perf_counter() - t0) * 1e3
+        if t is not None:
+            t.join(timeout=300)
+            if t.is_alive():
+                raise AssertionError("async checkpoint writer did not end")
+        t_done = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+        timings[mode] = dict(call_ms=t_call, done_ms=t_done, bytes=nbytes)
+    n_param_bytes = sum(w.numel() * w.element_size() + b.numel()
+                        * b.element_size() for w, b in params)
+    restored = {}
+    for dev in ("cuda:0", "cpu"):
+        t0 = time.perf_counter()
+        tree, step = ckpt.restore(str(root / "async"), params, device=dev)
+        if dev == "cuda:0":
+            torch.cuda.synchronize()
+        timings[f"restore_{dev}_ms"] = (time.perf_counter() - t0) * 1e3
+        for (w, b), (w2, b2) in zip(params, tree):
+            if not (torch.equal(w.to(dev), w2) and torch.equal(b.to(dev), b2)
+                    and w2.device == torch.device(dev)):
+                raise AssertionError(f"restore onto {dev} differs")
+        restored[dev] = tree
+    again = api.Accelerator.build(acc.specs, pm.V5E, batch=BATCH,
+                                  backend="hopper", plans=acc.plans,
+                                  params=restored["cuda:0"], device="cuda")
+    y, y2 = acc(x), again(x)
+    entry = acc.runtime.executor_entry(BATCH)[0]
+    if again.runtime.executor_entry(BATCH)[0] is not entry or \
+            not torch.equal(y, y2):
+        raise AssertionError("the accelerator rebuilt from restored params "
+                             "differs from the original")
+    blk, asy = timings["blocking"], timings["async"]
+    print(f"checkpoint ({card}): VGG16 fp32 params ({n_param_bytes} bytes "
+          f"on the card) saved blocking in {blk['done_ms']:.0f}ms "
+          f"({blk['bytes']} bytes on disk); async: the call returned in "
+          f"{asy['call_ms']:.0f}ms (copy to the host), written after "
+          f"{asy['done_ms']:.0f}ms ({asy['bytes']} bytes); restored onto "
+          f"cuda:0 in "
+          f"{timings['restore_cuda:0_ms']:.0f}ms and onto cpu in "
+          f"{timings['restore_cpu_ms']:.0f}ms, bit for bit; a rebuilt "
+          f"accelerator's captured logits torch.equal to the original's "
+          f"({entry.trace_count} graphs on the shared entry)", flush=True)
+    del restored, again
+
+    r18 = results["resnet18_fp32"]["acc"]
+    shape = path_specs("resnet18_fp32")[1]
+    inputs = [torch.from_numpy(np.random.default_rng(100 + s).standard_normal(
+        (BATCH, *shape)).astype(np.float32)).cuda() for s in range(10)]
+
+    def make_step(fail_at):
+        calls = {"n": 0}
+
+        def step_fn(state, step):
+            calls["n"] += 1
+            if step == fail_at and calls["n"] == fail_at + 1:
+                raise RuntimeError("injected node failure")
+            return {"logits": state["logits"] + r18(inputs[step]),
+                    "steps": state["steps"] + 1}
+        return step_fn
+
+    init = {"logits": torch.zeros((BATCH, N_CLASSES), device="cuda"),
+            "steps": torch.zeros((), dtype=torch.int32, device="cuda")}
+    common.reset_launches()
+    t0 = time.perf_counter()
+    state, log = run_with_recovery(make_step(7), init, 10,
+                                   str(root / "recover"), ckpt_every=5)
+    t_rec = (time.perf_counter() - t0) * 1e3
+    clean, clean_log = run_with_recovery(make_step(-1), init, 10,
+                                         str(root / "clean"), ckpt_every=5)
+    launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    # 10 steps and the 2 replayed after the restore at step 5, then 10
+    expected = {k: 22 * v for k, v in PATHS["resnet18_fp32"].items()}
+    if (log["restarts"] != 1 or clean_log["restarts"] != 0
+            or log["completed"] != [0, 1, 2, 3, 4, 5, 6, 5, 6, 7, 8, 9]
+            or not all(torch.equal(state[k], clean[k]) for k in state)
+            or int(state["steps"]) != 10 or launches != expected):
+        raise AssertionError(f"run_with_recovery: log {log}, launches "
+                             f"{launches} (expected {expected})")
+    print(f"recovery ({card}): run_with_recovery over 10 steps summing "
+          f"ResNet-18 hopper logits on the card, a failure at step 7: "
+          f"restarts {log['restarts']}, replayed from step 5, final state "
+          f"torch.equal to the run without failure ({t_rec:.0f}ms, "
+          f"checkpoints every 5 steps)", flush=True)
+
+    mesh = make_mesh((2,), ("batch",), devices=["cuda:0", "cuda:0"])
+
+    def placements(template, m):
+        devs = list(m.devices.flat)
+        return [(devs[i % len(devs)], devs[(i + 1) % len(devs)])
+                for i in range(len(template))]
+
+    tree, step = elastic_restore(str(root / "blocking"), params, mesh,
+                                 placements)
+    if step != 1 or not all(torch.equal(w, w2) and torch.equal(b, b2)
+                            for (w, b), (w2, b2) in zip(params, tree)):
+        raise AssertionError("elastic_restore differs")
+    print(f"elastic restore ({card}): VGG16 fp32 checkpoint onto placements "
+          f"over the mesh's devices {[str(d) for d in mesh.devices.flat]}, "
+          f"bit for bit", flush=True)
+    print(json.dumps({"phase": "checkpoint", "card": card,
+                      "param_bytes": n_param_bytes, **timings,
+                      "recovery_ms": t_rec}), flush=True)
+    del tree
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches)
+
+
 def path_program(path: str):
     """The program a phase-2 path runs, its dtype and whether it makes one
     PE call per COMP block (the interpreter's paths)."""
@@ -1908,6 +2304,20 @@ def main() -> int:
         total[name] += n
     torch.cuda.empty_cache()
     print(f"phase 3b (sessions): {time.perf_counter() - t_3b:.1f}s; "
+          f"{time.perf_counter() - t_start:.1f}s since start", flush=True)
+
+    # -- phase 3c: F3's rotation and sharded serving over a mesh ------------
+    # -- phase 3d: checkpoint, restore and recovery --------------------------
+    t_3c = time.perf_counter()
+    for r in (f3_rotation(results["resnet18_fp32"],
+                          xs[path_specs("resnet18_fp32")[1]], card),
+              sharded_sessions(results, xs, card),
+              checkpoint_recovery(results, xs, card)):
+        for name, n in r["launches"].items():
+            total[name] += n
+    torch.cuda.empty_cache()
+    print(f"phases 3c-3d (F3, mesh, checkpoint): "
+          f"{time.perf_counter() - t_3c:.1f}s; "
           f"{time.perf_counter() - t_start:.1f}s since start", flush=True)
 
     # -- phase 4: the strict interpreter on every CNN path --------------------

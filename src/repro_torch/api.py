@@ -49,10 +49,13 @@ direct entry (``core/aot.py``); ``from_program(bundle)`` loads each entry
 from it when its key and environment match, and builds afresh otherwise.
 On a card every executor entry runs as CUDA graphs (``core/executor.py``).
 
-Not ported yet: sharded serving over several devices (``mesh=``; ROADMAP
-Queue 1, item 8). The reference's ``pallas`` -> ``xla`` degradation is
-deliberately not ported: a failed ``hopper`` batch is never re-run on the
-aten lowering (ROADMAP).
+``serve(mesh=...)`` and ``Fleet(mesh=...)`` shard every bucket the mesh
+divides over its positions (``launch/mesh.py``; a mesh may repeat a
+device, each position one replica): the batch split on dim 0, the weights
+replicated once, each shard an ordinary single-device entry, the logits
+gathered on the mesh's first device. The reference's ``pallas`` -> ``xla``
+degradation is deliberately not ported: a failed ``hopper`` batch is never
+re-run on the aten lowering (ROADMAP).
 """
 from __future__ import annotations
 
@@ -73,6 +76,8 @@ import numpy as np
 import torch
 
 from repro_torch.compat import (
+    Mesh,
+    make_mesh,
     resolve_backend,
     resolve_device,
     to_numpy,
@@ -86,7 +91,7 @@ from repro_torch.core.compiler import (
     compile_network,
 )
 from repro_torch.core.dse import DSEResult, FPGACandidate, TPUCandidate
-from repro_torch.core.executor import resolve_opt_level
+from repro_torch.core.executor import mesh_device_count, resolve_opt_level
 from repro_torch.core.hybrid_conv import (
     ConvSpec,
     DepthwiseSpec,
@@ -733,7 +738,9 @@ class Accelerator:
     # -- serving ------------------------------------------------------------
     def serve(self, **kwargs) -> "ServingSession":
         """Open a :class:`ServingSession` over this accelerator — a
-        padding-bucketed request-batching queue (see the class docs)."""
+        padding-bucketed request-batching queue (see the class docs).
+        ``mesh="host"`` shards batches over every local device of the
+        accelerator's kind (``launch.mesh.make_host_mesh``)."""
         return ServingSession(self, **kwargs)
 
 
@@ -770,7 +777,10 @@ class SessionStats:
     # artifact's load when the session opens), to compile_ms otherwise.
     compile_ms: float = 0.0
     warm_load_ms: float = 0.0
-    # device index -> batches dispatched there
+    # batches dispatched per device: keyed by the device index on an
+    # unsharded session, by the replica's position in the mesh on a sharded
+    # one (a sharded batch counts on every position, a straggler on
+    # position 0; on make_fleet_mesh the position is the device index)
     device_batches: dict = dataclasses.field(default_factory=dict)
     # per-request latency samples (submit -> result ready), most recent
     # window only. Appends (drain thread) and percentile reads (any caller)
@@ -998,11 +1008,12 @@ class ServingSession:
     (``donate_input=True``), which copies it (``non_blocking``) straight
     into its CUDA graph's static input and replays the graph; the worker
     then enqueues the logits' copy into a pinned host buffer and records a
-    CUDA event — all on ONE stream (the one current when the session
-    opened), since the kernels and the graph replays read the thread's
-    current stream, and every batch of a bucket shares the graph's static
-    buffers, which only that stream's order keeps apart. A separate drain thread waits on each batch's event only
-    and resolves its futures, so host staging of batch i+1 overlaps the
+    CUDA event — all on ONE stream per device (the one current when the
+    session opened), since the kernels and the graph replays read the
+    thread's current stream, and every batch of a bucket shares the
+    graph's static buffers, which only that stream's order keeps apart. A
+    separate drain thread waits on each batch's event only and resolves
+    its futures, so host staging of batch i+1 overlaps the
     device work of batch i. Outstanding device batches are hard-capped at
     the slot pool's capacity (3: one being drained, one executing, one
     staged). Each batch stages into an entry bound to its pipeline slot:
@@ -1017,9 +1028,20 @@ class ServingSession:
     serve through ``acc(x)``. On the CPU the same pipeline runs
     synchronously (no pinned memory, no events).
 
-    ``mesh``: ``None`` or ``"host"`` on one device serves unsharded; more
-    devices raise ``NotImplementedError`` (sharded serving is ROADMAP
-    Queue 1, item 8).
+    ``mesh`` (``None``, ``"host"``, a :class:`repro_torch.compat.Mesh` or a
+    sequence of devices, one replica each; a device may repeat) shards
+    every bucket that divides over its ``n`` positions: the session takes
+    the sharded entry for it (``executor.ShardedExecutor``: each position
+    runs its shard as an ordinary single-device entry on that device's
+    session stream, the logits are gathered on the mesh's first device,
+    whose stream waits on an event of every other device's stream, and the
+    batch's one event after the gather marks all of them done), and the
+    single-device entries serve the stragglers. A mesh of one position
+    serves unsharded. The weights are replicated once, when the session
+    opens. Segmented and strict accelerators cannot shard, and a mesh that
+    divides no bucket is refused (``ValueError`` both). With a repeated
+    device the shards take turns on its stream; that shows the split, the
+    gather and the bookkeeping, not scaling.
 
     ``scheduler`` selects the admission policy:
 
@@ -1095,12 +1117,8 @@ class ServingSession:
         if queue_limit is not None and queue_limit < 1:
             raise ValueError("queue_limit must be >= 1")
         self._device = acc.device
-        self._n_devices = _mesh_device_count(mesh, self._device)
-        if self._n_devices > 1:
-            raise NotImplementedError(
-                f"mesh={mesh!r} spans {self._n_devices} devices: sharded "
-                f"serving is not ported (ROADMAP Queue 1, item 8, mesh); "
-                f"pass mesh=None to serve on one device")
+        self._mesh = _session_mesh(mesh, self._device)
+        self._n_devices = mesh_device_count(self._mesh)
         self.acc = acc
         self.scheduler = scheduler
         self.max_batch = int(max_batch)
@@ -1124,8 +1142,18 @@ class ServingSession:
         self._pending: deque = deque()
         self._cv = threading.Condition()
         self._closed = False
-        # every device operation of the session runs on this one stream
+        # every device operation of the session runs on one stream per
+        # device, the current one when it opened: the accelerator's, and
+        # the other mesh devices' (a sharded batch's shards)
         self._cuda = self._device.type == "cuda"
+        others = (dict.fromkeys(self._mesh.devices.flat)
+                  if self._n_devices > 1 else {})
+        others.pop(self._device, None)
+        # the accelerator's stream entered last (_on_stream), so its device
+        # is the current one inside the session's device work
+        self._streams = ([torch.cuda.current_stream(d)
+                          for d in [*others, self._device]]
+                         if self._cuda else [])
         self._stream = (torch.cuda.current_stream(self._device)
                         if self._cuda else None)
         self._device_id = self._device.index if self._cuda else 0
@@ -1169,7 +1197,8 @@ class ServingSession:
         # accelerators. With an AOT bundle the artifact loads HERE, inside
         # executor_entry -> cache.get: it counts as warm-load time
         self._entries: dict[int, Any] = {}
-        self._params = None
+        self._sharded_entries: dict[int, Any] = {}
+        self._params = self._params_sharded = None
         rt = acc.runtime
         if rt is not None and not rt.strict:
             for b in self.buckets:
@@ -1178,6 +1207,31 @@ class ServingSession:
                     b, self._in_torch_dtype, donate_input=True)
                 if self._entries[b].aot_loaded:
                     self.stats.warm_load_ms += (time.monotonic() - t0) * 1e3
+        # where a batch counts in device_batches: every mesh position for a
+        # sharded one, else the first position (or the device's index)
+        self._local_ids: tuple = (self._device_id,)
+        self._fleet_ids: tuple = self._local_ids
+        if self._n_devices > 1:
+            if self._params is None:
+                raise ValueError(
+                    "mesh sharding requires the single-Program cached "
+                    "executor path — segmented/strict accelerators can't "
+                    "shard over the mesh")
+            # sharded entries for every bucket the mesh divides; the
+            # stragglers keep the single-device entries. Always lowered in
+            # this process (never from an AOT bundle): compile time
+            for b in self.buckets:
+                if b % self._n_devices == 0:
+                    self._sharded_entries[b], self._params_sharded = \
+                        rt.executor_entry(b, self._in_torch_dtype,
+                                          donate_input=True, mesh=self._mesh)
+            if not self._sharded_entries:
+                raise ValueError(
+                    f"no bucket in {self.buckets} divides evenly over the "
+                    f"mesh's {self._n_devices} positions — sharded serving "
+                    f"would never engage")
+            self._fleet_ids = tuple(range(self._n_devices))
+            self._local_ids = (0,)
 
         # completion pipeline: dispatched-but-unresolved batches, FIFO,
         # bounded by the slot pool (a hard cap: the drainer holds its slot
@@ -1234,9 +1288,10 @@ class ServingSession:
     def _count_first_use(self, bucket: int, t0: float):
         """A bucket's first-use stall counts to ``warm_load_ms`` when its
         entry was loaded from an AOT bundle (nothing was lowered), to
-        ``compile_ms`` otherwise."""
+        ``compile_ms`` otherwise (a sharded entry always)."""
         dt = (time.monotonic() - t0) * 1e3
-        entry = self._entries.get(bucket)
+        entry = (None if bucket in self._sharded_entries
+                 else self._entries.get(bucket))
         if entry is not None and entry.aot_loaded:
             self.stats.warm_load_ms += dt
         else:
@@ -1252,7 +1307,8 @@ class ServingSession:
         if stage is None:
             return self._new_stage(bucket)
         if stage.fence is not None:
-            stage.fence.synchronize()   # its failed batch's copies are done
+            for event in stage.fence:   # its failed batch's copies are done
+                event.synchronize()
             stage.fence = None
         return stage
 
@@ -1262,8 +1318,10 @@ class ServingSession:
         more; otherwise fence it behind the work queued so far."""
         if not settled and self._cuda:
             try:
-                fence = torch.cuda.Event()
-                fence.record(self._stream)
+                fence = []
+                for stream in self._streams:
+                    fence.append(torch.cuda.Event())
+                    fence[-1].record(stream)
             except RuntimeError:
                 return      # the context is unusable: drop the entry
             stage.fence = fence
@@ -1271,9 +1329,11 @@ class ServingSession:
             self._free_stages[bucket].append(stage)
 
     def _on_stream(self):
-        """The session's stream as the calling thread's current stream."""
-        return (torch.cuda.stream(self._stream) if self._cuda
-                else contextlib.nullcontext())
+        """The session's streams as the calling thread's current streams."""
+        stack = contextlib.ExitStack()
+        for stream in self._streams:
+            stack.enter_context(torch.cuda.stream(stream))
+        return stack
 
     def _start_pipeline_threads(self):
         """(Re)start the dispatch + drain pair for the current generation.
@@ -1701,6 +1761,9 @@ class ServingSession:
         return y_np
 
     def _run_bucket(self, x: torch.Tensor) -> torch.Tensor:
+        entry = self._sharded_entries.get(x.shape[0])
+        if entry is not None:
+            return entry(self._params_sharded, x)
         entry = self._entries.get(x.shape[0])
         if entry is not None:
             return entry(self._params, x)
@@ -1729,8 +1792,10 @@ class ServingSession:
         self.stats.dispatched_rows += n
         now = time.monotonic()
         self.stats.record_waits([(now - r.t_submit) * 1e3 for r in group])
-        self.stats.device_batches[self._device_id] = \
-            self.stats.device_batches.get(self._device_id, 0) + 1
+        for d in (self._fleet_ids if bucket in self._sharded_entries
+                  else self._local_ids):
+            self.stats.device_batches[d] = \
+                self.stats.device_batches.get(d, 0) + 1
         return bucket, stage
 
     def _launch(self, bucket, stage: _Stage, group):
@@ -1753,7 +1818,7 @@ class ServingSession:
         t0 = time.monotonic()
         with self._on_stream():
             if stage.dev is None:
-                y = self._entries[bucket](self._params, stage.host_t)
+                y = self._run_bucket(stage.host_t)
             else:
                 stage.dev.copy_(stage.host_t, non_blocking=True)
                 y = self.acc(stage.dev)
@@ -1764,7 +1829,7 @@ class ServingSession:
                                             pin_memory=True)
                 stage.out.copy_(y, non_blocking=True)
                 event = torch.cuda.Event()
-                event.record(self._stream)
+                event.record(torch.cuda.current_stream(y.device))
                 y = _InFlight(stage.out, event)
         if first_use:
             self._count_first_use(bucket, t0)
@@ -2128,18 +2193,20 @@ class ServingSession:
             self._start_pipeline_threads()
 
 
-def _mesh_device_count(mesh, device: torch.device) -> int:
-    """Devices a session's ``mesh`` spans: ``None`` -> 1, ``"host"`` ->
-    every local device of the accelerator's kind, a sequence of devices
-    -> its length."""
-    if mesh is None:
-        return 1
-    if mesh == "host":
-        return torch.cuda.device_count() if device.type == "cuda" else 1
+def _session_mesh(mesh, device: torch.device) -> Mesh | None:
+    """A session's ``mesh`` argument as a :class:`Mesh` (or ``None``):
+    ``"host"`` is every local device of the accelerator's kind
+    (``launch.mesh.make_host_mesh``), a sequence of devices a ``("batch",)``
+    mesh over them, one position each."""
+    if mesh is None or isinstance(mesh, Mesh):
+        return mesh
+    if isinstance(mesh, str) and mesh == "host":
+        from repro_torch.launch.mesh import make_host_mesh
+        return make_host_mesh(device.type)
     if isinstance(mesh, (list, tuple)):
-        return len(mesh)
-    raise TypeError(f"mesh must be None, 'host' or a sequence of devices, "
-                    f"got {mesh!r}")
+        return make_mesh((len(mesh),), ("batch",), devices=mesh)
+    raise TypeError(f"mesh must be None, 'host', a Mesh or a sequence of "
+                    f"devices, got {mesh!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -2155,13 +2222,15 @@ class Fleet:
     slot pool, so device time round-robins between tenant models instead
     of one model's burst starving the rest, and one program cache (the
     process-wide ``core.program_cache.default_cache()`` unless the
-    accelerators were built against another). ``mesh`` is ``None`` (or
-    ``"host"`` on one device); sharding is ROADMAP Queue 1, item 8.
+    accelerators were built against another). ``mesh`` (``None``,
+    ``"host"``, a :class:`repro_torch.compat.Mesh` or a sequence of
+    devices) is shared by every tenant session: each shards the buckets it
+    divides, as a standalone session over the same mesh does.
 
     ::
 
         fleet = api.Fleet({"vgg16": acc_vgg, "resnet18": acc_res},
-                          max_batch=8)
+                          mesh="host", max_batch=8)
         fut = fleet.submit("resnet18", x)       # routed to that model
         y = fleet("vgg16", x)                   # submit + wait
 
@@ -2184,6 +2253,7 @@ class Fleet:
         items = dict(accelerators)
         if not items:
             raise ValueError("Fleet needs at least one named Accelerator")
+        mesh = _session_mesh(mesh, next(iter(items.values())).device)
         self.mesh = mesh
         self._pool = _SlotPool(max_inflight)
         self.sessions: dict[str, ServingSession] = {}

@@ -9,8 +9,16 @@ cuDNN runs float32 convolutions in TF32 on Hopper by default, which keeps
 about three decimal digits and misses the reference's 1e-4 budget, so every
 path that puts the port on a CUDA device turns TF32 off for both cuDNN and
 matmuls first.
+
+A device mesh (:class:`Mesh`, :func:`make_mesh`) is an array of torch
+devices with one name per axis, the port's counterpart of
+``jax.sharding.Mesh``. Each position is one replica, and a device may
+repeat: two positions on one card are two replicas that take turns on it.
 """
 from __future__ import annotations
+
+import math
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -76,3 +84,69 @@ def to_numpy(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def local_devices(device_type: str = "cuda") -> list[torch.device]:
+    """The local devices of one type: every CUDA card (raising, as
+    :func:`resolve_device` does, when there is none), or the one CPU."""
+    if device_type == "cpu":
+        return [torch.device("cpu")]
+    if device_type != "cuda":
+        raise ValueError(f"unsupported device type {device_type!r}: "
+                         f"expected cuda or cpu")
+    resolve_device(None)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+class Mesh:
+    """A device mesh: ``devices``, a numpy object array of
+    ``torch.device`` (one replica per position; a device may repeat), and
+    ``axis_names``, one per dimension. ``shape`` maps each axis name to its
+    size, as ``jax.sharding.Mesh.shape`` does."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        arr = np.asarray(devices, dtype=object)
+        self.devices = np.empty(arr.shape, dtype=object)
+        for idx, d in np.ndenumerate(arr):
+            self.devices[idx] = _mesh_device(d)
+        self.axis_names = tuple(axis_names)
+        if len(self.axis_names) != self.devices.ndim:
+            raise ValueError(f"mesh of shape {self.devices.shape} needs "
+                             f"{self.devices.ndim} axis names, got "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def __repr__(self) -> str:
+        return (f"Mesh({', '.join(f'{n}={k}' for n, k in self.shape.items())}"
+                f"; {[str(d) for d in self.devices.flat]})")
+
+
+def _mesh_device(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
+              devices: Sequence | None = None,
+              device_type: str = "cuda") -> Mesh:
+    """A :class:`Mesh` of shape ``axis_shapes`` over ``devices`` (default:
+    the local devices of ``device_type``), whose count must equal the
+    shape's product, as ``jax.make_mesh`` requires."""
+    devices = (local_devices(device_type) if devices is None
+               else list(devices))
+    n = math.prod(axis_shapes)
+    if n != len(devices):
+        raise ValueError(f"number of devices {len(devices)} must equal the "
+                         f"product of mesh_shape {tuple(axis_shapes)} ({n})")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices
+    return Mesh(arr.reshape(tuple(axis_shapes)), axis_names)

@@ -109,7 +109,10 @@ def artifact_key(cache_key: tuple, env: dict | None = None) -> dict:
     fingerprint joined. JSON-normalized (tuples become lists) so it digests
     and round-trips through the manifest identically."""
     (schedule, batch, dtype, param_dtypes, backend, opt_level, donate_input,
-     device, quant_digest) = cache_key
+     device, quant_digest, *mesh) = cache_key
+    if any(m is not None for m in mesh):
+        raise ValueError("a sharded entry has no AOT artifact: it is "
+                         "lowered in the serving process")
     key = {
         "format": AOT_FORMAT,
         "schedule": schedule,

@@ -808,10 +808,14 @@ def lower_program(program: Program, *, backend: str = "torch",
 # Compiled executor: validation + lowering, captured into CUDA graphs
 # ---------------------------------------------------------------------------
 
-# graphs an entry keeps, one per (stream, weight set) it served most
-# recently; the least recently replayed one is dropped past this bound (its
-# pool memory returns to the stream's pool)
-GRAPHS_PER_ENTRY = 4
+# graphs an entry keeps per weight set, one per stream it was replayed on
+# most recently; past this many streams the weight set's least recently
+# replayed graph is dropped (its pool memory returns to the stream's pool).
+# The entry itself has no bound on its graphs: it keeps one per live weight
+# set and stream, so weight sets taking turns on one stream (tenants of one
+# program) each keep theirs, and a weight set that died takes its graphs
+# with it
+STREAMS_PER_WEIGHTS = 4
 
 # one private memory pool, one capture stream and one lock per (device,
 # stream): every graph replayed on a stream shares its pool (captured on
@@ -864,12 +868,15 @@ def _params_key(params: list) -> tuple:
 
 
 class _GraphTable:
-    """An entry's graphs by ``(stream, data_ptr of every param)``: at most
-    ``bound``, the least recently used dropped first, and a graph whose
-    params died dropped at the next lookup or insert."""
+    """An entry's graphs by ``(stream, data_ptr of every param)``. Their
+    number follows the live weight sets: a graph whose params died is
+    dropped at the next lookup or insert, and each weight set keeps at most
+    ``streams_per_weights`` graphs (one per stream, the least recently used
+    dropped first). No live weight set ever loses its graph on a stream to
+    another weight set's capture."""
 
-    def __init__(self, bound: int):
-        self.bound = bound
+    def __init__(self, streams_per_weights: int):
+        self.streams_per_weights = streams_per_weights
         self._graphs: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
 
@@ -892,8 +899,10 @@ class _GraphTable:
             for k in [k for k, v in self._graphs.items() if not v.alive()]:
                 del self._graphs[k]
             self._graphs[key] = g
-            while len(self._graphs) > self.bound:
-                self._graphs.popitem(last=False)
+            self._graphs.move_to_end(key)
+            same = [k for k in self._graphs if k[1] == key[1]]  # oldest first
+            for k in same[:max(0, len(same) - self.streams_per_weights)]:
+                del self._graphs[k]
 
 
 @dataclasses.dataclass
@@ -912,9 +921,12 @@ class CompiledExecutor:
     per ``(stream, data_ptr of every param)``: a call over other weights (a
     reloaded program of the same schedule) captures anew, and a graph is
     never replayed over weights it was not captured with, nor once one of
-    them is no longer referenced outside it (``GRAPHS_PER_ENTRY`` graphs at
-    most, least recently used dropped first). It keeps the cached device
-    constants its capture read (the requantize multipliers). ``trace_count``
+    them is no longer referenced outside it. The graphs follow the live
+    weight sets: each keeps its own (at most ``STREAMS_PER_WEIGHTS``
+    streams' worth, least recently used dropped first), so weight sets
+    taking turns on one stream replay without capturing again. It keeps
+    the cached device constants its capture read (the requantize
+    multipliers). ``trace_count``
     counts the captures (0 on the CPU, where ``fn`` runs as it is). A
     failed capture raises; nothing falls back to the uncaptured path.
 
@@ -937,12 +949,14 @@ class CompiledExecutor:
     # executor is never labelled as the CPU's
     device: str = dataclasses.field(kw_only=True)
     _graphs: _GraphTable = dataclasses.field(
-        default_factory=lambda: _GraphTable(GRAPHS_PER_ENTRY), repr=False)
+        default_factory=lambda: _GraphTable(STREAMS_PER_WEIGHTS),
+        repr=False)
     _trace_count: int = dataclasses.field(default=0, repr=False)
     # host ms from the capture's start to its end, of the last capture
     last_capture_ms: float = dataclasses.field(default=0.0, repr=False)
     _capture_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False)
+    mesh_key = None                # unsharded (see ShardedExecutor)
 
     @property
     def trace_count(self) -> int:
@@ -1015,6 +1029,94 @@ class CompiledExecutor:
         return y
 
 
+def mesh_key(mesh) -> tuple | None:
+    """Hashable topology key for a device mesh (``None`` = unsharded):
+    its shape, axis names and each position's ``(type, index)``. Two
+    meshes over other devices, or the same devices in another order, key
+    apart, and so does a mesh that repeats a device from one that holds
+    it once."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.devices.shape), tuple(mesh.axis_names),
+            tuple((d.type, d.index) for d in mesh.devices.flat))
+
+
+def mesh_device_count(mesh) -> int:
+    """Positions (replicas) of ``mesh``; 1 for ``None``. A repeated device
+    counts once per position."""
+    if mesh is None:
+        return 1
+    return int(mesh.devices.size)
+
+
+@dataclasses.dataclass
+class ShardedExecutor:
+    """The sharded variant of an entry, over a mesh of ``n`` positions:
+    the port's counterpart of the reference's ``shard_map`` over the batch
+    axis. The batch is split on dim 0 into ``n`` equal shards, position
+    ``i`` takes shard ``i``, params are replicated (the caller passes one
+    weight image per position, ``HybridRuntime.executor_entry(mesh=)``),
+    and each shard runs the whole per-shard program as an ordinary
+    single-device :class:`CompiledExecutor` (``shards[i]``, captured as CUDA
+    graphs on its device's current stream). Positions on one device share
+    one such entry, so a repeated device replays one graph per shard, one
+    after the other, each replay holding the stream's lock. The output is
+    gathered on the mesh's first device, on its current stream, after an
+    event recorded on every other device's stream."""
+    program: Program
+    stats: dict[str, int]
+    shards: tuple                  # one CompiledExecutor per position
+    mesh_key: tuple
+    backend: str = "torch"
+    opt_level: int = 1
+    donate_input: bool = False
+    device: str = dataclasses.field(kw_only=True)   # the mesh's first device
+    aot_loaded: bool = False       # never: a sharded entry is always lowered
+
+    @property
+    def trace_count(self) -> int:
+        """CUDA-graph captures behind this entry's distinct shard entries."""
+        return sum(e.trace_count for e in {id(e): e for e in
+                                           self.shards}.values())
+
+    def _split(self, params: list, x: torch.Tensor):
+        n = len(self.shards)
+        if len(params) != n:
+            raise ValueError(f"sharded entry takes one weight image per mesh "
+                             f"position ({n}), got {len(params)}")
+        if x.shape[0] % n:
+            raise ValueError(f"sharded entry: batch {x.shape[0]} does not "
+                             f"divide over the mesh's {n} positions")
+        per = x.shape[0] // n
+        return [(e, p, x[i * per:(i + 1) * per])
+                for i, (e, p) in enumerate(zip(self.shards, params))]
+
+    def _gather(self, outs: list) -> torch.Tensor:
+        first = torch.device(self.device)
+        if first.type == "cuda":
+            s0 = torch.cuda.current_stream(first)
+            for e, y in zip(self.shards, outs):
+                if torch.device(e.device) != first:
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(y.device))
+                    s0.wait_event(ev)
+        return torch.cat([y.to(first, non_blocking=True) for y in outs])
+
+    def __call__(self, params: list, x_nhwc: torch.Tensor) -> torch.Tensor:
+        """``params``: one DRAM weight image per mesh position; ``x_nhwc``
+        the whole batch (on the first device or, pinned, on the host)."""
+        return self._gather([e(p, xs) for e, p, xs in
+                             self._split(params, x_nhwc)])
+
+    def fn(self, params: list, x_nhwc: torch.Tensor) -> torch.Tensor:
+        """The uncaptured sharded function: each shard through its entry's
+        ``fn`` on its device."""
+        with torch.no_grad():
+            return self._gather([
+                e.fn(p, xs.to(e.device, non_blocking=True))
+                for e, p, xs in self._split(params, x_nhwc)])
+
+
 def warm_device_constants(program: Program, *, backend: str,
                           device, quant: QuantSidecar | None = None) -> None:
     """Make the device constants the lowered function reads (requantize
@@ -1039,18 +1141,41 @@ def compile_executor(program: Program,
                      stats: dict[str, int] | None = None, *,
                      backend: str = "torch", opt_level: int = 1,
                      donate_input: bool = False, device,
-                     quant: QuantSidecar | None = None) -> CompiledExecutor:
+                     quant: QuantSidecar | None = None, mesh=None):
     """Validate (unless pre-validated stats are supplied) and lower
-    (through the int8 PE when ``quant`` is set)."""
+    (through the int8 PE when ``quant`` is set).
+
+    ``mesh`` of more than one position builds the sharded variant
+    (:class:`ShardedExecutor`, one single-device entry per distinct device
+    of the mesh over one lowering; the batch must divide over the
+    positions, which the program cache checks where the batch is known).
+    A mesh of one position lowers exactly as ``mesh=None`` on ``device``.
+    """
     if stats is None:
         stats = validate_schedule(program)
     backend = resolve_backend(backend)
     opt_level = resolve_opt_level(opt_level)
     execute = lower_program(program, backend=backend, opt_level=opt_level,
                             quant=quant)
-    warm_device_constants(program, backend=backend, device=device,
-                          quant=quant)
-    return CompiledExecutor(program=program, stats=dict(stats), fn=execute,
-                            backend=backend, opt_level=opt_level,
-                            donate_input=bool(donate_input),
-                            device=str(device))
+
+    def single(dev) -> CompiledExecutor:
+        warm_device_constants(program, backend=backend, device=dev,
+                              quant=quant)
+        return CompiledExecutor(program=program, stats=dict(stats),
+                                fn=execute, backend=backend,
+                                opt_level=opt_level,
+                                donate_input=bool(donate_input),
+                                device=str(dev))
+
+    if mesh_device_count(mesh) == 1:
+        return single(device)
+    by_device: dict[str, CompiledExecutor] = {}
+    for d in mesh.devices.flat:
+        if str(d) not in by_device:
+            by_device[str(d)] = single(d)
+    shards = tuple(by_device[str(d)] for d in mesh.devices.flat)
+    return ShardedExecutor(program=program, stats=dict(stats), shards=shards,
+                           mesh_key=mesh_key(mesh), backend=backend,
+                           opt_level=opt_level,
+                           donate_input=bool(donate_input),
+                           device=shards[0].device)

@@ -1,7 +1,7 @@
 """Compiled-program cache: one lowered executor per full key.
 
 The cache key is ``(program.schedule_key(), batch, dtype, param_dtypes,
-backend, opt_level, donate_input, device, quant digest)``:
+backend, opt_level, donate_input, device, quant digest, mesh)``:
 
 * ``schedule_key()`` is a content hash over the encoded 128-bit instruction
   stream plus the per-layer geometry, bit-equal to the reference package's
@@ -16,6 +16,11 @@ backend, opt_level, donate_input, device, quant digest)``:
   graphs' static buffers are never shared with the direct ``acc(x)`` entry.
 * the quant sidecar's ``digest()`` (``None`` for fp32): two calibrations of
   one Program never share an entry.
+* ``executor.mesh_key(mesh)`` (``None`` unsharded), last so that the AOT
+  artifact key's fields keep their places: a mesh of more than one
+  position gets the sharded entry (``executor.ShardedExecutor``), and the
+  batch must divide over its positions (``ValueError`` otherwise). A mesh
+  of one position lowers as no mesh and shares the unsharded entry.
 
 Every component is a content digest or a resolved scalar, so the key is the
 same in every process; ``core/aot.py`` keys its artifacts by it.
@@ -43,6 +48,8 @@ from repro_torch.core.compiler import Program
 from repro_torch.core.executor import (
     CompiledExecutor,
     compile_executor,
+    mesh_device_count,
+    mesh_key,
     resolve_opt_level,
     validate_schedule,
 )
@@ -65,13 +72,15 @@ def dtype_name(dtype) -> str:
 def cache_key(program: Program, *, batch: int, dtype,
               param_dtypes: tuple = (), backend: str = "torch",
               opt_level: int = 1, donate_input: bool = False, device,
-              quant=None) -> tuple:
+              mesh=None, quant=None) -> tuple:
     """The cache-key tuple for one executor request, in resolved form."""
+    if mesh_device_count(mesh) == 1:
+        mesh = None
     return (program.schedule_key(), int(batch), dtype_name(dtype),
             tuple(dtype_name(d) for d in param_dtypes),
             resolve_backend(backend), resolve_opt_level(opt_level),
             bool(donate_input), str(torch.device(device)),
-            quant.digest() if quant is not None else None)
+            quant.digest() if quant is not None else None, mesh_key(mesh))
 
 
 class ProgramCache:
@@ -130,14 +139,25 @@ class ProgramCache:
     def get(self, program: Program, *, batch: int, dtype,
             param_dtypes: tuple = (), backend: str = "torch",
             opt_level: int = 1, donate_input: bool = False, device,
-            quant=None, aot_dir: str | None = None) -> CompiledExecutor:
+            mesh=None, quant=None,
+            aot_dir: str | None = None) -> CompiledExecutor:
         """The executor for ``program`` at this batch/dtype/backend/
-        opt_level/donation/device/quant sidecar (lowered on a miss, or
-        loaded from the AOT bundle ``aot_dir`` when it holds this key)."""
+        opt_level/donation/device/mesh/quant sidecar (lowered on a miss, or
+        loaded from the AOT bundle ``aot_dir`` when it holds this key; a
+        sharded entry is never loaded from disk)."""
+        if mesh_device_count(mesh) == 1:
+            mesh = None
+        n = mesh_device_count(mesh)
+        if batch % n:
+            raise ValueError(
+                f"sharded executor: batch {batch} does not divide evenly "
+                f"over the mesh's {n} positions; pad the batch to a "
+                f"multiple (the serving session's bucket fallback) or drop "
+                f"the mesh for this batch size")
         key = cache_key(program, batch=batch, dtype=dtype,
                         param_dtypes=param_dtypes, backend=backend,
                         opt_level=opt_level, donate_input=donate_input,
-                        device=device, quant=quant)
+                        device=device, mesh=mesh, quant=quant)
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None:
@@ -146,7 +166,7 @@ class ProgramCache:
                 return entry
         stats = self.validate(program)
         entry = None
-        if aot_dir is not None:
+        if aot_dir is not None and mesh is None:
             from repro_torch.core import aot
             fn = aot.load_entry(aot_dir, key)
             if fn is not None:
@@ -159,7 +179,7 @@ class ProgramCache:
         if entry is None:
             entry = compile_executor(program, stats=stats, backend=key[4],
                                      opt_level=key[5], donate_input=key[6],
-                                     device=key[7], quant=quant)
+                                     device=key[7], quant=quant, mesh=mesh)
         with self._lock:
             # a racing thread may have built the same key meanwhile: first
             # insert wins so every caller holds the same executor

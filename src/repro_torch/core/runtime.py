@@ -56,6 +56,7 @@ from repro_torch.core.executor import (  # noqa: F401  (HazardError re-export)
     depthwise_forward,
     eltwise_forward,
     fc_forward,
+    mesh_device_count,
     pool_forward,
     resolve_opt_level,
     slice_input_rows,
@@ -95,6 +96,7 @@ class HybridRuntime:
         self.aot_dir = aot_dir
         self._cache = cache
         self.dram: dict[int, Any] = {}
+        self._replicas: dict[str, list] = {}   # device -> its weight copy
         self._loaded = False
         # pipeline statistics — the same counter keys as the executor's
         # schedule-validation pass; the interpreter adds to them per run
@@ -125,6 +127,7 @@ class HybridRuntime:
                 w = transform_weights(w, cl.plan.m)
             self.dram[cl.wgt_addr] = w.contiguous()
             self.dram[cl.bias_addr] = b.contiguous()
+        self._replicas.clear()
         self._loaded = True
 
     def dram_params(self) -> list[tuple[Any, Any]]:
@@ -138,7 +141,7 @@ class HybridRuntime:
                 if cl.kind not in ("pool", "eltwise")]
 
     def executor_entry(self, batch: int, dtype=torch.float32, *,
-                       donate_input: bool = False):
+                       donate_input: bool = False, mesh=None):
         """The cached executor + DRAM weight image for (batch, dtype).
         Schedule validation runs once per schedule key (cached).
 
@@ -147,7 +150,9 @@ class HybridRuntime:
         ``donate_input=True`` asks for the entry whose caller hands its
         input buffer over until the batch completes (the session's pinned
         staging, copied straight into the entry's CUDA graph); the direct
-        ``run`` path keeps ``False``."""
+        ``run`` path keeps ``False``. ``mesh`` (more than one position)
+        asks for the sharded entry; the params then come as one weight
+        image per position (:meth:`replicated_params`)."""
         if self.strict:
             raise RuntimeError(
                 "strict interpreter mode has no cached executor entry")
@@ -157,9 +162,29 @@ class HybridRuntime:
             self.program, batch=batch, dtype=dtype,
             param_dtypes=tuple(str(w.dtype) for w, _ in params),
             backend=self.backend, opt_level=self.opt_level,
-            donate_input=donate_input, device=self.device, quant=self.quant,
-            aot_dir=self.aot_dir)
+            donate_input=donate_input, device=self.device, mesh=mesh,
+            quant=self.quant, aot_dir=self.aot_dir)
+        if mesh_device_count(mesh) > 1:
+            params = self.replicated_params(mesh)
         return entry, params
+
+    def replicated_params(self, mesh) -> list:
+        """The DRAM weight image once per position of ``mesh``: positions
+        on the runtime's device share its image, and every other device
+        gets one copy, made at its first request and kept (positions that
+        repeat a device share it)."""
+        params = self.dram_params()
+        out = []
+        for d in mesh.devices.flat:
+            if d == self.device:
+                out.append(params)
+                continue
+            rep = self._replicas.get(str(d))
+            if rep is None:
+                rep = self._replicas[str(d)] = [
+                    (w.to(d), b.to(d)) for w, b in params]
+            out.append(rep)
+        return out
 
     def export_aot(self, aot_dir: str, x_shape, dtype, *,
                    donate_input: bool = False) -> str:

@@ -25,14 +25,16 @@ kernel's plain version). Prints the DSE verdict (``Accelerator.summary``),
 the build time (and, for int8, the calibration time inside it), the first
 request's time and the steady-state ms/batch and images/s. ``--session``
 also drives ``batch * iters`` single-image requests through a
-``ServingSession`` on one device (``--scheduler``, ``--deadline-ms``,
-``--queue-limit``; the reference's ``--mesh`` waits for sharded serving)
-and prints its throughput, latency percentiles and failure-model
-counters; ``--segmented`` (VGG16, fp32) builds the legacy multi-Program
-path instead. ``--compare-interpreter`` then times one request
-through the strict per-instruction interpreter (``strict_request``: the
-``torch`` PE, the same params and sidecar) against the steady executor and
-prints the slowdown and ``max |diff|`` of the logits (int8: ``0.00e+00``,
+``ServingSession`` (``--scheduler``, ``--deadline-ms``, ``--queue-limit``,
+``--mesh``: ``host``, the default, shards each device batch over every
+local card, which on one card is the unsharded session; ``none`` keeps
+single-device dispatch) and prints its throughput, latency percentiles,
+batches per device and failure-model counters; ``--segmented`` (VGG16,
+fp32) builds the legacy multi-Program path instead.
+``--compare-interpreter`` then times one request through the strict
+per-instruction interpreter (``strict_request``: the ``torch`` PE, the
+same params and sidecar) against the steady executor and prints the
+slowdown and ``max |diff|`` of the logits (int8: ``0.00e+00``,
 compared after dequantization).
 """
 from __future__ import annotations
@@ -136,7 +138,7 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
               backend: str = "torch", opt_level: int = 1,
               dtype: str = "float32", device=None,
               compare_interpreter: bool = False, segmented: bool = False,
-              session: bool = False,
+              session: bool = False, mesh: str = "host",
               scheduler: str = "continuous",
               deadline_ms: float | None = None,
               queue_limit: int | None = None) -> np.ndarray:
@@ -146,8 +148,9 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
     steady executor (after one warm-up) and prints ``max |diff|``.
     ``segmented`` builds the legacy multi-Program path (VGG16 only);
     ``session`` also serves ``batch * iters`` single images through a
-    :class:`~repro_torch.api.ServingSession` on one device (``scheduler``,
-    ``deadline_ms``, ``queue_limit``) and prints its statistics."""
+    :class:`~repro_torch.api.ServingSession` (``mesh``: ``"host"`` or
+    ``"none"``; ``scheduler``, ``deadline_ms``, ``queue_limit``) and prints
+    its statistics."""
     from repro_torch import api
     from repro_torch.core import perf_model as pm
     from repro_torch.models import resnet, vgg
@@ -158,6 +161,8 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
                          f"got {arch!r}")
     if target not in CNN_TARGETS:
         raise ValueError(f"--target must be one of {sorted(CNN_TARGETS)}")
+    if mesh not in ("none", "host"):
+        raise ValueError(f"--mesh must be 'none' or 'host', got {mesh!r}")
     if segmented and arch == "resnet18":
         raise ValueError(
             "--segmented is the legacy conv-segment path (host-side maxpool "
@@ -205,7 +210,7 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
           f"{t_steady * 1e3:.2f}ms/batch{batch} "
           f"({batch / t_steady:.1f} images/s) over {iters} requests")
     if session:
-        _serve_session(acc, x_np, iters, scheduler=scheduler,
+        _serve_session(acc, x_np, iters, mesh=mesh, scheduler=scheduler,
                        deadline_ms=deadline_ms, queue_limit=queue_limit)
     if compare_interpreter:
         strict_request = acc.strict_request()
@@ -225,7 +230,8 @@ def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,
     return y.cpu().numpy()
 
 
-def _serve_session(acc, x_np: np.ndarray, iters: int, *, scheduler: str, deadline_ms: float | None,
+def _serve_session(acc, x_np: np.ndarray, iters: int, *, mesh: str,
+                   scheduler: str, deadline_ms: float | None,
                    queue_limit: int | None):
     """``len(x_np) * iters`` single images through a ServingSession with
     one bucket of the accelerator's batch, from a settled heap
@@ -234,6 +240,7 @@ def _serve_session(acc, x_np: np.ndarray, iters: int, *, scheduler: str, deadlin
     batch = x_np.shape[0]
     with api.settled_heap(), acc.serve(
             max_batch=batch, buckets=(batch,), warmup=True,
+            mesh=None if mesh == "none" else mesh,
             scheduler=scheduler, deadline_ms=deadline_ms,
             queue_limit=queue_limit) as s:
         n_req = batch * iters
@@ -253,7 +260,7 @@ def _serve_session(acc, x_np: np.ndarray, iters: int, *, scheduler: str, deadlin
               f"compile {st.compile_ms:.0f}ms)")
         per_dev = ", ".join(f"{d}: {n}" for d, n in
                             sorted(st.device_batches.items()))
-        print(f"  per-device batches: {{{per_dev}}}")
+        print(f"  per-device batches (mesh={mesh}): {{{per_dev}}}")
         # the liveness ledger: submitted == completed + errors + shed
         print(f"  failure model: submitted {st.submitted} = completed "
               f"{st.requests} + errors {st.errors} + shed {st.shed}; "
@@ -297,6 +304,10 @@ def main():
     ap.add_argument("--session", action="store_true",
                     help="also drive single-image requests through the "
                          "batching ServingSession")
+    ap.add_argument("--mesh", default="host", choices=("none", "host"),
+                    help="ServingSession device mesh: 'host' shards device "
+                         "batches over every local card; 'none' keeps "
+                         "single-device dispatch")
     ap.add_argument("--scheduler", default="continuous",
                     choices=("continuous", "bucketed"),
                     help="ServingSession admission policy: 'continuous' "
@@ -320,7 +331,7 @@ def main():
                   device=args.device,
                   compare_interpreter=args.compare_interpreter,
                   segmented=args.segmented, session=args.session,
-                  scheduler=args.scheduler,
+                  mesh=args.mesh, scheduler=args.scheduler,
                   deadline_ms=args.deadline_ms,
                   queue_limit=args.queue_limit)
     print("logits:", y.shape)

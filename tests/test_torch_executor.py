@@ -410,23 +410,29 @@ def _table_graph(params):
 
 
 def test_graph_table_drops_least_recent_and_dead_graphs():
-    """An entry's graphs: a lookup makes a graph the most recent, the
-    least recently used goes past the bound, and a graph whose params
-    are no longer referenced outside it is never handed out again."""
+    """An entry's graphs, keyed by (stream, weight set): every live weight
+    set keeps its graph, each weight set keeps its most recent streams (a
+    lookup makes a graph the most recent, the least recently used stream
+    goes past the bound), and a graph whose params are no longer
+    referenced outside it is never handed out again."""
     table = t_executor._GraphTable(2)
     wa, wb, wc = (torch.zeros(2) for _ in range(3))
     ga, gb, gc = (_table_graph([w]) for w in (wa, wb, wc))
-    table.put("a", ga)
-    table.put("b", gb)
-    assert table.get("a") is ga          # "a" is now the most recent
-    table.put("c", gc)
-    assert table.get("b") is None and len(table) == 2
-    assert table.get("a") is ga and table.get("c") is gc
-    del wa
-    assert table.get("a") is None and len(table) == 1
-    del wc
-    table.put("b", gb)                   # a put purges dead graphs too
-    assert len(table) == 1 and table.get("b") is gb
+    for w, g in (("a", ga), ("b", gb), ("c", gc)):
+        table.put((1, w), g)           # three weight sets on one stream
+    assert len(table) == 3 and table.get((1, "a")) is ga
+    a2, a3 = _table_graph([wa]), _table_graph([wa])
+    table.put((2, "a"), a2)
+    assert table.get((1, "a")) is ga   # stream 1 is now the most recent
+    table.put((3, "a"), a3)            # a third stream of "a": stream 2 goes
+    assert table.get((2, "a")) is None and len(table) == 4
+    assert table.get((1, "a")) is ga and table.get((3, "a")) is a3
+    assert table.get((1, "b")) is gb and table.get((1, "c")) is gc
+    del wa, ga, a2, a3
+    assert table.get((1, "a")) is None and len(table) == 3
+    del wc, gc
+    table.put((1, "b"), gb)            # a put purges dead graphs too
+    assert len(table) == 1 and table.get((1, "b")) is gb
 
 
 def test_capture_holds_the_multipliers_it_reads():
@@ -481,8 +487,15 @@ def test_unported_paths_name_their_roadmap_item(tmp_path):
         np.float32)
     np.testing.assert_array_equal(again(x).numpy(), acc(x).numpy())
     assert cache.stats.aot_loads == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-        acc.serve(max_batch=1, mesh=["cpu", "cpu"])
+    # sharded serving is ported (tests/test_torch_mesh.py): two replicas
+    # on the one CPU device, each row bit for bit the direct path on its
+    # own shard
+    x2 = np.concatenate([x, -x])
+    with acc.serve(max_batch=2, buckets=(2,), mesh=["cpu", "cpu"]) as s:
+        out = s.run_many(list(x2))
+        assert s.stats.device_batches == {0: 1, 1: 1}
+    for row, xi in zip(out, x2):
+        np.testing.assert_array_equal(row, acc(xi[None]).numpy()[0])
     # the segmented path is ported (tests/test_torch_segmented.py)
     seg = t_api.Accelerator.build(specs, t_pm.V5E, batch=1, device="cpu",
                                   segmented=True)

@@ -894,3 +894,117 @@ def test_gpu_concurrent_direct_calls_share_one_graph(cuda):
         {k: 64 * v for k, v in per_call.items()}
     entry, _ = acc.runtime.executor_entry(2)
     assert entry.trace_count == 1
+
+
+# ---------------------------------------------------------------------------
+# F3 (graphs follow the live weight sets) and sharded serving on the card
+# ---------------------------------------------------------------------------
+
+def test_gpu_five_tenants_in_rotation_capture_once_each(cuda):
+    """F3's guard: five accelerators of one fp32 program with distinct
+    weights share a cache entry; called in rotation for three rounds on one
+    stream, the entry captures once per weight set (5, not one a call),
+    and every answer stays ``torch.equal`` to ``entry.fn`` on the same
+    weights."""
+    specs = resnet.resnet18_specs(32, 16, n_classes=10)
+    cache = ProgramCache()
+    accs = [api.Accelerator.build(specs, batch=2, backend="hopper",
+                                  seed=seed, device=cuda, cache=cache)
+            for seed in range(5)]
+    x = torch.from_numpy(np.random.default_rng(20).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)).to(cuda)
+    entry, _ = accs[0].runtime.executor_entry(2)
+    for _ in range(3):
+        for acc in accs:
+            assert acc.runtime.executor_entry(2)[0] is entry
+            y = acc(x)
+            assert torch.equal(y, entry.fn(acc.runtime.dram_params(), x))
+    assert entry.trace_count == 5 and len(entry._graphs) == 5
+
+
+def _two_replicas(cuda):
+    from repro_torch.compat import make_mesh
+    return make_mesh((2,), ("batch",), devices=[cuda, cuda])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("model", ["vgg16", "resnet18"])
+def test_gpu_two_replica_mesh_on_one_card(cuda, model, dtype):
+    """A mesh that repeats the one card: both buckets sharded over two
+    replicas, each shard replaying one graph; results equal the unsharded
+    session's (int8 bit for bit, fp32 within 1e-3 max|logit|: a shard's
+    GEMMs see half the rows), batches counted on both positions, and the
+    launches twice a shard's per batch."""
+    build = vgg.network_specs if model == "vgg16" else resnet.resnet18_specs
+    specs = build(32, 16, n_classes=10)
+    acc = api.Accelerator.build(specs, batch=4, backend="hopper",
+                                dtype=dtype, device=cuda,
+                                cache=ProgramCache())
+    reqs = list(np.random.default_rng(21).standard_normal(
+        (11, 32, 32, 3)).astype(np.float32))
+    with acc.serve(max_batch=4, buckets=(2, 4), warmup=True) as s:
+        ref = np.stack(s.run_many(reqs))
+    common.reset_launches()
+    acc(np.stack(reqs[:2]))
+    per_shard = {k: v for k, v in common.LAUNCHES.items() if v}
+    with acc.serve(max_batch=4, buckets=(2, 4), warmup=True,
+                   mesh=_two_replicas(cuda)) as s:
+        assert {b: e.trace_count for b, e in
+                s._sharded_entries.items()} == {2: 1, 4: 1}
+        common.reset_launches()
+        got = np.stack(s.run_many(reqs))
+        launches = {k: v for k, v in common.LAUNCHES.items() if v}
+        st = s.stats
+    if dtype == "int8":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert np.abs(got - ref).max() <= 1e-3 * np.abs(ref).max()
+    assert st.device_batches == {0: 3, 1: 3} and st.errors == 0
+    assert launches == {k: 2 * 3 * v for k, v in per_shard.items()}
+
+
+def test_gpu_fleet_over_two_replicas_bitwise(cuda):
+    """Two models in a Fleet over one two-replica mesh give bit for bit
+    their standalone sharded sessions' results."""
+    mesh = _two_replicas(cuda)
+    accs = {"v": api.Accelerator.build(vgg.network_specs(32, 16, n_classes=10),
+                                       batch=4, backend="hopper",
+                                       dtype="int8", device=cuda),
+            "r": api.Accelerator.build(resnet.resnet18_specs(
+                32, 16, n_classes=10), batch=4, backend="hopper",
+                device=cuda)}
+    reqs = list(np.random.default_rng(22).standard_normal(
+        (8, 32, 32, 3)).astype(np.float32))
+    refs = {}
+    for name, acc in accs.items():
+        with acc.serve(max_batch=4, buckets=(4,), mesh=mesh) as s:
+            refs[name] = s.run_many(reqs)
+    with api.Fleet(accs, mesh=mesh, max_batch=4, buckets=(4,)) as fleet:
+        res = fleet.run_many([(n, r) for n in accs for r in reqs])
+    for got, ref in zip(res, refs["v"] + refs["r"]):
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_gpu_mesh_over_two_cards(cuda):
+    """``make_fleet_mesh(2)`` over two distinct cards: each card replays
+    its shard's graph on its own stream, the logits are gathered on card
+    0, and the session's results equal the unsharded session's (fp32
+    within 1e-3 max|logit|)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.launch.mesh import make_fleet_mesh
+    specs = resnet.resnet18_specs(32, 16, n_classes=10)
+    acc = api.Accelerator.build(specs, batch=4, backend="hopper",
+                                device=torch.device("cuda", 0),
+                                cache=ProgramCache())
+    reqs = list(np.random.default_rng(23).standard_normal(
+        (8, 32, 32, 3)).astype(np.float32))
+    with acc.serve(max_batch=4, buckets=(4,)) as s:
+        ref = np.stack(s.run_many(reqs))
+    with acc.serve(max_batch=4, buckets=(4,), mesh=make_fleet_mesh(2)) as s:
+        got = np.stack(s.run_many(reqs))
+        entry = s._sharded_entries[4]
+        assert [e.device for e in entry.shards] == ["cuda:0", "cuda:1"]
+        assert entry.trace_count == 2
+        assert s.stats.device_batches == {0: 2, 1: 2}
+    assert np.abs(got - ref).max() <= 1e-3 * np.abs(ref).max()

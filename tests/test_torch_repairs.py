@@ -8,7 +8,12 @@ on the same inputs:
   packages);
 * the serving CLI requires ``--arch`` and defaults ``--batch`` to 4, as the
   reference's does (both ``main()``s driven with their serve functions
-  replaced by recorders).
+  replaced by recorders), and takes ``--mesh none|host`` with the
+  reference's default;
+* F3: an entry's CUDA graphs follow the live weight sets, so five weight
+  sets taking turns on one stream capture once each (the graph table's
+  policy, with stub graphs; the card's guard is in
+  ``tests/test_torch_gpu.py``).
 """
 import dataclasses
 import sys
@@ -155,3 +160,56 @@ def test_serve_cli_requires_arch_like_reference(monkeypatch, capsys):
             _drive(monkeypatch, module, [])
         assert exc.value.code == 2, module.__name__
         assert "--arch" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,mesh", [([], "host"), (["--mesh", "none"],
+                                                      "none"),
+                                       (["--mesh", "host"], "host")])
+def test_serve_cli_mesh_like_reference(monkeypatch, capsys, argv, mesh):
+    for module in (r_serve, t_serve):
+        cnn, _ = _drive(monkeypatch, module,
+                        ["--arch", "vgg16", "--session", *argv])
+        assert cnn.calls[0]["mesh"] == mesh, module.__name__
+        assert cnn.calls[0]["session"] is True
+    capsys.readouterr()
+
+
+def _stub_graph(weights):
+    import threading
+    import weakref
+    from repro_torch.core import executor
+    return executor._Graph(None, None, None,
+                           tuple(weakref.ref(t) for t in weights), [], {},
+                           threading.Lock())
+
+
+def test_graph_table_keeps_every_live_weight_set():
+    """F3: five weight sets of one entry called in rotation on one stream
+    for three rounds miss only in the first round (one capture per weight
+    set, where a fixed bound of four graphs missed every call); a weight
+    set that dies takes its graph with it, and the others keep theirs."""
+    import gc
+    from repro_torch.core import executor
+    table = executor._GraphTable(executor.STREAMS_PER_WEIGHTS)
+    weights = [torch.zeros(2) for _ in range(5)]
+    stream, misses = 7, []
+    for rnd in range(3):
+        for i, w in enumerate(weights):
+            key = (stream, (w.data_ptr(),))
+            if table.get(key) is None:
+                misses.append((rnd, i))
+                table.put(key, _stub_graph([w]))
+    assert misses == [(0, i) for i in range(5)]
+    assert len(table) == 5
+    dead_key = (stream, (weights[2].data_ptr(),))
+    del weights[2]
+    gc.collect()
+    assert table.get(dead_key) is None and len(table) == 4
+    for w in weights:
+        assert table.get((stream, (w.data_ptr(),))) is not None
+    # one weight set over more streams than the bound keeps its most recent
+    w = weights[0]
+    for s in range(8, 8 + executor.STREAMS_PER_WEIGHTS):
+        table.put((s, (w.data_ptr(),)), _stub_graph([w]))
+    assert table.get((stream, (w.data_ptr(),))) is None
+    assert len(table) == 3 + executor.STREAMS_PER_WEIGHTS

@@ -416,10 +416,12 @@ def test_mesh_on_one_device_serves_and_more_devices_refuse(acc):
         out = s.run_many(x)
         assert s.stats.device_batches == {0: 1}
     np.testing.assert_array_equal(np.stack(out), acc(np.stack(x)).numpy())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        acc.serve(max_batch=2, mesh=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        api.Fleet({"m": acc}, max_batch=2, mesh=["cpu", "cpu"])
+    # more positions serve sharded (tests/test_torch_mesh.py), but a mesh
+    # that divides no bucket is refused, by the session and by a Fleet
+    with pytest.raises(ValueError, match="divides evenly"):
+        acc.serve(max_batch=2, buckets=(2,), mesh=["cpu"] * 3)
+    with pytest.raises(ValueError, match="divides evenly"):
+        api.Fleet({"m": acc}, max_batch=2, buckets=(2,), mesh=["cpu"] * 3)
 
 
 def test_serve_cli_session_prints_the_ledger(capsys):
