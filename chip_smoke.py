@@ -104,6 +104,25 @@ logits ``torch.equal`` to the original's), runs ``run_with_recovery`` over
 restart, the final state ``torch.equal`` to a run without failure) and
 ``elastic_restore``s onto placements over the mesh's devices.
 
+Phase 6 trains through ``repro_torch.launch.train`` (no hand-written
+kernel lies on the training path, so the launch counts must not move):
+(a) reduced minitron-8b in fp32 at the reference CLI's defaults (20 steps,
+batch 8, seq 64, a checkpoint every 10), losses finite and falling, then
+10 steps and a second run resumed from the step-10 checkpoint, held to the
+uninterrupted run's losses within ``1e-4`` relative (the largest gap
+printed), and three steps on the card held to the same steps on the CPU
+from the same parameters within ``1e-4``; (b) the reduced config in bf16,
+two steps, its params and AdamW state saved blocking and async and
+restored onto ``cuda:0``, every leaf ``torch.equal`` (ms and bytes); (c)
+minitron-8b at full width cut to 4 of its 32 layers (d_model 4096, 32
+heads over 8 KV heads, d_ff 16384, vocab 256000, bf16, remat), batch 2 x
+4096 from ``batch_for_step``, six steps through ``launch.train.build``'s
+step function: ms/step (median of steps 2-6), tokens/s, peak allocated
+memory, loss (near ln(256000) at step 0) and grad norm, both finite, and
+one more step under ``torch.profiler``: device busy share, the ten longest
+kernels, the GEMM kernels' time, and the scan attention, the loss and the
+AdamW update timed by CUDA events.
+
 Each CNN path answers one first request and several steady ones, with the
 launch counts set to 0 just before it and checked per request just after,
 and its logits held against the ``backend="torch"`` (aten) path on the same
@@ -129,8 +148,9 @@ the timings of each path (for the interpreter, its requests beside the
 served and ``opt_level=0`` executors', and the kernels whose device time
 differs most between the two under the profiler; for the LM also a
 ``torch.profiler`` breakdown of one prefill and one decode step: device
-busy time and the longest kernels), a ``{"kernels": [...]}`` summary
-line, and as the last line ``{"ok": true, "device": {...}}``.
+busy time and the longest kernels), phase 6's training lines, a
+``{"kernels": [...]}`` summary line, and as the last line ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2162,6 +2182,320 @@ def serve_lm(k6_ms: float) -> dict:
     return dict(launches=launches)
 
 
+# phase 6: training through repro_torch.launch.train. (a) reduced
+# minitron-8b at the reference CLI's defaults (20 steps, batch 8, seq 64, a
+# checkpoint every 10), resumed from step 10, and three steps held to the
+# CPU; (b) the reduced config in bf16, its state checkpointed and restored;
+# (c) full-width minitron-8b cut to 4 of its 32 layers, batch 2 x 4096
+# (train_4k's sequence; its global batch of 256 cut to 2)
+TRAIN_ARCH = "minitron-8b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_EVERY = 20, 8, 64, 10
+TRAIN_TOL = 1e-4
+FULL_LAYERS, FULL_BATCH, FULL_SEQ, FULL_STEPS = 4, 2, 4096, 6
+# kernel names of the GEMMs (cuBLAS and CUTLASS bodies) in a profile
+GEMM_NAMES = re.compile(r"gemm|xmma|cutlass|nvjet|wgmma", re.I)
+
+
+def _rel_gap(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def train_reduced(root: Path, card: str) -> dict:
+    """Phase 6a: ``launch.train.train(device="cuda")`` at the reference
+    CLI's defaults, then 10 steps and a resumed run to 20 (the same
+    schedule horizon), held to the uninterrupted losses; three steps from
+    parameters carried to the CPU, held to the card's."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              ckpt_every=TRAIN_EVERY, device="cuda", log_every=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    full = train_mod.train(TRAIN_ARCH, ckpt_dir=str(root / "a"), **kw)
+    t_full = (time.perf_counter() - t0) * 1e3
+    half = train_mod.train(TRAIN_ARCH, ckpt_dir=str(root / "b"),
+                           **{**kw, "steps": TRAIN_EVERY},
+                           total_steps=TRAIN_STEPS)
+    rest = train_mod.train(TRAIN_ARCH, ckpt_dir=str(root / "b"), **kw)
+    if not (np.isfinite(full).all() and len(full) == TRAIN_STEPS
+            and full[-1] < full[0]):
+        raise AssertionError(f"reduced training: losses {full}")
+    resume_gap = _rel_gap(rest, full[TRAIN_EVERY:])
+    first_gap = _rel_gap(half, full[:TRAIN_EVERY])
+    if len(rest) != TRAIN_STEPS - TRAIN_EVERY or not max(
+            resume_gap, first_gap) <= TRAIN_TOL:
+        raise AssertionError(f"resumed training: gap {resume_gap:.3e} "
+                             f"(first half {first_gap:.3e}) > {TRAIN_TOL}")
+
+    cfg = get_config(TRAIN_ARCH).reduced()
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    params, state, step_fn, _ = train_mod.build(cfg, opt,
+                                                make_host_mesh("cuda"))
+    cpu = pytree.tree_map(lambda t: t.cpu(), params)
+    cpu_state, cpu_step = adamw.init(cpu), steps.make_train_step(cfg, opt)
+    data = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    card_losses, cpu_losses = [], []
+    for i in range(3):
+        b = batch_for_step(data, i)
+        params, state, m = step_fn(params, state, b)
+        card_losses.append(float(m["loss"]))
+        cpu, cpu_state, m = cpu_step(cpu, cpu_state, b)
+        cpu_losses.append(float(m["loss"]))
+    cpu_gap = _rel_gap(card_losses, cpu_losses)
+    if not cpu_gap <= TRAIN_TOL:
+        raise AssertionError(f"card vs CPU losses {card_losses} vs "
+                             f"{cpu_losses}: gap {cpu_gap:.3e}")
+    print(f"train (a) ({card}): reduced {TRAIN_ARCH} fp32, {TRAIN_STEPS} "
+          f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} in {t_full:.0f}ms "
+          f"(checkpoints every {TRAIN_EVERY}): loss {full[0]:.4f} -> "
+          f"{full[-1]:.4f}; resumed from step {TRAIN_EVERY}: largest "
+          f"relative gap to the uninterrupted losses {resume_gap:.3e} "
+          f"(steps 0-9 {first_gap:.3e}); three steps on the card vs the "
+          f"CPU from the same parameters: gap {cpu_gap:.3e}", flush=True)
+    return dict(reduced_ms=t_full, losses=full, resume_gap=resume_gap,
+                first_half_gap=first_gap, cpu_gap=cpu_gap)
+
+
+def train_bf16_checkpoint(root: Path, card: str) -> dict:
+    """Phase 6b: the reduced config in bf16, two train steps on the card,
+    its (params, AdamW state) saved blocking and async and restored onto
+    ``cuda:0``: every leaf ``torch.equal``."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH).reduced(),
+                              dtype="bfloat16")
+    params = steps.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    state = adamw.init(params)
+    step = steps.make_train_step(cfg, adamw.AdamWConfig())
+    for i in range(2):
+        params, state, m = step(params, state, batch_for_step(
+            DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), i))
+    tree = (params, state)
+    out = {}
+    for mode in ("blocking", "async"):
+        d = root / f"bf16_{mode}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = ckpt.save(str(d), 2, tree, blocking=mode == "blocking")
+        call_ms = (time.perf_counter() - t0) * 1e3
+        if t is not None:
+            t.join(timeout=300)
+            if t.is_alive():
+                raise AssertionError("async checkpoint writer did not end")
+        done_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got, _ = ckpt.restore(str(d), tree, device="cuda:0")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        for (path, x), y in zip(pytree.tree_flatten_with_path(got)[0],
+                                pytree.tree_leaves(tree)):
+            if not (x.dtype == y.dtype and torch.equal(x, y)):
+                raise AssertionError(f"bf16 checkpoint ({mode}): leaf "
+                                     f"{path} differs")
+        out[mode] = dict(call_ms=call_ms, done_ms=done_ms,
+                         restore_ms=restore_ms, bytes=sum(
+                             f.stat().st_size for f in d.rglob("*")
+                             if f.is_file()))
+    blk, asy = out["blocking"], out["async"]
+    print(f"train (b) ({card}): reduced {TRAIN_ARCH} in bf16, 2 steps; "
+          f"params, m and v ({blk['bytes']} bytes on disk) saved blocking "
+          f"in {blk['done_ms']:.1f}ms, async call {asy['call_ms']:.1f}ms "
+          f"(written after {asy['done_ms']:.1f}ms); restored onto cuda:0 "
+          f"in {blk['restore_ms']:.1f} / {asy['restore_ms']:.1f}ms, every "
+          f"leaf torch.equal", flush=True)
+    return out
+
+
+class _Marks:
+    """CUDA events around one function's calls, forward and backward, on
+    the current stream: ``wrap(fn)`` records events around each call and,
+    through identity autograd nodes on its tensor inputs and output, when
+    its backward starts (its output's gradient arrives) and ends (the last
+    input's gradient is ready). Its device time is the events' sum."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def _event(self):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def wrap(self, fn):
+        marks = self
+
+        class Mark(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, slot, end, x):
+                ctx.slot, ctx.end = slot, end
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                ctx.slot[1 if ctx.end else 0] = marks._event()
+                return None, None, g
+
+        def wrapped(*args, **kwargs):
+            slot = [None, None]
+            marks.pairs.append(slot)
+            args = [Mark.apply(slot, True, a)
+                    if isinstance(a, torch.Tensor) and a.requires_grad
+                    else a for a in args]
+            start = self._event()
+            out = fn(*args, **kwargs)
+            self.pairs.append([start, self._event()])
+            if isinstance(out, torch.Tensor) and out.requires_grad:
+                out = Mark.apply(slot, False, out)
+            return out
+        return wrapped
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs
+                   if a is not None and b is not None)
+
+
+def train_full_width(card: str) -> dict:
+    """Phase 6c: full-width minitron-8b cut to FULL_LAYERS layers (every
+    width whole, bf16, remat) through ``launch.train.build`` and its step
+    function, FULL_STEPS steps of ``batch_for_step`` batches, then one
+    more under ``torch.profiler`` with the scan attention, the loss and the
+    AdamW update timed by CUDA events."""
+    import dataclasses
+    import math
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=FULL_LAYERS)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=FULL_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, step_fn, _ = train_mod.build(cfg, opt,
+                                                make_host_mesh("cuda"))
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    n_params = sum(p.numel() for p in pytree.tree_leaves(params))
+    data = DataConfig(cfg.vocab_size, FULL_SEQ, FULL_BATCH)
+    ms, losses, norms = [], [], []
+    for i in range(FULL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch_for_step(data, i))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(ms[1:])
+    tokens = FULL_BATCH * FULL_SEQ
+    ln_v = math.log(cfg.vocab_size)
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()
+            and abs(losses[0] - ln_v) < 1.0):
+        raise AssertionError(f"full-width training: losses {losses}, grad "
+                             f"norms {norms} (ln V = {ln_v:.3f})")
+
+    # one more step under the profiler, its parts timed by CUDA events
+    marks = {k: _Marks() for k in ("scan", "loss", "adamw")}
+    scan, ce, upd = layers._flash_attention_scan, steps.cross_entropy, \
+        adamw.update
+    layers._flash_attention_scan = marks["scan"].wrap(scan)
+    steps.cross_entropy = marks["loss"].wrap(ce)
+    adamw.update = marks["adamw"].wrap(upd)
+    try:
+        b = batch_for_step(data, FULL_STEPS)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, b)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        layers._flash_attention_scan, steps.cross_entropy = scan, ce
+        adamw.update = upd
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in kernels
+                  if GEMM_NAMES.search(e.key)) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    parts = {k: v.ms() for k, v in marks.items()}
+    out = dict(arch=TRAIN_ARCH, n_layers=FULL_LAYERS, batch=FULL_BATCH,
+               seq=FULL_SEQ, n_params=n_params, build_ms=build_ms,
+               step_ms=ms, median_step_ms=step_ms,
+               tokens_per_s=tokens / step_ms * 1e3,
+               peak_allocated_gb=peak_gb, losses=losses, grad_norms=norms,
+               profiled_wall_ms=prof_wall_ms, device_busy_ms=busy_ms,
+               gemm_ms=gemm_ms, scan_attention_ms=parts["scan"],
+               loss_ms=parts["loss"], adamw_ms=parts["adamw"],
+               top=[[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                    for e in top])
+    print(f"train (c) ({card}): {TRAIN_ARCH} at full width, {FULL_LAYERS} "
+          f"of 32 layers ({n_params / 1e9:.3f} G parameters, bf16, remat), "
+          f"batch {FULL_BATCH} x {FULL_SEQ}: {step_ms:.1f}ms/step (median "
+          f"of steps 2-{FULL_STEPS}; all {[round(t, 1) for t in ms]}), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak allocated "
+          f"{peak_gb:.2f} GB; loss {losses[0]:.4f} (ln V {ln_v:.4f}) -> "
+          f"{losses[-1]:.4f}, grad norm {norms[0]:.3f} -> {norms[-1]:.3f}; "
+          f"build {build_ms:.0f}ms", flush=True)
+    print(f"train (c) profile ({card}), one step: wall {prof_wall_ms:.1f}ms "
+          f"under the profiler, device busy {busy_ms:.1f}ms "
+          f"({busy_ms / prof_wall_ms:.1%}); GEMM kernels {gemm_ms:.1f}ms "
+          f"(the scan's products included); by CUDA events: scan attention "
+          f"(forward, remat recompute, backward) {parts['scan']:.1f}ms, "
+          f"loss (forward, backward) {parts['loss']:.1f}ms, AdamW update "
+          f"{parts['adamw']:.1f}ms; longest kernels: "
+          + "; ".join(f"{k} {t:.2f}ms x{n}" for k, t, n in out["top"]),
+          flush=True)
+    return out
+
+
+def train_phase(card: str) -> dict:
+    """Phase 6: training (a)-(c); no hand-written kernel lies on the
+    training path, so the launch counts must not move."""
+    from repro_torch.kernels import common
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke" / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    before = dict(common.LAUNCHES)
+    t0 = time.perf_counter()
+    out = {"reduced": train_reduced(root, card),
+           "bf16_checkpoint": train_bf16_checkpoint(root, card)}
+    shutil.rmtree(root, ignore_errors=True)
+    out["full_width"] = train_full_width(card)
+    if common.LAUNCHES != before:
+        raise AssertionError(f"training launched hand-written kernels: "
+                             f"{common.LAUNCHES} (before {before})")
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "train", "card": card, **out}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -2341,6 +2675,12 @@ def main() -> int:
     lm = serve_lm(k6_ms=per_kernel["flash_attention"]["ms"])
     for name, n in lm["launches"].items():
         total[name] += n
+    del lm
+    torch.cuda.empty_cache()
+
+    # -- phase 6: training through repro_torch.launch.train -----------------
+    train = train_phase(card)
+    print(f"phase 6 (train): {train['phase_s']:.1f}s", flush=True)
     print(f"whole run: {time.perf_counter() - t_start:.1f}s", flush=True)
 
     summary = []

@@ -13,22 +13,36 @@ A leaf's key joins its path's dict keys and sequence indices with ``/``
 reference's ``DictKey.key`` and ``SequenceKey.idx``), so the keys are the
 reference's; ``restore`` looks leaves up by key, whatever order a tree's
 dicts flatten in. Restore never requires the saving placement: each leaf
-goes where the caller's ``shardings`` tree says (a ``torch.device``), or
-to ``device``.
+goes where the caller's ``shardings`` tree says (a ``torch.device``, or a
+``parallel.sharding.NamedSharding`` as ``param_shardings`` returns), or to
+``device``.
+
+A bfloat16 leaf is written as the reference writes one (numpy has no
+bfloat16; the reference's ``ml_dtypes`` array saves as 2-byte ``<V2``
+records): the same bytes and ``.npy`` header in ``arrays.npz``, and
+``"dtype": "bfloat16"`` in the manifest. ``restore`` reads the manifest's
+dtype and views such a leaf back as ``torch.bfloat16``, bit for bit (the
+reference's own restore cannot read it back: ``jax.device_put`` refuses a
+``V2`` array).
 """
 from __future__ import annotations
 
 import json
 import os
 import threading
+import zipfile
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.compat import resolve_device
+from repro_torch.parallel.sharding import NamedSharding
 
 _SEP = "/"
+BF16 = "bfloat16"
+# the .npy descr of an ml_dtypes bfloat16 array, as the reference saves it
+_BF16_DESCR = "<V2"
 
 
 def _key(path) -> str:
@@ -36,22 +50,44 @@ def _key(path) -> str:
                      for p in path)
 
 
-def _host_array(key: str, leaf) -> np.ndarray:
-    """A leaf as a host array of its own (a tensor on the card is copied
-    to the host here, on the caller's thread)."""
+def _host_array(key: str, leaf) -> tuple[np.ndarray, str]:
+    """A leaf as a host array of its own and its dtype's name (a tensor on
+    the card is copied to the host here, on the caller's thread). A
+    bfloat16 leaf becomes its raw 2-byte records."""
     if not isinstance(leaf, torch.Tensor):
-        return np.array(leaf)
+        a = np.array(leaf)
+        return a, str(a.dtype)
     t = leaf.detach()
+    name = None
+    if t.dtype == torch.bfloat16:
+        t, name = t.view(torch.int16), BF16
     try:
-        return t.cpu().numpy() if t.device.type != "cpu" else t.numpy().copy()
+        a = t.cpu().numpy() if t.device.type != "cpu" else t.numpy().copy()
     except TypeError as e:
         raise TypeError(f"checkpoint leaf {key!r} has dtype {t.dtype}, which "
                         f"numpy cannot hold; cast it before saving") from e
+    return a, name or str(a.dtype)
 
 
-def _flatten(tree) -> dict[str, np.ndarray]:
+def _flatten(tree) -> dict[str, tuple[np.ndarray, str]]:
     return {_key(path): _host_array(_key(path), leaf)
             for path, leaf in pytree.tree_flatten_with_path(tree)[0]}
+
+
+def _write_npz(path: str, flat: dict[str, tuple[np.ndarray, str]]) -> None:
+    """``np.savez``'s archive (uncompressed, one ``<key>.npy`` member per
+    leaf), with the reference's ``<V2`` header for a bfloat16 leaf."""
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, (a, name) in flat.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                if name != BF16:
+                    np.lib.format.write_array(f, a, allow_pickle=False)
+                    continue
+                np.lib.format.write_array_header_1_0(f, {
+                    "descr": _BF16_DESCR, "fortran_order": False,
+                    "shape": a.shape})
+                f.write(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
 
 
 def save(ckpt_dir: str, step: int, tree, *, blocking: bool = True,
@@ -64,11 +100,11 @@ def save(ckpt_dir: str, step: int, tree, *, blocking: bool = True,
     def _write():
         d = os.path.join(ckpt_dir, f"step_{step:08d}")
         os.makedirs(d, exist_ok=True)
-        np.savez(os.path.join(d, "arrays.npz"), **flat)
+        _write_npz(os.path.join(d, "arrays.npz"), flat)
         manifest = {
             "step": step,
-            "keys": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
-                     for k, v in flat.items()},
+            "keys": {k: {"shape": list(a.shape), "dtype": name}
+                     for k, (a, name) in flat.items()},
             **(extra_meta or {}),
         }
         with open(os.path.join(d, "manifest.json"), "w") as f:
@@ -98,9 +134,10 @@ def restore(ckpt_dir: str, template, *, step: int | None = None,
             shardings=None, device=None):
     """Restore into the structure of ``template``; returns ``(tree,
     step)`` with a tensor per leaf. ``shardings`` (a matching tree of
-    ``torch.device``, ``None`` for ``device``) places each leaf: pass the
-    current mesh's placements to restore elastically. ``device=None``
-    means the CUDA card, raising without one (``compat.resolve_device``)."""
+    ``torch.device`` or ``NamedSharding``, ``None`` for ``device``) places
+    each leaf: pass the current mesh's placements to restore elastically.
+    ``device=None`` means the CUDA card, raising without one
+    (``compat.resolve_device``)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -112,13 +149,23 @@ def restore(ckpt_dir: str, template, *, step: int | None = None,
     if len(places) != len(paths):
         raise ValueError(f"shardings has {len(places)} leaves, the template "
                          f"{len(paths)}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        dtypes = {k: v["dtype"] for k, v in json.load(f)["keys"].items()}
     default = None
     leaves = []
     with np.load(os.path.join(d, "arrays.npz")) as arrays:
         for (path, _), place in zip(paths, places):
-            if place is None:
+            if isinstance(place, NamedSharding):
+                place = place.device
+            elif place is None:
                 if default is None:
                     default = resolve_device(device)
                 place = default
-            leaves.append(torch.from_numpy(arrays[_key(path)]).to(place))
+            key = _key(path)
+            if dtypes[key] == BF16:
+                t = torch.from_numpy(arrays[key].view(np.int16))
+                t = t.view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(arrays[key])
+            leaves.append(t.to(place))
     return pytree.tree_unflatten(leaves, treedef), step

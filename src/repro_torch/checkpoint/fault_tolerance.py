@@ -10,7 +10,8 @@ elastic re-meshing. The logic and names are the reference package's.
   latest checkpoint and replays from its step (a deterministic step
   function, e.g. over ``data.pipeline``, makes the recovery bit-exact).
 * ``elastic_restore`` — restores a checkpoint onto another placement: the
-  caller's ``param_sharding_fn`` says where each leaf goes.
+  caller's ``param_sharding_fn`` (e.g. ``parallel.sharding.param_shardings``)
+  says where each leaf goes.
 """
 from __future__ import annotations
 
@@ -118,8 +119,9 @@ def elastic_restore(ckpt_dir: str, template, new_rules, param_sharding_fn,
     """Restore the latest checkpoint onto another placement.
 
     ``param_sharding_fn(template, new_rules)`` -> a placements tree (a
-    ``torch.device`` per leaf, ``None`` for ``device``), e.g. one over a
-    mesh's devices; with no ``new_rules`` every leaf goes to ``device``."""
+    ``torch.device`` or ``NamedSharding`` per leaf, ``None`` for
+    ``device``), e.g. ``parallel.sharding.param_shardings``; with no
+    ``new_rules`` every leaf goes to ``device``."""
     shardings = param_sharding_fn(template, new_rules) if new_rules else None
     return ckpt_lib.restore(ckpt_dir, template, shardings=shardings,
                             device=device)

@@ -10,7 +10,10 @@ stderr; nothing falls back.
 
 Each kernel wrapper dispatches on the device of its tensors only: a CPU
 tensor runs the kernel's plain PyTorch version (the analog of Pallas
-interpret mode), a CUDA tensor launches the kernel or raises. ``LAUNCHES``
+interpret mode), a CUDA tensor launches the kernel or raises. No kernel
+has a backward: on either device a wrapper raises when grad mode is on and
+an operand requires grad, rather than return an output with no
+``grad_fn``. ``LAUNCHES``
 counts the launches of each kernel; :func:`launch` adds one per launch,
 :func:`add_launches` adds a CUDA graph's recorded launches at each replay,
 and nothing else touches the counts except :func:`reset_launches`.
@@ -262,14 +265,20 @@ def on_cpu(name: str, *tensors: torch.Tensor | None,
     """Check a kernel's operands; True when they lie on the CPU (run the
     plain version), False on CUDA (launch the kernel). ``dtypes`` is the
     type every operand must have, or one type per operand. Anything the
-    kernel does not take raises: mixed devices, another device type, a
-    wrong dtype, or a non-contiguous tensor."""
+    kernel does not take raises: an operand that requires grad while grad
+    mode is on (no kernel has a backward), mixed devices, another device
+    type, a wrong dtype, or a non-contiguous tensor."""
     if not isinstance(dtypes, tuple):
         dtypes = (dtypes,) * len(tensors)
     if len(dtypes) != len(tensors):
         raise ValueError(f"{name}: {len(tensors)} operands, "
                          f"{len(dtypes)} dtypes")
     present = [(t, d) for t, d in zip(tensors, dtypes) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t, _ in present):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward (neither has the "
+            f"reference's), so its output would drop the gradient; call it "
+            f"under torch.no_grad() or on inputs that do not require grad")
     devices = {t.device for t, _ in present}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on several devices {devices}")

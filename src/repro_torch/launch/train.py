@@ -1,0 +1,161 @@
+"""Training entry point (port of the reference's ``launch/train.py``).
+
+Drives a config end to end: the deterministic data pipeline
+(``data.pipeline.batch_for_step``), the train step (``train.steps``: the
+chunked cross-entropy, AdamW in place, remat), async checkpointing with
+heartbeat monitoring, and restart from the latest checkpoint. It runs on
+the CUDA card unless ``device="cpu"`` / ``--device cpu`` is given; the mesh
+is the host's (``launch.mesh.make_host_mesh``), which on one card is
+``(1, 1)``. Training over a mesh of several positions is not ported
+(ROADMAP Queue 1, item 11g).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b \\
+      --reduced --steps 20 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.checkpoint import checkpoint as ckpt_lib
+from repro_torch.checkpoint.fault_tolerance import HeartbeatMonitor
+from repro_torch.compat import resolve_device
+from repro_torch.configs.base import get_config
+from repro_torch.data.pipeline import DataConfig, batch_for_step
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import (
+    make_rules,
+    param_shardings,
+    use_rules,
+)
+from repro_torch.train import steps as steps_lib
+
+
+def build(cfg, opt_cfg, mesh, seed=0):
+    """(params, opt_state, step_fn, rules) on the mesh's one device:
+    random parameters from ``seed`` (a torch generator there), zeroed AdamW
+    state, and the train step run under the mesh's rules."""
+    if mesh.size > 1:
+        raise NotImplementedError(
+            f"training over a mesh of {mesh.size} positions ({mesh!r}) is "
+            f"not ported yet; the port trains on one device (ROADMAP Queue "
+            f"1, item 11g)")
+    rules = make_rules(mesh)
+    device = rules.sharding().device
+    with use_rules(rules):
+        params = steps_lib.init_params(
+            cfg, torch.Generator(device=device).manual_seed(seed), device)
+        opt_state = adamw.init(params)
+    params = pytree.tree_map(lambda p, s: p.to(s.device), params,
+                             param_shardings(params, rules))
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg)
+
+    def wrapped(params, opt_state, batch):
+        with use_rules(rules):
+            return step_fn(params, opt_state, batch)
+
+    return params, opt_state, wrapped, rules
+
+
+def extras_for(cfg, batch_rows, rng):
+    """The stub frontends' inputs (VLM patch and audio frame embeddings),
+    float32 draws from ``rng`` cast to the config's dtype."""
+    out = {}
+    if cfg.family == "vlm":
+        out["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch_rows, cfg.n_image_tokens, cfg.d_model), np.float32)
+        ).to(cfg.torch_dtype)
+    if cfg.family == "audio":
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch_rows, cfg.n_audio_frames, cfg.d_model), np.float32)
+        ).to(cfg.torch_dtype)
+    return out
+
+
+def train(arch: str, *, reduced: bool = True, steps: int = 20, batch: int = 8,
+          seq: int = 64, ckpt_dir: str | None = None, ckpt_every: int = 10,
+          lr: float = 1e-3, production_mesh: bool = False,
+          resume: bool = True, log_every: int = 5,
+          total_steps: int | None = None, device=None) -> list[float]:
+    """Train ``steps`` steps (from the latest checkpoint under ``ckpt_dir``
+    when ``resume``); returns the losses of the steps run. ``device=None``
+    means the CUDA card, raising without one."""
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    mesh = (make_production_mesh(device_type=dev.type) if production_mesh
+            else make_host_mesh(dev.type))
+    total_steps = total_steps or steps   # schedule horizon (stable across
+    # restarts: a resumed run must pass the ORIGINAL horizon or the cosine
+    # schedule, and therefore the training trajectory, changes)
+    opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=max(2, total_steps // 10),
+                                total_steps=total_steps)
+    params, opt_state, step_fn, rules = build(cfg, opt_cfg, mesh)
+
+    data_cfg = DataConfig(cfg.vocab_size, seq, batch)
+    rng = np.random.default_rng(0)
+    monitor = HeartbeatMonitor(n_workers=1)
+
+    start = 0
+    if ckpt_dir and resume and ckpt_lib.latest_step(ckpt_dir) is not None:
+        (params, opt_state), start = ckpt_lib.restore(
+            ckpt_dir, (params, opt_state), device=rules.sharding().device)
+        print(f"resumed from step {start}")
+
+    losses = []
+    pending_ckpt = None
+    for step in range(start, steps):
+        t0 = time.monotonic()
+        b = batch_for_step(data_cfg, step)
+        b.update(extras_for(cfg, batch, rng))
+        params, opt_state, metrics = step_fn(params, opt_state, b)
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        monitor.report(0, time.monotonic() - t0)
+        if step % log_every == 0 or step == steps - 1:
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"lr {float(metrics['lr']):.2e} "
+                  f"dt {time.monotonic()-t0:.2f}s")
+        if ckpt_dir and (step + 1) % ckpt_every == 0:
+            if pending_ckpt is not None:
+                pending_ckpt.join()
+            pending_ckpt = ckpt_lib.save(
+                ckpt_dir, step + 1, (params, opt_state), blocking=False)
+    if pending_ckpt is not None:
+        pending_ckpt.join()
+    if ckpt_dir:
+        ckpt_lib.save(ckpt_dir, steps, (params, opt_state))
+    return losses
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the plain PyTorch path on the CPU)")
+    args = ap.parse_args()
+    losses = train(args.arch, reduced=args.reduced, steps=args.steps,
+                   batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
+                   ckpt_every=args.ckpt_every, lr=args.lr,
+                   device=args.device)
+    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+
+
+if __name__ == "__main__":
+    main()

@@ -9,15 +9,24 @@ long-sequence branch, where ``backend`` picks the implementation:
 ``"torch"`` runs the port of ``_flash_attention_scan``, ``"hopper"`` runs
 K6 (``kernels/flash_attention``) with the causal mask shifted by the
 chunk's row offset, as the scan's. Below 2048 both backends run the
-reference's einsum branch, which is no Pallas kernel. MoE, the GELU MLP and cross-attention are not ported yet
+reference's einsum branch, which is no Pallas kernel. K6 has no backward
+(nor has the reference's kernel): under autograd its wrapper raises, and
+training runs the scan. ``remat_wrap`` is the reference's activation
+checkpointing. MoE, the GELU MLP and cross-attention are not ported yet
 (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.compat import resolve_backend
 from repro_torch.configs.base import ModelConfig
@@ -27,6 +36,35 @@ Params = dict[str, Any]
 
 NEG_INF = -1e30
 LONG_SEQ = 2048   # the reference's threshold for the scan-flash branch
+
+
+# the matmuls without batch dimensions (``x @ W`` reaches aten as ``mm``):
+# what the reference's ``dots_with_no_batch_dims_saveable`` policy saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn, cfg: ModelConfig):
+    """Activation checkpointing with the config's remat policy (the
+    reference's ``jax.checkpoint``): ``fn`` runs under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, which keeps
+    only its inputs and recomputes its body in the backward ("none"), or
+    also keeps the outputs of its matmuls without batch dimensions
+    ("dots")."""
+    if not cfg.remat:
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def _init(gen: torch.Generator, shape, *, scale=None, dtype=torch.float32,

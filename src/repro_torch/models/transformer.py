@@ -16,6 +16,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.compat import to_tensor
 from repro_torch.configs.base import ModelConfig
@@ -25,6 +26,7 @@ from repro_torch.models.layers import (
     attention,
     init_attention,
     init_swiglu,
+    remat_wrap,
     rms_norm,
     swiglu,
 )
@@ -161,14 +163,27 @@ def _groups(params: Params, cfg: ModelConfig):
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             positions=None, backend: str = "torch") -> torch.Tensor:
-    """Prefill forward without a cache: (B, S) -> logits (B, S, V)."""
+    """Training/prefill forward without a cache: (B, S) -> logits
+    (B, S, V). Under autograd each group runs under ``remat_wrap`` (as the
+    reference's scanned group body), so with ``cfg.remat`` the backward
+    holds one group's activations at a time."""
     _require_dense(cfg)
     kinds = _layer_kinds(cfg)
-    x = params["embed"][tokens.long()]
-    for _, group in _groups(params, cfg):
+
+    def group_body(x, group):
         for i, p in enumerate(group):
             x, _ = apply_layer(p, x, cfg, kinds[i], positions=positions,
                                backend=backend)
+        return x
+
+    if torch.is_grad_enabled():
+        group_body = remat_wrap(group_body, cfg)
+    # F.embedding, not indexing: its backward accumulates each row in one
+    # fixed order (an indexing backward's accumulating index_put_ sums in
+    # thread order on the CPU, so two runs would differ in the last bits)
+    x = F.embedding(tokens.long(), params["embed"])
+    for _, group in _groups(params, cfg):
+        x = group_body(x, group)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"]
 

@@ -1,24 +1,39 @@
-"""Model-family dispatch for serving (port of the serving half of the
-reference's ``train/steps.py``): ``init_params``, ``init_cache`` and
-``make_serve_steps``. Only the dense family is ported; the others, and
-training, raise ``NotImplementedError`` (ROADMAP Queue 1, item 11).
+"""Model-family dispatch: train step, prefill and decode builders (port of
+the reference's ``train/steps.py``).
+
+``make_train_step(cfg, opt)`` returns a step function ``(params,
+opt_state, batch) -> (params, opt_state, metrics)``; ``make_serve_steps``
+returns (prefill, decode). Only the dense family is ported; the others
+raise ``NotImplementedError`` (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
-import torch
+from typing import Any, Callable
 
-from repro_torch.compat import resolve_backend, resolve_device
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.compat import resolve_backend, resolve_device, to_tensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
+from repro_torch.optim import adamw
+
+# elements of logits per row chunk of ``cross_entropy`` (128 Mi: a 512 MiB
+# float32 temporary, 524 rows at vocab 256000)
+CE_CHUNK = 1 << 27
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: serving the {cfg.family!r} family is not ported "
-            f"yet; the port serves the dense family (ROADMAP Queue 1, "
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
+            f"port serves and trains the dense family (ROADMAP Queue 1, "
             f"item 11)")
 
+
+# ---------------------------------------------------------------------------
+# init / forward dispatch
+# ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Random parameters drawn from ``generator`` on ``device`` (``None``:
@@ -26,6 +41,106 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     _require_ported(cfg)
     return transformer.init_params(cfg, generator, resolve_device(device))
 
+
+def forward_logits(params, batch: dict[str, Any], cfg: ModelConfig):
+    """(B, S) ``batch["tokens"]`` -> logits (B, S, V)."""
+    _require_ported(cfg)
+    return transformer.forward(params, batch["tokens"], cfg)
+
+
+# ---------------------------------------------------------------------------
+# loss / train step
+# ---------------------------------------------------------------------------
+
+class _CrossEntropy(torch.autograd.Function):
+    """Mean next-token cross-entropy over (N, V) logits, one chunk of rows
+    at a time: no float32 (N, V) tensor is ever held, and the backward
+    writes ``softmax - onehot`` chunk by chunk into the logits' dtype. The
+    arithmetic is the reference's, rounding point for rounding point: the
+    row max in the logits' dtype, ``(logits - max)`` rounded to it before
+    the float32 exp, and a gradient of ``exp(s) * (ct / sum)`` rounded to
+    the logits' dtype, to which the gold column's ``-ct`` (rounded too) is
+    added."""
+
+    @staticmethod
+    def forward(ctx, logits: torch.Tensor, targets: torch.Tensor):
+        n, v = logits.shape
+        rows = max(1, CE_CHUNK // v)
+        m = torch.empty(n, dtype=logits.dtype, device=logits.device)
+        sumexp = torch.empty(n, dtype=torch.float32, device=logits.device)
+        for i in range(0, n, rows):
+            x = logits[i:i + rows]
+            m[i:i + rows] = x.amax(-1)
+            shifted = (x - m[i:i + rows, None]).float()
+            sumexp[i:i + rows] = torch.exp(shifted).sum(-1)
+        lse = torch.log(sumexp) + m.float()
+        gold = logits.gather(1, targets[:, None])[:, 0].float()
+        ctx.save_for_backward(logits, targets, m, sumexp)
+        return (lse - gold).mean()
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, targets, m, sumexp = ctx.saved_tensors
+        n, v = logits.shape
+        rows = max(1, CE_CHUNK // v)
+        ct = grad.float() / n
+        row_ct = ct / sumexp
+        out = torch.empty_like(logits)
+        for i in range(0, n, rows):
+            shifted = (logits[i:i + rows] - m[i:i + rows, None]).float()
+            out[i:i + rows] = torch.exp(shifted).mul_(row_ct[i:i + rows, None])
+        idx = torch.arange(n, device=logits.device)
+        out[idx, targets] = out[idx, targets] + (-ct).to(out.dtype)
+        return out, None
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
+    """Mean next-token CE, accumulated in float32 without an fp32 copy of
+    the (B, S, V) logits; the gold logit comes from a gather."""
+    v = logits.shape[-1]
+    return _CrossEntropy.apply(logits.reshape(-1, v),
+                               targets.reshape(-1).long())
+
+
+def _on_device(batch: dict[str, Any], device: torch.device) -> dict:
+    """The batch's arrays or tensors on ``device`` (integers kept)."""
+    return {k: to_tensor(b, device) if not isinstance(b, torch.Tensor)
+            else b.to(device) for k, b in batch.items()}
+
+
+@torch.enable_grad()
+def loss_and_grads(params, batch: dict[str, Any], cfg: ModelConfig):
+    """(loss, grads): the mean CE of ``batch`` and its gradient with respect
+    to every leaf of ``params`` (a tree of the same structure). The batch
+    goes to the params' device."""
+    leaves, spec = pytree.tree_flatten(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    batch = _on_device(batch, leaves[0].device)
+    logits = forward_logits(pytree.tree_unflatten(live, spec), batch, cfg)
+    loss = cross_entropy(logits, batch["targets"])
+    grads = torch.autograd.grad(loss, live)
+    return loss.detach(), pytree.tree_unflatten(list(grads), spec)
+
+
+def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm", "lr"})``. The step updates ``params`` and
+    ``opt_state`` in place (the reference donates both) and returns them;
+    the metrics are 0-dim float32 tensors on the params' device. Training
+    attention at 2048 tokens and more is the scan, as in the reference."""
+    _require_ported(cfg)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(params, batch, cfg)
+        params, opt_state, om = adamw.update(opt, grads, opt_state, params)
+        return params, opt_state, {"loss": loss, **om}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """A zeroed KV cache for ``max_len`` positions on ``device`` (``None``:

@@ -175,12 +175,17 @@ def test_straggler_detection():
 
 
 def test_checkpoint_refusals(tmp_path):
-    """A leaf numpy cannot hold is named, not upcast; a missing checkpoint
-    and a placement tree of the wrong size raise; without ``device`` a
-    CPU-only host raises as ``resolve_device`` does."""
-    bf16 = {"h": [torch.zeros(2), torch.zeros(2, dtype=torch.bfloat16)]}
-    with pytest.raises(TypeError, match="'h/1'.*bfloat16"):
-        ckpt.save(str(tmp_path), 1, bf16)
+    """A leaf numpy cannot hold is named, not upcast (bfloat16 is saved as
+    the reference saves it: ``tests/test_torch_repairs.py``, F4); a missing
+    checkpoint and a placement tree of the wrong size raise; without
+    ``device`` a CPU-only host raises as ``resolve_device`` does."""
+    fp8 = {"h": [torch.zeros(2), torch.zeros(2, dtype=torch.float8_e4m3fn)]}
+    with pytest.raises(TypeError, match="'h/1'.*float8_e4m3fn"):
+        ckpt.save(str(tmp_path / "fp8"), 1, fp8)
+    bf16 = {"h": [torch.zeros(2), torch.ones(2, dtype=torch.bfloat16)]}
+    ckpt.save(str(tmp_path / "bf16"), 1, bf16)
+    got, _ = ckpt.restore(str(tmp_path / "bf16"), bf16, device="cpu")
+    assert torch.equal(got["h"][1], bf16["h"][1])
     with pytest.raises(FileNotFoundError):
         ckpt.restore(str(tmp_path / "none"), {"a": torch.zeros(1)},
                      device="cpu")

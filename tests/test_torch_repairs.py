@@ -13,11 +13,23 @@ on the same inputs:
 * F3: an entry's CUDA graphs follow the live weight sets, so five weight
   sets taking turns on one stream capture once each (the graph table's
   policy, with stub graphs; the card's guard is in
-  ``tests/test_torch_gpu.py``).
+  ``tests/test_torch_gpu.py``);
+* F4: bfloat16 checkpoint leaves. A checkpoint the reference writes from
+  bf16 leaves restores in the port bit for bit, the port's ``arrays.npz``
+  members for the same values are byte-equal to the reference's (its
+  ``<V2`` records) with the same manifest, and a bf16 training state saved
+  (blocking and async) and restored on the CPU is ``torch.equal``;
+* F5: every kernel wrapper raises under autograd (grad mode on and an
+  operand that requires grad) instead of returning an output with no
+  ``grad_fn``, on the CPU as on the card, and runs under
+  ``torch.no_grad()``; so does the LM's long-sequence ``hopper``
+  attention.
 """
 import dataclasses
+import json
 import sys
 import types
+import zipfile
 
 import numpy as np
 import pytest
@@ -29,6 +41,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import compiler as r_compiler  # noqa: E402
 from repro.core.hybrid_conv import ConvSpec as RConvSpec  # noqa: E402
 from repro.core.program_cache import ProgramCache as RProgramCache  # noqa: E402
+from repro.checkpoint import checkpoint as r_ckpt  # noqa: E402
 from repro.launch import serve as r_serve  # noqa: E402
 from repro_torch.core import compiler as t_compiler  # noqa: E402
 from repro_torch.core.hybrid_conv import ConvSpec as TConvSpec  # noqa: E402
@@ -36,6 +49,26 @@ from repro_torch.core.program_cache import (  # noqa: E402
     ProgramCache as TProgramCache,
 )
 from repro_torch.launch import serve as t_serve  # noqa: E402
+from repro_torch.checkpoint import checkpoint as t_ckpt  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, batch_for_step  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_kernel,
+)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref,
+)
+from repro_torch.kernels.gemm.int8 import qmm_i8, qmm_ref  # noqa: E402
+from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref  # noqa: E402
+from repro_torch.kernels.spatial_conv.kernel import (  # noqa: E402
+    conv_gemm_f32,
+    conv_gemm_ref,
+)
+from repro_torch.kernels.winograd import kernel as wino  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train import steps  # noqa: E402
 
 
 def _programs(n: int):
@@ -213,3 +246,167 @@ def test_graph_table_keeps_every_live_weight_set():
         table.put((s, (w.data_ptr(),)), _stub_graph([w]))
     assert table.get((stream, (w.data_ptr(),))) is None
     assert len(table) == 3 + executor.STREAMS_PER_WEIGHTS
+
+
+# ---------------------------------------------------------------------------
+# F4: bfloat16 checkpoint leaves
+# ---------------------------------------------------------------------------
+
+def _bf16_values():
+    """float32 values, bf16 leaves of each package rounded from them (both
+    round to nearest even), and an fp32 and an int32 leaf beside them."""
+    rng = np.random.default_rng(4)
+    w = (rng.standard_normal((3, 5)) * 7).astype(np.float32)
+    n = rng.standard_normal(4).astype(np.float32)
+    f = rng.standard_normal(6).astype(np.float32)
+    r_tree = {"w": jnp.asarray(w, jnp.bfloat16),
+              "layers": [{"n": jnp.asarray(n, jnp.bfloat16)}],
+              "f": jnp.asarray(f), "step": jnp.int32(3)}
+    t_tree = {"w": torch.from_numpy(w).to(torch.bfloat16),
+              "layers": [{"n": torch.from_numpy(n).to(torch.bfloat16)}],
+              "f": torch.from_numpy(f),
+              "step": torch.tensor(3, dtype=torch.int32)}
+    return r_tree, t_tree
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def test_reference_bf16_checkpoint_restores_bit_for_bit(tmp_path):
+    r_tree, t_tree = _bf16_values()
+    r_ckpt.save(str(tmp_path), 2, r_tree)
+    got, step = t_ckpt.restore(str(tmp_path), t_tree, device="cpu")
+    assert step == 2
+    assert got["w"].dtype == got["layers"][0]["n"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        _bits(got["w"]), np.asarray(r_tree["w"]).view(np.int16))
+    np.testing.assert_array_equal(
+        _bits(got["layers"][0]["n"]),
+        np.asarray(r_tree["layers"][0]["n"]).view(np.int16))
+    assert torch.equal(got["f"], t_tree["f"])
+    assert torch.equal(got["w"], t_tree["w"])
+
+
+def test_bf16_archive_members_byte_equal_to_reference(tmp_path):
+    r_tree, t_tree = _bf16_values()
+    r_ckpt.save(str(tmp_path / "r"), 2, r_tree)
+    t_ckpt.save(str(tmp_path / "t"), 2, t_tree)
+    arch = {}
+    for pkg in ("r", "t"):
+        d = tmp_path / pkg / "step_00000002"
+        with zipfile.ZipFile(d / "arrays.npz") as zf:
+            arch[pkg] = {name: zf.read(name) for name in zf.namelist()}
+        arch[pkg + "_manifest"] = json.loads(
+            (d / "manifest.json").read_text())
+    assert arch["t"] == arch["r"]
+    assert arch["t_manifest"] == arch["r_manifest"]
+    assert arch["t_manifest"]["keys"]["w"] == {"shape": [3, 5],
+                                               "dtype": "bfloat16"}
+
+
+def test_bf16_training_state_round_trips_on_the_cpu(tmp_path):
+    """Two train steps of reduced minitron-8b in bf16, then the state saved
+    blocking and async and restored: every leaf ``torch.equal``."""
+    cfg = dataclasses.replace(get_config("minitron-8b").reduced(),
+                              dtype="bfloat16")
+    params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = adamw.init(params)
+    step = steps.make_train_step(cfg, adamw.AdamWConfig())
+    for i in range(2):
+        params, state, m = step(params, state, batch_for_step(
+            DataConfig(cfg.vocab_size, 16, 2), i))
+        assert torch.isfinite(m["loss"])
+    tree = (params, state)
+    t_ckpt.save(str(tmp_path / "a"), 2, tree)
+    t_ckpt.save(str(tmp_path / "b"), 2, tree, blocking=False).join(60)
+    for d in ("a", "b"):
+        got, _ = t_ckpt.restore(str(tmp_path / d), tree, device="cpu")
+        for x, y in zip(torch.utils._pytree.tree_leaves(got),
+                        torch.utils._pytree.tree_leaves(tree)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    assert got[0]["embed"].dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# F5: no kernel runs under autograd
+# ---------------------------------------------------------------------------
+
+def _f(*shape, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32))
+
+
+def _wrapper_cases():
+    """(name, wrapper call, plain version call, the float operands)."""
+    p, w, b = _f(10, 12), _f(12, 6, seed=1), _f(6, seed=2)
+    a3, b3, bias3 = _f(2, 5, 4), _f(2, 4, 3, seed=1), _f(2, 3, seed=2)
+    tiles, x = _f(3, 4, 4, 2), _f(1, 5, 5, 2, seed=1)
+    marr, mbias = _f(16, 4, 3), _f(3, seed=1)
+    rng = np.random.default_rng(3)
+    qa = torch.from_numpy(rng.integers(-127, 128, (8, 16)).astype(np.int8))
+    qb = torch.from_numpy(rng.integers(-127, 128, (16, 4)).astype(np.int8))
+    qbias = torch.from_numpy(rng.integers(-99, 99, 4).astype(np.int32))
+    mult = torch.full((4,), 0.01)
+    q, k, v = _f(4, 9, 8), _f(2, 9, 8, seed=1), _f(2, 9, 8, seed=2)
+    return [
+        ("conv_gemm_f32", lambda: conv_gemm_f32(p, w, b),
+         lambda: conv_gemm_ref(p, w, b), (p, w, b)),
+        ("bmm_f32", lambda: bmm_f32(a3, b3, bias3),
+         lambda: bmm_ref(a3, b3, bias3), (a3, b3, bias3)),
+        ("wino_input_transform_f32",
+         lambda: wino.wino_input_transform_f32(tiles, 2),
+         lambda: wino.wino_input_transform_ref(tiles, 2), (tiles,)),
+        ("wino_input_transform_nhwc_f32",
+         lambda: wino.wino_input_transform_nhwc_f32(x, 2),
+         lambda: wino.wino_input_transform_nhwc_ref(x, 2), (x,)),
+        ("wino_output_transform_f32",
+         lambda: wino.wino_output_transform_f32(marr, mbias, 2),
+         lambda: wino.wino_output_transform_ref(marr, mbias, 2), (marr,
+                                                                  mbias)),
+        ("wino_output_transform_nhwc_f32",
+         lambda: wino.wino_output_transform_nhwc_f32(marr, mbias, 2,
+                                                     (1, 4, 4)),
+         lambda: wino.wino_output_transform_nhwc_ref(marr, mbias, 2,
+                                                     (1, 4, 4)),
+         (marr, mbias)),
+        ("qmm_i8", lambda: qmm_i8(qa, qb, qbias, mult),
+         lambda: qmm_ref(qa, qb, qbias, mult), (mult,)),
+        ("flash_attention_kernel", lambda: flash_attention_kernel(q, k, v),
+         lambda: flash_attention_ref(q, k, v), (q, k, v)),
+        ("flash_attention", lambda: flash_attention(
+            q[None], k[None], v[None])[0],
+         lambda: flash_attention_ref(q, k, v), (q, k, v)),
+    ]
+
+
+@pytest.mark.parametrize("case", _wrapper_cases(), ids=lambda c: c[0])
+def test_kernel_wrappers_refuse_autograd(case):
+    name, call, plain, operands = case
+    expect = plain()
+    for t in operands:
+        t.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            assert torch.equal(call(), expect)
+        t.requires_grad_(False)
+    assert torch.equal(call(), expect)    # grad on, no operand needs it
+
+
+def test_lm_hopper_attention_refuses_autograd():
+    """At 2048 tokens the ``hopper`` attention runs K6 (its plain version
+    here): under autograd it raises, where the ``torch`` backend's scan
+    trains; under ``torch.no_grad()`` the two agree."""
+    cfg = get_config("minitron-8b").reduced()
+    p = layers.init_attention(torch.Generator().manual_seed(0), cfg,
+                              torch.float32, "cpu")
+    x = _f(1, layers.LONG_SEQ, cfg.d_model).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        layers.attention(p, x, cfg, backend="hopper")
+    out, _ = layers.attention(p, x, cfg, backend="torch")
+    assert out.grad_fn is not None
+    with torch.no_grad():
+        hop, _ = layers.attention(p, x, cfg, backend="hopper")
+    np.testing.assert_allclose(hop.numpy(), out.detach().numpy(),
+                               rtol=1e-4, atol=1e-4)
