@@ -66,7 +66,24 @@ with one request of each under ``torch.profiler``; and a last path through
 
 * full-width minitron-8b in bf16 (32 layers, d_model 4096, vocab 256000,
   random weights from seed 0), batch 2, a 4096-token prompt, 16 greedy
-  tokens: K6 once per layer of the prefill, never in a decode step.
+  tokens: K6 once per layer of the prefill, never in a decode step;
+* mamba2-130m in bf16, batch 2, a 4096-token prompt, 16 greedy tokens: no
+  kernel (the SSD is einsum and scans, as the reference's);
+* zamba2-7b in bf16, all 81 layers (~14 GB), batch 2, a 4096-token
+  prompt, 16 greedy tokens: K6 once per application of the shared
+  attention block (13 a prefill, head_dim 112), never in a decode step;
+* whisper-base in bf16, batch 8, 1500 frames (30 s of audio) encoded
+  outside the timed prefill, a 32-token prompt, 16 greedy tokens: no
+  kernel (every attention is under 2048 queries);
+* llama-3.2-vision-11b in bf16, all 40 layers (~21 GB), batch 2, a
+  4096-token prompt, the config's 1600 image tokens, 16 greedy tokens,
+  the cross layers' ``xattn_gate`` set to 0.5 (its zero init would keep
+  them from the logits): K6 once per layer and once per cross layer
+  (non-causal, Skv 1600) of the prefill, 48, never in a decode step;
+
+and then the four new families reduced and in fp32, each served on the
+card and on the CPU from one tree (prefill logits within
+``1e-4 * max(1, max|logit|)``).
 
 On the card every executor entry runs as CUDA graphs: a path's first
 request is the entry's warm-up run and the capture of its graph, and each
@@ -131,13 +148,18 @@ params and sidecar. The LM path's launches are counted the same way around
 its one served request (and per phase in a second prefill and one decode
 step), and its last-token prefill logits are held against
 ``backend="torch"`` (the scan-flash attention, which rounds P to bf16)
-within ``5e-2 * max|logit|``. Any failure raises and exits non-zero;
+within ``5e-2 * max|logit|``; so are the other LM paths', where mamba2's
+and whisper's (no kernel on the path) must be equal, and zamba2's, whose
+bf16 logits drift from fp32 on either backend by more than that, are held
+in fp32 on the same tree (and the bf16 hopper logits no farther from the
+fp32 ones than the bf16 torch logits). Any failure raises and exits
+non-zero;
 without a CUDA card, or without the repository beside it, the script exits
 non-zero before printing any result.
 
 Phase 2 also holds every kernel at the shapes of the interpreter's calls
 (``*_strict`` paths: per COMP block, the block's rows and k-group); the
-summary's times sum the four CNN model paths and the LM path only, its
+summary's times sum the four CNN model paths and the LM paths only, its
 launches every counted request of the run.
 
 Output: the card's name and power limit, one JSON line per (kernel, layer)
@@ -146,9 +168,10 @@ products per product, and ``fma_bound_ms``, the bound on the fp32 FMA
 pipes),
 the timings of each path (for the interpreter, its requests beside the
 served and ``opt_level=0`` executors', and the kernels whose device time
-differs most between the two under the profiler; for the LM also a
+differs most between the two under the profiler; for each LM path also a
 ``torch.profiler`` breakdown of one prefill and one decode step: device
-busy time and the longest kernels), phase 6's training lines, a
+busy time, its split into K6, GEMMs and the rest, and the longest
+kernels), phase 6's training lines, a
 ``{"kernels": [...]}`` summary line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -202,14 +225,48 @@ PATHS = {
     # one K6 per layer of the prefill (prompt >= 2048 tokens); a decode
     # step attends one token through the einsum branch
     "minitron8b_bf16": {"flash_attention": 32},
+    # the SSD is einsum and scans, not a kernel (nor is it one in the
+    # reference)
+    "mamba2_130m_bf16": {},
+    # one K6 per application of the shared attention block (81 layers in
+    # groups of 6: 13 groups and a tail of 3 without it), D 112
+    "zamba2_7b_bf16": {"flash_attention": 13},
+    # 1500 frames and 32-token prompts stay under the 2048-token branch
+    "whisper_base_bf16": {},
+    # 40 causal self-attentions and 8 cross-attentions to 1600 image tokens
+    "llama32_vision_bf16": {"flash_attention": 48},
 }
 LM_PATH = "minitron8b_bf16"
+# phase 5: the LM paths at full width through launch.serve.serve (random
+# weights from seed 0): arch, batch, prompt tokens, greedy tokens
+LM_PATHS = {
+    LM_PATH: ("minitron-8b", 2, 4096, 16),
+    "mamba2_130m_bf16": ("mamba2-130m", 2, 4096, 16),
+    "zamba2_7b_bf16": ("zamba2-7b", 2, 4096, 16),
+    # 30 s of audio (the config's 1500 frames)
+    "whisper_base_bf16": ("whisper-base", 8, 32, 16),
+    "llama32_vision_bf16": ("llama-3.2-vision-11b", 2, 4096, 16),
+}
+# paths where hopper and torch run the same ops (no kernel on the path):
+# their logits must be equal, not close
+LM_EXACT = ("mamba2_130m_bf16", "whisper_base_bf16")
+# paths whose bf16 logits drift from their fp32 ones, on either backend,
+# by more than LM_TOL (zamba2-7b at random weights: a difference of one
+# bf16 step in a shared block's output grows through the next group's
+# mamba layers; PERF.md §6 and ``python -m
+# repro_torch.launch.drift``): hopper vs torch is held in fp32 on the same
+# tree, and the bf16 hopper logits no farther from the fp32 ones than the
+# bf16 torch logits, plus LM_TOL
+LM_DRIFT = ("zamba2_7b_bf16",)
+# the VLM's xattn_gate leaves after init: their zero init makes
+# tanh(gate) = 0, and the cross-attention would not reach the logits
+VISION_GATE = 0.5
 # kept out of the summary's times, which sum the model paths
 DW_PATHS = ("dwchain_fp32", "dwchain_int8")
 # phase 4: the strict interpreter on each CNN path, with its own launch
 # counts and kernel shapes (phase 2): one PE call per COMP block and per
 # FC, the opt_level=0 executor's calls
-STRICT_PATHS = {f"{p}_strict": p for p in PATHS if p != LM_PATH}
+STRICT_PATHS = {f"{p}_strict": p for p in PATHS if p not in LM_PATHS}
 # phase 3b: the four model paths through a ServingSession (max_batch 8):
 # a bulk run of 16 requests of 8 images, then two windows of 4096 single
 # images (the session's whole latency window; 3-7 s at these rates)
@@ -222,7 +279,6 @@ STRICT_PATHS = {f"{p}_strict": p for p in PATHS if p != LM_PATH}
 SESSION_PATHS = ("vgg16_fp32", "vgg16_int8", "resnet18_fp32",
                  "resnet18_int8")
 SESSION_BULK, SESSION_ARRIVALS, SESSION_LOAD, OVERLOAD = 16, 4096, 0.8, 0.98
-LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "minitron-8b", 2, 4096, 16
 # hopper vs torch last-token prefill logits, relative to max|logit|: K6
 # keeps P in fp32 where the scan rounds it to bf16, over 32 layers
 LM_TOL = 5e-2
@@ -540,22 +596,37 @@ def dispatcher_cost(card: str) -> dict:
     return us
 
 
-def lm_kernel_cases():
-    """K6's calls per request on the LM path (the prefill's shape, once per
-    layer) and four shapes off the path (launches 0): the prefill's shape
-    in fp32, a chunk of half the prompt at row offset 2048 over the same
-    cache (chunked prefill), ragged non-causal fp32, and ragged causal bf16
-    with Sq < Skv."""
+def lm_kernel_cases(path: str):
+    """K6's calls per request on one LM path. minitron-8b: the prefill's
+    shape, once per layer, and four shapes off the path (launches 0): the
+    prefill's shape in fp32, a chunk of half the prompt at row offset 2048
+    over the same cache (chunked prefill), ragged non-causal fp32, and
+    ragged causal bf16 with Sq < Skv. zamba2-7b: the shared block's
+    prefill (D 112, zero-padded to 128 in the kernel), once per group. The
+    VLM: the causal prefill once per layer and the non-causal
+    cross-attention to the image tokens once per cross layer. mamba2 and
+    whisper run no kernel."""
     from repro_torch.configs import get_config
-    cfg = get_config(LM_ARCH)
-    prefill = dict(b=LM_BATCH, h=cfg.n_heads, hkv=cfg.n_kv_heads,
-                   sq=LM_PROMPT, skv=LM_PROMPT + LM_GEN, d=cfg.head_dim,
+    arch, batch, prompt, gen = LM_PATHS[path]
+    cfg = get_config(arch)
+    prefill = dict(b=batch, h=cfg.n_heads, hkv=cfg.n_kv_heads,
+                   sq=prompt, skv=prompt + gen, d=cfg.head_dim,
                    dtype="bf16", causal=True)
+    if path == "zamba2_7b_bf16":
+        return [("flash_attention", "shared_prefill", prefill,
+                 cfg.n_layers // cfg.shared_attn_every)]
+    if path == "llama32_vision_bf16":
+        return [("flash_attention", "prefill", prefill, cfg.n_layers),
+                ("flash_attention", "cross_prefill", dict(
+                    prefill, skv=cfg.n_image_tokens, causal=False),
+                 cfg.n_layers // cfg.cross_attn_every)]
+    if path != LM_PATH:
+        return []
     return [
         ("flash_attention", "prefill", prefill, cfg.n_layers),
         ("flash_attention", "prefill_fp32", dict(prefill, dtype="fp32"), 0),
         ("flash_attention", "prefill_chunk", dict(
-            prefill, sq=LM_PROMPT // 2, row_offset=LM_PROMPT // 2), 0),
+            prefill, sq=prompt // 2, row_offset=prompt // 2), 0),
         ("flash_attention", "ragged_fp32", dict(
             b=1, h=4, hkv=2, sq=333, skv=517, d=64, dtype="fp32",
             causal=False), 0),
@@ -2070,103 +2141,158 @@ def device_profile(fn, by_kernel: bool = False) -> dict:
     return out
 
 
-def serve_lm(k6_ms: float) -> dict:
-    """Serve full-width minitron-8b (bf16, random weights from seed 0)
+def open_gates(params) -> None:
+    """Set a VLM tree's ``xattn_gate`` leaves to ``VISION_GATE``."""
+    for slot in params["layers"]:
+        if "xattn_gate" in slot:
+            slot["xattn_gate"].fill_(VISION_GATE)
+
+
+def profile_split(pr: dict) -> dict:
+    """A profile's device ms by kind: K6, the GEMMs (cuBLAS and CUTLASS
+    bodies) and everything else (the SSD's elementwise, scan and reduction
+    kernels, norms, softmax, copies)."""
+    split = dict(k6_ms=0.0, gemm_ms=0.0, other_ms=0.0)
+    for name, (ms, _) in pr.pop("by_kernel").items():
+        kind = ("k6_ms" if "flash_attention_" in name
+                else "gemm_ms" if GEMM_NAMES.search(name) else "other_ms")
+        split[kind] += ms
+    return split
+
+
+def serve_lm(path: str, k6_ms: float) -> dict:
+    """Serve one LM path at full width (bf16, random weights from seed 0)
     through ``launch.serve.serve`` on the hopper backend, with the launch
     counts set to 0 just before and checked just after; check them per
     phase on a second prefill and one decode step; hold the last-token
-    prefill logits against ``backend="torch"`` on the same params.
-    ``k6_ms`` is phase 2's K6 time per request (all layers)."""
+    prefill logits against ``backend="torch"`` on the same params (within
+    ``LM_TOL * max|logit|``, or equal where no kernel is on the path).
+    ``k6_ms`` is phase 2's K6 time per request of the path (all calls)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import common
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import lm_inputs, serve
     from repro_torch.train import steps
 
-    cfg = get_config(LM_ARCH)
+    arch, batch, prompt, gen = LM_PATHS[path]
+    cfg = get_config(arch)
+    dev = torch.device("cuda", torch.cuda.current_device())
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = steps.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    if cfg.family == "vlm":
+        open_gates(params)
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
-    kw = dict(reduced=False, batch=LM_BATCH, prompt_len=LM_PROMPT,
-              gen=LM_GEN, seed=0, device="cuda", params=params)
+    kw = dict(reduced=False, batch=batch, prompt_len=prompt, gen=gen,
+              seed=0, device="cuda", params=params)
 
     common.reset_launches()
-    out = serve(LM_ARCH, backend="hopper", **kw)
+    out = serve(arch, backend="hopper", **kw)
     torch.cuda.synchronize()
     launches = dict(common.LAUNCHES)
-    expected = PATHS[LM_PATH]
+    expected = PATHS[path]
     for name in common.KERNELS:
         if launches[name] != expected.get(name, 0):
-            raise AssertionError(f"{LM_PATH}: {name} launched "
+            raise AssertionError(f"{path}: {name} launched "
                                  f"{launches[name]} times in one request, "
                                  f"expected {expected.get(name, 0)}")
     y = out.prefill_logits.float()
-    if y.shape != (LM_BATCH, cfg.vocab_size) or not torch.isfinite(y).all():
-        raise AssertionError(f"{LM_PATH}: prefill logits {tuple(y.shape)} "
+    if y.shape != (batch, cfg.vocab_size) or not torch.isfinite(y).all():
+        raise AssertionError(f"{path}: prefill logits {tuple(y.shape)} "
                              f"or non-finite values")
 
-    # per phase, on the same prompts (serve draws them from seed 0)
+    # per phase, on the same inputs (serve draws them from seed 0)
     prefill, decode = steps.make_serve_steps(cfg, backend="hopper")
-    cache = steps.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, "cuda")
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)).cuda()
+    cache = steps.init_cache(cfg, batch, prompt + gen, "cuda")
+    extras, prompts, _ = lm_inputs(cfg, params, np.random.default_rng(0),
+                                   batch, prompt, "hopper", dev)
+    prompts = torch.from_numpy(prompts).cuda()
     common.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, prompts, cache)
+    logits, cache = prefill(params, prompts, cache, extras)
     torch.cuda.synchronize()
     warm_prefill_ms = (time.perf_counter() - t0) * 1e3
     n_prefill = common.LAUNCHES["flash_attention"]
     common.reset_launches()
-    decode(params, logits.argmax(-1)[:, None], cache, LM_PROMPT)
+    decode(params, logits.argmax(-1)[:, None], cache, prompt, extras)
     torch.cuda.synchronize()
     n_decode = common.LAUNCHES["flash_attention"]
-    if (n_prefill, n_decode) != (cfg.n_layers, 0):
-        raise AssertionError(f"{LM_PATH}: K6 launched {n_prefill} times in "
+    want = expected.get("flash_attention", 0)
+    if (n_prefill, n_decode) != (want, 0):
+        raise AssertionError(f"{path}: K6 launched {n_prefill} times in "
                              f"a prefill and {n_decode} in a decode step, "
-                             f"expected {cfg.n_layers} and 0")
+                             f"expected {want} and 0")
     repeat_diff = float((logits.float() - y).abs().max())
     # where the device time goes, and how much of the wall time it fills
-    prof_prefill = device_profile(lambda: prefill(params, prompts, cache))
+    # (a prefill restarts the SSM states; the attention's cache rows are
+    # rewritten with the same values)
+    prof_prefill = device_profile(
+        lambda: prefill(params, prompts, cache, extras), by_kernel=True)
     tok = logits.argmax(-1)[:, None]
     prof_decode = device_profile(
-        lambda: decode(params, tok, cache, LM_PROMPT + 1))
-    del cache, logits
+        lambda: decode(params, tok, cache, prompt + 1, extras),
+        by_kernel=True)
+    split = {"prefill": profile_split(prof_prefill),
+             "decode_step": profile_split(prof_decode)}
+    del cache, logits, extras
 
-    ref = serve(LM_ARCH, backend="torch", **kw)
+    ref = serve(arch, backend="torch", **kw)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     y_ref = ref.prefill_logits.float()
     err = float((y - y_ref).abs().max())
-    tol = LM_TOL * float(y_ref.abs().max())
-    if not err <= tol:
-        raise AssertionError(f"{LM_PATH}: hopper vs torch prefill logits "
-                             f"max|diff| {err:.3e} > {tol:.3e}")
+    drift = None
+    if path in LM_EXACT:
+        tol = 0.0
+        if not torch.equal(out.prefill_logits, ref.prefill_logits):
+            raise AssertionError(f"{path}: hopper and torch run the same "
+                                 f"ops, but their prefill logits differ "
+                                 f"by up to {err:.3e}")
+    elif path in LM_DRIFT:
+        tol = LM_TOL * float(y_ref.abs().max())
+        drift = fp32_held(path, cfg, params, prompts, y, y_ref)
+    else:
+        tol = LM_TOL * float(y_ref.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"{path}: hopper vs torch prefill logits "
+                                 f"max|diff| {err:.3e} > {tol:.3e}")
     agree = float((out.tokens == ref.tokens).mean())
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_tok = LM_BATCH * LM_PROMPT
-    print(f"path {LM_PATH}: batch {LM_BATCH}, prompt {LM_PROMPT}, "
-          f"{LM_GEN} greedy tokens; build (random weights) {build_ms:.0f}ms;"
-          f" prefill {out.prefill_ms:.1f}ms first, {warm_prefill_ms:.1f}ms "
-          f"again ({n_tok / warm_prefill_ms * 1e3:.0f} tokens/s); K6 "
+    n_tok = batch * prompt
+    enc = ("" if out.encode_ms is None else
+           f"encode {cfg.n_audio_frames} frames x{batch} "
+           f"{out.encode_ms:.1f}ms (outside the prefill); ")
+    print(f"path {path}: batch {batch}, prompt {prompt}, "
+          f"{gen} greedy tokens; build (random weights) {build_ms:.0f}ms; "
+          f"{enc}prefill {out.prefill_ms:.1f}ms first, "
+          f"{warm_prefill_ms:.1f}ms again "
+          f"({n_tok / warm_prefill_ms * 1e3:.0f} tokens/s); K6 "
           f"{k6_ms:.1f}ms of it ({k6_ms / warm_prefill_ms:.1%}); decode "
           f"{out.decode_ms_per_token:.2f}ms/token "
-          f"({LM_BATCH / out.decode_ms_per_token * 1e3:.1f} tokens/s); "
+          f"({batch / out.decode_ms_per_token * 1e3:.1f} tokens/s); "
           f"launches {launches} (prefill {n_prefill}, decode step "
           f"{n_decode}); peak memory {peak_gb:.2f} GB; vs backend='torch' "
+          f"{'(bf16; held in fp32 below) ' if drift else ''}"
           f"(prefill {ref.prefill_ms:.1f}ms, decode "
           f"{ref.decode_ms_per_token:.2f}ms/token): max|diff| {err:.3e} "
-          f"(tolerance {tol:.3e}, max|logit| {float(y_ref.abs().max()):.3e})"
+          f"({'equal required' if path in LM_EXACT else 'tolerance'} "
+          f"{tol:.3e}, max|logit| {float(y_ref.abs().max()):.3e})"
           f", greedy tokens agree {agree:.3f}", flush=True)
-    for phase, pr in (("prefill", prof_prefill), ("decode step", prof_decode)):
-        print(f"path {LM_PATH} profile, one {phase}: wall "
+    for phase, pr, sp in (("prefill", prof_prefill, split["prefill"]),
+                          ("decode step", prof_decode,
+                           split["decode_step"])):
+        print(f"path {path} profile, one {phase}: wall "
               f"{pr['wall_ms']:.1f}ms under the profiler, device busy "
-              f"{pr['device_busy_ms']:.2f}ms over {pr['n_kernels']} kernels;"
-              f" longest: " + "; ".join(f"{k} {ms:.2f}ms x{n}"
-                                        for k, ms, n in pr["top"]),
+              f"{pr['device_busy_ms']:.2f}ms "
+              f"({pr['device_busy_ms'] / pr['wall_ms']:.1%}) over "
+              f"{pr['n_kernels']} kernels (K6 {sp['k6_ms']:.2f}ms, GEMMs "
+              f"{sp['gemm_ms']:.2f}ms, other {sp['other_ms']:.2f}ms); "
+              f"longest: " + "; ".join(f"{k} {ms:.2f}ms x{n}"
+                                       for k, ms, n in pr["top"]),
               flush=True)
     print(json.dumps({
-        "path": LM_PATH, "build_ms": build_ms,
+        "path": path, "arch": arch, "batch": batch, "prompt": prompt,
+        "gen": gen, "build_ms": build_ms, "encode_ms": out.encode_ms,
         "prefill_ms": out.prefill_ms, "warm_prefill_ms": warm_prefill_ms,
         "decode_ms_per_token": out.decode_ms_per_token,
         "k6_ms_per_prefill": k6_ms,
@@ -2176,10 +2302,105 @@ def serve_lm(k6_ms: float) -> dict:
         "launches_decode_step": n_decode, "peak_memory_gb": peak_gb,
         "max_abs_diff_vs_torch": err, "tol": tol,
         "repeat_prefill_max_abs_diff": repeat_diff,
-        "greedy_token_agreement": agree,
+        "greedy_token_agreement": agree, "fp32_held": drift,
+        "profile_split": split,
         "profile_prefill": prof_prefill, "profile_decode_step": prof_decode}),
         flush=True)
     return dict(launches=launches)
+
+
+def fp32_held(path: str, cfg, params, prompts: torch.Tensor,
+              y: torch.Tensor, y_ref: torch.Tensor) -> dict:
+    """The hopper-vs-torch check of an LM path whose bf16 logits drift
+    from its fp32 ones by more than ``LM_TOL``: the same tree cast to
+    fp32, prefilled once per backend (hopper: K6's fp32 body at the
+    path's shapes, the same launches) within ``LM_TOL * max|logit|`` of
+    each other; and the bf16 hopper logits ``y`` no farther from the fp32
+    ones than the bf16 torch logits ``y_ref`` are, plus that tolerance."""
+    import dataclasses
+
+    from repro_torch.kernels import common
+    from repro_torch.models.layers import _tree_map
+    from repro_torch.train import steps
+
+    _, batch, prompt, gen = LM_PATHS[path]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _tree_map(lambda t: t.float(), params)
+    out = {}
+    for backend in ("hopper", "torch"):
+        prefill, _ = steps.make_serve_steps(cfg32, backend=backend)
+        cache = steps.init_cache(cfg32, batch, prompt + gen, "cuda")
+        common.reset_launches()
+        logits, cache = prefill(p32, prompts, cache)
+        torch.cuda.synchronize()
+        want = PATHS[path].get("flash_attention", 0)
+        if common.LAUNCHES["flash_attention"] != (
+                want if backend == "hopper" else 0):
+            raise AssertionError(f"{path} (fp32, {backend}): K6 launched "
+                                 f"{common.LAUNCHES['flash_attention']} "
+                                 f"times in a prefill")
+        out[backend] = logits.float()
+        del cache, logits
+    del p32
+    torch.cuda.empty_cache()
+    h32, t32 = out["hopper"], out["torch"]
+    tol = LM_TOL * float(t32.abs().max())
+    r = dict(fp32_max_abs_diff=float((h32 - t32).abs().max()), tol=tol,
+             fp32_max_logit=float(t32.abs().max()),
+             bf16_hopper_drift=float((y - t32).abs().max()),
+             bf16_torch_drift=float((y_ref - t32).abs().max()),
+             bf16_max_abs_diff=float((y - y_ref).abs().max()))
+    print(f"path {path}: bf16 hopper vs torch max|diff| "
+          f"{r['bf16_max_abs_diff']:.3e}; in fp32 (the same tree) hopper "
+          f"vs torch {r['fp32_max_abs_diff']:.3e} (tolerance {tol:.3e}); "
+          f"bf16 drift from the fp32 torch logits: hopper "
+          f"{r['bf16_hopper_drift']:.3e}, torch {r['bf16_torch_drift']:.3e}",
+          flush=True)
+    if not r["fp32_max_abs_diff"] <= tol:
+        raise AssertionError(f"{path}: fp32 hopper vs torch prefill logits "
+                             f"max|diff| {r['fp32_max_abs_diff']:.3e} > "
+                             f"{tol:.3e}")
+    if not r["bf16_hopper_drift"] <= r["bf16_torch_drift"] + tol:
+        raise AssertionError(f"{path}: bf16 hopper drifts "
+                             f"{r['bf16_hopper_drift']:.3e} from the fp32 "
+                             f"logits, torch {r['bf16_torch_drift']:.3e}")
+    return r
+
+
+def families_vs_cpu(card: str) -> None:
+    """The four new families, reduced and in fp32, served on the card
+    (hopper: K6 at the 2048-token prompts of zamba2 and the VLM) and on the
+    CPU (K6's plain version) from the same tree: prefill logits within
+    ``1e-4 * max(1, max|logit|)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.layers import _tree_map
+    from repro_torch.train import steps
+
+    for arch, prompt in (("mamba2-130m", 100), ("zamba2-7b", 2048),
+                         ("whisper-base", 32),
+                         ("llama-3.2-vision-11b", 2048)):
+        cfg = get_config(arch).reduced()
+        params = steps.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+        if cfg.family == "vlm":
+            open_gates(params)
+        kw = dict(reduced=True, batch=2, prompt_len=prompt, gen=4, seed=0,
+                  backend="hopper")
+        on_card = serve(arch, device="cuda", params=_tree_map(
+            lambda t: t.cuda(), params), **kw)
+        on_cpu = serve(arch, device="cpu", params=params, **kw)
+        y, y_ref = on_card.prefill_logits.cpu(), on_cpu.prefill_logits
+        err = float((y - y_ref).abs().max())
+        tol = 1e-4 * max(1.0, float(y_ref.abs().max()))
+        if not err <= tol:
+            raise AssertionError(f"{arch} (reduced, fp32): card vs CPU "
+                                 f"prefill logits max|diff| {err:.3e} > "
+                                 f"{tol:.3e}")
+        agree = float((on_card.tokens == on_cpu.tokens).mean())
+        print(f"{arch} (reduced, fp32, prompt {prompt}) on {card} vs the "
+              f"CPU: max|diff| {err:.3e} (tolerance {tol:.3e}); greedy "
+              f"tokens agree {agree:.3f}", flush=True)
 
 
 # phase 6: training through repro_torch.launch.train. (a) reduced
@@ -2531,10 +2752,11 @@ def main() -> int:
                              bound_ms=0.0, library_ms=None, bound_by={})
                   for name in common.KERNELS}
     seen: dict[tuple, dict] = {}
+    lm_k6_ms = {}     # K6 ms per request of each LM path
     fields = ("ms", "plain_ms", "bound_ms", "library_ms")
     for path in [*PATHS, *STRICT_PATHS]:
-        if path == LM_PATH:
-            cases = lm_kernel_cases()
+        if path in LM_PATHS:
+            cases = lm_kernel_cases(path)
         else:
             program, dtype, per_block = path_program(path)
             cases = kernel_cases(program, BATCH, dtype, per_block)
@@ -2556,7 +2778,7 @@ def main() -> int:
                 err = (f"worst element {r['worst_elem_ratio']:.3f} of one "
                        f"bf16 step" if "worst_elem_ratio" in r else
                        f"max|diff| {r['max_abs_err']:.2e}")
-                print(f"K6 {layer}: {r['ms']:.3f}ms, "
+                print(f"K6 {path} {layer}: {r['ms']:.3f}ms, "
                       f"{r['useful_tflops']:.1f} TFLOP/s useful, "
                       f"{r['bound_share']:.1%} of its bound "
                       f"({r['bound_ms']:.3f}ms); SDPA {r['library_ms']:.3f}"
@@ -2577,6 +2799,8 @@ def main() -> int:
                 agg["bound_by"].get(r["bound_by"], 0) + n * r["bound_ms"])
         # per-request sums of this path's kernel calls (library_ms 0: none)
         print(json.dumps({"path_kernels": path, **per_path}), flush=True)
+        if path in LM_PATHS:
+            lm_k6_ms[path] = per_path.get("flash_attention", {}).get("ms", 0.0)
     decomposed_conv_check(card)
     dispatcher_cost(card)
     print(f"phase 2 (kernel checks): {time.perf_counter() - t_start:.1f}s "
@@ -2587,7 +2811,7 @@ def main() -> int:
     total = dict.fromkeys(common.KERNELS, 0)
     results = {}
     for path in PATHS:
-        if path == LM_PATH:
+        if path in LM_PATHS:
             continue
         shape = path_specs(path)[1]
         if shape not in xs:
@@ -2671,12 +2895,18 @@ def main() -> int:
     default_cache().clear()
     torch.cuda.empty_cache()
 
-    # -- phase 5: the LM path through repro_torch.launch.serve ---------------
-    lm = serve_lm(k6_ms=per_kernel["flash_attention"]["ms"])
-    for name, n in lm["launches"].items():
-        total[name] += n
-    del lm
+    # -- phase 5: the LM paths through repro_torch.launch.serve --------------
+    t_5 = time.perf_counter()
+    for path in LM_PATHS:
+        lm = serve_lm(path, k6_ms=lm_k6_ms[path])
+        for name, n in lm["launches"].items():
+            total[name] += n
+        del lm
+        torch.cuda.empty_cache()
+    families_vs_cpu(card)
     torch.cuda.empty_cache()
+    print(f"phase 5 (LM): {time.perf_counter() - t_5:.1f}s; "
+          f"{time.perf_counter() - t_start:.1f}s since start", flush=True)
 
     # -- phase 6: training through repro_torch.launch.train -----------------
     train = train_phase(card)

@@ -1,15 +1,19 @@
 """Serving entry points of the PyTorch port, on a CUDA card by default.
 
-LM serving (batched prefill, then greedy decode with a KV cache; the dense
-family, e.g. full-width minitron-8b on one H100):
+LM serving (batched prefill, then greedy decode with a KV/SSM cache;
+the dense, VLM, SSM, hybrid and audio families, e.g. full-width
+minitron-8b or zamba2-7b on one H100):
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
       --no-reduced --batch 2 --prompt-len 4096 --gen 16 --backend hopper
 
 Prompts of 2048 tokens and more take the long-sequence attention: K6 with
-``--backend hopper``, the scan-flash port with ``--backend torch``. Prints
-the build (random weights from seed 0), prefill and per-token decode
-times.
+``--backend hopper``, the scan-flash port with ``--backend torch``. A VLM
+(llama-3.2-vision-11b) draws its stub image embeddings and whisper its
+stub frame embeddings from the seed before the prompts, as the reference
+does; whisper encodes them outside the timed prefill. Prints the build
+(random weights from seed 0), prefill and per-token decode times (and
+whisper's encode time).
 
 CNN serving through the ported HybridDNN pipeline — DSE -> compile ->
 validated, cached executor:
@@ -69,6 +73,36 @@ class LMServeResult:
     build_ms: float | None      # None when the caller passed ``params``
     prefill_ms: float
     decode_ms_per_token: float
+    encode_ms: float | None = None   # whisper's encoder, outside prefill
+
+
+def lm_inputs(cfg, params, rng: np.random.Generator, batch: int,
+              prompt_len: int, backend: str, device: torch.device):
+    """A request's inputs, drawn from ``rng`` in the reference's order:
+    first the stub frontend's (a VLM's image embeddings; whisper's frame
+    embeddings, then encoded), then the prompts. Returns (extras for the
+    serve steps, prompts (B, prompt_len) int32, whisper's encode ms or
+    None)."""
+    extras, encode_ms = {}, None
+    if cfg.family == "vlm":
+        extras["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_image_tokens, cfg.d_model))).to(device,
+                                                          cfg.torch_dtype)
+    if cfg.family == "audio":
+        from repro_torch.models import whisper
+        frames = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_audio_frames, cfg.d_model))).to(device,
+                                                          cfg.torch_dtype)
+        _sync(device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            extras["enc_out"] = whisper.encode(params, frames, cfg,
+                                               backend=backend)
+        _sync(device)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len),
+                           dtype=np.int32)
+    return extras, prompts, encode_ms
 
 
 def serve(arch: str, *, reduced: bool = True, batch: int = 4,
@@ -99,13 +133,13 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
         build_ms = (time.perf_counter() - t0) * 1e3
     prefill_fn, decode_fn = steps_lib.make_serve_steps(cfg, backend=backend)
     cache = steps_lib.init_cache(cfg, batch, prompt_len + gen, dev)
-    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len),
-                           dtype=np.int32)
+    extras, prompts, encode_ms = lm_inputs(cfg, params, rng, batch,
+                                           prompt_len, backend, dev)
 
     tokens = torch.from_numpy(prompts).to(dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill_fn(params, tokens, cache)
+    logits, cache = prefill_fn(params, tokens, cache, extras)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -115,7 +149,8 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     t0 = time.perf_counter()
     for i in range(gen):
         outs.append(tok[:, 0])
-        logits, cache = decode_fn(params, tok, cache, prompt_len + i)
+        logits, cache = decode_fn(params, tok, cache, prompt_len + i,
+                                  extras)
         tok = logits.argmax(-1)[:, None]
     _sync(dev)
     t_decode = time.perf_counter() - t0
@@ -124,13 +159,16 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     per_token = t_decode / gen * 1e3 if gen else 0.0
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     built = f"build {build_ms:.0f}ms; " if build_ms is not None else ""
+    if encode_ms is not None:
+        built += (f"encode {cfg.n_audio_frames} frames x{batch}: "
+                  f"{encode_ms:.1f}ms; ")
     print(f"{cfg.name} ({'reduced' if reduced else 'full'}, {cfg.dtype}) "
           f"on {dev} ({name}), backend {backend}: {built}prefill "
           f"{prompt_len} toks x{batch}: {t_prefill * 1e3:.1f}ms; decode "
           f"{gen} steps: {per_token:.2f}ms/tok")
     return LMServeResult(tokens=gen_tokens, prefill_logits=prefill_logits,
                          build_ms=build_ms, prefill_ms=t_prefill * 1e3,
-                         decode_ms_per_token=per_token)
+                         decode_ms_per_token=per_token, encode_ms=encode_ms)
 
 
 def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,

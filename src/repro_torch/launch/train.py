@@ -45,6 +45,7 @@ def build(cfg, opt_cfg, mesh, seed=0):
             f"training over a mesh of {mesh.size} positions ({mesh!r}) is "
             f"not ported yet; the port trains on one device (ROADMAP Queue "
             f"1, item 11g)")
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg)   # refuses first
     rules = make_rules(mesh)
     device = rules.sharding().device
     with use_rules(rules):
@@ -53,7 +54,6 @@ def build(cfg, opt_cfg, mesh, seed=0):
         opt_state = adamw.init(params)
     params = pytree.tree_map(lambda p, s: p.to(s.device), params,
                              param_shardings(params, rules))
-    step_fn = steps_lib.make_train_step(cfg, opt_cfg)
 
     def wrapped(params, opt_state, batch):
         with use_rules(rules):

@@ -1,25 +1,27 @@
 """Transformer building blocks of the LM side (port of the reference's
 ``models/layers.py``), as functions over plain dicts of tensors.
 
-RMSNorm, RoPE, GQA attention with an optional KV cache, the scan-flash
-attention and SwiGLU, with the reference's bf16 rounding points. The
-reference's ``shard(...)`` constraints are dropped: the port runs on one
-device. At 2048 query tokens and more, attention takes the reference's
-long-sequence branch, where ``backend`` picks the implementation:
-``"torch"`` runs the port of ``_flash_attention_scan``, ``"hopper"`` runs
-K6 (``kernels/flash_attention``) with the causal mask shifted by the
-chunk's row offset, as the scan's. Below 2048 both backends run the
-reference's einsum branch, which is no Pallas kernel. K6 has no backward
-(nor has the reference's kernel): under autograd its wrapper raises, and
-training runs the scan. ``remat_wrap`` is the reference's activation
-checkpointing. MoE, the GELU MLP and cross-attention are not ported yet
-(ROADMAP Queue 1, item 11).
+RMSNorm, RoPE, GQA attention with an optional KV cache and cross-attention
+(K/V from encoder or image states), the scan-flash attention, SwiGLU and
+the GELU MLP, with the reference's bf16 rounding points. The reference's
+``shard(...)`` constraints are dropped: the port runs on one device. At
+2048 query tokens and more, attention takes the reference's long-sequence
+branch, where ``backend`` picks the implementation: ``"torch"`` runs the
+port of ``_flash_attention_scan``, ``"hopper"`` runs K6
+(``kernels/flash_attention``) with the causal mask shifted by the chunk's
+row offset, as the scan's (a cross-attention is never causal). Below 2048
+both backends run the reference's einsum branch, which is no Pallas
+kernel. K6 has no backward (nor has the reference's kernel): under
+autograd its wrapper raises, and training runs the scan. ``remat_wrap`` is
+the reference's activation checkpointing. MoE is not ported yet (ROADMAP
+Queue 1, item 11b).
 """
 from __future__ import annotations
 
 import functools
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
@@ -28,7 +30,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch.compat import resolve_backend
+from repro_torch.compat import resolve_backend, to_tensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -36,6 +38,9 @@ Params = dict[str, Any]
 
 NEG_INF = -1e30
 LONG_SEQ = 2048   # the reference's threshold for the scan-flash branch
+# leaves the reference keeps in float32 whatever the model's dtype: the
+# SSM's log-decay, skip weight and step bias (``models/mamba2.py``)
+FP32_LEAVES = frozenset({"A_log", "D", "dt_bias"})
 
 
 # the matmuls without batch dimensions (``x @ W`` reaches aten as ``mm``):
@@ -65,6 +70,56 @@ def remat_wrap(fn, cfg: ModelConfig):
     def wrapped(*args):
         return checkpoint(fn, *args, use_reentrant=False, **kw)
     return wrapped
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of matching dict/list trees of tensors."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {key: _tree_map(fn, *(t[key] for t in trees)) for key in t0}
+    if isinstance(t0, (list, tuple)):
+        return [_tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+def stack_layers(make, n: int):
+    """Draw ``n`` layers with ``make()`` and copy each into leaves stacked
+    ``(n, ...)``, so the peak is the stack plus one layer."""
+    out = None
+    for i in range(n):
+        layer = make()
+        if out is None:
+            out = _tree_map(lambda t: t.new_empty((n, *t.shape)), layer)
+        _tree_map(lambda dst, src: dst[i].copy_(src), out, layer)
+        del layer
+    return out
+
+
+def layer_at(tree, *idx):
+    """The views ``leaf[idx]`` of a stacked layer tree."""
+    return _tree_map(lambda t: t[idx], tree)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device) -> Params:
+    """The reference's parameter tree of any LM family, with float32 numpy
+    leaves (cast bf16 JAX arrays to float32 before ``np.asarray``) -> the
+    same tree of tensors on ``device``: in ``cfg.torch_dtype``, but the
+    leaves named in ``FP32_LEAVES``, which stay float32 as the
+    reference's."""
+    dtype, device = cfg.torch_dtype, torch.device(device)
+
+    def carry(t, name):
+        if isinstance(t, dict):
+            return {k: carry(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [carry(v, name) for v in t]
+        a = np.asarray(t)
+        if a.dtype != np.float32:
+            raise TypeError(f"params_from_numpy takes float32 leaves, got "
+                            f"{a.dtype}")
+        return to_tensor(a, device,
+                         torch.float32 if name in FP32_LEAVES else dtype)
+    return carry(tree, None)
 
 
 def _init(gen: torch.Generator, shape, *, scale=None, dtype=torch.float32,
@@ -126,8 +181,11 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions=None, causal: bool = True, kv_cache=None,
-              cache_pos: int | None = None, backend: str = "torch"):
-    """Self-attention over x (B, S, D).
+              cache_pos: int | None = None, xattn_kv=None,
+              use_rope: bool = True, backend: str = "torch"):
+    """Attention of x (B, S, D) to itself, or with ``xattn_kv`` (B, Skv, D)
+    (encoder or image states) to those: a cross-attention takes its K/V
+    from them, applies no RoPE and masks nothing.
 
     kv_cache: optional dict(k=(B, Smax, KV, hd), v=...). With ``cache_pos``
     the new K/V are written into it IN PLACE at that position (the
@@ -140,18 +198,20 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
-    skv = s
+    kv_src = xattn_kv if xattn_kv is not None else x
+    skv = kv_src.shape[1]
+    k = (kv_src @ p["wk"]).reshape(b, skv, kv, hd)
+    v = (kv_src @ p["wv"]).reshape(b, skv, kv, hd)
 
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
 
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope and xattn_kv is None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if kv_cache is not None:
@@ -170,18 +230,19 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     row_offset = (cache_pos if (kv_cache is not None and cache_pos is not None)
                   else (skv - s if causal else 0))
+    masked = causal and xattn_kv is None
     if s >= LONG_SEQ and backend == "hopper":
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal,
-                              row_offset=row_offset)
+                              v.transpose(1, 2), causal=masked,
+                              row_offset=row_offset if masked else 0)
         out = out.transpose(1, 2)                     # (B, S, H, hd)
     elif s >= LONG_SEQ:
-        out = _flash_attention_scan(qg, k, v, causal=causal,
+        out = _flash_attention_scan(qg, k, v, causal=masked,
                                     row_offset=row_offset)
     else:
         scale = hd ** -0.5
         logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float() * scale
-        if causal:
+        if masked:
             rows_abs = row_offset + torch.arange(
                 s, device=x.device)[None, None, None, :, None]
             col = torch.arange(skv, device=x.device)[None, None, None, None, :]
@@ -238,7 +299,7 @@ def _flash_attention_scan(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# FFN: SwiGLU (llama-family)
+# FFN: SwiGLU (llama-family) and GELU-MLP (whisper)
 # ---------------------------------------------------------------------------
 
 def init_swiglu(gen: torch.Generator, d: int, f: int, dtype,
@@ -255,3 +316,16 @@ def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     u = x @ p["w_up"]
     return (F.silu(g) * u) @ p["w_down"]
 
+
+def init_mlp(gen: torch.Generator, d: int, f: int, dtype, device) -> Params:
+    return {"w_in": _init(gen, (d, f), dtype=dtype, device=device),
+            "w_out": _init(gen, (f, d), dtype=dtype, device=device),
+            "b_in": torch.zeros((f,), dtype=dtype, device=device),
+            "b_out": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jax.nn.gelu`` defaults to the tanh approximation,
+    so this is ``approximate="tanh"``, not the exact erf GELU."""
+    h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
+    return h @ p["w_out"] + p["b_out"]

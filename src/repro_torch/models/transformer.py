@@ -1,52 +1,46 @@
-"""Decoder-only transformer LM, dense family (port of the reference's
-``models/transformer.py``, its dense part).
+"""Decoder-only transformer LM, dense and VLM families (port of the
+reference's ``models/transformer.py``).
 
 The parameter tree is the reference's: ``embed``, ``final_norm``,
 ``lm_head`` and ``layers``, a list (one entry per layer of a group) of
 trees whose leaves are stacked ``(n_groups, ...)``. The reference's scan
 over groups becomes a Python loop over views of those leaves. KV caches are
 ``(n_groups, B, Smax, KV, hd)`` per period slot and are written in place
-(the reference donates them). The MoE and VLM families, which share this
-module in the reference, raise ``NotImplementedError`` (ROADMAP Queue 1,
-item 11).
+(the reference donates them). A VLM's cross layers (every
+``cross_attn_every``-th layer of a group) attend to ``image_embeds`` (the
+stub frontend's patch embeddings) through ``xattn``, gated by
+``tanh(xattn_gate)``, and are skipped when no image is given. The MoE
+family, which shares this module in the reference, raises
+``NotImplementedError`` (ROADMAP Queue 1, item 11b).
 """
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.compat import to_tensor
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (
+from repro_torch.models.layers import (  # noqa: F401 (params_from_numpy)
     Params,
     _init,
+    _tree_map,
     attention,
     init_attention,
     init_swiglu,
+    params_from_numpy,
     remat_wrap,
     rms_norm,
     swiglu,
 )
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_served(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port serves the dense family (ROADMAP Queue 1, item 11)")
-
-
-def _tree_map(fn, *trees):
-    """``fn`` over the leaves of matching dict/list trees of tensors."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {key: _tree_map(fn, *(t[key] for t in trees)) for key in t0}
-    if isinstance(t0, (list, tuple)):
-        return [_tree_map(fn, *xs) for xs in zip(*trees)]
-    return fn(*trees)
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; this "
+            f"module serves the dense and VLM families (ROADMAP Queue 1, "
+            f"item 11b)")
 
 
 # ---------------------------------------------------------------------------
@@ -77,26 +71,38 @@ def _layer_kinds(cfg: ModelConfig) -> list[dict]:
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: dict, dtype,
                device) -> Params:
-    if kind["moe"] or kind["cross"]:
+    if kind["moe"]:
         raise NotImplementedError(
-            "MoE and cross-attention layers are not ported yet (ROADMAP "
-            "Queue 1, item 11)")
-    return {
-        "norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+            "MoE layers are not ported yet (ROADMAP Queue 1, item 11b)")
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=device)
+    p = {
+        "norm": ones(),
         "attn": init_attention(gen, cfg, dtype, device),
-        "norm2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "norm2": ones(),
         "ffn": init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype, device),
     }
+    if kind["cross"]:
+        p["xattn"] = init_attention(gen, cfg, dtype, device)
+        p["norm3"] = ones()
+        p["xattn_gate"] = torch.zeros((1,), dtype=dtype, device=device)
+    return p
 
 
 def apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: dict, *,
                 positions=None, kv_cache=None, cache_pos=None,
-                causal: bool = True, backend: str = "torch"):
+                image_embeds=None, causal: bool = True,
+                backend: str = "torch"):
     h, new_cache = attention(
         p["attn"], rms_norm(x, p["norm"], cfg.norm_eps), cfg,
         positions=positions, causal=causal, kv_cache=kv_cache,
         cache_pos=cache_pos, backend=backend)
     x = x + h
+    if kind["cross"] and image_embeds is not None:
+        xh, _ = attention(
+            p["xattn"], rms_norm(x, p["norm3"], cfg.norm_eps), cfg,
+            xattn_kv=image_embeds, causal=False, use_rope=False,
+            backend=backend)
+        x = x + torch.tanh(p["xattn_gate"]) * xh
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + swiglu(p["ffn"], h2), new_cache
 
@@ -111,7 +117,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``generator`` on ``device`` (which must be the generator's). Each
     group's layer is drawn, then copied into the stacked leaves, so the
     peak is the model plus one layer."""
-    _require_dense(cfg)
+    _require_served(cfg)
     dtype = cfg.torch_dtype
     kinds = _layer_kinds(cfg)
     period = len(kinds)
@@ -138,21 +144,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device) -> Params:
-    """The reference's parameter tree with float32 numpy leaves (cast bf16
-    JAX arrays to float32 before ``np.asarray``) -> the same tree of
-    tensors in ``cfg.torch_dtype`` on ``device``."""
-    dtype, device = cfg.torch_dtype, torch.device(device)
-
-    def leaf(a):
-        a = np.asarray(a)
-        if a.dtype != np.float32:
-            raise TypeError(f"params_from_numpy takes float32 leaves, got "
-                            f"{a.dtype}")
-        return to_tensor(a, device, dtype)
-    return _tree_map(leaf, tree)
-
-
 def _groups(params: Params, cfg: ModelConfig):
     """(group index, [layer params of each period slot]) as views."""
     period = len(params["layers"])
@@ -162,18 +153,19 @@ def _groups(params: Params, cfg: ModelConfig):
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            positions=None, backend: str = "torch") -> torch.Tensor:
+            image_embeds=None, positions=None,
+            backend: str = "torch") -> torch.Tensor:
     """Training/prefill forward without a cache: (B, S) -> logits
     (B, S, V). Under autograd each group runs under ``remat_wrap`` (as the
     reference's scanned group body), so with ``cfg.remat`` the backward
     holds one group's activations at a time."""
-    _require_dense(cfg)
+    _require_served(cfg)
     kinds = _layer_kinds(cfg)
 
     def group_body(x, group):
         for i, p in enumerate(group):
             x, _ = apply_layer(p, x, cfg, kinds[i], positions=positions,
-                               backend=backend)
+                               image_embeds=image_embeds, backend=backend)
         return x
 
     if torch.is_grad_enabled():
@@ -194,7 +186,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     """Per period-slot stacked cache: list of dicts with (G, B, S, KV, hd)."""
-    _require_dense(cfg)
+    _require_served(cfg)
     period = group_period(cfg)
     n_groups = cfg.n_layers // period
     shape = (n_groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -204,12 +196,13 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device):
 
 
 def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
-                cfg: ModelConfig, *, backend: str = "torch"):
+                cfg: ModelConfig, *, image_embeds=None,
+                backend: str = "torch"):
     """One token for every sequence: token (B, 1) integers at position
     ``pos``. Returns (logits (B, V), cache), the cache updated in place.
     The same path serves prefill: token (B, S_prompt) with pos=0
     (causality is cache-relative)."""
-    _require_dense(cfg)
+    _require_served(cfg)
     kinds = _layer_kinds(cfg)
     pos = int(pos)
     s = token.shape[1]
@@ -220,12 +213,13 @@ def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
             layer_cache = {"k": cache[i]["k"][g], "v": cache[i]["v"][g]}
             x, _ = apply_layer(p, x, cfg, kinds[i], positions=positions,
                                kv_cache=layer_cache, cache_pos=pos,
-                               backend=backend)
+                               image_embeds=image_embeds, backend=backend)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, -1] @ params["lm_head"], cache
 
 
 def prefill(params: Params, tokens: torch.Tensor, cache, cfg: ModelConfig, *,
-            backend: str = "torch"):
+            image_embeds=None, backend: str = "torch"):
     """Fill the KV cache from a prompt; returns (last-token logits, cache)."""
-    return decode_step(params, tokens, cache, 0, cfg, backend=backend)
+    return decode_step(params, tokens, cache, 0, cfg,
+                       image_embeds=image_embeds, backend=backend)

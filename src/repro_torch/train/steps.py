@@ -3,8 +3,9 @@ the reference's ``train/steps.py``).
 
 ``make_train_step(cfg, opt)`` returns a step function ``(params,
 opt_state, batch) -> (params, opt_state, metrics)``; ``make_serve_steps``
-returns (prefill, decode). Only the dense family is ported; the others
-raise ``NotImplementedError`` (ROADMAP Queue 1, item 11).
+returns (prefill, decode). The dense, VLM, SSM (mamba2), hybrid (zamba2)
+and audio (whisper) families serve; only the dense family trains (the
+others are ROADMAP Queue 1, item 11h). MoE raises everywhere (item 11b).
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.compat import resolve_backend, resolve_device, to_tensor
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer, whisper, zamba2
+from repro_torch.models.layers import params_from_numpy  # noqa: F401
 from repro_torch.optim import adamw
 
 # elements of logits per row chunk of ``cross_entropy`` (128 Mi: a 512 MiB
@@ -23,12 +25,24 @@ from repro_torch.optim import adamw
 CE_CHUNK = 1 << 27
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+SERVED = ("dense", "vlm", "ssm", "hybrid", "audio")
+
+
+def _require_served(cfg: ModelConfig) -> None:
+    if cfg.family not in SERVED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port serves and trains the dense family (ROADMAP Queue 1, "
-            f"item 11)")
+            f"port serves the {', '.join(SERVED)} families (ROADMAP Queue "
+            f"1, item 11b)")
+
+
+def _require_trained(cfg: ModelConfig) -> None:
+    _require_served(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family is not ported "
+            f"yet; the port trains the dense family (ROADMAP Queue 1, item "
+            f"11h)")
 
 
 # ---------------------------------------------------------------------------
@@ -38,14 +52,32 @@ def _require_ported(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Random parameters drawn from ``generator`` on ``device`` (``None``:
     the CUDA card; the generator must live there)."""
-    _require_ported(cfg)
-    return transformer.init_params(cfg, generator, resolve_device(device))
+    _require_served(cfg)
+    device = resolve_device(device)
+    module = {"ssm": mamba2, "hybrid": zamba2,
+              "audio": whisper}.get(cfg.family, transformer)
+    return module.init_params(cfg, generator, device)
 
 
-def forward_logits(params, batch: dict[str, Any], cfg: ModelConfig):
-    """(B, S) ``batch["tokens"]`` -> logits (B, S, V)."""
-    _require_ported(cfg)
-    return transformer.forward(params, batch["tokens"], cfg)
+def forward_logits(params, batch: dict[str, Any], cfg: ModelConfig, *,
+                   backend: str = "torch"):
+    """(B, S) ``batch["tokens"]`` -> logits (B, S, V); a VLM also reads
+    ``batch["image_embeds"]`` and whisper ``batch["frames"]``. ``backend``
+    picks the long-sequence attention, as in :func:`make_serve_steps`."""
+    _require_served(cfg)
+    tokens = batch["tokens"]
+    if cfg.family == "dense":
+        return transformer.forward(params, tokens, cfg, backend=backend)
+    if cfg.family == "vlm":
+        return transformer.forward(params, tokens, cfg,
+                                   image_embeds=batch["image_embeds"],
+                                   backend=backend)
+    if cfg.family == "ssm":
+        return mamba2.forward(params, tokens, cfg)
+    if cfg.family == "hybrid":
+        return zamba2.forward(params, tokens, cfg, backend=backend)
+    return whisper.forward(params, tokens, batch["frames"], cfg,
+                           backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +145,7 @@ def loss_and_grads(params, batch: dict[str, Any], cfg: ModelConfig):
     """(loss, grads): the mean CE of ``batch`` and its gradient with respect
     to every leaf of ``params`` (a tree of the same structure). The batch
     goes to the params' device."""
+    _require_trained(cfg)
     leaves, spec = pytree.tree_flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
     batch = _on_device(batch, leaves[0].device)
@@ -128,7 +161,7 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig) -> Callable:
     ``opt_state`` in place (the reference donates both) and returns them;
     the metrics are 0-dim float32 tensors on the params' device. Training
     attention at 2048 tokens and more is the scan, as in the reference."""
-    _require_ported(cfg)
+    _require_trained(cfg)
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(params, batch, cfg)
@@ -143,29 +176,46 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig) -> Callable:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """A zeroed KV cache for ``max_len`` positions on ``device`` (``None``:
-    the CUDA card)."""
-    _require_ported(cfg)
-    return transformer.init_kv_cache(cfg, batch, max_len,
-                                     resolve_device(device))
+    """A zeroed cache for ``max_len`` positions on ``device`` (``None``:
+    the CUDA card): KV caches, and the SSM's conv and state caches."""
+    _require_served(cfg)
+    device = resolve_device(device)
+    if cfg.family == "ssm":
+        return mamba2.init_ssm_cache(cfg, batch, device)
+    if cfg.family == "hybrid":
+        return zamba2.init_cache(cfg, batch, max_len, device)
+    if cfg.family == "audio":
+        return whisper.init_cache(cfg, batch, max_len, device)
+    return transformer.init_kv_cache(cfg, batch, max_len, device)
 
 
 def make_serve_steps(cfg: ModelConfig, backend: str = "torch"):
-    """Returns (prefill, decode): ``decode(params, token, cache, pos)`` and
-    ``prefill(params, tokens, cache)``, each -> (last-token logits, cache),
-    run without autograd. ``backend`` picks the long-sequence attention
-    ("hopper": K6, "torch": the scan)."""
-    _require_ported(cfg)
+    """Returns (prefill, decode): ``decode(params, token, cache, pos,
+    extras=None)`` and ``prefill(params, tokens, cache, extras=None)``,
+    each -> (last-token logits, cache), run without autograd. ``extras``
+    carries a VLM's ``image_embeds`` and whisper's ``enc_out`` (the
+    encoder's states, :func:`whisper.encode`). ``backend`` picks the
+    long-sequence attention ("hopper": K6, "torch": the scan)."""
+    _require_served(cfg)
     backend = resolve_backend(backend)
 
     @torch.no_grad()
-    def decode(params, token, cache, pos):
-        return transformer.decode_step(params, token, cache, pos, cfg,
+    def decode(params, token, cache, pos, extras=None):
+        extras = extras or {}
+        if cfg.family == "ssm":
+            return mamba2.decode_step(params, token, cache, pos, cfg)
+        if cfg.family == "hybrid":
+            return zamba2.decode_step(params, token, cache, pos, cfg,
+                                      backend=backend)
+        if cfg.family == "audio":
+            return whisper.decode_step(params, token, cache, pos,
+                                       extras["enc_out"], cfg,
                                        backend=backend)
+        return transformer.decode_step(
+            params, token, cache, pos, cfg,
+            image_embeds=extras.get("image_embeds"), backend=backend)
 
-    @torch.no_grad()
-    def prefill(params, tokens, cache):
-        return transformer.prefill(params, tokens, cache, cfg,
-                                   backend=backend)
+    def prefill(params, tokens, cache, extras=None):
+        return decode(params, tokens, cache, 0, extras)
 
     return prefill, decode

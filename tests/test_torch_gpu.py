@@ -61,7 +61,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref,
 )
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.models import resnet, vgg  # noqa: E402
+from repro_torch.models import layers, resnet, vgg  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -487,6 +487,9 @@ FA_GPU_CASES = [
     (1, 8, 2, 300, 1100, 128, True, 700),   # a chunk at row offset 700
     (1, 4, 1, 2048, 2100, 128, True),   # long rows: 33 KV steps, GQA 4
     (1, 2, 1, 2048, 4112, 128, True, 2048),  # a long chunk past 0
+    (1, 4, 4, 300, 300, 112, True),     # D 112 (zamba2's), Sq = Skv
+    (2, 4, 4, 200, 520, 112, True),     # D 112, Sq < Skv
+    (1, 4, 1, 2048, 1600, 128, False),  # the VLM's cross shape: Skv 1600
 ]
 
 
@@ -542,6 +545,34 @@ def test_gpu_reduced_lm_hopper_matches_torch(cuda):
                 backend="torch", device=cuda, params=params)
     assert common.LAUNCHES["flash_attention"] == cfg.n_layers
     y, y_ref = out.prefill_logits, ref.prefill_logits
+    assert torch.isfinite(y).all()
+    tol = 1e-4 * max(1.0, float(y_ref.abs().max()))
+    assert float((y - y_ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("arch,prompt", [
+    ("mamba2-130m", 100), ("zamba2-7b", 2048), ("whisper-base", 32),
+    ("llama-3.2-vision-11b", 2048)])
+def test_gpu_reduced_family_matches_cpu(cuda, arch, prompt):
+    """Each family the port serves besides the dense one, reduced and in
+    fp32, on the card (hopper: K6 at zamba2's and the VLM's 2048-token
+    prompts) and on the CPU from one tree."""
+    cfg = get_config(arch).reduced()
+    params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if cfg.family == "vlm":    # open the cross layers' zero-init gates
+        for slot in params["layers"]:
+            if "xattn_gate" in slot:
+                slot["xattn_gate"].fill_(0.5)
+    kw = dict(batch=2, prompt_len=prompt, gen=4, backend="hopper")
+    common.reset_launches()
+    out = serve(arch, device=cuda, params=layers._tree_map(
+        lambda t: t.to(cuda), params), **kw)
+    per_prefill = {"hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1),
+                   "vlm": cfg.n_layers + cfg.n_layers // max(
+                       cfg.cross_attn_every, 1)}.get(cfg.family, 0)
+    assert common.LAUNCHES["flash_attention"] == per_prefill
+    ref = serve(arch, device="cpu", params=params, **kw)
+    y, y_ref = out.prefill_logits.cpu(), ref.prefill_logits
     assert torch.isfinite(y).all()
     tol = 1e-4 * max(1.0, float(y_ref.abs().max()))
     assert float((y - y_ref).abs().max()) <= tol
