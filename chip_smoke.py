@@ -80,10 +80,21 @@ with one request of each under ``torch.profiler``; and a last path through
   the cross layers' ``xattn_gate`` set to 0.5 (its zero init would keep
   them from the logits): K6 once per layer and once per cross layer
   (non-causal, Skv 1600) of the prefill, 48, never in a decode step;
+* llama4-scout-17b-16e in bf16 at full width (16 experts and a shared
+  expert on every layer) cut to 8 of its 48 layers (39.4 GB), and
+  llama4-maverick-400b-a17b cut to its first group (a dense layer and an
+  MoE layer of all 128 experts, about 37 GB), each batch 2, a 4096-token
+  prompt, 16 greedy tokens, through ``train.steps``' serve steps
+  (``serve_cut``: ``launch.serve.serve`` builds its config from the arch
+  name): K6 once per layer of the prefill (40 heads over 8 KV heads), 8
+  and 2, never in a decode step; each MoE layer's tokens per expert and
+  dropped tokens of the prefill, and the tokens routed to another expert
+  under ``backend="torch"``; where hopper vs torch misses ``LM_TOL`` and
+  tokens flipped, both are held in fp32 on the first 2 layers;
 
-and then the four new families reduced and in fp32, each served on the
-card and on the CPU from one tree (prefill logits within
-``1e-4 * max(1, max|logit|)``).
+and then the five families besides the dense one reduced and in fp32,
+each served on the card and on the CPU from one tree (prefill logits
+within ``1e-4 * max(1, max|logit|)``).
 
 On the card every executor entry runs as CUDA graphs: a path's first
 request is the entry's warm-up run and the capture of its graph, and each
@@ -138,7 +149,12 @@ step function: ms/step (median of steps 2-6), tokens/s, peak allocated
 memory, loss (near ln(256000) at step 0) and grad norm, both finite, and
 one more step under ``torch.profiler``: device busy share, the ten longest
 kernels, the GEMM kernels' time, and the scan attention, the loss and the
-AdamW update timed by CUDA events.
+AdamW update timed by CUDA events; (d) reduced llama4-scout, mamba2-130m,
+zamba2-7b, whisper-base and llama-3.2-vision-11b in fp32, each built on
+the card by ``launch.train.build``, three steps on the card held to the
+same steps on the CPU from the same parameters within ``1e-4``; (e)
+llama4-scout at full width cut to 1 of its 48 layers and all 24 layers of
+mamba2-130m, bf16, batch 2 x 4096, four steps each, measured as (c).
 
 Each CNN path answers one first request and several steady ones, with the
 launch counts set to 0 just before it and checked per request just after,
@@ -152,7 +168,8 @@ within ``5e-2 * max|logit|``; so are the other LM paths', where mamba2's
 and whisper's (no kernel on the path) must be equal, and zamba2's, whose
 bf16 logits drift from fp32 on either backend by more than that, are held
 in fp32 on the same tree (and the bf16 hopper logits no farther from the
-fp32 ones than the bf16 torch logits). Any failure raises and exits
+fp32 ones than the bf16 torch logits), as are the MoE paths' where they
+miss it and tokens routed to other experts. Any failure raises and exits
 non-zero;
 without a CUDA card, or without the repository beside it, the script exits
 non-zero before printing any result.
@@ -235,6 +252,11 @@ PATHS = {
     "whisper_base_bf16": {},
     # 40 causal self-attentions and 8 cross-attentions to 1600 image tokens
     "llama32_vision_bf16": {"flash_attention": 48},
+    # one K6 per layer of the prefill (40 heads over 8 KV heads, D 128):
+    # scout cut to 8 of its 48 layers, maverick to its first group (a
+    # dense layer and an MoE layer of 128 experts)
+    "llama4_scout_bf16": {"flash_attention": 8},
+    "llama4_maverick_bf16": {"flash_attention": 2},
 }
 LM_PATH = "minitron8b_bf16"
 # phase 5: the LM paths at full width through launch.serve.serve (random
@@ -246,7 +268,20 @@ LM_PATHS = {
     # 30 s of audio (the config's 1500 frames)
     "whisper_base_bf16": ("whisper-base", 8, 32, 16),
     "llama32_vision_bf16": ("llama-3.2-vision-11b", 2, 4096, 16),
+    "llama4_scout_bf16": ("llama4-scout-17b-16e", 2, 4096, 16),
+    "llama4_maverick_bf16": ("llama4-maverick-400b-a17b", 2, 4096, 16),
 }
+# LM paths cut in depth, every width whole: the layers kept (scout's 48
+# layers are 215 GB of bf16 weights; one maverick group is 37 GB). They
+# are served through train.steps' serve steps (``serve_cut``), since
+# launch.serve.serve builds its config from the arch name
+LM_CUT = {"llama4_scout_bf16": 8, "llama4_maverick_bf16": 2}
+# the MoE paths: a token whose near-tied router logits differ by one bf16
+# step between the backends routes to another expert ("flips") and its
+# FFN output changes whole. Where hopper vs torch misses LM_TOL and tokens
+# flipped, the two are held in fp32 on the first FLIP_LAYERS layers of the
+# same tree (as LM_DRIFT's, with the bf16 logits of that cut)
+FLIP_LAYERS = 2
 # paths where hopper and torch run the same ops (no kernel on the path):
 # their logits must be equal, not close
 LM_EXACT = ("mamba2_130m_bf16", "whisper_base_bf16")
@@ -596,6 +631,18 @@ def dispatcher_cost(card: str) -> dict:
     return us
 
 
+def lm_config(path: str):
+    """The config an LM path serves: its arch's, cut to ``LM_CUT``'s
+    layers where the path is cut."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_PATHS[path][0])
+    if path in LM_CUT:
+        cfg = dataclasses.replace(cfg, n_layers=LM_CUT[path])
+    return cfg
+
+
 def lm_kernel_cases(path: str):
     """K6's calls per request on one LM path. minitron-8b: the prefill's
     shape, once per layer, and four shapes off the path (launches 0): the
@@ -605,13 +652,15 @@ def lm_kernel_cases(path: str):
     prefill (D 112, zero-padded to 128 in the kernel), once per group. The
     VLM: the causal prefill once per layer and the non-causal
     cross-attention to the image tokens once per cross layer. mamba2 and
-    whisper run no kernel."""
-    from repro_torch.configs import get_config
-    arch, batch, prompt, gen = LM_PATHS[path]
-    cfg = get_config(arch)
+    whisper run no kernel. The MoE paths: the prefill's shape (40 heads
+    over 8 KV heads), once per layer."""
+    _, batch, prompt, gen = LM_PATHS[path]
+    cfg = lm_config(path)
     prefill = dict(b=batch, h=cfg.n_heads, hkv=cfg.n_kv_heads,
                    sq=prompt, skv=prompt + gen, d=cfg.head_dim,
                    dtype="bf16", causal=True)
+    if cfg.family == "moe":
+        return [("flash_attention", "moe_prefill", prefill, cfg.n_layers)]
     if path == "zamba2_7b_bf16":
         return [("flash_attention", "shared_prefill", prefill,
                  cfg.n_layers // cfg.shared_attn_every)]
@@ -2160,21 +2209,105 @@ def profile_split(pr: dict) -> dict:
     return split
 
 
+def serve_cut(cfg, params, backend: str, batch: int, prompt: int,
+              gen: int):
+    """``launch.serve.serve`` on a config cut in depth: the same draws
+    from seed 0, then the prefill and ``gen`` greedy decode steps through
+    ``train.steps``' serve steps, timed as ``serve`` times them."""
+    from repro_torch.launch.serve import LMServeResult, lm_inputs
+    from repro_torch.train import steps
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    prefill, decode = steps.make_serve_steps(cfg, backend=backend)
+    cache = steps.init_cache(cfg, batch, prompt + gen, dev)
+    extras, prompts, _ = lm_inputs(cfg, params, np.random.default_rng(0),
+                                   batch, prompt, backend, dev)
+    tokens = torch.from_numpy(prompts).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens, cache, extras)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    first, outs = logits, []
+    tok = logits.argmax(-1)[:, None]
+    t0 = time.perf_counter()
+    for i in range(gen):
+        outs.append(tok[:, 0])
+        logits, cache = decode(params, tok, cache, prompt + i, extras)
+        tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    per_token = (time.perf_counter() - t0) * 1e3 / gen
+    print(f"{cfg.name} (cut to {cfg.n_layers} layers, {cfg.dtype}), backend "
+          f"{backend}: prefill {prompt} toks x{batch}: {prefill_ms:.1f}ms; "
+          f"decode {gen} steps: {per_token:.2f}ms/tok", flush=True)
+    return LMServeResult(tokens=torch.stack(outs, 1).cpu().numpy(),
+                         prefill_logits=first, build_ms=None,
+                         prefill_ms=prefill_ms,
+                         decode_ms_per_token=per_token)
+
+
+class Routing:
+    """Records, while entered, the routing of every MoE prefill call
+    (more than one token) of ``transformer.moe``: the expert each token
+    takes (the first maximum of the float32 router logits, as ``moe``
+    takes it) and the bucket capacity."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self._moe = moe = transformer.moe
+
+        def recording(p, x, cfg):
+            if x.shape[1] > 1:
+                idx = (x.float() @ p["router"]).argmax(-1)
+                cap = max(1, int(cfg.capacity_factor * x.shape[1]
+                                 / cfg.n_experts) + 1)
+                self.calls.append((idx, cap, cfg.n_experts))
+            return moe(p, x, cfg)
+        transformer.moe = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer.moe = self._moe
+
+    def layers(self) -> list:
+        """Per MoE layer of the first prefill: the tokens each expert got
+        (summed over the batch rows), the capacity a row, and the tokens
+        dropped past it."""
+        out = []
+        for idx, cap, e in self.calls:
+            rows = torch.nn.functional.one_hot(idx, e).sum(1)    # (B, E)
+            out.append(dict(experts=rows.sum(0).tolist(), cap=cap,
+                            dropped=int((rows - cap).clamp(min=0).sum())))
+        return out
+
+    def flips(self, other: "Routing") -> int:
+        """Tokens routed to another expert than in ``other``'s calls."""
+        return sum(int((a != b).sum()) for (a, _, _), (b, _, _)
+                   in zip(self.calls, other.calls))
+
+
 def serve_lm(path: str, k6_ms: float) -> dict:
     """Serve one LM path at full width (bf16, random weights from seed 0)
-    through ``launch.serve.serve`` on the hopper backend, with the launch
-    counts set to 0 just before and checked just after; check them per
-    phase on a second prefill and one decode step; hold the last-token
-    prefill logits against ``backend="torch"`` on the same params (within
-    ``LM_TOL * max|logit|``, or equal where no kernel is on the path).
-    ``k6_ms`` is phase 2's K6 time per request of the path (all calls)."""
-    from repro_torch.configs import get_config
+    through ``launch.serve.serve`` (a path cut in depth through
+    ``serve_cut``) on the hopper backend, with the launch counts set to 0
+    just before and checked just after; check them per phase on a second
+    prefill and one decode step; hold the last-token prefill logits
+    against ``backend="torch"`` on the same params (within
+    ``LM_TOL * max|logit|``, or equal where no kernel is on the path). An
+    MoE path prints each MoE layer's routing of the prefill and the tokens
+    routed to another expert under ``torch``. ``k6_ms`` is phase 2's K6
+    time per request of the path (all calls)."""
     from repro_torch.kernels import common
     from repro_torch.launch.serve import lm_inputs, serve
     from repro_torch.train import steps
 
     arch, batch, prompt, gen = LM_PATHS[path]
-    cfg = get_config(arch)
+    cfg = lm_config(path)
+    moe = cfg.family == "moe"
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2187,8 +2320,15 @@ def serve_lm(path: str, k6_ms: float) -> dict:
     kw = dict(reduced=False, batch=batch, prompt_len=prompt, gen=gen,
               seed=0, device="cuda", params=params)
 
+    def run(backend):
+        if path in LM_CUT:
+            return serve_cut(cfg, params, backend, batch, prompt, gen)
+        return serve(arch, backend=backend, **kw)
+
+    routed = Routing()
     common.reset_launches()
-    out = serve(arch, backend="hopper", **kw)
+    with routed:
+        out = run("hopper")
     torch.cuda.synchronize()
     launches = dict(common.LAUNCHES)
     expected = PATHS[path]
@@ -2238,11 +2378,24 @@ def serve_lm(path: str, k6_ms: float) -> dict:
              "decode_step": profile_split(prof_decode)}
     del cache, logits, extras
 
-    ref = serve(arch, backend="torch", **kw)
+    routed_ref = Routing()
+    with routed_ref:
+        ref = run("torch")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     y_ref = ref.prefill_logits.float()
     err = float((y - y_ref).abs().max())
-    drift = None
+    drift, flips, routing = None, None, None
+    if moe:
+        routing = routed.layers()
+        flips = routed.flips(routed_ref)
+        routed_tokens = batch * prompt * len(routing)
+        for i, r in enumerate(routing):
+            print(f"path {path} routing, prefill (hopper), MoE layer {i}: "
+                  f"tokens per expert {r['experts']} (capacity {r['cap']} "
+                  f"a row), dropped {r['dropped']}", flush=True)
+        print(f"path {path}: {flips} of {routed_tokens} routed tokens "
+              f"(prefill, all MoE layers) take another expert under "
+              f"backend='torch'", flush=True)
     if path in LM_EXACT:
         tol = 0.0
         if not torch.equal(out.prefill_logits, ref.prefill_logits):
@@ -2254,7 +2407,13 @@ def serve_lm(path: str, k6_ms: float) -> dict:
         drift = fp32_held(path, cfg, params, prompts, y, y_ref)
     else:
         tol = LM_TOL * float(y_ref.abs().max())
-        if not err <= tol:
+        if moe and not err <= tol and flips:
+            print(f"path {path}: bf16 hopper vs torch max|diff| {err:.3e} > "
+                  f"{tol:.3e} with {flips} tokens routed apart; held in "
+                  f"fp32 on the first {FLIP_LAYERS} layers", flush=True)
+            drift = fp32_held(path, cfg, params, prompts, None, None,
+                              n_layers=FLIP_LAYERS)
+        elif not err <= tol:
             raise AssertionError(f"{path}: hopper vs torch prefill logits "
                                  f"max|diff| {err:.3e} > {tol:.3e}")
     agree = float((out.tokens == ref.tokens).mean())
@@ -2303,6 +2462,7 @@ def serve_lm(path: str, k6_ms: float) -> dict:
         "max_abs_diff_vs_torch": err, "tol": tol,
         "repeat_prefill_max_abs_diff": repeat_diff,
         "greedy_token_agreement": agree, "fp32_held": drift,
+        "routing_prefill": routing, "routing_flips_vs_torch": flips,
         "profile_split": split,
         "profile_prefill": prof_prefill, "profile_decode_step": prof_decode}),
         flush=True)
@@ -2310,13 +2470,17 @@ def serve_lm(path: str, k6_ms: float) -> dict:
 
 
 def fp32_held(path: str, cfg, params, prompts: torch.Tensor,
-              y: torch.Tensor, y_ref: torch.Tensor) -> dict:
+              y: torch.Tensor | None, y_ref: torch.Tensor | None,
+              n_layers: int | None = None) -> dict:
     """The hopper-vs-torch check of an LM path whose bf16 logits drift
     from its fp32 ones by more than ``LM_TOL``: the same tree cast to
     fp32, prefilled once per backend (hopper: K6's fp32 body at the
     path's shapes, the same launches) within ``LM_TOL * max|logit|`` of
     each other; and the bf16 hopper logits ``y`` no farther from the fp32
-    ones than the bf16 torch logits ``y_ref`` are, plus that tolerance."""
+    ones than the bf16 torch logits ``y_ref`` are, plus that tolerance.
+    With ``n_layers`` all of it runs on the tree's first ``n_layers``
+    layers (whole groups, views of the stacked leaves), whose bf16 logits
+    are prefilled here too (``y`` and ``y_ref`` are then None)."""
     import dataclasses
 
     from repro_torch.kernels import common
@@ -2324,35 +2488,47 @@ def fp32_held(path: str, cfg, params, prompts: torch.Tensor,
     from repro_torch.train import steps
 
     _, batch, prompt, gen = LM_PATHS[path]
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = _tree_map(lambda t: t.float(), params)
-    out = {}
-    for backend in ("hopper", "torch"):
-        prefill, _ = steps.make_serve_steps(cfg32, backend=backend)
-        cache = steps.init_cache(cfg32, batch, prompt + gen, "cuda")
+    want = PATHS[path].get("flash_attention", 0)
+    if n_layers is not None:
+        groups = n_layers // len(params["layers"])
+        params = {**params, "layers": [_tree_map(lambda t: t[:groups], slot)
+                                       for slot in params["layers"]]}
+        want = want * n_layers // cfg.n_layers
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+
+    def prefilled(cfg, params, backend):
+        prefill, _ = steps.make_serve_steps(cfg, backend=backend)
+        cache = steps.init_cache(cfg, batch, prompt + gen, "cuda")
         common.reset_launches()
-        logits, cache = prefill(p32, prompts, cache)
+        logits, _ = prefill(params, prompts, cache)
         torch.cuda.synchronize()
-        want = PATHS[path].get("flash_attention", 0)
         if common.LAUNCHES["flash_attention"] != (
                 want if backend == "hopper" else 0):
-            raise AssertionError(f"{path} (fp32, {backend}): K6 launched "
+            raise AssertionError(f"{path} ({cfg.dtype}, {backend}): K6 "
+                                 f"launched "
                                  f"{common.LAUNCHES['flash_attention']} "
-                                 f"times in a prefill")
-        out[backend] = logits.float()
-        del cache, logits
+                                 f"times in a prefill, expected {want}")
+        return logits.float()
+
+    if n_layers is not None:
+        y, y_ref = (prefilled(cfg, params, b) for b in ("hopper", "torch"))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _tree_map(lambda t: t.float(), params)
+    out = {b: prefilled(cfg32, p32, b) for b in ("hopper", "torch")}
     del p32
     torch.cuda.empty_cache()
     h32, t32 = out["hopper"], out["torch"]
     tol = LM_TOL * float(t32.abs().max())
-    r = dict(fp32_max_abs_diff=float((h32 - t32).abs().max()), tol=tol,
+    r = dict(n_layers=cfg.n_layers,
+             fp32_max_abs_diff=float((h32 - t32).abs().max()), tol=tol,
              fp32_max_logit=float(t32.abs().max()),
              bf16_hopper_drift=float((y - t32).abs().max()),
              bf16_torch_drift=float((y_ref - t32).abs().max()),
              bf16_max_abs_diff=float((y - y_ref).abs().max()))
-    print(f"path {path}: bf16 hopper vs torch max|diff| "
-          f"{r['bf16_max_abs_diff']:.3e}; in fp32 (the same tree) hopper "
-          f"vs torch {r['fp32_max_abs_diff']:.3e} (tolerance {tol:.3e}); "
+    print(f"path {path} ({cfg.n_layers} layers): bf16 hopper vs torch "
+          f"max|diff| {r['bf16_max_abs_diff']:.3e}; in fp32 (the same tree) "
+          f"hopper vs torch {r['fp32_max_abs_diff']:.3e} (tolerance "
+          f"{tol:.3e}); "
           f"bf16 drift from the fp32 torch logits: hopper "
           f"{r['bf16_hopper_drift']:.3e}, torch {r['bf16_torch_drift']:.3e}",
           flush=True)
@@ -2368,10 +2544,10 @@ def fp32_held(path: str, cfg, params, prompts: torch.Tensor,
 
 
 def families_vs_cpu(card: str) -> None:
-    """The four new families, reduced and in fp32, served on the card
-    (hopper: K6 at the 2048-token prompts of zamba2 and the VLM) and on the
-    CPU (K6's plain version) from the same tree: prefill logits within
-    ``1e-4 * max(1, max|logit|)``."""
+    """The five families besides the dense one, reduced and in fp32,
+    served on the card (hopper: K6 at the 2048-token prompts of zamba2,
+    the VLM and scout) and on the CPU (K6's plain version) from the same
+    tree: prefill logits within ``1e-4 * max(1, max|logit|)``."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models.layers import _tree_map
@@ -2379,7 +2555,9 @@ def families_vs_cpu(card: str) -> None:
 
     for arch, prompt in (("mamba2-130m", 100), ("zamba2-7b", 2048),
                          ("whisper-base", 32),
-                         ("llama-3.2-vision-11b", 2048)):
+                         ("llama-3.2-vision-11b", 2048),
+                         ("llama4-scout-17b-16e", 2048),
+                         ("llama4-maverick-400b-a17b", 32)):
         cfg = get_config(arch).reduced()
         params = steps.init_params(cfg, torch.Generator().manual_seed(0),
                                    "cpu")
@@ -2408,11 +2586,20 @@ def families_vs_cpu(card: str) -> None:
 # checkpoint every 10), resumed from step 10, and three steps held to the
 # CPU; (b) the reduced config in bf16, its state checkpointed and restored;
 # (c) full-width minitron-8b cut to 4 of its 32 layers, batch 2 x 4096
-# (train_4k's sequence; its global batch of 256 cut to 2)
+# (train_4k's sequence; its global batch of 256 cut to 2); (d) the other
+# five families reduced in fp32, three steps on the card held to the CPU;
+# (e) llama4-scout at full width cut to 1 of its 48 layers (8.5 GB of bf16
+# params, 34 GB of AdamW state) and all 24 layers of mamba2-130m, batch 2 x
+# 4096, four steps each
 TRAIN_ARCH = "minitron-8b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_EVERY = 20, 8, 64, 10
 TRAIN_TOL = 1e-4
 FULL_LAYERS, FULL_BATCH, FULL_SEQ, FULL_STEPS = 4, 2, 4096, 6
+TRAIN_FAMILIES = ("llama4-scout-17b-16e", "mamba2-130m", "zamba2-7b",
+                  "whisper-base", "llama-3.2-vision-11b")
+# (arch, layers kept) at full width, FAMILY_STEPS steps each
+FULL_FAMILIES = (("llama4-scout-17b-16e", 1), ("mamba2-130m", 24))
+FAMILY_STEPS = 4
 # kernel names of the GEMMs (cuBLAS and CUTLASS bodies) in a profile
 GEMM_NAMES = re.compile(r"gemm|xmma|cutlass|nvjet|wgmma", re.I)
 
@@ -2591,12 +2778,64 @@ class _Marks:
                    if a is not None and b is not None)
 
 
-def train_full_width(card: str) -> dict:
-    """Phase 6c: full-width minitron-8b cut to FULL_LAYERS layers (every
-    width whole, bf16, remat) through ``launch.train.build`` and its step
-    function, FULL_STEPS steps of ``batch_for_step`` batches, then one
-    more under ``torch.profiler`` with the scan attention, the loss and the
-    AdamW update timed by CUDA events."""
+def train_families(card: str) -> dict:
+    """Phase 6d: each family besides the dense one, reduced and in fp32,
+    built on the card by ``launch.train.build`` (a VLM's cross gates set
+    to ``VISION_GATE``), its params copied to the CPU, and three steps of
+    the same batches (``batch_for_step`` and the stub frontends' inputs
+    from ``launch.train.extras_for``) on both: losses within TRAIN_TOL."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = get_config(arch).reduced()
+        opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                total_steps=TRAIN_STEPS)
+        params, state, step_fn, _ = train_mod.build(cfg, opt,
+                                                    make_host_mesh("cuda"))
+        if cfg.family == "vlm":
+            open_gates(params)
+        cpu = pytree.tree_map(lambda t: t.cpu(), params)
+        cpu_state, cpu_step = adamw.init(cpu), steps.make_train_step(cfg, opt)
+        data = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+        card_losses, cpu_losses = [], []
+        for i in range(3):
+            b = batch_for_step(data, i)
+            b.update(train_mod.extras_for(cfg, TRAIN_BATCH,
+                                          np.random.default_rng(i)))
+            params, state, m = step_fn(params, state, b)
+            card_losses.append(float(m["loss"]))
+            cpu, cpu_state, m = cpu_step(cpu, cpu_state, b)
+            cpu_losses.append(float(m["loss"]))
+        gap = _rel_gap(card_losses, cpu_losses)
+        if not (np.isfinite(card_losses).all() and gap <= TRAIN_TOL):
+            raise AssertionError(f"{arch} (reduced, fp32): card losses "
+                                 f"{card_losses} vs CPU {cpu_losses}: gap "
+                                 f"{gap:.3e}")
+        print(f"train (d) ({card}): reduced {arch} fp32, three steps of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {card_losses} on the "
+              f"card, largest relative gap to the CPU's {gap:.3e}",
+              flush=True)
+        out[arch] = dict(losses=card_losses, cpu_losses=cpu_losses, gap=gap)
+    return out
+
+
+def train_full_width(card: str, arch: str = TRAIN_ARCH,
+                     n_layers: int = FULL_LAYERS, n_steps: int = FULL_STEPS,
+                     label: str = "c") -> dict:
+    """Phase 6c (and 6e): ``arch`` at full width cut to ``n_layers``
+    layers (every width whole, bf16, remat) through ``launch.train.build``
+    and its step function, ``n_steps`` steps of ``batch_for_step`` batches
+    of FULL_BATCH x FULL_SEQ, then one more under ``torch.profiler`` with
+    the scan attention, the loss and the AdamW update timed by CUDA
+    events."""
     import dataclasses
     import math
 
@@ -2612,8 +2851,9 @@ def train_full_width(card: str) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.train import steps
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=FULL_LAYERS)
-    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=FULL_STEPS)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=n_steps)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2624,7 +2864,7 @@ def train_full_width(card: str) -> dict:
     n_params = sum(p.numel() for p in pytree.tree_leaves(params))
     data = DataConfig(cfg.vocab_size, FULL_SEQ, FULL_BATCH)
     ms, losses, norms = [], [], []
-    for i in range(FULL_STEPS):
+    for i in range(n_steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, state, m = step_fn(params, state, batch_for_step(data, i))
@@ -2648,7 +2888,7 @@ def train_full_width(card: str) -> dict:
     steps.cross_entropy = marks["loss"].wrap(ce)
     adamw.update = marks["adamw"].wrap(upd)
     try:
-        b = batch_for_step(data, FULL_STEPS)
+        b = batch_for_step(data, n_steps)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2666,7 +2906,7 @@ def train_full_width(card: str) -> dict:
                   if GEMM_NAMES.search(e.key)) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     parts = {k: v.ms() for k, v in marks.items()}
-    out = dict(arch=TRAIN_ARCH, n_layers=FULL_LAYERS, batch=FULL_BATCH,
+    out = dict(arch=arch, n_layers=n_layers, batch=FULL_BATCH,
                seq=FULL_SEQ, n_params=n_params, build_ms=build_ms,
                step_ms=ms, median_step_ms=step_ms,
                tokens_per_s=tokens / step_ms * 1e3,
@@ -2676,15 +2916,17 @@ def train_full_width(card: str) -> dict:
                loss_ms=parts["loss"], adamw_ms=parts["adamw"],
                top=[[e.key[:80], e.self_device_time_total / 1e3, e.count]
                     for e in top])
-    print(f"train (c) ({card}): {TRAIN_ARCH} at full width, {FULL_LAYERS} "
-          f"of 32 layers ({n_params / 1e9:.3f} G parameters, bf16, remat), "
-          f"batch {FULL_BATCH} x {FULL_SEQ}: {step_ms:.1f}ms/step (median "
-          f"of steps 2-{FULL_STEPS}; all {[round(t, 1) for t in ms]}), "
+    print(f"train ({label}) ({card}): {arch} at full width, {n_layers} "
+          f"of {full.n_layers} layers ({n_params / 1e9:.3f} G parameters, "
+          f"bf16, remat), batch {FULL_BATCH} x {FULL_SEQ}: {step_ms:.1f}"
+          f"ms/step (median of steps 2-{n_steps}; all "
+          f"{[round(t, 1) for t in ms]}), "
           f"{out['tokens_per_s']:.0f} tokens/s, peak allocated "
           f"{peak_gb:.2f} GB; loss {losses[0]:.4f} (ln V {ln_v:.4f}) -> "
           f"{losses[-1]:.4f}, grad norm {norms[0]:.3f} -> {norms[-1]:.3f}; "
           f"build {build_ms:.0f}ms", flush=True)
-    print(f"train (c) profile ({card}), one step: wall {prof_wall_ms:.1f}ms "
+    print(f"train ({label}) profile ({card}), {arch}, one step: wall "
+          f"{prof_wall_ms:.1f}ms "
           f"under the profiler, device busy {busy_ms:.1f}ms "
           f"({busy_ms / prof_wall_ms:.1%}); GEMM kernels {gemm_ms:.1f}ms "
           f"(the scan's products included); by CUDA events: scan attention "
@@ -2697,7 +2939,7 @@ def train_full_width(card: str) -> dict:
 
 
 def train_phase(card: str) -> dict:
-    """Phase 6: training (a)-(c); no hand-written kernel lies on the
+    """Phase 6: training (a)-(e); no hand-written kernel lies on the
     training path, so the launch counts must not move."""
     from repro_torch.kernels import common
 
@@ -2709,6 +2951,13 @@ def train_phase(card: str) -> dict:
            "bf16_checkpoint": train_bf16_checkpoint(root, card)}
     shutil.rmtree(root, ignore_errors=True)
     out["full_width"] = train_full_width(card)
+    torch.cuda.empty_cache()
+    out["families"] = train_families(card)
+    out["full_width_families"] = {}
+    for arch, n_layers in FULL_FAMILIES:
+        torch.cuda.empty_cache()
+        out["full_width_families"][arch] = train_full_width(
+            card, arch, n_layers, FAMILY_STEPS, label="e")
     if common.LAUNCHES != before:
         raise AssertionError(f"training launched hand-written kernels: "
                              f"{common.LAUNCHES} (before {before})")

@@ -13,8 +13,10 @@ row offset, as the scan's (a cross-attention is never causal). Below 2048
 both backends run the reference's einsum branch, which is no Pallas
 kernel. K6 has no backward (nor has the reference's kernel): under
 autograd its wrapper raises, and training runs the scan. ``remat_wrap`` is
-the reference's activation checkpointing. MoE is not ported yet (ROADMAP
-Queue 1, item 11b).
+the reference's activation checkpointing. The MoE FFN (``init_moe``,
+``moe``, ``moe_ref``) is the reference's top-1 token-choice routing with a
+per-row capacity and an optional shared expert; its router stays float32
+in every model dtype.
 """
 from __future__ import annotations
 
@@ -39,8 +41,9 @@ Params = dict[str, Any]
 NEG_INF = -1e30
 LONG_SEQ = 2048   # the reference's threshold for the scan-flash branch
 # leaves the reference keeps in float32 whatever the model's dtype: the
-# SSM's log-decay, skip weight and step bias (``models/mamba2.py``)
-FP32_LEAVES = frozenset({"A_log", "D", "dt_bias"})
+# SSM's log-decay, skip weight and step bias (``models/mamba2.py``) and
+# the MoE router
+FP32_LEAVES = frozenset({"A_log", "D", "dt_bias", "router"})
 
 
 # the matmuls without batch dimensions (``x @ W`` reaches aten as ``mm``):
@@ -129,7 +132,7 @@ def _init(gen: torch.Generator, shape, *, scale=None, dtype=torch.float32,
     scale = scale if scale is not None else (shape[0] ** -0.5 if shape
                                              else 1.0)
     x = torch.randn(shape, generator=gen, device=device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)   # in place: one float32 temporary
 
 
 # ---------------------------------------------------------------------------
@@ -329,3 +332,104 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     so this is ``approximate="tanh"``, not the exact erf GELU."""
     h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
     return h @ p["w_out"] + p["b_out"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-1 token-choice routing with capacity + optional shared expert
+# (llama4-style), the reference's sort-based dispatch
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {
+        "router": _init(gen, (d, e), scale=d ** -0.5, dtype=torch.float32,
+                        device=device),
+        "we_gate": _init(gen, (e, d, f), scale=d ** -0.5, dtype=dtype,
+                         device=device),
+        "we_up": _init(gen, (e, d, f), scale=d ** -0.5, dtype=dtype,
+                       device=device),
+        "we_down": _init(gen, (e, f, d), scale=f ** -0.5, dtype=dtype,
+                         device=device),
+    }
+    if cfg.shared_expert:
+        p["shared"] = init_swiglu(gen, d, f, dtype, device)
+    return p
+
+
+def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, N, D) at the rows ``idx`` (B, M) of each batch row ->
+    (B, M, D): the reference's ``take_along_axis`` as one
+    ``index_select`` over the flattened rows, so no (B, M, D) index
+    exists."""
+    b, n, d = t.shape
+    flat = idx + torch.arange(b, device=idx.device)[:, None] * n
+    return t.reshape(b * n, d).index_select(0, flat.reshape(-1)).reshape(
+        b, -1, d)
+
+
+def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D). Top-1 routing on the float32 router
+    logits (the first maximum, as ``jnp.argmax``), a softmax gate, and a
+    per-row capacity ``cap``: each expert's bucket takes its tokens in
+    their original order (a stable sort) and drops those past ``cap``.
+    Every expert's SwiGLU runs on its whole (B, cap, D) bucket."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+
+    gate_logits = x.float() @ p["router"]                       # (B, S, E)
+    expert_idx = gate_logits.argmax(-1)                          # (B, S)
+    gate = torch.softmax(gate_logits, -1)
+    gate_val = gate.gather(-1, expert_idx[..., None])[..., 0]    # (B, S)
+
+    cap = max(1, int(cfg.capacity_factor * s / e) + 1)
+    onehot = F.one_hot(expert_idx, e)                            # (B, S, E)
+    pos_all = onehot.cumsum(1) - 1
+    pos = pos_all.gather(-1, expert_idx[..., None])[..., 0]      # (B, S)
+    keep = pos < cap
+    dest = torch.where(keep, expert_idx * cap + pos, e * cap)    # (B, S)
+
+    # bucket fill via stable sort: tokens grouped by expert, original order
+    counts = onehot.sum(1)                                       # (B, E)
+    starts = counts.cumsum(1) - counts                           # exclusive
+    sort_idx = torch.argsort(expert_idx, dim=1, stable=True)     # (B, S)
+    cidx = torch.arange(cap, device=x.device)
+    src = starts[:, :, None] + cidx                              # (B, E, cap)
+    valid = cidx < counts.clamp(max=cap)[:, :, None]
+    src = src.clamp(0, s - 1).reshape(b, e * cap)
+    tok_idx = sort_idx.gather(1, src)                            # (B, E*cap)
+    buckets = _rows(x, tok_idx) * valid.reshape(b, e * cap, 1).to(x.dtype)
+    buckets = buckets.reshape(b, e, cap, d)
+
+    g = torch.einsum("becd,edf->becf", buckets, p["we_gate"])
+    u = torch.einsum("becd,edf->becf", buckets, p["we_up"])
+    y = torch.einsum("becf,efd->becd", F.silu(g) * u, p["we_down"])
+    y = y.reshape(b, e * cap, d)
+
+    # combine: token s reads its slot (clipped sentinel -> masked by keep)
+    out = _rows(y, dest.clamp(max=e * cap - 1))
+    out = out * (keep & (dest < e * cap))[..., None]
+    out = out * gate_val[..., None].to(x.dtype)
+    if "shared" in p:
+        out = out + swiglu(p["shared"], x)
+    return out
+
+
+def moe_ref(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Oracle: dense per-expert loop, no capacity drops."""
+    b, s, d = x.shape
+    xf = x.reshape(-1, d)
+    gate_logits = xf.float() @ p["router"]
+    idx = gate_logits.argmax(-1)
+    gate = torch.softmax(gate_logits, -1)
+    gval = gate.gather(-1, idx[:, None])[:, 0]
+    out = torch.zeros_like(xf)
+    for ei in range(cfg.n_experts):
+        m = (idx == ei)[:, None]
+        g = xf @ p["we_gate"][ei]
+        u = xf @ p["we_up"][ei]
+        y = (F.silu(g) * u) @ p["we_down"][ei]
+        out = out + torch.where(m, y, 0.0)
+    out = out * gval[:, None].to(x.dtype)
+    if "shared" in p:
+        out = out + swiglu(p["shared"], xf[None])[0]
+    return out.reshape(b, s, d)

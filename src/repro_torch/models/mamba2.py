@@ -25,6 +25,7 @@ from repro_torch.models.layers import (
     Params,
     _init,
     layer_at,
+    remat_wrap,
     rms_norm,
     stack_layers,
 )
@@ -284,11 +285,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def forward(params: Params, tokens: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
-    """(B, S) -> logits (B, S, V), without a cache. (Training this family,
-    and so the reference's remat here, is ROADMAP Queue 1, item 11h.)"""
+    """(B, S) -> logits (B, S, V), without a cache. Under autograd each
+    layer runs under ``remat_wrap``, as the reference's scanned body."""
+    def body(x, layer_p):
+        return mamba_block(layer_p, x, cfg)[0]
+
+    if torch.is_grad_enabled():
+        body = remat_wrap(body, cfg)
     x = F.embedding(tokens.long(), params["embed"])
     for i in range(cfg.n_layers):
-        x, _ = mamba_block(layer_at(params["layers"], i), x, cfg)
+        x = body(x, layer_at(params["layers"], i))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"]
 

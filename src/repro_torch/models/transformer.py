@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense and VLM families (port of the
+"""Decoder-only transformer LM, dense, MoE and VLM families (port of the
 reference's ``models/transformer.py``).
 
 The parameter tree is the reference's: ``embed``, ``final_norm``,
@@ -9,9 +9,10 @@ over groups becomes a Python loop over views of those leaves. KV caches are
 (the reference donates them). A VLM's cross layers (every
 ``cross_attn_every``-th layer of a group) attend to ``image_embeds`` (the
 stub frontend's patch embeddings) through ``xattn``, gated by
-``tanh(xattn_gate)``, and are skipped when no image is given. The MoE
-family, which shares this module in the reference, raises
-``NotImplementedError`` (ROADMAP Queue 1, item 11b).
+``tanh(xattn_gate)``, and are skipped when no image is given. An MoE
+model's every ``moe_every``-th layer of a group runs ``layers.moe`` in
+place of the SwiGLU FFN (llama4-scout: every layer, 16 experts;
+llama4-maverick: alternating, 128 experts).
 """
 from __future__ import annotations
 
@@ -27,20 +28,14 @@ from repro_torch.models.layers import (  # noqa: F401 (params_from_numpy)
     _tree_map,
     attention,
     init_attention,
+    init_moe,
     init_swiglu,
+    moe,
     params_from_numpy,
     remat_wrap,
     rms_norm,
     swiglu,
 )
-
-
-def _require_served(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; this "
-            f"module serves the dense and VLM families (ROADMAP Queue 1, "
-            f"item 11b)")
 
 
 # ---------------------------------------------------------------------------
@@ -71,16 +66,16 @@ def _layer_kinds(cfg: ModelConfig) -> list[dict]:
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: dict, dtype,
                device) -> Params:
-    if kind["moe"]:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP Queue 1, item 11b)")
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=device)
     p = {
         "norm": ones(),
         "attn": init_attention(gen, cfg, dtype, device),
         "norm2": ones(),
-        "ffn": init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype, device),
     }
+    if kind["moe"]:
+        p["moe"] = init_moe(gen, cfg, dtype, device)
+    else:
+        p["ffn"] = init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype, device)
     if kind["cross"]:
         p["xattn"] = init_attention(gen, cfg, dtype, device)
         p["norm3"] = ones()
@@ -104,6 +99,8 @@ def apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: dict, *,
             backend=backend)
         x = x + torch.tanh(p["xattn_gate"]) * xh
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if kind["moe"]:
+        return x + moe(p["moe"], h2, cfg), new_cache
     return x + swiglu(p["ffn"], h2), new_cache
 
 
@@ -116,8 +113,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters at the reference's scales, drawn from
     ``generator`` on ``device`` (which must be the generator's). Each
     group's layer is drawn, then copied into the stacked leaves, so the
-    peak is the model plus one layer."""
-    _require_served(cfg)
+    peak is the model plus one layer; a model of one group keeps its
+    layers as drawn (the stacked leaves are views of them)."""
     dtype = cfg.torch_dtype
     kinds = _layer_kinds(cfg)
     period = len(kinds)
@@ -129,6 +126,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     for g in range(n_groups):
         for i in range(period):
             layer = init_layer(generator, cfg, kinds[i], dtype, device)
+            if n_groups == 1:
+                layers[i] = _tree_map(lambda t: t[None], layer)
+                continue
             if layers[i] is None:
                 layers[i] = _tree_map(
                     lambda t: t.new_empty((n_groups, *t.shape)), layer)
@@ -159,7 +159,6 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     (B, S, V). Under autograd each group runs under ``remat_wrap`` (as the
     reference's scanned group body), so with ``cfg.remat`` the backward
     holds one group's activations at a time."""
-    _require_served(cfg)
     kinds = _layer_kinds(cfg)
 
     def group_body(x, group):
@@ -186,7 +185,6 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     """Per period-slot stacked cache: list of dicts with (G, B, S, KV, hd)."""
-    _require_served(cfg)
     period = group_period(cfg)
     n_groups = cfg.n_layers // period
     shape = (n_groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -202,7 +200,6 @@ def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
     ``pos``. Returns (logits (B, V), cache), the cache updated in place.
     The same path serves prefill: token (B, S_prompt) with pos=0
     (causality is cache-relative)."""
-    _require_served(cfg)
     kinds = _layer_kinds(cfg)
     pos = int(pos)
     s = token.shape[1]

@@ -22,6 +22,7 @@ from repro_torch.models.layers import (
     init_mlp,
     layer_at,
     mlp,
+    remat_wrap,
     rms_norm,
     stack_layers,
 )
@@ -107,14 +108,19 @@ def _dec_layer(lp: Params, x, enc_out, cfg: ModelConfig, *, kv_cache=None,
 def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
             cfg: ModelConfig, *, backend: str = "torch") -> torch.Tensor:
     """frames (B, F, D) and tokens (B, S) -> logits (B, S, V), without a
-    cache. (Training this family is ROADMAP Queue 1, item 11h.)"""
+    cache. Under autograd each decoder layer runs under ``remat_wrap``, as
+    the reference's scanned body; the encoder runs unwrapped, as there."""
+    def body(x, lp, enc_out):
+        return _dec_layer(lp, x, enc_out, cfg, backend=backend)[0]
+
+    if torch.is_grad_enabled():
+        body = remat_wrap(body, cfg)
     enc_out = encode(params, frames, cfg, backend=backend)
     s = tokens.shape[1]
     x = F.embedding(tokens.long(), params["embed"]) \
         + params["pos_embed"][:s][None]
     for i in range(cfg.n_layers):
-        x, _ = _dec_layer(layer_at(params["dec_layers"], i), x, enc_out, cfg,
-                          backend=backend)
+        x = body(x, layer_at(params["dec_layers"], i), enc_out)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"]
 

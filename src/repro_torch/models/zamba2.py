@@ -24,6 +24,7 @@ from repro_torch.models.layers import (
     init_attention,
     init_swiglu,
     layer_at,
+    remat_wrap,
     rms_norm,
     stack_layers,
     swiglu,
@@ -82,14 +83,22 @@ def _shared_block(shared: Params, x, cfg: ModelConfig, *, positions=None,
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             backend: str = "torch") -> torch.Tensor:
-    """(B, S) -> logits (B, S, V), without a cache. (Training this family
-    is ROADMAP Queue 1, item 11h.)"""
+    """(B, S) -> logits (B, S, V), without a cache. Under autograd each
+    group (its mamba layers and the shared block) runs under
+    ``remat_wrap``, as the reference's scanned group body; the tail runs
+    unwrapped, as there."""
     per, n_groups, tail = _geometry(cfg)
+
+    def group_body(x, group_p, shared):
+        for i in range(per):
+            x, _ = mamba_block(layer_at(group_p, i), x, cfg)
+        return _shared_block(shared, x, cfg, backend=backend)[0]
+
+    if torch.is_grad_enabled():
+        group_body = remat_wrap(group_body, cfg)
     x = F.embedding(tokens.long(), params["embed"])
     for g in range(n_groups):
-        for i in range(per):
-            x, _ = mamba_block(layer_at(params["groups"], g, i), x, cfg)
-        x, _ = _shared_block(params["shared"], x, cfg, backend=backend)
+        x = group_body(x, layer_at(params["groups"], g), params["shared"])
     for i in range(tail):
         x, _ = mamba_block(layer_at(params["tail"], i), x, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -3,9 +3,9 @@ the reference's ``train/steps.py``).
 
 ``make_train_step(cfg, opt)`` returns a step function ``(params,
 opt_state, batch) -> (params, opt_state, metrics)``; ``make_serve_steps``
-returns (prefill, decode). The dense, VLM, SSM (mamba2), hybrid (zamba2)
-and audio (whisper) families serve; only the dense family trains (the
-others are ROADMAP Queue 1, item 11h). MoE raises everywhere (item 11b).
+returns (prefill, decode). Every LM family serves and trains: dense and
+MoE (``models/transformer.py``), VLM (the same module, with image
+embeddings), SSM (mamba2), hybrid (zamba2) and audio (whisper).
 """
 from __future__ import annotations
 
@@ -25,24 +25,16 @@ from repro_torch.optim import adamw
 CE_CHUNK = 1 << 27
 
 
-SERVED = ("dense", "vlm", "ssm", "hybrid", "audio")
+FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "ssm": mamba2, "hybrid": zamba2, "audio": whisper}
 
 
-def _require_served(cfg: ModelConfig) -> None:
-    if cfg.family not in SERVED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port serves the {', '.join(SERVED)} families (ROADMAP Queue "
-            f"1, item 11b)")
-
-
-def _require_trained(cfg: ModelConfig) -> None:
-    _require_served(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            f"yet; the port trains the dense family (ROADMAP Queue 1, item "
-            f"11h)")
+def _family(cfg: ModelConfig):
+    """The model module of ``cfg``'s family; a family without one (the
+    CNN) raises ``ValueError``, as the reference's dispatch does."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
+    return FAMILIES[cfg.family]
 
 
 # ---------------------------------------------------------------------------
@@ -52,11 +44,8 @@ def _require_trained(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Random parameters drawn from ``generator`` on ``device`` (``None``:
     the CUDA card; the generator must live there)."""
-    _require_served(cfg)
-    device = resolve_device(device)
-    module = {"ssm": mamba2, "hybrid": zamba2,
-              "audio": whisper}.get(cfg.family, transformer)
-    return module.init_params(cfg, generator, device)
+    module = _family(cfg)
+    return module.init_params(cfg, generator, resolve_device(device))
 
 
 def forward_logits(params, batch: dict[str, Any], cfg: ModelConfig, *,
@@ -64,9 +53,9 @@ def forward_logits(params, batch: dict[str, Any], cfg: ModelConfig, *,
     """(B, S) ``batch["tokens"]`` -> logits (B, S, V); a VLM also reads
     ``batch["image_embeds"]`` and whisper ``batch["frames"]``. ``backend``
     picks the long-sequence attention, as in :func:`make_serve_steps`."""
-    _require_served(cfg)
+    _family(cfg)
     tokens = batch["tokens"]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return transformer.forward(params, tokens, cfg, backend=backend)
     if cfg.family == "vlm":
         return transformer.forward(params, tokens, cfg,
@@ -145,7 +134,6 @@ def loss_and_grads(params, batch: dict[str, Any], cfg: ModelConfig):
     """(loss, grads): the mean CE of ``batch`` and its gradient with respect
     to every leaf of ``params`` (a tree of the same structure). The batch
     goes to the params' device."""
-    _require_trained(cfg)
     leaves, spec = pytree.tree_flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
     batch = _on_device(batch, leaves[0].device)
@@ -161,7 +149,7 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig) -> Callable:
     ``opt_state`` in place (the reference donates both) and returns them;
     the metrics are 0-dim float32 tensors on the params' device. Training
     attention at 2048 tokens and more is the scan, as in the reference."""
-    _require_trained(cfg)
+    _family(cfg)
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(params, batch, cfg)
@@ -178,7 +166,7 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig) -> Callable:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """A zeroed cache for ``max_len`` positions on ``device`` (``None``:
     the CUDA card): KV caches, and the SSM's conv and state caches."""
-    _require_served(cfg)
+    _family(cfg)
     device = resolve_device(device)
     if cfg.family == "ssm":
         return mamba2.init_ssm_cache(cfg, batch, device)
@@ -196,7 +184,7 @@ def make_serve_steps(cfg: ModelConfig, backend: str = "torch"):
     carries a VLM's ``image_embeds`` and whisper's ``enc_out`` (the
     encoder's states, :func:`whisper.encode`). ``backend`` picks the
     long-sequence attention ("hopper": K6, "torch": the scan)."""
-    _require_served(cfg)
+    _family(cfg)
     backend = resolve_backend(backend)
 
     @torch.no_grad()

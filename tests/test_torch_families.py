@@ -1,8 +1,10 @@
-"""The port's SSM, hybrid, audio and VLM serving paths against the reference.
+"""The port's SSM, hybrid, audio, VLM and MoE serving paths against the
+reference.
 
 Reduced mamba2-130m, zamba2-7b (also with 5 layers, so a tail of mamba
-layers runs without the shared block), whisper-base and
-llama-3.2-vision-11b in fp32. Every parameter leaf is drawn from a seeded
+layers runs without the shared block), whisper-base,
+llama-3.2-vision-11b, llama4-scout-17b-16e (an MoE FFN on every layer)
+and llama4-maverick-400b-a17b (on alternating layers) in fp32. Every parameter leaf is drawn from a seeded
 numpy generator, the ones the reference initializes to zeros or ones too
 (biases, ``xattn_gate``, ``A_log``, ``dt_bias``, ``D``, norms), so no term
 can be wrong unseen, and the same tree goes to both packages
@@ -12,8 +14,10 @@ greedy tokens, then a second prefill into the used cache (zamba2 zeroes
 its SSM states first, mamba2 carries them in), each within
 ``2e-4 * max(1, max|logit|)`` of the reference's. zamba2 and the VLM also
 run a 2048-token prompt, where the ``hopper`` backend runs K6's plain
-version (the VLM's cross-attention non-causal) and ``torch`` the scan. Then the serve entry point on reduced
-whisper and VLM with the reference's own parameters: the same greedy
+version (the VLM's cross-attention non-causal) and ``torch`` the scan; so
+does scout, whose prefill routes 4096 tokens a layer with capacity drops.
+Then the serve entry point on reduced whisper, VLM and scout with the
+reference's own parameters: the same greedy
 tokens as the reference's ``serve``, which holds the order in which the
 frames or image embeddings and the prompts are drawn from the seed.
 """
@@ -48,6 +52,9 @@ CASES = [
     ("whisper", "whisper-base", None, 32),
     ("vision", "llama-3.2-vision-11b", None, 32),
     ("vision_2048", "llama-3.2-vision-11b", None, 2048),
+    ("scout", "llama4-scout-17b-16e", None, 32),
+    ("scout_2048", "llama4-scout-17b-16e", None, 2048),
+    ("maverick", "llama4-maverick-400b-a17b", None, 32),
 ]
 
 
@@ -179,11 +186,13 @@ def test_family_matches_reference(monkeypatch, case, backend):
     _close(logits, ref_logits[0])
 
     # the long-sequence calls of one prefill: one per application of
-    # zamba2's shared block; one per VLM layer and one per cross layer
+    # zamba2's shared block; one per VLM layer and one per cross layer;
+    # one per MoE layer
     long = prompt_len >= layers.LONG_SEQ
     per_prefill = {"hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1),
                    "vlm": cfg.n_layers + cfg.n_layers // max(
-                       cfg.cross_attn_every, 1)}.get(cfg.family, 0)
+                       cfg.cross_attn_every, 1),
+                   "moe": cfg.n_layers}.get(cfg.family, 0)
     expected = per_prefill if long else 0
     assert len(k6) == (expected if backend == "hopper" else 0)
     assert len(scan) == (expected if backend == "torch" else 0)
@@ -202,11 +211,13 @@ def test_family_matches_reference(monkeypatch, case, backend):
 
 def test_init_params_have_the_reference_trees_and_dtypes():
     """The port's random trees have the reference's structure and shapes
-    for every new family; in bf16 the SSM's A_log, D and dt_bias leaves
-    and the SSM state stay float32, as the reference's."""
+    for every new family; in bf16 the SSM's A_log, D and dt_bias leaves,
+    the SSM state and the MoE router stay float32, as the reference's."""
     for arch, n_layers in (("mamba2-130m", None), ("zamba2-7b", 5),
                            ("whisper-base", None),
-                           ("llama-3.2-vision-11b", None)):
+                           ("llama-3.2-vision-11b", None),
+                           ("llama4-scout-17b-16e", None),
+                           ("llama4-maverick-400b-a17b", None)):
         r_cfg, cfg = _cfgs(arch, n_layers)
         ref = jax.eval_shape(lambda k: r_steps.init_params(k, r_cfg),
                              jax.random.PRNGKey(0))
@@ -236,7 +247,8 @@ def test_init_params_have_the_reference_trees_and_dtypes():
                                    r_cache)
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b",
+                                  "llama4-scout-17b-16e"])
 def test_serve_draws_in_the_reference_order(arch, capsys):
     """``serve`` with the reference's own seeded parameters gives the
     reference ``serve``'s greedy tokens: the stub frontend's inputs, then

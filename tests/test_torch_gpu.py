@@ -17,7 +17,8 @@ are exact in any order). K6 (flash attention): fp32 within
 ``2**-7 * |ref| + 1e-6`` (the kernel and its plain version both compute in
 fp32 and round once to bf16, so they differ by at most one bf16 step); the
 reduced LM's fp32 logits within ``1e-4 * max(1, max|logit|)`` of
-``backend="torch"``.
+``backend="torch"``; the MoE FFN and each reduced family's prefill and
+three train steps on the card against the CPU (``1e-4``).
 """
 import numpy as np
 import pytest
@@ -490,6 +491,7 @@ FA_GPU_CASES = [
     (1, 4, 4, 300, 300, 112, True),     # D 112 (zamba2's), Sq = Skv
     (2, 4, 4, 200, 520, 112, True),     # D 112, Sq < Skv
     (1, 4, 1, 2048, 1600, 128, False),  # the VLM's cross shape: Skv 1600
+    (2, 40, 8, 4096, 4112, 128, True),  # the MoE prefill: 40 over 8 heads
 ]
 
 
@@ -552,7 +554,8 @@ def test_gpu_reduced_lm_hopper_matches_torch(cuda):
 
 @pytest.mark.parametrize("arch,prompt", [
     ("mamba2-130m", 100), ("zamba2-7b", 2048), ("whisper-base", 32),
-    ("llama-3.2-vision-11b", 2048)])
+    ("llama-3.2-vision-11b", 2048), ("llama4-scout-17b-16e", 2048),
+    ("llama4-maverick-400b-a17b", 32)])
 def test_gpu_reduced_family_matches_cpu(cuda, arch, prompt):
     """Each family the port serves besides the dense one, reduced and in
     fp32, on the card (hopper: K6 at zamba2's and the VLM's 2048-token
@@ -567,15 +570,73 @@ def test_gpu_reduced_family_matches_cpu(cuda, arch, prompt):
     common.reset_launches()
     out = serve(arch, device=cuda, params=layers._tree_map(
         lambda t: t.to(cuda), params), **kw)
+    long = prompt >= layers.LONG_SEQ
     per_prefill = {"hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1),
                    "vlm": cfg.n_layers + cfg.n_layers // max(
-                       cfg.cross_attn_every, 1)}.get(cfg.family, 0)
+                       cfg.cross_attn_every, 1),
+                   "moe": cfg.n_layers if long else 0}.get(cfg.family, 0)
     assert common.LAUNCHES["flash_attention"] == per_prefill
     ref = serve(arch, device="cpu", params=params, **kw)
     y, y_ref = out.prefill_logits.cpu(), ref.prefill_logits
     assert torch.isfinite(y).all()
     tol = 1e-4 * max(1.0, float(y_ref.abs().max()))
     assert float((y - y_ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("capacity_factor", [0.5, 64.0])
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-16e",
+                                  "llama4-maverick-400b-a17b"])
+def test_gpu_moe_matches_cpu(cuda, arch, capacity_factor):
+    """``layers.moe`` (reduced, fp32, with and without capacity drops) and
+    ``moe_ref`` on the card against the CPU from the same params: the
+    same expert assignment (float32 router logits, no TF32), outputs
+    within ``1e-4 * max(1, max|ref|)``."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              capacity_factor=capacity_factor)
+    gen = torch.Generator().manual_seed(0)
+    p = layers.init_moe(gen, cfg, torch.float32, "cpu")
+    x = torch.randn(2, 300, cfg.d_model, generator=gen)
+    p_dev = layers._tree_map(lambda t: t.to(cuda), p)
+    idx = (x @ p["router"]).argmax(-1)
+    assert torch.equal((x.to(cuda) @ p_dev["router"]).argmax(-1).cpu(), idx)
+    for fn in (layers.moe, layers.moe_ref):
+        y = fn(p_dev, x.to(cuda), cfg)
+        _gpu_close(y.cpu(), fn(p, x, cfg))
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-16e", "mamba2-130m",
+                                  "zamba2-7b", "whisper-base",
+                                  "llama-3.2-vision-11b"])
+def test_gpu_reduced_family_trains_as_on_cpu(cuda, arch):
+    """Each family besides the dense one, reduced and in fp32, three train
+    steps on the card from the CPU's parameters, batch 2 x 64: each loss
+    within 1e-4 relative of the CPU's; no hand-written kernel launches."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch.train import extras_for
+    from repro_torch.optim import adamw
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config(arch).reduced()
+    cpu = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = pytree.tree_map(lambda t: t.to(cuda), cpu)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    step = steps.make_train_step(cfg, opt)
+    data = DataConfig(cfg.vocab_size, 64, 2)
+    runs = {}
+    common.reset_launches()
+    for name, params in (("cpu", cpu), ("cuda", dev)):
+        state, out = adamw.init(params), []
+        for i in range(3):
+            b = batch_for_step(data, i)
+            b.update(extras_for(cfg, 2, np.random.default_rng(i)))
+            params, state, m = step(params, state, b)
+            out.append(float(m["loss"]))
+        runs[name] = out
+    assert not any(common.LAUNCHES.values())
+    for loss, r_loss in zip(runs["cuda"], runs["cpu"]):
+        assert abs(loss - r_loss) <= 1e-4 * abs(r_loss)
 
 
 # ---------------------------------------------------------------------------

@@ -256,21 +256,6 @@ def test_init_params_has_the_reference_tree_and_scales():
                                       "cpu")
 
 
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-16e",
-                                  "llama4-maverick-400b-a17b"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        steps.init_params(cfg, gen, "cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        steps.make_serve_steps(cfg)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        steps.init_cache(cfg, 1, 4, "cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        transformer.init_kv_cache(cfg, 1, 4, "cpu")
-
-
 @pytest.mark.parametrize("backend", ["torch", "hopper"])
 def test_serve_entry_point_on_cpu(backend, capsys):
     out = serve_mod.serve(ARCH, reduced=True, batch=2, prompt_len=8, gen=3,

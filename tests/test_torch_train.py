@@ -238,22 +238,3 @@ def test_build_refuses_a_mesh_of_several_positions():
         cfg, opt, make_mesh((1, 1), ("data", "model"), device_type="cpu"))
     assert rules.mesh.size == 1 and int(state["step"]) == 0
     assert params["embed"].device == torch.device("cpu")
-
-
-@pytest.mark.parametrize("arch", ["mamba2-130m", "llama4-scout-17b-16e",
-                                  "whisper-base", "zamba2-7b",
-                                  "llama-3.2-vision-11b"])
-def test_other_families_do_not_train_yet(arch):
-    """Training of the served families is item 11h; MoE is not ported at
-    all (item 11b), so its ``forward_logits`` raises too."""
-    cfg = get_config(arch).reduced()
-    item = "item 11b" if cfg.family == "moe" else "item 11h"
-    with pytest.raises(NotImplementedError, match=item):
-        steps.make_train_step(cfg, adamw.AdamWConfig())
-    with pytest.raises(NotImplementedError, match=item):
-        steps.loss_and_grads({}, {"tokens": torch.zeros(1, 1)}, cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        train_mod.train(arch, steps=1, device="cpu")
-    if cfg.family == "moe":
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            steps.forward_logits({}, {"tokens": torch.zeros(1, 1)}, cfg)
