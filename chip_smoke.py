@@ -174,6 +174,25 @@ non-zero;
 without a CUDA card, or without the repository beside it, the script exits
 non-zero before printing any result.
 
+Phase 7 (``repro_torch.launch.roofline``, ``dryrun`` and the mesh step of
+``launch.train``): (a) the roofline of measured runs, each counted in a run
+apart from the timed ones: full-width minitron-8b bf16 prefills on
+``hopper``, 2 x 4096 over a cache of 4112 (K6 32 a prefill, its declared
+work equal to phase 2's formula at that shape), and the full-width
+training step cut to 4 of 32 layers, 2 x 4096 (as phase 6c): measured ms,
+the compute and memory terms, the bound, the counted FLOPs and the
+model-FLOPs share (``mfu``, which must lie in (0, 1]); (b) the dry-run
+cell minitron-8b x train_4k x single through ``dryrun.run_cell``, in a
+process of its own with no card visible, started at the phase's start:
+status ``OK``, memory per device and roofline; (c) reduced minitron-8b in
+fp32 over a 2-position data mesh of the repeated card against the
+one-position step (loss and ``grad_norm`` within ``1e-5 * max(1, |ref|)``,
+parameters within ``1e-4 * max(1, max|ref|)``, as AdamW's first steps
+scale a rounding difference in a near-zero gradient element up to a share
+of ``lr``), and the full-width 4-layer step with its batch split two ways:
+ms/step and peak GB beside the unsplit step's. A mesh that repeats one
+card shows the split, the reduction and the bookkeeping, not scaling.
+
 Phase 2 also holds every kernel at the shapes of the interpreter's calls
 (``*_strict`` paths: per COMP block, the block's rows and k-group); the
 summary's times sum the four CNN model paths and the LM paths only, its
@@ -188,8 +207,8 @@ served and ``opt_level=0`` executors', and the kernels whose device time
 differs most between the two under the profiler; for each LM path also a
 ``torch.profiler`` breakdown of one prefill and one decode step: device
 busy time, its split into K6, GEMMs and the rest, and the longest
-kernels), phase 6's training lines, a
-``{"kernels": [...]}`` summary line, and as the last line ``{"ok": true,
+kernels), phase 6's training lines, phase 7's roofline, dry-run and
+mesh lines, a ``{"kernels": [...]}`` summary line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -208,14 +227,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense TF32, bf16 and int8 on the tensor cores, and HBM3 bandwidth;
-# they assume the 700 W power limit
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 494.7e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
-PEAK_HBM_BYTES = 3.35e12
+# the H100 SXM peaks (fp32 outside the tensor cores, dense TF32, bf16 and
+# int8 on the tensor cores, HBM3 bandwidth) are repro_torch.launch.roofline's
 BATCH, N_CLASSES = 8, 1000
 STEADY_REQUESTS = 10
 KERNEL_REPS = 10
@@ -399,7 +412,8 @@ def time_ms(fn, reps: int = KERNEL_REPS) -> float:
 
 
 def bound(ops: float, nbytes: float, peak_ops: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_HBM_BYTES
+    from repro_torch.launch.roofline import HBM_BW
+    t_ops, t_bytes = ops / peak_ops, nbytes / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -704,13 +718,21 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_kernel,
+        flash_attention_work,
+    )
+    from repro_torch.launch.roofline import (
+        PEAK_BF16_FLOPS,
+        PEAK_FP32_FLOPS,
+        PEAK_INT8_OPS,
+        PEAK_TF32_FLOPS,
     )
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.gemm.int8 import qmm_i8, qmm_ref
-    from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref
+    from repro_torch.kernels.gemm.int8 import qmm_i8, qmm_ref, qmm_work
+    from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref, bmm_work
     from repro_torch.kernels.spatial_conv.kernel import (
         conv_gemm_f32,
         conv_gemm_ref,
+        conv_gemm_work,
     )
     from repro_torch.core.winograd import tile_input, transform_matrices
     from repro_torch.kernels.winograd.kernel import (
@@ -723,6 +745,8 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         wino_output_transform_nhwc_f32,
         wino_output_transform_nhwc_ref,
         wino_output_transform_ref,
+        wino_output_work,
+        wino_input_work,
     )
 
     def rnd(*size):
@@ -753,13 +777,10 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         lib = lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=h != hkv)
-        # 4 D operations (QK^T and PV, a multiply-add each) per unmasked
-        # (row, col) pair; each of Q, K, V, O moved once
-        pairs = (sum(min(i + 1 + off, skv) for i in range(sq)) if causal
-                 else sq * skv)
-        ops = 4.0 * d * pairs * b * h
-        nbytes = q.element_size() * (2.0 * b * h * sq * d
-                                     + 2.0 * b * hkv * skv * d)
+        # the work the wrapper declares to the roofline counter
+        ops, nbytes = flash_attention_work(
+            b * h, b * hkv, sq, skv, d, causal=causal, kv_len=skv,
+            row_offset=off, itemsize=q.element_size())
         if dt == torch.bfloat16:
             peak, elementwise = PEAK_BF16_FLOPS, True
         extra["library_max_abs_diff"] = float(
@@ -778,8 +799,8 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         kern = lambda: qmm_i8(a, b, bias, mult, True)
         plain = lambda: qmm_ref(a, b, bias, mult, True)
         lib = int_mm_padded(a, b)            # the product alone
-        ops, peak, exact = 2.0 * m * k * n, PEAK_INT8_OPS, True
-        nbytes = m * k + k * n + m * n + 8.0 * n
+        ops, nbytes = qmm_work(m, k, n)
+        peak, exact = PEAK_INT8_OPS, True
         gemm = (m, k, n)
     elif name == "conv_gemm_f32":
         t, crs, k, df = shape["t"], shape["crs"], shape["k"], shape["df"]
@@ -787,8 +808,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         kern = lambda: conv_gemm_f32(p, w, b, True, df)
         plain = lambda: conv_gemm_ref(p, w, b, True, df)
         lib = lambda: torch.addmm(b, p, w)   # bias + GEMM (ReLU not fused)
-        ops = 2.0 * t * crs * k
-        nbytes = 4.0 * (t * crs + crs * k + k + t * k)
+        ops, nbytes = conv_gemm_work(t, crs, k)
         gemm = (t, crs, k)
     elif name == "bmm_f32":
         g, m, k, n, df = (shape[x] for x in ("g", "m", "k", "n", "df"))
@@ -796,8 +816,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         kern = lambda: bmm_f32(a, bm, None, False, df)
         plain = lambda: bmm_ref(a, bm, None, False, df)
         lib = lambda: torch.bmm(a, bm)
-        ops = 2.0 * g * m * k * n
-        nbytes = 4.0 * (g * m * k + g * k * n + g * m * n)
+        ops, nbytes = bmm_work(g, m, k, n)
         gemm = (m, k, n)
     elif name == "wino_input_transform_f32":
         c, m = shape["c"], shape["m"]
@@ -830,8 +849,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         kron = torch.kron(bt, bt)
         tiles_flat = tiles.reshape(t, pt * pt, c)
         lib = lambda: torch.einsum("ij,tjc->itc", kron, tiles_flat)
-        ops = 4.0 * pt ** 3 * t * c          # B^T d and (B^T d) B, dense
-        nbytes = 4.0 * (in_floats + pt * pt * t * c)
+        ops, nbytes = wino_input_work(t, c, m, in_floats)
         channels = c
     else:
         k, m = shape["k"], shape["m"]
@@ -855,8 +873,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         # the yardstick, one fp32 call: (T, m^2, K), no bias, no ReLU
         kron = torch.kron(at, at)
         lib = lambda: torch.einsum("ij,jtk->tik", kron, mm)
-        ops = 2.0 * (m * pt * pt + m * m * pt) * t * k
-        nbytes = 4.0 * (pt * pt * t * k + k + out_floats)
+        ops, nbytes = wino_output_work(t, k, m, out_floats)
         channels = k
     y, y_ref = kern(), plain()
     torch.cuda.synchronize()
@@ -910,7 +927,7 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     # useful work per second, and the share of the bound the kernel reaches
     return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=time_ms(plain),
                 library_ms=None if lib is None else time_ms(lib),
-                bound_ms=bound_ms, bound_by=bound_by,
+                bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes,
                 useful_tflops=ops / ms * 1e-9, bound_share=bound_ms / ms,
                 **extra)
 
@@ -2966,6 +2983,272 @@ def train_phase(card: str) -> dict:
     return out
 
 
+# phase 7: the launch tools and training over a mesh. (a) minitron-8b bf16
+# prefills at full width on hopper over a cache of ROOF_PROMPT + ROOF_GEN
+# positions (phase 2's K6 case), ROOF_TIMED timed after a warm-up, then one
+# counted; the full-width training step of phase 6c (FULL_LAYERS layers),
+# ROOF_STEPS timed steps then one counted; (b) one dry-run cell in a
+# process of its own; (c) MESH_POSITIONS data positions of the repeated card
+ROOF_ARCH, ROOF_BATCH, ROOF_PROMPT, ROOF_GEN = "minitron-8b", 2, 4096, 16
+ROOF_TIMED, ROOF_STEPS = 3, 4
+DRYRUN_CELL = ("minitron-8b", "train_4k", False)
+MESH_POSITIONS, MESH_TOL, MESH_PARAM_TOL = 2, 1e-5, 1e-4
+
+
+def start_dryrun_cell(root: Path) -> subprocess.Popen:
+    """Phase 7b's cell through ``dryrun.run_cell`` in a process of its own
+    (fake tensors on the CPU device type, no card visible), started first
+    so it traces while the card runs 7a and 7c."""
+    code = ("import json, sys\n"
+            "from repro_torch.launch.dryrun import run_cell\n"
+            f"rec = run_cell(*{DRYRUN_CELL!r}, out_dir=sys.argv[1])\n"
+            "print('RECORD ' + json.dumps(rec, default=float))\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    return subprocess.Popen([sys.executable, "-c", code, str(root)],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def roofline_line(label: str, card: str, ms: float, st, cfg, kind: str,
+                  tokens: int) -> dict:
+    """Phase 7a's line for one measured run and its counted twin: the
+    roofline terms, the counted FLOPs and the model-FLOPs share of the
+    card's peak at the run's dtype, which must lie in (0, 1]."""
+    from repro_torch.launch import roofline as rl
+    roof = rl.roofline_from_stats(st, 1, cfg.torch_dtype)
+    model = rl.model_flops(cfg, kind, tokens)
+    mfu = model / (ms * 1e-3 * rl.peak_flops(cfg.torch_dtype))
+    out = dict(measured_ms=ms, compute_s=roof.compute_s,
+               memory_s=roof.memory_s, collective_s=roof.collective_s,
+               bound=roof.bound, step_time_s=roof.step_time_s,
+               flops=st.flops, bytes=st.bytes_accessed, model_flops=model,
+               mfu=mfu, counted_flops_share=st.flops / (
+                   ms * 1e-3 * rl.peak_flops(cfg.torch_dtype)),
+               kernels=st.kernels)
+    print(f"roofline (7a) ({card}): {label}: measured {ms:.1f}ms; counted "
+          f"{st.flops:.4g} FLOPs, {st.bytes_accessed:.4g} bytes (eager, "
+          f"unfused) -> compute {roof.compute_s * 1e3:.1f}ms, memory "
+          f"{roof.memory_s * 1e3:.1f}ms, bound {roof.bound}; model FLOPs "
+          f"{model:.4g}, mfu {mfu:.3f} (counted FLOPs "
+          f"{out['counted_flops_share']:.3f} of the peak)", flush=True)
+    if not 0.0 < mfu <= 1.0:
+        raise AssertionError(f"{label}: model-FLOPs share {mfu} outside "
+                             f"(0, 1]: the count or the time is wrong")
+    return out
+
+
+def roofline_prefill(card: str, k6_case: dict) -> dict:
+    """Phase 7a on the prefill (module doc); ``k6_case`` is phase 2's
+    result for the prefill's K6 shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.launch import roofline as rl
+    from repro_torch.train import steps
+
+    cfg = get_config(ROOF_ARCH)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params = steps.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    prefill, _ = steps.make_serve_steps(cfg, backend="hopper")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (ROOF_BATCH, ROOF_PROMPT)).astype(np.int32)
+    ).to(dev)
+    cache = steps.init_cache(cfg, ROOF_BATCH, ROOF_PROMPT + ROOF_GEN, dev)
+    common.reset_launches()
+    prefill(params, tokens, cache)
+    times = []
+    for _ in range(ROOF_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, tokens, cache)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    (logits, _), st = rl.count(prefill, params, tokens, cache)
+    launches = dict(common.LAUNCHES)
+    runs = ROOF_TIMED + 2
+    want = dict.fromkeys(common.KERNELS, 0)
+    want["flash_attention"] = runs * cfg.n_layers
+    if launches != want:
+        raise AssertionError(f"7a prefill launches {launches}, expected "
+                             f"{want}")
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("7a prefill: logits not finite")
+    k6 = st.kernels.get("flash_attention")
+    n = cfg.n_layers
+    if k6 != {"launches": n, "flops": n * k6_case["ops"],
+              "bytes": n * k6_case["bytes"]}:
+        raise AssertionError(f"7a: K6's declared work {k6} differs from "
+                             f"{n} x phase 2's ({k6_case['ops']}, "
+                             f"{k6_case['bytes']})")
+    out = roofline_line(
+        f"{ROOF_ARCH} bf16 prefill on hopper, {ROOF_BATCH} x {ROOF_PROMPT} "
+        f"(times {[round(t, 1) for t in times]}; K6 {n} a prefill at "
+        f"{k6_case['ops']:.4g} FLOPs, {k6_case['bytes']:.4g} bytes each, "
+        f"as phase 2)", card, statistics.median(times), st, cfg, "prefill",
+        ROOF_BATCH * ROOF_PROMPT)
+    out["launches"] = launches
+    return out
+
+
+def _timed_steps(step, params, state, data, n: int):
+    from repro_torch.data.pipeline import batch_for_step
+    ms, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch_for_step(data, i))
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"training losses {losses}")
+    return (params, state, statistics.median(ms[1:]), ms,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def roofline_train(card: str) -> dict:
+    """Phase 7a on the full-width training step (phase 6c's cut), then
+    7c's split: the same parameters over MESH_POSITIONS data positions of
+    the repeated card, the same batches."""
+    import dataclasses
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config(ROOF_ARCH), n_layers=FULL_LAYERS)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    data = DataConfig(cfg.vocab_size, FULL_SEQ, FULL_BATCH)
+    torch.cuda.empty_cache()
+    params, state, step, _ = train_mod.build(
+        cfg, opt, make_mesh((1, 1), ("data", "model"), devices=[dev]))
+    params, state, ms, all_ms, peak = _timed_steps(step, params, state, data,
+                                                   ROOF_STEPS)
+    (params, state, _), st = rl.count(step, params, state,
+                                      batch_for_step(data, ROOF_STEPS))
+    out = {"train": roofline_line(
+        f"{ROOF_ARCH} training step, {FULL_LAYERS} of 32 layers, bf16, "
+        f"{FULL_BATCH} x {FULL_SEQ} (median of steps 2-{ROOF_STEPS}: "
+        f"{[round(t, 1) for t in all_ms]})", card, ms, st, cfg, "train",
+        FULL_BATCH * FULL_SEQ)}
+    out["train"].update(peak_gb=peak)
+    del state, step
+    torch.cuda.empty_cache()
+    mesh = make_mesh((MESH_POSITIONS, 1), ("data", "model"),
+                     devices=[dev] * MESH_POSITIONS)
+    _, state, step, _ = train_mod.build(cfg, opt, mesh, params=params)
+    _, _, split_ms, split_all, split_peak = _timed_steps(
+        step, params, state, data, ROOF_STEPS)
+    out["split"] = dict(ms=split_ms, all_ms=split_all, peak_gb=split_peak,
+                        unsplit_ms=ms, unsplit_peak_gb=peak)
+    print(f"mesh (7c) ({card}): the {FULL_LAYERS}-layer step with its "
+          f"batch split over {MESH_POSITIONS} data positions of the repeated "
+          f"card: {split_ms:.1f}ms/step (median of steps 2-{ROOF_STEPS}: "
+          f"{[round(t, 1) for t in split_all]}), peak {split_peak:.2f} GB; "
+          f"unsplit {ms:.1f}ms/step, peak {peak:.2f} GB (one card: the "
+          f"split, the reduction and the bookkeeping, not scaling)",
+          flush=True)
+    return out
+
+
+def mesh_reduced(card: str) -> dict:
+    """Phase 7c on reduced minitron-8b in fp32: two steps over
+    MESH_POSITIONS data positions of the repeated card against the
+    one-position step from the same parameters."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+
+    cfg = get_config(ROOF_ARCH).reduced()
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    p1, s1, f1, _ = train_mod.build(
+        cfg, opt, make_mesh((1, 1), ("data", "model"), devices=[dev]))
+    p2, s2, f2, _ = train_mod.build(
+        cfg, opt, make_mesh((MESH_POSITIONS, 1), ("data", "model"),
+                            devices=[dev] * MESH_POSITIONS),
+        params=pytree.tree_map(lambda t: t.clone(), p1))
+    data = DataConfig(cfg.vocab_size, 64, 8)
+    gaps = []
+    for i in range(2):
+        b = batch_for_step(data, i)
+        p1, s1, m1 = f1(p1, s1, b)
+        p2, s2, m2 = f2(p2, s2, b)
+        for k in ("loss", "grad_norm"):
+            a, r = float(m2[k]), float(m1[k])
+            if not abs(a - r) <= MESH_TOL * max(1.0, abs(r)):
+                raise AssertionError(f"7c step {i}: {k} {a} vs {r}")
+        gap = max(float((a - r).abs().max()) / max(1.0, float(
+            r.abs().max())) for a, r in zip(pytree.tree_leaves(p2),
+                                            pytree.tree_leaves(p1)))
+        if not gap <= MESH_PARAM_TOL:
+            raise AssertionError(f"7c step {i}: parameters {gap:.3e} apart")
+        gaps.append(gap)
+    print(f"mesh (7c) ({card}): reduced {ROOF_ARCH} fp32 over "
+          f"{MESH_POSITIONS} data positions of the repeated card vs one "
+          f"position, two steps of 8 x 64: losses {float(m2['loss']):.6f} / "
+          f"{float(m1['loss']):.6f}, parameter gaps {gaps}", flush=True)
+    return dict(gaps=gaps, loss=float(m2["loss"]), ref_loss=float(m1["loss"]))
+
+
+def finish_dryrun_cell(proc: subprocess.Popen, card: str) -> dict:
+    """Phase 7b: wait for the cell's process and check its record."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"7b dry-run exited {proc.returncode}:\n"
+                             f"{out}\n{err}")
+    rec = json.loads(next(line for line in out.splitlines()
+                          if line.startswith("RECORD "))[7:])
+    if rec["status"] != "OK":
+        raise AssertionError(f"7b dry-run cell: {rec}")
+    roof, mem = rec["roofline"], rec["memory"]
+    print(f"dry-run (7b) ({card}): {rec['arch']} x {rec['shape']} x "
+          f"{rec['mesh']}: "
+          f"{rec['status']} in {rec['trace_s']}s, {rec['n_chips']} chips, "
+          f"{rec['dp_positions']} data positions; per device "
+          f"{rec['bytes_per_device_gb']} GB (arguments "
+          f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB, temporaries "
+          f"{mem['temp_size_in_bytes'] / 2**30:.3f} GiB); compute "
+          f"{roof['compute_s']:.3f}s, memory {roof['memory_s']:.3f}s, "
+          f"collective {roof['collective_s']:.4f}s, bound {roof['bound']}; "
+          f"useful FLOPs ratio {rec['useful_flops_ratio']:.3f}", flush=True)
+    return rec
+
+
+def launch_tools_phase(card: str, k6_case: dict) -> dict:
+    """Phase 7 (module doc); returns its results and the kernel launches
+    of its main-path runs."""
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dryrun"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = start_dryrun_cell(root)
+    try:
+        out = {"prefill": roofline_prefill(card, k6_case)}
+        torch.cuda.empty_cache()
+        out.update(roofline_train(card))
+        torch.cuda.empty_cache()
+        out["mesh_reduced"] = mesh_reduced(card)
+        out["dryrun"] = finish_dryrun_cell(proc, card)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out["launches"] = out["prefill"].pop("launches")
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "launch_tools", "card": card, **out},
+                     default=float), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -3002,6 +3285,7 @@ def main() -> int:
                   for name in common.KERNELS}
     seen: dict[tuple, dict] = {}
     lm_k6_ms = {}     # K6 ms per request of each LM path
+    lm_k6_case = None  # phase 2's K6 result at the LM prefill's shape
     fields = ("ms", "plain_ms", "bound_ms", "library_ms")
     for path in [*PATHS, *STRICT_PATHS]:
         if path in LM_PATHS:
@@ -3021,6 +3305,8 @@ def main() -> int:
                 seen[key] = run_case(name, shape, gen)
                 torch.cuda.empty_cache()
             r = seen[key]
+            if path == LM_PATH and layer == "prefill":
+                lm_k6_case = r
             print(json.dumps({"kernel": name, "path": path, "layer": layer,
                               **shape, **r}), flush=True)
             if name == "flash_attention":
@@ -3160,6 +3446,15 @@ def main() -> int:
     # -- phase 6: training through repro_torch.launch.train -----------------
     train = train_phase(card)
     print(f"phase 6 (train): {train['phase_s']:.1f}s", flush=True)
+    del train
+    torch.cuda.empty_cache()
+
+    # -- phase 7: roofline, dry-run and training over a mesh -----------------
+    tools = launch_tools_phase(card, lm_k6_case)
+    for name, n in tools["launches"].items():
+        total[name] += n
+    print(f"phase 7 (launch tools, mesh training): {tools['phase_s']:.1f}s",
+          flush=True)
     print(f"whole run: {time.perf_counter() - t_start:.1f}s", flush=True)
 
     summary = []

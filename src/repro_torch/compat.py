@@ -14,6 +14,9 @@ A device mesh (:class:`Mesh`, :func:`make_mesh`) is an array of torch
 devices with one name per axis, the port's counterpart of
 ``jax.sharding.Mesh``. Each position is one replica, and a device may
 repeat: two positions on one card are two replicas that take turns on it.
+A mesh of ``meta`` positions is a placeholder: it holds no device, and the
+dry-run (``launch/dryrun.py``) builds the production meshes with it, as
+the reference pins 512 placeholder host devices.
 """
 from __future__ import annotations
 
@@ -88,12 +91,13 @@ def to_numpy(a) -> np.ndarray:
 
 def local_devices(device_type: str = "cuda") -> list[torch.device]:
     """The local devices of one type: every CUDA card (raising, as
-    :func:`resolve_device` does, when there is none), or the one CPU."""
-    if device_type == "cpu":
-        return [torch.device("cpu")]
+    :func:`resolve_device` does, when there is none), the one CPU, or the
+    one ``meta`` placeholder."""
+    if device_type in ("cpu", "meta"):
+        return [torch.device(device_type)]
     if device_type != "cuda":
         raise ValueError(f"unsupported device type {device_type!r}: "
-                         f"expected cuda or cpu")
+                         f"expected cuda, cpu or meta")
     resolve_device(None)
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
@@ -140,10 +144,13 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
               device_type: str = "cuda") -> Mesh:
     """A :class:`Mesh` of shape ``axis_shapes`` over ``devices`` (default:
     the local devices of ``device_type``), whose count must equal the
-    shape's product, as ``jax.make_mesh`` requires."""
+    shape's product, as ``jax.make_mesh`` requires. ``device_type="meta"``
+    fills every position with the placeholder."""
+    n = math.prod(axis_shapes)
+    if devices is None and device_type == "meta":
+        devices = local_devices("meta") * n
     devices = (local_devices(device_type) if devices is None
                else list(devices))
-    n = math.prod(axis_shapes)
     if n != len(devices):
         raise ValueError(f"number of devices {len(devices)} must equal the "
                          f"product of mesh_shape {tuple(axis_shapes)} ({n})")

@@ -18,6 +18,12 @@ counts the launches of each kernel; :func:`launch` adds one per launch,
 :func:`add_launches` adds a CUDA graph's recorded launches at each replay,
 and nothing else touches the counts except :func:`reset_launches`.
 
+Under a roofline counter (``launch/roofline.py``), each wrapper declares
+its kernel's work once per call, from the one formula beside it (the
+``*_work`` functions, which ``chip_smoke.py``'s bounds read too), and runs
+its launch or its plain version uncounted (:func:`counted`): the
+``hopper`` backend counts the same on the CPU as on the card.
+
 The five CNN kernels are also ``torch.library`` ops in the ``repro_torch``
 namespace (``torch.ops.repro_torch.<name>``), each with a fake
 implementation, so ``torch.export`` can trace an executor through them
@@ -40,6 +46,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from repro_torch.launch import roofline
 
 KERNELS = ("conv_gemm_f32", "bmm_f32", "wino_input_transform_f32",
            "wino_output_transform_f32", "qmm_i8", "flash_attention")
@@ -156,6 +164,17 @@ def hold(t: torch.Tensor) -> torch.Tensor:
     if held is not None:
         held.append(t)
     return t
+
+
+def counted(name: str, work, *args, **kwargs):
+    """A context for one call of kernel ``name`` (its launch or its plain
+    version): under an active roofline counter it declares
+    ``work(*args, **kwargs)`` (FLOPs, bytes) once and counts no aten op
+    inside; else it does nothing."""
+    if not roofline.counting():
+        return contextlib.nullcontext()
+    roofline.declare_work(name, *work(*args, **kwargs))
+    return roofline.uncounted()
 
 
 def traced(t: torch.Tensor) -> bool:

@@ -19,7 +19,7 @@ import struct
 
 import torch
 
-from repro_torch.kernels.common import launch, on_cpu
+from repro_torch.kernels.common import counted, launch, on_cpu
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 MAX_HEAD_DIM = 128
@@ -53,6 +53,29 @@ def _check(q, k, v, kv_len, row_offset):
                          f"leaves rows with no unmasked column")
 
 
+def attended_pairs(sq: int, kv_len: int, causal: bool,
+                   row_offset: int) -> int:
+    """Unmasked (query row, key column) pairs of one head: row ``i`` sees
+    ``min(i + 1 + row_offset, kv_len)`` columns when causal, else
+    ``kv_len``."""
+    if not causal:
+        return sq * kv_len
+    a = row_offset + 1                     # columns row 0 sees, unclipped
+    short = min(max(kv_len - a, 0), sq)    # rows below the kv_len clip
+    return short * a + short * (short - 1) // 2 + (sq - short) * kv_len
+
+
+def flash_attention_work(bh: int, bhkv: int, sq: int, skv: int, d: int, *,
+                         causal: bool, kv_len: int, row_offset: int,
+                         itemsize: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch: 4 D FLOPs (Q K^T and P V, a
+    multiply-add each) per unmasked pair of every query head; Q, K, V read
+    once and O written once."""
+    flops = 4.0 * d * attended_pairs(sq, kv_len, causal, row_offset) * bh
+    nbytes = itemsize * (2.0 * bh * sq * d + 2.0 * bhkv * skv * d)
+    return flops, nbytes
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            scale: float | None = None,
@@ -69,9 +92,19 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     row_offset = int(row_offset)
     _check(q, k, v, kv_len, row_offset)
-    if on_cpu("flash_attention", q, k, v, dtypes=q.dtype):
-        return flash_attention_ref(q, k, v, causal=causal, scale=scale,
-                                   kv_len=kv_len, row_offset=row_offset)
+    bh, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    cpu = on_cpu("flash_attention", q, k, v, dtypes=q.dtype)
+    with counted("flash_attention", flash_attention_work, bh, bhkv, sq,
+                 skv, d, causal=causal, kv_len=kv_len,
+                 row_offset=row_offset, itemsize=q.element_size()):
+        if cpu:
+            return flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                       kv_len=kv_len, row_offset=row_offset)
+        return _launch(q, k, v, causal, scale, kv_len, row_offset)
+
+
+def _launch(q, k, v, causal, scale, kv_len, row_offset):
     bh, sq, d = q.shape
     bhkv, skv, _ = k.shape
     scale = d ** -0.5 if scale is None else scale

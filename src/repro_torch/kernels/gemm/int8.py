@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import (
+    counted,
     launch_gemm,
     on_cpu,
     qmm_workspace,
@@ -57,6 +58,13 @@ def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.round(a.double() @ b.double()).to(torch.int32)
 
 
+def qmm_work(m: int, k: int, n: int) -> tuple[float, float]:
+    """(operations, bytes) of one (M, K) @ (K, N) int8 call: a
+    multiply-add per product; A, B (int8), the int32 bias and the float32
+    multipliers read once, C (int8) written once."""
+    return 2.0 * m * k * n, m * k + k * n + m * n + 8.0 * n
+
+
 def qmm_i8(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
            mult: torch.Tensor, relu: bool = False) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 + bias (N,) int32, ReLU, requantize by
@@ -73,9 +81,11 @@ def qmm_i8(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
                          f"{bias.shape} and {mult.shape}")
     if traced(a):
         return torch.ops.repro_torch.qmm_i8(a, b, bias, mult, relu)
-    if on_cpu("qmm_i8", a, b, bias, mult, dtypes=_DTYPES):
-        return qmm_ref(a, b, bias, mult, relu)
-    return _launch(a, b, bias, mult, relu)
+    cpu = on_cpu("qmm_i8", a, b, bias, mult, dtypes=_DTYPES)
+    with counted("qmm_i8", qmm_work, m, k, n):
+        if cpu:
+            return qmm_ref(a, b, bias, mult, relu)
+        return _launch(a, b, bias, mult, relu)
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import (
+    counted,
     gemm_workspace,
     launch_gemm,
     on_cpu,
@@ -34,6 +35,15 @@ def bmm_ref(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
     if relu:
         y = torch.relu(y)
     return y
+
+
+def bmm_work(g: int, m: int, k: int, n: int,
+             has_bias: bool = False) -> tuple[float, float]:
+    """(FLOPs, bytes) of one (G, M, K) @ (G, K, N) call: a multiply-add
+    per product; A, B and the bias read once, C written once."""
+    return (2.0 * g * m * k * n,
+            4.0 * (g * m * k + g * k * n + g * m * n
+                   + (g * n if has_bias else 0)))
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None,
@@ -68,9 +78,11 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
     if traced(a):
         return torch.ops.repro_torch.bmm_f32(a, b, bias, relu,
                                              dataflow == "ws")
-    if on_cpu("bmm_f32", a, b, bias):
-        return bmm_ref(a, b, bias, relu, dataflow)
-    return _launch(a, b, bias, relu, dataflow == "ws")
+    cpu = on_cpu("bmm_f32", a, b, bias)
+    with counted("bmm_f32", bmm_work, g, m, k, n, bias is not None):
+        if cpu:
+            return bmm_ref(a, b, bias, relu, dataflow)
+        return _launch(a, b, bias, relu, dataflow == "ws")
 
 
 # the exportable op: CPU runs the plain version, CUDA the same launch

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import (
+    counted,
     gemm_workspace,
     launch_gemm,
     on_cpu,
@@ -34,6 +35,14 @@ def conv_gemm_ref(patches: torch.Tensor, weights: torch.Tensor,
     if relu:
         y = torch.relu(y)
     return y
+
+
+def conv_gemm_work(t: int, crs: int, k: int,
+                   has_bias: bool = True) -> tuple[float, float]:
+    """(FLOPs, bytes) of one (T, CRS) @ (CRS, K) call: a multiply-add per
+    product; P, W and the bias read once, Y written once."""
+    return (2.0 * t * crs * k,
+            4.0 * (t * crs + crs * k + t * k + (k if has_bias else 0)))
 
 
 def _launch(patches: torch.Tensor, weights: torch.Tensor,
@@ -69,9 +78,12 @@ def conv_gemm_f32(patches: torch.Tensor, weights: torch.Tensor,
     if traced(patches):
         return torch.ops.repro_torch.conv_gemm_f32(
             patches, weights, bias, relu, dataflow == "ws")
-    if on_cpu("conv_gemm_f32", patches, weights, bias):
-        return conv_gemm_ref(patches, weights, bias, relu, dataflow)
-    return _launch(patches, weights, bias, relu, dataflow == "ws")
+    cpu = on_cpu("conv_gemm_f32", patches, weights, bias)
+    with counted("conv_gemm_f32", conv_gemm_work, patches.shape[0], crs, k,
+                 bias is not None):
+        if cpu:
+            return conv_gemm_ref(patches, weights, bias, relu, dataflow)
+        return _launch(patches, weights, bias, relu, dataflow == "ws")
 
 
 # the exportable op: CPU runs the plain version, CUDA the same launch

@@ -35,7 +35,7 @@ from repro_torch.core.winograd import (
     tile_input,
     transform_matrices,
 )
-from repro_torch.kernels.common import cdiv, launch, on_cpu, traced
+from repro_torch.kernels.common import cdiv, counted, launch, on_cpu, traced
 
 Pads = tuple[tuple[int, int], tuple[int, int]]
 NO_PAD: Pads = ((0, 0), (0, 0))
@@ -107,6 +107,25 @@ def wino_input_transform_nhwc_ref(x: torch.Tensor, m: int,
         signed_offset_tiles(x, m, top, left, grid), m)
 
 
+def wino_input_work(t: int, c: int, m: int,
+                    in_floats: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one K3 call over ``t`` tiles of ``c`` channels:
+    B^T d and (B^T d) B as dense PT x PT products; ``in_floats`` of x read
+    once, V (PT^2, T, C) written once."""
+    pt = pt_for(m)
+    return 4.0 * pt ** 3 * t * c, 4.0 * (in_floats + pt * pt * t * c)
+
+
+def wino_output_work(t: int, k: int, m: int, out_floats: int,
+                     has_bias: bool = True) -> tuple[float, float]:
+    """(FLOPs, bytes) of one K4 call over ``t`` tiles of ``k`` channels:
+    A^T M and (A^T M) A as dense products; M and the bias read once,
+    ``out_floats`` of Y written once."""
+    pt = pt_for(m)
+    return (2.0 * (m * pt * pt + m * m * pt) * t * k,
+            4.0 * (pt * pt * t * k + (k if has_bias else 0) + out_floats))
+
+
 def _launch_input(x: torch.Tensor, m: int, geom: tuple[int, ...],
                   t: int) -> torch.Tensor:
     """K3 on x (N, H, W, C) with ``geom`` = (N, H, W, C, pad top, pad left,
@@ -127,10 +146,13 @@ def wino_input_transform_f32(tiles: torch.Tensor, m: int) -> torch.Tensor:
     pt = pt_for(m)
     if tiles.dim() != 4 or tiles.shape[1:3] != (pt, pt):
         raise ValueError(f"tiles must be (T, {pt}, {pt}, C), got {tiles.shape}")
-    if on_cpu("wino_input_transform_f32", tiles):
-        return wino_input_transform_ref(tiles, m)
+    cpu = on_cpu("wino_input_transform_f32", tiles)
     t, _, _, c = tiles.shape
-    return _launch_input(tiles, m, (t, pt, pt, c, 0, 0, 1, 1), t)
+    with counted("wino_input_transform_f32", wino_input_work, t, c, m,
+                 tiles.numel()):
+        if cpu:
+            return wino_input_transform_ref(tiles, m)
+        return _launch_input(tiles, m, (t, pt, pt, c, 0, 0, 1, 1), t)
 
 
 def wino_input_transform_nhwc_f32(x: torch.Tensor, m: int,
@@ -164,9 +186,13 @@ def wino_input_transform_nhwc_f32(x: torch.Tensor, m: int,
     if traced(x):
         return torch.ops.repro_torch.wino_input_transform_nhwc_f32(
             x, m, top, left, nh, nw)
-    if on_cpu("wino_input_transform_f32", x):
-        return wino_input_transform_nhwc_ref(x, m, pad_hw, grid)
-    return _launch_input(x, m, (n, h, w, c, top, left, nh, nw), n * nh * nw)
+    cpu = on_cpu("wino_input_transform_f32", x)
+    with counted("wino_input_transform_f32", wino_input_work, n * nh * nw,
+                 c, m, x.numel()):
+        if cpu:
+            return wino_input_transform_nhwc_ref(x, m, pad_hw, grid)
+        return _launch_input(x, m, (n, h, w, c, top, left, nh, nw),
+                             n * nh * nw)
 
 
 # ---------------------------------------------------------------------------
@@ -232,11 +258,15 @@ def wino_output_transform_f32(m_arr: torch.Tensor,
     reference's contract (K4's output images with N = T, Ho = Wo = m, one
     tile each)."""
     _check_output(m_arr, bias, m)
-    if on_cpu("wino_output_transform_f32", m_arr, bias):
-        return wino_output_transform_ref(m_arr, bias, m, relu)
+    cpu = on_cpu("wino_output_transform_f32", m_arr, bias)
     _, t, k = m_arr.shape
-    out = torch.empty((t, m, m, k), dtype=torch.float32, device=m_arr.device)
-    return _launch_output(m_arr, bias, m, relu, out, (t, m, m, k, 1, 1))
+    with counted("wino_output_transform_f32", wino_output_work, t, k, m,
+                 t * m * m * k, bias is not None):
+        if cpu:
+            return wino_output_transform_ref(m_arr, bias, m, relu)
+        out = torch.empty((t, m, m, k), dtype=torch.float32,
+                          device=m_arr.device)
+        return _launch_output(m_arr, bias, m, relu, out, (t, m, m, k, 1, 1))
 
 
 def wino_output_transform_nhwc_f32(m_arr: torch.Tensor,
@@ -256,9 +286,13 @@ def wino_output_transform_nhwc_f32(m_arr: torch.Tensor,
     if traced(m_arr):
         return torch.ops.repro_torch.wino_output_transform_nhwc_f32(
             m_arr, bias, m, n, ho, wo, relu)
-    if on_cpu("wino_output_transform_f32", m_arr, bias):
-        return wino_output_transform_nhwc_ref(m_arr, bias, m, out_nhw, relu)
-    return _launch_output_nhwc(m_arr, bias, m, (n, ho, wo), relu)
+    cpu = on_cpu("wino_output_transform_f32", m_arr, bias)
+    with counted("wino_output_transform_f32", wino_output_work, t, k, m,
+                 n * ho * wo * k, bias is not None):
+        if cpu:
+            return wino_output_transform_nhwc_ref(m_arr, bias, m, out_nhw,
+                                                  relu)
+        return _launch_output_nhwc(m_arr, bias, m, (n, ho, wo), relu)
 
 
 def _launch_output_nhwc(m_arr: torch.Tensor, bias: torch.Tensor | None,

@@ -4,7 +4,8 @@ touches no device.
 A mesh is a :class:`repro_torch.compat.Mesh`, an array of torch devices in
 which a device may repeat (each position is one replica). ``device_type``
 picks the local devices: ``"cuda"`` (the default; raises without a card)
-or ``"cpu"`` (one device).
+``"cpu"`` (one device) or ``"meta"`` (placeholder positions, for the
+dry-run: a production mesh with no card).
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from repro_torch.compat import Mesh, local_devices, make_mesh
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda") -> Mesh:
     """16x16 = 256 devices per pod; 2 pods = 512 devices multi-pod. Raises
-    ``ValueError`` when fewer devices are local."""
+    ``ValueError`` when fewer devices are local; ``device_type="meta"``
+    builds it of placeholder positions."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device_type=device_type)

@@ -6,8 +6,21 @@ chunked cross-entropy, AdamW in place, remat), async checkpointing with
 heartbeat monitoring, and restart from the latest checkpoint. It runs on
 the CUDA card unless ``device="cpu"`` / ``--device cpu`` is given; the mesh
 is the host's (``launch.mesh.make_host_mesh``), which on one card is
-``(1, 1)``. Training over a mesh of several positions is not ported
-(ROADMAP Queue 1, item 11g).
+``(1, 1)``.
+
+Over a mesh of several positions (the counterpart of the reference's
+jitted step over a ``("data", "model")`` mesh) the step splits the batch on
+dim 0 over the data axes (``pod``, ``data``) in position order; each data
+shard runs ``loss_and_grads`` once, on the device of its first position
+(positions along ``model`` hold the same shard, every tensor whole: the
+port places no tensor-parallel shards, ROADMAP Queue 1, item 11i). The
+shards' gradients are summed in position order on the mesh's first device
+and divided by the shard count: the cross-entropy is an unmasked token
+mean, so with equal shards that is the whole batch's gradient. Clipping
+and AdamW run once there, and the updated parameters are copied to every
+other distinct device, each of which keeps one copy. The reduction and the
+copies are declared to the roofline's collective term
+(``launch/roofline.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b \\
       --reduced --steps 20 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
@@ -15,6 +28,7 @@ is the host's (``launch.mesh.make_host_mesh``), which on one card is
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import numpy as np
@@ -26,34 +40,111 @@ from repro_torch.checkpoint.fault_tolerance import HeartbeatMonitor
 from repro_torch.compat import resolve_device
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import DataConfig, batch_for_step
+from repro_torch.launch import roofline
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.optim import adamw
-from repro_torch.parallel.sharding import (
-    make_rules,
-    param_shardings,
-    use_rules,
-)
+from repro_torch.parallel.sharding import make_rules, use_rules
 from repro_torch.train import steps as steps_lib
 
 
-def build(cfg, opt_cfg, mesh, seed=0):
-    """(params, opt_state, step_fn, rules) on the mesh's one device:
-    random parameters from ``seed`` (a torch generator there), zeroed AdamW
-    state, and the train step run under the mesh's rules."""
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"training over a mesh of {mesh.size} positions ({mesh!r}) is "
-            f"not ported yet; the port trains on one device (ROADMAP Queue "
-            f"1, item 11g)")
+def data_devices(rules) -> list[torch.device]:
+    """The device of each data position, in position order: the first
+    position along the other axes of each index over ``rules.dp_axes``."""
+    mesh = rules.mesh
+    dp = [mesh.axis_names.index(a) for a in rules.dp_axes]
+    rest = [i for i in range(mesh.devices.ndim) if i not in dp]
+    n = math.prod(mesh.devices.shape[i] for i in dp)
+    rows = mesh.devices.transpose(dp + rest).reshape(n, -1)
+    return [row[0] for row in rows]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def declare_gradient_reduction(grads, positions: int) -> None:
+    """The mesh step's reduction, to the roofline's collective term: each
+    of ``positions`` data positions all-reduces every gradient leaf."""
+    if positions > 1 and roofline.counting():
+        for g in pytree.tree_leaves(grads):
+            for _ in range(positions):
+                roofline.declare_collective("all-reduce", _nbytes(g))
+
+
+def split_batch(batch: dict, n: int) -> list[dict]:
+    """``batch`` split on dim 0 into ``n`` equal shards, in order; a batch
+    whose rows do not split evenly raises ``ValueError``."""
+    rows = {len(v) for v in batch.values()}
+    if len(rows) != 1 or next(iter(rows)) % n:
+        raise ValueError(
+            f"a batch of {sorted(rows)} rows does not split evenly over "
+            f"{n} data positions; the mesh step needs equal shards (the "
+            f"loss is a token mean)")
+    r = next(iter(rows)) // n
+    return [{k: v[i * r:(i + 1) * r] for k, v in batch.items()}
+            for i in range(n)]
+
+
+def _mesh_step(cfg, opt_cfg, rules):
+    """The train step over a mesh of several positions (module doc)."""
+    shard_devices = data_devices(rules)
+    distinct = rules.sharding().devices
+    first = distinct[0]
+    replicas: dict[torch.device, object] = {}
+    synced = [None]      # the params tree the replicas were copied from
+
+    def sync(params) -> None:
+        for d in distinct[1:]:
+            if d not in replicas:
+                replicas[d] = pytree.tree_map(lambda p: p.to(d), params)
+            else:
+                pytree.tree_map(lambda r, p: r.copy_(p), replicas[d], params)
+            if roofline.counting():
+                for p in pytree.tree_leaves(params):
+                    roofline.declare_collective("all-gather", _nbytes(p))
+        synced[0] = params
+
+    def step(params, opt_state, batch):
+        if synced[0] is not params:
+            sync(params)
+        replicas[first] = params
+        losses, total = [], None
+        with use_rules(rules):
+            for dev, shard in zip(shard_devices,
+                                  split_batch(batch, len(shard_devices))):
+                loss, grads = steps_lib.loss_and_grads(replicas[dev], shard,
+                                                       cfg)
+                losses.append(loss.to(first))
+                grads = pytree.tree_map(lambda g: g.to(first), grads)
+                total = grads if total is None else pytree.tree_map(
+                    lambda a, g: a.add_(g), total, grads)
+            n = len(losses)
+            grads = pytree.tree_map(lambda g: g.div_(n), total)
+            declare_gradient_reduction(grads, n)
+            params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
+                                                 params)
+        sync(params)
+        return params, opt_state, {"loss": sum(losses) / n, **om}
+
+    return step
+
+
+def build(cfg, opt_cfg, mesh, seed=0, params=None):
+    """(params, opt_state, step_fn, rules) on the mesh's first device:
+    ``params`` (a tree there), else random parameters from ``seed`` (a
+    torch generator there), zeroed AdamW state, and the train step run
+    under the mesh's rules; over several positions the mesh step (module
+    doc), which keeps the other distinct devices' parameter copies."""
     step_fn = steps_lib.make_train_step(cfg, opt_cfg)   # refuses first
     rules = make_rules(mesh)
-    device = rules.sharding().device
+    device = mesh.devices.flat[0]
     with use_rules(rules):
-        params = steps_lib.init_params(
-            cfg, torch.Generator(device=device).manual_seed(seed), device)
+        if params is None:
+            params = steps_lib.init_params(
+                cfg, torch.Generator(device=device).manual_seed(seed), device)
         opt_state = adamw.init(params)
-    params = pytree.tree_map(lambda p, s: p.to(s.device), params,
-                             param_shardings(params, rules))
+    if mesh.size > 1:
+        return params, opt_state, _mesh_step(cfg, opt_cfg, rules), rules
 
     def wrapped(params, opt_state, batch):
         with use_rules(rules):
@@ -105,7 +196,7 @@ def train(arch: str, *, reduced: bool = True, steps: int = 20, batch: int = 8,
     start = 0
     if ckpt_dir and resume and ckpt_lib.latest_step(ckpt_dir) is not None:
         (params, opt_state), start = ckpt_lib.restore(
-            ckpt_dir, (params, opt_state), device=rules.sharding().device)
+            ckpt_dir, (params, opt_state), device=mesh.devices.flat[0])
         print(f"resumed from step {start}")
 
     losses = []

@@ -8,7 +8,8 @@ the compressed optimizer converges (the compression error telescopes).
 int8 payload (as int32 sums) and decompresses the mean. The reference runs
 it inside ``shard_map`` over its data axes; here each replica is a process
 of a ``torch.distributed`` group. As in the reference, no training step
-calls it.
+calls it. Its two all-reduces a tensor (the amax and the int32 payload)
+reach the roofline's collective term (``launch/roofline.py``).
 
 The scheme (``scale = (amax + 1e-12) / 127``, zero point 0, values clipped
 to [-127, 127]) is also the repo's definition of "int8": the calibration
@@ -23,6 +24,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
+
+from repro_torch.launch import roofline
 
 
 def quantize_int8(x):
@@ -82,6 +85,7 @@ def compressed_psum(grads, err_state, group=None):
         corrected = g.to(torch.float32) + e
         amax = corrected.abs().max()
         dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        roofline.declare_collective("all-reduce", amax.element_size())
         scale = _over_127(amax + 1e-12)
         q = torch.clamp(torch.round(corrected / scale), -127, 127)
         q = q.to(torch.int8)
@@ -89,6 +93,8 @@ def compressed_psum(grads, err_state, group=None):
         # int8 payloads sum without overflow in int32
         summed = q.to(torch.int32)
         dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
+        roofline.declare_collective(
+            "all-reduce", summed.numel() * summed.element_size())
         mean = summed.to(torch.float32) * scale / n
         return mean.to(g.dtype), new_e
 

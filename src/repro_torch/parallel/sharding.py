@@ -11,13 +11,15 @@ The mesh is a :class:`repro_torch.compat.Mesh`; the rules and specs read
 only its ``axis_names`` and ``devices.shape``, so they equal the
 reference's on any mesh shape, whatever devices it holds.
 :class:`PartitionSpec` and :class:`NamedSharding` are the counterparts of
-JAX's. The port runs a model in one process on one device, so a
-:class:`NamedSharding` places a whole tensor: it resolves to a
-``torch.device`` only where the mesh holds one distinct device (a sharded
-axis whose positions all lie on one device holds the whole tensor there).
-Placing one tensor over several devices is ROADMAP Queue 1, item 11g.
-``shard`` is therefore the identity with or without rules: one device has
-no constraint to place.
+JAX's. ``NamedSharding.shard_shape`` gives the per-position shape, as
+JAX's does; the dry-run's memory per device reads it. The port runs a
+model in one process and holds every tensor whole on each device that
+computes with it (``launch/train.py`` trains over several positions that
+way), so a :class:`NamedSharding` resolves to one ``torch.device`` only
+where the mesh holds one distinct device. Placing the shards of one tensor
+over several devices (tensor parallelism) is ROADMAP Queue 1, item 11i.
+``shard`` is therefore the identity with or without rules: a tensor held
+whole has no constraint to place.
 """
 from __future__ import annotations
 
@@ -66,21 +68,46 @@ P = PartitionSpec
 
 class NamedSharding:
     """A placement: ``spec`` over ``mesh``, as ``jax.sharding.NamedSharding``.
-    ``device`` is the torch device it puts a whole tensor on."""
+    ``devices`` are the mesh's distinct devices in position order;
+    ``device`` is the one torch device it puts a whole tensor on."""
 
     def __init__(self, mesh: Mesh, spec: PartitionSpec):
         self.mesh = mesh
         self.spec = spec
 
     @property
+    def devices(self) -> list[torch.device]:
+        return list(dict.fromkeys(self.mesh.devices.flat))
+
+    @property
     def device(self) -> torch.device:
-        distinct = set(self.mesh.devices.flat)
+        distinct = self.devices
         if len(distinct) != 1:
             raise NotImplementedError(
-                f"{self!r} spans {len(distinct)} devices; placing one tensor "
-                f"over several devices in one process is not ported yet "
-                f"(ROADMAP Queue 1, item 11g)")
-        return distinct.pop()
+                f"{self!r} spans {len(distinct)} devices; placing the shards "
+                f"of one tensor over several devices in one process is not "
+                f"ported (ROADMAP Queue 1, item 11i)")
+        return distinct[0]
+
+    def shard_shape(self, global_shape) -> tuple[int, ...]:
+        """The shape each position holds of a ``global_shape`` tensor:
+        every dimension divided by the size of the mesh axes its spec
+        entry names, as ``jax.sharding.NamedSharding.shard_shape``; a
+        dimension they do not divide raises ``ValueError``."""
+        sizes = self.mesh.shape
+        out = list(global_shape)
+        for dim, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            n = 1
+            for axis in (entry if isinstance(entry, tuple) else (entry,)):
+                n *= sizes[axis]
+            if out[dim] % n:
+                raise ValueError(f"{self!r}: dimension {dim} of "
+                                 f"{tuple(global_shape)} does not divide "
+                                 f"over {n} positions")
+            out[dim] //= n
+        return tuple(out)
 
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"

@@ -1129,3 +1129,70 @@ def test_gpu_reduced_train_step_matches_cpu(cuda):
     for (loss, norm), (r_loss, r_norm) in zip(runs["cuda"], runs["cpu"]):
         assert abs(loss - r_loss) <= 1e-4 * abs(r_loss)
         assert abs(norm - r_norm) <= 1e-4 * abs(r_norm)
+
+
+def test_gpu_hopper_prefill_declares_k6_work(cuda):
+    """A reduced minitron-8b ``hopper`` prefill of 2048 tokens on the card
+    under the roofline counter: one K6 launch a layer, each counted once at
+    its declared work, and the same count as the same prefill on the CPU
+    (the wrapper's plain version there is uncounted)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_work,
+    )
+    from repro_torch.launch import roofline
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config("minitron-8b").reduced()
+    cpu = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 2048)).astype(np.int32))
+    prefill, _ = steps.make_serve_steps(cfg, backend="hopper")
+    counts = {}
+    for dev in ("cpu", cuda):
+        params = pytree.tree_map(lambda t: t.to(dev), cpu)
+        common.reset_launches()
+        _, counts[str(dev)] = roofline.count(
+            prefill, params, tokens.to(dev),
+            steps.init_cache(cfg, 2, 2048, dev))
+    assert common.LAUNCHES["flash_attention"] == cfg.n_layers
+    flops, nbytes = flash_attention_work(
+        2 * cfg.n_heads, 2 * cfg.n_kv_heads, 2048, 2048, cfg.head_dim,
+        causal=True, kv_len=2048, row_offset=0, itemsize=4)
+    k6 = counts["cuda"].kernels["flash_attention"]
+    assert k6 == {"launches": cfg.n_layers, "flops": cfg.n_layers * flops,
+                  "bytes": cfg.n_layers * nbytes}
+    assert counts["cuda"].kernels == counts["cpu"].kernels
+    assert counts["cuda"].flops == counts["cpu"].flops
+
+
+def test_gpu_mesh_train_over_two_cards(cuda):
+    """``launch.train.build`` over a (2, 1) data mesh of two distinct
+    cards: each shard runs on its card, the gradients are reduced on card
+    0, and card 1 keeps a copy of the updated parameters; loss and
+    parameters within 1e-4 of the one-card step (reduced minitron-8b,
+    fp32)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.compat import make_mesh
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config("minitron-8b").reduced()
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    p1, s1, f1, _ = train_mod.build(
+        cfg, opt, make_mesh((1, 1), ("data", "model"), devices=cards[:1]))
+    p2, s2, f2, _ = train_mod.build(
+        cfg, opt, make_mesh((2, 1), ("data", "model"), devices=cards),
+        params=pytree.tree_map(lambda t: t.clone(), p1))
+    batch = batch_for_step(DataConfig(cfg.vocab_size, 16, 8), 0)
+    p1, s1, m1 = f1(p1, s1, batch)
+    p2, s2, m2 = f2(p2, s2, batch)
+    assert abs(float(m2["loss"]) - float(m1["loss"])) <= 1e-4 * abs(
+        float(m1["loss"]))
+    for a, b in zip(pytree.tree_leaves(p2), pytree.tree_leaves(p1)):
+        assert a.device == cards[0]
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            1.0, float(b.abs().max()))

@@ -134,7 +134,7 @@ def test_named_sharding_resolves_to_the_one_device():
     assert sharding.make_rules(repeated).sharding(sharding.BATCH).device \
         == torch.device("cpu")
     two = make_mesh((1, 2), ("data", "model"), devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="item 11g"):
+    with pytest.raises(NotImplementedError, match="item 11i"):
         sharding.make_rules(two).sharding().device
     assert P(("data",), None) == ("data", None)
     assert repr(P("data", None)) == "PartitionSpec('data', None)"

@@ -229,11 +229,15 @@ def test_train_needs_a_card_or_the_cpu(monkeypatch):
 
 
 def test_build_refuses_a_mesh_of_several_positions():
+    """Over several positions ``build`` gives the mesh step, which refuses
+    a batch that does not split evenly over the data positions."""
     cfg = get_config(ARCH).reduced()
     opt = adamw.AdamWConfig(**OPT)
-    mesh = make_mesh((1, 2), ("data", "model"), devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 11g"):
-        train_mod.build(cfg, opt, mesh)
+    mesh = make_mesh((2, 1), ("data", "model"), devices=["cpu", "cpu"])
+    params, state, step_fn, _ = train_mod.build(cfg, opt, mesh)
+    batch = batch_for_step(DataConfig(cfg.vocab_size, 8, 3), 0)
+    with pytest.raises(ValueError, match="does not split evenly"):
+        step_fn(params, state, batch)
     params, state, step_fn, rules = train_mod.build(
         cfg, opt, make_mesh((1, 1), ("data", "model"), device_type="cpu"))
     assert rules.mesh.size == 1 and int(state["step"]) == 0
