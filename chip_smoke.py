@@ -192,6 +192,21 @@ scale a rounding difference in a near-zero gradient element up to a share
 of ``lr``), and the full-width 4-layer step with its batch split two ways:
 ms/step and peak GB beside the unsplit step's. A mesh that repeats one
 card shows the split, the reduction and the bookkeeping, not scaling.
+(d) Tensor parallelism along ``model`` (``train.steps.place``):
+reduced minitron-8b in fp32 over (1, 2) and (2, 2) meshes of the repeated
+card, a prefill and 4 greedy decode steps within ``1e-5 * max(1,
+max|ref|)`` of the unsplit card run and one training step within 7c's
+limits; full-width minitron-8b bf16 on ``hopper``, 2 x 4096, 32 layers, 16
+greedy tokens, split over (1, 2) (K6 on each position's 16 heads over 4
+KV heads: 64 a prefill), its prefill ms, decode ms/token and peak GB
+beside the unsplit run, logits within ``5e-2 * max|logit|`` of the
+unsplit prefill, then once through ``launch.serve.serve`` over that mesh;
+and phase 6c's 4-layer step split over (1, 2): ms/step and peak GB.
+
+Phase 2 also runs F6's shape through K1: ``resnet18_specs(16, 8)``'s
+``s4b1_proj`` (a 1x1 stride-2 conv from 2x2 to 1x1, batch 2), whose
+patches ``im2col`` must hand over contiguous; and K6 at the per-position
+shape of 7d's split prefill.
 
 Phase 2 also holds every kernel at the shapes of the interpreter's calls
 (``*_strict`` paths: per COMP block, the block's rows and k-group); the
@@ -519,6 +534,15 @@ def wino_offpath_cases():
     ]
 
 
+def f6_cases():
+    """K1 at F6's shape (launches 0): ``resnet18_specs(16, 8)``'s
+    ``s4b1_proj``, a 1x1 stride-2 conv from 2x2x32 to 1x1x64 at batch 2,
+    its patches from ``im2col`` (one output column: a strided view before
+    the repair)."""
+    return [("conv_gemm_f32", "s4b1_proj_16_8",
+             dict(t=2, crs=32, k=64, df="is", im2col=(2, 2, 2, 32, 2)), 0)]
+
+
 # the decomposed convolutions of phase 2 (off the served paths: compiled
 # layers stay 3x3): ResNet-18's s1 geometry, batch 8 at 32x32 with 64
 # channels in and out, F(4, 3), SAME, with 5x5 and 7x7 kernels
@@ -687,6 +711,10 @@ def lm_kernel_cases(path: str):
         return []
     return [
         ("flash_attention", "prefill", prefill, cfg.n_layers),
+        # phase 7d's split prefill: one model position's heads of two
+        ("flash_attention", "prefill_position_of_2", dict(
+            prefill, h=cfg.n_heads // TP_POSITIONS,
+            hkv=cfg.n_kv_heads // TP_POSITIONS), 0),
         ("flash_attention", "prefill_fp32", dict(prefill, dtype="fp32"), 0),
         ("flash_attention", "prefill_chunk", dict(
             prefill, sq=prompt // 2, row_offset=prompt // 2), 0),
@@ -805,6 +833,14 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
     elif name == "conv_gemm_f32":
         t, crs, k, df = shape["t"], shape["crs"], shape["k"], shape["df"]
         p, w, b = rnd(t, crs), rnd(crs, k), rnd(k)
+        if "im2col" in shape:
+            # the patches as spatial_conv2d hands them to the kernel
+            from repro_torch.kernels.spatial_conv.ops import im2col
+            n, h, w_, c, stride = shape["im2col"]
+            p, _ = im2col(rnd(n, h, w_, c), 1, 1, stride, ((0, 0), (0, 0)))
+            if p.shape != (t, crs) or not p.is_contiguous():
+                raise AssertionError(f"F6: im2col gave {tuple(p.shape)}, "
+                                     f"contiguous {p.is_contiguous()}")
         kern = lambda: conv_gemm_f32(p, w, b, True, df)
         plain = lambda: conv_gemm_ref(p, w, b, True, df)
         lib = lambda: torch.addmm(b, p, w)   # bias + GEMM (ReLU not fused)
@@ -2993,6 +3029,11 @@ ROOF_ARCH, ROOF_BATCH, ROOF_PROMPT, ROOF_GEN = "minitron-8b", 2, 4096, 16
 ROOF_TIMED, ROOF_STEPS = 3, 4
 DRYRUN_CELL = ("minitron-8b", "train_4k", False)
 MESH_POSITIONS, MESH_TOL, MESH_PARAM_TOL = 2, 1e-5, 1e-4
+# (d) tensor parallelism: model positions of the full-width runs, the
+# reduced meshes, and the reduced serve's batch, prompt and decode steps
+TP_POSITIONS = 2
+TP_MESHES = ((1, 2), (2, 2))
+TP_BATCH, TP_PROMPT, TP_DECODE = 4, 64, 4
 
 
 def start_dryrun_cell(root: Path) -> subprocess.Popen:
@@ -3153,6 +3194,26 @@ def roofline_train(card: str) -> dict:
           f"unsplit {ms:.1f}ms/step, peak {peak:.2f} GB (one card: the "
           f"split, the reduction and the bookkeeping, not scaling)",
           flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    # 7d: the same parameters split along model over TP_POSITIONS
+    # positions of the repeated card (build places a copy)
+    mesh = make_mesh((1, TP_POSITIONS), ("data", "model"),
+                     devices=[dev] * TP_POSITIONS)
+    placed, state, step, _ = train_mod.build(cfg, opt, mesh, params=params)
+    del params
+    torch.cuda.empty_cache()
+    _, _, tp_ms, tp_all, tp_peak = _timed_steps(step, placed, state, data,
+                                                ROOF_STEPS)
+    out["tp_split"] = dict(ms=tp_ms, all_ms=tp_all, peak_gb=tp_peak,
+                           unsplit_ms=ms, unsplit_peak_gb=peak)
+    print(f"tensor parallel (7d) ({card}): the {FULL_LAYERS}-layer step "
+          f"split along model over {TP_POSITIONS} positions of the "
+          f"repeated card: {tp_ms:.1f}ms/step (median of steps "
+          f"2-{ROOF_STEPS}: {[round(t, 1) for t in tp_all]}), peak "
+          f"{tp_peak:.2f} GB; unsplit {ms:.1f}ms/step, peak {peak:.2f} GB "
+          f"(one card: the split and its collectives, not scaling or "
+          f"memory relief)", flush=True)
     return out
 
 
@@ -3200,6 +3261,213 @@ def mesh_reduced(card: str) -> dict:
     return dict(gaps=gaps, loss=float(m2["loss"]), ref_loss=float(m1["loss"]))
 
 
+def _gap(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """max|a - ref| over max(1, max|ref|)."""
+    return float((a.float() - ref.float()).abs().max()) / max(
+        1.0, float(ref.float().abs().max()))
+
+
+def tp_reduced(card: str) -> dict:
+    """Phase 7d on reduced minitron-8b in fp32: split along model over each
+    of TP_MESHES (the repeated card), a prefill and TP_DECODE decode steps
+    (teacher-forced with the unsplit run's greedy tokens) against the
+    unsplit card run, and one training step against the one-position
+    step (7c's limits)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.train import steps
+
+    cfg = get_config(ROOF_ARCH).reduced()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params = steps.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    prefill, decode = steps.make_serve_steps(cfg)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TP_BATCH, TP_PROMPT), dtype=np.int32)).to(dev)
+
+    def serve_run(p, rules, toks=None):
+        with sharding.use_rules(rules):
+            cache = steps.init_cache(cfg, TP_BATCH, TP_PROMPT + TP_DECODE,
+                                     dev)
+        logits, cache = prefill(p, prompts, cache)
+        out, toks = [logits], toks or []
+        for i in range(TP_DECODE):
+            if len(toks) <= i:
+                toks.append(logits.argmax(-1)[:, None])
+            logits, cache = decode(p, toks[i], cache, TP_PROMPT + i)
+            out.append(logits)
+        return out, toks
+
+    one = make_mesh((1, 1), ("data", "model"), devices=[dev])
+    ref, toks = serve_run(params, sharding.make_rules(one))
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    batch = batch_for_step(DataConfig(cfg.vocab_size, 64, 8), 0)
+    p1, s1, f1, _ = train_mod.build(cfg, opt, one, params=pytree.tree_map(
+        lambda t: t.clone(), params))
+    p1, s1, m1 = f1(p1, s1, batch)
+    out = {}
+    for shape in TP_MESHES:
+        mesh = make_mesh(shape, ("data", "model"),
+                         devices=[dev] * int(np.prod(shape)))
+        rules = sharding.make_rules(mesh)
+        placed = steps.place(cfg, params, rules)
+        got, _ = serve_run(placed, rules, toks)
+        gaps = [_gap(a, r) for a, r in zip(got, ref)]
+        if not max(gaps) <= MESH_TOL:
+            raise AssertionError(f"7d {shape}: split serving {gaps} > "
+                                 f"{MESH_TOL} of the unsplit run")
+        p2, s2, f2, _ = train_mod.build(cfg, opt, mesh, params=params)
+        p2, s2, m2 = f2(p2, s2, batch)
+        for k in ("loss", "grad_norm"):
+            a, r = float(m2[k]), float(m1[k])
+            if not abs(a - r) <= MESH_TOL * max(1.0, abs(r)):
+                raise AssertionError(f"7d {shape} step: {k} {a} vs {r}")
+        pgap = max(_gap(a, r) for a, r in zip(
+            pytree.tree_leaves(sharding.gather(p2)), pytree.tree_leaves(p1)))
+        if not pgap <= MESH_PARAM_TOL:
+            raise AssertionError(f"7d {shape} step: parameters {pgap:.3e} "
+                                 f"apart")
+        out[str(shape)] = dict(serve_gaps=gaps, param_gap=pgap,
+                               loss=float(m2["loss"]),
+                               ref_loss=float(m1["loss"]))
+        print(f"tensor parallel (7d) ({card}): reduced {ROOF_ARCH} fp32 "
+              f"split over {shape} of the repeated card: prefill and "
+              f"{TP_DECODE} decode steps within {max(gaps):.2e} of the "
+              f"unsplit run (relative to max(1, max|logit|)); one step: "
+              f"loss {float(m2['loss']):.6f} / {float(m1['loss']):.6f}, "
+              f"grad_norm {float(m2['grad_norm']):.6f} / "
+              f"{float(m1['grad_norm']):.6f}, parameters {pgap:.2e} apart",
+              flush=True)
+    return out
+
+
+def tp_full_width(card: str) -> dict:
+    """Phase 7d at full width: minitron-8b bf16 on hopper, ROOF_BATCH x
+    ROOF_PROMPT, all 32 layers, ROOF_GEN greedy tokens, unsplit and then
+    split over TP_POSITIONS positions of the repeated card (placed from
+    the unsplit tree, which is then freed); each a warm-up prefill,
+    ROOF_TIMED timed prefills and ROOF_GEN timed decode steps. Then once
+    through ``launch.serve.serve`` over the same mesh. Returns its
+    numbers and the split runs' kernel launches."""
+    from unittest import mock
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.parallel import sharding
+    from repro_torch.train import steps
+
+    cfg = get_config(ROOF_ARCH)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    prefill, decode = steps.make_serve_steps(cfg, backend="hopper")
+    # the prompts launch.serve.serve draws from seed 0
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (ROOF_BATCH, ROOF_PROMPT), dtype=np.int32)
+    ).to(dev)
+
+    def run(p, rules) -> dict:
+        torch.cuda.reset_peak_memory_stats()
+        with sharding.use_rules(rules):
+            cache = steps.init_cache(cfg, ROOF_BATCH, ROOF_PROMPT + ROOF_GEN,
+                                     dev)
+        common.reset_launches()
+        prefill(p, tokens, cache)
+        times = []
+        for _ in range(ROOF_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(p, tokens, cache)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        k6 = common.LAUNCHES["flash_attention"] / (ROOF_TIMED + 1)
+        first = logits
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(ROOF_GEN):
+            logits, cache = decode(p, tok, cache, ROOF_PROMPT + i)
+            tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / ROOF_GEN
+        launches = dict(common.LAUNCHES)
+        if launches["flash_attention"] != k6 * (ROOF_TIMED + 1):
+            raise AssertionError(f"7d: decode launched K6 ({launches})")
+        if not bool(torch.isfinite(first.float()).all()):
+            raise AssertionError("7d: prefill logits not finite")
+        return dict(prefill_ms=statistics.median(times), times=times,
+                    decode_ms=decode_ms, k6_per_prefill=k6,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    logits=first, launches=launches)
+
+    one = sharding.make_rules(make_mesh((1, 1), ("data", "model"),
+                                        devices=[dev]))
+    mesh = make_mesh((1, TP_POSITIONS), ("data", "model"),
+                     devices=[dev] * TP_POSITIONS)
+    rules = sharding.make_rules(mesh)
+    params = steps.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    whole = run(params, one)
+    placed = steps.place(cfg, params, rules)
+    del params
+    torch.cuda.empty_cache()
+    split = run(placed, rules)
+    del placed
+    torch.cuda.empty_cache()
+    want_k6 = TP_POSITIONS * cfg.n_layers
+    if (whole["k6_per_prefill"], split["k6_per_prefill"]) != (
+            cfg.n_layers, want_k6):
+        raise AssertionError(f"7d: K6 {whole['k6_per_prefill']} / "
+                             f"{split['k6_per_prefill']} a prefill, "
+                             f"expected {cfg.n_layers} / {want_k6}")
+    ref = whole.pop("logits")
+    lim = LM_TOL * float(ref.float().abs().max())
+    err = float((split.pop("logits").float() - ref.float()).abs().max())
+    if not err <= lim:
+        raise AssertionError(f"7d: split prefill logits {err} > {lim}")
+    common.reset_launches()
+    # one card's host mesh is (1, 1): the repeated card's (1, 2) stands in
+    # for a host of two cards
+    with mock.patch.object(serve_mod, "make_host_mesh",
+                           lambda device_type: mesh):
+        served = serve_mod.serve(ROOF_ARCH, reduced=False, batch=ROOF_BATCH,
+                                 prompt_len=ROOF_PROMPT, gen=ROOF_GEN,
+                                 backend="hopper")
+    serve_launches = dict(common.LAUNCHES)
+    serve_err = float((served.prefill_logits.float() - ref.float()).abs()
+                      .max())
+    if serve_launches["flash_attention"] != want_k6 or not serve_err <= lim:
+        raise AssertionError(f"7d serve: K6 {serve_launches}, logits "
+                             f"{serve_err} (limit {lim})")
+    del served
+    torch.cuda.empty_cache()
+    print(f"tensor parallel (7d) ({card}): {ROOF_ARCH} bf16 on hopper, "
+          f"{ROOF_BATCH} x {ROOF_PROMPT}, {cfg.n_layers} layers, split over "
+          f"{TP_POSITIONS} positions of the repeated card: prefill "
+          f"{split['prefill_ms']:.1f}ms (times "
+          f"{[round(t, 1) for t in split['times']]}; K6 "
+          f"{split['k6_per_prefill']:.0f} a prefill), decode "
+          f"{split['decode_ms']:.2f}ms/token, peak {split['peak_gb']:.2f} "
+          f"GB; unsplit prefill {whole['prefill_ms']:.1f}ms (K6 "
+          f"{whole['k6_per_prefill']:.0f}), decode "
+          f"{whole['decode_ms']:.2f}ms/token, peak {whole['peak_gb']:.2f} "
+          f"GB; split vs unsplit prefill logits max|diff| {err:.4f} "
+          f"(limit {lim:.4f}); through launch.serve.serve over that mesh "
+          f"(first prefill, cold): {serve_err:.4f}", flush=True)
+    launches = split.pop("launches")
+    for name, n in serve_launches.items():
+        launches[name] += n
+    whole.pop("launches")
+    return dict(split=split, unsplit=whole, logits_err=err, limit=lim,
+                serve_err=serve_err, launches=launches)
+
+
 def finish_dryrun_cell(proc: subprocess.Popen, card: str) -> dict:
     """Phase 7b: wait for the cell's process and check its record."""
     out, err = proc.communicate(timeout=600)
@@ -3237,12 +3505,18 @@ def launch_tools_phase(card: str, k6_case: dict) -> dict:
         out.update(roofline_train(card))
         torch.cuda.empty_cache()
         out["mesh_reduced"] = mesh_reduced(card)
+        out["tp_reduced"] = tp_reduced(card)
+        torch.cuda.empty_cache()
+        out["tp_full_width"] = tp_full_width(card)
+        torch.cuda.empty_cache()
         out["dryrun"] = finish_dryrun_cell(proc, card)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
     out["launches"] = out["prefill"].pop("launches")
+    for name, n in out["tp_full_width"].pop("launches").items():
+        out["launches"][name] += n
     out["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"phase": "launch_tools", "card": card, **out},
                      default=float), flush=True)
@@ -3294,7 +3568,8 @@ def main() -> int:
             program, dtype, per_block = path_program(path)
             cases = kernel_cases(program, BATCH, dtype, per_block)
             if path == "resnet18_fp32":
-                cases += wino_offpath_cases() + wino_decomposed_cases()
+                cases += (wino_offpath_cases() + wino_decomposed_cases()
+                          + f6_cases())
         counted, per_path = case_launches(cases), {}
         if path in PATHS and counted != PATHS[path]:
             raise AssertionError(f"{path}: program gives launches {counted}, "
@@ -3453,7 +3728,8 @@ def main() -> int:
     tools = launch_tools_phase(card, lm_k6_case)
     for name, n in tools["launches"].items():
         total[name] += n
-    print(f"phase 7 (launch tools, mesh training): {tools['phase_s']:.1f}s",
+    print(f"phase 7 (launch tools, mesh training, tensor parallelism): "
+          f"{tools['phase_s']:.1f}s",
           flush=True)
     print(f"whole run: {time.perf_counter() - t_start:.1f}s", flush=True)
 

@@ -12,10 +12,13 @@ A leaf's key joins its path's dict keys and sequence indices with ``/``
 (``torch.utils._pytree``'s ``MappingKey.key`` and ``SequenceKey.idx``, the
 reference's ``DictKey.key`` and ``SequenceKey.idx``), so the keys are the
 reference's; ``restore`` looks leaves up by key, whatever order a tree's
-dicts flatten in. Restore never requires the saving placement: each leaf
-goes where the caller's ``shardings`` tree says (a ``torch.device``, or a
-``parallel.sharding.NamedSharding`` as ``param_shardings`` returns), or to
-``device``.
+dicts flatten in. A leaf placed along the mesh's ``model`` axis
+(``parallel.sharding.Placed``) is saved whole (``.gather()``): the same
+bytes as an unsplit save. Restore never requires the saving placement:
+each leaf goes where the caller's ``shardings`` tree says (a
+``torch.device``, or a ``parallel.sharding.NamedSharding`` as
+``param_shardings`` returns, split onto its positions where it splits),
+onto the placement of a placed template leaf, or to ``device``.
 
 A bfloat16 leaf is written as the reference writes one (numpy has no
 bfloat16; the reference's ``ml_dtypes`` array saves as 2-byte ``<V2``
@@ -37,7 +40,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.compat import resolve_device
-from repro_torch.parallel.sharding import NamedSharding
+from repro_torch.parallel.sharding import NamedSharding, Placed, place_tensor
 
 _SEP = "/"
 BF16 = "bfloat16"
@@ -69,9 +72,15 @@ def _host_array(key: str, leaf) -> tuple[np.ndarray, str]:
     return a, name or str(a.dtype)
 
 
+def _is_placed(x) -> bool:
+    return isinstance(x, Placed)
+
+
 def _flatten(tree) -> dict[str, tuple[np.ndarray, str]]:
-    return {_key(path): _host_array(_key(path), leaf)
-            for path, leaf in pytree.tree_flatten_with_path(tree)[0]}
+    return {_key(path): _host_array(
+        _key(path), leaf.gather() if _is_placed(leaf) else leaf)
+        for path, leaf in pytree.tree_flatten_with_path(
+            tree, is_leaf=_is_placed)[0]}
 
 
 def _write_npz(path: str, flat: dict[str, tuple[np.ndarray, str]]) -> None:
@@ -136,14 +145,16 @@ def restore(ckpt_dir: str, template, *, step: int | None = None,
     step)`` with a tensor per leaf. ``shardings`` (a matching tree of
     ``torch.device`` or ``NamedSharding``, ``None`` for ``device``) places
     each leaf: pass the current mesh's placements to restore elastically.
-    ``device=None`` means the CUDA card, raising without one
+    Without one, a placed template leaf is restored onto its own
+    placement. ``device=None`` means the CUDA card, raising without one
     (``compat.resolve_device``)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
-    paths, treedef = pytree.tree_flatten_with_path(template)
+    paths, treedef = pytree.tree_flatten_with_path(template,
+                                                   is_leaf=_is_placed)
     places = (pytree.tree_leaves(shardings) if shardings is not None
               else [None] * len(paths))
     if len(places) != len(paths):
@@ -154,10 +165,10 @@ def restore(ckpt_dir: str, template, *, step: int | None = None,
     default = None
     leaves = []
     with np.load(os.path.join(d, "arrays.npz")) as arrays:
-        for (path, _), place in zip(paths, places):
-            if isinstance(place, NamedSharding):
-                place = place.device
-            elif place is None:
+        for (path, leaf), place in zip(paths, places):
+            if place is None and _is_placed(leaf):
+                place = leaf.sharding
+            if place is None:
                 if default is None:
                     default = resolve_device(device)
                 place = default
@@ -167,5 +178,7 @@ def restore(ckpt_dir: str, template, *, step: int | None = None,
                 t = t.view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arrays[key])
-            leaves.append(t.to(place))
+            leaves.append(place_tensor(t, place)
+                          if isinstance(place, NamedSharding)
+                          else t.to(place))
     return pytree.tree_unflatten(leaves, treedef), step

@@ -24,6 +24,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.checkpoint import checkpoint as ckpt_lib
+from repro_torch.parallel.sharding import Placed
 
 
 @dataclasses.dataclass
@@ -68,9 +69,14 @@ class HeartbeatMonitor:
 
 
 def _placements(tree):
-    """Each leaf's device (``None`` for a leaf that is no tensor)."""
-    return pytree.tree_map(
-        lambda t: t.device if isinstance(t, torch.Tensor) else None, tree)
+    """Each leaf's device, or a placed leaf's placement (``None`` for a
+    leaf that is no tensor)."""
+    def where(t):
+        if isinstance(t, Placed):
+            return t.sharding
+        return t.device if isinstance(t, torch.Tensor) else None
+    return pytree.tree_map(where, tree,
+                           is_leaf=lambda x: isinstance(x, Placed))
 
 
 def run_with_recovery(

@@ -34,7 +34,10 @@ def im2col(x_nhwc: torch.Tensor, r: int, s: int, stride: int,
     sn, sh, sw, sc = x.stride()
     view = x.as_strided((n, ho, wo, r, s, c),
                         (sn, stride * sh, stride * sw, sh, sw, sc))
-    return view.reshape(n * ho * wo, r * s * c), (ho, wo)
+    # reshape copies only when the patch rows cannot be read as one strided
+    # view; a 1x1 strided conv with one output column can (rows a stride
+    # apart), so make the result contiguous, as K1 requires
+    return view.reshape(n * ho * wo, r * s * c).contiguous(), (ho, wo)
 
 
 def spatial_conv2d(x_nhwc: torch.Tensor, g_rsck: torch.Tensor,

@@ -13,7 +13,13 @@ Prompts of 2048 tokens and more take the long-sequence attention: K6 with
 stub frame embeddings from the seed before the prompts, as the reference
 does; whisper encodes them outside the timed prefill. Prints the build
 (random weights from seed 0), prefill and per-token decode times (and
-whisper's encode time).
+whisper's encode time). As the reference's ``serve``, it runs over the
+host's mesh (``launch.mesh.make_host_mesh``, ``(1, n)`` over every local
+card) under its rules, with the parameters placed by ``train.steps.place``
+(``param_shardings``): on several cards a dense model is split along
+``model`` (tensor parallel, ``models/transformer.py``); on one card, or on
+the CPU, the mesh is ``(1, 1)`` and nothing is split. The families not yet
+split run whole on the first card (ROADMAP 11i).
 
 CNN serving through the ported HybridDNN pipeline — DSE -> compile ->
 validated, cached executor:
@@ -50,8 +56,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.compat import resolve_backend, resolve_device
+from repro_torch.compat import make_mesh, resolve_backend, resolve_device
 from repro_torch.configs.base import get_config, list_archs
+from repro_torch.launch.mesh import make_host_mesh
 
 CNN_TARGETS = {"tpu": "V5E", "vu9p": "VU9P", "pynq": "PYNQ_Z1"}
 # (img, scale) per arch: reduced, then full width (ResNet-18 at 128: the
@@ -59,9 +66,13 @@ CNN_TARGETS = {"tpu": "V5E", "vu9p": "VU9P", "pynq": "PYNQ_Z1"}
 SIZES = {"vgg16": ((64, 8), (224, 1)), "resnet18": ((64, 8), (128, 1))}
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(where):
+    """Wait for a CUDA device, or for every device of a mesh."""
+    devices = (dict.fromkeys(where.devices.flat)
+               if hasattr(where, "devices") else [where])
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 @dataclasses.dataclass
@@ -111,8 +122,10 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens (numpy
     ``default_rng(seed)``, as the reference), then decode ``gen`` tokens
     greedily. Weights are drawn from ``seed`` unless ``params`` (the tree
-    of ``train.steps.init_params``) is given. Prints and returns the
-    timings."""
+    of ``train.steps.init_params``; a split placement copies it) is given.
+    Serves over the host's mesh of ``device``'s type (``device`` itself
+    where that mesh has one position). Prints and returns the timings."""
+    from repro_torch.parallel import sharding
     from repro_torch.train import steps as steps_lib
 
     cfg = get_config(arch)
@@ -122,25 +135,32 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
         raise ValueError(f"{arch} is a CNN: serve it with serve_cnn")
     backend = resolve_backend(backend)
     dev = resolve_device(device)
+    mesh = make_host_mesh(dev.type)
+    if mesh.size == 1:
+        mesh = make_mesh((1, 1), ("data", "model"), devices=[dev])
+    dev = mesh.devices.flat[0]
+    rules = sharding.make_rules(mesh)
     rng = np.random.default_rng(seed)
 
-    build_ms = None
-    if params is None:
-        t0 = time.perf_counter()
-        params = steps_lib.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-        _sync(dev)
-        build_ms = (time.perf_counter() - t0) * 1e3
+    drawn = params is None
+    t0 = time.perf_counter()
+    with sharding.use_rules(rules):
+        if drawn:
+            params = steps_lib.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        params = steps_lib.place(cfg, params, rules)
+        _sync(mesh)
+        build_ms = (time.perf_counter() - t0) * 1e3 if drawn else None
+        cache = steps_lib.init_cache(cfg, batch, prompt_len + gen, dev)
     prefill_fn, decode_fn = steps_lib.make_serve_steps(cfg, backend=backend)
-    cache = steps_lib.init_cache(cfg, batch, prompt_len + gen, dev)
     extras, prompts, encode_ms = lm_inputs(cfg, params, rng, batch,
                                            prompt_len, backend, dev)
 
     tokens = torch.from_numpy(prompts).to(dev)
-    _sync(dev)
+    _sync(mesh)
     t0 = time.perf_counter()
     logits, cache = prefill_fn(params, tokens, cache, extras)
-    _sync(dev)
+    _sync(mesh)
     t_prefill = time.perf_counter() - t0
 
     prefill_logits = logits
@@ -152,7 +172,7 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
         logits, cache = decode_fn(params, tok, cache, prompt_len + i,
                                   extras)
         tok = logits.argmax(-1)[:, None]
-    _sync(dev)
+    _sync(mesh)
     t_decode = time.perf_counter() - t0
     gen_tokens = (torch.stack(outs, 1).cpu().numpy() if outs
                   else np.zeros((batch, 0), np.int64))
@@ -162,8 +182,10 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     if encode_ms is not None:
         built += (f"encode {cfg.n_audio_frames} frames x{batch}: "
                   f"{encode_ms:.1f}ms; ")
+    placed = (f" over {mesh!r}, split along model"
+              if sharding.is_split(params) else "")
     print(f"{cfg.name} ({'reduced' if reduced else 'full'}, {cfg.dtype}) "
-          f"on {dev} ({name}), backend {backend}: {built}prefill "
+          f"on {dev} ({name}){placed}, backend {backend}: {built}prefill "
           f"{prompt_len} toks x{batch}: {t_prefill * 1e3:.1f}ms; decode "
           f"{gen} steps: {per_token:.2f}ms/tok")
     return LMServeResult(tokens=gen_tokens, prefill_logits=prefill_logits,

@@ -8,18 +8,25 @@ the CUDA card unless ``device="cpu"`` / ``--device cpu`` is given; the mesh
 is the host's (``launch.mesh.make_host_mesh``), which on one card is
 ``(1, 1)``.
 
+``build`` places the parameters by ``param_shardings`` under the mesh's
+rules, as the reference's does (``train.steps.place``): over a mesh whose
+``model`` axis spans several positions, a dense model's leaves are
+per-position shards and ``loss_and_grads`` runs tensor parallel; a family
+not yet split is held whole along ``model`` (ROADMAP 11i).
+
 Over a mesh of several positions (the counterpart of the reference's
 jitted step over a ``("data", "model")`` mesh) the step splits the batch on
 dim 0 over the data axes (``pod``, ``data``) in position order; each data
-shard runs ``loss_and_grads`` once, on the device of its first position
-(positions along ``model`` hold the same shard, every tensor whole: the
-port places no tensor-parallel shards, ROADMAP Queue 1, item 11i). The
-shards' gradients are summed in position order on the mesh's first device
-and divided by the shard count: the cross-entropy is an unmasked token
-mean, so with equal shards that is the whole batch's gradient. Clipping
-and AdamW run once there, and the updated parameters are copied to every
-other distinct device, each of which keeps one copy. The reduction and the
-copies are declared to the roofline's collective term
+row runs ``loss_and_grads`` once, over its own copy of the parameters:
+tensor parallel over its ``model`` positions where they are placed, else
+whole on the device of its first position. The rows' gradients are summed
+in row order on the first row's devices (each shard on its own) and
+divided by the row count: the cross-entropy is an unmasked token mean, so
+with equal shards that is the whole batch's gradient. Clipping and AdamW
+run once, on the first row, and the updated parameters are copied to the
+other rows' devices, where those differ (a tree held whole: to every
+other distinct device of the mesh, each of which keeps one copy). The
+reduction and the copies are declared to the roofline's collective term
 (``launch/roofline.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b \\
@@ -43,6 +50,7 @@ from repro_torch.data.pipeline import DataConfig, batch_for_step
 from repro_torch.launch import roofline
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import make_rules, use_rules
 from repro_torch.train import steps as steps_lib
 
@@ -87,39 +95,55 @@ def split_batch(batch: dict, n: int) -> list[dict]:
 
 def _mesh_step(cfg, opt_cfg, rules):
     """The train step over a mesh of several positions (module doc)."""
-    shard_devices = data_devices(rules)
-    distinct = rules.sharding().devices
-    first = distinct[0]
+    row_devices = data_devices(rules)
+    n = len(row_devices)
+    first = rules.sharding().device
     replicas: dict[torch.device, object] = {}
-    synced = [None]      # the params tree the replicas were copied from
+    synced = [None]      # the params tree the other rows were copied from
+
+    def rows_of(params) -> list:
+        """Each data row's parameter tree (the first row's is
+        ``params``)."""
+        if sharding.is_split(params):
+            return [sharding.row(params, r) for r in range(n)]
+        replicas[first] = params
+        return [replicas[d] for d in row_devices]
 
     def sync(params) -> None:
-        for d in distinct[1:]:
-            if d not in replicas:
-                replicas[d] = pytree.tree_map(lambda p: p.to(d), params)
-            else:
-                pytree.tree_map(lambda r, p: r.copy_(p), replicas[d], params)
-            if roofline.counting():
-                for p in pytree.tree_leaves(params):
-                    roofline.declare_collective("all-gather", _nbytes(p))
+        if sharding.is_split(params):
+            sharding.sync_rows(params)
+            copies = [p for r in range(1, n) for p, q in zip(
+                pytree.tree_leaves(sharding.row(params, r)),
+                pytree.tree_leaves(params)) if p is not q]
+        else:
+            copies = []
+            for d in rules.sharding().devices[1:]:
+                if d not in replicas:
+                    replicas[d] = pytree.tree_map(lambda p: p.to(d), params)
+                else:
+                    pytree.tree_map(lambda r, p: r.copy_(p), replicas[d],
+                                    params)
+                copies += pytree.tree_leaves(params)
+        if roofline.counting():
+            for p in copies:
+                roofline.declare_collective("all-gather", _nbytes(p))
         synced[0] = params
 
     def step(params, opt_state, batch):
         if synced[0] is not params:
             sync(params)
-        replicas[first] = params
-        losses, total = [], None
+        losses, total, spec = [], None, None
         with use_rules(rules):
-            for dev, shard in zip(shard_devices,
-                                  split_batch(batch, len(shard_devices))):
-                loss, grads = steps_lib.loss_and_grads(replicas[dev], shard,
-                                                       cfg)
+            for tree, shard in zip(rows_of(params), split_batch(batch, n)):
+                loss, grads = steps_lib.loss_and_grads(tree, shard, cfg)
                 losses.append(loss.to(first))
-                grads = pytree.tree_map(lambda g: g.to(first), grads)
-                total = grads if total is None else pytree.tree_map(
-                    lambda a, g: a.add_(g), total, grads)
-            n = len(losses)
-            grads = pytree.tree_map(lambda g: g.div_(n), total)
+                leaves, g_spec = pytree.tree_flatten(grads)
+                if total is None:
+                    total, spec = leaves, g_spec
+                else:
+                    for a, g in zip(total, leaves):
+                        a.add_(g.to(a.device))
+            grads = pytree.tree_unflatten([g.div_(n) for g in total], spec)
             declare_gradient_reduction(grads, n)
             params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
                                                  params)
@@ -132,9 +156,11 @@ def _mesh_step(cfg, opt_cfg, rules):
 def build(cfg, opt_cfg, mesh, seed=0, params=None):
     """(params, opt_state, step_fn, rules) on the mesh's first device:
     ``params`` (a tree there), else random parameters from ``seed`` (a
-    torch generator there), zeroed AdamW state, and the train step run
-    under the mesh's rules; over several positions the mesh step (module
-    doc), which keeps the other distinct devices' parameter copies."""
+    torch generator there), placed by ``steps.place`` (a split tree
+    is a copy: ``params`` stays as it was), zeroed AdamW state beside
+    them, and the train step run under the mesh's rules; over several
+    positions the mesh step (module doc), which keeps the other data
+    rows' parameter copies."""
     step_fn = steps_lib.make_train_step(cfg, opt_cfg)   # refuses first
     rules = make_rules(mesh)
     device = mesh.devices.flat[0]
@@ -142,6 +168,7 @@ def build(cfg, opt_cfg, mesh, seed=0, params=None):
         if params is None:
             params = steps_lib.init_params(
                 cfg, torch.Generator(device=device).manual_seed(seed), device)
+        params = steps_lib.place(cfg, params, rules)
         opt_state = adamw.init(params)
     if mesh.size > 1:
         return params, opt_state, _mesh_step(cfg, opt_cfg, rules), rules

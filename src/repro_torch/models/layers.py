@@ -4,12 +4,18 @@
 RMSNorm, RoPE, GQA attention with an optional KV cache and cross-attention
 (K/V from encoder or image states), the scan-flash attention, SwiGLU and
 the GELU MLP, with the reference's bf16 rounding points. The reference's
-``shard(...)`` constraints are dropped: the port runs on one device. At
-2048 query tokens and more, attention takes the reference's long-sequence
-branch, where ``backend`` picks the implementation: ``"torch"`` runs the
-port of ``_flash_attention_scan``, ``"hopper"`` runs K6
-(``kernels/flash_attention``) with the causal mask shifted by the chunk's
-row offset, as the scan's (a cross-attention is never causal). Below 2048
+``shard(...)`` constraints are dropped: these functions compute on plain
+tensors, and under tensor parallelism (``models/transformer.py``) each
+``model`` position calls them on its own shard of the weights.
+``attention`` reads its head counts from its weights' shapes, so on a
+position's heads it returns that position's partial sum of ``out @ wo``;
+``swiglu`` on a position's hidden units returns its partial sum of the
+row-split ``w_down`` product. At 2048 query tokens and more, attention
+takes the reference's long-sequence branch, where ``backend`` picks the
+implementation: ``"torch"`` runs the port of ``_flash_attention_scan``,
+``"hopper"`` runs K6 (``kernels/flash_attention``) with the causal mask
+shifted by the chunk's row offset, as the scan's (a cross-attention is
+never causal). Below 2048
 both backends run the reference's einsum branch, which is no Pallas
 kernel. K6 has no backward (nor has the reference's kernel): under
 autograd its wrapper raises, and training runs the scan. ``remat_wrap`` is
@@ -198,7 +204,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """
     backend = resolve_backend(backend)
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # the heads these weights hold: all of them, or a model position's
+    hd = cfg.head_dim
+    h, kv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
 
     q = (x @ p["wq"]).reshape(b, s, h, hd)
     kv_src = xattn_kv if xattn_kv is not None else x

@@ -13,6 +13,26 @@ stub frontend's patch embeddings) through ``xattn``, gated by
 model's every ``moe_every``-th layer of a group runs ``layers.moe`` in
 place of the SwiGLU FFN (llama4-scout: every layer, 16 experts;
 llama4-maverick: alternating, 128 experts).
+
+Tensor parallelism (the dense family; ROADMAP 11i): :func:`forward` and
+:func:`decode_step` run over a list of ``model`` positions, each with its
+plain tree of tensors; an unplaced tree is the one position. Over
+parameters placed by ``train.steps.place`` on a mesh whose ``model`` axis
+spans several positions, each position computes whole heads: query heads
+``[i H / n, (i + 1) H / n)`` and the KV heads they read, with their
+``wq``/``wk``/``wv`` columns and ``wo`` rows (gathered from the shards
+they overlap where the heads do not divide the positions), and hidden
+units ``[i F / n, (i + 1) F / n)`` of the SwiGLU. A position's query
+heads must lie inside one KV group or start and end on group boundaries
+(else ``ValueError``). The norms and residual adds run replicated on
+every position; one ``all_reduce_sum`` follows each row-split product
+(``wo``, ``w_down``). The embedding is split along ``d``: each position
+takes its columns of the rows, then an ``all_gather``. The head is split
+along the vocabulary: the local logits are gathered on the first
+position. A split model's KV cache (:class:`SplitKVCache`) holds, per data
+row and position, the position's KV heads for the row's share of the
+batch; a mesh of several data rows splits the batch over them in row
+order.
 """
 from __future__ import annotations
 
@@ -30,12 +50,14 @@ from repro_torch.models.layers import (  # noqa: F401 (params_from_numpy)
     init_attention,
     init_moe,
     init_swiglu,
+    layer_at,
     moe,
     params_from_numpy,
     remat_wrap,
     rms_norm,
     swiglu,
 )
+from repro_torch.parallel import sharding
 
 
 # ---------------------------------------------------------------------------
@@ -83,25 +105,34 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: dict, dtype,
     return p
 
 
-def apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: dict, *,
-                positions=None, kv_cache=None, cache_pos=None,
-                image_embeds=None, causal: bool = True,
-                backend: str = "torch"):
-    h, new_cache = attention(
-        p["attn"], rms_norm(x, p["norm"], cfg.norm_eps), cfg,
-        positions=positions, causal=causal, kv_cache=kv_cache,
-        cache_pos=cache_pos, backend=backend)
-    x = x + h
+def apply_layer(ps: list, xs: list, cfg: ModelConfig, kind: dict, *,
+                positions: list, caches=None, cache_pos=None,
+                image_embeds=None, backend: str = "torch") -> list:
+    """One layer over the ``model`` positions (module doc): ``ps``, ``xs``,
+    ``positions`` and ``caches`` hold each position's layer tree,
+    activations (replicated), RoPE positions (or None) and layer cache.
+    Each position's attention and FFN give its partial sum of their
+    row-split products; ``all_reduce_sum`` joins them (one position's is
+    its own)."""
+    eps = cfg.norm_eps
+    caches = caches or [None] * len(ps)
+    hs = [attention(p["attn"], rms_norm(x, p["norm"], eps), cfg,
+                    positions=pos, kv_cache=c, cache_pos=cache_pos,
+                    backend=backend)[0]
+          for p, x, pos, c in zip(ps, xs, positions, caches)]
+    xs = [x + h for x, h in zip(xs, sharding.all_reduce_sum(hs))]
     if kind["cross"] and image_embeds is not None:
-        xh, _ = attention(
-            p["xattn"], rms_norm(x, p["norm3"], cfg.norm_eps), cfg,
-            xattn_kv=image_embeds, causal=False, use_rope=False,
-            backend=backend)
-        x = x + torch.tanh(p["xattn_gate"]) * xh
-    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-    if kind["moe"]:
-        return x + moe(p["moe"], h2, cfg), new_cache
-    return x + swiglu(p["ffn"], h2), new_cache
+        xhs = [attention(p["xattn"], rms_norm(x, p["norm3"], eps), cfg,
+                         xattn_kv=image_embeds, causal=False, use_rope=False,
+                         backend=backend)[0] for p, x in zip(ps, xs)]
+        xs = [x + torch.tanh(p["xattn_gate"]) * xh
+              for p, x, xh in zip(ps, xs, sharding.all_reduce_sum(xhs))]
+    fs = []
+    for p, x in zip(ps, xs):
+        h2 = rms_norm(x, p["norm2"], eps)
+        fs.append(moe(p["moe"], h2, cfg) if kind["moe"]
+                  else swiglu(p["ffn"], h2))
+    return [x + f for x, f in zip(xs, sharding.all_reduce_sum(fs))]
 
 
 # ---------------------------------------------------------------------------
@@ -144,53 +175,86 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
-def _groups(params: Params, cfg: ModelConfig):
-    """(group index, [layer params of each period slot]) as views."""
-    period = len(params["layers"])
-    for g in range(cfg.n_layers // period):
-        yield g, [_tree_map(lambda t: t[g], params["layers"][i])
-                  for i in range(period)]
+def _embed(trees: list, tokens: torch.Tensor) -> list:
+    """The token rows: each position's columns of them, all-gathered along
+    d. F.embedding, not indexing: its backward accumulates each row in one
+    fixed order (an indexing backward's accumulating index_put_ sums in
+    thread order on the CPU, so two runs would differ in the last bits)."""
+    tokens = tokens.long()
+    return sharding.all_gather(
+        [F.embedding(tokens.to(t["embed"].device), t["embed"])
+         for t in trees], -1)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             image_embeds=None, positions=None,
             backend: str = "torch") -> torch.Tensor:
     """Training/prefill forward without a cache: (B, S) -> logits
-    (B, S, V). Under autograd each group runs under ``remat_wrap`` (as the
-    reference's scanned group body), so with ``cfg.remat`` the backward
-    holds one group's activations at a time."""
+    (B, S, V), on the first position's device. Under autograd each group
+    runs under ``remat_wrap`` (as the reference's scanned group body), so
+    with ``cfg.remat`` the backward holds one group's activations at a
+    time."""
     kinds = _layer_kinds(cfg)
+    trees = _position_trees(params, cfg)
+    where = [None if positions is None else positions.to(t["embed"].device)
+             for t in trees]
 
-    def group_body(x, group):
-        for i, p in enumerate(group):
-            x, _ = apply_layer(p, x, cfg, kinds[i], positions=positions,
-                               image_embeds=image_embeds, backend=backend)
-        return x
+    def group_body(xs, groups):
+        for i, kind in enumerate(kinds):
+            xs = apply_layer([g[i] for g in groups], xs, cfg, kind,
+                             positions=where, image_embeds=image_embeds,
+                             backend=backend)
+        return xs
 
     if torch.is_grad_enabled():
         group_body = remat_wrap(group_body, cfg)
-    # F.embedding, not indexing: its backward accumulates each row in one
-    # fixed order (an indexing backward's accumulating index_put_ sums in
-    # thread order on the CPU, so two runs would differ in the last bits)
-    x = F.embedding(tokens.long(), params["embed"])
-    for _, group in _groups(params, cfg):
-        x = group_body(x, group)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"]
+    xs = _embed(trees, tokens)
+    for g in range(cfg.n_layers // len(kinds)):
+        xs = group_body(xs, [[layer_at(slot, g) for slot in t["layers"]]
+                             for t in trees])
+    return sharding.gather_parts(
+        [rms_norm(x, t["final_norm"], cfg.norm_eps) @ t["lm_head"]
+         for x, t in zip(xs, trees)], -1)
 
 
 # ---------------------------------------------------------------------------
 # KV-cache serving path
 # ---------------------------------------------------------------------------
 
-def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    """Per period-slot stacked cache: list of dicts with (G, B, S, KV, hd)."""
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
+                  n_kv: int | None = None):
+    """Per period-slot stacked cache: list of dicts with (G, B, S, KV, hd);
+    ``n_kv`` KV heads (default: all of them)."""
     period = group_period(cfg)
     n_groups = cfg.n_layers // period
-    shape = (n_groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (n_groups, batch, max_len, n_kv or cfg.n_kv_heads, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
             for _ in range(period)]
+
+
+class SplitKVCache:
+    """The KV cache of a split dense model: ``rows[r][i]``, data row
+    ``r``'s cache on ``model`` position ``i`` (the :func:`init_kv_cache`
+    layout, with the row's ``batch / rows`` sequences and the position's KV
+    heads), on that position's device, written in place. ``placement`` is
+    a ``NamedSharding`` over the mesh (``train.steps.init_cache``)."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, max_len: int,
+                 placement):
+        rows = placement.n_rows
+        if batch % rows:
+            raise ValueError(f"a batch of {batch} rows does not split "
+                             f"evenly over {rows} data rows")
+        n = placement.positions
+        self.rows = []
+        for r in range(rows):
+            devs = placement.row_devices(r)
+            self.rows.append([])
+            for i in range(n):
+                k0, k1 = _tp_ranges(cfg, n, i)["kv_heads"]
+                self.rows[r].append(init_kv_cache(
+                    cfg, batch // rows, max_len, devs[i], n_kv=k1 - k0))
 
 
 def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
@@ -199,20 +263,51 @@ def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
     """One token for every sequence: token (B, 1) integers at position
     ``pos``. Returns (logits (B, V), cache), the cache updated in place.
     The same path serves prefill: token (B, S_prompt) with pos=0
-    (causality is cache-relative)."""
+    (causality is cache-relative). Placed parameters decode into a
+    :class:`SplitKVCache`, each data row its share of the batch; the
+    logits are on the mesh's first device."""
+    split = isinstance(cache, SplitKVCache)
+    if split != sharding.is_split(params):
+        raise TypeError("placed parameters decode into a SplitKVCache and "
+                        "unplaced ones into a plain cache: build it with "
+                        "train.steps.init_cache under the mesh's use_rules")
+    rows = cache.rows if split else [[cache]]
+    b = token.shape[0]
+    if b % len(rows):
+        raise ValueError(f"a batch of {b} rows does not split evenly over "
+                         f"{len(rows)} data rows")
+    per = b // len(rows)
+    out = [_decode_row(params if r == 0 else sharding.row(params, r),
+                       token[r * per:(r + 1) * per],
+                       caches, int(pos), cfg,
+                       image_embeds, backend)
+           for r, caches in enumerate(rows)]
+    if len(out) == 1:
+        return out[0], cache
+    return torch.cat([o.to(out[0].device) for o in out]), cache
+
+
+def _decode_row(params: Params, token: torch.Tensor, caches: list, pos: int,
+                cfg: ModelConfig, image_embeds, backend: str):
+    """:func:`decode_step` of one data row over its ``model`` positions
+    (``caches``: each position's cache): its last-token logits."""
     kinds = _layer_kinds(cfg)
-    pos = int(pos)
+    trees = _position_trees(params, cfg)
     s = token.shape[1]
-    x = params["embed"][token.long()]
-    positions = pos + torch.arange(s, device=x.device)[None, :]
-    for g, group in _groups(params, cfg):
-        for i, p in enumerate(group):
-            layer_cache = {"k": cache[i]["k"][g], "v": cache[i]["v"][g]}
-            x, _ = apply_layer(p, x, cfg, kinds[i], positions=positions,
-                               kv_cache=layer_cache, cache_pos=pos,
-                               image_embeds=image_embeds, backend=backend)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, -1] @ params["lm_head"], cache
+    where = [pos + torch.arange(s, device=t["embed"].device)[None, :]
+             for t in trees]
+    xs = _embed(trees, token)
+    for g in range(cfg.n_layers // len(kinds)):
+        for slot, kind in enumerate(kinds):
+            xs = apply_layer(
+                [layer_at(t["layers"][slot], g) for t in trees], xs, cfg,
+                kind, positions=where, caches=[
+                    {"k": c[slot]["k"][g], "v": c[slot]["v"][g]}
+                    for c in caches], cache_pos=pos,
+                image_embeds=image_embeds, backend=backend)
+    return sharding.gather_parts(
+        [rms_norm(x, t["final_norm"], cfg.norm_eps)[:, -1] @ t["lm_head"]
+         for x, t in zip(xs, trees)], -1)
 
 
 def prefill(params: Params, tokens: torch.Tensor, cache, cfg: ModelConfig, *,
@@ -220,3 +315,70 @@ def prefill(params: Params, tokens: torch.Tensor, cache, cfg: ModelConfig, *,
     """Fill the KV cache from a prompt; returns (last-token logits, cache)."""
     return decode_step(params, tokens, cache, 0, cfg,
                        image_embeds=image_embeds, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism along ``model`` (the dense family; module doc)
+# ---------------------------------------------------------------------------
+
+def _tp_ranges(cfg: ModelConfig, n: int, i: int) -> dict:
+    """Position ``i``'s share of ``n``: query heads, the KV heads they read,
+    hidden units, embedding columns and vocabulary, as [start, stop). The
+    query heads must lie inside one KV group or start and end on group
+    boundaries: ``attention`` gives each of a position's KV heads an equal,
+    contiguous block of its query heads."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if h % n:
+        raise ValueError(f"{cfg.name}: {h} query heads do not divide over "
+                         f"{n} model positions")
+    rep = h // kv
+    h0, h1 = i * h // n, (i + 1) * h // n
+    k0, k1 = h0 // rep, (h1 - 1) // rep + 1
+    if k1 - k0 > 1 and (h0 % rep or h1 % rep):
+        raise ValueError(f"{cfg.name}: query heads [{h0}, {h1}) of model "
+                         f"position {i} of {n} do not form whole groups of "
+                         f"{rep} over KV heads [{k0}, {k1})")
+    share = lambda total: (i * total // n, (i + 1) * total // n)  # noqa
+    return {"heads": (h0, h1), "kv_heads": (k0, k1),
+            "ffn": share(cfg.d_ff), "embed": share(cfg.d_model),
+            "vocab": share(cfg.vocab_size)}
+
+
+def _position_trees(params: Params, cfg: ModelConfig) -> list:
+    """Each ``model`` position's plain tree (:func:`_position_tree`); an
+    unplaced tree is the one position's."""
+    if not sharding.is_split(params):
+        return [params]
+    return [_position_tree(params, cfg, i)
+            for i in range(params["embed"].n)]
+
+
+def _position_tree(params: Params, cfg: ModelConfig, i: int) -> Params:
+    """The plain tree position ``i`` computes with (``_tp_ranges``): its
+    own shards where its share is its shard, else the columns or rows
+    assembled from the shards the share overlaps."""
+    n = params["embed"].n
+    r = _tp_ranges(cfg, n, i)
+    hd = cfg.head_dim
+    (h0, h1), (k0, k1), (f0, f1) = r["heads"], r["kv_heads"], r["ffn"]
+
+    def attn(a):
+        out = {"wq": a["wq"].take(-1, h0 * hd, h1 * hd, i),
+               "wk": a["wk"].take(-1, k0 * hd, k1 * hd, i),
+               "wv": a["wv"].take(-1, k0 * hd, k1 * hd, i),
+               "wo": a["wo"].take(-2, h0 * hd, h1 * hd, i)}
+        for name in ("q_norm", "k_norm"):
+            if name in a:
+                out[name] = a[name].at(i)
+        return out
+
+    layers = [{"norm": lp["norm"].at(i), "attn": attn(lp["attn"]),
+               "norm2": lp["norm2"].at(i),
+               "ffn": {"w_gate": lp["ffn"]["w_gate"].take(-1, f0, f1, i),
+                       "w_up": lp["ffn"]["w_up"].take(-1, f0, f1, i),
+                       "w_down": lp["ffn"]["w_down"].take(-2, f0, f1, i)}}
+              for lp in params["layers"]]
+    return {"embed": params["embed"].take(-1, *r["embed"], i),
+            "layers": layers,
+            "final_norm": params["final_norm"].at(i),
+            "lm_head": params["lm_head"].take(-1, *r["vocab"], i)}

@@ -10,7 +10,9 @@ is updated in chunks of ``CHUNK`` elements, so the float32 temporaries
 stay small whatever the leaf. The arithmetic is the reference's, step for
 step, in float32 tensors on the params' device: the learning rate, the
 clip scale and the bias corrections are 0-dim float32 tensors, never
-Python floats.
+Python floats. A tree placed along the mesh's ``model`` axis
+(``parallel.sharding.Placed``) is updated shard by shard, each part on its
+own device with those scalars copied there once.
 """
 from __future__ import annotations
 
@@ -69,11 +71,16 @@ def _chunks(t: torch.Tensor):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+    """sqrt of the sum of squares of every leaf, in float32, summed on the
+    first leaf's device. A placed tree's leaves are its parts
+    (``parallel.sharding.Placed``): each shard counts once and a
+    replicated leaf once, not once per position that reads it."""
+    leaves = pytree.tree_leaves(tree)
+    first = leaves[0].device
     total = 0
-    for x in pytree.tree_leaves(tree):
+    for x in leaves:
         total = total + sum(c.float().square().sum()
-                            for c in x.reshape(-1).split(CHUNK))
+                            for c in x.reshape(-1).split(CHUNK)).to(first)
     return torch.sqrt(total)
 
 
@@ -96,18 +103,23 @@ def update(cfg: AdamWConfig, grads, state, params):
     bc1 = 1 - torch.pow(b1, step.to(torch.float32))
     bc2 = 1 - torch.pow(b2, step.to(torch.float32))
 
+    scalars = {step.device: (scale, bc1, bc2, lr)}
     leaves = zip(pytree.tree_leaves(params), pytree.tree_leaves(grads),
                  pytree.tree_leaves(state["m"]),
                  pytree.tree_leaves(state["v"]))
     for p, g, m, v in leaves:
         decay = p.ndim >= 2   # decoupled weight decay on matrices only
+        if p.device not in scalars:      # a shard on another device
+            scalars[p.device] = tuple(t.to(p.device)
+                                      for t in scalars[step.device])
+        sc, c1, c2, rate = scalars[p.device]
         for pc, gc, mc, vc in zip(_chunks(p), g.reshape(-1).split(CHUNK),
                                   _chunks(m), _chunks(v)):
-            gc = gc.float() * scale
+            gc = gc.float() * sc
             mc.mul_(b1).add_(gc * (1 - b1))
             vc.mul_(b2).add_((gc * (1 - b2)).mul_(gc))
-            delta = (mc / bc1).div_((vc / bc2).sqrt_().add_(cfg.eps))
+            delta = (mc / c1).div_((vc / c2).sqrt_().add_(cfg.eps))
             if decay:
                 delta.add_(cfg.weight_decay * pc.float())
-            pc.copy_(pc.float().sub_(lr * delta))
+            pc.copy_(pc.float().sub_(rate * delta))
     return params, state, {"grad_norm": gnorm, "lr": lr}

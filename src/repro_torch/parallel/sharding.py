@@ -12,14 +12,24 @@ only its ``axis_names`` and ``devices.shape``, so they equal the
 reference's on any mesh shape, whatever devices it holds.
 :class:`PartitionSpec` and :class:`NamedSharding` are the counterparts of
 JAX's. ``NamedSharding.shard_shape`` gives the per-position shape, as
-JAX's does; the dry-run's memory per device reads it. The port runs a
-model in one process and holds every tensor whole on each device that
-computes with it (``launch/train.py`` trains over several positions that
-way), so a :class:`NamedSharding` resolves to one ``torch.device`` only
-where the mesh holds one distinct device. Placing the shards of one tensor
-over several devices (tensor parallelism) is ROADMAP Queue 1, item 11i.
-``shard`` is therefore the identity with or without rules: a tensor held
-whole has no constraint to place.
+JAX's does; the dry-run's memory per device reads it.
+
+Tensor parallelism runs in one process. :func:`place` puts a parameter
+tree where ``param_shardings`` says: over a mesh whose ``model`` axis
+spans several positions each leaf becomes a :class:`Placed`, one shard per
+``model`` position with ``shard_shape``'s shape on that position's device
+(a leaf the spec does not split keeps one master copy on the first
+position, which every other position reads through ``.to()``, so
+autograd sums its gradient over the positions). Every data row of the mesh
+reads its own copy of the shards (:func:`row`; on a repeated device the
+copy is the shard itself). The model code computes on plain tensors:
+:meth:`Placed.at` gives a position's shard, :meth:`Placed.take` the
+columns or rows a position computes with, and :func:`all_reduce_sum`,
+:func:`all_gather` and :func:`gather` join the per-position results. Which
+families are split is decided by ``train.steps`` (``steps.place``); this
+module places whatever tree it is given. ``shard`` is the identity with
+or without rules: the split is the placement's, and a tensor held whole
+has no constraint to place.
 """
 from __future__ import annotations
 
@@ -27,10 +37,13 @@ import contextlib
 import dataclasses
 import threading
 
+import numpy as np
+
 import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.compat import Mesh
+from repro_torch.launch import roofline
 
 # logical axis names
 BATCH = "batch"        # -> (pod, data)
@@ -66,10 +79,14 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+TP_AXIS = "model"
+
+
 class NamedSharding:
     """A placement: ``spec`` over ``mesh``, as ``jax.sharding.NamedSharding``.
     ``devices`` are the mesh's distinct devices in position order;
-    ``device`` is the one torch device it puts a whole tensor on."""
+    ``device`` is the first position's, where a tensor held whole lives and
+    where the collectives of a split one sum."""
 
     def __init__(self, mesh: Mesh, spec: PartitionSpec):
         self.mesh = mesh
@@ -81,13 +98,49 @@ class NamedSharding:
 
     @property
     def device(self) -> torch.device:
-        distinct = self.devices
-        if len(distinct) != 1:
-            raise NotImplementedError(
-                f"{self!r} spans {len(distinct)} devices; placing the shards "
-                f"of one tensor over several devices in one process is not "
-                f"ported (ROADMAP Queue 1, item 11i)")
-        return distinct[0]
+        return self.mesh.devices.flat[0]
+
+    def _rows(self) -> "np.ndarray":
+        """The mesh's devices as (rows, ``model`` positions): the ``model``
+        axis last, every other axis flattened in position order."""
+        devs = self.mesh.devices
+        if TP_AXIS not in self.mesh.axis_names:
+            return devs.reshape(-1, 1)
+        m = self.mesh.axis_names.index(TP_AXIS)
+        rest = [i for i in range(devs.ndim) if i != m]
+        return devs.transpose(rest + [m]).reshape(-1, devs.shape[m])
+
+    @property
+    def positions(self) -> int:
+        """The number of ``model`` positions."""
+        return self.mesh.shape.get(TP_AXIS, 1)
+
+    @property
+    def n_rows(self) -> int:
+        return self.mesh.size // self.positions
+
+    def row_devices(self, row: int = 0) -> list[torch.device]:
+        """The device of each ``model`` position of data row ``row``."""
+        return list(self._rows()[row])
+
+    @property
+    def splits(self) -> bool:
+        """True where :func:`place` holds a tensor as per-position shards:
+        the ``model`` axis spans several positions."""
+        return self.positions > 1
+
+    def split_dim(self) -> int | None:
+        """The dimension the spec splits along ``model`` (None: none); a
+        spec naming any other mesh axis raises ``ValueError``."""
+        dim = None
+        for d, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            if entry != TP_AXIS or dim is not None:
+                raise ValueError(f"{self!r}: a placement splits one "
+                                 f"dimension along {TP_AXIS!r} only")
+            dim = d
+        return dim
 
     def shard_shape(self, global_shape) -> tuple[int, ...]:
         """The shape each position holds of a ``global_shape`` tensor:
@@ -266,11 +319,17 @@ def _spec_for_path(path, leaf, rules: Rules) -> PartitionSpec:
     return _drop_indivisible(rules.spec(*logical), leaf.shape, rules)
 
 
+def _is_placed(x) -> bool:
+    return isinstance(x, Placed)
+
+
 def param_specs(params, rules: Rules):
     """PartitionSpec tree matching ``params`` (any dict/list tree whose
-    leaves have a ``shape``: tensors, ``meta`` tensors included)."""
+    leaves have a ``shape``: tensors, ``meta`` tensors and
+    :class:`Placed` leaves included)."""
     return pytree.tree_map_with_path(
-        lambda path, leaf: _spec_for_path(path, leaf, rules), params)
+        lambda path, leaf: _spec_for_path(path, leaf, rules), params,
+        is_leaf=_is_placed)
 
 
 def param_shardings(params, rules: Rules):
@@ -304,3 +363,229 @@ def zero1_specs(params, rules: Rules):
 
     return pytree.tree_map(widen, param_specs(params, rules), params,
                            is_leaf=_is_spec)
+
+
+# --------------------------------------------------------------------------
+# placed trees: per-position shards, and the collectives that join them
+# --------------------------------------------------------------------------
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class Placed:
+    """One leaf held as per-position shards over the ``model`` positions of
+    one data row of ``sharding``'s mesh (module doc).
+
+    ``parts`` are what the leaf owns on that row: one shard per position
+    where the spec splits a dimension (``dim``), else one master copy on
+    the first position. ``shape`` is the global shape. Registered as a
+    pytree node whose children are ``parts``, so ``tree_map``,
+    ``tree_leaves``, AdamW and the gradient of ``loss_and_grads`` see each
+    shard once and a replicated leaf once."""
+
+    def __init__(self, sharding: NamedSharding, shape, parts, row: int = 0):
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.parts = list(parts)
+        self.row = row
+        self.dim = sharding.split_dim()
+        self._rows: dict[int, Placed] = {}
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self.sharding.spec
+
+    @property
+    def devices(self) -> list[torch.device]:
+        return self.sharding.row_devices(self.row)
+
+    @property
+    def n(self) -> int:
+        return len(self.devices)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def at(self, i: int) -> torch.Tensor:
+        """Position ``i``'s tensor: its shard, or the master read on its
+        device (the master itself where the device is the first's)."""
+        if self.dim is not None:
+            return self.parts[i]
+        return self.parts[0].to(self.devices[i])
+
+    @property
+    def shards(self) -> list[torch.Tensor]:
+        return [self.at(i) for i in range(self.n)]
+
+    def take(self, dim: int, start: int, stop: int, i: int) -> torch.Tensor:
+        """``[start, stop)`` along ``dim`` of the global tensor, on position
+        ``i``'s device: position ``i``'s own shard when the range is that
+        shard, else assembled from the shards it overlaps (a position that
+        computes whole heads reads the columns of another position's)."""
+        dim %= self.ndim
+        if dim != self.dim:
+            t = self.at(i)
+            return t if (start, stop) == (0, t.shape[dim]) else t.narrow(
+                dim, start, stop - start)
+        w = self.shape[dim] // self.n
+        if (start, stop) == (i * w, (i + 1) * w):
+            return self.parts[i]
+        pieces = []
+        for j in range(start // w, (stop - 1) // w + 1):
+            lo, hi = max(start, j * w) - j * w, min(stop, (j + 1) * w) - j * w
+            pieces.append(self.parts[j].narrow(dim, lo, hi - lo).to(
+                self.devices[i]))
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+
+    def gather(self) -> torch.Tensor:
+        """The whole tensor on the first position's device."""
+        if self.dim is None:
+            return self.parts[0]
+        first = self.devices[0]
+        return torch.cat([p.to(first) for p in self.parts], self.dim)
+
+    def row_copy(self, r: int) -> "Placed":
+        """This leaf over data row ``r``'s devices, kept: a shard whose
+        device is the same in both rows is the shard itself, any other is
+        a copy (:func:`sync_rows` refreshes the copies)."""
+        if r == self.row:
+            return self
+        if r not in self._rows:
+            devs = self.sharding.row_devices(r)
+            self._rows[r] = Placed(self.sharding, self.shape, [
+                p.to(devs[i]) for i, p in enumerate(self.parts)], row=r)
+        return self._rows[r]
+
+    def __repr__(self) -> str:
+        return (f"Placed({tuple(self.shape)}, {self.spec!r}, row "
+                f"{self.row}, parts {[tuple(p.shape) for p in self.parts]})")
+
+
+def _flatten_placed(x: Placed):
+    return x.parts, (x.sharding, x.shape, x.row)
+
+
+def _unflatten_placed(parts, context) -> Placed:
+    sharding, shape, row = context
+    return Placed(sharding, shape, parts, row)
+
+
+pytree.register_pytree_node(
+    Placed, _flatten_placed, _unflatten_placed,
+    serialized_type_name="repro_torch.parallel.sharding.Placed",
+    flatten_with_keys_fn=lambda x: (
+        [(pytree.SequenceKey(i), p) for i, p in enumerate(x.parts)],
+        (x.sharding, x.shape, x.row)))
+
+
+def place_tensor(t: torch.Tensor, sharding: NamedSharding):
+    """``t`` placed by ``sharding``: a :class:`Placed` of fresh contiguous
+    shards (data row 0) where it splits, else ``t`` on its device."""
+    if not sharding.splits:
+        return t.to(sharding.device)
+    dim, devs = sharding.split_dim(), sharding.row_devices(0)
+
+    def fresh(src, device):
+        out = torch.empty(src.shape, dtype=src.dtype, device=device)
+        return out.copy_(src)
+
+    if dim is None:
+        return Placed(sharding, t.shape, [fresh(t, devs[0])])
+    w = sharding.shard_shape(t.shape)[dim]
+    return Placed(sharding, t.shape, [fresh(t.narrow(dim, i * w, w), d)
+                                      for i, d in enumerate(devs)])
+
+
+@torch.no_grad()
+def place(tree, shardings):
+    """``tree`` (tensors, or :class:`Placed` leaves gathered first) placed
+    by a matching tree of :class:`NamedSharding` (``param_shardings``) or
+    ``torch.device``: per-position shards where a placement splits (fresh
+    storage), else the tensor on the placement's device (the tensor itself
+    where it is there already)."""
+    whole = gather(tree)
+    flat, spec = pytree.tree_flatten(whole)
+    places = pytree.tree_leaves(shardings)
+    if len(places) != len(flat):
+        raise ValueError(f"shardings has {len(places)} leaves, the tree "
+                         f"{len(flat)}")
+    return pytree.tree_unflatten(
+        [place_tensor(t, s) if isinstance(s, NamedSharding) else t.to(s)
+         for t, s in zip(flat, places)], spec)
+
+
+def is_split(tree) -> bool:
+    """True when ``tree`` holds :class:`Placed` leaves."""
+    return any(map(_is_placed, pytree.tree_leaves(
+        tree, is_leaf=_is_placed)))
+
+
+def gather(tree):
+    """``tree`` with every :class:`Placed` leaf gathered whole on its first
+    device (other leaves as they are)."""
+    return pytree.tree_map(lambda x: x.gather() if _is_placed(x) else x,
+                           tree, is_leaf=_is_placed)
+
+
+def row(tree, r: int):
+    """``tree`` over data row ``r``'s devices (:meth:`Placed.row_copy`)."""
+    return pytree.tree_map(lambda x: x.row_copy(r) if _is_placed(x) else x,
+                           tree, is_leaf=_is_placed)
+
+
+@torch.no_grad()
+def sync_rows(tree) -> None:
+    """Copy each :class:`Placed` leaf's parts into the copies other data
+    rows keep (a copy that is the part itself is skipped)."""
+    for x in pytree.tree_leaves(tree, is_leaf=_is_placed):
+        if not _is_placed(x):
+            continue
+        for other in x._rows.values():
+            for dst, src in zip(other.parts, x.parts):
+                if dst is not src:
+                    dst.copy_(src)
+
+
+def all_reduce_sum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The sum of the per-position ``parts``, added in position order on
+    the first position's device, then one copy for every position on its
+    device (a position on the first's device gets a clone, so no two
+    positions alias). Autograd follows the ``.to`` and the adds; each
+    position's all-reduce is declared to the roofline's collective term."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(total.device)
+    if len(parts) > 1 and roofline.counting():
+        for p in parts:
+            roofline.declare_collective("all-reduce", _nbytes(p))
+    return [total] + [total.clone() if p.device == total.device
+                      else total.to(p.device) for p in parts[1:]]
+
+
+def gather_parts(parts: list[torch.Tensor], dim: int) -> torch.Tensor:
+    """The per-position ``parts`` concatenated along ``dim`` in position
+    order on the first position's device (one gather, declared; one part
+    is itself)."""
+    if len(parts) == 1:
+        return parts[0]
+    first = parts[0].device
+    out = torch.cat([p.to(first) for p in parts], dim)
+    if roofline.counting():
+        roofline.declare_collective("all-gather", _nbytes(out))
+    return out
+
+
+def all_gather(parts: list[torch.Tensor], dim: int) -> list[torch.Tensor]:
+    """``parts`` concatenated along ``dim`` in position order, one copy on
+    each position's device (each position's gather declared; one part is
+    itself)."""
+    if len(parts) == 1:
+        return list(parts)
+    out = []
+    for p in parts:
+        out.append(torch.cat([q.to(p.device) for q in parts], dim))
+        if roofline.counting():
+            roofline.declare_collective("all-gather", _nbytes(out[-1]))
+    return out

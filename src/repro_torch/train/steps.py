@@ -6,6 +6,15 @@ opt_state, batch) -> (params, opt_state, metrics)``; ``make_serve_steps``
 returns (prefill, decode). Every LM family serves and trains: dense and
 MoE (``models/transformer.py``), VLM (the same module, with image
 embeddings), SSM (mamba2), hybrid (zamba2) and audio (whisper).
+
+This module alone decides which families run tensor parallel along the
+mesh's ``model`` axis (``SPLIT_FAMILIES``, the dense family; ROADMAP 11i).
+:func:`place` splits such a model's parameters (``param_shardings``) and
+holds any other family's whole on the mesh's first device;
+:func:`init_cache` under ``use_rules`` of a splitting mesh lays out a split
+model's cache over it; the same functions then run it tensor parallel
+(``models/transformer.py``), with gradients per shard of the same
+placement. Placed parameters of any other family are refused.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2, transformer, whisper, zamba2
 from repro_torch.models.layers import params_from_numpy  # noqa: F401
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding
 
 # elements of logits per row chunk of ``cross_entropy`` (128 Mi: a 512 MiB
 # float32 temporary, 524 rows at vocab 256000)
@@ -27,14 +37,36 @@ CE_CHUNK = 1 << 27
 
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": mamba2, "hybrid": zamba2, "audio": whisper}
+# the families split along ``model`` (module doc)
+SPLIT_FAMILIES = ("dense",)
 
 
-def _family(cfg: ModelConfig):
+def _family(cfg: ModelConfig, params=None):
     """The model module of ``cfg``'s family; a family without one (the
-    CNN) raises ``ValueError``, as the reference's dispatch does."""
+    CNN) raises ``ValueError``, as the reference's dispatch does, and
+    placed ``params`` of a family not split ``NotImplementedError``."""
     if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
+    if (params is not None and cfg.family not in SPLIT_FAMILIES
+            and sharding.is_split(params)):
+        raise NotImplementedError(
+            f"{cfg.family}: tensor parallelism is ported for the dense "
+            f"family only (ROADMAP Queue 1, item 11i)")
     return FAMILIES[cfg.family]
+
+
+def place(cfg: ModelConfig, params, rules: sharding.Rules):
+    """``params`` placed on ``rules``' mesh: by ``param_shardings`` for a
+    family in ``SPLIT_FAMILIES`` (per-position shards where the mesh's
+    ``model`` axis spans several positions), else every leaf whole on the
+    mesh's first device."""
+    _family(cfg)
+    if cfg.family in SPLIT_FAMILIES:
+        places = sharding.param_shardings(params, rules)
+    else:
+        first = rules.mesh.devices.flat[0]
+        places = pytree.tree_map(lambda _: first, params)
+    return sharding.place(params, places)
 
 
 # ---------------------------------------------------------------------------
@@ -53,7 +85,7 @@ def forward_logits(params, batch: dict[str, Any], cfg: ModelConfig, *,
     """(B, S) ``batch["tokens"]`` -> logits (B, S, V); a VLM also reads
     ``batch["image_embeds"]`` and whisper ``batch["frames"]``. ``backend``
     picks the long-sequence attention, as in :func:`make_serve_steps`."""
-    _family(cfg)
+    _family(cfg, params)
     tokens = batch["tokens"]
     if cfg.family in ("dense", "moe"):
         return transformer.forward(params, tokens, cfg, backend=backend)
@@ -132,8 +164,10 @@ def _on_device(batch: dict[str, Any], device: torch.device) -> dict:
 @torch.enable_grad()
 def loss_and_grads(params, batch: dict[str, Any], cfg: ModelConfig):
     """(loss, grads): the mean CE of ``batch`` and its gradient with respect
-    to every leaf of ``params`` (a tree of the same structure). The batch
-    goes to the params' device."""
+    to every leaf of ``params`` (a tree of the same structure: over placed
+    parameters, a gradient per shard, and one per replicated leaf's master
+    copy, summed over the positions that read it). The batch goes to the
+    first leaf's device."""
     leaves, spec = pytree.tree_flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
     batch = _on_device(batch, leaves[0].device)
@@ -165,9 +199,20 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig) -> Callable:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """A zeroed cache for ``max_len`` positions on ``device`` (``None``:
-    the CUDA card): KV caches, and the SSM's conv and state caches."""
+    the CUDA card): KV caches, and the SSM's conv and state caches. Under
+    ``use_rules`` of a mesh whose ``model`` axis spans several positions,
+    a family in ``SPLIT_FAMILIES`` gets a ``transformer.SplitKVCache`` over
+    that mesh; ``device`` must then be its first device."""
     _family(cfg)
     device = resolve_device(device)
+    rules = sharding.current_rules()
+    if cfg.family in SPLIT_FAMILIES and rules is not None:
+        placement = sharding.NamedSharding(rules.mesh, sharding.P())
+        if placement.splits:
+            if device != placement.device:
+                raise ValueError(f"a split cache lives on {rules.mesh!r}; "
+                                 f"device {device} is not its first")
+            return transformer.SplitKVCache(cfg, batch, max_len, placement)
     if cfg.family == "ssm":
         return mamba2.init_ssm_cache(cfg, batch, device)
     if cfg.family == "hybrid":
@@ -189,6 +234,7 @@ def make_serve_steps(cfg: ModelConfig, backend: str = "torch"):
 
     @torch.no_grad()
     def decode(params, token, cache, pos, extras=None):
+        _family(cfg, params)
         extras = extras or {}
         if cfg.family == "ssm":
             return mamba2.decode_step(params, token, cache, pos, cfg)

@@ -1196,3 +1196,59 @@ def test_gpu_mesh_train_over_two_cards(cuda):
         assert a.device == cards[0]
         assert float((a - b).abs().max()) <= 1e-4 * max(
             1.0, float(b.abs().max()))
+
+
+def test_gpu_tensor_parallel_over_two_cards(cuda):
+    """Reduced minitron-8b (fp32) split along ``model`` over two distinct
+    cards, (1, 2): each card holds its shards; a prefill and 4 greedy
+    decode steps within ``1e-5 * max(1, max|ref|)`` of the one-card run,
+    and one training step (``launch.train.build``) within 1e-5 in loss
+    and ``grad_norm`` and 1e-4 in the gathered parameters."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.compat import make_mesh
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config("minitron-8b").reduced()
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    mesh = make_mesh((1, 2), ("data", "model"), devices=cards)
+    rules = sharding.make_rules(mesh)
+    params = steps.init_params(cfg, torch.Generator(device=cards[0])
+                               .manual_seed(0), cards[0])
+    placed = steps.place(cfg, params, rules)
+    assert [t.device for t in placed["lm_head"].shards] == cards
+    prefill, decode = steps.make_serve_steps(cfg)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32)).to(cards[0])
+    c1 = steps.init_cache(cfg, 4, 36, cards[0])
+    with sharding.use_rules(rules):
+        c2 = steps.init_cache(cfg, 4, 36, cards[0])
+    l1, c1 = prefill(params, prompts, c1)
+    l2, c2 = prefill(placed, prompts, c2)
+    for i in range(5):
+        assert l2.device == cards[0]
+        assert float((l2 - l1).abs().max()) <= 1e-5 * max(
+            1.0, float(l1.abs().max()))
+        if i == 4:
+            break
+        tok = l1.argmax(-1)[:, None]
+        l1, c1 = decode(params, tok, c1, 32 + i)
+        l2, c2 = decode(placed, tok, c2, 32 + i)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    p1, s1, f1, _ = train_mod.build(
+        cfg, opt, make_mesh((1, 1), ("data", "model"), devices=cards[:1]),
+        params=pytree.tree_map(lambda t: t.clone(), params))
+    p2, s2, f2, _ = train_mod.build(cfg, opt, mesh, params=params)
+    batch = batch_for_step(DataConfig(cfg.vocab_size, 16, 8), 0)
+    p1, s1, m1 = f1(p1, s1, batch)
+    p2, s2, m2 = f2(p2, s2, batch)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m2[k]) - float(m1[k])) <= 1e-5 * abs(float(m1[k]))
+    for a, b in zip(pytree.tree_leaves(sharding.gather(p2)),
+                    pytree.tree_leaves(p1)):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            1.0, float(b.abs().max()))

@@ -1,7 +1,9 @@
 """Training over a mesh of several positions (``launch/train.py``'s mesh
 step) on the CPU, reduced minitron-8b in fp32, batch 8 x 16.
 
-On a (2, 4) ``("data", "model")`` mesh of the repeated CPU device, one
+On a (2, 4) ``("data", "model")`` mesh of the repeated CPU device (the
+batch split over two data rows, each row tensor parallel over four
+``model`` positions; the placed trees are gathered whole to compare), one
 step against the one-position step from the same parameters: loss and
 ``grad_norm`` within 1e-6 relative, the reduced gradient AdamW receives
 within ``1e-6 * max(1, max|g|)`` of the whole batch's, and the updated parameters
@@ -13,7 +15,10 @@ step jitted over a (2, 4) mesh of 8 host devices (a subprocess, as
 ``tests/test_multidevice.py::test_sharded_train_step_runs``): loss,
 ``grad_norm`` and parameters within ``1e-4 * max(1, max|ref|)``. An
 uneven batch is refused; the reduction and copies reach the roofline's
-collective term; the data positions follow position order."""
+collective term beside each row's tensor-parallel collectives; the data
+positions follow position order; over one data row, (1, 4), the mesh step
+is the tensor-parallel train step itself, bit for bit, and for a family
+held whole along ``model`` the one-position step, bit for bit."""
 import os
 import pickle
 import subprocess
@@ -34,6 +39,7 @@ from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.parallel.sharding import make_rules  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 
@@ -57,6 +63,10 @@ def _clone(tree):
 
 def _close(a, b, tol):
     return float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max()))
+
+
+def _whole(tree):
+    return pytree.tree_leaves(sharding.gather(tree))
 
 
 def _rel(a, b):
@@ -85,22 +95,52 @@ def test_mesh_step_equals_the_one_position_step(monkeypatch):
         p2, s2, m2 = f2(p2, s2, b)
         assert _rel(m2["loss"], m1["loss"]) <= 1e-6
         assert _rel(m2["grad_norm"], m1["grad_norm"]) <= 1e-6
-        for g2, g1 in zip(pytree.tree_leaves(seen[-1]),
-                          pytree.tree_leaves(seen[-2])):
+        for g2, g1 in zip(_whole(seen[-1]), _whole(seen[-2])):
             assert _close(g2, g1, 1e-6)
-        for a, b_ in zip(pytree.tree_leaves(p2), pytree.tree_leaves(p1)):
+        for a, b_ in zip(_whole(p2), _whole(p1)):
             assert _close(a, b_, 1e-4)
-    assert int(s2["step"]) == 2
+    assert sharding.is_split(p2) and int(s2["step"]) == 2
 
 
 def test_mesh_step_over_one_data_position_is_the_plain_step():
     """(1, 4): every position holds the whole batch, so nothing is split
-    or reduced, and the step is bit for bit the one-position step."""
+    over data or reduced across rows: the mesh step is bit for bit the
+    train step (``steps.make_train_step``) on the same placed parameters,
+    with the same collectives (the tensor-parallel ones alone), and within
+    the (2, 4) limits of the one-position step."""
     opt = adamw.AdamWConfig(**OPT)
     p1, s1, f1, _ = train_mod.build(CFG, opt, _one())
     p2, s2, f2, _ = train_mod.build(CFG, opt, _grid((1, 4)),
                                     params=_clone(p1))
+    p3, s3 = _clone(p2), _clone(s2)
     b = batch_for_step(DataConfig(CFG.vocab_size, SEQ, ROWS), 0)
+    p1, s1, m1 = f1(p1, s1, b)
+    (p2, s2, m2), st = rl.count(f2, p2, s2, b)
+    (p3, s3, m3), st3 = rl.count(steps.make_train_step(CFG, opt), p3, s3, b)
+    assert torch.equal(m2["loss"], m3["loss"])
+    for a, b_ in zip(pytree.tree_leaves(p2), pytree.tree_leaves(p3)):
+        assert torch.equal(a, b_)
+    assert st.collective_counts == st3.collective_counts
+    assert st.collective_bytes == st3.collective_bytes > 0
+    assert "all-gather" in st.collective_counts
+    assert _rel(m2["loss"], m1["loss"]) <= 1e-6
+    for a, b_ in zip(_whole(p2), _whole(p1)):
+        assert _close(a, b_, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m"])
+def test_mesh_step_of_a_family_held_whole_is_the_plain_step(arch):
+    """(1, 4) for a family not split along ``model`` (ROADMAP 11i): its
+    tensors stay whole on the first device, nothing is split or reduced,
+    and the mesh step is bit for bit the one-position step, with no
+    collectives."""
+    cfg = get_config(arch).reduced()
+    opt = adamw.AdamWConfig(**OPT)
+    p1, s1, f1, _ = train_mod.build(cfg, opt, _one())
+    p2, s2, f2, _ = train_mod.build(cfg, opt, _grid((1, 4)),
+                                    params=_clone(p1))
+    assert not sharding.is_split(p2)
+    b = batch_for_step(DataConfig(cfg.vocab_size, SEQ, ROWS), 0)
     p1, s1, m1 = f1(p1, s1, b)
     (p2, s2, m2), st = rl.count(f2, p2, s2, b)
     assert torch.equal(m1["loss"], m2["loss"])
@@ -110,16 +150,25 @@ def test_mesh_step_over_one_data_position_is_the_plain_step():
 
 
 def test_reduction_reaches_the_collective_term():
+    """(2, 4): each row's tensor-parallel collectives, then every shard's
+    gradient all-reduced over the two rows (the rows of the repeated
+    device read the same shards: no copy)."""
     opt = adamw.AdamWConfig(**OPT)
     params, state, step, _ = train_mod.build(CFG, opt, _grid())
     b = batch_for_step(DataConfig(CFG.vocab_size, SEQ, ROWS), 0)
+    _, row_st = rl.count(steps.loss_and_grads, _clone(params),
+                         train_mod.split_batch(b, 2)[0], CFG)
     _, st = rl.count(step, params, state, b)
     leaves = pytree.tree_leaves(params)
-    assert st.collective_counts == {"all-reduce": 2 * len(leaves)}
-    assert st.collective_bytes == 2 * sum(p.numel() * 4 for p in leaves)
+    want = {k: 2 * n for k, n in row_st.collective_counts.items()}
+    want["all-reduce"] += 2 * len(leaves)
+    assert st.collective_counts == want
+    grad_bytes = sum(p.numel() * 4 for p in leaves)
+    assert st.collective_bytes == 2 * row_st.collective_bytes \
+        + 2 * grad_bytes
     roof = rl.roofline_from_stats(st, 2, torch.float32)
     assert roof.collective_s == pytest.approx(
-        sum(p.numel() * 4 for p in leaves) / rl.NVLINK_BW)
+        (row_st.collective_bytes + grad_bytes) / rl.NVLINK_BW)
 
 
 def test_uneven_batch_is_refused():
@@ -201,6 +250,7 @@ def test_mesh_step_matches_the_reference_sharded_step(tmp_path):
         DataConfig(CFG.vocab_size, SEQ, ROWS), 0))
     assert _rel(m["loss"], ref["loss"]) <= 1e-4
     assert _rel(m["grad_norm"], ref["grad_norm"]) <= 1e-4
+    assert sharding.is_split(params)
     want = steps.params_from_numpy(ref["after"], CFG, "cpu")
-    for a, b_ in zip(pytree.tree_leaves(params), pytree.tree_leaves(want)):
+    for a, b_ in zip(_whole(params), pytree.tree_leaves(want)):
         assert _close(a, b_, 1e-4)

@@ -23,7 +23,12 @@ on the same inputs:
   operand that requires grad) instead of returning an output with no
   ``grad_fn``, on the CPU as on the card, and runs under
   ``torch.no_grad()``; so does the LM's long-sequence ``hopper``
-  attention.
+  attention;
+* F6: ``im2col`` returns contiguous patches for a 1x1 strided conv with
+  one output column (a strided view before the repair, which K1's wrapper
+  refuses), and ``backend="hopper"`` serves ``resnet18_specs(16, 8)``,
+  whose ``s4b1_proj`` is such a conv, within 1e-4 of the reference's
+  ``xla`` logits.
 """
 import dataclasses
 import json
@@ -38,11 +43,14 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro import api as r_api  # noqa: E402
 from repro.core import compiler as r_compiler  # noqa: E402
 from repro.core.hybrid_conv import ConvSpec as RConvSpec  # noqa: E402
 from repro.core.program_cache import ProgramCache as RProgramCache  # noqa: E402
 from repro.checkpoint import checkpoint as r_ckpt  # noqa: E402
 from repro.launch import serve as r_serve  # noqa: E402
+from repro.models import resnet as r_resnet  # noqa: E402
+from repro_torch import api as t_api  # noqa: E402
 from repro_torch.core import compiler as t_compiler  # noqa: E402
 from repro_torch.core.hybrid_conv import ConvSpec as TConvSpec  # noqa: E402
 from repro_torch.core.program_cache import (  # noqa: E402
@@ -65,8 +73,10 @@ from repro_torch.kernels.spatial_conv.kernel import (  # noqa: E402
     conv_gemm_f32,
     conv_gemm_ref,
 )
+from repro_torch.kernels.spatial_conv.ops import im2col  # noqa: E402
 from repro_torch.kernels.winograd import kernel as wino  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import resnet as t_resnet  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 
@@ -410,3 +420,47 @@ def test_lm_hopper_attention_refuses_autograd():
         hop, _ = layers.attention(p, x, cfg, backend="hopper")
     np.testing.assert_allclose(hop.numpy(), out.detach().numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# F6: a 1x1 strided conv with one output column on hopper
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,hw,c,stride", [(2, 2, 4, 2), (2, 2, 32, 2),
+                                           (3, 3, 8, 3), (2, 4, 16, 4)])
+def test_im2col_of_a_strided_1x1_conv_with_one_column_is_contiguous(
+        n, hw, c, stride):
+    """r = s = 1, stride > 1, wo = 1: the patch rows are one strided view
+    of the input (rows ``stride`` pixels apart), which ``reshape`` returns
+    without a copy; K1 takes contiguous operands only."""
+    x = torch.randn(n, hw, hw, c)
+    patches, (ho, wo) = im2col(x, 1, 1, stride, ((0, 0), (0, 0)))
+    assert wo == 1 and patches.is_contiguous()
+    assert torch.equal(patches, x[:, ::stride, ::stride, :].reshape(-1, c))
+    w = torch.randn(c, 5)
+    y = conv_gemm_f32(patches, w, None, False, "is")
+    assert torch.equal(y, conv_gemm_ref(patches, w, None, False, "is"))
+
+
+def test_hopper_serves_resnet18_16_8_like_the_reference_xla():
+    """``resnet18_specs(16, 8)``: ``s4b1_proj`` is a 1x1 stride-2 conv from
+    2x2 to 1x1. Batch 2 on ``hopper`` (the kernels' plain versions here)
+    within 1e-4 of the reference's ``xla`` logits."""
+    r_specs = r_resnet.resnet18_specs(16, 8)
+    t_specs = t_resnet.resnet18_specs(16, 8)
+    proj = next(s for s in t_specs if s.name == "s4b1_proj")
+    assert (proj.r, proj.stride, proj.h, proj.w) == (1, 2, 2, 2)
+    r_params = r_api.random_params(r_specs, seed=0)
+    x = np.random.default_rng(0).standard_normal((2, 16, 16, 3)).astype(
+        np.float32)
+    want = np.asarray(r_api.Accelerator.build(
+        r_specs, batch=2, params=r_params, backend="xla")(jnp.asarray(x)))
+    params = t_api.params_from_numpy(
+        [(np.asarray(w), np.asarray(b)) for w, b in r_params], "cpu")
+    for opt_level in (0, 1):
+        acc = t_api.Accelerator.build(t_specs, batch=2, params=params,
+                                      backend="hopper", opt_level=opt_level,
+                                      device="cpu")
+        y = acc(x).numpy()
+        assert y.shape == want.shape and np.isfinite(y).all()
+        np.testing.assert_allclose(y, want, rtol=1e-4, atol=1e-4)

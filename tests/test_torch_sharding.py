@@ -4,7 +4,9 @@ for leaf for every LM arch at full size and reduced, on meshes of shape
 (1, 1), (16, 16) and (2, 16, 16) (the spec functions read only a mesh's
 ``axis_names`` and ``devices.shape``, so the reference runs on a stand-in
 with those two); ``shard`` is the identity; a ``NamedSharding`` resolves
-to the mesh's one device and places checkpoint restores."""
+to the mesh's first device, splits a dense leaf over the ``model``
+positions and holds the other families whole, and places checkpoint
+restores."""
 import functools
 
 import numpy as np
@@ -127,15 +129,38 @@ def test_shard_is_the_identity():
 
 
 def test_named_sharding_resolves_to_the_one_device():
+    """A placement's ``device`` is its mesh's first position's: the one
+    device of a one-device mesh, and over several distinct devices the
+    one where a whole tensor lives and a split one's collectives sum. A
+    dense leaf over two distinct devices is split onto them; ``steps.place``
+    holds a family not yet split whole on the first device (ROADMAP
+    11i)."""
     one = make_mesh((1, 1), ("data", "model"), device_type="cpu")
     rules = sharding.make_rules(one)
     assert rules.sharding(None, sharding.MLP).device == torch.device("cpu")
+    assert not rules.sharding(None, sharding.MLP).splits
     repeated = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
     assert sharding.make_rules(repeated).sharding(sharding.BATCH).device \
         == torch.device("cpu")
     two = make_mesh((1, 2), ("data", "model"), devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="item 11i"):
-        sharding.make_rules(two).sharding().device
+    rules = sharding.make_rules(two)
+    s = rules.sharding(None, sharding.MLP)
+    assert s.device == torch.device("cpu") and s.splits
+    assert s.devices == s.row_devices(0) == [torch.device("cpu"),
+                                             torch.device("meta")]
+    placed = sharding.place_tensor(torch.ones(3, 4), s)
+    assert [(t.device.type, tuple(t.shape)) for t in placed.shards] == [
+        ("cpu", (3, 2)), ("meta", (3, 2))]
+    cfg = get_config("minitron-8b").reduced()
+    dense = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert sharding.is_split(sharding.place(
+        dense, sharding.param_shardings(dense, rules)))
+    assert sharding.is_split(steps.place(cfg, dense, rules))
+    moe_cfg = get_config("llama4-scout-17b-16e").reduced()
+    moe = steps.init_params(moe_cfg, torch.Generator().manual_seed(0), "cpu")
+    held = steps.place(moe_cfg, moe, rules)
+    assert all(a is b for a, b in zip(pytree.tree_leaves(held),
+                                      pytree.tree_leaves(moe)))
     assert P(("data",), None) == ("data", None)
     assert repr(P("data", None)) == "PartitionSpec('data', None)"
 

@@ -1,0 +1,484 @@
+"""Tensor parallelism along the mesh's ``model`` axis for the dense LM
+family (``parallel.sharding.place`` and the split path of
+``models/transformer.py``), on meshes of the repeated CPU device.
+
+* Placement: each leaf of every dense arch's reduced tree, placed by
+  ``param_shardings`` on (1, 2), (1, 4) and (2, 4), holds one shard per
+  ``model`` position with the shape of the reference's ``param_specs``
+  (over a stand-in mesh of that shape), and gathers back bit for bit.
+* Serving: prefill of a 32-token prompt and 4 decode steps teacher-forced
+  with the reference's greedy tokens, on reduced minitron-8b (2 KV heads
+  of 16 over 4 positions: the uneven-heads case) and qwen3-32b
+  (``qk_norm``), against the unsplit port within ``1e-5 * max(1,
+  max|ref|)`` and the reference's single-device run within ``1e-4 *
+  max(1, max|ref|)``; a 2048-token ``hopper`` prefill (K6's plain version,
+  once per layer and position); ``launch.serve.serve`` over a (1, 2) mesh.
+* Training: ``loss_and_grads`` of a placed tree against the unsplit one;
+  a replicated leaf's gradient is the sum of its uses on every position;
+  ``global_norm`` of a placed tree equals the unsplit tree's.
+* Checkpoints: a placed tree saves the bytes of an unsplit save and reads
+  back bit for bit unsplit, or split onto ``param_shardings``;
+  ``run_with_recovery`` and ``elastic_restore`` keep or make the split.
+* Query heads that would straddle KV groups (48 over 8 on 6 positions)
+  raise; ranges inside a group or on group boundaries serve as unsplit.
+* The families not yet split (ROADMAP 11i) keep their tensors whole:
+  ``steps.place`` leaves them tensors on the first device,
+  ``launch.train.build`` runs them over a (2, 2) mesh as before, and
+  parameters of such a family split by ``param_shardings`` raise.
+"""
+import dataclasses
+import zipfile
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from torch.utils import _pytree as pytree  # noqa: E402
+
+from repro.configs.base import get_config as r_get_config  # noqa: E402
+from repro.parallel import sharding as r_sharding  # noqa: E402
+from repro.train import steps as r_steps  # noqa: E402
+from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
+from repro_torch.checkpoint import elastic_restore  # noqa: E402
+from repro_torch.checkpoint import run_with_recovery  # noqa: E402
+from repro_torch.compat import make_mesh  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, batch_for_step  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.models import layers, transformer  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
+from repro_torch.parallel.sharding import Placed  # noqa: E402
+from repro_torch.train import steps  # noqa: E402
+
+DENSE = ["minitron-8b", "internlm2-20b", "qwen3-32b", "command-r-35b"]
+MESHES = [(1, 2), (1, 4), (2, 4)]
+BATCH, PROMPT, N_DECODE = 4, 32, 4
+SPLIT_TOL, REF_TOL = 1e-5, 1e-4
+
+
+class _StandIn:
+    """What the reference's spec functions read of a mesh."""
+
+    def __init__(self, shape, names):
+        self.axis_names = names
+        self.devices = np.empty(shape, object)
+
+
+def _mesh(shape):
+    return make_mesh(shape, ("data", "model"),
+                     devices=["cpu"] * int(np.prod(shape)))
+
+
+def _rules(shape):
+    return sharding.make_rules(_mesh(shape))
+
+
+def _key(path) -> str:
+    return "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                    for p in path)
+
+
+def _placed(params, shape):
+    rules = _rules(shape)
+    return sharding.place(params, sharding.param_shardings(params, rules)), \
+        rules
+
+
+def _close(out, ref, rel):
+    out = out.detach().float().numpy() if isinstance(out, torch.Tensor) \
+        else np.asarray(out)
+    ref = ref.detach().float().numpy() if isinstance(ref, torch.Tensor) \
+        else np.asarray(ref, np.float32)
+    tol = rel * max(1.0, float(np.abs(ref).max()))
+    err = float(np.abs(out - ref).max())
+    assert out.shape == ref.shape and err <= tol, (err, tol)
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh_shape", MESHES, ids=str)
+@pytest.mark.parametrize("arch", DENSE)
+def test_placed_shards_have_the_reference_shard_shapes(arch, mesh_shape):
+    cfg = get_config(arch).reduced()
+    params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    placed, rules = _placed(params, mesh_shape)
+    abstract = jax.eval_shape(lambda: r_steps.init_params(
+        jax.random.PRNGKey(0), r_get_config(arch).reduced()))
+    r_specs = r_sharding.param_specs(
+        abstract, r_sharding.make_rules(_StandIn(mesh_shape,
+                                                 ("data", "model"))))
+    sizes = dict(zip(("data", "model"), mesh_shape))
+    want = {}
+    for (path, leaf), spec in zip(
+            jax.tree_util.tree_flatten_with_path(abstract)[0],
+            jax.tree_util.tree_leaves(
+                r_specs, is_leaf=lambda x: isinstance(x, r_sharding.P))):
+        shape = list(leaf.shape)
+        for d, entry in enumerate(spec):
+            if entry is not None:
+                shape[d] //= sizes[entry]
+        want[_key(path)] = tuple(shape)
+    got = pytree.tree_flatten_with_path(
+        placed, is_leaf=lambda x: isinstance(x, Placed))[0]
+    whole = dict(pytree.tree_flatten_with_path(params)[0])
+    assert {_key(p) for p, _ in got} == set(want)
+    devices = rules.mesh.devices[0].tolist()
+    for path, leaf in got:
+        assert isinstance(leaf, Placed) and leaf.devices == devices
+        assert tuple(leaf.shape) == whole[path].shape
+        for i, t in enumerate(leaf.shards):
+            assert tuple(t.shape) == want[_key(path)], _key(path)
+            assert t.device == devices[i] and t.is_contiguous()
+        assert len(leaf.parts) == (1 if leaf.dim is None else len(devices))
+        assert torch.equal(leaf.gather(), whole[path])
+    # the shards are fresh: the placed tree shares no storage with params
+    held = {t.untyped_storage().data_ptr() for t in pytree.tree_leaves(
+        params)}
+    assert not held & {t.untyped_storage().data_ptr()
+                       for t in pytree.tree_leaves(placed)}
+
+
+def test_uneven_heads_compute_whole_heads():
+    """Reduced minitron on 4 positions: ``wk``/``wv`` hold half a KV head
+    each (2 KV heads of 16 over 4 positions), as the reference splits the
+    flat columns; position i computes query head i with the whole KV head
+    i // 2, assembled from positions 2 (i // 2) and 2 (i // 2) + 1."""
+    cfg = get_config("minitron-8b").reduced()
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (4, 2, 16)
+    params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    placed, _ = _placed(params, (1, 4))
+    wk = placed["layers"][0]["attn"]["wk"]
+    assert [tuple(t.shape) for t in wk.shards] == [(4, 64, 8)] * 4
+    for i in range(4):
+        tree = transformer._position_tree(placed, cfg, i)
+        k = i // 2
+        assert torch.equal(tree["layers"][0]["attn"]["wk"],
+                           params["layers"][0]["attn"]["wk"][
+                               ..., k * 16:(k + 1) * 16])
+        assert torch.equal(tree["layers"][0]["attn"]["wq"],
+                           wq_i := params["layers"][0]["attn"]["wq"][
+                               ..., i * 16:(i + 1) * 16])
+        assert tree["layers"][0]["attn"]["wq"] is \
+            placed["layers"][0]["attn"]["wq"].parts[i]
+        assert wq_i.shape == (4, 64, 16)
+    with pytest.raises(ValueError, match="do not divide over 8"):
+        transformer._tp_ranges(cfg, 8, 0)
+
+
+@pytest.mark.parametrize("positions", [4, 6, 8, 16])
+def test_query_heads_keep_whole_kv_groups(positions):
+    """48 query heads over 8 KV heads (internlm2-20b's ratio: groups of
+    6). On 4 or 8 positions each position's heads start and end on group
+    boundaries, on 16 its 3 heads lie inside one group: these split and
+    serve as the unsplit model does. On 6, position 0's heads [0, 8) would
+    read KV heads 0 and 1 six and two times, which ``attention``'s equal
+    blocks would pair wrongly: the split raises."""
+    cfg = dataclasses.replace(get_config("internlm2-20b").reduced(),
+                              n_heads=48, n_kv_heads=8, head_dim=4)
+    params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 8), dtype=np.int32)
+    toks = [prompts[:, :1]]
+    whole = _serve_run(params, cfg, prompts, toks, steps.init_cache(
+        cfg, 2, 9, "cpu"))
+    placed, rules = _placed(params, (1, positions))
+    batch = {"tokens": torch.from_numpy(prompts)}
+    if positions == 6:
+        with pytest.raises(ValueError, match="whole groups of 6"):
+            steps.forward_logits(placed, batch, cfg)
+        with pytest.raises(ValueError, match="whole groups of 6"), \
+                sharding.use_rules(rules):
+            steps.init_cache(cfg, 2, 9, "cpu")
+        return
+    _close(steps.forward_logits(placed, batch, cfg),
+           steps.forward_logits(params, batch, cfg), SPLIT_TOL)
+    with sharding.use_rules(rules):
+        cache = steps.init_cache(cfg, 2, 9, "cpu")
+    for got, want in zip(_serve_run(placed, cfg, prompts, toks, cache),
+                         whole):
+        _close(got, want, SPLIT_TOL)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def served_ref():
+    """The reference's reduced minitron-8b and qwen3-32b served once on one
+    device: prompts, its greedy tokens, its logits at prefill and each
+    decode step, and its parameters as float32 numpy."""
+    out = {}
+    for arch in ("minitron-8b", "qwen3-32b"):
+        cfg = r_get_config(arch).reduced()
+        params = r_steps.init_params(jax.random.PRNGKey(0), cfg)
+        prefill, decode = r_steps.make_serve_steps(cfg)
+        prefill, decode = jax.jit(prefill), jax.jit(decode)
+        prompts = np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int32)
+        cache = r_steps.init_cache(cfg, BATCH, PROMPT + N_DECODE)
+        logits, cache = prefill(params, jnp.asarray(prompts), cache)
+        all_logits, toks = [np.asarray(logits)], []
+        for i in range(N_DECODE):
+            tok = np.asarray(jnp.argmax(logits, -1))[:, None].astype(
+                np.int32)
+            toks.append(tok)
+            logits, cache = decode(params, jnp.asarray(tok), cache,
+                                   jnp.int32(PROMPT + i))
+            all_logits.append(np.asarray(logits))
+        out[arch] = (jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                  params), prompts, toks, all_logits)
+    return out
+
+
+def _serve_run(params, cfg, prompts, toks, cache, backend="torch"):
+    prefill, decode = steps.make_serve_steps(cfg, backend=backend)
+    logits, cache = prefill(params, torch.from_numpy(prompts), cache)
+    out = [logits]
+    for i, tok in enumerate(toks):
+        logits, cache = decode(params, torch.from_numpy(tok), cache,
+                               prompts.shape[1] + i)
+        out.append(logits)
+    return out
+
+
+@pytest.mark.parametrize("arch,mesh_shape", [
+    ("minitron-8b", (1, 2)), ("minitron-8b", (1, 4)), ("minitron-8b", (2, 4)),
+    ("qwen3-32b", (1, 4))], ids=str)
+def test_split_serving_matches_unsplit_and_reference(served_ref, arch,
+                                                     mesh_shape):
+    np_params, prompts, toks, ref_logits = served_ref[arch]
+    cfg = get_config(arch).reduced()
+    params = transformer.params_from_numpy(np_params, cfg, "cpu")
+    whole = _serve_run(params, cfg, prompts, toks, steps.init_cache(
+        cfg, BATCH, PROMPT + N_DECODE, "cpu"))
+    placed, rules = _placed(params, mesh_shape)
+    with sharding.use_rules(rules):
+        cache = steps.init_cache(cfg, BATCH, PROMPT + N_DECODE, "cpu")
+    assert isinstance(cache, transformer.SplitKVCache)
+    rows, n = mesh_shape
+    k0, k1 = transformer._tp_ranges(cfg, n, 0)["kv_heads"]
+    assert cache.rows[rows - 1][n - 1][0]["k"].shape == (
+        cfg.n_layers, BATCH // rows, PROMPT + N_DECODE, k1 - k0,
+        cfg.head_dim)
+    split = _serve_run(placed, cfg, prompts, toks, cache)
+    for got, want, ref in zip(split, whole, ref_logits):
+        _close(got, want, SPLIT_TOL)
+        _close(got, ref, REF_TOL)
+
+
+def test_split_hopper_prefill_calls_k6_per_position(monkeypatch):
+    """A 2048-token prompt on ``hopper`` over (1, 2): each position calls
+    K6 (its plain version here) on its own heads, once per layer, and the
+    logits hold the unsplit ``hopper`` prefill's to 1e-5."""
+    cfg = get_config("minitron-8b").reduced()
+    params = steps.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, layers.LONG_SEQ), dtype=np.int32)
+    whole = _serve_run(params, cfg, prompts, [], steps.init_cache(
+        cfg, 1, layers.LONG_SEQ, "cpu"), backend="hopper")
+    calls = []
+    k6 = layers.flash_attention
+
+    def counted(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return k6(q, k, v, **kw)
+    monkeypatch.setattr(layers, "flash_attention", counted)
+    placed, rules = _placed(params, (1, 2))
+    with sharding.use_rules(rules):
+        cache = steps.init_cache(cfg, 1, layers.LONG_SEQ, "cpu")
+    split = _serve_run(placed, cfg, prompts, [], cache, backend="hopper")
+    assert calls == [((1, 2, layers.LONG_SEQ, 16),
+                      (1, 1, layers.LONG_SEQ, 16))] * (2 * cfg.n_layers)
+    _close(split[0], whole[0], SPLIT_TOL)
+
+
+def test_serve_entry_point_over_a_split_mesh(capsys, monkeypatch):
+    """``launch.serve.serve`` over the host's mesh: (1, 1) on the CPU, and
+    a host of two positions (the repeated CPU standing in) splits."""
+    kw = dict(reduced=True, batch=2, prompt_len=16, gen=4, device="cpu")
+    one = serve_mod.serve("minitron-8b", **kw)
+    assert "split along model" not in capsys.readouterr().out
+    monkeypatch.setattr(serve_mod, "make_host_mesh",
+                        lambda device_type: _mesh((1, 2)))
+    two = serve_mod.serve("minitron-8b", **kw)
+    assert "split along model" in capsys.readouterr().out
+    _close(two.prefill_logits, one.prefill_logits, SPLIT_TOL)
+    np.testing.assert_array_equal(two.tokens, one.tokens)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _batch(cfg, rows=4, seq=16):
+    return batch_for_step(DataConfig(cfg.vocab_size, seq, rows), 0)
+
+
+@pytest.mark.parametrize("arch,mesh_shape", [("minitron-8b", (1, 4)),
+                                             ("qwen3-32b", (1, 2))])
+def test_split_loss_and_grads_match_unsplit(arch, mesh_shape):
+    cfg = get_config(arch).reduced()
+    params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    placed, _ = _placed(params, mesh_shape)
+    b = _batch(cfg)
+    loss, grads = steps.loss_and_grads(params, b, cfg)
+    s_loss, s_grads = steps.loss_and_grads(placed, b, cfg)
+    assert abs(float(s_loss) - float(loss)) <= 1e-6 * float(loss)
+    assert pytree.tree_structure(s_grads) == pytree.tree_structure(placed)
+    for g, want in zip(pytree.tree_leaves(sharding.gather(s_grads)),
+                       pytree.tree_leaves(grads)):
+        _close(g, want, 1e-6)
+    norm = adamw.global_norm(grads)
+    assert abs(float(adamw.global_norm(s_grads)) - float(norm)) \
+        <= 1e-6 * float(norm)
+
+
+def test_replicated_leaf_gradient_is_the_sum_over_positions(monkeypatch):
+    """``final_norm`` is replicated: every position reads the one master
+    copy. Giving each position a copy of its own shows each position's
+    use; their gradients sum to the master's."""
+    cfg = get_config("minitron-8b").reduced()
+    params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    placed, _ = _placed(params, (1, 4))
+    b = _batch(cfg)
+    _, grads = steps.loss_and_grads(placed, b, cfg)
+    master = grads["final_norm"]
+    assert isinstance(master, Placed) and len(master.parts) == 1
+    live = pytree.tree_map(lambda t: t.detach().requires_grad_(), placed)
+    target = live["final_norm"]
+    copies = [target.parts[0].detach().clone().requires_grad_()
+              for _ in range(4)]
+    at = Placed.at
+    monkeypatch.setattr(Placed, "at", lambda self, i: copies[i]
+                        if self is target else at(self, i))
+    with torch.enable_grad():
+        loss = steps.cross_entropy(
+            transformer.forward(live, torch.from_numpy(b["tokens"]), cfg),
+            torch.from_numpy(b["targets"]))
+        per_position = torch.autograd.grad(loss, copies)
+    assert all(float(g.abs().max()) > 0 for g in per_position)
+    assert not torch.equal(per_position[0], per_position[1])
+    _close(sum(per_position), master.parts[0], 1e-6)
+
+
+def test_global_norm_counts_each_shard_and_replicated_leaf_once():
+    rules = _rules((1, 4))
+    split = sharding.place_tensor(torch.arange(32.).reshape(4, 8),
+                                  rules.sharding(None, sharding.MLP))
+    rep = sharding.place_tensor(torch.full((8,), 2.0), rules.sharding(None))
+    tree = {"w": split, "norm": rep}
+    assert len(split.parts) == 4 and len(rep.parts) == 1
+    assert len(rep.shards) == 4
+    want = adamw.global_norm(sharding.gather(tree))
+    assert float(adamw.global_norm(tree)) == pytest.approx(float(want),
+                                                           rel=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+def _members(path):
+    with zipfile.ZipFile(path) as zf:
+        return {n: zf.read(n) for n in zf.namelist()}
+
+
+def test_checkpoint_of_a_placed_tree_reads_back_unsplit(tmp_path):
+    cfg = get_config("minitron-8b").reduced()
+    params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    placed, rules = _placed(params, (2, 4))
+    state = adamw.init(placed)
+    ckpt.save(str(tmp_path / "split"), 1, (placed, state))
+    ckpt.save(str(tmp_path / "whole"), 1, (params, adamw.init(params)))
+    assert _members(tmp_path / "split" / "step_00000001" / "arrays.npz") \
+        == _members(tmp_path / "whole" / "step_00000001" / "arrays.npz")
+    template = (params, adamw.init(params))
+    (got, _), step = ckpt.restore(str(tmp_path / "split"), template,
+                                  device="cpu")
+    assert step == 1
+    for a, b_ in zip(pytree.tree_leaves(got), pytree.tree_leaves(params)):
+        assert torch.equal(a, b_)
+    places = sharding.param_shardings(params, rules)
+    (again, _), _ = ckpt.restore(str(tmp_path / "split"), template,
+                                 shardings=(places, {
+                                     "m": places, "v": places,
+                                     "step": torch.device("cpu")}))
+    assert sharding.is_split(again)
+    for a, b_ in zip(pytree.tree_leaves(again), pytree.tree_leaves(placed)):
+        assert torch.equal(a, b_)
+    # a placed template restores onto its own placement
+    into, _ = ckpt.restore(str(tmp_path / "split"), (placed, state),
+                           device="cpu")
+    assert pytree.tree_structure(into) == pytree.tree_structure(
+        (placed, state))
+
+
+def test_recovery_and_elastic_restore_keep_the_placement(tmp_path):
+    """``run_with_recovery`` restores a placed state onto its own
+    placement after a failure; ``elastic_restore`` with
+    ``param_shardings`` splits an unsplit checkpoint onto a new mesh."""
+    cfg = get_config("qwen3-32b").reduced()
+    params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    placed, rules = _placed(params, (1, 2))
+    failed = []
+
+    def step_fn(state, step):
+        if step == 2 and not failed:
+            failed.append(step)
+            raise RuntimeError("a lost node")
+        return pytree.tree_map(lambda t: t + 1.0, state)
+
+    state, log = run_with_recovery(step_fn, placed, 4, str(tmp_path / "r"),
+                                   ckpt_every=2)
+    assert log["restarts"] == 1 and sharding.is_split(state)
+    for a, b_ in zip(pytree.tree_leaves(sharding.gather(state)),
+                     pytree.tree_leaves(params)):
+        assert torch.equal(a, b_ + 1.0 + 1.0 + 1.0 + 1.0)
+    ckpt.save(str(tmp_path / "e"), 3, params)
+    got, step = elastic_restore(str(tmp_path / "e"), params, _rules((2, 4)),
+                                sharding.param_shardings)
+    assert step == 3 and sharding.is_split(got)
+    assert got["embed"].devices == [torch.device("cpu")] * 4
+    for a, b_ in zip(pytree.tree_leaves(sharding.gather(got)),
+                     pytree.tree_leaves(params)):
+        assert torch.equal(a, b_)
+
+
+# ---------------------------------------------------------------------------
+# the families not yet split
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-16e", "mamba2-130m"])
+def test_families_not_yet_split_stay_whole(arch):
+    """``steps.place`` holds a family outside ``SPLIT_FAMILIES`` whole on
+    the mesh's first device (the tensors themselves), ``launch.train.build``
+    trains it over a (2, 2) mesh as before, and the reference's
+    ``param_shardings`` would split it: placed so, its parameters raise."""
+    cfg = get_config(arch).reduced()
+    assert cfg.family not in steps.SPLIT_FAMILIES
+    params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rules = _rules((2, 2))
+    held = steps.place(cfg, params, rules)
+    assert not sharding.is_split(held)
+    for a, b_ in zip(pytree.tree_leaves(held), pytree.tree_leaves(params)):
+        assert a is b_
+    with sharding.use_rules(rules):
+        assert not isinstance(steps.init_cache(cfg, 2, 8, "cpu"),
+                              transformer.SplitKVCache)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    p, s, step, _ = train_mod.build(cfg, opt, _mesh((2, 2)), params=params)
+    assert not sharding.is_split(p)
+    p, s, m = step(p, s, _batch(cfg, rows=4))
+    assert np.isfinite(float(m["loss"]))
+    forced = sharding.place(params, sharding.param_shardings(params, rules))
+    assert sharding.is_split(forced)
+    with pytest.raises(NotImplementedError, match="item 11i"):
+        steps.forward_logits(forced, {"tokens": _batch(cfg)["tokens"]}, cfg)
