@@ -201,12 +201,26 @@ greedy tokens, split over (1, 2) (K6 on each position's 16 heads over 4
 KV heads: 64 a prefill), its prefill ms, decode ms/token and peak GB
 beside the unsplit run, logits within ``5e-2 * max|logit|`` of the
 unsplit prefill, then once through ``launch.serve.serve`` over that mesh;
-and phase 6c's 4-layer step split over (1, 2): ms/step and peak GB.
+and phase 6c's 4-layer step split over (1, 2): ms/step and peak GB. The
+MoE and VLM families split the same way: reduced scout, maverick
+and the VLM in fp32 over (1, 2) and (2, 2) as minitron above, their
+prefill routing equal token for token to the unsplit run's; and phase
+5's scout (cut to 4 of 48 layers: its tree and the placed copy fit the
+card together) and VLM (all 40 layers, 1600 image tokens) paths, bf16 on
+``hopper``, 2 x 4096, 16 greedy tokens, split over (1, 2) against the same
+tree unsplit (K6 8 and 80 + 16 a prefill; prefill ms, decode ms/token,
+peak GB, logits within ``5e-2 * max|logit|``; for scout the tokens per
+expert and drops per MoE layer split beside unsplit, the tokens routed
+apart, and the first MoE layer on the unsplit run's own input: each
+position's assembled router equal bit for bit, the summed output within
+``5e-2 * max|out|``).
 
 Phase 2 also runs F6's shape through K1: ``resnet18_specs(16, 8)``'s
 ``s4b1_proj`` (a 1x1 stride-2 conv from 2x2 to 1x1, batch 2), whose
 patches ``im2col`` must hand over contiguous; and K6 at the per-position
-shape of 7d's split prefill.
+shape of 7d's split prefill, and at scout's position shape (20
+over 4 heads) and the VLM's cross-attention at a position (16 over 4
+heads to the 1600 image tokens).
 
 Phase 2 also holds every kernel at the shapes of the interpreter's calls
 (``*_strict`` paths: per COMP block, the block's rows and k-group); the
@@ -691,14 +705,21 @@ def lm_kernel_cases(path: str):
     VLM: the causal prefill once per layer and the non-causal
     cross-attention to the image tokens once per cross layer. mamba2 and
     whisper run no kernel. The MoE paths: the prefill's shape (40 heads
-    over 8 KV heads), once per layer."""
+    over 8 KV heads), once per layer. Off the paths (launches 0), phase
+    7d's split prefills: one model position's heads of TP_POSITIONS, for
+    scout (20 over 4) and for the VLM's cross-attention (16 over 4 to the
+    image tokens; its causal prefill has minitron's position shape)."""
     _, batch, prompt, gen = LM_PATHS[path]
     cfg = lm_config(path)
     prefill = dict(b=batch, h=cfg.n_heads, hkv=cfg.n_kv_heads,
                    sq=prompt, skv=prompt + gen, d=cfg.head_dim,
                    dtype="bf16", causal=True)
+    position = dict(prefill, h=cfg.n_heads // TP_POSITIONS,
+                    hkv=cfg.n_kv_heads // TP_POSITIONS)
     if cfg.family == "moe":
-        return [("flash_attention", "moe_prefill", prefill, cfg.n_layers)]
+        return [("flash_attention", "moe_prefill", prefill, cfg.n_layers),
+                *([("flash_attention", "moe_prefill_position_of_2",
+                    position, 0)] if path in TP_FAMILY_PATHS else [])]
     if path == "zamba2_7b_bf16":
         return [("flash_attention", "shared_prefill", prefill,
                  cfg.n_layers // cfg.shared_attn_every)]
@@ -706,15 +727,15 @@ def lm_kernel_cases(path: str):
         return [("flash_attention", "prefill", prefill, cfg.n_layers),
                 ("flash_attention", "cross_prefill", dict(
                     prefill, skv=cfg.n_image_tokens, causal=False),
-                 cfg.n_layers // cfg.cross_attn_every)]
+                 cfg.n_layers // cfg.cross_attn_every),
+                ("flash_attention", "cross_prefill_position_of_2", dict(
+                    position, skv=cfg.n_image_tokens, causal=False), 0)]
     if path != LM_PATH:
         return []
     return [
         ("flash_attention", "prefill", prefill, cfg.n_layers),
         # phase 7d's split prefill: one model position's heads of two
-        ("flash_attention", "prefill_position_of_2", dict(
-            prefill, h=cfg.n_heads // TP_POSITIONS,
-            hkv=cfg.n_kv_heads // TP_POSITIONS), 0),
+        ("flash_attention", "prefill_position_of_2", position, 0),
         ("flash_attention", "prefill_fp32", dict(prefill, dtype="fp32"), 0),
         ("flash_attention", "prefill_chunk", dict(
             prefill, sq=prompt // 2, row_offset=prompt // 2), 0),
@@ -2303,22 +2324,30 @@ class Routing:
     """Records, while entered, the routing of every MoE prefill call
     (more than one token) of ``transformer.moe``: the expert each token
     takes (the first maximum of the float32 router logits, as ``moe``
-    takes it) and the bucket capacity."""
+    takes it) and the bucket capacity. A layer split along ``model`` runs
+    one call per position, each routing the same tokens from the whole
+    router: the last position's (its range ends at the last expert) is
+    recorded. ``first`` keeps the first recorded call's layer tree and
+    input."""
 
     def __init__(self):
         self.calls = []
+        self.first = None
 
     def __enter__(self):
         from repro_torch.models import transformer
         self._moe = moe = transformer.moe
 
-        def recording(p, x, cfg):
-            if x.shape[1] > 1:
+        def recording(p, x, cfg, experts=None):
+            if x.shape[1] > 1 and (experts is None
+                                   or experts[1] == cfg.n_experts):
                 idx = (x.float() @ p["router"]).argmax(-1)
                 cap = max(1, int(cfg.capacity_factor * x.shape[1]
                                  / cfg.n_experts) + 1)
                 self.calls.append((idx, cap, cfg.n_experts))
-            return moe(p, x, cfg)
+                if self.first is None:
+                    self.first = (p, x)
+            return moe(p, x, cfg, experts=experts)
         transformer.moe = recording
         return self
 
@@ -2337,10 +2366,18 @@ class Routing:
                             dropped=int((rows - cap).clamp(min=0).sum())))
         return out
 
-    def flips(self, other: "Routing") -> int:
-        """Tokens routed to another expert than in ``other``'s calls."""
-        return sum(int((a != b).sum()) for (a, _, _), (b, _, _)
-                   in zip(self.calls, other.calls))
+    def flips(self, other: "Routing", rows: int = 1) -> int:
+        """Tokens routed to another expert than in ``other``'s calls; with
+        ``rows``, this run's calls are each data row's layers in turn (a
+        split run over as many rows), joined along the batch."""
+        m = len(self.calls) // rows
+        mine = [torch.cat([self.calls[r * m + i][0] for r in range(rows)])
+                for i in range(m)]
+        if m != len(other.calls):
+            raise AssertionError(f"{m} MoE calls a row against "
+                                 f"{len(other.calls)}")
+        return sum(int((a != b).sum()) for a, (b, _, _)
+                   in zip(mine, other.calls))
 
 
 def serve_lm(path: str, k6_ms: float) -> dict:
@@ -3034,6 +3071,14 @@ MESH_POSITIONS, MESH_TOL, MESH_PARAM_TOL = 2, 1e-5, 1e-4
 TP_POSITIONS = 2
 TP_MESHES = ((1, 2), (2, 2))
 TP_BATCH, TP_PROMPT, TP_DECODE = 4, 64, 4
+# the reduced archs split over TP_MESHES: one of each family split
+TP_REDUCED = (ROOF_ARCH, "llama4-scout-17b-16e", "llama4-maverick-400b-a17b",
+              "llama-3.2-vision-11b")
+# phase 5's MoE and VLM paths split over (1, TP_POSITIONS) at full width,
+# with the layers kept (None: all): scout's tree and its placed copy must
+# fit one card together (a layer is about 4.4 GB, the embedding and head
+# 4.1: 4 layers are 21.8 GB, twice that 44 GB; 8 would be 79 GB)
+TP_FAMILY_PATHS = {"llama4_scout_bf16": 4, "llama32_vision_bf16": None}
 
 
 def start_dryrun_cell(root: Path) -> subprocess.Popen:
@@ -3268,11 +3313,13 @@ def _gap(a: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def tp_reduced(card: str) -> dict:
-    """Phase 7d on reduced minitron-8b in fp32: split along model over each
-    of TP_MESHES (the repeated card), a prefill and TP_DECODE decode steps
-    (teacher-forced with the unsplit run's greedy tokens) against the
-    unsplit card run, and one training step against the one-position
-    step (7c's limits)."""
+    """Phase 7d on the reduced TP_REDUCED archs in fp32 (random weights, a
+    VLM's cross-attention gates opened, its image embeddings drawn from
+    seed 1): split along model over each of TP_MESHES (the repeated card),
+    a prefill and TP_DECODE decode steps (teacher-forced with the unsplit
+    run's greedy tokens) against the unsplit card run, an MoE model's
+    prefill routing token for token equal to the unsplit run's, and one
+    training step against the one-position step (7c's limits)."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.compat import make_mesh
@@ -3283,67 +3330,93 @@ def tp_reduced(card: str) -> dict:
     from repro_torch.parallel import sharding
     from repro_torch.train import steps
 
-    cfg = get_config(ROOF_ARCH).reduced()
     dev = torch.device("cuda", torch.cuda.current_device())
-    params = steps.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    prefill, decode = steps.make_serve_steps(cfg)
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (TP_BATCH, TP_PROMPT), dtype=np.int32)).to(dev)
-
-    def serve_run(p, rules, toks=None):
-        with sharding.use_rules(rules):
-            cache = steps.init_cache(cfg, TP_BATCH, TP_PROMPT + TP_DECODE,
-                                     dev)
-        logits, cache = prefill(p, prompts, cache)
-        out, toks = [logits], toks or []
-        for i in range(TP_DECODE):
-            if len(toks) <= i:
-                toks.append(logits.argmax(-1)[:, None])
-            logits, cache = decode(p, toks[i], cache, TP_PROMPT + i)
-            out.append(logits)
-        return out, toks
-
     one = make_mesh((1, 1), ("data", "model"), devices=[dev])
-    ref, toks = serve_run(params, sharding.make_rules(one))
     opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
-    batch = batch_for_step(DataConfig(cfg.vocab_size, 64, 8), 0)
-    p1, s1, f1, _ = train_mod.build(cfg, opt, one, params=pytree.tree_map(
-        lambda t: t.clone(), params))
-    p1, s1, m1 = f1(p1, s1, batch)
     out = {}
-    for shape in TP_MESHES:
-        mesh = make_mesh(shape, ("data", "model"),
-                         devices=[dev] * int(np.prod(shape)))
-        rules = sharding.make_rules(mesh)
-        placed = steps.place(cfg, params, rules)
-        got, _ = serve_run(placed, rules, toks)
-        gaps = [_gap(a, r) for a, r in zip(got, ref)]
-        if not max(gaps) <= MESH_TOL:
-            raise AssertionError(f"7d {shape}: split serving {gaps} > "
-                                 f"{MESH_TOL} of the unsplit run")
-        p2, s2, f2, _ = train_mod.build(cfg, opt, mesh, params=params)
-        p2, s2, m2 = f2(p2, s2, batch)
-        for k in ("loss", "grad_norm"):
-            a, r = float(m2[k]), float(m1[k])
-            if not abs(a - r) <= MESH_TOL * max(1.0, abs(r)):
-                raise AssertionError(f"7d {shape} step: {k} {a} vs {r}")
-        pgap = max(_gap(a, r) for a, r in zip(
-            pytree.tree_leaves(sharding.gather(p2)), pytree.tree_leaves(p1)))
-        if not pgap <= MESH_PARAM_TOL:
-            raise AssertionError(f"7d {shape} step: parameters {pgap:.3e} "
-                                 f"apart")
-        out[str(shape)] = dict(serve_gaps=gaps, param_gap=pgap,
-                               loss=float(m2["loss"]),
-                               ref_loss=float(m1["loss"]))
-        print(f"tensor parallel (7d) ({card}): reduced {ROOF_ARCH} fp32 "
-              f"split over {shape} of the repeated card: prefill and "
-              f"{TP_DECODE} decode steps within {max(gaps):.2e} of the "
-              f"unsplit run (relative to max(1, max|logit|)); one step: "
-              f"loss {float(m2['loss']):.6f} / {float(m1['loss']):.6f}, "
-              f"grad_norm {float(m2['grad_norm']):.6f} / "
-              f"{float(m1['grad_norm']):.6f}, parameters {pgap:.2e} apart",
-              flush=True)
+    for arch in TP_REDUCED:
+        cfg = get_config(arch).reduced()
+        params = steps.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        if cfg.family == "vlm":
+            open_gates(params)
+        extras = {k: v.to(dev) for k, v in train_mod.extras_for(
+            cfg, TP_BATCH, np.random.default_rng(1)).items()}
+        prefill, decode = steps.make_serve_steps(cfg)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (TP_BATCH, TP_PROMPT), dtype=np.int32)).to(dev)
+
+        def serve_run(p, rules, toks=None):
+            with sharding.use_rules(rules):
+                cache = steps.init_cache(cfg, TP_BATCH,
+                                         TP_PROMPT + TP_DECODE, dev)
+            routed = Routing()
+            with routed:
+                logits, cache = prefill(p, prompts, cache, extras)
+            got, toks = [logits], toks or []
+            for i in range(TP_DECODE):
+                if len(toks) <= i:
+                    toks.append(logits.argmax(-1)[:, None])
+                logits, cache = decode(p, toks[i], cache, TP_PROMPT + i,
+                                       extras)
+                got.append(logits)
+            return got, toks, routed
+
+        ref, toks, ref_routed = serve_run(params, sharding.make_rules(one))
+        batch = batch_for_step(DataConfig(cfg.vocab_size, 64, 8), 0)
+        batch.update(train_mod.extras_for(cfg, 8, np.random.default_rng(2)))
+        p1, s1, f1, _ = train_mod.build(cfg, opt, one, params=pytree.tree_map(
+            lambda t: t.clone(), params))
+        p1, s1, m1 = f1(p1, s1, batch)
+        out[arch] = {}
+        for shape in TP_MESHES:
+            mesh = make_mesh(shape, ("data", "model"),
+                             devices=[dev] * int(np.prod(shape)))
+            rules = sharding.make_rules(mesh)
+            placed = steps.place(cfg, params, rules)
+            got, _, routed = serve_run(placed, rules, toks)
+            gaps = [_gap(a, r) for a, r in zip(got, ref)]
+            if not max(gaps) <= MESH_TOL:
+                raise AssertionError(f"7d {arch} {shape}: split serving "
+                                     f"{gaps} > {MESH_TOL} of the unsplit "
+                                     f"run")
+            flips = routed.flips(ref_routed, rows=shape[0])
+            if flips:
+                raise AssertionError(f"7d {arch} {shape}: {flips} tokens "
+                                     f"routed apart from the unsplit run")
+            p2, s2, f2, _ = train_mod.build(cfg, opt, mesh, params=params)
+            p2, s2, m2 = f2(p2, s2, batch)
+            for k in ("loss", "grad_norm"):
+                a, r = float(m2[k]), float(m1[k])
+                if not abs(a - r) <= MESH_TOL * max(1.0, abs(r)):
+                    raise AssertionError(f"7d {arch} {shape} step: {k} {a} "
+                                         f"vs {r}")
+            pgap = max(_gap(a, r) for a, r in zip(
+                pytree.tree_leaves(sharding.gather(p2)),
+                pytree.tree_leaves(p1)))
+            if not pgap <= MESH_PARAM_TOL:
+                raise AssertionError(f"7d {arch} {shape} step: parameters "
+                                     f"{pgap:.3e} apart")
+            out[arch][str(shape)] = dict(
+                serve_gaps=gaps, param_gap=pgap, loss=float(m2["loss"]),
+                ref_loss=float(m1["loss"]),
+                grad_norm=float(m2["grad_norm"]),
+                ref_grad_norm=float(m1["grad_norm"]),
+                routed_calls=len(ref_routed.calls))
+            moe = (f"prefill routing of {len(ref_routed.calls)} MoE layers "
+                   f"equal token for token; " if routed.calls else "")
+            print(f"tensor parallel (7d) ({card}): reduced {arch} fp32 "
+                  f"split over {shape} of the repeated card: prefill and "
+                  f"{TP_DECODE} decode steps within {max(gaps):.2e} of the "
+                  f"unsplit run (relative to max(1, max|logit|)); {moe}one "
+                  f"step: loss {float(m2['loss']):.6f} / "
+                  f"{float(m1['loss']):.6f}, grad_norm "
+                  f"{float(m2['grad_norm']):.6f} / "
+                  f"{float(m1['grad_norm']):.6f}, parameters {pgap:.2e} "
+                  f"apart", flush=True)
+            del placed, p2, s2
+        del params, p1, s1
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3468,6 +3541,175 @@ def tp_full_width(card: str) -> dict:
                 serve_err=serve_err, launches=launches)
 
 
+def tp_families_full_width(card: str) -> dict:
+    """Phase 7d on phase 5's MoE and VLM paths at full width
+    (TP_FAMILY_PATHS: scout cut to 4 of 48 layers, all 40 of the VLM's
+    with 1600 image tokens and its gates opened): bf16 on hopper, 2 x
+    4096, 16 greedy tokens, unsplit and then split over TP_POSITIONS
+    positions of the repeated card from the same tree (both held: the
+    split run's peak holds the unsplit tree too); each a prefill whose
+    routing is recorded, ROOF_TIMED timed prefills and the decode steps.
+    K6 per prefill: each position's heads, twice the unsplit count. The
+    split prefill's logits within ``LM_TOL * max|logit|`` of the unsplit
+    ones. For scout, each MoE layer's tokens per expert and drops, split
+    beside unsplit, and the tokens routed apart (an attention output one
+    bf16 step apart can tip a near tie of the router); then the
+    first MoE layer held on the unsplit run's own input: every position's
+    router, assembled from the shards, equal to the unsplit one bit for
+    bit (so it routes every token as unsplit), and the positions' partial
+    outputs, summed, within ``LM_TOL * max|out|`` of the unsplit layer's.
+    Returns the numbers and the runs' kernel launches."""
+    import dataclasses
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import lm_inputs
+    from repro_torch.models import layers, transformer
+    from repro_torch.parallel import sharding
+    from repro_torch.train import steps
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    one = sharding.make_rules(make_mesh((1, 1), ("data", "model"),
+                                        devices=[dev]))
+    rules = sharding.make_rules(make_mesh(
+        (1, TP_POSITIONS), ("data", "model"), devices=[dev] * TP_POSITIONS))
+    out, launches = {}, dict.fromkeys(common.KERNELS, 0)
+    for path, n_layers in TP_FAMILY_PATHS.items():
+        arch, batch, prompt, gen = LM_PATHS[path]
+        cfg = get_config(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        params = steps.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        if cfg.family == "vlm":
+            open_gates(params)
+        extras, prompts, _ = lm_inputs(cfg, params, np.random.default_rng(0),
+                                       batch, prompt, "hopper", dev)
+        tokens = torch.from_numpy(prompts).to(dev)
+        prefill, decode = steps.make_serve_steps(cfg, backend="hopper")
+
+        def run(p, r) -> dict:
+            torch.cuda.reset_peak_memory_stats()
+            with sharding.use_rules(r):
+                cache = steps.init_cache(cfg, batch, prompt + gen, dev)
+            common.reset_launches()
+            routed = Routing()
+            with routed:
+                first, cache = prefill(p, tokens, cache, extras)
+            times = []
+            for _ in range(ROOF_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill(p, tokens, cache, extras)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            k6 = common.LAUNCHES["flash_attention"] / (ROOF_TIMED + 1)
+            tok = first.argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(gen):
+                logits, cache = decode(p, tok, cache, prompt + i, extras)
+                tok = logits.argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t0) * 1e3 / gen
+            ran = dict(common.LAUNCHES)
+            if ran["flash_attention"] != k6 * (ROOF_TIMED + 1):
+                raise AssertionError(f"7d {path}: decode launched K6 "
+                                     f"({ran})")
+            if not bool(torch.isfinite(first.float()).all()):
+                raise AssertionError(f"7d {path}: prefill logits not "
+                                     f"finite")
+            return dict(prefill_ms=statistics.median(times), times=times,
+                        decode_ms=decode_ms, k6_per_prefill=k6,
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        logits=first, launches=ran, routed=routed)
+
+        whole = run(params, one)
+        placed = steps.place(cfg, params, rules)
+        split = run(placed, rules)
+        want_k6 = cfg.n_layers + (cfg.n_layers // cfg.cross_attn_every
+                                  if cfg.cross_attn_every else 0)
+        if (whole["k6_per_prefill"], split["k6_per_prefill"]) != (
+                want_k6, TP_POSITIONS * want_k6):
+            raise AssertionError(f"7d {path}: K6 {whole['k6_per_prefill']}"
+                                 f" / {split['k6_per_prefill']} a prefill, "
+                                 f"expected {want_k6} / "
+                                 f"{TP_POSITIONS * want_k6}")
+        ref = whole.pop("logits").float()
+        lim = LM_TOL * float(ref.abs().max())
+        err = float((split.pop("logits").float() - ref).abs().max())
+        if not err <= lim:
+            raise AssertionError(f"7d {path}: split prefill logits {err} > "
+                                 f"{lim}")
+        w_routed, s_routed = whole.pop("routed"), split.pop("routed")
+        r = dict(split=split, unsplit=whole, logits_err=err, limit=lim,
+                 n_layers=cfg.n_layers)
+        if cfg.family == "moe":
+            r["routing_unsplit"] = w_routed.layers()
+            r["routing_split"] = s_routed.layers()
+            r["flips"] = s_routed.flips(w_routed)
+            for i, (a, b) in enumerate(zip(r["routing_split"],
+                                           r["routing_unsplit"])):
+                print(f"tensor parallel (7d) {path} routing, prefill, MoE "
+                      f"layer {i}: tokens per expert split {a['experts']}, "
+                      f"unsplit {b['experts']} (capacity {a['cap']} a "
+                      f"row); dropped {a['dropped']} / {b['dropped']}",
+                      flush=True)
+            # the first MoE layer on the unsplit run's own input
+            p0, x0 = w_routed.first
+            want = layers.moe(p0, x0, cfg)
+            parts = []
+            for i in range(TP_POSITIONS):
+                slot = next(j for j, lp in enumerate(placed["layers"])
+                            if "moe" in lp)
+                pi = layers.layer_at(transformer._position_tree(
+                    placed, cfg, i)["layers"][slot]["moe"], 0)
+                if not torch.equal(pi["router"], p0["router"]):
+                    raise AssertionError(f"7d {path}: position {i}'s "
+                                         f"router differs from the "
+                                         f"unsplit one")
+                parts.append(layers.moe(pi, x0, cfg, experts=transformer
+                                        ._tp_ranges(cfg, TP_POSITIONS, i)
+                                        ["experts"]))
+            got = sharding.all_reduce_sum(parts)[0]
+            r["layer_err"] = float((got.float() - want.float()).abs().max())
+            r["layer_limit"] = LM_TOL * float(want.float().abs().max())
+            del parts, got, want, p0, x0
+            if not r["layer_err"] <= r["layer_limit"]:
+                raise AssertionError(f"7d {path}: the split MoE layer on "
+                                     f"the unsplit input {r['layer_err']}"
+                                     f" > {r['layer_limit']}")
+        del placed, params, extras, w_routed, s_routed
+        torch.cuda.empty_cache()
+        for name, n in split.pop("launches").items():
+            launches[name] += n
+        whole.pop("launches")
+        moe_line = ("" if cfg.family != "moe" else
+                    f"; {r['flips']} of {batch * prompt * cfg.n_layers} "
+                    f"routed tokens (prefill, all MoE layers) take another "
+                    f"expert than unsplit; the first MoE layer on the "
+                    f"unsplit input: routers equal bit for bit, output "
+                    f"max|diff| {r['layer_err']:.4f} (limit "
+                    f"{r['layer_limit']:.4f})")
+        print(f"tensor parallel (7d) ({card}): {arch} {cfg.dtype} on hopper, "
+              f"{batch} x {prompt}, {cfg.n_layers} layers, split over "
+              f"{TP_POSITIONS} positions of the repeated card: prefill "
+              f"{split['prefill_ms']:.1f}ms (times "
+              f"{[round(t, 1) for t in split['times']]}; K6 "
+              f"{split['k6_per_prefill']:.0f} a prefill), decode "
+              f"{split['decode_ms']:.2f}ms/token, peak "
+              f"{split['peak_gb']:.2f} GB (both trees); unsplit prefill "
+              f"{whole['prefill_ms']:.1f}ms (K6 "
+              f"{whole['k6_per_prefill']:.0f}), decode "
+              f"{whole['decode_ms']:.2f}ms/token, peak "
+              f"{whole['peak_gb']:.2f} GB; split vs unsplit prefill logits "
+              f"max|diff| {err:.4f} (limit {lim:.4f}){moe_line}",
+              flush=True)
+        out[path] = r
+    return dict(paths=out, launches=launches)
+
+
 def finish_dryrun_cell(proc: subprocess.Popen, card: str) -> dict:
     """Phase 7b: wait for the cell's process and check its record."""
     out, err = proc.communicate(timeout=600)
@@ -3509,14 +3751,17 @@ def launch_tools_phase(card: str, k6_case: dict) -> dict:
         torch.cuda.empty_cache()
         out["tp_full_width"] = tp_full_width(card)
         torch.cuda.empty_cache()
+        out["tp_families"] = tp_families_full_width(card)
+        torch.cuda.empty_cache()
         out["dryrun"] = finish_dryrun_cell(proc, card)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
     out["launches"] = out["prefill"].pop("launches")
-    for name, n in out["tp_full_width"].pop("launches").items():
-        out["launches"][name] += n
+    for part in ("tp_full_width", "tp_families"):
+        for name, n in out[part].pop("launches").items():
+            out["launches"][name] += n
     out["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"phase": "launch_tools", "card": card, **out},
                      default=float), flush=True)

@@ -14,8 +14,12 @@ real or on fake tensors:
                   post-fusion bytes; views and allocations move nothing.
 * Collective bytes -- what the port itself reduces across mesh positions
                   (``launch/train.py``'s gradient reduction and parameter
-                  copies, ``optim/compression.compressed_psum``), declared
-                  by that code through :func:`declare_collective`.
+                  copies, ``optim/compression.compressed_psum``, the
+                  tensor-parallel collectives of ``parallel/sharding.py``),
+                  declared by that code through :func:`declare_collective`;
+                  a collective whose backward moves bytes too declares that
+                  one through :func:`declare_backward`, which the gradient
+                  runs.
 
 The hand-written kernels (K1-K6) launch through ``ctypes``, which no
 dispatch mode sees: each wrapper declares its work (FLOPs and bytes, from
@@ -111,16 +115,43 @@ def declare_work(name: str, flops: float, nbytes: float) -> None:
         c.stats.bytes_accessed += nbytes
 
 
-def declare_collective(kind: str, nbytes: float) -> None:
+def declare_collective(kind: str, nbytes: float, counters=None) -> None:
     """One collective of ``kind`` (one of ``COLLECTIVES``) moving
     ``nbytes`` (the larger of its operand and result) into every active
-    counter."""
+    counter (or into ``counters``)."""
     if kind not in COLLECTIVES:
         raise ValueError(f"unknown collective {kind!r}")
-    for c in _counters():
+    for c in _counters() if counters is None else counters:
         c.stats.collective_bytes += nbytes
         c.stats.collective_counts[kind] = (
             c.stats.collective_counts.get(kind, 0) + 1)
+
+
+class _DeclaredBackward(torch.autograd.Function):
+    """The identity, whose backward declares its collectives into the
+    counters active at its forward (autograd may run the backward on a
+    thread of its own, where no counter is active)."""
+
+    @staticmethod
+    def forward(ctx, x, counters, kind, sizes):
+        ctx.counters, ctx.kind, ctx.sizes = counters, kind, sizes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        for nbytes in ctx.sizes:
+            declare_collective(ctx.kind, nbytes, ctx.counters)
+        return grad, None, None, None
+
+
+def declare_backward(t: torch.Tensor, kind: str, sizes) -> torch.Tensor:
+    """``t``, whose gradient's pass declares one collective of ``kind`` per
+    entry of ``sizes`` (bytes each): a view of ``t`` through an identity
+    where a counter counts and ``t`` takes part in autograd, else ``t``
+    itself."""
+    if not (counting() and t.requires_grad and torch.is_grad_enabled()):
+        return t
+    return _DeclaredBackward.apply(t, list(_counters()), kind, list(sizes))
 
 
 class uncounted:

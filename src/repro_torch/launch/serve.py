@@ -1,7 +1,7 @@
 """Serving entry points of the PyTorch port, on a CUDA card by default.
 
 LM serving (batched prefill, then greedy decode with a KV/SSM cache;
-the dense, VLM, SSM, hybrid and audio families, e.g. full-width
+the dense, MoE, VLM, SSM, hybrid and audio families, e.g. full-width
 minitron-8b or zamba2-7b on one H100):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
@@ -16,10 +16,11 @@ does; whisper encodes them outside the timed prefill. Prints the build
 whisper's encode time). As the reference's ``serve``, it runs over the
 host's mesh (``launch.mesh.make_host_mesh``, ``(1, n)`` over every local
 card) under its rules, with the parameters placed by ``train.steps.place``
-(``param_shardings``): on several cards a dense model is split along
-``model`` (tensor parallel, ``models/transformer.py``); on one card, or on
-the CPU, the mesh is ``(1, 1)`` and nothing is split. The families not yet
-split run whole on the first card (ROADMAP 11i).
+(``param_shardings``): on several cards a dense, MoE or VLM model is
+split along ``model`` (heads, hidden units and experts,
+``models/transformer.py``); on one card, or on the CPU, the mesh is
+``(1, 1)`` and nothing is split. The SSM, hybrid and audio families run
+whole on the first card (ROADMAP 11i).
 
 CNN serving through the ported HybridDNN pipeline — DSE -> compile ->
 validated, cached executor:

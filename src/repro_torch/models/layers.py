@@ -375,48 +375,66 @@ def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         b, -1, d)
 
 
-def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
+        experts: tuple[int, int] | None = None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D). Top-1 routing on the float32 router
     logits (the first maximum, as ``jnp.argmax``), a softmax gate, and a
     per-row capacity ``cap``: each expert's bucket takes its tokens in
     their original order (a stable sort) and drops those past ``cap``.
-    Every expert's SwiGLU runs on its whole (B, cap, D) bucket."""
+    Every expert's SwiGLU runs on its whole (B, cap, D) bucket.
+
+    ``experts`` is the range ``[e0, e1)`` of experts ``p["we_*"]`` hold
+    (default: all of them; ``p["router"]`` is always the whole router).
+    Routing, capacity and dispatch are computed over all experts; only the
+    range's buckets run, and a token reads its slot only where it lies in
+    the range, scaled by its gate (every other token reads zero), plus the
+    shared expert of whatever hidden units ``p["shared"]`` holds. The
+    outputs of disjoint ranges covering every expert, each with its share
+    of the shared expert's hidden units, sum to the whole call's."""
     b, s, d = x.shape
     e = cfg.n_experts
+    e0, e1 = experts or (0, e)
 
-    gate_logits = x.float() @ p["router"]                       # (B, S, E)
-    expert_idx = gate_logits.argmax(-1)                          # (B, S)
-    gate = torch.softmax(gate_logits, -1)
-    gate_val = gate.gather(-1, expert_idx[..., None])[..., 0]    # (B, S)
+    if e1 > e0:
+        gate_logits = x.float() @ p["router"]                   # (B, S, E)
+        expert_idx = gate_logits.argmax(-1)                      # (B, S)
+        gate = torch.softmax(gate_logits, -1)
+        gate_val = gate.gather(-1, expert_idx[..., None])[..., 0]  # (B, S)
 
-    cap = max(1, int(cfg.capacity_factor * s / e) + 1)
-    onehot = F.one_hot(expert_idx, e)                            # (B, S, E)
-    pos_all = onehot.cumsum(1) - 1
-    pos = pos_all.gather(-1, expert_idx[..., None])[..., 0]      # (B, S)
-    keep = pos < cap
-    dest = torch.where(keep, expert_idx * cap + pos, e * cap)    # (B, S)
+        cap = max(1, int(cfg.capacity_factor * s / e) + 1)
+        onehot = F.one_hot(expert_idx, e)                        # (B, S, E)
+        pos_all = onehot.cumsum(1) - 1
+        pos = pos_all.gather(-1, expert_idx[..., None])[..., 0]  # (B, S)
+        keep = pos < cap
+        dest = torch.where(keep, expert_idx * cap + pos, e * cap)  # (B, S)
 
-    # bucket fill via stable sort: tokens grouped by expert, original order
-    counts = onehot.sum(1)                                       # (B, E)
-    starts = counts.cumsum(1) - counts                           # exclusive
-    sort_idx = torch.argsort(expert_idx, dim=1, stable=True)     # (B, S)
-    cidx = torch.arange(cap, device=x.device)
-    src = starts[:, :, None] + cidx                              # (B, E, cap)
-    valid = cidx < counts.clamp(max=cap)[:, :, None]
-    src = src.clamp(0, s - 1).reshape(b, e * cap)
-    tok_idx = sort_idx.gather(1, src)                            # (B, E*cap)
-    buckets = _rows(x, tok_idx) * valid.reshape(b, e * cap, 1).to(x.dtype)
-    buckets = buckets.reshape(b, e, cap, d)
+        # bucket fill via stable sort: tokens grouped by expert, original
+        # order; only the range's slots [lo, hi) are gathered
+        lo, hi = e0 * cap, e1 * cap
+        counts = onehot.sum(1)                                   # (B, E)
+        starts = counts.cumsum(1) - counts                       # exclusive
+        sort_idx = torch.argsort(expert_idx, dim=1, stable=True)  # (B, S)
+        cidx = torch.arange(cap, device=x.device)
+        src = starts[:, :, None] + cidx                          # (B, E, cap)
+        valid = cidx < counts.clamp(max=cap)[:, :, None]
+        src = src.clamp(0, s - 1).reshape(b, e * cap)[:, lo:hi]
+        tok_idx = sort_idx.gather(1, src)                        # (B, hi-lo)
+        buckets = _rows(x, tok_idx) * valid.reshape(b, e * cap, 1)[
+            :, lo:hi].to(x.dtype)
+        buckets = buckets.reshape(b, e1 - e0, cap, d)
 
-    g = torch.einsum("becd,edf->becf", buckets, p["we_gate"])
-    u = torch.einsum("becd,edf->becf", buckets, p["we_up"])
-    y = torch.einsum("becf,efd->becd", F.silu(g) * u, p["we_down"])
-    y = y.reshape(b, e * cap, d)
+        g = torch.einsum("becd,edf->becf", buckets, p["we_gate"])
+        u = torch.einsum("becd,edf->becf", buckets, p["we_up"])
+        y = torch.einsum("becf,efd->becd", F.silu(g) * u, p["we_down"])
+        y = y.reshape(b, hi - lo, d)
 
-    # combine: token s reads its slot (clipped sentinel -> masked by keep)
-    out = _rows(y, dest.clamp(max=e * cap - 1))
-    out = out * (keep & (dest < e * cap))[..., None]
-    out = out * gate_val[..., None].to(x.dtype)
+        # combine: token s reads its slot (a clipped sentinel or a slot
+        # outside the range -> masked)
+        out = _rows(y, (dest - lo).clamp(0, hi - lo - 1))
+        out = out * (keep & (dest >= lo) & (dest < hi))[..., None]
+        out = out * gate_val[..., None].to(x.dtype)
+    else:                       # a model position that holds no expert
+        out = torch.zeros_like(x)
     if "shared" in p:
         out = out + swiglu(p["shared"], x)
     return out

@@ -14,25 +14,31 @@ model's every ``moe_every``-th layer of a group runs ``layers.moe`` in
 place of the SwiGLU FFN (llama4-scout: every layer, 16 experts;
 llama4-maverick: alternating, 128 experts).
 
-Tensor parallelism (the dense family; ROADMAP 11i): :func:`forward` and
-:func:`decode_step` run over a list of ``model`` positions, each with its
-plain tree of tensors; an unplaced tree is the one position. Over
-parameters placed by ``train.steps.place`` on a mesh whose ``model`` axis
-spans several positions, each position computes whole heads: query heads
-``[i H / n, (i + 1) H / n)`` and the KV heads they read, with their
-``wq``/``wk``/``wv`` columns and ``wo`` rows (gathered from the shards
-they overlap where the heads do not divide the positions), and hidden
-units ``[i F / n, (i + 1) F / n)`` of the SwiGLU. A position's query
-heads must lie inside one KV group or start and end on group boundaries
-(else ``ValueError``). The norms and residual adds run replicated on
-every position; one ``all_reduce_sum`` follows each row-split product
-(``wo``, ``w_down``). The embedding is split along ``d``: each position
-takes its columns of the rows, then an ``all_gather``. The head is split
-along the vocabulary: the local logits are gathered on the first
+Tensor parallelism (the dense, MoE and VLM families; ROADMAP 11i):
+:func:`forward` and :func:`decode_step` run over a list of ``model``
+positions, each with its plain tree of tensors; an unplaced tree is the
+one position. Over parameters placed by ``train.steps.place`` on a mesh
+whose ``model`` axis spans several positions, each position computes
+whole heads: query heads ``[i H / n, (i + 1) H / n)`` and the KV heads
+they read, with their ``wq``/``wk``/``wv`` columns and ``wo`` rows
+(gathered from the shards they overlap where the heads do not divide the
+positions), of the self-attention and of a VLM's cross-attention alike;
+hidden units ``[i F / n, (i + 1) F / n)`` of the SwiGLU and of an MoE
+layer's shared expert; and whole experts ``[i E / n, (i + 1) E / n)`` of
+an MoE layer (expert parallelism: ``layers.moe`` over that range, routed
+from the whole router, whose columns every position reads, so each token
+takes the expert the unsplit model gives it; a position may hold none). A
+position's query heads must lie inside one KV group or start and end on
+group boundaries (else ``ValueError``). The norms, the cross-attention
+gate and the residual adds run replicated on every position; one
+``all_reduce_sum`` follows each row-split product (``wo``, ``w_down``, the
+routed and shared experts' sum). The embedding is split along ``d``: each
+position takes its columns of the rows, then an ``all_gather``. The head
+is split along the vocabulary: the local logits are gathered on the first
 position. A split model's KV cache (:class:`SplitKVCache`) holds, per data
-row and position, the position's KV heads for the row's share of the
-batch; a mesh of several data rows splits the batch over them in row
-order.
+row and position, the position's self-attention KV heads for the row's
+share of the batch; a mesh of several data rows splits the batch, and a
+VLM's image embeddings with it, over them in row order.
 """
 from __future__ import annotations
 
@@ -111,9 +117,10 @@ def apply_layer(ps: list, xs: list, cfg: ModelConfig, kind: dict, *,
     """One layer over the ``model`` positions (module doc): ``ps``, ``xs``,
     ``positions`` and ``caches`` hold each position's layer tree,
     activations (replicated), RoPE positions (or None) and layer cache.
-    Each position's attention and FFN give its partial sum of their
-    row-split products; ``all_reduce_sum`` joins them (one position's is
-    its own)."""
+    Each position's attention, cross-attention and FFN (or its experts
+    and shared-expert share) give its partial sum of their row-split
+    products; ``all_reduce_sum`` joins them (one position's is its
+    own)."""
     eps = cfg.norm_eps
     caches = caches or [None] * len(ps)
     hs = [attention(p["attn"], rms_norm(x, p["norm"], eps), cfg,
@@ -123,14 +130,16 @@ def apply_layer(ps: list, xs: list, cfg: ModelConfig, kind: dict, *,
     xs = [x + h for x, h in zip(xs, sharding.all_reduce_sum(hs))]
     if kind["cross"] and image_embeds is not None:
         xhs = [attention(p["xattn"], rms_norm(x, p["norm3"], eps), cfg,
-                         xattn_kv=image_embeds, causal=False, use_rope=False,
-                         backend=backend)[0] for p, x in zip(ps, xs)]
+                         xattn_kv=image_embeds.to(x.device), causal=False,
+                         use_rope=False, backend=backend)[0]
+               for p, x in zip(ps, xs)]
         xs = [x + torch.tanh(p["xattn_gate"]) * xh
               for p, x, xh in zip(ps, xs, sharding.all_reduce_sum(xhs))]
     fs = []
-    for p, x in zip(ps, xs):
+    for i, (p, x) in enumerate(zip(ps, xs)):
         h2 = rms_norm(x, p["norm2"], eps)
-        fs.append(moe(p["moe"], h2, cfg) if kind["moe"]
+        fs.append(moe(p["moe"], h2, cfg, experts=_tp_ranges(
+            cfg, len(ps), i)["experts"]) if kind["moe"]
                   else swiglu(p["ffn"], h2))
     return [x + f for x, f in zip(xs, sharding.all_reduce_sum(fs))]
 
@@ -234,10 +243,11 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
 
 
 class SplitKVCache:
-    """The KV cache of a split dense model: ``rows[r][i]``, data row
-    ``r``'s cache on ``model`` position ``i`` (the :func:`init_kv_cache`
-    layout, with the row's ``batch / rows`` sequences and the position's KV
-    heads), on that position's device, written in place. ``placement`` is
+    """The KV cache of a split model (dense, MoE or VLM): ``rows[r][i]``,
+    data row ``r``'s cache on ``model`` position ``i`` (the
+    :func:`init_kv_cache` layout, with the row's ``batch / rows`` sequences
+    and the position's KV heads), on that position's device, written in
+    place. ``placement`` is
     a ``NamedSharding`` over the mesh (``train.steps.init_cache``)."""
 
     def __init__(self, cfg: ModelConfig, batch: int, max_len: int,
@@ -264,8 +274,8 @@ def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
     ``pos``. Returns (logits (B, V), cache), the cache updated in place.
     The same path serves prefill: token (B, S_prompt) with pos=0
     (causality is cache-relative). Placed parameters decode into a
-    :class:`SplitKVCache`, each data row its share of the batch; the
-    logits are on the mesh's first device."""
+    :class:`SplitKVCache`, each data row its share of the batch (and of
+    ``image_embeds``); the logits are on the mesh's first device."""
     split = isinstance(cache, SplitKVCache)
     if split != sharding.is_split(params):
         raise TypeError("placed parameters decode into a SplitKVCache and "
@@ -280,7 +290,8 @@ def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
     out = [_decode_row(params if r == 0 else sharding.row(params, r),
                        token[r * per:(r + 1) * per],
                        caches, int(pos), cfg,
-                       image_embeds, backend)
+                       None if image_embeds is None
+                       else image_embeds[r * per:(r + 1) * per], backend)
            for r, caches in enumerate(rows)]
     if len(out) == 1:
         return out[0], cache
@@ -318,13 +329,14 @@ def prefill(params: Params, tokens: torch.Tensor, cache, cfg: ModelConfig, *,
 
 
 # ---------------------------------------------------------------------------
-# tensor parallelism along ``model`` (the dense family; module doc)
+# tensor parallelism along ``model`` (dense, MoE, VLM; module doc)
 # ---------------------------------------------------------------------------
 
 def _tp_ranges(cfg: ModelConfig, n: int, i: int) -> dict:
     """Position ``i``'s share of ``n``: query heads, the KV heads they read,
-    hidden units, embedding columns and vocabulary, as [start, stop). The
-    query heads must lie inside one KV group or start and end on group
+    hidden units, experts, embedding columns and vocabulary, as [start,
+    stop) (a share of experts may be empty: fewer experts than positions).
+    The query heads must lie inside one KV group or start and end on group
     boundaries: ``attention`` gives each of a position's KV heads an equal,
     contiguous block of its query heads."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
@@ -340,8 +352,8 @@ def _tp_ranges(cfg: ModelConfig, n: int, i: int) -> dict:
                          f"{rep} over KV heads [{k0}, {k1})")
     share = lambda total: (i * total // n, (i + 1) * total // n)  # noqa
     return {"heads": (h0, h1), "kv_heads": (k0, k1),
-            "ffn": share(cfg.d_ff), "embed": share(cfg.d_model),
-            "vocab": share(cfg.vocab_size)}
+            "ffn": share(cfg.d_ff), "experts": share(cfg.n_experts),
+            "embed": share(cfg.d_model), "vocab": share(cfg.vocab_size)}
 
 
 def _position_trees(params: Params, cfg: ModelConfig) -> list:
@@ -355,12 +367,15 @@ def _position_trees(params: Params, cfg: ModelConfig) -> list:
 
 def _position_tree(params: Params, cfg: ModelConfig, i: int) -> Params:
     """The plain tree position ``i`` computes with (``_tp_ranges``): its
-    own shards where its share is its shard, else the columns or rows
-    assembled from the shards the share overlaps."""
+    own shards where its share is its shard, else the columns, rows or
+    experts assembled from the shards the share overlaps (or cut from the
+    master copy of a leaf the placement could not split). An MoE layer
+    reads the whole router."""
     n = params["embed"].n
     r = _tp_ranges(cfg, n, i)
     hd = cfg.head_dim
     (h0, h1), (k0, k1), (f0, f1) = r["heads"], r["kv_heads"], r["ffn"]
+    e0, e1 = r["experts"]
 
     def attn(a):
         out = {"wq": a["wq"].take(-1, h0 * hd, h1 * hd, i),
@@ -372,13 +387,32 @@ def _position_tree(params: Params, cfg: ModelConfig, i: int) -> Params:
                 out[name] = a[name].at(i)
         return out
 
-    layers = [{"norm": lp["norm"].at(i), "attn": attn(lp["attn"]),
-               "norm2": lp["norm2"].at(i),
-               "ffn": {"w_gate": lp["ffn"]["w_gate"].take(-1, f0, f1, i),
-                       "w_up": lp["ffn"]["w_up"].take(-1, f0, f1, i),
-                       "w_down": lp["ffn"]["w_down"].take(-2, f0, f1, i)}}
-              for lp in params["layers"]]
+    def ffn(f):
+        return {"w_gate": f["w_gate"].take(-1, f0, f1, i),
+                "w_up": f["w_up"].take(-1, f0, f1, i),
+                "w_down": f["w_down"].take(-2, f0, f1, i)}
+
+    def experts(m):
+        out = {"router": m["router"].take(-1, 0, cfg.n_experts, i)}
+        for name in ("we_gate", "we_up", "we_down"):
+            out[name] = m[name].take(-3, e0, e1, i)
+        if "shared" in m:
+            out["shared"] = ffn(m["shared"])
+        return out
+
+    def layer(lp):
+        out = {"norm": lp["norm"].at(i), "attn": attn(lp["attn"]),
+               "norm2": lp["norm2"].at(i)}
+        if "moe" in lp:
+            out["moe"] = experts(lp["moe"])
+        else:
+            out["ffn"] = ffn(lp["ffn"])
+        if "xattn" in lp:
+            out.update(xattn=attn(lp["xattn"]), norm3=lp["norm3"].at(i),
+                       xattn_gate=lp["xattn_gate"].at(i))
+        return out
+
     return {"embed": params["embed"].take(-1, *r["embed"], i),
-            "layers": layers,
+            "layers": [layer(lp) for lp in params["layers"]],
             "final_norm": params["final_norm"].at(i),
             "lm_head": params["lm_head"].take(-1, *r["vocab"], i)}

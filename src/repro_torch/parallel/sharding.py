@@ -24,12 +24,15 @@ autograd sums its gradient over the positions). Every data row of the mesh
 reads its own copy of the shards (:func:`row`; on a repeated device the
 copy is the shard itself). The model code computes on plain tensors:
 :meth:`Placed.at` gives a position's shard, :meth:`Placed.take` the
-columns or rows a position computes with, and :func:`all_reduce_sum`,
-:func:`all_gather` and :func:`gather` join the per-position results. Which
-families are split is decided by ``train.steps`` (``steps.place``); this
-module places whatever tree it is given. ``shard`` is the identity with
-or without rules: the split is the placement's, and a tensor held whole
-has no constraint to place.
+columns, rows or experts a position computes with (an MoE layer's
+``(G, E, d, f)`` expert leaves split on ``E``, its float32 router on its
+expert columns), and :func:`all_reduce_sum`, :func:`all_gather` and
+:func:`gather_parts` join the per-position results; each declares its
+collectives, forward and backward, to ``launch/roofline.py``. Which
+families are split (dense, MoE, VLM) is decided by ``train.steps``
+(``steps.place``); this module places whatever tree it is given.
+``shard`` is the identity with or without rules: the split is the
+placement's, and a tensor held whole has no constraint to place.
 """
 from __future__ import annotations
 
@@ -423,20 +426,30 @@ class Placed:
         """``[start, stop)`` along ``dim`` of the global tensor, on position
         ``i``'s device: position ``i``'s own shard when the range is that
         shard, else assembled from the shards it overlaps (a position that
-        computes whole heads reads the columns of another position's)."""
+        computes whole heads reads the columns of another position's; an
+        MoE layer's router reads every position's). A leaf held as one
+        master copy is cut before it is read on ``i``'s device. Each piece
+        read from another position's shard is declared to the roofline's
+        collective term, forward and backward."""
         dim %= self.ndim
-        if dim != self.dim:
-            t = self.at(i)
-            return t if (start, stop) == (0, t.shape[dim]) else t.narrow(
-                dim, start, stop - start)
+        if self.dim is None or dim != self.dim:
+            t = self.parts[0] if self.dim is None else self.parts[i]
+            if (start, stop) != (0, t.shape[dim]):
+                t = t.narrow(dim, start, stop - start)
+            return t.to(self.devices[i])
         w = self.shape[dim] // self.n
         if (start, stop) == (i * w, (i + 1) * w):
             return self.parts[i]
         pieces = []
         for j in range(start // w, (stop - 1) // w + 1):
             lo, hi = max(start, j * w) - j * w, min(stop, (j + 1) * w) - j * w
-            pieces.append(self.parts[j].narrow(dim, lo, hi - lo).to(
-                self.devices[i]))
+            piece = self.parts[j].narrow(dim, lo, hi - lo)
+            if j != i and roofline.counting():
+                roofline.declare_collective("collective-permute",
+                                            _nbytes(piece))
+                piece = roofline.declare_backward(
+                    piece, "collective-permute", [_nbytes(piece)])
+            pieces.append(piece.to(self.devices[i]))
         return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
 
     def gather(self) -> torch.Tensor:
@@ -553,36 +566,48 @@ def all_reduce_sum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     the first position's device, then one copy for every position on its
     device (a position on the first's device gets a clone, so no two
     positions alias). Autograd follows the ``.to`` and the adds; each
-    position's all-reduce is declared to the roofline's collective term."""
+    position's all-reduce is declared to the roofline's collective term,
+    and so is its backward's (the copies' gradients summed, then handed
+    to every part)."""
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device)
     if len(parts) > 1 and roofline.counting():
-        for p in parts:
-            roofline.declare_collective("all-reduce", _nbytes(p))
+        sizes = [_nbytes(p) for p in parts]
+        for nbytes in sizes:
+            roofline.declare_collective("all-reduce", nbytes)
+        total = roofline.declare_backward(total, "all-reduce", sizes)
     return [total] + [total.clone() if p.device == total.device
                       else total.to(p.device) for p in parts[1:]]
 
 
 def gather_parts(parts: list[torch.Tensor], dim: int) -> torch.Tensor:
     """The per-position ``parts`` concatenated along ``dim`` in position
-    order on the first position's device (one gather, declared; one part
-    is itself)."""
+    order on the first position's device (one gather, declared, and its
+    backward's reduce-scatter of the gradient to the parts; one part is
+    itself)."""
     if len(parts) == 1:
         return parts[0]
     first = parts[0].device
     out = torch.cat([p.to(first) for p in parts], dim)
     if roofline.counting():
         roofline.declare_collective("all-gather", _nbytes(out))
+        out = roofline.declare_backward(out, "reduce-scatter",
+                                        [_nbytes(out)])
     return out
 
 
 def all_gather(parts: list[torch.Tensor], dim: int) -> list[torch.Tensor]:
     """``parts`` concatenated along ``dim`` in position order, one copy on
-    each position's device (each position's gather declared; one part is
-    itself)."""
+    each position's device (each position's gather declared, and its
+    backward's reduce-scatter: each part's gradient summed over the
+    copies; one part is itself)."""
     if len(parts) == 1:
         return list(parts)
+    if roofline.counting():
+        nbytes = sum(map(_nbytes, parts))
+        parts = [roofline.declare_backward(p, "reduce-scatter", [nbytes])
+                 for p in parts]
     out = []
     for p in parts:
         out.append(torch.cat([q.to(p.device) for q in parts], dim))

@@ -8,9 +8,11 @@ MoE (``models/transformer.py``), VLM (the same module, with image
 embeddings), SSM (mamba2), hybrid (zamba2) and audio (whisper).
 
 This module alone decides which families run tensor parallel along the
-mesh's ``model`` axis (``SPLIT_FAMILIES``, the dense family; ROADMAP 11i).
-:func:`place` splits such a model's parameters (``param_shardings``) and
-holds any other family's whole on the mesh's first device;
+mesh's ``model`` axis (``SPLIT_FAMILIES``: the dense, MoE and VLM
+families, every family of ``models/transformer.py``; ROADMAP 11i).
+:func:`place` splits such a model's parameters (``param_shardings``: heads,
+hidden units, experts) and holds any other family's (SSM, hybrid, audio)
+whole on the mesh's first device;
 :func:`init_cache` under ``use_rules`` of a splitting mesh lays out a split
 model's cache over it; the same functions then run it tensor parallel
 (``models/transformer.py``), with gradients per shard of the same
@@ -38,7 +40,7 @@ CE_CHUNK = 1 << 27
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": mamba2, "hybrid": zamba2, "audio": whisper}
 # the families split along ``model`` (module doc)
-SPLIT_FAMILIES = ("dense",)
+SPLIT_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _family(cfg: ModelConfig, params=None):
@@ -50,8 +52,9 @@ def _family(cfg: ModelConfig, params=None):
     if (params is not None and cfg.family not in SPLIT_FAMILIES
             and sharding.is_split(params)):
         raise NotImplementedError(
-            f"{cfg.family}: tensor parallelism is ported for the dense "
-            f"family only (ROADMAP Queue 1, item 11i)")
+            f"{cfg.family}: tensor parallelism is ported for the dense, "
+            f"MoE and VLM families; the SSM, hybrid and audio families "
+            f"are held whole (ROADMAP Queue 1, item 11i)")
     return FAMILIES[cfg.family]
 
 

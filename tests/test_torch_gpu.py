@@ -1252,3 +1252,53 @@ def test_gpu_tensor_parallel_over_two_cards(cuda):
                     pytree.tree_leaves(p1)):
         assert float((a - b).abs().max()) <= 1e-4 * max(
             1.0, float(b.abs().max()))
+
+
+def test_gpu_expert_parallel_over_two_cards(cuda):
+    """llama4-maverick at full width cut to its first group (a dense and
+    an MoE layer of 128 experts, about 37 GB of bf16 weights) split along
+    ``model`` over two distinct cards, (1, 2): each card holds 64 whole
+    experts, 20 of the 40 query heads and half the hidden units; a 2 x
+    2048 ``hopper`` prefill (K6 on each card's heads) within ``5e-2 *
+    max|logit|`` of the unsplit run on card 0, and each position's router,
+    assembled from both cards, equal to the unsplit one bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import dataclasses
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.models import layers, transformer
+    from repro_torch.parallel import sharding
+
+    cfg = dataclasses.replace(get_config("llama4-maverick-400b-a17b"),
+                              n_layers=2)
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    rules = sharding.make_rules(make_mesh((1, 2), ("data", "model"),
+                                          devices=cards))
+    params = steps.init_params(cfg, torch.Generator(device=cards[0])
+                               .manual_seed(0), cards[0])
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 2048)).astype(np.int32)).to(cards[0])
+    prefill, _ = steps.make_serve_steps(cfg, backend="hopper")
+    whole, _ = prefill(params, prompts, steps.init_cache(cfg, 2, 2048,
+                                                         cards[0]))
+    placed = steps.place(cfg, params, rules)
+    we = placed["layers"][1]["moe"]["we_gate"]
+    assert [(t.device, tuple(t.shape)) for t in we.shards] == [
+        (d, (1, 64, cfg.d_model, cfg.d_ff)) for d in cards]
+    for i in range(2):
+        router = layers.layer_at(transformer._position_tree(
+            placed, cfg, i)["layers"][1]["moe"], 0)["router"]
+        assert router.device == cards[i]
+        assert torch.equal(router.to(cards[0]),
+                           params["layers"][1]["moe"]["router"][0])
+    del params
+    torch.cuda.empty_cache()
+    with sharding.use_rules(rules):
+        cache = steps.init_cache(cfg, 2, 2048, cards[0])
+    common.reset_launches()
+    split, _ = prefill(placed, prompts, cache)
+    assert common.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+    assert split.device == cards[0]
+    assert float((split.float() - whole.float()).abs().max()) <= 5e-2 * \
+        float(whole.float().abs().max())

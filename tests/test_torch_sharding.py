@@ -133,8 +133,8 @@ def test_named_sharding_resolves_to_the_one_device():
     device of a one-device mesh, and over several distinct devices the
     one where a whole tensor lives and a split one's collectives sum. A
     dense leaf over two distinct devices is split onto them; ``steps.place``
-    holds a family not yet split whole on the first device (ROADMAP
-    11i)."""
+    holds a family not yet split (the SSM's) whole on the first device
+    (ROADMAP 11i)."""
     one = make_mesh((1, 1), ("data", "model"), device_type="cpu")
     rules = sharding.make_rules(one)
     assert rules.sharding(None, sharding.MLP).device == torch.device("cpu")
@@ -156,11 +156,11 @@ def test_named_sharding_resolves_to_the_one_device():
     assert sharding.is_split(sharding.place(
         dense, sharding.param_shardings(dense, rules)))
     assert sharding.is_split(steps.place(cfg, dense, rules))
-    moe_cfg = get_config("llama4-scout-17b-16e").reduced()
-    moe = steps.init_params(moe_cfg, torch.Generator().manual_seed(0), "cpu")
-    held = steps.place(moe_cfg, moe, rules)
+    ssm_cfg = get_config("mamba2-130m").reduced()
+    ssm = steps.init_params(ssm_cfg, torch.Generator().manual_seed(0), "cpu")
+    held = steps.place(ssm_cfg, ssm, rules)
     assert all(a is b for a, b in zip(pytree.tree_leaves(held),
-                                      pytree.tree_leaves(moe)))
+                                      pytree.tree_leaves(ssm)))
     assert P(("data",), None) == ("data", None)
     assert repr(P("data", None)) == "PartitionSpec('data', None)"
 
