@@ -213,14 +213,28 @@ peak GB, logits within ``5e-2 * max|logit|``; for scout the tokens per
 expert and drops per MoE layer split beside unsplit, the tokens routed
 apart, and the first MoE layer on the unsplit run's own input: each
 position's assembled router equal bit for bit, the summed output within
-``5e-2 * max|out|``).
+``5e-2 * max|out|``). The SSM, hybrid and audio families split too:
+reduced mamba2, zamba2 (5 layers: two groups and a tail) and whisper in
+fp32 over (1, 2) and (2, 2) as minitron above, except that the step's
+parameters are held to AdamW's first-step bound of 2 lr and, as for every
+arch, the gradients AdamW receives to ``1e-5``; and phase 5's zamba2 (81
+layers; K6 26 a prefill against 13, on each position's 16 of 32 heads),
+mamba2-130m and whisper-base (8 x 1500 frames, encoded over each tree)
+paths, bf16 on ``hopper``, split over (1, 2) against the same tree
+unsplit (prefill ms, decode ms/token, peak GB; whisper's logits within
+``5e-2 * max|logit|``; zamba2's and mamba2's bf16 gap reported, and the
+split held in fp32 within ``1e-4 * max|logit|`` on zamba2's first 15
+layers and all of mamba2's, its bf16 logits no farther from those fp32
+ones than the unsplit bf16 logits plus ``5e-2 * max|logit|``), each
+then once through ``launch.serve.serve`` over that mesh.
 
 Phase 2 also runs F6's shape through K1: ``resnet18_specs(16, 8)``'s
 ``s4b1_proj`` (a 1x1 stride-2 conv from 2x2 to 1x1, batch 2), whose
 patches ``im2col`` must hand over contiguous; and K6 at the per-position
 shape of 7d's split prefill, and at scout's position shape (20
-over 4 heads) and the VLM's cross-attention at a position (16 over 4
-heads to the 1600 image tokens).
+over 4 heads), the VLM's cross-attention at a position (16 over 4
+heads to the 1600 image tokens) and zamba2's shared block at a position
+(16 over 16 heads, D 112).
 
 Phase 2 also holds every kernel at the shapes of the interpreter's calls
 (``*_strict`` paths: per COMP block, the block's rows and k-group); the
@@ -707,8 +721,9 @@ def lm_kernel_cases(path: str):
     whisper run no kernel. The MoE paths: the prefill's shape (40 heads
     over 8 KV heads), once per layer. Off the paths (launches 0), phase
     7d's split prefills: one model position's heads of TP_POSITIONS, for
-    scout (20 over 4) and for the VLM's cross-attention (16 over 4 to the
-    image tokens; its causal prefill has minitron's position shape)."""
+    scout (20 over 4), for the VLM's cross-attention (16 over 4 to the
+    image tokens; its causal prefill has minitron's position shape) and
+    for zamba2's shared block (16 over 16, D 112)."""
     _, batch, prompt, gen = LM_PATHS[path]
     cfg = lm_config(path)
     prefill = dict(b=batch, h=cfg.n_heads, hkv=cfg.n_kv_heads,
@@ -722,7 +737,9 @@ def lm_kernel_cases(path: str):
                     position, 0)] if path in TP_FAMILY_PATHS else [])]
     if path == "zamba2_7b_bf16":
         return [("flash_attention", "shared_prefill", prefill,
-                 cfg.n_layers // cfg.shared_attn_every)]
+                 cfg.n_layers // cfg.shared_attn_every),
+                ("flash_attention", "shared_prefill_position_of_2",
+                 position, 0)]
     if path == "llama32_vision_bf16":
         return [("flash_attention", "prefill", prefill, cfg.n_layers),
                 ("flash_attention", "cross_prefill", dict(
@@ -3066,19 +3083,47 @@ ROOF_ARCH, ROOF_BATCH, ROOF_PROMPT, ROOF_GEN = "minitron-8b", 2, 4096, 16
 ROOF_TIMED, ROOF_STEPS = 3, 4
 DRYRUN_CELL = ("minitron-8b", "train_4k", False)
 MESH_POSITIONS, MESH_TOL, MESH_PARAM_TOL = 2, 1e-5, 1e-4
+# (d) a split step's gradient leaves against the one-position step's,
+# each relative to its own max|g| (adamw.step_gaps): a leaf that sums
+# many terms that cancel reads up to 4.5e-5 here (mamba2's conv_b), the
+# dense families 1.5e-6
+TP_STEP_GRAD_TOL = 1e-4
 # (d) tensor parallelism: model positions of the full-width runs, the
 # reduced meshes, and the reduced serve's batch, prompt and decode steps
 TP_POSITIONS = 2
 TP_MESHES = ((1, 2), (2, 2))
 TP_BATCH, TP_PROMPT, TP_DECODE = 4, 64, 4
-# the reduced archs split over TP_MESHES: one of each family split
-TP_REDUCED = (ROOF_ARCH, "llama4-scout-17b-16e", "llama4-maverick-400b-a17b",
-              "llama-3.2-vision-11b")
+# the reduced archs split over TP_MESHES, one of each family, with the
+# layers kept (None: the reduced config's; zamba2 at 5: two groups of two
+# mamba layers and the shared block, and a tail of one)
+TP_REDUCED = {ROOF_ARCH: None, "llama4-scout-17b-16e": None,
+              "llama4-maverick-400b-a17b": None, "llama-3.2-vision-11b": None,
+              "mamba2-130m": None, "zamba2-7b": 5, "whisper-base": None}
 # phase 5's MoE and VLM paths split over (1, TP_POSITIONS) at full width,
 # with the layers kept (None: all): scout's tree and its placed copy must
 # fit one card together (a layer is about 4.4 GB, the embedding and head
 # 4.1: 4 layers are 21.8 GB, twice that 44 GB; 8 would be 79 GB)
 TP_FAMILY_PATHS = {"llama4_scout_bf16": 4, "llama32_vision_bf16": None}
+# phase 5's SSM, hybrid and audio paths split over (1, TP_POSITIONS) at
+# full width, none cut (zamba2: 13.6 GB of bf16 parameters, twice that
+# with the placed copy)
+TP_SSM_PATHS = ("zamba2_7b_bf16", "mamba2_130m_bf16", "whisper_base_bf16")
+# the paths whose bf16 split logits drift from the unsplit ones past
+# LM_TOL (zamba2 by 1.14 of a max|logit| of 4.5, mamba2-130m by 0.33 of
+# 4.2: the split's partial out_proj products, each rounded to bf16, and
+# the narrower GEMMs' own accumulation orders move the block outputs a
+# bf16 step, which the mamba layers at random weights grow, PERF.md §6),
+# with the layers their hold runs on (zamba2: two groups of six and the
+# tail of three; None: all): there the split is held to the unsplit run
+# in fp32 within TP_FP32_TOL * max|logit|, and in bf16 the split logits
+# no farther from the unsplit fp32 ones than the unsplit bf16 logits are,
+# plus TP_DRIFT_SLACK * max|logit|; the full-depth bf16 gap is reported.
+# The slack is set from the readings on an H100 80GB HBM3 at 700 W
+# (PERF.md §6): the split drifted 0.0386 farther than the unsplit on
+# zamba2's 15 layers (0.88 % of 4.382) and 0.0124 less on mamba2 (of
+# 4.231)
+TP_DRIFT = {"zamba2_7b_bf16": 15, "mamba2_130m_bf16": None}
+TP_FP32_TOL, TP_DRIFT_SLACK = 1e-4, 2e-2
 
 
 def start_dryrun_cell(root: Path) -> subprocess.Popen:
@@ -3314,18 +3359,28 @@ def _gap(a: torch.Tensor, ref: torch.Tensor) -> float:
 
 def tp_reduced(card: str) -> dict:
     """Phase 7d on the reduced TP_REDUCED archs in fp32 (random weights, a
-    VLM's cross-attention gates opened, its image embeddings drawn from
-    seed 1): split along model over each of TP_MESHES (the repeated card),
-    a prefill and TP_DECODE decode steps (teacher-forced with the unsplit
-    run's greedy tokens) against the unsplit card run, an MoE model's
-    prefill routing token for token equal to the unsplit run's, and one
-    training step against the one-position step (7c's limits)."""
+    VLM's cross-attention gates opened, its image embeddings and whisper's
+    frames drawn from seed 1, whisper's encoded over each tree): split
+    along model over each of TP_MESHES (the repeated card), a prefill and
+    TP_DECODE decode steps (teacher-forced with the unsplit run's greedy
+    tokens) against the unsplit card run, an MoE model's prefill routing
+    token for token equal to the unsplit run's, and one training step
+    against the one-position step from the same parameters: loss and
+    ``grad_norm`` within MESH_TOL, and by ``adamw.step_gaps`` each
+    gradient leaf AdamW receives within TP_STEP_GRAD_TOL of its own
+    max|g|, the
+    parameters within MESH_PARAM_TOL wherever the gradient is well above
+    AdamW's eps, and every element the one-position step moved moved."""
+    import dataclasses
+    from unittest import mock
+
     from torch.utils import _pytree as pytree
 
     from repro_torch.compat import make_mesh
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, batch_for_step
     from repro_torch.launch import train as train_mod
+    from repro_torch.models import whisper
     from repro_torch.optim import adamw
     from repro_torch.parallel import sharding
     from repro_torch.train import steps
@@ -3333,14 +3388,23 @@ def tp_reduced(card: str) -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     one = make_mesh((1, 1), ("data", "model"), devices=[dev])
     opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    seen, update = [], adamw.update
+
+    def spy(cfg, grads, state, params):
+        seen.append(pytree.tree_leaves(sharding.gather(pytree.tree_map(
+            lambda t: t.clone(), grads))))
+        return update(cfg, grads, state, params)
+
     out = {}
-    for arch in TP_REDUCED:
+    for arch, n_layers in TP_REDUCED.items():
         cfg = get_config(arch).reduced()
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
         params = steps.init_params(
             cfg, torch.Generator(device=dev).manual_seed(0), dev)
         if cfg.family == "vlm":
             open_gates(params)
-        extras = {k: v.to(dev) for k, v in train_mod.extras_for(
+        inputs = {k: v.to(dev) for k, v in train_mod.extras_for(
             cfg, TP_BATCH, np.random.default_rng(1)).items()}
         prefill, decode = steps.make_serve_steps(cfg)
         prompts = torch.from_numpy(np.random.default_rng(0).integers(
@@ -3350,6 +3414,11 @@ def tp_reduced(card: str) -> dict:
             with sharding.use_rules(rules):
                 cache = steps.init_cache(cfg, TP_BATCH,
                                          TP_PROMPT + TP_DECODE, dev)
+            extras = dict(inputs)
+            if "frames" in extras:
+                with torch.no_grad():
+                    extras = {"enc_out": whisper.encode(
+                        p, extras["frames"], cfg)}
             routed = Routing()
             with routed:
                 logits, cache = prefill(p, prompts, cache, extras)
@@ -3365,9 +3434,12 @@ def tp_reduced(card: str) -> dict:
         ref, toks, ref_routed = serve_run(params, sharding.make_rules(one))
         batch = batch_for_step(DataConfig(cfg.vocab_size, 64, 8), 0)
         batch.update(train_mod.extras_for(cfg, 8, np.random.default_rng(2)))
-        p1, s1, f1, _ = train_mod.build(cfg, opt, one, params=pytree.tree_map(
-            lambda t: t.clone(), params))
-        p1, s1, m1 = f1(p1, s1, batch)
+        with mock.patch.object(adamw, "update", spy):
+            p1, s1, f1, _ = train_mod.build(
+                cfg, opt, one, params=pytree.tree_map(lambda t: t.clone(),
+                                                      params))
+            p1, s1, m1 = f1(p1, s1, batch)
+        g1 = seen.pop()
         out[arch] = {}
         for shape in TP_MESHES:
             mesh = make_mesh(shape, ("data", "model"),
@@ -3384,21 +3456,26 @@ def tp_reduced(card: str) -> dict:
             if flips:
                 raise AssertionError(f"7d {arch} {shape}: {flips} tokens "
                                      f"routed apart from the unsplit run")
-            p2, s2, f2, _ = train_mod.build(cfg, opt, mesh, params=params)
-            p2, s2, m2 = f2(p2, s2, batch)
+            with mock.patch.object(adamw, "update", spy):
+                p2, s2, f2, _ = train_mod.build(cfg, opt, mesh,
+                                                params=params)
+                p2, s2, m2 = f2(p2, s2, batch)
             for k in ("loss", "grad_norm"):
                 a, r = float(m2[k]), float(m1[k])
                 if not abs(a - r) <= MESH_TOL * max(1.0, abs(r)):
                     raise AssertionError(f"7d {arch} {shape} step: {k} {a} "
                                          f"vs {r}")
-            pgap = max(_gap(a, r) for a, r in zip(
-                pytree.tree_leaves(sharding.gather(p2)),
-                pytree.tree_leaves(p1)))
-            if not pgap <= MESH_PARAM_TOL:
-                raise AssertionError(f"7d {arch} {shape} step: parameters "
-                                     f"{pgap:.3e} apart")
+            step = adamw.step_gaps(opt, params, seen.pop(),
+                                   sharding.gather(p2), g1, p1)
+            ggap, pgap = step["grad"], step["param"]
+            if not (ggap <= TP_STEP_GRAD_TOL and pgap <= MESH_PARAM_TOL
+                    and step["unmoved"] == 0):
+                raise AssertionError(f"7d {arch} {shape} step: {step} "
+                                     f"(limits {TP_STEP_GRAD_TOL}, "
+                                     f"{MESH_PARAM_TOL}, 0)")
             out[arch][str(shape)] = dict(
-                serve_gaps=gaps, param_gap=pgap, loss=float(m2["loss"]),
+                serve_gaps=gaps, grad_gap=ggap, param_gap=pgap,
+                unmoved=step["unmoved"], loss=float(m2["loss"]),
                 ref_loss=float(m1["loss"]),
                 grad_norm=float(m2["grad_norm"]),
                 ref_grad_norm=float(m1["grad_norm"]),
@@ -3406,14 +3483,18 @@ def tp_reduced(card: str) -> dict:
             moe = (f"prefill routing of {len(ref_routed.calls)} MoE layers "
                    f"equal token for token; " if routed.calls else "")
             print(f"tensor parallel (7d) ({card}): reduced {arch} fp32 "
-                  f"split over {shape} of the repeated card: prefill and "
+                  f"({cfg.n_layers} layers) split over {shape} of the "
+                  f"repeated card: prefill and "
                   f"{TP_DECODE} decode steps within {max(gaps):.2e} of the "
                   f"unsplit run (relative to max(1, max|logit|)); {moe}one "
                   f"step: loss {float(m2['loss']):.6f} / "
                   f"{float(m1['loss']):.6f}, grad_norm "
                   f"{float(m2['grad_norm']):.6f} / "
-                  f"{float(m1['grad_norm']):.6f}, parameters {pgap:.2e} "
-                  f"apart", flush=True)
+                  f"{float(m1['grad_norm']):.6f}, gradients {ggap:.2e} "
+                  f"apart (of each leaf's max|g|), parameters {pgap:.2e} "
+                  f"apart where |g| > {adamw.NEAR_EPS:.0e} eps, every "
+                  f"moved element moved",
+                  flush=True)
             del placed, p2, s2
         del params, p1, s1
         torch.cuda.empty_cache()
@@ -3541,6 +3622,61 @@ def tp_full_width(card: str) -> dict:
                 serve_err=serve_err, launches=launches)
 
 
+def full_width_run(path: str, cfg, p, rules) -> dict:
+    """One side of phase 7d's full-width split-against-unsplit runs of
+    ``path`` (bf16 on hopper, LM_PATHS' batch, prompt and greedy tokens):
+    ``p`` over ``rules``' mesh, its inputs drawn from seed 0 as
+    ``launch.serve.serve`` draws them (whisper's frames encoded over
+    ``p``, outside the timings); a prefill whose MoE routing is recorded,
+    ROOF_TIMED timed prefills and the decode steps, timed. Returns the
+    median prefill ms and its times, decode ms/token, K6 per prefill,
+    encode ms, peak GB, the first prefill's logits, the launches and the
+    routing."""
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import lm_inputs
+    from repro_torch.parallel import sharding
+    from repro_torch.train import steps
+
+    _, batch, prompt, gen = LM_PATHS[path]
+    dev = rules.mesh.devices.flat[0]
+    prefill, decode = steps.make_serve_steps(cfg, backend="hopper")
+    torch.cuda.reset_peak_memory_stats()
+    with sharding.use_rules(rules):
+        cache = steps.init_cache(cfg, batch, prompt + gen, dev)
+    extras, prompts, encode_ms = lm_inputs(
+        cfg, p, np.random.default_rng(0), batch, prompt, "hopper", dev)
+    tokens = torch.from_numpy(prompts).to(dev)
+    common.reset_launches()
+    routed = Routing()
+    with routed:
+        first, cache = prefill(p, tokens, cache, extras)
+    times = []
+    for _ in range(ROOF_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(p, tokens, cache, extras)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    k6 = common.LAUNCHES["flash_attention"] / (ROOF_TIMED + 1)
+    tok = first.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(gen):
+        logits, cache = decode(p, tok, cache, prompt + i, extras)
+        tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / gen
+    ran = dict(common.LAUNCHES)
+    if ran["flash_attention"] != k6 * (ROOF_TIMED + 1):
+        raise AssertionError(f"7d {path}: decode launched K6 ({ran})")
+    if not bool(torch.isfinite(first.float()).all()):
+        raise AssertionError(f"7d {path}: prefill logits not finite")
+    return dict(prefill_ms=statistics.median(times), times=times,
+                decode_ms=decode_ms, k6_per_prefill=k6, encode_ms=encode_ms,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                logits=first, launches=ran, routed=routed)
+
+
 def tp_families_full_width(card: str) -> dict:
     """Phase 7d on phase 5's MoE and VLM paths at full width
     (TP_FAMILY_PATHS: scout cut to 4 of 48 layers, all 40 of the VLM's
@@ -3564,7 +3700,6 @@ def tp_families_full_width(card: str) -> dict:
     from repro_torch.compat import make_mesh
     from repro_torch.configs import get_config
     from repro_torch.kernels import common
-    from repro_torch.launch.serve import lm_inputs
     from repro_torch.models import layers, transformer
     from repro_torch.parallel import sharding
     from repro_torch.train import steps
@@ -3584,50 +3719,9 @@ def tp_families_full_width(card: str) -> dict:
             cfg, torch.Generator(device=dev).manual_seed(0), dev)
         if cfg.family == "vlm":
             open_gates(params)
-        extras, prompts, _ = lm_inputs(cfg, params, np.random.default_rng(0),
-                                       batch, prompt, "hopper", dev)
-        tokens = torch.from_numpy(prompts).to(dev)
-        prefill, decode = steps.make_serve_steps(cfg, backend="hopper")
-
-        def run(p, r) -> dict:
-            torch.cuda.reset_peak_memory_stats()
-            with sharding.use_rules(r):
-                cache = steps.init_cache(cfg, batch, prompt + gen, dev)
-            common.reset_launches()
-            routed = Routing()
-            with routed:
-                first, cache = prefill(p, tokens, cache, extras)
-            times = []
-            for _ in range(ROOF_TIMED):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                prefill(p, tokens, cache, extras)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            k6 = common.LAUNCHES["flash_attention"] / (ROOF_TIMED + 1)
-            tok = first.argmax(-1)[:, None]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(gen):
-                logits, cache = decode(p, tok, cache, prompt + i, extras)
-                tok = logits.argmax(-1)[:, None]
-            torch.cuda.synchronize()
-            decode_ms = (time.perf_counter() - t0) * 1e3 / gen
-            ran = dict(common.LAUNCHES)
-            if ran["flash_attention"] != k6 * (ROOF_TIMED + 1):
-                raise AssertionError(f"7d {path}: decode launched K6 "
-                                     f"({ran})")
-            if not bool(torch.isfinite(first.float()).all()):
-                raise AssertionError(f"7d {path}: prefill logits not "
-                                     f"finite")
-            return dict(prefill_ms=statistics.median(times), times=times,
-                        decode_ms=decode_ms, k6_per_prefill=k6,
-                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                        logits=first, launches=ran, routed=routed)
-
-        whole = run(params, one)
+        whole = full_width_run(path, cfg, params, one)
         placed = steps.place(cfg, params, rules)
-        split = run(placed, rules)
+        split = full_width_run(path, cfg, placed, rules)
         want_k6 = cfg.n_layers + (cfg.n_layers // cfg.cross_attn_every
                                   if cfg.cross_attn_every else 0)
         if (whole["k6_per_prefill"], split["k6_per_prefill"]) != (
@@ -3680,7 +3774,7 @@ def tp_families_full_width(card: str) -> dict:
                 raise AssertionError(f"7d {path}: the split MoE layer on "
                                      f"the unsplit input {r['layer_err']}"
                                      f" > {r['layer_limit']}")
-        del placed, params, extras, w_routed, s_routed
+        del placed, params, w_routed, s_routed
         torch.cuda.empty_cache()
         for name, n in split.pop("launches").items():
             launches[name] += n
@@ -3705,6 +3799,194 @@ def tp_families_full_width(card: str) -> dict:
               f"{whole['decode_ms']:.2f}ms/token, peak "
               f"{whole['peak_gb']:.2f} GB; split vs unsplit prefill logits "
               f"max|diff| {err:.4f} (limit {lim:.4f}){moe_line}",
+              flush=True)
+        out[path] = r
+    return dict(paths=out, launches=launches)
+
+
+def drift_hold(path: str, cfg, params, rules, one, launches: dict) -> dict:
+    """TP_DRIFT's hold of a split path (see there) on its first
+    ``TP_DRIFT[path]`` layers of ``params`` (views; zamba2: whole groups
+    and the tail): prefills in bf16 and fp32 (the tree cast), each
+    unsplit over ``one`` and split over ``rules``, on hopper (K6 per
+    group and position). Adds the kernel launches to ``launches``."""
+    import dataclasses
+
+    from repro_torch.kernels import common
+    from repro_torch.models.layers import _tree_map
+    from repro_torch.parallel import sharding
+    from repro_torch.train import steps
+
+    _, batch, prompt, _ = LM_PATHS[path]
+    dev = rules.mesh.devices.flat[0]
+    n_layers = TP_DRIFT[path] or cfg.n_layers
+    cut = params
+    groups = 0
+    if cfg.shared_attn_every:
+        groups = (n_layers - cfg.n_layers % cfg.shared_attn_every) \
+            // cfg.shared_attn_every
+        cut = dict(params, groups=_tree_map(lambda t: t[:groups],
+                                            params["groups"]))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt), dtype=np.int32)).to(dev)
+    got, k6 = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, n_layers=n_layers, dtype=dtype)
+        tree = cut if dtype == "bfloat16" else _tree_map(lambda t: t.float(),
+                                                         cut)
+        prefill, _ = steps.make_serve_steps(c, backend="hopper")
+        for name, r in (("unsplit", one), ("split", rules)):
+            p = tree if r is one else steps.place(c, tree, rules)
+            with sharding.use_rules(r):
+                cache = steps.init_cache(c, batch, prompt, dev)
+            common.reset_launches()
+            logits, _ = prefill(p, tokens, cache)
+            got[dtype, name] = logits.float()
+            k6[dtype, name] = common.LAUNCHES["flash_attention"]
+            for kname, n in common.LAUNCHES.items():
+                launches[kname] += n
+            del p, cache, logits
+        del tree
+        torch.cuda.empty_cache()
+    want = {"unsplit": groups, "split": TP_POSITIONS * groups}
+    if any(n != want[name] for (_, name), n in k6.items()):
+        raise AssertionError(f"7d {path} hold: K6 {k6}, expected {want}")
+    ref = got["float32", "unsplit"]
+    top = float(ref.abs().max())
+    r = dict(n_layers=n_layers, k6=f"{groups} / {TP_POSITIONS * groups}",
+             fp32_max_logit=top, fp32_limit=TP_FP32_TOL * top,
+             fp32_err=float((got["float32", "split"] - ref).abs().max()),
+             split_drift=float((got["bfloat16", "split"] - ref).abs().max()),
+             unsplit_drift=float((got["bfloat16", "unsplit"] - ref).abs()
+                                 .max()),
+             bf16_err=float((got["bfloat16", "split"]
+                             - got["bfloat16", "unsplit"]).abs().max()),
+             drift_slack=TP_DRIFT_SLACK * top)
+    if not r["fp32_err"] <= r["fp32_limit"]:
+        raise AssertionError(f"7d {path}: fp32 split prefill on {n_layers} "
+                             f"layers {r['fp32_err']:.3e} > "
+                             f"{r['fp32_limit']:.3e}")
+    if not r["split_drift"] <= r["unsplit_drift"] + r["drift_slack"]:
+        raise AssertionError(f"7d {path}: bf16 split drifts "
+                             f"{r['split_drift']:.3e} from the fp32 logits, "
+                             f"unsplit {r['unsplit_drift']:.3e}")
+    return r
+
+
+def tp_ssm_full_width(card: str) -> dict:
+    """Phase 7d on TP_SSM_PATHS at full width: bf16 on hopper, phase 5's
+    batch, prompt and greedy tokens (whisper: 8 x 1500 frames, 32-token
+    prompts, encoded over each tree outside the timed prefill), unsplit
+    and then split over TP_POSITIONS positions of the repeated card from
+    the same tree (both held); each a prefill, ROOF_TIMED timed prefills
+    and the decode steps. K6 per prefill: zamba2's shared block on each
+    position's 16 heads, twice the unsplit 13; mamba2 and whisper none.
+    whisper's split prefill logits within ``LM_TOL * max|logit|`` of the
+    unsplit ones; TP_DRIFT's paths' gap reported and held by
+    :func:`drift_hold`. Then each path once through ``launch.serve.serve``
+    over the same mesh (the same seed-0 tree and prompts: its logits are
+    the split run's). Returns the numbers and the runs' kernel
+    launches."""
+    from unittest import mock
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.parallel import sharding
+    from repro_torch.train import steps
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    one = sharding.make_rules(make_mesh((1, 1), ("data", "model"),
+                                        devices=[dev]))
+    mesh = make_mesh((1, TP_POSITIONS), ("data", "model"),
+                     devices=[dev] * TP_POSITIONS)
+    rules = sharding.make_rules(mesh)
+    out, launches = {}, dict.fromkeys(common.KERNELS, 0)
+    for path in TP_SSM_PATHS:
+        arch, batch, prompt, gen = LM_PATHS[path]
+        cfg = get_config(arch)
+        params = steps.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        whole = full_width_run(path, cfg, params, one)
+        placed = steps.place(cfg, params, rules)
+        split = full_width_run(path, cfg, placed, rules)
+        del placed
+        torch.cuda.empty_cache()
+        want_k6 = (cfg.n_layers // cfg.shared_attn_every
+                   if cfg.shared_attn_every else 0)
+        if (whole["k6_per_prefill"], split["k6_per_prefill"]) != (
+                want_k6, TP_POSITIONS * want_k6):
+            raise AssertionError(f"7d {path}: K6 {whole['k6_per_prefill']}"
+                                 f" / {split['k6_per_prefill']} a prefill, "
+                                 f"expected {want_k6} / "
+                                 f"{TP_POSITIONS * want_k6}")
+        ref = whole.pop("logits").float()
+        lim = LM_TOL * float(ref.abs().max())
+        err = float((split.pop("logits").float() - ref).abs().max())
+        held = path not in TP_DRIFT
+        if held and not err <= lim:
+            raise AssertionError(f"7d {path}: split prefill logits {err} > "
+                                 f"{lim}")
+        r = dict(split=split, unsplit=whole, logits_err=err, limit=lim,
+                 n_layers=cfg.n_layers, held=held)
+        for name, n in split.pop("launches").items():
+            launches[name] += n
+        whole.pop("launches")
+        whole.pop("routed"), split.pop("routed")
+        drift_line = ""
+        if not held:
+            r["drift"] = drift_hold(path, cfg, params, rules, one, launches)
+            d = r["drift"]
+            drift_line = (
+                f"; held on {d['n_layers']} layers (K6 {d['k6']}): in fp32 "
+                f"split vs unsplit max|diff| {d['fp32_err']:.3e} (limit "
+                f"{d['fp32_limit']:.3e}, max|logit| {d['fp32_max_logit']:.3f}"
+                f"), bf16 drift from the unsplit fp32 logits: split "
+                f"{d['split_drift']:.3e}, unsplit {d['unsplit_drift']:.3e} "
+                f"(limit the unsplit's + {d['drift_slack']:.3e}), bf16 "
+                f"split vs unsplit {d['bf16_err']:.3e}")
+        del params
+        torch.cuda.empty_cache()
+        common.reset_launches()
+        # one card's host mesh is (1, 1): the repeated card's (1, 2)
+        # stands in for a host of two cards
+        with mock.patch.object(serve_mod, "make_host_mesh",
+                               lambda device_type: mesh):
+            served = serve_mod.serve(arch, reduced=False, batch=batch,
+                                     prompt_len=prompt, gen=gen,
+                                     backend="hopper")
+        for name, n in common.LAUNCHES.items():
+            launches[name] += n
+        r["serve_err"] = float((served.prefill_logits.float() - ref).abs()
+                               .max())
+        if common.LAUNCHES["flash_attention"] != TP_POSITIONS * want_k6 or (
+                held and not r["serve_err"] <= lim) or not bool(
+                    torch.isfinite(served.prefill_logits.float()).all()):
+            raise AssertionError(f"7d {path} serve: K6 "
+                                 f"{dict(common.LAUNCHES)}, logits "
+                                 f"{r['serve_err']} (limit {lim})")
+        del served
+        torch.cuda.empty_cache()
+        gate = (f"limit {lim:.4f}" if held else
+                f"not gated at full depth; LM_TOL would be {lim:.4f}")
+        enc = ("" if whole["encode_ms"] is None else
+               f"encode {split['encode_ms']:.1f} / "
+               f"{whole['encode_ms']:.1f}ms (split / unsplit); ")
+        print(f"tensor parallel (7d) ({card}): {arch} {cfg.dtype} on hopper, "
+              f"{batch} x {prompt}, {cfg.n_layers} layers, split over "
+              f"{TP_POSITIONS} positions of the repeated card: {enc}prefill "
+              f"{split['prefill_ms']:.1f}ms (times "
+              f"{[round(t, 1) for t in split['times']]}; K6 "
+              f"{split['k6_per_prefill']:.0f} a prefill), decode "
+              f"{split['decode_ms']:.2f}ms/token, peak "
+              f"{split['peak_gb']:.2f} GB (both trees); unsplit prefill "
+              f"{whole['prefill_ms']:.1f}ms (K6 "
+              f"{whole['k6_per_prefill']:.0f}), decode "
+              f"{whole['decode_ms']:.2f}ms/token, peak "
+              f"{whole['peak_gb']:.2f} GB; split vs unsplit prefill logits "
+              f"max|diff| {err:.4f} ({gate}){drift_line}; through "
+              f"launch.serve.serve over that mesh: {r['serve_err']:.4f}",
               flush=True)
         out[path] = r
     return dict(paths=out, launches=launches)
@@ -3753,13 +4035,15 @@ def launch_tools_phase(card: str, k6_case: dict) -> dict:
         torch.cuda.empty_cache()
         out["tp_families"] = tp_families_full_width(card)
         torch.cuda.empty_cache()
+        out["tp_ssm"] = tp_ssm_full_width(card)
+        torch.cuda.empty_cache()
         out["dryrun"] = finish_dryrun_cell(proc, card)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
     out["launches"] = out["prefill"].pop("launches")
-    for part in ("tp_full_width", "tp_families"):
+    for part in ("tp_full_width", "tp_families", "tp_ssm"):
         for name, n in out[part].pop("launches").items():
             out["launches"][name] += n
     out["phase_s"] = time.perf_counter() - t0

@@ -41,18 +41,18 @@ def prefill_by_group(params, cfg, tokens: torch.Tensor, backend: str):
     for g in range(n_groups):
         for i in range(per):
             x = mamba_block_cached(
-                layer_at(params["groups"], g, i), x, cfg,
-                cache["groups_conv"][g, i], cache["groups_ssm"][g, i],
-                zero_state=True)
-        x, _ = zamba2._shared_block(
-            params["shared"], x, cfg,
-            kv_cache={"k": cache["attn_k"][g], "v": cache["attn_v"][g]},
-            cache_pos=0, backend=backend)
+                [layer_at(params["groups"], g, i)], [x], cfg,
+                [cache["groups_conv"][g, i]], [cache["groups_ssm"][g, i]],
+                zero_state=True)[0]
+        x = zamba2._shared_block(
+            [params["shared"]], [x], cfg,
+            caches=[{"k": cache["attn_k"][g], "v": cache["attn_v"][g]}],
+            cache_pos=0, backend=backend)[0]
         states.append(x[:, -1].float())
     for i in range(tail):
-        x = mamba_block_cached(layer_at(params["tail"], i), x, cfg,
-                               cache["tail_conv"][i], cache["tail_ssm"][i],
-                               zero_state=True)
+        x = mamba_block_cached([layer_at(params["tail"], i)], [x], cfg,
+                               [cache["tail_conv"][i]],
+                               [cache["tail_ssm"][i]], zero_state=True)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return states, (x[:, -1] @ params["lm_head"]).float()
 

@@ -16,11 +16,11 @@ does; whisper encodes them outside the timed prefill. Prints the build
 whisper's encode time). As the reference's ``serve``, it runs over the
 host's mesh (``launch.mesh.make_host_mesh``, ``(1, n)`` over every local
 card) under its rules, with the parameters placed by ``train.steps.place``
-(``param_shardings``): on several cards a dense, MoE or VLM model is
-split along ``model`` (heads, hidden units and experts,
-``models/transformer.py``); on one card, or on the CPU, the mesh is
-``(1, 1)`` and nothing is split. The SSM, hybrid and audio families run
-whole on the first card (ROADMAP 11i).
+(``param_shardings``): on several cards every LM family is split along
+``model`` (attention and SSM heads, hidden units and experts; each model
+module over its positions, ROADMAP 11i); on one card, or on the CPU, the
+mesh is ``(1, 1)`` and nothing is split. whisper encodes over the same
+positions, outside the timed prefill.
 
 CNN serving through the ported HybridDNN pipeline — DSE -> compile ->
 validated, cached executor:

@@ -10,10 +10,9 @@ is the host's (``launch.mesh.make_host_mesh``), which on one card is
 
 ``build`` places the parameters by ``param_shardings`` under the mesh's
 rules, as the reference's does (``train.steps.place``): over a mesh whose
-``model`` axis spans several positions, a dense, MoE or VLM model's
-leaves are per-position shards (heads, hidden units, experts) and
-``loss_and_grads`` runs tensor parallel; the SSM, hybrid and audio
-families are held whole along ``model`` (ROADMAP 11i).
+``model`` axis spans several positions, every LM family's leaves are
+per-position shards (attention and SSM heads, hidden units, experts) and
+``loss_and_grads`` runs tensor parallel (ROADMAP 11i).
 
 Over a mesh of several positions (the counterpart of the reference's
 jitted step over a ``("data", "model")`` mesh) the step splits the batch on

@@ -23,6 +23,18 @@ the reference's activation checkpointing. The MoE FFN (``init_moe``,
 ``moe``, ``moe_ref``) is the reference's top-1 token-choice routing with a
 per-row capacity and an optional shared expert; its router stays float32
 in every model dtype.
+
+Tensor parallelism along the mesh's ``model`` axis (ROADMAP 11i) shares
+its parts across the families here: each position's share of heads,
+hidden units, SSM heads, experts, embedding columns and vocabulary
+(``_tp_ranges``); the builders of a position's attention, SwiGLU and GELU
+MLP trees from placed leaves (``take_attention``, ``take_swiglu``,
+``take_mlp``); the residual attention and SwiGLU sublayers over a list of
+positions, one ``all_reduce_sum`` after each row-split product
+(``residual_attention``, ``residual_swiglu``); the embedding over the
+positions (``embed_positions``); and the split cache (:class:`SplitCache`)
+with the data-row loop that decodes into it (``decode_rows``). An
+unplaced tree is the one position, so the unsplit path is the same code.
 """
 from __future__ import annotations
 
@@ -41,6 +53,7 @@ from torch.utils.checkpoint import (
 from repro_torch.compat import resolve_backend, to_tensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.parallel import sharding
 
 Params = dict[str, Any]
 
@@ -335,11 +348,14 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dtype, device) -> Params:
             "b_out": torch.zeros((d,), dtype=dtype, device=device)}
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, out_bias: bool = True) -> torch.Tensor:
     """The reference's ``jax.nn.gelu`` defaults to the tanh approximation,
-    so this is ``approximate="tanh"``, not the exact erf GELU."""
+    so this is ``approximate="tanh"``, not the exact erf GELU. Without
+    ``out_bias`` the product's partial sum over a position's hidden units,
+    to which ``b_out`` is added once after the all-reduce."""
     h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
-    return h @ p["w_out"] + p["b_out"]
+    out = h @ p["w_out"]
+    return out + p["b_out"] if out_bias else out
 
 
 # ---------------------------------------------------------------------------
@@ -459,3 +475,180 @@ def moe_ref(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "shared" in p:
         out = out + swiglu(p["shared"], xf[None])[0]
     return out.reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism along ``model`` (module doc): shares, position trees,
+# the sublayers over the positions, the split cache
+# ---------------------------------------------------------------------------
+
+def _tp_ranges(cfg: ModelConfig, n: int, i: int) -> dict:
+    """Position ``i``'s share of ``n``: query heads, the KV heads they read,
+    hidden units, experts, SSM heads, embedding columns and vocabulary, as
+    [start, stop) (a share of experts may be empty: fewer experts than
+    positions; SSM heads split unevenly, they have no KV groups). The query
+    heads must divide over the positions and lie inside one KV group or
+    start and end on group boundaries: ``attention`` gives each of a
+    position's KV heads an equal, contiguous block of its query heads. A
+    config without attention (mamba2) has no head shares."""
+    share = lambda total: (i * total // n, (i + 1) * total // n)  # noqa
+    out = {"ffn": share(cfg.d_ff), "experts": share(cfg.n_experts),
+           "ssm_heads": share(cfg.n_ssm_heads),
+           "embed": share(cfg.d_model), "vocab": share(cfg.vocab_size)}
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if not h:
+        return out
+    if h % n:
+        raise ValueError(f"{cfg.name}: {h} query heads do not divide over "
+                         f"{n} model positions")
+    rep = h // kv
+    h0, h1 = i * h // n, (i + 1) * h // n
+    k0, k1 = h0 // rep, (h1 - 1) // rep + 1
+    if k1 - k0 > 1 and (h0 % rep or h1 % rep):
+        raise ValueError(f"{cfg.name}: query heads [{h0}, {h1}) of model "
+                         f"position {i} of {n} do not form whole groups of "
+                         f"{rep} over KV heads [{k0}, {k1})")
+    return {**out, "heads": (h0, h1), "kv_heads": (k0, k1)}
+
+
+def position_trees(params: Params, cfg: ModelConfig, build) -> list:
+    """Each ``model`` position's plain tree, ``build(params, cfg, i)``, over
+    placed ``params``; an unplaced tree is the one position's."""
+    if not sharding.is_split(params):
+        return [params]
+    return [build(params, cfg, i) for i in range(params["embed"].n)]
+
+
+def take_attention(a: Params, cfg: ModelConfig, r: dict, i: int) -> Params:
+    """Position ``i``'s attention tree (share ``r``): its query heads'
+    ``wq`` columns and ``wo`` rows, the KV heads they read, gathered from
+    the shards they overlap where the heads do not divide the positions."""
+    hd = cfg.head_dim
+    (h0, h1), (k0, k1) = r["heads"], r["kv_heads"]
+    out = {"wq": a["wq"].take(-1, h0 * hd, h1 * hd, i),
+           "wk": a["wk"].take(-1, k0 * hd, k1 * hd, i),
+           "wv": a["wv"].take(-1, k0 * hd, k1 * hd, i),
+           "wo": a["wo"].take(-2, h0 * hd, h1 * hd, i)}
+    for name in ("q_norm", "k_norm"):
+        if name in a:
+            out[name] = a[name].at(i)
+    return out
+
+
+def take_swiglu(f: Params, r: dict, i: int) -> Params:
+    """Position ``i``'s hidden units of a SwiGLU."""
+    f0, f1 = r["ffn"]
+    return {"w_gate": f["w_gate"].take(-1, f0, f1, i),
+            "w_up": f["w_up"].take(-1, f0, f1, i),
+            "w_down": f["w_down"].take(-2, f0, f1, i)}
+
+
+def take_mlp(f: Params, r: dict, i: int) -> Params:
+    """Position ``i``'s hidden units of a GELU MLP, and the master copy of
+    ``b_out`` (added once, after the all-reduce)."""
+    f0, f1 = r["ffn"]
+    return {"w_in": f["w_in"].take(-1, f0, f1, i),
+            "b_in": f["b_in"].take(-1, f0, f1, i),
+            "w_out": f["w_out"].take(-2, f0, f1, i),
+            "b_out": f["b_out"].at(i)}
+
+
+def embed_positions(trees: list, tokens: torch.Tensor) -> list:
+    """The token rows: each position's columns of them, all-gathered along
+    d. F.embedding, not indexing: its backward accumulates each row in one
+    fixed order (an indexing backward's accumulating index_put_ sums in
+    thread order on the CPU, so two runs would differ in the last bits)."""
+    tokens = tokens.long()
+    return sharding.all_gather(
+        [F.embedding(tokens.to(t["embed"].device), t["embed"])
+         for t in trees], -1)
+
+
+def head_logits(trees: list, xs: list, cfg: ModelConfig) -> torch.Tensor:
+    """The final norm and the head over the positions' vocabulary shares,
+    gathered on the first position."""
+    return sharding.gather_parts(
+        [rms_norm(x, t["final_norm"], cfg.norm_eps) @ t["lm_head"]
+         for x, t in zip(xs, trees)], -1)
+
+
+def residual_attention(ps: list, xs: list, cfg: ModelConfig, *,
+                       attn: str = "attn", norm: str = "norm",
+                       positions=None, caches=None, cache_pos=None,
+                       xattn_kv=None, causal: bool = True,
+                       use_rope: bool = True,
+                       backend: str = "torch") -> list:
+    """``x + attention(rms_norm(x))`` over the ``model`` positions: each
+    position's layer tree ``ps[i][attn]`` (its heads) gives its partial sum
+    of the ``wo`` product, ``all_reduce_sum`` joins them. ``positions``
+    and ``caches`` hold each position's RoPE positions and KV cache (or
+    None); a cross-attention's ``xattn_kv`` is read on every position."""
+    n = len(ps)
+    positions = positions or [None] * n
+    caches = caches or [None] * n
+    hs = [attention(p[attn], rms_norm(x, p[norm], cfg.norm_eps), cfg,
+                    positions=pos, kv_cache=c, cache_pos=cache_pos,
+                    xattn_kv=None if xattn_kv is None
+                    else xattn_kv.to(x.device),
+                    causal=causal, use_rope=use_rope, backend=backend)[0]
+          for p, x, pos, c in zip(ps, xs, positions, caches)]
+    return [x + h for x, h in zip(xs, sharding.all_reduce_sum(hs))]
+
+
+def residual_swiglu(ps: list, xs: list, cfg: ModelConfig) -> list:
+    """``x + swiglu(rms_norm(x, norm2))`` over the positions, each on its
+    hidden units of ``ffn``, the ``w_down`` partial sums all-reduced."""
+    fs = [swiglu(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
+          for p, x in zip(ps, xs)]
+    return [x + f for x, f in zip(xs, sharding.all_reduce_sum(fs))]
+
+
+class SplitCache:
+    """The serving cache of a split model: ``rows[r][i]``, data row ``r``'s
+    cache on ``model`` position ``i``, the family's own layout
+    (``make(batch, device, share)``) with the row's ``batch / rows``
+    sequences and the position's share (``_tp_ranges``: its KV heads, SSM
+    heads and conv channels), on that position's device, written in
+    place. ``placement`` is a ``NamedSharding`` over the mesh
+    (``train.steps.init_cache``)."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, placement, make):
+        rows = placement.n_rows
+        if batch % rows:
+            raise ValueError(f"a batch of {batch} rows does not split "
+                             f"evenly over {rows} data rows")
+        n = placement.positions
+        shares = [_tp_ranges(cfg, n, i) for i in range(n)]
+        self.rows = [[make(batch // rows, dev, share) for dev, share in
+                      zip(placement.row_devices(r), shares)]
+                     for r in range(rows)]
+
+
+def decode_rows(params: Params, token: torch.Tensor, cache, step,
+                **per_row):
+    """A decode step over the data rows: ``step(params_r, token_r, caches,
+    **per_row_r)`` for each row ``r`` (``caches``: each position's cache,
+    ``per_row_r`` the row's share of each batch-major tensor in
+    ``per_row``, None kept) -> (last-token logits (B, V) on the first
+    row's device, cache). Placed parameters decode into a
+    :class:`SplitCache`, unplaced ones into their family's plain cache
+    (one row of one position)."""
+    split = isinstance(cache, SplitCache)
+    if split != sharding.is_split(params):
+        raise TypeError("placed parameters decode into a SplitCache and "
+                        "unplaced ones into a plain cache: build it with "
+                        "train.steps.init_cache under the mesh's use_rules")
+    rows = cache.rows if split else [[cache]]
+    b = token.shape[0]
+    if b % len(rows):
+        raise ValueError(f"a batch of {b} rows does not split evenly over "
+                         f"{len(rows)} data rows")
+    per = b // len(rows)
+    cut = lambda t, r: None if t is None else t[r * per:(r + 1) * per]  # noqa
+    out = [step(params if r == 0 else sharding.row(params, r),
+                cut(token, r), caches,
+                **{k: cut(v, r) for k, v in per_row.items()})
+           for r, caches in enumerate(rows)]
+    if len(out) == 1:
+        return out[0], cache
+    return torch.cat([o.to(out[0].device) for o in out]), cache

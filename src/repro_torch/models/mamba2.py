@@ -14,6 +14,17 @@ computes in float32 and returns ``x.dtype``.
 
 The decode caches (``conv``, ``ssm``) are written IN PLACE, as the
 transformer's KV caches are (the reference donates them).
+
+Tensor parallelism along ``model`` (ROADMAP 11i): over parameters placed
+by ``train.steps.place`` each position computes whole SSM heads
+``[i H / n, (i + 1) H / n)``, every position the one group's B and C.
+Each position multiplies by its own shard of ``in_proj``'s flat columns
+and takes its heads' columns from every position's product
+(:func:`_projections`: activations cross, not weights); its conv
+channels, ``out_proj`` rows and the rest come from :func:`take_block`.
+The gated norm's variance and the ``out_proj`` product are all-reduced
+(:func:`mamba_block` over the list of positions); the embedding, the
+head and the split cache are ``models/layers.py``'s.
 """
 from __future__ import annotations
 
@@ -24,11 +35,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (
     Params,
     _init,
+    _tp_ranges,
+    decode_rows,
+    embed_positions,
+    head_logits,
     layer_at,
+    position_trees,
     remat_wrap,
     rms_norm,
     stack_layers,
 )
+from repro_torch.parallel import sharding
 
 
 # ---------------------------------------------------------------------------
@@ -195,17 +212,45 @@ def _causal_conv(u, w, b, state=None):
     return out + b, new_state
 
 
-def mamba_block(p: Params, x, cfg: ModelConfig, *, ssm_cache=None,
-                chunk: int = 64):
-    """x: (B, L, D) -> (x + block(x), new cache). ssm_cache: {"conv":
-    (B, K-1, C), "ssm": (B, H, N, P)}, carried into the block (decode, or a
-    prefill into the cache); None for a forward without cache."""
-    bsz, l, _ = x.shape
-    di, n, h = cfg.d_ssm, cfg.ssm_state, cfg.n_ssm_heads
-    pdim = cfg.ssm_head_dim
+def _projections(p: list, x: list, cfg: ModelConfig) -> list:
+    """Each ``model`` position's ``in_proj`` product at its SSM heads: its
+    z and x columns, every B and C column, its dt columns. A position
+    multiplies the normed input by the ``in_proj`` it holds: its shard of
+    the flat ``2 di + 2 N + H`` columns, which the reference splits evenly
+    across the segments, so it then takes its columns from every
+    position's product (``sharding.take_parts``); or, where the columns do
+    not divide over the positions, the whole matrix, and its own
+    product's columns. One position's product is the whole one."""
+    flat = [rms_norm(xi, pi["norm"], cfg.norm_eps) @ pi["in_proj"]
+            for pi, xi in zip(p, x)]
+    n = len(p)
+    if n == 1:
+        return flat
+    di, ns, pdim = cfg.d_ssm, cfg.ssm_state, cfg.ssm_head_dim
+    tail = 2 * di + 2 * ns
+    split = flat[0].shape[-1] != tail + cfg.n_ssm_heads
+    out = []
+    for i in range(n):
+        h0, h1 = _tp_ranges(cfg, n, i)["ssm_heads"]
+        c0, c1 = h0 * pdim, h1 * pdim
+        out.append(torch.cat([
+            sharding.take_parts(flat, -1, a, b, i) if split
+            else flat[i][..., a:b]
+            for a, b in ((c0, c1), (di + c0, di + c1), (2 * di, tail),
+                         (tail + h0, tail + h1))], -1))
+    return out
 
-    xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    proj = xn @ p["in_proj"]
+
+def _gated(p: Params, proj, cfg: ModelConfig, ssm_cache, chunk: int):
+    """The block from its ``in_proj`` product (:func:`_projections`) up to
+    its gated norm, at one ``model`` position's SSM heads (read from
+    ``A_log``'s shape): ``y * silu(z)`` (B, L, heads * P) and the new
+    cache (or None)."""
+    bsz, l, _ = proj.shape
+    n, pdim = cfg.ssm_state, cfg.ssm_head_dim
+    h = p["A_log"].shape[-1]
+    di = h * pdim
+
     z, xin, b_, c_, dt = torch.split(proj, [di, di, n, n, h], -1)
 
     conv_in = torch.cat([xin, b_, c_], -1)
@@ -229,36 +274,101 @@ def mamba_block(p: Params, x, cfg: ModelConfig, *, ssm_cache=None,
                                  initial_state=init_s)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(bsz, l, di)
-    y = rms_norm(y * F.silu(z), p["norm2"], cfg.norm_eps)
-    out = y @ p["out_proj"]
     new_cache = ({"conv": new_conv, "ssm": new_ssm}
                  if ssm_cache is not None else None)
-    return x + out, new_cache
+    return y * F.silu(z), new_cache
 
 
-def mamba_block_cached(p: Params, x, cfg: ModelConfig, conv, ssm, *,
-                       zero_state: bool = False):
-    """``mamba_block`` over one layer's cache slots ``conv`` (B, K-1, C)
-    and ``ssm`` (B, H, N, P), views that take the new states in place;
-    ``zero_state`` starts from zeroed states instead (the reference's
-    ``* 0``). Returns the block's output."""
-    state = ({"conv": conv * 0, "ssm": ssm * 0} if zero_state
-             else {"conv": conv, "ssm": ssm})
-    x, nc = mamba_block(p, x, cfg, ssm_cache=state)
-    conv.copy_(nc["conv"])
-    ssm.copy_(nc["ssm"])
-    return x
+def mamba_block(p: list, x: list, cfg: ModelConfig, *, ssm_cache=None,
+                chunk: int = 64):
+    """x + block(x) over the ``model`` positions: ``p`` each position's
+    layer tree, ``x`` its (B, L, D) replicated activations, ``ssm_cache``
+    None (a forward without cache) or each position's {"conv": (B, K-1,
+    C), "ssm": (B, H, N, P)} at its SSM heads, carried into the block
+    (decode, or a prefill into the cache). Returns the lists of outputs
+    and new caches; an unplaced tree is the one position.
+
+    Each position computes its heads up to ``y * silu(z)``; the gated
+    norm's float32 sums of squares are all-reduced (the variance over all
+    ``d_ssm`` channels); each position normalises its channels and gives
+    its partial sum of the row-split ``out_proj`` product, all-reduced
+    before the residual add."""
+    caches = ssm_cache or [None] * len(p)
+    gs, new = zip(*(_gated(pi, pr, cfg, c, chunk) for pi, pr, c in
+                    zip(p, _projections(p, x, cfg), caches)))
+    sums = sharding.all_reduce_sum(
+        [g.float().square().sum(-1, keepdim=True) for g in gs])
+    outs = [(g * torch.rsqrt(ss / cfg.d_ssm + cfg.norm_eps).to(g.dtype)
+             * pi["norm2"]) @ pi["out_proj"]
+            for pi, g, ss in zip(p, gs, sums)]
+    return ([xi + o for xi, o in zip(x, sharding.all_reduce_sum(outs))],
+            list(new))
 
 
-def init_ssm_cache(cfg: ModelConfig, batch: int, device):
-    """Stacked per-layer decode cache."""
-    conv_dim = cfg.d_ssm + 2 * cfg.ssm_state
+def mamba_block_cached(p: list, x: list, cfg: ModelConfig, conv: list,
+                       ssm: list, *, zero_state: bool = False) -> list:
+    """``mamba_block`` over one layer's cache slots, each position's
+    ``conv`` (B, K-1, C) and ``ssm`` (B, H, N, P), views that take the new
+    states in place; ``zero_state`` starts from zeroed states instead (the
+    reference's ``* 0``). Returns each position's output."""
+    states = [{"conv": c * 0, "ssm": s * 0} if zero_state
+              else {"conv": c, "ssm": s} for c, s in zip(conv, ssm)]
+    xs, new = mamba_block(p, x, cfg, ssm_cache=states)
+    for c, s, nc in zip(conv, ssm, new):
+        c.copy_(nc["conv"])
+        s.copy_(nc["ssm"])
+    return xs
+
+
+def conv_channels(cfg: ModelConfig, share: dict | None) -> tuple[int, int]:
+    """(SSM heads, conv channels) of a model position's ``share``
+    (``layers._tp_ranges``; None: the whole block)."""
+    h0, h1 = share["ssm_heads"] if share else (0, cfg.n_ssm_heads)
+    return h1 - h0, (h1 - h0) * cfg.ssm_head_dim + 2 * cfg.ssm_state
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, device,
+                   share: dict | None = None):
+    """Stacked per-layer decode cache (a model position's ``share``: its
+    SSM heads and conv channels)."""
+    h, conv_dim = conv_channels(cfg, share)
     return {
         "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim),
                             dtype=cfg.torch_dtype, device=device),
-        "ssm": torch.zeros((cfg.n_layers, batch, cfg.n_ssm_heads,
-                            cfg.ssm_state, cfg.ssm_head_dim),
+        "ssm": torch.zeros((cfg.n_layers, batch, h, cfg.ssm_state,
+                            cfg.ssm_head_dim),
                            dtype=torch.float32, device=device),
+    }
+
+
+def take_block(lp: Params, cfg: ModelConfig, r: dict, i: int) -> Params:
+    """Position ``i``'s mamba layer tree (share ``r``; stacked leaves, any
+    leading dimensions): its SSM heads ``[h0, h1)``. ``in_proj`` is what
+    the position holds (:func:`_projections` takes its columns from the
+    products); the conv's channels, its x channels then every B and C
+    channel (one state group: each position computes B and C), are
+    assembled from takes; ``A_log``, ``D``, ``dt_bias`` at its heads;
+    ``norm2`` (replicated) and ``out_proj``'s rows at its channels."""
+    di, n, pdim = cfg.d_ssm, cfg.ssm_state, cfg.ssm_head_dim
+    h0, h1 = r["ssm_heads"]
+    if h1 == h0:
+        raise ValueError(f"{cfg.name}: {cfg.n_ssm_heads} SSM heads leave "
+                         f"model position {i} none")
+    c0, c1 = h0 * pdim, h1 * pdim
+
+    def cols(w, *ranges):
+        return torch.cat([w.take(-1, a, b, i) for a, b in ranges], -1)
+
+    bc = (di, di + 2 * n)          # the conv's B and C channels
+    return {
+        "norm": lp["norm"].at(i),
+        "in_proj": lp["in_proj"].at(i),
+        "conv_w": cols(lp["conv_w"], (c0, c1), bc),
+        "conv_b": cols(lp["conv_b"], (c0, c1), bc),
+        **{name: lp[name].take(-1, h0, h1, i)
+           for name in ("A_log", "D", "dt_bias")},
+        "norm2": lp["norm2"].take(-1, c0, c1, i),
+        "out_proj": lp["out_proj"].take(-2, c0, c1, i),
     }
 
 
@@ -283,30 +393,44 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
+def _position_tree(params: Params, cfg: ModelConfig, i: int) -> Params:
+    r = _tp_ranges(cfg, params["embed"].n, i)
+    return {"embed": params["embed"].take(-1, *r["embed"], i),
+            "layers": take_block(params["layers"], cfg, r, i),
+            "final_norm": params["final_norm"].at(i),
+            "lm_head": params["lm_head"].take(-1, *r["vocab"], i)}
+
+
 def forward(params: Params, tokens: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
-    """(B, S) -> logits (B, S, V), without a cache. Under autograd each
-    layer runs under ``remat_wrap``, as the reference's scanned body."""
-    def body(x, layer_p):
-        return mamba_block(layer_p, x, cfg)[0]
+    """(B, S) -> logits (B, S, V), without a cache, on the first
+    position's device. Under autograd each layer runs under
+    ``remat_wrap``, as the reference's scanned body."""
+    def body(xs, layer_ps):
+        return mamba_block(layer_ps, xs, cfg)[0]
 
     if torch.is_grad_enabled():
         body = remat_wrap(body, cfg)
-    x = F.embedding(tokens.long(), params["embed"])
+    trees = position_trees(params, cfg, _position_tree)
+    xs = embed_positions(trees, tokens)
     for i in range(cfg.n_layers):
-        x = body(x, layer_at(params["layers"], i))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"]
+        xs = body(xs, [layer_at(t["layers"], i) for t in trees])
+    return head_logits(trees, xs, cfg)
 
 
 def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
                 cfg: ModelConfig):
-    """token (B, s); cache from init_ssm_cache, carried into every layer
-    (so a prefill of s > 1 tokens starts from the cache's state). Returns
-    (logits (B, V), cache), the cache updated in place."""
-    x = params["embed"][token.long()]
-    for i in range(cfg.n_layers):
-        x = mamba_block_cached(layer_at(params["layers"], i), x, cfg,
-                               cache["conv"][i], cache["ssm"][i])
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, -1] @ params["lm_head"], cache
+    """token (B, s); cache from init_ssm_cache (placed parameters: a
+    ``layers.SplitCache``), carried into every layer (so a prefill of
+    s > 1 tokens starts from the cache's state). Returns (logits (B, V),
+    cache), the cache updated in place."""
+    def row(params, token, caches):
+        trees = position_trees(params, cfg, _position_tree)
+        xs = embed_positions(trees, token)
+        for i in range(cfg.n_layers):
+            xs = mamba_block_cached(
+                [layer_at(t["layers"], i) for t in trees], xs, cfg,
+                [c["conv"][i] for c in caches], [c["ssm"][i] for c in caches])
+        return head_logits(trees, [x[:, -1] for x in xs], cfg)
+
+    return decode_rows(params, token, cache, row)

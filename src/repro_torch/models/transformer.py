@@ -14,7 +14,7 @@ model's every ``moe_every``-th layer of a group runs ``layers.moe`` in
 place of the SwiGLU FFN (llama4-scout: every layer, 16 experts;
 llama4-maverick: alternating, 128 experts).
 
-Tensor parallelism (the dense, MoE and VLM families; ROADMAP 11i):
+Tensor parallelism (ROADMAP 11i):
 :func:`forward` and :func:`decode_step` run over a list of ``model``
 positions, each with its plain tree of tensors; an unplaced tree is the
 one position. Over parameters placed by ``train.steps.place`` on a mesh
@@ -35,33 +35,42 @@ gate and the residual adds run replicated on every position; one
 routed and shared experts' sum). The embedding is split along ``d``: each
 position takes its columns of the rows, then an ``all_gather``. The head
 is split along the vocabulary: the local logits are gathered on the first
-position. A split model's KV cache (:class:`SplitKVCache`) holds, per data
-row and position, the position's self-attention KV heads for the row's
-share of the batch; a mesh of several data rows splits the batch, and a
-VLM's image embeddings with it, over them in row order.
+position. A split model's KV cache (``layers.SplitCache``) holds, per
+data row and position, the position's self-attention KV heads for the
+row's share of the batch; a mesh of several data rows splits the batch,
+and a VLM's image embeddings with it, over them in row order. The shares,
+the attention and SwiGLU builders and sublayers are ``models/layers.py``'s,
+which the SSM, hybrid and audio families share.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (  # noqa: F401 (params_from_numpy)
     Params,
     _init,
+    _tp_ranges,
     _tree_map,
     attention,
+    decode_rows,
+    embed_positions,
+    head_logits,
     init_attention,
     init_moe,
     init_swiglu,
     layer_at,
     moe,
     params_from_numpy,
+    position_trees,
     remat_wrap,
+    residual_attention,
+    residual_swiglu,
     rms_norm,
-    swiglu,
+    take_attention,
+    take_swiglu,
 )
 from repro_torch.parallel import sharding
 
@@ -121,26 +130,20 @@ def apply_layer(ps: list, xs: list, cfg: ModelConfig, kind: dict, *,
     and shared-expert share) give its partial sum of their row-split
     products; ``all_reduce_sum`` joins them (one position's is its
     own)."""
-    eps = cfg.norm_eps
-    caches = caches or [None] * len(ps)
-    hs = [attention(p["attn"], rms_norm(x, p["norm"], eps), cfg,
-                    positions=pos, kv_cache=c, cache_pos=cache_pos,
-                    backend=backend)[0]
-          for p, x, pos, c in zip(ps, xs, positions, caches)]
-    xs = [x + h for x, h in zip(xs, sharding.all_reduce_sum(hs))]
+    xs = residual_attention(ps, xs, cfg, positions=positions, caches=caches,
+                            cache_pos=cache_pos, backend=backend)
     if kind["cross"] and image_embeds is not None:
-        xhs = [attention(p["xattn"], rms_norm(x, p["norm3"], eps), cfg,
-                         xattn_kv=image_embeds.to(x.device), causal=False,
-                         use_rope=False, backend=backend)[0]
+        xhs = [attention(p["xattn"], rms_norm(x, p["norm3"], cfg.norm_eps),
+                         cfg, xattn_kv=image_embeds.to(x.device),
+                         causal=False, use_rope=False, backend=backend)[0]
                for p, x in zip(ps, xs)]
         xs = [x + torch.tanh(p["xattn_gate"]) * xh
               for p, x, xh in zip(ps, xs, sharding.all_reduce_sum(xhs))]
-    fs = []
-    for i, (p, x) in enumerate(zip(ps, xs)):
-        h2 = rms_norm(x, p["norm2"], eps)
-        fs.append(moe(p["moe"], h2, cfg, experts=_tp_ranges(
-            cfg, len(ps), i)["experts"]) if kind["moe"]
-                  else swiglu(p["ffn"], h2))
+    if not kind["moe"]:
+        return residual_swiglu(ps, xs, cfg)
+    fs = [moe(p["moe"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg,
+              experts=_tp_ranges(cfg, len(ps), i)["experts"])
+          for i, (p, x) in enumerate(zip(ps, xs))]
     return [x + f for x, f in zip(xs, sharding.all_reduce_sum(fs))]
 
 
@@ -184,17 +187,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
-def _embed(trees: list, tokens: torch.Tensor) -> list:
-    """The token rows: each position's columns of them, all-gathered along
-    d. F.embedding, not indexing: its backward accumulates each row in one
-    fixed order (an indexing backward's accumulating index_put_ sums in
-    thread order on the CPU, so two runs would differ in the last bits)."""
-    tokens = tokens.long()
-    return sharding.all_gather(
-        [F.embedding(tokens.to(t["embed"].device), t["embed"])
-         for t in trees], -1)
-
-
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             image_embeds=None, positions=None,
             backend: str = "torch") -> torch.Tensor:
@@ -204,7 +196,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     with ``cfg.remat`` the backward holds one group's activations at a
     time."""
     kinds = _layer_kinds(cfg)
-    trees = _position_trees(params, cfg)
+    trees = position_trees(params, cfg, _position_tree)
     where = [None if positions is None else positions.to(t["embed"].device)
              for t in trees]
 
@@ -217,54 +209,28 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
     if torch.is_grad_enabled():
         group_body = remat_wrap(group_body, cfg)
-    xs = _embed(trees, tokens)
+    xs = embed_positions(trees, tokens)
     for g in range(cfg.n_layers // len(kinds)):
         xs = group_body(xs, [[layer_at(slot, g) for slot in t["layers"]]
                              for t in trees])
-    return sharding.gather_parts(
-        [rms_norm(x, t["final_norm"], cfg.norm_eps) @ t["lm_head"]
-         for x, t in zip(xs, trees)], -1)
+    return head_logits(trees, xs, cfg)
 
 
 # ---------------------------------------------------------------------------
 # KV-cache serving path
 # ---------------------------------------------------------------------------
 
-def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
-                  n_kv: int | None = None):
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                  share: dict | None = None):
     """Per period-slot stacked cache: list of dicts with (G, B, S, KV, hd);
-    ``n_kv`` KV heads (default: all of them)."""
+    a model position's ``share`` (``_tp_ranges``) holds its KV heads."""
     period = group_period(cfg)
     n_groups = cfg.n_layers // period
-    shape = (n_groups, batch, max_len, n_kv or cfg.n_kv_heads, cfg.head_dim)
+    k0, k1 = share["kv_heads"] if share else (0, cfg.n_kv_heads)
+    shape = (n_groups, batch, max_len, k1 - k0, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
             for _ in range(period)]
-
-
-class SplitKVCache:
-    """The KV cache of a split model (dense, MoE or VLM): ``rows[r][i]``,
-    data row ``r``'s cache on ``model`` position ``i`` (the
-    :func:`init_kv_cache` layout, with the row's ``batch / rows`` sequences
-    and the position's KV heads), on that position's device, written in
-    place. ``placement`` is
-    a ``NamedSharding`` over the mesh (``train.steps.init_cache``)."""
-
-    def __init__(self, cfg: ModelConfig, batch: int, max_len: int,
-                 placement):
-        rows = placement.n_rows
-        if batch % rows:
-            raise ValueError(f"a batch of {batch} rows does not split "
-                             f"evenly over {rows} data rows")
-        n = placement.positions
-        self.rows = []
-        for r in range(rows):
-            devs = placement.row_devices(r)
-            self.rows.append([])
-            for i in range(n):
-                k0, k1 = _tp_ranges(cfg, n, i)["kv_heads"]
-                self.rows[r].append(init_kv_cache(
-                    cfg, batch // rows, max_len, devs[i], n_kv=k1 - k0))
 
 
 def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
@@ -274,51 +240,28 @@ def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
     ``pos``. Returns (logits (B, V), cache), the cache updated in place.
     The same path serves prefill: token (B, S_prompt) with pos=0
     (causality is cache-relative). Placed parameters decode into a
-    :class:`SplitKVCache`, each data row its share of the batch (and of
+    :class:`SplitCache`, each data row its share of the batch (and of
     ``image_embeds``); the logits are on the mesh's first device."""
-    split = isinstance(cache, SplitKVCache)
-    if split != sharding.is_split(params):
-        raise TypeError("placed parameters decode into a SplitKVCache and "
-                        "unplaced ones into a plain cache: build it with "
-                        "train.steps.init_cache under the mesh's use_rules")
-    rows = cache.rows if split else [[cache]]
-    b = token.shape[0]
-    if b % len(rows):
-        raise ValueError(f"a batch of {b} rows does not split evenly over "
-                         f"{len(rows)} data rows")
-    per = b // len(rows)
-    out = [_decode_row(params if r == 0 else sharding.row(params, r),
-                       token[r * per:(r + 1) * per],
-                       caches, int(pos), cfg,
-                       None if image_embeds is None
-                       else image_embeds[r * per:(r + 1) * per], backend)
-           for r, caches in enumerate(rows)]
-    if len(out) == 1:
-        return out[0], cache
-    return torch.cat([o.to(out[0].device) for o in out]), cache
-
-
-def _decode_row(params: Params, token: torch.Tensor, caches: list, pos: int,
-                cfg: ModelConfig, image_embeds, backend: str):
-    """:func:`decode_step` of one data row over its ``model`` positions
-    (``caches``: each position's cache): its last-token logits."""
     kinds = _layer_kinds(cfg)
-    trees = _position_trees(params, cfg)
-    s = token.shape[1]
-    where = [pos + torch.arange(s, device=t["embed"].device)[None, :]
-             for t in trees]
-    xs = _embed(trees, token)
-    for g in range(cfg.n_layers // len(kinds)):
-        for slot, kind in enumerate(kinds):
-            xs = apply_layer(
-                [layer_at(t["layers"][slot], g) for t in trees], xs, cfg,
-                kind, positions=where, caches=[
-                    {"k": c[slot]["k"][g], "v": c[slot]["v"][g]}
-                    for c in caches], cache_pos=pos,
-                image_embeds=image_embeds, backend=backend)
-    return sharding.gather_parts(
-        [rms_norm(x, t["final_norm"], cfg.norm_eps)[:, -1] @ t["lm_head"]
-         for x, t in zip(xs, trees)], -1)
+    pos = int(pos)
+
+    def row(params, token, caches, image_embeds):
+        trees = position_trees(params, cfg, _position_tree)
+        s = token.shape[1]
+        where = [pos + torch.arange(s, device=t["embed"].device)[None, :]
+                 for t in trees]
+        xs = embed_positions(trees, token)
+        for g in range(cfg.n_layers // len(kinds)):
+            for slot, kind in enumerate(kinds):
+                xs = apply_layer(
+                    [layer_at(t["layers"][slot], g) for t in trees], xs, cfg,
+                    kind, positions=where, caches=[
+                        {"k": c[slot]["k"][g], "v": c[slot]["v"][g]}
+                        for c in caches], cache_pos=pos,
+                    image_embeds=image_embeds, backend=backend)
+        return head_logits(trees, [x[:, -1] for x in xs], cfg)
+
+    return decode_rows(params, token, cache, row, image_embeds=image_embeds)
 
 
 def prefill(params: Params, tokens: torch.Tensor, cache, cfg: ModelConfig, *,
@@ -329,41 +272,8 @@ def prefill(params: Params, tokens: torch.Tensor, cache, cfg: ModelConfig, *,
 
 
 # ---------------------------------------------------------------------------
-# tensor parallelism along ``model`` (dense, MoE, VLM; module doc)
+# tensor parallelism along ``model`` (module doc)
 # ---------------------------------------------------------------------------
-
-def _tp_ranges(cfg: ModelConfig, n: int, i: int) -> dict:
-    """Position ``i``'s share of ``n``: query heads, the KV heads they read,
-    hidden units, experts, embedding columns and vocabulary, as [start,
-    stop) (a share of experts may be empty: fewer experts than positions).
-    The query heads must lie inside one KV group or start and end on group
-    boundaries: ``attention`` gives each of a position's KV heads an equal,
-    contiguous block of its query heads."""
-    h, kv = cfg.n_heads, cfg.n_kv_heads
-    if h % n:
-        raise ValueError(f"{cfg.name}: {h} query heads do not divide over "
-                         f"{n} model positions")
-    rep = h // kv
-    h0, h1 = i * h // n, (i + 1) * h // n
-    k0, k1 = h0 // rep, (h1 - 1) // rep + 1
-    if k1 - k0 > 1 and (h0 % rep or h1 % rep):
-        raise ValueError(f"{cfg.name}: query heads [{h0}, {h1}) of model "
-                         f"position {i} of {n} do not form whole groups of "
-                         f"{rep} over KV heads [{k0}, {k1})")
-    share = lambda total: (i * total // n, (i + 1) * total // n)  # noqa
-    return {"heads": (h0, h1), "kv_heads": (k0, k1),
-            "ffn": share(cfg.d_ff), "experts": share(cfg.n_experts),
-            "embed": share(cfg.d_model), "vocab": share(cfg.vocab_size)}
-
-
-def _position_trees(params: Params, cfg: ModelConfig) -> list:
-    """Each ``model`` position's plain tree (:func:`_position_tree`); an
-    unplaced tree is the one position's."""
-    if not sharding.is_split(params):
-        return [params]
-    return [_position_tree(params, cfg, i)
-            for i in range(params["embed"].n)]
-
 
 def _position_tree(params: Params, cfg: ModelConfig, i: int) -> Params:
     """The plain tree position ``i`` computes with (``_tp_ranges``): its
@@ -371,44 +281,28 @@ def _position_tree(params: Params, cfg: ModelConfig, i: int) -> Params:
     experts assembled from the shards the share overlaps (or cut from the
     master copy of a leaf the placement could not split). An MoE layer
     reads the whole router."""
-    n = params["embed"].n
-    r = _tp_ranges(cfg, n, i)
-    hd = cfg.head_dim
-    (h0, h1), (k0, k1), (f0, f1) = r["heads"], r["kv_heads"], r["ffn"]
+    r = _tp_ranges(cfg, params["embed"].n, i)
     e0, e1 = r["experts"]
-
-    def attn(a):
-        out = {"wq": a["wq"].take(-1, h0 * hd, h1 * hd, i),
-               "wk": a["wk"].take(-1, k0 * hd, k1 * hd, i),
-               "wv": a["wv"].take(-1, k0 * hd, k1 * hd, i),
-               "wo": a["wo"].take(-2, h0 * hd, h1 * hd, i)}
-        for name in ("q_norm", "k_norm"):
-            if name in a:
-                out[name] = a[name].at(i)
-        return out
-
-    def ffn(f):
-        return {"w_gate": f["w_gate"].take(-1, f0, f1, i),
-                "w_up": f["w_up"].take(-1, f0, f1, i),
-                "w_down": f["w_down"].take(-2, f0, f1, i)}
 
     def experts(m):
         out = {"router": m["router"].take(-1, 0, cfg.n_experts, i)}
         for name in ("we_gate", "we_up", "we_down"):
             out[name] = m[name].take(-3, e0, e1, i)
         if "shared" in m:
-            out["shared"] = ffn(m["shared"])
+            out["shared"] = take_swiglu(m["shared"], r, i)
         return out
 
     def layer(lp):
-        out = {"norm": lp["norm"].at(i), "attn": attn(lp["attn"]),
+        out = {"norm": lp["norm"].at(i),
+               "attn": take_attention(lp["attn"], cfg, r, i),
                "norm2": lp["norm2"].at(i)}
         if "moe" in lp:
             out["moe"] = experts(lp["moe"])
         else:
-            out["ffn"] = ffn(lp["ffn"])
+            out["ffn"] = take_swiglu(lp["ffn"], r, i)
         if "xattn" in lp:
-            out.update(xattn=attn(lp["xattn"]), norm3=lp["norm3"].at(i),
+            out.update(xattn=take_attention(lp["xattn"], cfg, r, i),
+                       norm3=lp["norm3"].at(i),
                        xattn_gate=lp["xattn_gate"].at(i))
         return out
 

@@ -10,29 +10,44 @@ both cache kinds, written in place: per-mamba-layer conv/SSM states and
 one KV cache per application of the shared block. A prefill (more than
 one token) starts every mamba layer from a zeroed state, as the
 reference's ``* 0`` does; ``mamba2.decode_step`` carries its cache instead.
+
+Tensor parallelism along ``model`` (ROADMAP 11i): the mamba layers of
+``groups`` and ``tail`` split as ``mamba2``'s (whole SSM heads a
+position), the shared block as a dense layer (its query and KV heads and
+SwiGLU hidden units, ``layers.residual_attention`` and
+``residual_swiglu``); every position's trees are built once a call, the
+shared block's reused by all groups. A position's cache holds its conv
+channels, SSM heads and KV heads.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (
     Params,
     _init,
-    attention,
+    _tp_ranges,
+    decode_rows,
+    embed_positions,
+    head_logits,
     init_attention,
     init_swiglu,
     layer_at,
+    position_trees,
     remat_wrap,
-    rms_norm,
+    residual_attention,
+    residual_swiglu,
     stack_layers,
-    swiglu,
+    take_attention,
+    take_swiglu,
 )
 from repro_torch.models.mamba2 import (
+    conv_channels,
     init_mamba_block,
     mamba_block,
     mamba_block_cached,
+    take_block,
 )
 
 
@@ -70,45 +85,68 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
-def _shared_block(shared: Params, x, cfg: ModelConfig, *, positions=None,
-                  kv_cache=None, cache_pos=None, backend: str = "torch"):
-    h, nc = attention(shared["attn"],
-                      rms_norm(x, shared["norm"], cfg.norm_eps), cfg,
-                      positions=positions, kv_cache=kv_cache,
-                      cache_pos=cache_pos, backend=backend)
-    x = x + h
-    x = x + swiglu(shared["ffn"], rms_norm(x, shared["norm2"], cfg.norm_eps))
-    return x, nc
+def _shared_block(shared: list, xs: list, cfg: ModelConfig, *,
+                  positions=None, caches=None, cache_pos=None,
+                  backend: str = "torch") -> list:
+    """The shared attention + SwiGLU block over the ``model`` positions
+    (each position's tree of it; ``positions`` and ``caches`` each
+    position's RoPE positions and KV cache, or None)."""
+    xs = residual_attention(shared, xs, cfg, positions=positions,
+                            caches=caches, cache_pos=cache_pos,
+                            backend=backend)
+    return residual_swiglu(shared, xs, cfg)
+
+
+def _position_tree(params: Params, cfg: ModelConfig, i: int) -> Params:
+    r = _tp_ranges(cfg, params["embed"].n, i)
+    s = params["shared"]
+    out = {"embed": params["embed"].take(-1, *r["embed"], i),
+           "shared": {"norm": s["norm"].at(i),
+                      "attn": take_attention(s["attn"], cfg, r, i),
+                      "norm2": s["norm2"].at(i),
+                      "ffn": take_swiglu(s["ffn"], r, i)},
+           "final_norm": params["final_norm"].at(i),
+           "lm_head": params["lm_head"].take(-1, *r["vocab"], i)}
+    for name in ("groups", "tail"):
+        if name in params:
+            out[name] = take_block(params[name], cfg, r, i)
+    return out
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             backend: str = "torch") -> torch.Tensor:
-    """(B, S) -> logits (B, S, V), without a cache. Under autograd each
-    group (its mamba layers and the shared block) runs under
-    ``remat_wrap``, as the reference's scanned group body; the tail runs
-    unwrapped, as there."""
+    """(B, S) -> logits (B, S, V), without a cache, on the first
+    position's device. Under autograd each group (its mamba layers and
+    the shared block) runs under ``remat_wrap``, as the reference's
+    scanned group body; the tail runs unwrapped, as there."""
     per, n_groups, tail = _geometry(cfg)
 
-    def group_body(x, group_p, shared):
+    def group_body(xs, group_ps, shared):
         for i in range(per):
-            x, _ = mamba_block(layer_at(group_p, i), x, cfg)
-        return _shared_block(shared, x, cfg, backend=backend)[0]
+            xs, _ = mamba_block([layer_at(g, i) for g in group_ps], xs, cfg)
+        return _shared_block(shared, xs, cfg, backend=backend)
 
     if torch.is_grad_enabled():
         group_body = remat_wrap(group_body, cfg)
-    x = F.embedding(tokens.long(), params["embed"])
+    trees = position_trees(params, cfg, _position_tree)
+    shared = [t["shared"] for t in trees]
+    xs = embed_positions(trees, tokens)
     for g in range(n_groups):
-        x = group_body(x, layer_at(params["groups"], g), params["shared"])
+        xs = group_body(xs, [layer_at(t["groups"], g) for t in trees],
+                        shared)
     for i in range(tail):
-        x, _ = mamba_block(layer_at(params["tail"], i), x, cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"]
+        xs, _ = mamba_block([layer_at(t["tail"], i) for t in trees], xs, cfg)
+    return head_logits(trees, xs, cfg)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               share: dict | None = None):
+    """The decode cache (a model position's ``share``, ``_tp_ranges``:
+    its conv channels, SSM heads and KV heads)."""
     per, n_groups, tail = _geometry(cfg)
-    conv_dim = cfg.d_ssm + 2 * cfg.ssm_state
-    ssm = (cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
+    h, conv_dim = conv_channels(cfg, share)
+    k0, k1 = share["kv_heads"] if share else (0, cfg.n_kv_heads)
+    ssm = (h, cfg.ssm_state, cfg.ssm_head_dim)
     mk = lambda *shape: torch.zeros(shape, dtype=cfg.torch_dtype,
                                     device=device)
     f32 = lambda *shape: torch.zeros(shape, dtype=torch.float32,
@@ -116,8 +154,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     cache = {
         "groups_conv": mk(n_groups, per, batch, cfg.ssm_conv - 1, conv_dim),
         "groups_ssm": f32(n_groups, per, batch, *ssm),
-        "attn_k": mk(n_groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim),
-        "attn_v": mk(n_groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+        "attn_k": mk(n_groups, batch, max_len, k1 - k0, cfg.head_dim),
+        "attn_v": mk(n_groups, batch, max_len, k1 - k0, cfg.head_dim),
     }
     if tail:
         cache["tail_conv"] = mk(tail, batch, cfg.ssm_conv - 1, conv_dim)
@@ -128,26 +166,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
 def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
                 cfg: ModelConfig, *, backend: str = "torch"):
     """token (B, s): s = 1 decodes, s > 1 prefills into the cache at
-    ``pos``. Returns (logits (B, V), cache), the cache updated in place."""
+    ``pos``. Returns (logits (B, V), cache), the cache updated in place
+    (placed parameters: a ``layers.SplitCache``)."""
     per, n_groups, tail = _geometry(cfg)
     pos = int(pos)
-    s = token.shape[1]
-    prefill = s > 1
-    x = params["embed"][token.long()]
-    positions = pos + torch.arange(s, device=x.device)[None, :]
-    for g in range(n_groups):
-        for i in range(per):
-            x = mamba_block_cached(
-                layer_at(params["groups"], g, i), x, cfg,
-                cache["groups_conv"][g, i], cache["groups_ssm"][g, i],
-                zero_state=prefill)
-        x, _ = _shared_block(
-            params["shared"], x, cfg, positions=positions,
-            kv_cache={"k": cache["attn_k"][g], "v": cache["attn_v"][g]},
-            cache_pos=pos, backend=backend)
-    for i in range(tail):
-        x = mamba_block_cached(layer_at(params["tail"], i), x, cfg,
-                               cache["tail_conv"][i], cache["tail_ssm"][i],
-                               zero_state=prefill)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, -1] @ params["lm_head"], cache
+
+    def row(params, token, caches):
+        s = token.shape[1]
+        prefill = s > 1
+        trees = position_trees(params, cfg, _position_tree)
+        shared = [t["shared"] for t in trees]
+        where = [pos + torch.arange(s, device=t["embed"].device)[None, :]
+                 for t in trees]
+        xs = embed_positions(trees, token)
+        for g in range(n_groups):
+            for i in range(per):
+                xs = mamba_block_cached(
+                    [layer_at(t["groups"], g, i) for t in trees], xs, cfg,
+                    [c["groups_conv"][g, i] for c in caches],
+                    [c["groups_ssm"][g, i] for c in caches],
+                    zero_state=prefill)
+            xs = _shared_block(
+                shared, xs, cfg, positions=where, caches=[
+                    {"k": c["attn_k"][g], "v": c["attn_v"][g]}
+                    for c in caches], cache_pos=pos, backend=backend)
+        for i in range(tail):
+            xs = mamba_block_cached(
+                [layer_at(t["tail"], i) for t in trees], xs, cfg,
+                [c["tail_conv"][i] for c in caches],
+                [c["tail_ssm"][i] for c in caches], zero_state=prefill)
+        return head_logits(trees, [x[:, -1] for x in xs], cfg)
+
+    return decode_rows(params, token, cache, row)

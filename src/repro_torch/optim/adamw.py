@@ -123,3 +123,41 @@ def update(cfg: AdamWConfig, grads, state, params):
                 delta.add_(cfg.weight_decay * pc.float())
             pc.copy_(pc.float().sub_(rate * delta))
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+# a gradient element whose clipped size is at most NEAR_EPS * eps lies where
+# the first step's update lr * g / (|g| + eps) turns a rounding of g into
+# any share of lr; step_gaps holds the parameters only above it
+NEAR_EPS = 1e3
+
+
+@torch.no_grad()
+def step_gaps(cfg: AdamWConfig, params, grads, new, ref_grads,
+              ref_new) -> dict:
+    """How far one AdamW step from ``params`` (``grads`` received, ``new``
+    the parameters it gave) lies from a reference step from the same
+    parameters and state (``ref_grads``, ``ref_new``); unplaced trees of
+    the same structure. ``grad``: the largest over the leaves of max|g -
+    g_ref| / max|g_ref| (a leaf whose reference gradient is zero counts
+    inf unless its gradient is zero too). ``param``: the largest over the
+    leaves of max|p - p_ref| / max(1, max|p_ref|), over the elements whose
+    clipped reference gradient exceeds ``NEAR_EPS * eps``. ``unmoved``:
+    the elements the reference step moved that this one left as
+    ``params`` had them."""
+    scale = min(1.0, cfg.clip_norm / (float(global_norm(ref_grads)) + 1e-9))
+    grad = param = 0.0
+    unmoved = 0
+    for p0, g, p, g_ref, p_ref in zip(*(
+            pytree.tree_leaves(t) for t in (params, grads, new, ref_grads,
+                                            ref_new))):
+        p0, g, p, g_ref, p_ref = (t.to(p.device).float()
+                                  for t in (p0, g, p, g_ref, p_ref))
+        top, diff = float(g_ref.abs().max()), float((g - g_ref).abs().max())
+        grad = max(grad, diff / top if top else (0.0 if diff == 0
+                                                 else math.inf))
+        held = g_ref.abs() * scale > NEAR_EPS * cfg.eps
+        if held.any():
+            param = max(param, float((p - p_ref).abs()[held].max()) / max(
+                1.0, float(p_ref.abs().max())))
+        unmoved += int(((p_ref != p0) & (p == p0)).sum())
+    return {"grad": grad, "param": param, "unmoved": unmoved}

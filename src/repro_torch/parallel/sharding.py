@@ -28,9 +28,9 @@ columns, rows or experts a position computes with (an MoE layer's
 ``(G, E, d, f)`` expert leaves split on ``E``, its float32 router on its
 expert columns), and :func:`all_reduce_sum`, :func:`all_gather` and
 :func:`gather_parts` join the per-position results; each declares its
-collectives, forward and backward, to ``launch/roofline.py``. Which
-families are split (dense, MoE, VLM) is decided by ``train.steps``
-(``steps.place``); this module places whatever tree it is given.
+collectives, forward and backward, to ``launch/roofline.py``. Every LM
+family is placed so (``train.steps.place``); this module places whatever
+tree it is given.
 ``shard`` is the identity with or without rules: the split is the
 placement's, and a tensor held whole has no constraint to place.
 """
@@ -437,20 +437,7 @@ class Placed:
             if (start, stop) != (0, t.shape[dim]):
                 t = t.narrow(dim, start, stop - start)
             return t.to(self.devices[i])
-        w = self.shape[dim] // self.n
-        if (start, stop) == (i * w, (i + 1) * w):
-            return self.parts[i]
-        pieces = []
-        for j in range(start // w, (stop - 1) // w + 1):
-            lo, hi = max(start, j * w) - j * w, min(stop, (j + 1) * w) - j * w
-            piece = self.parts[j].narrow(dim, lo, hi - lo)
-            if j != i and roofline.counting():
-                roofline.declare_collective("collective-permute",
-                                            _nbytes(piece))
-                piece = roofline.declare_backward(
-                    piece, "collective-permute", [_nbytes(piece)])
-            pieces.append(piece.to(self.devices[i]))
-        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+        return take_parts(self.parts, dim, start, stop, i)
 
     def gather(self) -> torch.Tensor:
         """The whole tensor on the first position's device."""
@@ -474,6 +461,31 @@ class Placed:
     def __repr__(self) -> str:
         return (f"Placed({tuple(self.shape)}, {self.spec!r}, row "
                 f"{self.row}, parts {[tuple(p.shape) for p in self.parts]})")
+
+
+def take_parts(parts: list[torch.Tensor], dim: int, start: int, stop: int,
+               i: int) -> torch.Tensor:
+    """``[start, stop)`` along ``dim`` of the tensor that ``parts`` split
+    evenly along ``dim``, one part a position, on position ``i``'s device
+    (``parts[i]``'s): the part itself when the range is it, else assembled
+    from the parts it overlaps. Each piece read from another position's
+    part is declared to the roofline's collective term as a
+    collective-permute, forward and backward. Shards (:meth:`Placed.take`)
+    and activations (an SSM block's ``in_proj`` products) alike."""
+    dim %= parts[0].ndim
+    w = parts[0].shape[dim]
+    if (start, stop) == (i * w, (i + 1) * w):
+        return parts[i]
+    pieces = []
+    for j in range(start // w, (stop - 1) // w + 1):
+        lo, hi = max(start, j * w) - j * w, min(stop, (j + 1) * w) - j * w
+        piece = parts[j].narrow(dim, lo, hi - lo)
+        if j != i and roofline.counting():
+            roofline.declare_collective("collective-permute", _nbytes(piece))
+            piece = roofline.declare_backward(
+                piece, "collective-permute", [_nbytes(piece)])
+        pieces.append(piece.to(parts[i].device))
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
 
 
 def _flatten_placed(x: Placed):

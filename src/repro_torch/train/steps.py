@@ -7,16 +7,13 @@ returns (prefill, decode). Every LM family serves and trains: dense and
 MoE (``models/transformer.py``), VLM (the same module, with image
 embeddings), SSM (mamba2), hybrid (zamba2) and audio (whisper).
 
-This module alone decides which families run tensor parallel along the
-mesh's ``model`` axis (``SPLIT_FAMILIES``: the dense, MoE and VLM
-families, every family of ``models/transformer.py``; ROADMAP 11i).
-:func:`place` splits such a model's parameters (``param_shardings``: heads,
-hidden units, experts) and holds any other family's (SSM, hybrid, audio)
-whole on the mesh's first device;
-:func:`init_cache` under ``use_rules`` of a splitting mesh lays out a split
-model's cache over it; the same functions then run it tensor parallel
-(``models/transformer.py``), with gradients per shard of the same
-placement. Placed parameters of any other family are refused.
+Every LM family runs tensor parallel along the mesh's ``model`` axis
+(ROADMAP 11i): :func:`place` splits a model's parameters by
+``param_shardings`` (heads, hidden units, experts, SSM heads);
+:func:`init_cache` under ``use_rules`` of a splitting mesh lays out the
+family's cache over it (``layers.SplitCache``); the same functions then
+run it tensor parallel (each model module over its ``model`` positions),
+with gradients per shard of the same placement.
 """
 from __future__ import annotations
 
@@ -28,6 +25,7 @@ from torch.utils import _pytree as pytree
 from repro_torch.compat import resolve_backend, resolve_device, to_tensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2, transformer, whisper, zamba2
+from repro_torch.models.layers import SplitCache
 from repro_torch.models.layers import params_from_numpy  # noqa: F401
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding
@@ -39,37 +37,22 @@ CE_CHUNK = 1 << 27
 
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": mamba2, "hybrid": zamba2, "audio": whisper}
-# the families split along ``model`` (module doc)
-SPLIT_FAMILIES = ("dense", "moe", "vlm")
 
 
-def _family(cfg: ModelConfig, params=None):
+def _family(cfg: ModelConfig):
     """The model module of ``cfg``'s family; a family without one (the
-    CNN) raises ``ValueError``, as the reference's dispatch does, and
-    placed ``params`` of a family not split ``NotImplementedError``."""
+    CNN) raises ``ValueError``, as the reference's dispatch does."""
     if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
-    if (params is not None and cfg.family not in SPLIT_FAMILIES
-            and sharding.is_split(params)):
-        raise NotImplementedError(
-            f"{cfg.family}: tensor parallelism is ported for the dense, "
-            f"MoE and VLM families; the SSM, hybrid and audio families "
-            f"are held whole (ROADMAP Queue 1, item 11i)")
     return FAMILIES[cfg.family]
 
 
 def place(cfg: ModelConfig, params, rules: sharding.Rules):
-    """``params`` placed on ``rules``' mesh: by ``param_shardings`` for a
-    family in ``SPLIT_FAMILIES`` (per-position shards where the mesh's
-    ``model`` axis spans several positions), else every leaf whole on the
-    mesh's first device."""
+    """``params`` placed on ``rules``' mesh by ``param_shardings``:
+    per-position shards where the mesh's ``model`` axis spans several
+    positions, else every leaf on the mesh's first device."""
     _family(cfg)
-    if cfg.family in SPLIT_FAMILIES:
-        places = sharding.param_shardings(params, rules)
-    else:
-        first = rules.mesh.devices.flat[0]
-        places = pytree.tree_map(lambda _: first, params)
-    return sharding.place(params, places)
+    return sharding.place(params, sharding.param_shardings(params, rules))
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +71,7 @@ def forward_logits(params, batch: dict[str, Any], cfg: ModelConfig, *,
     """(B, S) ``batch["tokens"]`` -> logits (B, S, V); a VLM also reads
     ``batch["image_embeds"]`` and whisper ``batch["frames"]``. ``backend``
     picks the long-sequence attention, as in :func:`make_serve_steps`."""
-    _family(cfg, params)
+    _family(cfg)
     tokens = batch["tokens"]
     if cfg.family in ("dense", "moe"):
         return transformer.forward(params, tokens, cfg, backend=backend)
@@ -204,25 +187,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """A zeroed cache for ``max_len`` positions on ``device`` (``None``:
     the CUDA card): KV caches, and the SSM's conv and state caches. Under
     ``use_rules`` of a mesh whose ``model`` axis spans several positions,
-    a family in ``SPLIT_FAMILIES`` gets a ``transformer.SplitKVCache`` over
-    that mesh; ``device`` must then be its first device."""
+    a ``layers.SplitCache`` of the family's cache over that mesh;
+    ``device`` must then be its first device."""
     _family(cfg)
     device = resolve_device(device)
+    make = {
+        "ssm": lambda b, d, s: mamba2.init_ssm_cache(cfg, b, d, s),
+        "hybrid": lambda b, d, s: zamba2.init_cache(cfg, b, max_len, d, s),
+        "audio": lambda b, d, s: whisper.init_cache(cfg, b, max_len, d, s),
+    }.get(cfg.family,
+          lambda b, d, s: transformer.init_kv_cache(cfg, b, max_len, d, s))
     rules = sharding.current_rules()
-    if cfg.family in SPLIT_FAMILIES and rules is not None:
+    if rules is not None:
         placement = sharding.NamedSharding(rules.mesh, sharding.P())
         if placement.splits:
             if device != placement.device:
                 raise ValueError(f"a split cache lives on {rules.mesh!r}; "
                                  f"device {device} is not its first")
-            return transformer.SplitKVCache(cfg, batch, max_len, placement)
-    if cfg.family == "ssm":
-        return mamba2.init_ssm_cache(cfg, batch, device)
-    if cfg.family == "hybrid":
-        return zamba2.init_cache(cfg, batch, max_len, device)
-    if cfg.family == "audio":
-        return whisper.init_cache(cfg, batch, max_len, device)
-    return transformer.init_kv_cache(cfg, batch, max_len, device)
+            return SplitCache(cfg, batch, placement, make)
+    return make(batch, device, None)
 
 
 def make_serve_steps(cfg: ModelConfig, backend: str = "torch"):
@@ -237,7 +220,6 @@ def make_serve_steps(cfg: ModelConfig, backend: str = "torch"):
 
     @torch.no_grad()
     def decode(params, token, cache, pos, extras=None):
-        _family(cfg, params)
         extras = extras or {}
         if cfg.family == "ssm":
             return mamba2.decode_step(params, token, cache, pos, cfg)

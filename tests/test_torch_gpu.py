@@ -1302,3 +1302,121 @@ def test_gpu_expert_parallel_over_two_cards(cuda):
     assert split.device == cards[0]
     assert float((split.float() - whole.float()).abs().max()) <= 5e-2 * \
         float(whole.float().abs().max())
+
+
+def test_gpu_zamba2_split_hopper_prefill_matches_unsplit(cuda):
+    """Reduced zamba2-7b (fp32, 5 layers: 2 groups and a tail) split along
+    ``model`` over (1, 2) of the repeated card: a 2 x 2048 ``hopper``
+    prefill launches K6 once per group and position (4, against 2
+    unsplit), on each position's 2 query heads and 1 KV head, and its
+    logits hold the unsplit prefill's within ``1e-5 * max(1, max|ref|)``."""
+    import dataclasses
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.parallel import sharding
+
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), n_layers=5)
+    rules = sharding.make_rules(make_mesh((1, 2), ("data", "model"),
+                                          devices=[cuda, cuda]))
+    params = steps.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 2048)).astype(np.int32)).to(cuda)
+    prefill, _ = steps.make_serve_steps(cfg, backend="hopper")
+    common.reset_launches()
+    whole, _ = prefill(params, prompts, steps.init_cache(cfg, 2, 2048, cuda))
+    assert common.LAUNCHES["flash_attention"] == 2
+    placed = steps.place(cfg, params, rules)
+    with sharding.use_rules(rules):
+        cache = steps.init_cache(cfg, 2, 2048, cuda)
+    common.reset_launches()
+    split, _ = prefill(placed, prompts, cache)
+    assert common.LAUNCHES["flash_attention"] == 4
+    assert torch.isfinite(split).all()
+    assert float((split - whole).abs().max()) <= 1e-5 * max(
+        1.0, float(whole.abs().max()))
+
+
+def test_gpu_ssm_hybrid_audio_tensor_parallel_over_two_cards(cuda):
+    """Reduced mamba2-130m, zamba2-7b (5 layers) and whisper-base (fp32)
+    split along ``model`` over two distinct cards, (1, 2): each card holds
+    its shards; a prefill and 4 greedy decode steps within ``1e-5 *
+    max(1, max|ref|)`` of the one-card run (whisper encodes over both
+    cards), and one training step (``launch.train.build``) within 1e-5 in
+    loss and ``grad_norm`` and, by ``adamw.step_gaps``, each gradient leaf
+    within 1e-4 of its own max|g|, the parameters within 1e-4 wherever the
+    gradient is well above AdamW's eps, every element the one-card step
+    moved moved."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import whisper
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from torch.utils import _pytree as pytree
+
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    mesh = make_mesh((1, 2), ("data", "model"), devices=cards)
+    rules = sharding.make_rules(mesh)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    for arch, n_layers in (("mamba2-130m", None), ("zamba2-7b", 5),
+                           ("whisper-base", None)):
+        cfg = get_config(arch).reduced()
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        params = steps.init_params(cfg, torch.Generator(device=cards[0])
+                                   .manual_seed(0), cards[0])
+        placed = steps.place(cfg, params, rules)
+        assert [t.device for t in placed["lm_head"].shards] == cards
+        extras = {k: v.to(cards[0]) for k, v in train_mod.extras_for(
+            cfg, 4, np.random.default_rng(1)).items()}
+        serve_extras = [{}, {}]
+        if "frames" in extras:
+            with torch.no_grad():
+                serve_extras = [{"enc_out": whisper.encode(
+                    p, extras["frames"], cfg)} for p in (params, placed)]
+        prefill, decode = steps.make_serve_steps(cfg)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, 32)).astype(np.int32)).to(cards[0])
+        c1 = steps.init_cache(cfg, 4, 36, cards[0])
+        with sharding.use_rules(rules):
+            c2 = steps.init_cache(cfg, 4, 36, cards[0])
+        l1, c1 = prefill(params, prompts, c1, serve_extras[0])
+        l2, c2 = prefill(placed, prompts, c2, serve_extras[1])
+        for i in range(5):
+            assert l2.device == cards[0]
+            assert float((l2 - l1).abs().max()) <= 1e-5 * max(
+                1.0, float(l1.abs().max())), arch
+            if i == 4:
+                break
+            tok = l1.argmax(-1)[:, None]
+            l1, c1 = decode(params, tok, c1, 32 + i, serve_extras[0])
+            l2, c2 = decode(placed, tok, c2, 32 + i, serve_extras[1])
+        p1, s1, f1, _ = train_mod.build(
+            cfg, opt, make_mesh((1, 1), ("data", "model"),
+                                devices=cards[:1]),
+            params=pytree.tree_map(lambda t: t.clone(), params))
+        p2, s2, f2, _ = train_mod.build(cfg, opt, mesh, params=params)
+        batch = batch_for_step(DataConfig(cfg.vocab_size, 16, 8), 0)
+        batch.update(train_mod.extras_for(cfg, 8, np.random.default_rng(2)))
+        seen, update = [], adamw.update
+
+        def spy(opt_cfg, grads, state, p):
+            seen.append(sharding.gather(pytree.tree_map(
+                lambda t: t.clone(), grads)))
+            return update(opt_cfg, grads, state, p)
+        with mock.patch.object(adamw, "update", spy):
+            p1, s1, m1 = f1(p1, s1, batch)
+            p2, s2, m2 = f2(p2, s2, batch)
+        for k in ("loss", "grad_norm"):
+            assert abs(float(m2[k]) - float(m1[k])) <= 1e-5 * abs(
+                float(m1[k])), arch
+        gaps = adamw.step_gaps(opt, params, seen[1], sharding.gather(p2),
+                               seen[0], p1)
+        assert gaps["grad"] <= 1e-4 and gaps["param"] <= 1e-4, (arch, gaps)
+        assert gaps["unmoved"] == 0, (arch, gaps)

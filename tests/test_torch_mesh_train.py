@@ -17,8 +17,9 @@ step jitted over a (2, 4) mesh of 8 host devices (a subprocess, as
 uneven batch is refused; the reduction and copies reach the roofline's
 collective term beside each row's tensor-parallel collectives; the data
 positions follow position order; over one data row, (1, 4), the mesh step
-is the tensor-parallel train step itself, bit for bit, and for a family
-held whole along ``model`` the one-position step, bit for bit."""
+is the tensor-parallel train step itself, bit for bit, for the dense
+family and the SSM family (the latter within its own limits of the
+one-position step)."""
 import os
 import pickle
 import subprocess
@@ -129,24 +130,47 @@ def test_mesh_step_over_one_data_position_is_the_plain_step():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m"])
-def test_mesh_step_of_a_family_held_whole_is_the_plain_step(arch):
-    """(1, 4) for a family not split along ``model`` (ROADMAP 11i): its
-    tensors stay whole on the first device, nothing is split or reduced,
-    and the mesh step is bit for bit the one-position step, with no
-    collectives."""
+def test_mesh_step_of_a_family_held_whole_is_the_plain_step(monkeypatch,
+                                                            arch):
+    """(1, 4) for the SSM family, which splits along ``model`` as the dense one
+    does (the hybrid and audio families' mesh steps:
+    ``tests/test_torch_tensor_parallel_ssm.py``): over one data row the
+    mesh step is bit for bit the tensor-parallel train step on the same
+    placed parameters, with the same collectives (the tensor-parallel ones
+    alone, nothing reduced over rows), and it matches the one-position
+    step: loss and ``grad_norm`` within 1e-6, and by ``adamw.step_gaps``
+    each gradient leaf AdamW receives within 1e-4 of its own max|g| (the
+    split sums the gated norm's variance, ``out_proj``'s rows and B and
+    C's gradient in another order), the parameters within 1e-4 wherever
+    the gradient is well above AdamW's eps (nearer it the first step turns
+    a rounding of the gradient into any share of lr), every element the
+    one-position step moved moved."""
     cfg = get_config(arch).reduced()
     opt = adamw.AdamWConfig(**OPT)
+    seen = _grads_seen(monkeypatch)
     p1, s1, f1, _ = train_mod.build(cfg, opt, _one())
     p2, s2, f2, _ = train_mod.build(cfg, opt, _grid((1, 4)),
                                     params=_clone(p1))
-    assert not sharding.is_split(p2)
+    assert sharding.is_split(p2)
+    p3, s3 = _clone(p2), _clone(s2)
+    start = _clone(p1)
     b = batch_for_step(DataConfig(cfg.vocab_size, SEQ, ROWS), 0)
+    b.update(train_mod.extras_for(cfg, ROWS, np.random.default_rng(0)))
     p1, s1, m1 = f1(p1, s1, b)
     (p2, s2, m2), st = rl.count(f2, p2, s2, b)
-    assert torch.equal(m1["loss"], m2["loss"])
-    for a, b_ in zip(pytree.tree_leaves(p2), pytree.tree_leaves(p1)):
+    (p3, s3, m3), st3 = rl.count(steps.make_train_step(cfg, opt), p3, s3, b)
+    assert torch.equal(m2["loss"], m3["loss"])
+    for a, b_ in zip(pytree.tree_leaves(p2), pytree.tree_leaves(p3)):
         assert torch.equal(a, b_)
-    assert st.collective_bytes == 0 and st.collective_counts == {}
+    assert st.collective_counts == st3.collective_counts
+    assert st.collective_bytes == st3.collective_bytes > 0
+    assert st.collective_counts["all-reduce"] > 0
+    for k in ("loss", "grad_norm"):
+        assert _rel(m2[k], m1[k]) <= 1e-6
+    gaps = adamw.step_gaps(opt, start, _whole(seen[1]), _whole(p2),
+                           _whole(seen[0]), _whole(p1))
+    assert gaps["grad"] <= 1e-4 and gaps["param"] <= 1e-4, gaps
+    assert gaps["unmoved"] == 0, gaps
 
 
 def test_reduction_reaches_the_collective_term():

@@ -159,8 +159,17 @@ def test_named_sharding_resolves_to_the_one_device():
     ssm_cfg = get_config("mamba2-130m").reduced()
     ssm = steps.init_params(ssm_cfg, torch.Generator().manual_seed(0), "cpu")
     held = steps.place(ssm_cfg, ssm, rules)
-    assert all(a is b for a, b in zip(pytree.tree_leaves(held),
-                                      pytree.tree_leaves(ssm)))
+    assert sharding.is_split(held)
+    layer = held["layers"]
+    for name in ("in_proj", "A_log"):
+        assert [(t.device.type, t.dtype, tuple(t.shape))
+                for t in layer[name].parts] == [
+            (d, ssm["layers"][name].dtype,
+             (*ssm["layers"][name].shape[:-1],
+              ssm["layers"][name].shape[-1] // 2)) for d in ("cpu", "meta")]
+    assert [t.device.type for t in layer["norm2"].parts] == ["cpu"]
+    assert torch.equal(layer["in_proj"].parts[0],
+                       ssm["layers"]["in_proj"][..., :148])
     assert P(("data",), None) == ("data", None)
     assert repr(P("data", None)) == "PartitionSpec('data', None)"
 

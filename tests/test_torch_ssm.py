@@ -157,10 +157,10 @@ def test_mamba_block_matches_reference(mode):
     ry, rc = r_mamba2.mamba_block(
         jax.tree.map(_j, p), _j(x), r_cfg, ssm_cache=None if cache is None
         else jax.tree.map(_j, cache), chunk=16)
-    y, c = mamba2.mamba_block(
-        {k: _t(v) for k, v in p.items()}, _t(x), cfg,
+    (y,), (c,) = mamba2.mamba_block(
+        [{k: _t(v) for k, v in p.items()}], [_t(x)], cfg,
         ssm_cache=None if cache is None
-        else {k: _t(v) for k, v in cache.items()}, chunk=16)
+        else [{k: _t(v) for k, v in cache.items()}], chunk=16)
     _near(y, ry)
     if cache is None:
         assert c is None and rc is None
@@ -179,11 +179,11 @@ def test_mamba_block_keeps_the_reference_dtypes_in_bf16():
     cache = mamba2.init_ssm_cache(cfg, 2, "cpu")
     assert cache["conv"].dtype == torch.bfloat16
     assert cache["ssm"].dtype == torch.float32
-    y, c = mamba2.mamba_block(p, x, cfg, ssm_cache={
-        "conv": cache["conv"][0], "ssm": cache["ssm"][0]})
+    (y,), (c,) = mamba2.mamba_block([p], [x], cfg, ssm_cache=[{
+        "conv": cache["conv"][0], "ssm": cache["ssm"][0]}])
     assert y.dtype == torch.bfloat16 and c["ssm"].dtype == torch.float32
     assert c["conv"].dtype == torch.bfloat16
-    y1, c1 = mamba2.mamba_block(p, x[:, :1], cfg, ssm_cache=c)
+    (y1,), (c1,) = mamba2.mamba_block([p], [x[:, :1]], cfg, ssm_cache=[c])
     assert y1.dtype == torch.bfloat16 and c1["ssm"].dtype == torch.float32
     assert torch.isfinite(y.float()).all() and torch.isfinite(y1.float()).all()
 
