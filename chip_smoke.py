@@ -182,9 +182,11 @@ work equal to phase 2's formula at that shape), and the full-width
 training step cut to 4 of 32 layers, 2 x 4096 (as phase 6c): measured ms,
 the compute and memory terms, the bound, the counted FLOPs and the
 model-FLOPs share (``mfu``, which must lie in (0, 1]); (b) the dry-run
-cell minitron-8b x train_4k x single through ``dryrun.run_cell``, in a
+cell whisper-base x decode_32k x single through ``dryrun.run_cell``, in a
 process of its own with no card visible, started at the phase's start:
-status ``OK``, memory per device and roofline; (c) reduced minitron-8b in
+status ``OK``, traced split over the 16 ``model`` positions of one data
+row (its ``trace_s``), the fullest position's figures per chip, memory
+per device and roofline; (c) reduced minitron-8b in
 fp32 over a 2-position data mesh of the repeated card against the
 one-position step (loss and ``grad_norm`` within ``1e-5 * max(1, |ref|)``,
 parameters within ``1e-4 * max(1, max|ref|)``, as AdamW's first steps
@@ -215,9 +217,10 @@ apart, and the first MoE layer on the unsplit run's own input: each
 position's assembled router equal bit for bit, the summed output within
 ``5e-2 * max|out|``). The SSM, hybrid and audio families split too:
 reduced mamba2, zamba2 (5 layers: two groups and a tail) and whisper in
-fp32 over (1, 2) and (2, 2) as minitron above, except that the step's
-parameters are held to AdamW's first-step bound of 2 lr and, as for every
-arch, the gradients AdamW receives to ``1e-5``; and phase 5's zamba2 (81
+fp32 over (1, 2) and (2, 2) as minitron above (every arch's step held
+by ``adamw.step_gaps``: each gradient leaf within ``1e-4`` of its own
+max|g|, the parameters within ``1e-4`` where the gradient is well above
+AdamW's eps, nothing unmoved); and phase 5's zamba2 (81
 layers; K6 26 a prefill against 13, on each position's 16 of 32 heads),
 mamba2-130m and whisper-base (8 x 1500 frames, encoded over each tree)
 paths, bf16 on ``hopper``, split over (1, 2) against the same tree
@@ -226,15 +229,25 @@ unsplit (prefill ms, decode ms/token, peak GB; whisper's logits within
 split held in fp32 within ``1e-4 * max|logit|`` on zamba2's first 15
 layers and all of mamba2's, its bf16 logits no farther from those fp32
 ones than the unsplit bf16 logits plus ``5e-2 * max|logit|``), each
-then once through ``launch.serve.serve`` over that mesh.
+then once through ``launch.serve.serve`` over that mesh. Shares that are
+uneven or empty split over the production mesh's 16 ``model``
+positions of the repeated card: phase 5's whisper-base path (every even
+position holds no head: no attention runs there) and scout cut to 2 of
+48 layers (2 or 3 of its 40 heads a position, over one KV head; K6 32 a
+prefill against 2), each as above against the same tree unsplit
+(prefill ms, decode ms/token, peak GB, logits within ``5e-2 *
+max|logit|``; whisper also through ``launch.serve.serve``; scout's
+routing and first MoE layer as above), and reduced scout and whisper in
+fp32 over (1, 16) as the reduced archs above.
 
 Phase 2 also runs F6's shape through K1: ``resnet18_specs(16, 8)``'s
 ``s4b1_proj`` (a 1x1 stride-2 conv from 2x2 to 1x1, batch 2), whose
 patches ``im2col`` must hand over contiguous; and K6 at the per-position
 shape of 7d's split prefill, and at scout's position shape (20
 over 4 heads), the VLM's cross-attention at a position (16 over 4
-heads to the 1600 image tokens) and zamba2's shared block at a position
-(16 over 16 heads, D 112).
+heads to the 1600 image tokens), zamba2's shared block at a position
+(16 over 16 heads, D 112), and scout's positions of 16 (2 and 3 heads
+over 1 KV head).
 
 Phase 2 also holds every kernel at the shapes of the interpreter's calls
 (``*_strict`` paths: per COMP block, the block's rows and k-group); the
@@ -723,7 +736,8 @@ def lm_kernel_cases(path: str):
     7d's split prefills: one model position's heads of TP_POSITIONS, for
     scout (20 over 4), for the VLM's cross-attention (16 over 4 to the
     image tokens; its causal prefill has minitron's position shape) and
-    for zamba2's shared block (16 over 16, D 112)."""
+    for zamba2's shared block (16 over 16, D 112); and scout's positions
+    of TP_WIDE (2 and 3 heads over 1 KV head)."""
     _, batch, prompt, gen = LM_PATHS[path]
     cfg = lm_config(path)
     prefill = dict(b=batch, h=cfg.n_heads, hkv=cfg.n_kv_heads,
@@ -732,9 +746,14 @@ def lm_kernel_cases(path: str):
     position = dict(prefill, h=cfg.n_heads // TP_POSITIONS,
                     hkv=cfg.n_kv_heads // TP_POSITIONS)
     if cfg.family == "moe":
+        # over TP_WIDE positions scout's 40 heads give 2 or 3 a position,
+        # each over one KV head
+        wide = [("flash_attention", f"moe_prefill_{h}_heads_of_{TP_WIDE}",
+                 dict(prefill, h=h, hkv=1), 0) for h in (2, 3)]
         return [("flash_attention", "moe_prefill", prefill, cfg.n_layers),
                 *([("flash_attention", "moe_prefill_position_of_2",
-                    position, 0)] if path in TP_FAMILY_PATHS else [])]
+                    position, 0)] if path in TP_FAMILY_PATHS else []),
+                *(wide if path in TP_WIDE_FAMILY_PATHS else [])]
     if path == "zamba2_7b_bf16":
         return [("flash_attention", "shared_prefill", prefill,
                  cfg.n_layers // cfg.shared_attn_every),
@@ -3081,7 +3100,9 @@ def train_phase(card: str) -> dict:
 # process of its own; (c) MESH_POSITIONS data positions of the repeated card
 ROOF_ARCH, ROOF_BATCH, ROOF_PROMPT, ROOF_GEN = "minitron-8b", 2, 4096, 16
 ROOF_TIMED, ROOF_STEPS = 3, 4
-DRYRUN_CELL = ("minitron-8b", "train_4k", False)
+# traced split along model: minitron-8b x train_4k takes minutes to trace on
+# a CPU (16 positions' ops), whisper-base x decode_32k seconds
+DRYRUN_CELL = ("whisper-base", "decode_32k", False)
 MESH_POSITIONS, MESH_TOL, MESH_PARAM_TOL = 2, 1e-5, 1e-4
 # (d) a split step's gradient leaves against the one-position step's,
 # each relative to its own max|g| (adamw.step_gaps): a leaf that sums
@@ -3124,6 +3145,16 @@ TP_SSM_PATHS = ("zamba2_7b_bf16", "mamba2_130m_bf16", "whisper_base_bf16")
 # 4.231)
 TP_DRIFT = {"zamba2_7b_bf16": 15, "mamba2_130m_bf16": None}
 TP_FP32_TOL, TP_DRIFT_SLACK = 1e-4, 2e-2
+# the production mesh's TP_WIDE model positions on the repeated card, where
+# the heads split unevenly or not at all: phase 5's whisper path (8 heads:
+# every even position holds none) and scout cut to 2 of 48 layers (40
+# heads over 8 KV heads: 2 or 3 a position over one KV head), bf16 on
+# hopper against the same tree unsplit; and the reduced configs of both in
+# fp32, as the TP_REDUCED archs over TP_MESHES
+TP_WIDE = 16
+TP_WIDE_FAMILY_PATHS = {"llama4_scout_bf16": 2}
+TP_WIDE_SSM_PATHS = ("whisper_base_bf16",)
+TP_WIDE_REDUCED = ("llama4-scout-17b-16e", "whisper-base")
 
 
 def start_dryrun_cell(root: Path) -> subprocess.Popen:
@@ -3441,7 +3472,8 @@ def tp_reduced(card: str) -> dict:
             p1, s1, m1 = f1(p1, s1, batch)
         g1 = seen.pop()
         out[arch] = {}
-        for shape in TP_MESHES:
+        wide = ((1, TP_WIDE),) if arch in TP_WIDE_REDUCED else ()
+        for shape in TP_MESHES + wide:
             mesh = make_mesh(shape, ("data", "model"),
                              devices=[dev] * int(np.prod(shape)))
             rules = sharding.make_rules(mesh)
@@ -3677,18 +3709,20 @@ def full_width_run(path: str, cfg, p, rules) -> dict:
                 logits=first, launches=ran, routed=routed)
 
 
-def tp_families_full_width(card: str) -> dict:
-    """Phase 7d on phase 5's MoE and VLM paths at full width
-    (TP_FAMILY_PATHS: scout cut to 4 of 48 layers, all 40 of the VLM's
-    with 1600 image tokens and its gates opened): bf16 on hopper, 2 x
-    4096, 16 greedy tokens, unsplit and then split over TP_POSITIONS
+def tp_families_full_width(card: str, paths: dict = TP_FAMILY_PATHS,
+                           positions: int = TP_POSITIONS) -> dict:
+    """Phase 7d on phase 5's MoE and VLM paths at full width (``paths``,
+    default TP_FAMILY_PATHS: scout cut to 4 of 48 layers, all 40 of the
+    VLM's with 1600 image tokens and its gates opened): bf16 on hopper, 2
+    x 4096, 16 greedy tokens, unsplit and then split over ``positions``
     positions of the repeated card from the same tree (both held: the
     split run's peak holds the unsplit tree too); each a prefill whose
     routing is recorded, ROOF_TIMED timed prefills and the decode steps.
-    K6 per prefill: each position's heads, twice the unsplit count. The
-    split prefill's logits within ``LM_TOL * max|logit|`` of the unsplit
-    ones. For scout, each MoE layer's tokens per expert and drops, split
-    beside unsplit, and the tokens routed apart (an attention output one
+    K6 per prefill: each position's heads, ``positions`` times the
+    unsplit count (every position holds heads). The split prefill's
+    logits within ``LM_TOL * max|logit|`` of the unsplit ones. For
+    scout, each MoE layer's tokens per expert and drops, split beside
+    unsplit, and the tokens routed apart (an attention output one
     bf16 step apart can tip a near tie of the router); then the
     first MoE layer held on the unsplit run's own input: every position's
     router, assembled from the shards, equal to the unsplit one bit for
@@ -3708,9 +3742,10 @@ def tp_families_full_width(card: str) -> dict:
     one = sharding.make_rules(make_mesh((1, 1), ("data", "model"),
                                         devices=[dev]))
     rules = sharding.make_rules(make_mesh(
-        (1, TP_POSITIONS), ("data", "model"), devices=[dev] * TP_POSITIONS))
+        (1, positions), ("data", "model"),
+        devices=[dev] * positions))
     out, launches = {}, dict.fromkeys(common.KERNELS, 0)
-    for path, n_layers in TP_FAMILY_PATHS.items():
+    for path, n_layers in paths.items():
         arch, batch, prompt, gen = LM_PATHS[path]
         cfg = get_config(arch)
         if n_layers is not None:
@@ -3725,11 +3760,11 @@ def tp_families_full_width(card: str) -> dict:
         want_k6 = cfg.n_layers + (cfg.n_layers // cfg.cross_attn_every
                                   if cfg.cross_attn_every else 0)
         if (whole["k6_per_prefill"], split["k6_per_prefill"]) != (
-                want_k6, TP_POSITIONS * want_k6):
+                want_k6, positions * want_k6):
             raise AssertionError(f"7d {path}: K6 {whole['k6_per_prefill']}"
                                  f" / {split['k6_per_prefill']} a prefill, "
                                  f"expected {want_k6} / "
-                                 f"{TP_POSITIONS * want_k6}")
+                                 f"{positions * want_k6}")
         ref = whole.pop("logits").float()
         lim = LM_TOL * float(ref.abs().max())
         err = float((split.pop("logits").float() - ref).abs().max())
@@ -3754,7 +3789,7 @@ def tp_families_full_width(card: str) -> dict:
             p0, x0 = w_routed.first
             want = layers.moe(p0, x0, cfg)
             parts = []
-            for i in range(TP_POSITIONS):
+            for i in range(positions):
                 slot = next(j for j, lp in enumerate(placed["layers"])
                             if "moe" in lp)
                 pi = layers.layer_at(transformer._position_tree(
@@ -3764,7 +3799,7 @@ def tp_families_full_width(card: str) -> dict:
                                          f"router differs from the "
                                          f"unsplit one")
                 parts.append(layers.moe(pi, x0, cfg, experts=transformer
-                                        ._tp_ranges(cfg, TP_POSITIONS, i)
+                                        ._tp_ranges(cfg, positions, i)
                                         ["experts"]))
             got = sharding.all_reduce_sum(parts)[0]
             r["layer_err"] = float((got.float() - want.float()).abs().max())
@@ -3788,7 +3823,7 @@ def tp_families_full_width(card: str) -> dict:
                     f"{r['layer_limit']:.4f})")
         print(f"tensor parallel (7d) ({card}): {arch} {cfg.dtype} on hopper, "
               f"{batch} x {prompt}, {cfg.n_layers} layers, split over "
-              f"{TP_POSITIONS} positions of the repeated card: prefill "
+              f"{positions} positions of the repeated card: prefill "
               f"{split['prefill_ms']:.1f}ms (times "
               f"{[round(t, 1) for t in split['times']]}; K6 "
               f"{split['k6_per_prefill']:.0f} a prefill), decode "
@@ -3873,14 +3908,16 @@ def drift_hold(path: str, cfg, params, rules, one, launches: dict) -> dict:
     return r
 
 
-def tp_ssm_full_width(card: str) -> dict:
-    """Phase 7d on TP_SSM_PATHS at full width: bf16 on hopper, phase 5's
-    batch, prompt and greedy tokens (whisper: 8 x 1500 frames, 32-token
-    prompts, encoded over each tree outside the timed prefill), unsplit
-    and then split over TP_POSITIONS positions of the repeated card from
-    the same tree (both held); each a prefill, ROOF_TIMED timed prefills
-    and the decode steps. K6 per prefill: zamba2's shared block on each
-    position's 16 heads, twice the unsplit 13; mamba2 and whisper none.
+def tp_ssm_full_width(card: str, paths: tuple = TP_SSM_PATHS,
+                      positions: int = TP_POSITIONS) -> dict:
+    """Phase 7d on ``paths`` (default TP_SSM_PATHS) at full width: bf16
+    on hopper, phase 5's batch, prompt and greedy tokens (whisper: 8 x
+    1500 frames, 32-token prompts, encoded over each tree outside the
+    timed prefill), unsplit and then split over ``positions`` positions
+    of the repeated card from the same tree (both held); each a prefill,
+    ROOF_TIMED timed prefills and the decode steps. K6 per prefill:
+    zamba2's shared block on each position's heads, ``positions`` times
+    the unsplit 13; mamba2 and whisper none.
     whisper's split prefill logits within ``LM_TOL * max|logit|`` of the
     unsplit ones; TP_DRIFT's paths' gap reported and held by
     :func:`drift_hold`. Then each path once through ``launch.serve.serve``
@@ -3899,11 +3936,11 @@ def tp_ssm_full_width(card: str) -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     one = sharding.make_rules(make_mesh((1, 1), ("data", "model"),
                                         devices=[dev]))
-    mesh = make_mesh((1, TP_POSITIONS), ("data", "model"),
-                     devices=[dev] * TP_POSITIONS)
+    mesh = make_mesh((1, positions), ("data", "model"),
+                     devices=[dev] * positions)
     rules = sharding.make_rules(mesh)
     out, launches = {}, dict.fromkeys(common.KERNELS, 0)
-    for path in TP_SSM_PATHS:
+    for path in paths:
         arch, batch, prompt, gen = LM_PATHS[path]
         cfg = get_config(arch)
         params = steps.init_params(
@@ -3916,11 +3953,11 @@ def tp_ssm_full_width(card: str) -> dict:
         want_k6 = (cfg.n_layers // cfg.shared_attn_every
                    if cfg.shared_attn_every else 0)
         if (whole["k6_per_prefill"], split["k6_per_prefill"]) != (
-                want_k6, TP_POSITIONS * want_k6):
+                want_k6, positions * want_k6):
             raise AssertionError(f"7d {path}: K6 {whole['k6_per_prefill']}"
                                  f" / {split['k6_per_prefill']} a prefill, "
                                  f"expected {want_k6} / "
-                                 f"{TP_POSITIONS * want_k6}")
+                                 f"{positions * want_k6}")
         ref = whole.pop("logits").float()
         lim = LM_TOL * float(ref.abs().max())
         err = float((split.pop("logits").float() - ref).abs().max())
@@ -3960,7 +3997,7 @@ def tp_ssm_full_width(card: str) -> dict:
             launches[name] += n
         r["serve_err"] = float((served.prefill_logits.float() - ref).abs()
                                .max())
-        if common.LAUNCHES["flash_attention"] != TP_POSITIONS * want_k6 or (
+        if common.LAUNCHES["flash_attention"] != positions * want_k6 or (
                 held and not r["serve_err"] <= lim) or not bool(
                     torch.isfinite(served.prefill_logits.float()).all()):
             raise AssertionError(f"7d {path} serve: K6 "
@@ -3975,7 +4012,7 @@ def tp_ssm_full_width(card: str) -> dict:
                f"{whole['encode_ms']:.1f}ms (split / unsplit); ")
         print(f"tensor parallel (7d) ({card}): {arch} {cfg.dtype} on hopper, "
               f"{batch} x {prompt}, {cfg.n_layers} layers, split over "
-              f"{TP_POSITIONS} positions of the repeated card: {enc}prefill "
+              f"{positions} positions of the repeated card: {enc}prefill "
               f"{split['prefill_ms']:.1f}ms (times "
               f"{[round(t, 1) for t in split['times']]}; K6 "
               f"{split['k6_per_prefill']:.0f} a prefill), decode "
@@ -4002,11 +4039,20 @@ def finish_dryrun_cell(proc: subprocess.Popen, card: str) -> dict:
                           if line.startswith("RECORD "))[7:])
     if rec["status"] != "OK":
         raise AssertionError(f"7b dry-run cell: {rec}")
+    if rec["model_positions"] != 16 or not rec["collective_counts"]:
+        raise AssertionError(f"7b dry-run cell not split along model: "
+                             f"{rec['model_positions']} positions, "
+                             f"{rec['collective_counts']}")
     roof, mem = rec["roofline"], rec["memory"]
     print(f"dry-run (7b) ({card}): {rec['arch']} x {rec['shape']} x "
           f"{rec['mesh']}: "
-          f"{rec['status']} in {rec['trace_s']}s, {rec['n_chips']} chips, "
-          f"{rec['dp_positions']} data positions; per device "
+          f"{rec['status']} in trace_s {rec['trace_s']}s, {rec['n_chips']} "
+          f"chips, {rec['dp_positions']} data positions x "
+          f"{rec['model_positions']} model positions traced apart; per "
+          f"chip (the fullest position, {rec['fullest_position']}): "
+          f"{rec['flops_per_chip']:.4g} FLOPs, {rec['bytes_per_chip']:.4g} "
+          f"bytes, {rec['collective_bytes_per_chip']:.4g} collective bytes "
+          f"{rec['collective_counts']}; per device "
           f"{rec['bytes_per_device_gb']} GB (arguments "
           f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB, temporaries "
           f"{mem['temp_size_in_bytes'] / 2**30:.3f} GiB); compute "
@@ -4037,13 +4083,20 @@ def launch_tools_phase(card: str, k6_case: dict) -> dict:
         torch.cuda.empty_cache()
         out["tp_ssm"] = tp_ssm_full_width(card)
         torch.cuda.empty_cache()
+        out["tp_wide_families"] = tp_families_full_width(
+            card, TP_WIDE_FAMILY_PATHS, TP_WIDE)
+        torch.cuda.empty_cache()
+        out["tp_wide_ssm"] = tp_ssm_full_width(card, TP_WIDE_SSM_PATHS,
+                                               TP_WIDE)
+        torch.cuda.empty_cache()
         out["dryrun"] = finish_dryrun_cell(proc, card)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
     out["launches"] = out["prefill"].pop("launches")
-    for part in ("tp_full_width", "tp_families", "tp_ssm"):
+    for part in ("tp_full_width", "tp_families", "tp_ssm",
+                 "tp_wide_families", "tp_wide_ssm"):
         for name, n in out[part].pop("launches").items():
             out["launches"][name] += n
     out["phase_s"] = time.perf_counter() - t0

@@ -47,6 +47,8 @@ def use_strict_fp32() -> None:
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> the current CUDA device; raises when CUDA is absent.
+    A ``meta`` device (the dry-run's placeholder positions, on which only
+    fake tensors are made) is kept as it is.
 
     A CUDA result also switches the process to strict fp32 numerics
     (:func:`use_strict_fp32`).
@@ -63,7 +65,7 @@ def resolve_device(device=None) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         use_strict_fp32()
-    elif device.type != "cpu":
+    elif device.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device}: expected cuda or cpu")
     return device
 

@@ -166,14 +166,14 @@ def hold(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def counted(name: str, work, *args, **kwargs):
-    """A context for one call of kernel ``name`` (its launch or its plain
-    version): under an active roofline counter it declares
-    ``work(*args, **kwargs)`` (FLOPs, bytes) once and counts no aten op
-    inside; else it does nothing."""
+def counted(name: str, work, *args, on=None, **kwargs):
+    """A context for one call of kernel ``name`` on device ``on`` (its
+    launch or its plain version): under an active roofline counter it
+    declares ``work(*args, **kwargs)`` (FLOPs, bytes) once and counts no
+    aten op inside; else it does nothing."""
     if not roofline.counting():
         return contextlib.nullcontext()
-    roofline.declare_work(name, *work(*args, **kwargs))
+    roofline.declare_work(name, *work(*args, **kwargs), device=on)
     return roofline.uncounted()
 
 

@@ -97,7 +97,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     cpu = on_cpu("flash_attention", q, k, v, dtypes=q.dtype)
     with counted("flash_attention", flash_attention_work, bh, bhkv, sq,
                  skv, d, causal=causal, kv_len=kv_len,
-                 row_offset=row_offset, itemsize=q.element_size()):
+                 row_offset=row_offset, itemsize=q.element_size(),
+                 on=q.device):
         if cpu:
             return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                        kv_len=kv_len, row_offset=row_offset)

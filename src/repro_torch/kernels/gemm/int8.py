@@ -82,7 +82,7 @@ def qmm_i8(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
     if traced(a):
         return torch.ops.repro_torch.qmm_i8(a, b, bias, mult, relu)
     cpu = on_cpu("qmm_i8", a, b, bias, mult, dtypes=_DTYPES)
-    with counted("qmm_i8", qmm_work, m, k, n):
+    with counted("qmm_i8", qmm_work, m, k, n, on=a.device):
         if cpu:
             return qmm_ref(a, b, bias, mult, relu)
         return _launch(a, b, bias, mult, relu)

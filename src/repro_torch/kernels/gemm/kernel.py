@@ -79,7 +79,8 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
         return torch.ops.repro_torch.bmm_f32(a, b, bias, relu,
                                              dataflow == "ws")
     cpu = on_cpu("bmm_f32", a, b, bias)
-    with counted("bmm_f32", bmm_work, g, m, k, n, bias is not None):
+    with counted("bmm_f32", bmm_work, g, m, k, n, bias is not None,
+                 on=a.device):
         if cpu:
             return bmm_ref(a, b, bias, relu, dataflow)
         return _launch(a, b, bias, relu, dataflow == "ws")

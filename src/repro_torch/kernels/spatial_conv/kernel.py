@@ -80,7 +80,7 @@ def conv_gemm_f32(patches: torch.Tensor, weights: torch.Tensor,
             patches, weights, bias, relu, dataflow == "ws")
     cpu = on_cpu("conv_gemm_f32", patches, weights, bias)
     with counted("conv_gemm_f32", conv_gemm_work, patches.shape[0], crs, k,
-                 bias is not None):
+                 bias is not None, on=patches.device):
         if cpu:
             return conv_gemm_ref(patches, weights, bias, relu, dataflow)
         return _launch(patches, weights, bias, relu, dataflow == "ws")

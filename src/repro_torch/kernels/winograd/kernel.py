@@ -149,7 +149,7 @@ def wino_input_transform_f32(tiles: torch.Tensor, m: int) -> torch.Tensor:
     cpu = on_cpu("wino_input_transform_f32", tiles)
     t, _, _, c = tiles.shape
     with counted("wino_input_transform_f32", wino_input_work, t, c, m,
-                 tiles.numel()):
+                 tiles.numel(), on=tiles.device):
         if cpu:
             return wino_input_transform_ref(tiles, m)
         return _launch_input(tiles, m, (t, pt, pt, c, 0, 0, 1, 1), t)
@@ -188,7 +188,7 @@ def wino_input_transform_nhwc_f32(x: torch.Tensor, m: int,
             x, m, top, left, nh, nw)
     cpu = on_cpu("wino_input_transform_f32", x)
     with counted("wino_input_transform_f32", wino_input_work, n * nh * nw,
-                 c, m, x.numel()):
+                 c, m, x.numel(), on=x.device):
         if cpu:
             return wino_input_transform_nhwc_ref(x, m, pad_hw, grid)
         return _launch_input(x, m, (n, h, w, c, top, left, nh, nw),
@@ -261,7 +261,7 @@ def wino_output_transform_f32(m_arr: torch.Tensor,
     cpu = on_cpu("wino_output_transform_f32", m_arr, bias)
     _, t, k = m_arr.shape
     with counted("wino_output_transform_f32", wino_output_work, t, k, m,
-                 t * m * m * k, bias is not None):
+                 t * m * m * k, bias is not None, on=m_arr.device):
         if cpu:
             return wino_output_transform_ref(m_arr, bias, m, relu)
         out = torch.empty((t, m, m, k), dtype=torch.float32,
@@ -288,7 +288,7 @@ def wino_output_transform_nhwc_f32(m_arr: torch.Tensor,
             m_arr, bias, m, n, ho, wo, relu)
     cpu = on_cpu("wino_output_transform_f32", m_arr, bias)
     with counted("wino_output_transform_f32", wino_output_work, t, k, m,
-                 n * ho * wo * k, bias is not None):
+                 n * ho * wo * k, bias is not None, on=m_arr.device):
         if cpu:
             return wino_output_transform_nhwc_ref(m_arr, bias, m, out_nhw,
                                                   relu)

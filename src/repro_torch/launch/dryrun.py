@@ -2,36 +2,51 @@
 (port of the reference's ``launch/dryrun.py``).
 
 The reference lowers and compiles each cell over 512 placeholder host
-devices. The port traces it instead: ``lower_cell`` runs the train step
-(``train.steps.make_train_step``, AdamW included) or the serve steps'
-prefill or decode on fake tensors (``launch/specs.py``) under the
-roofline counter (``launch/roofline.py``), with the production mesh's
-rules active over placeholder ``meta`` positions. Nothing is allocated and
-no card is touched: the dry-run is the one entry point that runs without a
-card, and it never runs a step for real.
+devices: one SPMD program split along ``data`` and ``model``, whose
+figures are each chip's. The port traces the program one data row of the
+production mesh runs: ``lower_cell`` places the parameters with
+``train.steps.place`` over the row's ``model`` positions (16), each on a
+placeholder device of its own (``meta:0`` .. ``meta:15``; fake tensors,
+so nothing is allocated and no card is touched), gives the row its share
+of the global batch (``global_batch / dp``; a batch the data positions do
+not divide, long_500k's 1, stays whole on the row, as the reference
+leaves it unsplit) and runs the train step (``train.steps.make_train_step``,
+AdamW over the placed leaves) or the serve steps' prefill or decode into
+the row's split cache (``steps.init_cache`` under the row's rules) under
+the roofline counter (``launch/roofline.py``), which keeps every figure
+per device, so per position.
 
-Per chip: the trace is the whole global batch on one program, and the
-port holds every tensor specced over ``model`` whole (no tensor-parallel
-split, so no TP collective is modeled), so each chip's FLOPs, bytes and
-temporaries are the traced totals divided over the data-parallel
-positions (``pod`` x ``data``); the collective term is the gradient
-all-reduce ``launch/train.py``'s mesh step makes over those positions.
-Arguments are exact per chip, from the shard shapes of the params
-(``param_shardings``), the AdamW state (``zero1_specs``), the batch and
-the cache. Fake tensors keep bf16, so no dtype correction applies
+Per chip: each figure of the fullest position, the largest over the row's
+positions, each position counted on its own (``positions`` in the
+record; ``fullest_position`` bounds the step): the FLOPs, eager bytes and
+temporaries it computes, moves and holds, and the collective bytes it
+declares: the tensor-parallel collectives of ``parallel/sharding.py``
+(whose emulation on one process counts in the collective term alone) and,
+for training, the gradient all-reduce over the data positions, each
+position for its own shards. Nothing is divided afterwards. Arguments per
+position: the shards it holds, the master copies of the leaves the
+placement does not split and the batch share (both on position 0), its
+share of the cache (its KV heads, SSM heads and conv channels; the
+reference splits a KV cache's sequence over ``model`` instead) and for
+training the AdamW state as the reference's ZeRO-1 shards
+(``zero1_specs``), so the fullest position's arguments equal the
+reference's. Fake tensors keep bf16, so no dtype correction applies
 (``bf16_correction`` 1.0; the reference halves its CPU-legalized f32
 traffic).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minitron-8b \\
       --shape train_4k --mesh both
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
+      --jobs 6          # cells in 6 processes
 Results land in experiments/dryrun_torch/<arch>__<shape>__<mesh>.json.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import multiprocessing
 import os
 import time
 import traceback
@@ -40,21 +55,20 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils import _pytree as pytree
 
+from repro_torch.compat import Mesh, make_mesh
 from repro_torch.configs.base import ModelConfig, get_config, list_archs
 from repro_torch.configs.shapes import SHAPE_NAMES, SHAPES, applicability
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import abstract_params, input_specs
 from repro_torch.launch.train import declare_gradient_reduction
+from repro_torch.models.layers import SplitCache
 from repro_torch.models.transformer import group_period
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import (
     NamedSharding,
     PartitionSpec,
-    Rules,
-    _drop_indivisible,
     make_rules,
-    param_shardings,
     use_rules,
     zero1_specs,
 )
@@ -76,50 +90,6 @@ def trip_count(cfg: ModelConfig) -> int:
     return 1
 
 
-def _batch_shardings(cfg, specs_tree, rules: Rules, batch_leading=True):
-    def spec_for(leaf):
-        nd = len(leaf.shape)
-        if nd == 0:
-            return rules.sharding()
-        logical = [None] * nd
-        if batch_leading and leaf.shape[0] > 1:
-            logical[0] = "batch"
-        return rules.sharding(*logical)
-    return pytree.tree_map(spec_for, specs_tree)
-
-
-def _cache_shardings(cfg: ModelConfig, cache, rules: Rules, batch: int):
-    """KV caches: (.., B, S, kv, hd) -> batch over dp, seq over model.
-    SSM states: heads over model. Identified by leaf shapes."""
-    def spec_for(path, leaf):
-        nd = len(leaf.shape)
-        key = ""
-        for pp in reversed(path):
-            k = getattr(pp, "key", None)
-            if isinstance(k, str):
-                key = k
-                break
-        logical = [None] * nd
-        # find the batch dim (== batch size)
-        try:
-            bdim = tuple(leaf.shape).index(batch)
-        except ValueError:
-            bdim = None
-        if bdim is not None and batch > 1:
-            logical[bdim] = "batch"
-        if key in ("k", "v", "attn_k", "attn_v"):
-            # (..., B, S, KV, hd): seq dim right after batch
-            sdim = (bdim + 1) if bdim is not None else nd - 3
-            logical[sdim] = "seq"
-        elif key in ("ssm", "groups_ssm", "tail_ssm"):
-            logical[-3] = "ssm_heads"       # (..., H, N, P)
-        elif key in ("conv", "groups_conv", "tail_conv"):
-            logical[-1] = "mlp"             # conv channel dim
-        spec = _drop_indivisible(rules.spec(*logical), leaf.shape, rules)
-        return NamedSharding(rules.mesh, spec)
-    return pytree.tree_map_with_path(spec_for, cache)
-
-
 def _shard_bytes(tree, shardings) -> int:
     """Bytes one position holds of ``tree``, placed by ``shardings``."""
     total = 0
@@ -137,69 +107,115 @@ def _storages(tree) -> set[int]:
             if isinstance(t, torch.Tensor)}
 
 
+def row_mesh(mesh) -> Mesh:
+    """One data row of ``mesh``: its ``model`` positions over ``("data",
+    "model")``, each on a placeholder device of its own (``meta:i``)."""
+    n = mesh.shape["model"]
+    return make_mesh((1, n), ("data", "model"),
+                     devices=[torch.device("meta", i) for i in range(n)])
+
+
+def row_batch(shape, dp: int) -> int:
+    """One data row's share of ``shape``'s global batch: ``1 / dp`` of it,
+    or all of it where the ``dp`` data positions do not divide it."""
+    b = shape.global_batch
+    return b // dp if b % dp == 0 else b
+
+
+def _bytes_at(tree, devices) -> list[int]:
+    """The bytes of ``tree``'s tensors (a placed leaf's parts) on each of
+    ``devices``."""
+    at = dict.fromkeys(map(str, devices), 0)
+    for t in pytree.tree_leaves(tree):
+        if isinstance(t, torch.Tensor) and str(t.device) in at:
+            at[str(t.device)] += t.numel() * t.element_size()
+    return list(at.values())
+
+
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                opt_total_steps: int = 10000, cfg: ModelConfig | None = None):
-    """Trace one cell: ``(stats, memory, cfg, shape, mesh, dp)``, with
-    ``stats`` the counted totals (``roofline.StepStats``), ``memory`` the
-    per-chip sizes in bytes and ``dp`` the data positions. ``cfg``
-    overrides the arch's config (the tests trace reduced ones)."""
+    """Trace one data row of one cell (module doc): ``(stats, memory, cfg,
+    shape, mesh, dp, positions)``, with ``stats`` the row's counted run
+    (``roofline.StepStats``, per device in ``stats.positions``),
+    ``positions`` each ``model`` position's figures (memory in bytes,
+    FLOPs, bytes, collective bytes and counts, its roofline step time),
+    ``memory`` the per-chip sizes (the largest over the positions) and
+    ``dp`` the data positions. ``cfg`` overrides the arch's config (the
+    tests trace reduced ones)."""
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="meta")
     rules = make_rules(mesh)
     dp = rules.mesh.size // mesh.shape["model"]
+    row = row_mesh(mesh)
+    row_rules = make_rules(row)
+    devices = list(row.devices.flat)
+    batch = row_batch(shape, dp)
 
     mode = FakeTensorMode()
     aparams = abstract_params(cfg, mode)
-    ins = input_specs(cfg, shape, mode)
-    args = _shard_bytes(aparams, param_shardings(aparams, rules))
+    with use_rules(row_rules):
+        ins = input_specs(cfg, dataclasses.replace(shape, global_batch=batch),
+                          mode, devices[0])
+    with mode:
+        placed = steps.place(cfg, aparams, row_rules)
+    params_at = _bytes_at(placed, devices)
 
-    with use_rules(rules), mode:
+    with mode:
         if shape.kind == "train":
             opt = adamw.AdamWConfig(total_steps=opt_total_steps)
-            aopt = adamw.init(aparams)
-            o_shard = pytree.tree_map(
+            aopt = adamw.init(placed)
+            whole = adamw.init(aparams)
+            zero1 = _shard_bytes(whole, pytree.tree_map(
                 lambda s: NamedSharding(rules.mesh, s),
-                zero1_specs(aopt, rules),
-                is_leaf=lambda x: isinstance(x, PartitionSpec))
-            b_bytes = _shard_bytes(ins, _batch_shardings(cfg, ins, rules))
-            alias = args + _shard_bytes(aopt, o_shard)
-            args = alias + b_bytes
-            donated = _storages((aparams, aopt))
+                zero1_specs(whole, rules),
+                is_leaf=lambda x: isinstance(x, PartitionSpec)))
+            alias = [b + zero1 for b in params_at]
+            args = [a + b for a, b in zip(alias, _bytes_at(ins, devices))]
+            donated = _storages((placed, aopt))
             with rl.Counter() as c:
-                p, o, out = steps.make_train_step(cfg, opt)(aparams, aopt,
+                p, o, out = steps.make_train_step(cfg, opt)(placed, aopt,
                                                             ins)
-                declare_gradient_reduction(aparams, dp)
+                declare_gradient_reduction(placed, dp, rows=1)
         else:
             prefill_fn, decode_fn = steps.make_serve_steps(cfg)
             cache = ins["cache"]
-            c_bytes = _shard_bytes(cache, _cache_shardings(
-                cfg, cache, rules, shape.global_batch))
+            held = cache.rows if isinstance(cache, SplitCache) else cache
+            alias = _bytes_at(held, devices)
             rest = {k: v for k, v in ins.items() if k != "cache"}
-            args += c_bytes + _shard_bytes(rest, _batch_shardings(
-                cfg, rest, rules))
-            donated = _storages(cache)
+            args = [a + b + c for a, b, c in zip(
+                params_at, alias, _bytes_at(rest, devices))]
+            donated = _storages(held)
             with rl.Counter() as c:
                 if shape.kind == "prefill":
-                    out = prefill_fn(aparams, ins["tokens"], cache,
+                    out = prefill_fn(placed, ins["tokens"], cache,
                                      ins["extras"])
                 else:
                     # the position as a Python int (the cache slice): the
                     # step attends to the whole cache, so its work does
                     # not depend on it
-                    out = decode_fn(aparams, ins["token"], cache, 0,
+                    out = decode_fn(placed, ins["token"], cache, 0,
                                     ins["extras"])
-            alias = c_bytes
     new = [t for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor)
            and t.untyped_storage()._cdata not in donated]
-    memory = {
-        "argument_size_in_bytes": args,
-        "output_size_in_bytes": sum(t.numel() * t.element_size()
-                                    for t in new) // dp,
-        "temp_size_in_bytes": c.stats.peak_live_bytes // dp,
-        "alias_size_in_bytes": alias,
-    }
-    return c.stats, memory, cfg, shape, mesh, dp
+    outs = _bytes_at(new, devices)
+    positions = []
+    for i, d in enumerate(devices):
+        st = c.stats.at(d)
+        roof = rl.roofline_from_stats(st, 1, cfg.torch_dtype)
+        positions.append({
+            "position": i, "argument_size_in_bytes": args[i],
+            "output_size_in_bytes": outs[i],
+            "temp_size_in_bytes": st.peak_live_bytes,
+            "alias_size_in_bytes": alias[i], "flops": st.flops,
+            "bytes": st.bytes_accessed,
+            "collective_bytes": st.collective_bytes,
+            "collective_counts": st.collective_counts,
+            "step_time_s": roof.step_time_s})
+    memory = {k: max(p[k] for p in positions) for k in (
+        "argument_size_in_bytes", "output_size_in_bytes",
+        "temp_size_in_bytes", "alias_size_in_bytes")}
+    return c.stats, memory, cfg, shape, mesh, dp, positions
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -217,31 +233,39 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 
     t0 = time.time()
     try:
-        st, memory, cfg, shape, mesh, dp = lower_cell(
+        st, memory, cfg, shape, mesh, dp, positions = lower_cell(
             arch, shape_name, multi_pod, cfg=cfg)
         t_trace = time.time() - t0
-        roof = rl.roofline_from_stats(st, dp, cfg.torch_dtype)
+        chip = rl.StepStats(
+            flops=max(p["flops"] for p in positions),
+            bytes_accessed=max(p["bytes"] for p in positions),
+            collective_bytes=max(p["collective_bytes"] for p in positions))
+        roof = rl.roofline_from_stats(chip, 1, cfg.torch_dtype)
+        fullest = max(positions, key=lambda p: p["step_time_s"])
         tokens = shape.global_batch * (1 if shape.kind == "decode"
                                        else shape.seq_len)
         model_flops = rl.model_flops(cfg, shape.kind, tokens)
-        model_flops_chip = model_flops / dp
+        model_flops_chip = model_flops / mesh.size
         rec.update(
             status="OK",
             trace_s=round(t_trace, 2),
             n_chips=mesh.size, dp_positions=dp,
-            per_chip="traced totals / dp_positions (model-axis positions "
-                     "hold every tensor whole)",
+            model_positions=len(positions),
+            row_batch=row_batch(shape, dp),
+            per_chip="the largest over the model positions of one data "
+                     "row, each traced on a device of its own (module doc)",
+            fullest_position=fullest["position"],
+            positions=positions,
             memory=memory,
-            bytes_per_device_gb=round(
-                (memory["argument_size_in_bytes"]
-                 + memory["output_size_in_bytes"]
-                 + memory["temp_size_in_bytes"]) / 2**30, 3),
+            bytes_per_device_gb=round(max(
+                p["argument_size_in_bytes"] + p["output_size_in_bytes"]
+                + p["temp_size_in_bytes"] for p in positions) / 2**30, 3),
             trip_count=trip_count(cfg),
             bf16_correction=1.0,
             flops_per_chip=roof.flops,
             bytes_per_chip=roof.bytes,
             collective_bytes_per_chip=roof.collective_bytes,
-            collective_counts=st.collective_counts,
+            collective_counts=fullest["collective_counts"],
             kernels=st.kernels,
             roofline={
                 "compute_s": roof.compute_s,
@@ -279,6 +303,10 @@ def _write(rec: dict, out_dir: str | None):
         json.dump(rec, f, indent=1, default=float)
 
 
+def _run(job: tuple) -> dict:
+    return run_cell(*job)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -287,6 +315,9 @@ def main():
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells traced at once, each in a process of its "
+                         "own")
     args = ap.parse_args()
 
     meshes = {"single": [False], "multi": [True],
@@ -295,16 +326,20 @@ def main():
     archs = lm_archs if args.all or not args.arch else [args.arch]
     shapes = list(SHAPE_NAMES) if args.all or not args.shape else [args.shape]
 
-    results = []
-    for arch in archs:
-        for shape in shapes:
-            for mp in meshes:
-                results.append(run_cell(arch, shape, mp, args.out))
+    t0 = time.time()
+    jobs = [(arch, shape, mp, args.out) for arch in archs
+            for shape in shapes for mp in meshes]
+    if args.jobs > 1:
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(args.jobs) as pool:
+            results = pool.map(_run, jobs, chunksize=1)
+    else:
+        results = [_run(job) for job in jobs]
     n_ok = sum(r["status"] == "OK" for r in results)
     n_skip = sum(r["status"] == "SKIP" for r in results)
     n_fail = sum(r["status"] == "FAIL" for r in results)
     print(f"\n== dry-run: {n_ok} OK, {n_skip} SKIP, {n_fail} FAIL "
-          f"of {len(results)} cells ==")
+          f"of {len(results)} cells in {time.time() - t0:.1f}s ==")
     return 1 if n_fail else 0
 
 

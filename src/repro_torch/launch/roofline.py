@@ -15,11 +15,20 @@ real or on fake tensors:
 * Collective bytes -- what the port itself reduces across mesh positions
                   (``launch/train.py``'s gradient reduction and parameter
                   copies, ``optim/compression.compressed_psum``, the
-                  tensor-parallel collectives of ``parallel/sharding.py``),
-                  declared by that code through :func:`declare_collective`;
-                  a collective whose backward moves bytes too declares that
-                  one through :func:`declare_backward`, which the gradient
-                  runs.
+                  tensor-parallel collectives of ``parallel/sharding.py``,
+                  forward and backward), declared by that code through
+                  :func:`declare_collective`.
+
+Every figure is also kept per device (``StepStats.positions``): an op
+counts where its first output lies (else its first operand), a declared
+kernel or collective where its caller says, a storage where it was
+allocated. Over a mesh of distinct devices (the dry-run's indexed
+placeholders) these are the ``model`` positions' own figures. The one
+process emulates a collective with adds, concatenations and copies
+between the positions' devices; ``parallel/sharding.py`` runs them
+:class:`uncounted` and hands their results to :func:`allocated`, so they
+count in the collective term alone, and their results as live memory
+where they lie.
 
 The hand-written kernels (K1-K6) launch through ``ctypes``, which no
 dispatch mode sees: each wrapper declares its work (FLOPs and bytes, from
@@ -80,14 +89,24 @@ class StepStats:
     """What a counted run did: the reference's ``HLOStats`` fields, plus
     the hand-written kernels' declared work (``kernels``: name ->
     ``{"launches", "flops", "bytes"}``, already inside ``flops`` and
-    ``bytes_accessed``) and the peak of the bytes allocated during the run
-    and still alive (``peak_live_bytes``)."""
+    ``bytes_accessed``), the peak of the bytes allocated during the run
+    and still alive (``peak_live_bytes``), and the same figures per
+    device (``positions``: ``str(device)`` -> ``StepStats``; the totals
+    are their sums, the total peak that of their sum)."""
     flops: float = 0.0
     bytes_accessed: float = 0.0
     collective_bytes: float = 0.0
     collective_counts: dict = dataclasses.field(default_factory=dict)
     kernels: dict = dataclasses.field(default_factory=dict)
     peak_live_bytes: int = 0
+    positions: dict = dataclasses.field(default_factory=dict)
+
+    def at(self, device) -> "StepStats":
+        """The figures of ``device`` (made on first use)."""
+        key = str(device)
+        if key not in self.positions:
+            self.positions[key] = StepStats()
+        return self.positions[key]
 
 
 _active = threading.local()
@@ -102,69 +121,67 @@ def counting() -> bool:
     return bool(_counters())
 
 
-def declare_work(name: str, flops: float, nbytes: float) -> None:
-    """One launch of hand-written kernel ``name``, doing ``flops`` and
-    moving ``nbytes``, into every active counter."""
+def declare_work(name: str, flops: float, nbytes: float,
+                 device=None) -> None:
+    """One launch of hand-written kernel ``name`` on ``device``, doing
+    ``flops`` and moving ``nbytes``, into every active counter."""
     for c in _counters():
-        k = c.stats.kernels.setdefault(
-            name, {"launches": 0, "flops": 0.0, "bytes": 0.0})
-        k["launches"] += 1
-        k["flops"] += flops
-        k["bytes"] += nbytes
-        c.stats.flops += flops
-        c.stats.bytes_accessed += nbytes
+        for st in (c.stats, c.stats.at(device)):
+            k = st.kernels.setdefault(
+                name, {"launches": 0, "flops": 0.0, "bytes": 0.0})
+            k["launches"] += 1
+            k["flops"] += flops
+            k["bytes"] += nbytes
+            st.flops += flops
+            st.bytes_accessed += nbytes
 
 
-def declare_collective(kind: str, nbytes: float, counters=None) -> None:
+def declare_collective(kind: str, nbytes: float, counters=None,
+                       device=None) -> None:
     """One collective of ``kind`` (one of ``COLLECTIVES``) moving
-    ``nbytes`` (the larger of its operand and result) into every active
-    counter (or into ``counters``)."""
+    ``nbytes`` (the larger of its operand and result) on ``device``'s
+    side, into every active counter (or into ``counters``: a backward
+    may run on a thread of its own, where none is active)."""
     if kind not in COLLECTIVES:
         raise ValueError(f"unknown collective {kind!r}")
     for c in _counters() if counters is None else counters:
-        c.stats.collective_bytes += nbytes
-        c.stats.collective_counts[kind] = (
-            c.stats.collective_counts.get(kind, 0) + 1)
+        for st in (c.stats, c.stats.at(device)):
+            st.collective_bytes += nbytes
+            st.collective_counts[kind] = st.collective_counts.get(kind, 0) + 1
 
 
-class _DeclaredBackward(torch.autograd.Function):
-    """The identity, whose backward declares its collectives into the
-    counters active at its forward (autograd may run the backward on a
-    thread of its own, where no counter is active)."""
-
-    @staticmethod
-    def forward(ctx, x, counters, kind, sizes):
-        ctx.counters, ctx.kind, ctx.sizes = counters, kind, sizes
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        for nbytes in ctx.sizes:
-            declare_collective(ctx.kind, nbytes, ctx.counters)
-        return grad, None, None, None
-
-
-def declare_backward(t: torch.Tensor, kind: str, sizes) -> torch.Tensor:
-    """``t``, whose gradient's pass declares one collective of ``kind`` per
-    entry of ``sizes`` (bytes each): a view of ``t`` through an identity
-    where a counter counts and ``t`` takes part in autograd, else ``t``
-    itself."""
-    if not (counting() and t.requires_grad and torch.is_grad_enabled()):
-        return t
-    return _DeclaredBackward.apply(t, list(_counters()), kind, list(sizes))
+def active() -> list:
+    """The counters active on this thread, for a backward to declare into
+    (:func:`declare_collective`'s ``counters``)."""
+    return list(_counters())
 
 
 class uncounted:
-    """Within the block no active counter counts aten ops: a kernel
-    wrapper's plain version, whose work the wrapper declared."""
+    """Within the block no active counter (or none of ``counters``)
+    counts aten ops or allocations: a kernel wrapper's plain version,
+    whose work the wrapper declared, or a collective's emulation."""
+
+    def __init__(self, counters=None):
+        self.counters = counters
 
     def __enter__(self):
-        for c in _counters():
+        self._held = list(_counters() if self.counters is None
+                          else self.counters)
+        for c in self._held:
             c._muted += 1
 
     def __exit__(self, *exc):
-        for c in _counters():
+        for c in self._held:
             c._muted -= 1
+
+
+def allocated(tensors, counters=None) -> None:
+    """``tensors`` made uncounted (a collective's results) taken as live
+    allocations where they lie, by every active counter (or
+    ``counters``), until they die."""
+    for c in _counters() if counters is None else counters:
+        for t in tensors:
+            c._track(t)
 
 
 def _tensors(tree) -> list[torch.Tensor]:
@@ -178,15 +195,16 @@ def _nbytes(t: torch.Tensor) -> int:
 
 class Counter(TorchDispatchMode):
     """Counts the aten ops run inside it into ``self.stats``
-    (:class:`StepStats`); nests with ``FakeTensorMode`` (enter the fake
-    mode first). Storages allocated inside are tracked until they die, for
-    ``peak_live_bytes``."""
+    (:class:`StepStats`), in total and per device; nests with
+    ``FakeTensorMode`` (enter the fake mode first). Storages allocated
+    inside are tracked until they die, for ``peak_live_bytes``."""
 
     def __init__(self):
         super().__init__()
         self.stats = StepStats()
         self._muted = 0
         self._live = 0
+        self._live_at: dict[str, int] = {}
         self._storages: dict[int, weakref.finalize] = {}
 
     def __enter__(self):
@@ -197,9 +215,26 @@ class Counter(TorchDispatchMode):
         _active.stack = [c for c in _counters() if c is not self]
         return super().__exit__(*exc)
 
-    def _free(self, key: int, nbytes: int) -> None:
+    def _free(self, key: int, nbytes: int, where: str) -> None:
         self._live -= nbytes
+        self._live_at[where] -= nbytes
         self._storages.pop(key, None)
+
+    def _track(self, t: torch.Tensor) -> None:
+        """``t``'s storage, new to this counter, alive from now on."""
+        storage = t.untyped_storage()
+        key = storage._cdata
+        if key in self._storages:
+            return
+        nb, where = storage.nbytes(), str(t.device)
+        self._live += nb
+        self._live_at[where] = self._live_at.get(where, 0) + nb
+        self.stats.peak_live_bytes = max(self.stats.peak_live_bytes,
+                                         self._live)
+        at = self.stats.at(where)
+        at.peak_live_bytes = max(at.peak_live_bytes, self._live_at[where])
+        self._storages[key] = weakref.finalize(storage, self._free, key, nb,
+                                               where)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -209,27 +244,24 @@ class Counter(TorchDispatchMode):
         name = func._schema.name
         if name in _ALLOCATIONS:
             return out
-        st = self.stats
-        packet = func.overloadpacket
-        if packet in flop_registry:
-            st.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         outs = _tensors(out)
         operands = _tensors((args, kwargs))
+        if not outs and not operands:
+            return out
+        packet = func.overloadpacket
+        flops = (flop_registry[packet](*args, **kwargs, out_val=out)
+                 if packet in flop_registry else 0)
         ins = operands[1:] if name in _OVERWRITES else operands
-        st.bytes_accessed += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+        nbytes = sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+        for st in (self.stats, self.stats.at((outs or operands)[0].device)):
+            st.flops += flops
+            st.bytes_accessed += nbytes
         # an output into an operand's storage (an in-place op) is no new
         # allocation
         held = {t.untyped_storage()._cdata for t in operands}
         for t in outs:
-            storage = t.untyped_storage()
-            key = storage._cdata
-            if key in self._storages or key in held:
-                continue
-            nb = storage.nbytes()
-            self._live += nb
-            st.peak_live_bytes = max(st.peak_live_bytes, self._live)
-            self._storages[key] = weakref.finalize(storage, self._free,
-                                                   key, nb)
+            if t.untyped_storage()._cdata not in held:
+                self._track(t)
         return out
 
 

@@ -29,23 +29,26 @@ def abstract_params(cfg: ModelConfig, mode: FakeTensorMode | None = None):
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
-                   mode: FakeTensorMode | None = None):
+                   mode: FakeTensorMode | None = None, device="cpu"):
     """The serving cache of ``cfg`` for ``batch`` rows and ``max_len``
-    positions as fake tensors."""
+    positions as fake tensors on ``device`` (under ``use_rules`` of a
+    splitting mesh, its ``layers.SplitCache``: ``device`` is the mesh's
+    first)."""
     with mode or FakeTensorMode():
-        return steps.init_cache(cfg, batch, max_len, "cpu")
+        return steps.init_cache(cfg, batch, max_len, device)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec,
-                mode: FakeTensorMode | None = None) -> dict:
-    """Model-input fake tensors for one (arch x shape) cell."""
+                mode: FakeTensorMode | None = None, device="cpu") -> dict:
+    """Model-input fake tensors for one (arch x shape) cell, on
+    ``device`` (the cache as :func:`abstract_cache` makes it)."""
     mode = mode or FakeTensorMode()
     b, s = shape.global_batch, shape.seq_len
     dt = cfg.torch_dtype
 
     def fake(size, dtype):
         with mode:
-            return torch.empty(size, dtype=dtype)
+            return torch.empty(size, dtype=dtype, device=device)
 
     def extras(frames_key: str) -> dict:
         out = {}
@@ -61,11 +64,11 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec,
                 "targets": fake((b, s), torch.int32), **extras("frames")}
     if shape.kind == "prefill":
         return {"tokens": fake((b, s), torch.int32),
-                "cache": abstract_cache(cfg, b, s, mode),
+                "cache": abstract_cache(cfg, b, s, mode, device),
                 "extras": extras("enc_out")}
     if shape.kind == "decode":
         return {"token": fake((b, 1), torch.int32),
-                "cache": abstract_cache(cfg, b, s, mode),
+                "cache": abstract_cache(cfg, b, s, mode, device),
                 "pos": fake((), torch.int32),
                 "extras": extras("enc_out")}
     raise ValueError(shape.kind)

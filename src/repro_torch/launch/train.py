@@ -70,13 +70,17 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def declare_gradient_reduction(grads, positions: int) -> None:
-    """The mesh step's reduction, to the roofline's collective term: each
-    of ``positions`` data positions all-reduces every gradient leaf."""
+def declare_gradient_reduction(grads, positions: int,
+                               rows: int | None = None) -> None:
+    """The mesh step's reduction over ``positions`` data positions, to the
+    roofline's collective term: each of ``rows`` of them (default: all)
+    all-reduces every gradient leaf, each part of a placed leaf on its
+    own device."""
     if positions > 1 and roofline.counting():
         for g in pytree.tree_leaves(grads):
-            for _ in range(positions):
-                roofline.declare_collective("all-reduce", _nbytes(g))
+            for _ in range(positions if rows is None else rows):
+                roofline.declare_collective("all-reduce", _nbytes(g),
+                                            device=g.device)
 
 
 def split_batch(batch: dict, n: int) -> list[dict]:
@@ -126,7 +130,8 @@ def _mesh_step(cfg, opt_cfg, rules):
                 copies += pytree.tree_leaves(params)
         if roofline.counting():
             for p in copies:
-                roofline.declare_collective("all-gather", _nbytes(p))
+                roofline.declare_collective("all-gather", _nbytes(p),
+                                            device=p.device)
         synced[0] = params
 
     def step(params, opt_state, batch):

@@ -95,8 +95,11 @@ def remat_wrap(fn, cfg: ModelConfig):
 
 
 def _tree_map(fn, *trees):
-    """``fn`` over the leaves of matching dict/list trees of tensors."""
+    """``fn`` over the leaves of matching dict/list trees of tensors (None
+    kept: a position's empty attention tree)."""
     t0 = trees[0]
+    if t0 is None:
+        return None
     if isinstance(t0, dict):
         return {key: _tree_map(fn, *(t[key] for t in trees)) for key in t0}
     if isinstance(t0, (list, tuple)):
@@ -485,12 +488,14 @@ def moe_ref(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _tp_ranges(cfg: ModelConfig, n: int, i: int) -> dict:
     """Position ``i``'s share of ``n``: query heads, the KV heads they read,
     hidden units, experts, SSM heads, embedding columns and vocabulary, as
-    [start, stop) (a share of experts may be empty: fewer experts than
-    positions; SSM heads split unevenly, they have no KV groups). The query
-    heads must divide over the positions and lie inside one KV group or
-    start and end on group boundaries: ``attention`` gives each of a
-    position's KV heads an equal, contiguous block of its query heads. A
-    config without attention (mamba2) has no head shares."""
+    [start, stop), ``[i T / n, (i + 1) T / n)`` of each total ``T``. A share
+    may be uneven or empty: 40 query heads over 16 positions give 2 or 3
+    a position, 8 give every other position none (its KV share is empty
+    too), as do fewer experts or SSM heads than positions. A non-empty
+    share of query heads must lie inside one KV group or start and end on
+    group boundaries: ``attention`` gives each of a position's KV heads
+    an equal, contiguous block of its query heads. A config without
+    attention (mamba2) has no head shares."""
     share = lambda total: (i * total // n, (i + 1) * total // n)  # noqa
     out = {"ffn": share(cfg.d_ff), "experts": share(cfg.n_experts),
            "ssm_heads": share(cfg.n_ssm_heads),
@@ -498,11 +503,10 @@ def _tp_ranges(cfg: ModelConfig, n: int, i: int) -> dict:
     h, kv = cfg.n_heads, cfg.n_kv_heads
     if not h:
         return out
-    if h % n:
-        raise ValueError(f"{cfg.name}: {h} query heads do not divide over "
-                         f"{n} model positions")
     rep = h // kv
-    h0, h1 = i * h // n, (i + 1) * h // n
+    h0, h1 = share(h)
+    if h0 == h1:
+        return {**out, "heads": (h0, h0), "kv_heads": (h0 // rep, h0 // rep)}
     k0, k1 = h0 // rep, (h1 - 1) // rep + 1
     if k1 - k0 > 1 and (h0 % rep or h1 % rep):
         raise ValueError(f"{cfg.name}: query heads [{h0}, {h1}) of model "
@@ -519,12 +523,15 @@ def position_trees(params: Params, cfg: ModelConfig, build) -> list:
     return [build(params, cfg, i) for i in range(params["embed"].n)]
 
 
-def take_attention(a: Params, cfg: ModelConfig, r: dict, i: int) -> Params:
+def take_attention(a: Params, cfg: ModelConfig, r: dict, i: int):
     """Position ``i``'s attention tree (share ``r``): its query heads'
     ``wq`` columns and ``wo`` rows, the KV heads they read, gathered from
-    the shards they overlap where the heads do not divide the positions."""
+    the shards they overlap where the heads do not divide the positions;
+    None where the share holds no head."""
     hd = cfg.head_dim
     (h0, h1), (k0, k1) = r["heads"], r["kv_heads"]
+    if h0 == h1:
+        return None
     out = {"wq": a["wq"].take(-1, h0 * hd, h1 * hd, i),
            "wk": a["wk"].take(-1, k0 * hd, k1 * hd, i),
            "wv": a["wv"].take(-1, k0 * hd, k1 * hd, i),
@@ -582,16 +589,18 @@ def residual_attention(ps: list, xs: list, cfg: ModelConfig, *,
     position's layer tree ``ps[i][attn]`` (its heads) gives its partial sum
     of the ``wo`` product, ``all_reduce_sum`` joins them. ``positions``
     and ``caches`` hold each position's RoPE positions and KV cache (or
-    None); a cross-attention's ``xattn_kv`` is read on every position."""
+    None); a cross-attention's ``xattn_kv`` is read on every position.
+    A position that holds no head (``ps[i][attn]`` None) runs no attention
+    and hands zeros of the residual's shape to the all-reduce."""
     n = len(ps)
     positions = positions or [None] * n
     caches = caches or [None] * n
-    hs = [attention(p[attn], rms_norm(x, p[norm], cfg.norm_eps), cfg,
-                    positions=pos, kv_cache=c, cache_pos=cache_pos,
-                    xattn_kv=None if xattn_kv is None
-                    else xattn_kv.to(x.device),
-                    causal=causal, use_rope=use_rope, backend=backend)[0]
-          for p, x, pos, c in zip(ps, xs, positions, caches)]
+    hs = [torch.zeros_like(x) if p[attn] is None else attention(
+        p[attn], rms_norm(x, p[norm], cfg.norm_eps), cfg, positions=pos,
+        kv_cache=c, cache_pos=cache_pos,
+        xattn_kv=None if xattn_kv is None else xattn_kv.to(x.device),
+        causal=causal, use_rope=use_rope, backend=backend)[0]
+        for p, x, pos, c in zip(ps, xs, positions, caches)]
     return [x + h for x, h in zip(xs, sharding.all_reduce_sum(hs))]
 
 

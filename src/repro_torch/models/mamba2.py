@@ -214,24 +214,30 @@ def _causal_conv(u, w, b, state=None):
 
 def _projections(p: list, x: list, cfg: ModelConfig) -> list:
     """Each ``model`` position's ``in_proj`` product at its SSM heads: its
-    z and x columns, every B and C column, its dt columns. A position
-    multiplies the normed input by the ``in_proj`` it holds: its shard of
-    the flat ``2 di + 2 N + H`` columns, which the reference splits evenly
-    across the segments, so it then takes its columns from every
-    position's product (``sharding.take_parts``); or, where the columns do
-    not divide over the positions, the whole matrix, and its own
-    product's columns. One position's product is the whole one."""
-    flat = [rms_norm(xi, pi["norm"], cfg.norm_eps) @ pi["in_proj"]
-            for pi, xi in zip(p, x)]
+    z and x columns, every B and C column, its dt columns (None for a
+    position that holds no SSM head). A position multiplies the normed
+    input by the ``in_proj`` it holds: its shard of the flat ``2 di + 2 N
+    + H`` columns, which the reference splits evenly across the segments,
+    so it then takes its columns from every position's product
+    (``sharding.take_parts``; a position without a head still multiplies,
+    for the others); or, where the columns do not divide over the
+    positions, the whole matrix, and its own product's columns. One
+    position's product is the whole one."""
     n = len(p)
     if n == 1:
-        return flat
+        return [rms_norm(x[0], p[0]["norm"], cfg.norm_eps) @ p[0]["in_proj"]]
     di, ns, pdim = cfg.d_ssm, cfg.ssm_state, cfg.ssm_head_dim
     tail = 2 * di + 2 * ns
-    split = flat[0].shape[-1] != tail + cfg.n_ssm_heads
+    split = p[0]["in_proj"].shape[-1] != tail + cfg.n_ssm_heads
+    heads = [_tp_ranges(cfg, n, i)["ssm_heads"] for i in range(n)]
+    flat = [rms_norm(xi, pi["norm"], cfg.norm_eps) @ pi["in_proj"]
+            if split or h1 > h0 else None
+            for pi, xi, (h0, h1) in zip(p, x, heads)]
     out = []
-    for i in range(n):
-        h0, h1 = _tp_ranges(cfg, n, i)["ssm_heads"]
+    for i, (h0, h1) in enumerate(heads):
+        if h1 == h0:
+            out.append(None)
+            continue
         c0, c1 = h0 * pdim, h1 * pdim
         out.append(torch.cat([
             sharding.take_parts(flat, -1, a, b, i) if split
@@ -292,15 +298,20 @@ def mamba_block(p: list, x: list, cfg: ModelConfig, *, ssm_cache=None,
     norm's float32 sums of squares are all-reduced (the variance over all
     ``d_ssm`` channels); each position normalises its channels and gives
     its partial sum of the row-split ``out_proj`` product, all-reduced
-    before the residual add."""
+    before the residual add. A position that holds no SSM head gives
+    zeros to both all-reduces, and None for its new cache."""
     caches = ssm_cache or [None] * len(p)
-    gs, new = zip(*(_gated(pi, pr, cfg, c, chunk) for pi, pr, c in
+    gs, new = zip(*((None, None) if pr is None
+                    else _gated(pi, pr, cfg, c, chunk) for pi, pr, c in
                     zip(p, _projections(p, x, cfg), caches)))
     sums = sharding.all_reduce_sum(
-        [g.float().square().sum(-1, keepdim=True) for g in gs])
-    outs = [(g * torch.rsqrt(ss / cfg.d_ssm + cfg.norm_eps).to(g.dtype)
+        [xi.new_zeros(xi.shape[:-1] + (1,), dtype=torch.float32)
+         if g is None else g.float().square().sum(-1, keepdim=True)
+         for xi, g in zip(x, gs)])
+    outs = [torch.zeros_like(xi) if g is None else
+            (g * torch.rsqrt(ss / cfg.d_ssm + cfg.norm_eps).to(g.dtype)
              * pi["norm2"]) @ pi["out_proj"]
-            for pi, g, ss in zip(p, gs, sums)]
+            for pi, xi, g, ss in zip(p, x, gs, sums)]
     return ([xi + o for xi, o in zip(x, sharding.all_reduce_sum(outs))],
             list(new))
 
@@ -315,15 +326,19 @@ def mamba_block_cached(p: list, x: list, cfg: ModelConfig, conv: list,
               else {"conv": c, "ssm": s} for c, s in zip(conv, ssm)]
     xs, new = mamba_block(p, x, cfg, ssm_cache=states)
     for c, s, nc in zip(conv, ssm, new):
-        c.copy_(nc["conv"])
-        s.copy_(nc["ssm"])
+        if nc is not None:
+            c.copy_(nc["conv"])
+            s.copy_(nc["ssm"])
     return xs
 
 
 def conv_channels(cfg: ModelConfig, share: dict | None) -> tuple[int, int]:
     """(SSM heads, conv channels) of a model position's ``share``
-    (``layers._tp_ranges``; None: the whole block)."""
+    (``layers._tp_ranges``; None: the whole block); a share of no head
+    holds no channel."""
     h0, h1 = share["ssm_heads"] if share else (0, cfg.n_ssm_heads)
+    if h1 == h0:
+        return 0, 0
     return h1 - h0, (h1 - h0) * cfg.ssm_head_dim + 2 * cfg.ssm_state
 
 
@@ -348,12 +363,13 @@ def take_block(lp: Params, cfg: ModelConfig, r: dict, i: int) -> Params:
     products); the conv's channels, its x channels then every B and C
     channel (one state group: each position computes B and C), are
     assembled from takes; ``A_log``, ``D``, ``dt_bias`` at its heads;
-    ``norm2`` (replicated) and ``out_proj``'s rows at its channels."""
+    ``norm2`` (replicated) and ``out_proj``'s rows at its channels. A
+    position that holds no SSM head keeps its ``norm`` and ``in_proj``
+    only (its product's columns are other positions')."""
     di, n, pdim = cfg.d_ssm, cfg.ssm_state, cfg.ssm_head_dim
     h0, h1 = r["ssm_heads"]
     if h1 == h0:
-        raise ValueError(f"{cfg.name}: {cfg.n_ssm_heads} SSM heads leave "
-                         f"model position {i} none")
+        return {"norm": lp["norm"].at(i), "in_proj": lp["in_proj"].at(i)}
     c0, c1 = h0 * pdim, h1 * pdim
 
     def cols(w, *ranges):

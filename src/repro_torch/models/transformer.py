@@ -133,10 +133,10 @@ def apply_layer(ps: list, xs: list, cfg: ModelConfig, kind: dict, *,
     xs = residual_attention(ps, xs, cfg, positions=positions, caches=caches,
                             cache_pos=cache_pos, backend=backend)
     if kind["cross"] and image_embeds is not None:
-        xhs = [attention(p["xattn"], rms_norm(x, p["norm3"], cfg.norm_eps),
-                         cfg, xattn_kv=image_embeds.to(x.device),
-                         causal=False, use_rope=False, backend=backend)[0]
-               for p, x in zip(ps, xs)]
+        xhs = [torch.zeros_like(x) if p["xattn"] is None else attention(
+            p["xattn"], rms_norm(x, p["norm3"], cfg.norm_eps), cfg,
+            xattn_kv=image_embeds.to(x.device), causal=False,
+            use_rope=False, backend=backend)[0] for p, x in zip(ps, xs)]
         xs = [x + torch.tanh(p["xattn_gate"]) * xh
               for p, x, xh in zip(ps, xs, sharding.all_reduce_sum(xhs))]
     if not kind["moe"]:

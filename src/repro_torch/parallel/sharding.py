@@ -27,8 +27,12 @@ copy is the shard itself). The model code computes on plain tensors:
 columns, rows or experts a position computes with (an MoE layer's
 ``(G, E, d, f)`` expert leaves split on ``E``, its float32 router on its
 expert columns), and :func:`all_reduce_sum`, :func:`all_gather` and
-:func:`gather_parts` join the per-position results; each declares its
-collectives, forward and backward, to ``launch/roofline.py``. Every LM
+:func:`gather_parts` join the per-position results. Under a roofline
+counter (``launch/roofline.py``) each of these, and each read of a master
+copy on another device, runs inside an autograd function that declares
+its collectives, forward and backward, on each position's side and keeps
+its emulation (the adds, concatenations and copies on one process) out
+of every position's counted compute, bytes and temporaries. Every LM
 family is placed so (``train.steps.place``); this module places whatever
 tree it is given.
 ``shard`` is the identity with or without rules: the split is the
@@ -416,7 +420,7 @@ class Placed:
         device (the master itself where the device is the first's)."""
         if self.dim is not None:
             return self.parts[i]
-        return self.parts[0].to(self.devices[i])
+        return _read(self.parts[0], self.devices[i])
 
     @property
     def shards(self) -> list[torch.Tensor]:
@@ -430,13 +434,14 @@ class Placed:
         MoE layer's router reads every position's). A leaf held as one
         master copy is cut before it is read on ``i``'s device. Each piece
         read from another position's shard is declared to the roofline's
-        collective term, forward and backward."""
+        collective term, forward and backward, and so is a cut of the
+        master read on another device."""
         dim %= self.ndim
         if self.dim is None or dim != self.dim:
             t = self.parts[0] if self.dim is None else self.parts[i]
             if (start, stop) != (0, t.shape[dim]):
                 t = t.narrow(dim, start, stop - start)
-            return t.to(self.devices[i])
+            return _read(t, self.devices[i])
         return take_parts(self.parts, dim, start, stop, i)
 
     def gather(self) -> torch.Tensor:
@@ -476,16 +481,189 @@ def take_parts(parts: list[torch.Tensor], dim: int, start: int, stop: int,
     w = parts[0].shape[dim]
     if (start, stop) == (i * w, (i + 1) * w):
         return parts[i]
-    pieces = []
-    for j in range(start // w, (stop - 1) // w + 1):
-        lo, hi = max(start, j * w) - j * w, min(stop, (j + 1) * w) - j * w
-        piece = parts[j].narrow(dim, lo, hi - lo)
-        if j != i and roofline.counting():
-            roofline.declare_collective("collective-permute", _nbytes(piece))
-            piece = roofline.declare_backward(
-                piece, "collective-permute", [_nbytes(piece)])
-        pieces.append(piece.to(parts[i].device))
+    cuts = [(j, max(start, j * w) - j * w, min(stop, (j + 1) * w) - j * w)
+            for j in range(start // w, (stop - 1) // w + 1)]
+    if roofline.counting():
+        return _Take.apply(roofline.active(), dim, cuts, i,
+                           parts[i].device, *(parts[j] for j, _, _ in cuts))
+    pieces = [parts[j].narrow(dim, lo, hi - lo).to(parts[i].device)
+              for j, lo, hi in cuts]
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+
+
+# --------------------------------------------------------------------------
+# the collectives under a roofline counter: the same emulation, run
+# uncounted inside autograd functions (forward and backward), so no
+# position's compute, bytes or temporaries hold it; each position declares
+# its side, and its results count as live memory where they lie
+# --------------------------------------------------------------------------
+
+class _Take(torch.autograd.Function):
+    """:func:`take_parts`'s assembly of the ``cuts`` ``(j, lo, hi)`` of the
+    parts given, on ``device`` (position ``i``'s); backward, each piece's
+    gradient back into its part's shape on the part's device."""
+
+    @staticmethod
+    def forward(ctx, counters, dim, cuts, i, device, *parts):
+        ctx.counters, ctx.dim, ctx.cuts, ctx.i = counters, dim, cuts, i
+        ctx.device = device
+        ctx.shapes = [(p.shape, p.dtype, p.device, p.element_size())
+                      for p in parts]
+        with roofline.uncounted(counters):
+            pieces = [p.narrow(dim, lo, hi - lo).to(device)
+                      for p, (_, lo, hi) in zip(parts, cuts)]
+            out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+            if out.untyped_storage()._cdata in {
+                    p.untyped_storage()._cdata for p in parts}:
+                out = out.clone()       # a function returns no input view
+        _declare_pieces(ctx)
+        roofline.allocated([out], counters)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grads, off = [], 0
+        with roofline.uncounted(ctx.counters):
+            for (shape, dtype, device, _), (_, lo, hi) in zip(ctx.shapes,
+                                                              ctx.cuts):
+                g = torch.zeros(shape, dtype=dtype, device=device)
+                g.narrow(ctx.dim, lo, hi - lo).copy_(
+                    grad.narrow(ctx.dim, off, hi - lo))
+                grads.append(g)
+                off += hi - lo
+        _declare_pieces(ctx)
+        roofline.allocated(grads, ctx.counters)
+        return (None, None, None, None, None, *grads)
+
+
+def _declare_pieces(ctx) -> None:
+    """A collective-permute for each piece of :class:`_Take` read from
+    another position's part, on the reader's side."""
+    for (j, lo, hi), (shape, _, _, size) in zip(ctx.cuts, ctx.shapes):
+        if j != ctx.i:
+            n = (hi - lo) * (int(np.prod(shape)) // shape[ctx.dim])
+            roofline.declare_collective("collective-permute", n * size,
+                                        ctx.counters, device=ctx.device)
+
+
+class _Read(torch.autograd.Function):
+    """A master copy (or its cut) read on another position's device: a
+    collective-permute, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, counters, t, device):
+        ctx.counters, ctx.src, ctx.device = counters, t.device, device
+        ctx.nbytes = _nbytes(t)
+        with roofline.uncounted(counters):
+            out = t.to(device)
+        roofline.declare_collective("collective-permute", ctx.nbytes,
+                                    counters, device=device)
+        roofline.allocated([out], counters)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        with roofline.uncounted(ctx.counters):
+            g = grad.to(ctx.src)
+        roofline.declare_collective("collective-permute", ctx.nbytes,
+                                    ctx.counters, device=ctx.device)
+        roofline.allocated([g], ctx.counters)
+        return None, g, None
+
+
+def _read(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: itself where it lies there, else a copy
+    (:class:`_Read` under a roofline counter)."""
+    if t.device == device:
+        return t
+    if roofline.counting():
+        return _Read.apply(roofline.active(), t, device)
+    return t.to(device)
+
+
+def _sum_on_first(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The sum of ``parts`` in position order on the first part's device,
+    then one copy for every further part on its device (a clone on the
+    first's device, so no two positions alias)."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(total.device)
+    return [total] + [total.clone() if p.device == total.device
+                      else total.to(p.device) for p in parts[1:]]
+
+
+class _AllReduce(torch.autograd.Function):
+    """:func:`all_reduce_sum` under a counter: every part's all-reduce,
+    forward and backward (the outputs' gradients summed the same way and
+    handed to every part), each declared on its part's device."""
+
+    @staticmethod
+    def forward(ctx, counters, *parts):
+        ctx.counters = counters
+        ctx.sides = [(_nbytes(p), p.device) for p in parts]
+        with roofline.uncounted(counters):
+            outs = _sum_on_first(list(parts))
+        _declare_sides(ctx, "all-reduce")
+        roofline.allocated(outs, counters)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with roofline.uncounted(ctx.counters):
+            outs = _sum_on_first([
+                torch.zeros(g.shape, dtype=g.dtype, device=d) if g is None
+                else g for g, (_, d) in zip(grads, ctx.sides)])
+        _declare_sides(ctx, "all-reduce")
+        roofline.allocated(outs, ctx.counters)
+        return (None, *outs)
+
+
+def _declare_sides(ctx, kind: str) -> None:
+    for nbytes, device in ctx.sides:
+        roofline.declare_collective(kind, nbytes, ctx.counters,
+                                    device=device)
+
+
+class _Gather(torch.autograd.Function):
+    """The parts concatenated along ``dim`` on each device of ``to`` (one
+    output a device): :func:`gather_parts` (the first position's) and
+    :func:`all_gather` (every position's). Each output's gather is
+    declared where it lies, and backward each part's reduce-scatter of
+    the gradient (the outputs' slices summed in order on its device)."""
+
+    @staticmethod
+    def forward(ctx, counters, dim, to, *parts):
+        ctx.counters, ctx.dim = counters, dim
+        ctx.widths = [p.shape[dim] for p in parts]
+        ctx.devices = [p.device for p in parts]
+        total = sum(map(_nbytes, parts))
+        ctx.sides = [(total, d) for d in ctx.devices]
+        with roofline.uncounted(counters):
+            outs = [torch.cat([p.to(d) for p in parts], dim) for d in to]
+        for o in outs:
+            roofline.declare_collective("all-gather", _nbytes(o), counters,
+                                        device=o.device)
+        roofline.allocated(outs, counters)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out, off = [], 0
+        with roofline.uncounted(ctx.counters):
+            for w, d in zip(ctx.widths, ctx.devices):
+                g = None
+                for grad in grads:
+                    if grad is not None:
+                        piece = grad.narrow(ctx.dim, off, w).to(d)
+                        g = piece if g is None else g + piece
+                out.append(g)
+                off += w
+        sides = ctx.sides if len(grads) > 1 else ctx.sides[:1]
+        for nbytes, device in sides:
+            roofline.declare_collective("reduce-scatter", nbytes,
+                                        ctx.counters, device=device)
+        roofline.allocated([g for g in out if g is not None], ctx.counters)
+        return (None, None, None, *out)
 
 
 def _flatten_placed(x: Placed):
@@ -577,20 +755,15 @@ def all_reduce_sum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     """The sum of the per-position ``parts``, added in position order on
     the first position's device, then one copy for every position on its
     device (a position on the first's device gets a clone, so no two
-    positions alias). Autograd follows the ``.to`` and the adds; each
-    position's all-reduce is declared to the roofline's collective term,
-    and so is its backward's (the copies' gradients summed, then handed
-    to every part)."""
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + p.to(total.device)
-    if len(parts) > 1 and roofline.counting():
-        sizes = [_nbytes(p) for p in parts]
-        for nbytes in sizes:
-            roofline.declare_collective("all-reduce", nbytes)
-        total = roofline.declare_backward(total, "all-reduce", sizes)
-    return [total] + [total.clone() if p.device == total.device
-                      else total.to(p.device) for p in parts[1:]]
+    positions alias). Autograd follows the ``.to`` and the adds. Under a
+    roofline counter each position's all-reduce is declared, and so is
+    its backward's (the copies' gradients summed, then handed to every
+    part)."""
+    if len(parts) == 1:
+        return list(parts)
+    if roofline.counting():
+        return list(_AllReduce.apply(roofline.active(), *parts))
+    return _sum_on_first(parts)
 
 
 def gather_parts(parts: list[torch.Tensor], dim: int) -> torch.Tensor:
@@ -601,12 +774,9 @@ def gather_parts(parts: list[torch.Tensor], dim: int) -> torch.Tensor:
     if len(parts) == 1:
         return parts[0]
     first = parts[0].device
-    out = torch.cat([p.to(first) for p in parts], dim)
     if roofline.counting():
-        roofline.declare_collective("all-gather", _nbytes(out))
-        out = roofline.declare_backward(out, "reduce-scatter",
-                                        [_nbytes(out)])
-    return out
+        return _Gather.apply(roofline.active(), dim, [first], *parts)[0]
+    return torch.cat([p.to(first) for p in parts], dim)
 
 
 def all_gather(parts: list[torch.Tensor], dim: int) -> list[torch.Tensor]:
@@ -617,12 +787,6 @@ def all_gather(parts: list[torch.Tensor], dim: int) -> list[torch.Tensor]:
     if len(parts) == 1:
         return list(parts)
     if roofline.counting():
-        nbytes = sum(map(_nbytes, parts))
-        parts = [roofline.declare_backward(p, "reduce-scatter", [nbytes])
-                 for p in parts]
-    out = []
-    for p in parts:
-        out.append(torch.cat([q.to(p.device) for q in parts], dim))
-        if roofline.counting():
-            roofline.declare_collective("all-gather", _nbytes(out[-1]))
-    return out
+        return list(_Gather.apply(roofline.active(), dim,
+                                  [p.device for p in parts], *parts))
+    return [torch.cat([q.to(p.device) for q in parts], dim) for p in parts]

@@ -47,6 +47,11 @@ meshes of the repeated CPU device; the checks particular to the SSM block
   ``run_with_recovery`` and ``elastic_restore`` keep or make the split.
 * Query heads that would straddle KV groups (48 over 8 on 6 positions)
   raise; ranges inside a group or on group boundaries serve as unsplit.
+  Shares may be uneven or empty: the production mesh's 16 positions give
+  scout and maverick 2 or 3 of their 40 heads, whisper-base one head or
+  none; reduced scout with 10 heads over 4 positions, whisper over 8 and
+  mamba2 over 16 (half the positions without an attention or SSM head,
+  running none) serve and take a mesh step as unsplit.
 * The SSM and hybrid families through the placement entry points:
   ``steps.place`` gives them ``Placed`` leaves and a
   ``layers.SplitCache``, and ``launch.train.build`` trains them over a
@@ -86,6 +91,10 @@ from repro_torch.train import steps  # noqa: E402
 
 DENSE = ["minitron-8b", "internlm2-20b", "qwen3-32b", "command-r-35b"]
 SCOUT, MAVERICK = "llama4-scout-17b-16e", "llama4-maverick-400b-a17b"
+# reduced scout with 10 query heads over 2 KV heads: on 4 positions the
+# shares are 2, 3, 2 and 3 heads, each inside one KV group (5 a group)
+SCOUT_10 = "llama4-scout-10-heads"
+VARIANTS = {SCOUT_10: (SCOUT, dict(n_heads=10, n_kv_heads=2))}
 VISION = "llama-3.2-vision-11b"
 MOE_VLM = [SCOUT, MAVERICK, VISION]
 SSM_AUDIO = ["mamba2-130m", "zamba2-7b", "whisper-base"]
@@ -112,10 +121,13 @@ OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
 
 
 def _cfg(arch, r=False):
-    """The reduced config (the reference's with ``r``), LAYERS applied."""
-    cfg = (r_get_config if r else get_config)(arch).reduced()
-    return dataclasses.replace(cfg, n_layers=LAYERS[arch]) \
-        if arch in LAYERS else cfg
+    """The reduced config (the reference's with ``r``), LAYERS and
+    VARIANTS applied."""
+    base, changes = VARIANTS.get(arch, (arch, {}))
+    cfg = (r_get_config if r else get_config)(base).reduced()
+    if arch in LAYERS:
+        changes = dict(changes, n_layers=LAYERS[arch])
+    return dataclasses.replace(cfg, **changes)
 
 
 class _StandIn:
@@ -225,8 +237,49 @@ def test_uneven_heads_compute_whole_heads():
         assert tree["layers"][0]["attn"]["wq"] is \
             placed["layers"][0]["attn"]["wq"].parts[i]
         assert wq_i.shape == (4, 64, 16)
-    with pytest.raises(ValueError, match="do not divide over 8"):
-        transformer._tp_ranges(cfg, 8, 0)
+    # on 8 positions every other one holds no query head and no KV head,
+    # and its attention tree is None (it runs no attention)
+    shares = [transformer._tp_ranges(cfg, 8, i) for i in range(8)]
+    assert [r["heads"] for r in shares] == [(i // 2, (i + 1) // 2)
+                                            for i in range(8)]
+    placed8, _ = _placed(params, (1, 8))
+    for i, r in enumerate(shares):
+        k0, k1 = r["kv_heads"]
+        attn = transformer._position_tree(placed8, cfg, i)["layers"][0][
+            "attn"]
+        if i % 2 == 0:
+            assert k0 == k1 and attn is None
+        else:
+            assert (k0, k1) == (i // 4, i // 4 + 1)
+            assert attn["wq"].shape == (4, 64, 16)
+
+
+def test_production_head_shares_over_sixteen_positions():
+    """The production mesh's 16 ``model`` positions: llama4-scout's and
+    llama4-maverick's 40 query heads over 8 KV heads give shares of 2 and
+    3 heads, each inside one KV group of 5; whisper-base's 8 over 8 give
+    every odd position one head and every even position none; 48 over 8
+    on 6 positions still raise (``test_query_heads_keep_whole_kv_groups``
+    serves the cases that split)."""
+    for arch in (SCOUT, MAVERICK):
+        cfg = get_config(arch)
+        assert (cfg.n_heads, cfg.n_kv_heads) == (40, 8)
+        shares = [layers._tp_ranges(cfg, 16, i) for i in range(16)]
+        heads = [r["heads"] for r in shares]
+        assert [h1 - h0 for h0, h1 in heads] == [2, 3] * 8
+        assert heads[3] == (7, 10) and shares[3]["kv_heads"] == (1, 2)
+        for r in shares:
+            (h0, h1), (k0, k1) = r["heads"], r["kv_heads"]
+            assert k1 - k0 == 1 and 5 * k0 <= h0 < h1 <= 5 * k1
+    cfg = get_config("whisper-base")
+    shares = [layers._tp_ranges(cfg, 16, i) for i in range(16)]
+    assert [r["heads"] for r in shares] == [
+        (i // 2, (i + 1) // 2) for i in range(16)]
+    assert [r["kv_heads"] for r in shares] == [r["heads"] for r in shares]
+    wide = dataclasses.replace(get_config("internlm2-20b"), n_heads=48,
+                               n_kv_heads=8)
+    with pytest.raises(ValueError, match="whole groups of 6"):
+        layers._tp_ranges(wide, 6, 0)
 
 
 @pytest.mark.parametrize("positions", [4, 6, 8, 16])
@@ -304,10 +357,10 @@ def served_ref():
     anew, :func:`_drawn`), the VLM's image embeddings and whisper's
     frames."""
     out = {}
-    for arch in ("minitron-8b", "qwen3-32b", *MOE_VLM, *SSM_AUDIO):
+    for arch in ("minitron-8b", "qwen3-32b", *MOE_VLM, *SSM_AUDIO, SCOUT_10):
         cfg = _cfg(arch, r=True)
         params = r_steps.init_params(jax.random.PRNGKey(0), cfg)
-        if arch in MOE_VLM + SSM_AUDIO:
+        if arch in MOE_VLM + SSM_AUDIO + [SCOUT_10]:
             params = jax.tree.map(jnp.asarray, _drawn(
                 params, np.random.default_rng(len(arch))))
         images, frames = _image_embeds(cfg, BATCH), _frames(cfg, BATCH)
@@ -376,11 +429,18 @@ def _assert_cache_shares(cache, cfg, mesh_shape):
             assert k.shape[-3] == PROMPT + N_DECODE
 
 
+# shares that are uneven or empty: scout's 10 heads over 4 positions (2,
+# 3, 2, 3), whisper's 4 over 8 and mamba2's 8 SSM heads over 16 (every
+# other position holds none)
+NEW_SHARES = [(SCOUT_10, (1, 4)), ("whisper-base", (1, 8)),
+              ("mamba2-130m", (1, 16))]
+
+
 @pytest.mark.parametrize("arch,mesh_shape", [
     ("minitron-8b", (1, 2)), ("minitron-8b", (1, 4)), ("minitron-8b", (2, 4)),
     ("qwen3-32b", (1, 4)),
-    *((arch, shape) for arch in MOE_VLM + SSM_AUDIO for shape in MESHES)],
-    ids=str)
+    *((arch, shape) for arch in MOE_VLM + SSM_AUDIO for shape in MESHES),
+    *NEW_SHARES], ids=str)
 def test_split_serving_matches_unsplit_and_reference(served_ref, arch,
                                                      mesh_shape):
     np_params, prompts, toks, ref_logits, images, frames = served_ref[arch]
@@ -752,16 +812,24 @@ def assert_steps_match(monkeypatch, cfg, params, mesh_shape, batch):
     return gaps
 
 
-@pytest.mark.parametrize("arch", [SCOUT, VISION, "zamba2-7b",
-                                  "whisper-base"])
-def test_split_mesh_step_matches_the_one_position_step(monkeypatch, arch):
+STEP_CASES = [(arch, (2, 2)) for arch in (SCOUT, VISION, "zamba2-7b",
+                                          "whisper-base")] + NEW_SHARES
+
+
+@pytest.mark.parametrize("arch,mesh_shape", STEP_CASES, ids=[
+    arch if shape == (2, 2) else f"{arch}-{shape[0]}x{shape[1]}"
+    for arch, shape in STEP_CASES])
+def test_split_mesh_step_matches_the_one_position_step(monkeypatch, arch,
+                                                       mesh_shape):
     """``launch.train.build`` over (2, 2): each data row's half of the
     batch (and of a VLM's image embeddings, whisper's frames) through its
-    split tree, the gradients summed over the rows, AdamW once; within
+    split tree, the gradients summed over the rows, AdamW once; and over
+    one row of the uneven and empty shares (``NEW_SHARES``); within
     :func:`assert_steps_match`'s limits of the one-position step."""
     cfg = _cfg(arch)
     params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    assert_steps_match(monkeypatch, cfg, params, (2, 2), _batch(cfg, rows=8))
+    assert_steps_match(monkeypatch, cfg, params, mesh_shape,
+                       _batch(cfg, rows=4 * mesh_shape[0]))
 
 
 def test_replicated_leaf_gradient_is_the_sum_over_positions(monkeypatch):

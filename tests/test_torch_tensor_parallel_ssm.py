@@ -9,8 +9,11 @@ and audio families against the unsplit port and the reference are
   heads' columns from every position's product; its conv channels,
   ``out_proj`` rows, ``A_log`` and ``norm2`` are its heads'.
 * SSM heads that the positions do not divide (8 over 3) serve as
-  unsplit; a position left without an SSM head, or attention heads that
-  do not divide the positions (whisper-base's 8 over 16), raise.
+  unsplit, and so do 8 over 16, where every other position holds none
+  (it still multiplies by its ``in_proj`` shard, for the others, and
+  gives zeros to both all-reduces); attention heads split likewise
+  (whisper-base's 8 over 16: one or none); only query heads that would
+  straddle KV groups raise.
 * The collectives a split mamba2 step declares, forward and backward
   (the gated norm's variance and ``out_proj``'s all-reduces, the
   embedding's gather, the head's, each piece of a layer's ``in_proj``
@@ -98,9 +101,12 @@ def test_each_position_takes_its_ssm_heads_columns():
 def test_uneven_ssm_heads_and_the_shares_that_raise():
     """mamba2's 8 SSM heads over 3 positions (2, 3, 3; ``in_proj``, the
     embedding and the head divide over no 3 and stay master copies from
-    which each position cuts its share) serve as unsplit; over 16
-    positions some position holds no SSM head and the split raises, as
-    whisper-base's 8 attention heads over 16 positions do."""
+    which each position cuts its share) serve as unsplit; so do 8 over 16,
+    where every even position holds none (its tree keeps ``norm`` and
+    ``in_proj`` only, its cache share is empty); whisper-base's 8
+    attention heads over 16 positions give one or none. A share of 8
+    query heads over 2 KV heads on 3 positions straddles a group and
+    raises."""
     cfg = get_config("mamba2-130m").reduced()
     params = steps.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
     prompts = np.random.default_rng(3).integers(
@@ -118,13 +124,25 @@ def test_uneven_ssm_heads_and_the_shares_that_raise():
                          whole):
         assert float((got - want).abs().max()) <= SPLIT_TOL * max(
             1.0, float(want.abs().max()))
-    wide = steps.place(cfg, params, sharding.make_rules(_mesh((1, 16))))
-    with pytest.raises(ValueError, match="leave model position 0 none"):
-        steps.forward_logits(wide, {"tokens": torch.from_numpy(prompts)},
-                             cfg)
-    with pytest.raises(ValueError, match="8 query heads do not divide over "
-                                         "16"):
-        layers._tp_ranges(get_config("whisper-base"), 16, 0)
+    rules = sharding.make_rules(_mesh((1, 16)))
+    wide = steps.place(cfg, params, rules)
+    for i in range(16):
+        tree = mamba2._position_tree(wide, cfg, i)["layers"]
+        assert ("A_log" in tree) == (i % 2 == 1)
+        assert set(tree) >= {"norm", "in_proj"}
+    with sharding.use_rules(rules):
+        cache = steps.init_cache(cfg, BATCH, PROMPT + N_DECODE, "cpu")
+    assert [tuple(c["conv"].shape[-1:]) + tuple(c["ssm"].shape[-3:-2])
+            for c in cache.rows[0][:2]] == [(0, 0), (48, 1)]
+    for got, want in zip(_serve_run(wide, cfg, prompts, toks, cache)[0],
+                         whole):
+        assert float((got - want).abs().max()) <= SPLIT_TOL * max(
+            1.0, float(want.abs().max()))
+    assert [layers._tp_ranges(get_config("whisper-base"), 16, i)["heads"]
+            for i in (0, 1, 14, 15)] == [(0, 0), (0, 1), (7, 7), (7, 8)]
+    with pytest.raises(ValueError, match="whole groups of 4"):
+        layers._tp_ranges(dataclasses.replace(
+            get_config("minitron-8b").reduced(), n_heads=8), 3, 1)
 
 
 def _remote(ranges, width, i, elems):
