@@ -238,7 +238,15 @@ prefill against 2), each as above against the same tree unsplit
 (prefill ms, decode ms/token, peak GB, logits within ``5e-2 *
 max|logit|``; whisper also through ``launch.serve.serve``; scout's
 routing and first MoE layer as above), and reduced scout and whisper in
-fp32 over (1, 16) as the reduced archs above.
+fp32 over (1, 16) as the reduced archs above. Query heads that straddle
+KV groups: internlm2-20b cut to 2 of 48 layers, 48 heads over 8 KV heads
+split over (1, 6) of the repeated card (8 heads a position over two KV
+groups, its K and V indexed to one KV head per query head; K6 12 a
+prefill against 2), as scout above against the same tree unsplit, and
+reduced internlm2-20b with 48 over 8 heads in fp32 over (1, 6) as the
+reduced archs above. Every split training step above (7d) computes its
+loss over the positions' vocabulary shares of the logits, where they
+lie: no position gathers the (B, S, V) logits.
 
 Phase 2 also runs F6's shape through K1: ``resnet18_specs(16, 8)``'s
 ``s4b1_proj`` (a 1x1 stride-2 conv from 2x2 to 1x1, batch 2), whose
@@ -246,8 +254,9 @@ patches ``im2col`` must hand over contiguous; and K6 at the per-position
 shape of 7d's split prefill, and at scout's position shape (20
 over 4 heads), the VLM's cross-attention at a position (16 over 4
 heads to the 1600 image tokens), zamba2's shared block at a position
-(16 over 16 heads, D 112), and scout's positions of 16 (2 and 3 heads
-over 1 KV head).
+(16 over 16 heads, D 112), scout's positions of 16 (2 and 3 heads
+over 1 KV head), and internlm2-20b's positions of 6 (8 heads over 8
+indexed KV heads, 4096 x 4112, D 128).
 
 Phase 2 also holds every kernel at the shapes of the interpreter's calls
 (``*_strict`` paths: per COMP block, the block's rows and k-group); the
@@ -736,8 +745,10 @@ def lm_kernel_cases(path: str):
     7d's split prefills: one model position's heads of TP_POSITIONS, for
     scout (20 over 4), for the VLM's cross-attention (16 over 4 to the
     image tokens; its causal prefill has minitron's position shape) and
-    for zamba2's shared block (16 over 16, D 112); and scout's positions
-    of TP_WIDE (2 and 3 heads over 1 KV head)."""
+    for zamba2's shared block (16 over 16, D 112); scout's positions of
+    TP_WIDE (2 and 3 heads over 1 KV head); and internlm2-20b's positions
+    of TP_STRADDLE (8 heads over 8 indexed KV heads, at minitron's batch,
+    prompt and head dim)."""
     _, batch, prompt, gen = LM_PATHS[path]
     cfg = lm_config(path)
     prefill = dict(b=batch, h=cfg.n_heads, hkv=cfg.n_kv_heads,
@@ -772,6 +783,10 @@ def lm_kernel_cases(path: str):
         ("flash_attention", "prefill", prefill, cfg.n_layers),
         # phase 7d's split prefill: one model position's heads of two
         ("flash_attention", "prefill_position_of_2", position, 0),
+        # phase 7d's straddling prefill: a position of internlm2-20b's 48
+        # over 8 heads on TP_STRADDLE, its K and V indexed to its 8 heads
+        ("flash_attention", f"prefill_straddle_position_of_{TP_STRADDLE}",
+         dict(prefill, h=48 // TP_STRADDLE, hkv=48 // TP_STRADDLE), 0),
         ("flash_attention", "prefill_fp32", dict(prefill, dtype="fp32"), 0),
         ("flash_attention", "prefill_chunk", dict(
             prefill, sq=prompt // 2, row_offset=prompt // 2), 0),
@@ -3155,6 +3170,18 @@ TP_WIDE = 16
 TP_WIDE_FAMILY_PATHS = {"llama4_scout_bf16": 2}
 TP_WIDE_SSM_PATHS = ("whisper_base_bf16",)
 TP_WIDE_REDUCED = ("llama4-scout-17b-16e", "whisper-base")
+# query heads that straddle KV groups: internlm2-20b's 48 over 8 heads on
+# TP_STRADDLE model positions (8 a position, over two KV groups of 6, K and
+# V indexed to one KV head per query head), at full width cut to 2 of 48
+# layers (as the scout path split over TP_WIDE), bf16 on hopper, 2 x 4096, 16
+# greedy tokens, against the same tree unsplit; and reduced in fp32 with
+# the same head counts, as the TP_REDUCED archs
+TP_STRADDLE = 6
+TP_STRADDLE_PATHS = {"internlm2_20b_bf16": 2}
+TP_STRADDLE_REDUCED = {"internlm2-20b": dict(n_heads=48, n_kv_heads=8)}
+# phase 5's paths and the straddling one, which phase 7d alone serves
+SPLIT_PATHS = {**LM_PATHS,
+               "internlm2_20b_bf16": ("internlm2-20b", 2, 4096, 16)}
 
 
 def start_dryrun_cell(root: Path) -> subprocess.Popen:
@@ -3269,6 +3296,21 @@ def _timed_steps(step, params, state, data, n: int):
             torch.cuda.max_memory_allocated() / 1e9)
 
 
+def _loss_peak_gb(params, cfg, batch) -> float:
+    """The peak device memory of one ``loss_and_grads`` (the forward, the
+    loss over the logits and the backward, no optimizer), above what was
+    allocated before it."""
+    from repro_torch.train import steps
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = steps.loss_and_grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    del loss, grads
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
 def roofline_train(card: str) -> dict:
     """Phase 7a on the full-width training step (phase 6c's cut), then
     7c's split: the same parameters over MESH_POSITIONS data positions of
@@ -3291,6 +3333,7 @@ def roofline_train(card: str) -> dict:
         cfg, opt, make_mesh((1, 1), ("data", "model"), devices=[dev]))
     params, state, ms, all_ms, peak = _timed_steps(step, params, state, data,
                                                    ROOF_STEPS)
+    fb_gb = _loss_peak_gb(params, cfg, batch_for_step(data, 0))
     (params, state, _), st = rl.count(step, params, state,
                                       batch_for_step(data, ROOF_STEPS))
     out = {"train": roofline_line(
@@ -3324,17 +3367,22 @@ def roofline_train(card: str) -> dict:
     placed, state, step, _ = train_mod.build(cfg, opt, mesh, params=params)
     del params
     torch.cuda.empty_cache()
-    _, _, tp_ms, tp_all, tp_peak = _timed_steps(step, placed, state, data,
-                                                ROOF_STEPS)
+    placed, _, tp_ms, tp_all, tp_peak = _timed_steps(step, placed, state,
+                                                     data, ROOF_STEPS)
+    tp_fb_gb = _loss_peak_gb(placed, cfg, batch_for_step(data, 0))
     out["tp_split"] = dict(ms=tp_ms, all_ms=tp_all, peak_gb=tp_peak,
-                           unsplit_ms=ms, unsplit_peak_gb=peak)
+                           loss_and_grads_gb=tp_fb_gb, unsplit_ms=ms,
+                           unsplit_peak_gb=peak,
+                           unsplit_loss_and_grads_gb=fb_gb)
     print(f"tensor parallel (7d) ({card}): the {FULL_LAYERS}-layer step "
           f"split along model over {TP_POSITIONS} positions of the "
           f"repeated card: {tp_ms:.1f}ms/step (median of steps "
           f"2-{ROOF_STEPS}: {[round(t, 1) for t in tp_all]}), peak "
           f"{tp_peak:.2f} GB; unsplit {ms:.1f}ms/step, peak {peak:.2f} GB "
           f"(one card: the split and its collectives, not scaling or "
-          f"memory relief)", flush=True)
+          f"memory relief); forward and backward alone (loss_and_grads, "
+          f"no AdamW) peak {tp_fb_gb:.2f} GB above what was resident, "
+          f"unsplit {fb_gb:.2f} GB", flush=True)
     return out
 
 
@@ -3426,11 +3474,14 @@ def tp_reduced(card: str) -> dict:
             lambda t: t.clone(), grads))))
         return update(cfg, grads, state, params)
 
+    cases = [(arch, {} if n is None else dict(n_layers=n), TP_MESHES + (
+        ((1, TP_WIDE),) if arch in TP_WIDE_REDUCED else ()))
+        for arch, n in TP_REDUCED.items()]
+    cases += [(arch, changes, ((1, TP_STRADDLE),))
+              for arch, changes in TP_STRADDLE_REDUCED.items()]
     out = {}
-    for arch, n_layers in TP_REDUCED.items():
-        cfg = get_config(arch).reduced()
-        if n_layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    for arch, changes, meshes in cases:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
         params = steps.init_params(
             cfg, torch.Generator(device=dev).manual_seed(0), dev)
         if cfg.family == "vlm":
@@ -3471,9 +3522,10 @@ def tp_reduced(card: str) -> dict:
                                                       params))
             p1, s1, m1 = f1(p1, s1, batch)
         g1 = seen.pop()
-        out[arch] = {}
-        wide = ((1, TP_WIDE),) if arch in TP_WIDE_REDUCED else ()
-        for shape in TP_MESHES + wide:
+        name = arch if "n_heads" not in changes else (
+            f"{arch} ({cfg.n_heads} over {cfg.n_kv_heads} heads)")
+        out[name] = {}
+        for shape in meshes:
             mesh = make_mesh(shape, ("data", "model"),
                              devices=[dev] * int(np.prod(shape)))
             rules = sharding.make_rules(mesh)
@@ -3505,7 +3557,7 @@ def tp_reduced(card: str) -> dict:
                 raise AssertionError(f"7d {arch} {shape} step: {step} "
                                      f"(limits {TP_STEP_GRAD_TOL}, "
                                      f"{MESH_PARAM_TOL}, 0)")
-            out[arch][str(shape)] = dict(
+            out[name][str(shape)] = dict(
                 serve_gaps=gaps, grad_gap=ggap, param_gap=pgap,
                 unmoved=step["unmoved"], loss=float(m2["loss"]),
                 ref_loss=float(m1["loss"]),
@@ -3515,7 +3567,8 @@ def tp_reduced(card: str) -> dict:
             moe = (f"prefill routing of {len(ref_routed.calls)} MoE layers "
                    f"equal token for token; " if routed.calls else "")
             print(f"tensor parallel (7d) ({card}): reduced {arch} fp32 "
-                  f"({cfg.n_layers} layers) split over {shape} of the "
+                  f"({cfg.n_layers} layers, {cfg.n_heads} query heads over "
+                  f"{cfg.n_kv_heads} KV heads) split over {shape} of the "
                   f"repeated card: prefill and "
                   f"{TP_DECODE} decode steps within {max(gaps):.2e} of the "
                   f"unsplit run (relative to max(1, max|logit|)); {moe}one "
@@ -3669,7 +3722,7 @@ def full_width_run(path: str, cfg, p, rules) -> dict:
     from repro_torch.parallel import sharding
     from repro_torch.train import steps
 
-    _, batch, prompt, gen = LM_PATHS[path]
+    _, batch, prompt, gen = SPLIT_PATHS[path]
     dev = rules.mesh.devices.flat[0]
     prefill, decode = steps.make_serve_steps(cfg, backend="hopper")
     torch.cuda.reset_peak_memory_stats()
@@ -3746,7 +3799,7 @@ def tp_families_full_width(card: str, paths: dict = TP_FAMILY_PATHS,
         devices=[dev] * positions))
     out, launches = {}, dict.fromkeys(common.KERNELS, 0)
     for path, n_layers in paths.items():
-        arch, batch, prompt, gen = LM_PATHS[path]
+        arch, batch, prompt, gen = SPLIT_PATHS[path]
         cfg = get_config(arch)
         if n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -4089,6 +4142,9 @@ def launch_tools_phase(card: str, k6_case: dict) -> dict:
         out["tp_wide_ssm"] = tp_ssm_full_width(card, TP_WIDE_SSM_PATHS,
                                                TP_WIDE)
         torch.cuda.empty_cache()
+        out["tp_straddle"] = tp_families_full_width(
+            card, TP_STRADDLE_PATHS, TP_STRADDLE)
+        torch.cuda.empty_cache()
         out["dryrun"] = finish_dryrun_cell(proc, card)
     finally:
         if proc.poll() is None:
@@ -4096,7 +4152,7 @@ def launch_tools_phase(card: str, k6_case: dict) -> dict:
             proc.communicate()
     out["launches"] = out["prefill"].pop("launches")
     for part in ("tp_full_width", "tp_families", "tp_ssm",
-                 "tp_wide_families", "tp_wide_ssm"):
+                 "tp_wide_families", "tp_wide_ssm", "tp_straddle"):
         for name, n in out[part].pop("launches").items():
             out["launches"][name] += n
     out["phase_s"] = time.perf_counter() - t0

@@ -207,7 +207,8 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions=None, causal: bool = True, kv_cache=None,
               cache_pos: int | None = None, xattn_kv=None,
-              use_rope: bool = True, backend: str = "torch"):
+              use_rope: bool = True, q_offset: int | None = None,
+              backend: str = "torch"):
     """Attention of x (B, S, D) to itself, or with ``xattn_kv`` (B, Skv, D)
     (encoder or image states) to those: a cross-attention takes its K/V
     from them, applies no RoPE and masks nothing.
@@ -217,6 +218,14 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     reference donates the cache, so nothing else reads the old one) and
     the queries attend to the whole cache; without, the cache is being
     built and the result carries this call's K/V. Returns (out, cache).
+
+    The query heads of ``p`` read its KV heads in equal blocks of
+    ``H // KV``, unless ``q_offset`` is given: a model position's query
+    heads that straddle KV groups (``_tp_ranges``' ``q_offset``, the
+    place of its first query head in its first KV group). Then K and V
+    (after the cache, which keeps the position's KV heads) are indexed
+    to one KV head per query head, and the rest runs with one query head
+    a KV head.
     """
     backend = resolve_backend(backend)
     b, s, _ = x.shape
@@ -250,6 +259,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             skv = k.shape[1]
         else:                        # prefill: cache is being built
             new_cache = {"k": k, "v": v}
+
+    if q_offset is not None:        # a share that straddles KV groups
+        group = cfg.n_heads // cfg.n_kv_heads
+        pair = (q_offset + torch.arange(h, device=k.device)) // group
+        k, v, kv = k.index_select(2, pair), v.index_select(2, pair), h
 
     # GQA via grouped einsum: never materialize a repeated KV tensor
     rep = h // kv
@@ -491,11 +505,15 @@ def _tp_ranges(cfg: ModelConfig, n: int, i: int) -> dict:
     [start, stop), ``[i T / n, (i + 1) T / n)`` of each total ``T``. A share
     may be uneven or empty: 40 query heads over 16 positions give 2 or 3
     a position, 8 give every other position none (its KV share is empty
-    too), as do fewer experts or SSM heads than positions. A non-empty
-    share of query heads must lie inside one KV group or start and end on
-    group boundaries: ``attention`` gives each of a position's KV heads
-    an equal, contiguous block of its query heads. A config without
-    attention (mamba2) has no head shares."""
+    too), as do fewer experts or SSM heads than positions. A share of
+    query heads that lies inside one KV group, or starts and ends on group
+    boundaries, reads its KV heads in equal blocks; one that straddles KV
+    groups (48 query heads over 8 KV heads on 6 positions: position 0's
+    heads [0, 8) read KV head 0 six times and KV head 1 twice) has
+    ``q_offset``, its first head's place ``h0 % rep`` in its first group,
+    by which ``attention`` pairs each query head with its KV head (None
+    for every other share). A config without attention (mamba2) has no
+    head shares."""
     share = lambda total: (i * total // n, (i + 1) * total // n)  # noqa
     out = {"ffn": share(cfg.d_ff), "experts": share(cfg.n_experts),
            "ssm_heads": share(cfg.n_ssm_heads),
@@ -506,13 +524,18 @@ def _tp_ranges(cfg: ModelConfig, n: int, i: int) -> dict:
     rep = h // kv
     h0, h1 = share(h)
     if h0 == h1:
-        return {**out, "heads": (h0, h0), "kv_heads": (h0 // rep, h0 // rep)}
+        return {**out, "heads": (h0, h0), "kv_heads": (h0 // rep, h0 // rep),
+                "q_offset": None}
     k0, k1 = h0 // rep, (h1 - 1) // rep + 1
-    if k1 - k0 > 1 and (h0 % rep or h1 % rep):
-        raise ValueError(f"{cfg.name}: query heads [{h0}, {h1}) of model "
-                         f"position {i} of {n} do not form whole groups of "
-                         f"{rep} over KV heads [{k0}, {k1})")
-    return {**out, "heads": (h0, h1), "kv_heads": (k0, k1)}
+    straddles = k1 - k0 > 1 and bool(h0 % rep or h1 % rep)
+    return {**out, "heads": (h0, h1), "kv_heads": (k0, k1),
+            "q_offset": h0 % rep if straddles else None}
+
+
+def straddle_offset(cfg: ModelConfig, n: int, i: int) -> int | None:
+    """``attention``'s ``q_offset`` for position ``i`` of ``n`` (None
+    unless its query heads straddle KV groups)."""
+    return _tp_ranges(cfg, n, i).get("q_offset")
 
 
 def position_trees(params: Params, cfg: ModelConfig, build) -> list:
@@ -571,12 +594,15 @@ def embed_positions(trees: list, tokens: torch.Tensor) -> list:
          for t in trees], -1)
 
 
-def head_logits(trees: list, xs: list, cfg: ModelConfig) -> torch.Tensor:
+def head_logits(trees: list, xs: list, cfg: ModelConfig, *,
+                shares: bool = False):
     """The final norm and the head over the positions' vocabulary shares,
-    gathered on the first position."""
-    return sharding.gather_parts(
-        [rms_norm(x, t["final_norm"], cfg.norm_eps) @ t["lm_head"]
-         for x, t in zip(xs, trees)], -1)
+    gathered on the first position; with ``shares``, the list of shares,
+    each on its position's device (the training path's: the loss reads
+    them where they lie, ``train.steps.cross_entropy``)."""
+    parts = [rms_norm(x, t["final_norm"], cfg.norm_eps) @ t["lm_head"]
+             for x, t in zip(xs, trees)]
+    return parts if shares else sharding.gather_parts(parts, -1)
 
 
 def residual_attention(ps: list, xs: list, cfg: ModelConfig, *,
@@ -591,7 +617,8 @@ def residual_attention(ps: list, xs: list, cfg: ModelConfig, *,
     and ``caches`` hold each position's RoPE positions and KV cache (or
     None); a cross-attention's ``xattn_kv`` is read on every position.
     A position that holds no head (``ps[i][attn]`` None) runs no attention
-    and hands zeros of the residual's shape to the all-reduce."""
+    and hands zeros of the residual's shape to the all-reduce; one whose
+    heads straddle KV groups pairs them by its ``q_offset``."""
     n = len(ps)
     positions = positions or [None] * n
     caches = caches or [None] * n
@@ -599,8 +626,9 @@ def residual_attention(ps: list, xs: list, cfg: ModelConfig, *,
         p[attn], rms_norm(x, p[norm], cfg.norm_eps), cfg, positions=pos,
         kv_cache=c, cache_pos=cache_pos,
         xattn_kv=None if xattn_kv is None else xattn_kv.to(x.device),
-        causal=causal, use_rope=use_rope, backend=backend)[0]
-        for p, x, pos, c in zip(ps, xs, positions, caches)]
+        causal=causal, use_rope=use_rope, q_offset=straddle_offset(cfg, n, i),
+        backend=backend)[0]
+        for i, (p, x, pos, c) in enumerate(zip(ps, xs, positions, caches))]
     return [x + h for x, h in zip(xs, sharding.all_reduce_sum(hs))]
 
 

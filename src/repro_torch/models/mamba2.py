@@ -417,11 +417,12 @@ def _position_tree(params: Params, cfg: ModelConfig, i: int) -> Params:
             "lm_head": params["lm_head"].take(-1, *r["vocab"], i)}
 
 
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            shares: bool = False):
     """(B, S) -> logits (B, S, V), without a cache, on the first
-    position's device. Under autograd each layer runs under
-    ``remat_wrap``, as the reference's scanned body."""
+    position's device (with ``shares``, each position's vocabulary share
+    on its own, ``layers.head_logits``). Under autograd each layer runs
+    under ``remat_wrap``, as the reference's scanned body."""
     def body(xs, layer_ps):
         return mamba_block(layer_ps, xs, cfg)[0]
 
@@ -431,7 +432,7 @@ def forward(params: Params, tokens: torch.Tensor,
     xs = embed_positions(trees, tokens)
     for i in range(cfg.n_layers):
         xs = body(xs, [layer_at(t["layers"], i) for t in trees])
-    return head_logits(trees, xs, cfg)
+    return head_logits(trees, xs, cfg, shares=shares)
 
 
 def decode_step(params: Params, token: torch.Tensor, cache, pos: int,

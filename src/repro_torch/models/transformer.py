@@ -22,20 +22,22 @@ whose ``model`` axis spans several positions, each position computes
 whole heads: query heads ``[i H / n, (i + 1) H / n)`` and the KV heads
 they read, with their ``wq``/``wk``/``wv`` columns and ``wo`` rows
 (gathered from the shards they overlap where the heads do not divide the
-positions), of the self-attention and of a VLM's cross-attention alike;
+positions), of the self-attention and of a VLM's cross-attention alike
+(a position whose query heads straddle KV groups indexes its K and V to
+one KV head per query head);
 hidden units ``[i F / n, (i + 1) F / n)`` of the SwiGLU and of an MoE
 layer's shared expert; and whole experts ``[i E / n, (i + 1) E / n)`` of
 an MoE layer (expert parallelism: ``layers.moe`` over that range, routed
 from the whole router, whose columns every position reads, so each token
-takes the expert the unsplit model gives it; a position may hold none). A
-position's query heads must lie inside one KV group or start and end on
-group boundaries (else ``ValueError``). The norms, the cross-attention
-gate and the residual adds run replicated on every position; one
-``all_reduce_sum`` follows each row-split product (``wo``, ``w_down``, the
-routed and shared experts' sum). The embedding is split along ``d``: each
-position takes its columns of the rows, then an ``all_gather``. The head
-is split along the vocabulary: the local logits are gathered on the first
-position. A split model's KV cache (``layers.SplitCache``) holds, per
+takes the expert the unsplit model gives it; a position may hold none).
+The norms, the cross-attention gate and the residual adds run replicated
+on every position; one ``all_reduce_sum`` follows each row-split product
+(``wo``, ``w_down``, the routed and shared experts' sum). The embedding
+is split along ``d``: each position takes its columns of the rows, then
+an ``all_gather``. The head is split along the vocabulary: the local
+logits are gathered on the first position, or (``forward(shares=True)``,
+the training path) kept where they lie for the cross-entropy over the
+shares. A split model's KV cache (``layers.SplitCache``) holds, per
 data row and position, the position's self-attention KV heads for the
 row's share of the batch; a mesh of several data rows splits the batch,
 and a VLM's image embeddings with it, over them in row order. The shares,
@@ -69,6 +71,7 @@ from repro_torch.models.layers import (  # noqa: F401 (params_from_numpy)
     residual_attention,
     residual_swiglu,
     rms_norm,
+    straddle_offset,
     take_attention,
     take_swiglu,
 )
@@ -136,7 +139,8 @@ def apply_layer(ps: list, xs: list, cfg: ModelConfig, kind: dict, *,
         xhs = [torch.zeros_like(x) if p["xattn"] is None else attention(
             p["xattn"], rms_norm(x, p["norm3"], cfg.norm_eps), cfg,
             xattn_kv=image_embeds.to(x.device), causal=False,
-            use_rope=False, backend=backend)[0] for p, x in zip(ps, xs)]
+            use_rope=False, q_offset=straddle_offset(cfg, len(ps), i),
+            backend=backend)[0] for i, (p, x) in enumerate(zip(ps, xs))]
         xs = [x + torch.tanh(p["xattn_gate"]) * xh
               for p, x, xh in zip(ps, xs, sharding.all_reduce_sum(xhs))]
     if not kind["moe"]:
@@ -188,13 +192,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            image_embeds=None, positions=None,
-            backend: str = "torch") -> torch.Tensor:
+            image_embeds=None, positions=None, backend: str = "torch",
+            shares: bool = False):
     """Training/prefill forward without a cache: (B, S) -> logits
-    (B, S, V), on the first position's device. Under autograd each group
-    runs under ``remat_wrap`` (as the reference's scanned group body), so
-    with ``cfg.remat`` the backward holds one group's activations at a
-    time."""
+    (B, S, V), on the first position's device (with ``shares``, each
+    position's (B, S, V_i) on its own, ``layers.head_logits``). Under
+    autograd each group runs under ``remat_wrap`` (as the reference's
+    scanned group body), so with ``cfg.remat`` the backward holds one
+    group's activations at a time."""
     kinds = _layer_kinds(cfg)
     trees = position_trees(params, cfg, _position_tree)
     where = [None if positions is None else positions.to(t["embed"].device)
@@ -213,7 +218,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     for g in range(cfg.n_layers // len(kinds)):
         xs = group_body(xs, [[layer_at(slot, g) for slot in t["layers"]]
                              for t in trees])
-    return head_logits(trees, xs, cfg)
+    return head_logits(trees, xs, cfg, shares=shares)
 
 
 # ---------------------------------------------------------------------------

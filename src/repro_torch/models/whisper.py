@@ -167,11 +167,13 @@ def _tokens(trees: list, tokens: torch.Tensor, pos: int) -> list:
 
 
 def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
-            cfg: ModelConfig, *, backend: str = "torch") -> torch.Tensor:
+            cfg: ModelConfig, *, backend: str = "torch",
+            shares: bool = False):
     """frames (B, F, D) and tokens (B, S) -> logits (B, S, V), without a
-    cache, on the first position's device. Under autograd each decoder
-    layer runs under ``remat_wrap``, as the reference's scanned body; the
-    encoder runs unwrapped, as there."""
+    cache, on the first position's device (with ``shares``, each
+    position's vocabulary share on its own, ``layers.head_logits``).
+    Under autograd each decoder layer runs under ``remat_wrap``, as the
+    reference's scanned body; the encoder runs unwrapped, as there."""
     def body(xs, ps, enc_out):
         return _dec_layer(ps, xs, enc_out, cfg, backend=backend)
 
@@ -182,7 +184,7 @@ def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
     xs = _tokens(trees, tokens, 0)
     for i in range(cfg.n_layers):
         xs = body(xs, [layer_at(t["dec_layers"], i) for t in trees], enc_out)
-    return head_logits(trees, xs, cfg)
+    return head_logits(trees, xs, cfg, shares=shares)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,

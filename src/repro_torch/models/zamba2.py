@@ -114,11 +114,12 @@ def _position_tree(params: Params, cfg: ModelConfig, i: int) -> Params:
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            backend: str = "torch") -> torch.Tensor:
+            backend: str = "torch", shares: bool = False):
     """(B, S) -> logits (B, S, V), without a cache, on the first
-    position's device. Under autograd each group (its mamba layers and
-    the shared block) runs under ``remat_wrap``, as the reference's
-    scanned group body; the tail runs unwrapped, as there."""
+    position's device (with ``shares``, each position's vocabulary share
+    on its own, ``layers.head_logits``). Under autograd each group (its
+    mamba layers and the shared block) runs under ``remat_wrap``, as the
+    reference's scanned group body; the tail runs unwrapped, as there."""
     per, n_groups, tail = _geometry(cfg)
 
     def group_body(xs, group_ps, shared):
@@ -136,7 +137,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                         shared)
     for i in range(tail):
         xs, _ = mamba_block([layer_at(t["tail"], i) for t in trees], xs, cfg)
-    return head_logits(trees, xs, cfg)
+    return head_logits(trees, xs, cfg, shares=shares)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,

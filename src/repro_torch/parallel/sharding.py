@@ -27,7 +27,8 @@ copy is the shard itself). The model code computes on plain tensors:
 columns, rows or experts a position computes with (an MoE layer's
 ``(G, E, d, f)`` expert leaves split on ``E``, its float32 router on its
 expert columns), and :func:`all_reduce_sum`, :func:`all_gather` and
-:func:`gather_parts` join the per-position results. Under a roofline
+:func:`gather_parts` join the per-position results (and
+:func:`all_reduce_max` the cross-entropy's row maxima). Under a roofline
 counter (``launch/roofline.py``) each of these, and each read of a master
 copy on another device, runs inside an autograd function that declares
 its collectives, forward and backward, on each position's side and keeps
@@ -581,13 +582,14 @@ def _read(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _sum_on_first(parts: list[torch.Tensor]) -> list[torch.Tensor]:
-    """The sum of ``parts`` in position order on the first part's device,
-    then one copy for every further part on its device (a clone on the
-    first's device, so no two positions alias)."""
+def _reduce_on_first(parts: list[torch.Tensor],
+                  op=torch.add) -> list[torch.Tensor]:
+    """``parts`` reduced by ``op`` (a sum by default) in position order on
+    the first part's device, then one copy for every further part on its
+    device (a clone on the first's device, so no two positions alias)."""
     total = parts[0]
     for p in parts[1:]:
-        total = total + p.to(total.device)
+        total = op(total, p.to(total.device))
     return [total] + [total.clone() if p.device == total.device
                       else total.to(p.device) for p in parts[1:]]
 
@@ -602,7 +604,7 @@ class _AllReduce(torch.autograd.Function):
         ctx.counters = counters
         ctx.sides = [(_nbytes(p), p.device) for p in parts]
         with roofline.uncounted(counters):
-            outs = _sum_on_first(list(parts))
+            outs = _reduce_on_first(list(parts))
         _declare_sides(ctx, "all-reduce")
         roofline.allocated(outs, counters)
         return tuple(outs)
@@ -610,7 +612,7 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         with roofline.uncounted(ctx.counters):
-            outs = _sum_on_first([
+            outs = _reduce_on_first([
                 torch.zeros(g.shape, dtype=g.dtype, device=d) if g is None
                 else g for g, (_, d) in zip(grads, ctx.sides)])
         _declare_sides(ctx, "all-reduce")
@@ -763,7 +765,28 @@ def all_reduce_sum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
         return list(parts)
     if roofline.counting():
         return list(_AllReduce.apply(roofline.active(), *parts))
-    return _sum_on_first(parts)
+    return _reduce_on_first(parts)
+
+
+@torch.no_grad()
+def all_reduce_max(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The elementwise maximum of the per-position ``parts`` (exact in any
+    dtype), taken in position order on the first position's device, one
+    copy for every position as :func:`all_reduce_sum`'s. No gradient
+    flows through it (the cross-entropy's row max, whose gradient the
+    loss stops). Under a roofline counter each position's all-reduce is
+    declared."""
+    if len(parts) == 1:
+        return list(parts)
+    counting = roofline.counting()
+    with roofline.uncounted():
+        outs = _reduce_on_first(parts, torch.maximum)
+    if counting:
+        for p in parts:
+            roofline.declare_collective("all-reduce", _nbytes(p),
+                                        device=p.device)
+        roofline.allocated(outs)
+    return outs
 
 
 def gather_parts(parts: list[torch.Tensor], dim: int) -> torch.Tensor:

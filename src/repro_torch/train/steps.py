@@ -13,10 +13,12 @@ Every LM family runs tensor parallel along the mesh's ``model`` axis
 :func:`init_cache` under ``use_rules`` of a splitting mesh lays out the
 family's cache over it (``layers.SplitCache``); the same functions then
 run it tensor parallel (each model module over its ``model`` positions),
-with gradients per shard of the same placement.
+with gradients per shard of the same placement; training's loss reads the
+logits as the positions' vocabulary shares, where they lie.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable
 
 import torch
@@ -67,78 +69,134 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
 
 
 def forward_logits(params, batch: dict[str, Any], cfg: ModelConfig, *,
-                   backend: str = "torch"):
+                   backend: str = "torch", shares: bool = False):
     """(B, S) ``batch["tokens"]`` -> logits (B, S, V); a VLM also reads
     ``batch["image_embeds"]`` and whisper ``batch["frames"]``. ``backend``
-    picks the long-sequence attention, as in :func:`make_serve_steps`."""
+    picks the long-sequence attention, as in :func:`make_serve_steps`.
+    With ``shares``, the list of the ``model`` positions' vocabulary
+    shares (B, S, V_i), each on its position's device, ungathered (one
+    for an unplaced tree): what :func:`cross_entropy` reads in
+    training."""
     _family(cfg)
     tokens = batch["tokens"]
     if cfg.family in ("dense", "moe"):
-        return transformer.forward(params, tokens, cfg, backend=backend)
+        return transformer.forward(params, tokens, cfg, backend=backend,
+                                   shares=shares)
     if cfg.family == "vlm":
         return transformer.forward(params, tokens, cfg,
                                    image_embeds=batch["image_embeds"],
-                                   backend=backend)
+                                   backend=backend, shares=shares)
     if cfg.family == "ssm":
-        return mamba2.forward(params, tokens, cfg)
+        return mamba2.forward(params, tokens, cfg, shares=shares)
     if cfg.family == "hybrid":
-        return zamba2.forward(params, tokens, cfg, backend=backend)
+        return zamba2.forward(params, tokens, cfg, backend=backend,
+                              shares=shares)
     return whisper.forward(params, tokens, batch["frames"], cfg,
-                           backend=backend)
+                           backend=backend, shares=shares)
 
 
 # ---------------------------------------------------------------------------
 # loss / train step
 # ---------------------------------------------------------------------------
 
+def _chunks(n: int, v: int):
+    """The row ranges of ``cross_entropy``'s chunks over (n, v) logits."""
+    rows = max(1, CE_CHUNK // v)
+    return [(i, min(i + rows, n)) for i in range(0, n, rows)]
+
+
+def _in_share(targets: torch.Tensor, offset: int, width: int):
+    """Each target's column in the share ``[offset, offset + width)``
+    (clamped into it) and whether it lies there."""
+    col = targets - offset
+    return col.clamp(0, width - 1), (col >= 0) & (col < width)
+
+
 class _CrossEntropy(torch.autograd.Function):
-    """Mean next-token cross-entropy over (N, V) logits, one chunk of rows
-    at a time: no float32 (N, V) tensor is ever held, and the backward
-    writes ``softmax - onehot`` chunk by chunk into the logits' dtype. The
-    arithmetic is the reference's, rounding point for rounding point: the
-    row max in the logits' dtype, ``(logits - max)`` rounded to it before
-    the float32 exp, and a gradient of ``exp(s) * (ct / sum)`` rounded to
-    the logits' dtype, to which the gold column's ``-ct`` (rounded too) is
-    added."""
+    """Mean next-token cross-entropy over the (N, V_i) vocabulary shares of
+    (N, V) logits, each on its ``model`` position's device (one share: the
+    whole logits), one chunk of rows at a time: no float32 (N, V_i) tensor
+    is ever held, and the backward writes ``softmax - onehot`` chunk by
+    chunk into each share's dtype. The reference's scheme over its
+    vocabulary-split logits: each position's row max in the logits' dtype,
+    then their all-reduced max ``M`` (exact, so each ``(x - M)`` rounds as
+    the reference's); each position's float32 sum of ``exp(x - M)`` over
+    its columns, all-reduced in float64 and rounded once to float32; the
+    gold logit from the share that holds each target (the others give 0),
+    all-reduced. Three all-reduces of (N,) rows, and none in the
+    backward, where each position writes its own share's gradient. The
+    arithmetic is the reference's, rounding point for rounding point:
+    ``(logits - M)`` rounded to the logits' dtype before the float32 exp,
+    and a gradient of ``exp(s) * (ct / sum)`` rounded to the logits'
+    dtype, to which the gold column's ``-ct`` (rounded too) is added."""
 
     @staticmethod
-    def forward(ctx, logits: torch.Tensor, targets: torch.Tensor):
-        n, v = logits.shape
-        rows = max(1, CE_CHUNK // v)
-        m = torch.empty(n, dtype=logits.dtype, device=logits.device)
-        sumexp = torch.empty(n, dtype=torch.float32, device=logits.device)
-        for i in range(0, n, rows):
-            x = logits[i:i + rows]
-            m[i:i + rows] = x.amax(-1)
-            shifted = (x - m[i:i + rows, None]).float()
-            sumexp[i:i + rows] = torch.exp(shifted).sum(-1)
-        lse = torch.log(sumexp) + m.float()
-        gold = logits.gather(1, targets[:, None])[:, 0].float()
-        ctx.save_for_backward(logits, targets, m, sumexp)
+    def forward(ctx, targets: torch.Tensor, *shares: torch.Tensor):
+        n = targets.shape[0]
+        offsets = [0, *itertools.accumulate(x.shape[1] for x in shares[:-1])]
+        tgts = [targets.to(x.device) for x in shares]
+        maxes = []
+        for x in shares:
+            m = torch.empty(n, dtype=x.dtype, device=x.device)
+            for i, j in _chunks(n, x.shape[1]):
+                m[i:j] = x[i:j].amax(-1)
+            maxes.append(m)
+        maxes = sharding.all_reduce_max(maxes)
+        sums, golds = [], []
+        for x, m, t, o in zip(shares, maxes, tgts, offsets):
+            sumexp = torch.empty(n, dtype=torch.float32, device=x.device)
+            for i, j in _chunks(n, x.shape[1]):
+                shifted = (x[i:j] - m[i:j, None]).float()
+                sumexp[i:j] = torch.exp(shifted).sum(-1)
+            sums.append(sumexp)
+            col, inside = _in_share(t, o, x.shape[1])
+            gold = x.gather(1, col[:, None])[:, 0].float()
+            golds.append(torch.where(inside, gold, 0.0))
+        # the positions' float32 sums added in float64: the all-reduce
+        # rounds once, at its end (one share: the sum itself)
+        sums = [t.float() for t in sharding.all_reduce_sum(
+            [t.double() for t in sums])]
+        gold = sharding.all_reduce_sum(golds)[0]
+        lse = torch.log(sums[0]) + maxes[0].float()
+        ctx.offsets = offsets
+        ctx.save_for_backward(*tgts, *shares, *maxes, *sums)
         return (lse - gold).mean()
 
     @staticmethod
     def backward(ctx, grad):
-        logits, targets, m, sumexp = ctx.saved_tensors
-        n, v = logits.shape
-        rows = max(1, CE_CHUNK // v)
+        k = len(ctx.offsets)
+        saved = ctx.saved_tensors
+        tgts, shares = saved[:k], saved[k:2 * k]
+        maxes, sums = saved[2 * k:3 * k], saved[3 * k:]
+        n = tgts[0].shape[0]
         ct = grad.float() / n
-        row_ct = ct / sumexp
-        out = torch.empty_like(logits)
-        for i in range(0, n, rows):
-            shifted = (logits[i:i + rows] - m[i:i + rows, None]).float()
-            out[i:i + rows] = torch.exp(shifted).mul_(row_ct[i:i + rows, None])
-        idx = torch.arange(n, device=logits.device)
-        out[idx, targets] = out[idx, targets] + (-ct).to(out.dtype)
-        return out, None
+        outs = []
+        for x, t, m, sumexp, o in zip(shares, tgts, maxes, sums,
+                                      ctx.offsets):
+            ct_x = ct.to(x.device)
+            row_ct = ct_x / sumexp
+            out = torch.empty_like(x)
+            for i, j in _chunks(n, x.shape[1]):
+                shifted = (x[i:j] - m[i:j, None]).float()
+                out[i:j] = torch.exp(shifted).mul_(row_ct[i:j, None])
+            col, inside = _in_share(t, o, x.shape[1])
+            idx = torch.arange(n, device=x.device)
+            out[idx, col] = out[idx, col] + torch.where(
+                inside, (-ct_x).to(out.dtype), 0)
+            outs.append(out)
+        return (None, *outs)
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
-    """Mean next-token CE, accumulated in float32 without an fp32 copy of
-    the (B, S, V) logits; the gold logit comes from a gather."""
-    v = logits.shape[-1]
-    return _CrossEntropy.apply(logits.reshape(-1, v),
-                               targets.reshape(-1).long())
+def cross_entropy(logits, targets: torch.Tensor):
+    """Mean next-token CE of the (B, S, V) logits, or of the list of their
+    vocabulary shares (B, S, V_i) in column order, each on its position's
+    device (``forward_logits(..., shares=True)``), accumulated in float32
+    without an fp32 copy of any share and without gathering them; the
+    gold logit comes from the share that holds it."""
+    shares = [logits] if isinstance(logits, torch.Tensor) else list(logits)
+    targets = targets.reshape(-1).long()
+    return _CrossEntropy.apply(targets, *(
+        x.reshape(targets.shape[0], x.shape[-1]) for x in shares))
 
 
 def _on_device(batch: dict[str, Any], device: torch.device) -> dict:
@@ -153,12 +211,15 @@ def loss_and_grads(params, batch: dict[str, Any], cfg: ModelConfig):
     to every leaf of ``params`` (a tree of the same structure: over placed
     parameters, a gradient per shard, and one per replicated leaf's master
     copy, summed over the positions that read it). The batch goes to the
-    first leaf's device."""
+    first leaf's device. Over placed parameters the loss reads each
+    position's vocabulary share of the logits where it lies
+    (:func:`cross_entropy`): no position holds the whole logits."""
     leaves, spec = pytree.tree_flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
     batch = _on_device(batch, leaves[0].device)
-    logits = forward_logits(pytree.tree_unflatten(live, spec), batch, cfg)
-    loss = cross_entropy(logits, batch["targets"])
+    shares = forward_logits(pytree.tree_unflatten(live, spec), batch, cfg,
+                            shares=True)
+    loss = cross_entropy(shares, batch["targets"])
     grads = torch.autograd.grad(loss, live)
     return loss.detach(), pytree.tree_unflatten(list(grads), spec)
 

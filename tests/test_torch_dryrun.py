@@ -149,7 +149,12 @@ def test_reduced_run_cell_writes_an_ok_record(tmp_path, arch, shape):
     fullest position's. Every position declares two all-reduces a layer
     forward (attention or the SSM's gated norm, and the row-split FFN or
     ``out_proj``); a train cell also each part it holds once, the
-    gradient all-reduce over the 16 data positions."""
+    gradient all-reduce over the 16 data positions, and the loss's three
+    all-reduces of (N,) rows: its loss reads each position's vocabulary
+    share of the logits where it lies, so position 0's temporaries exceed
+    the fullest other position's by no more than a few (N,) rows, where
+    gathering the logits there would add the (N, V) logits and their
+    gradient."""
     cfg = _reduced(arch)
     rec = dryrun.run_cell(arch, shape, False, out_dir=str(tmp_path),
                           verbose=False, cfg=cfg)
@@ -197,7 +202,11 @@ def test_reduced_run_cell_writes_an_ok_record(tmp_path, arch, shape):
         # forward remat recomputes (checkpointing stops its recompute once
         # it has what the backward reads), the same on every position
         tp = [r - k for r, k in zip(reduces, parts)]
-        assert len(set(tp)) == 1 and tp[0] >= 2 * layers_
+        assert len(set(tp)) == 1 and tp[0] >= 2 * layers_ + 3
+        n = rec["row_batch"] * SHAPES[shape].seq_len
+        temps = [p["temp_size_in_bytes"] for p in per]
+        assert temps[0] <= max(temps[1:]) + 8 * n * 4, temps
+        assert n * cfg.vocab_size * 4 > 8 * n * 4
     else:
         assert reduces == [layers_] * 16
 

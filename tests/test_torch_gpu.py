@@ -492,6 +492,9 @@ FA_GPU_CASES = [
     (2, 4, 4, 200, 520, 112, True),     # D 112, Sq < Skv
     (1, 4, 1, 2048, 1600, 128, False),  # the VLM's cross shape: Skv 1600
     (2, 40, 8, 4096, 4112, 128, True),  # the MoE prefill: 40 over 8 heads
+    # a position of internlm2-20b's 48 over 8 heads on 6 (8 heads that
+    # straddle two KV groups: K and V indexed to one head each)
+    (2, 8, 8, 4096, 4112, 128, True),
 ]
 
 
@@ -1332,6 +1335,56 @@ def test_gpu_zamba2_split_hopper_prefill_matches_unsplit(cuda):
     common.reset_launches()
     split, _ = prefill(placed, prompts, cache)
     assert common.LAUNCHES["flash_attention"] == 4
+    assert torch.isfinite(split).all()
+    assert float((split - whole).abs().max()) <= 1e-5 * max(
+        1.0, float(whole.abs().max()))
+
+
+def test_gpu_straddling_share_runs_k6_against_its_plain_version(cuda):
+    """48 query heads over 8 KV heads split over 6 positions of the
+    repeated card (reduced internlm2-20b, fp32, head dim 16): each
+    position's 8 heads straddle two KV groups. Position 1's attention on
+    ``hopper`` (heads [8, 16) over KV heads [1, 3), ``q_offset`` 2) at
+    2048 tokens launches K6 once, and its output holds the same call on
+    the CPU, where the wrapper runs K6's plain version, within ``1e-4 *
+    max(1, max|ref|)``; a 2 x 2048 ``hopper`` prefill of the split model
+    launches K6 once per layer and position and its logits hold the
+    unsplit prefill's within ``1e-5 * max(1, max|ref|)``."""
+    import dataclasses
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.models import layers, transformer
+    from repro_torch.parallel import sharding
+
+    cfg = dataclasses.replace(get_config("internlm2-20b").reduced(),
+                              n_heads=48, n_kv_heads=8)
+    n = 6
+    rules = sharding.make_rules(make_mesh((1, n), ("data", "model"),
+                                          devices=[cuda] * n))
+    params = steps.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    placed = steps.place(cfg, params, rules)
+    r = layers._tp_ranges(cfg, n, 1)
+    assert (r["heads"], r["kv_heads"], r["q_offset"]) == ((8, 16), (1, 3), 2)
+    attn = layers.layer_at(transformer._position_tree(placed, cfg, 1)[
+        "layers"][0]["attn"], 0)
+    x = torch.randn(2, 2048, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    common.reset_launches()
+    out, _ = layers.attention(attn, x, cfg, q_offset=2, backend="hopper")
+    assert common.LAUNCHES["flash_attention"] == 1
+    ref, _ = layers.attention({k: t.cpu() for k, t in attn.items()},
+                              x.cpu(), cfg, q_offset=2, backend="hopper")
+    _gpu_close(out.cpu(), ref)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 2048)).astype(np.int32)).to(cuda)
+    prefill, _ = steps.make_serve_steps(cfg, backend="hopper")
+    whole, _ = prefill(params, prompts, steps.init_cache(cfg, 2, 2048, cuda))
+    with sharding.use_rules(rules):
+        cache = steps.init_cache(cfg, 2, 2048, cuda)
+    common.reset_launches()
+    split, _ = prefill(placed, prompts, cache)
+    assert common.LAUNCHES["flash_attention"] == n * cfg.n_layers
     assert torch.isfinite(split).all()
     assert float((split - whole).abs().max()) <= 1e-5 * max(
         1.0, float(whole.abs().max()))

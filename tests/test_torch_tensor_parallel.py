@@ -40,13 +40,17 @@ meshes of the repeated CPU device; the checks particular to the SSM block
   a replicated leaf's gradient is the sum of its uses on every position;
   ``global_norm`` of a placed tree equals the unsplit tree's; the
   collectives a split step declares to the roofline, forward and
-  backward, equal their sum from the shapes.
+  backward, equal their sum from the shapes (the loss over the
+  positions' vocabulary shares: three all-reduces of (N,) rows, no
+  gather of the logits).
 * Checkpoints: a placed tree (minitron, scout, mamba2) saves the bytes of
   an unsplit save and reads back bit for bit unsplit, or split onto
   ``param_shardings``;
   ``run_with_recovery`` and ``elastic_restore`` keep or make the split.
-* Query heads that would straddle KV groups (48 over 8 on 6 positions)
-  raise; ranges inside a group or on group boundaries serve as unsplit.
+* Query heads that straddle KV groups (48 over 8 on 6 positions, 40
+  over 8 on 3) index their K and V to one KV head per query head and
+  serve and train as unsplit, K6 at the position's heads; ranges inside
+  a group or on group boundaries keep their equal blocks.
   Shares may be uneven or empty: the production mesh's 16 positions give
   scout and maverick 2 or 3 of their 40 heads, whisper-base one head or
   none; reduced scout with 10 heads over 4 positions, whisper over 8 and
@@ -259,8 +263,10 @@ def test_production_head_shares_over_sixteen_positions():
     llama4-maverick's 40 query heads over 8 KV heads give shares of 2 and
     3 heads, each inside one KV group of 5; whisper-base's 8 over 8 give
     every odd position one head and every even position none; 48 over 8
-    on 6 positions still raise (``test_query_heads_keep_whole_kv_groups``
-    serves the cases that split)."""
+    on 6 positions give 8 heads a position, each share straddling two KV
+    groups of 6 with its first head at place 0, 2 or 4 of its first group
+    (``q_offset``; ``test_query_heads_keep_whole_kv_groups`` serves
+    them)."""
     for arch in (SCOUT, MAVERICK):
         cfg = get_config(arch)
         assert (cfg.n_heads, cfg.n_kv_heads) == (40, 8)
@@ -276,20 +282,29 @@ def test_production_head_shares_over_sixteen_positions():
     assert [r["heads"] for r in shares] == [
         (i // 2, (i + 1) // 2) for i in range(16)]
     assert [r["kv_heads"] for r in shares] == [r["heads"] for r in shares]
-    wide = dataclasses.replace(get_config("internlm2-20b"), n_heads=48,
-                               n_kv_heads=8)
-    with pytest.raises(ValueError, match="whole groups of 6"):
-        layers._tp_ranges(wide, 6, 0)
+    for arch in (SCOUT, MAVERICK, "whisper-base"):
+        assert all(layers._tp_ranges(get_config(arch), 16, i)["q_offset"]
+                   is None for i in range(16))
+    wide = get_config("internlm2-20b")
+    assert (wide.n_heads, wide.n_kv_heads) == (48, 8)
+    shares = [layers._tp_ranges(wide, 6, i) for i in range(6)]
+    assert [r["heads"] for r in shares] == [(8 * i, 8 * i + 8)
+                                            for i in range(6)]
+    assert [r["kv_heads"] for r in shares] == [(0, 2), (1, 3), (2, 4),
+                                               (4, 6), (5, 7), (6, 8)]
+    assert [r["q_offset"] for r in shares] == [0, 2, 4, 0, 2, 4]
 
 
 @pytest.mark.parametrize("positions", [4, 6, 8, 16])
 def test_query_heads_keep_whole_kv_groups(positions):
     """48 query heads over 8 KV heads (internlm2-20b's ratio: groups of
     6). On 4 or 8 positions each position's heads start and end on group
-    boundaries, on 16 its 3 heads lie inside one group: these split and
-    serve as the unsplit model does. On 6, position 0's heads [0, 8) would
-    read KV heads 0 and 1 six and two times, which ``attention``'s equal
-    blocks would pair wrongly: the split raises."""
+    boundaries, on 16 its 3 heads lie inside one group: their KV heads
+    pair in equal blocks (no ``q_offset``). On 6, position 0's heads
+    [0, 8) read KV heads 0 and 1 six and two times: each position's K and
+    V are indexed to one KV head per query head (after its cache, which
+    holds its KV heads). All four split and serve as the unsplit model
+    does."""
     cfg = dataclasses.replace(get_config("internlm2-20b").reduced(),
                               n_heads=48, n_kv_heads=8, head_dim=4)
     params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -300,20 +315,78 @@ def test_query_heads_keep_whole_kv_groups(positions):
         cfg, 2, 9, "cpu"))
     placed, rules = _placed(params, (1, positions))
     batch = {"tokens": torch.from_numpy(prompts)}
-    if positions == 6:
-        with pytest.raises(ValueError, match="whole groups of 6"):
-            steps.forward_logits(placed, batch, cfg)
-        with pytest.raises(ValueError, match="whole groups of 6"), \
-                sharding.use_rules(rules):
-            steps.init_cache(cfg, 2, 9, "cpu")
-        return
+    offsets = [layers._tp_ranges(cfg, positions, i)["q_offset"]
+               for i in range(positions)]
+    assert offsets == ([0, 2, 4, 0, 2, 4] if positions == 6
+                       else [None] * positions)
     _close(steps.forward_logits(placed, batch, cfg),
            steps.forward_logits(params, batch, cfg), SPLIT_TOL)
     with sharding.use_rules(rules):
         cache = steps.init_cache(cfg, 2, 9, "cpu")
+    assert [c[0]["k"].shape[-2] for c in cache.rows[0]] == [
+        k1 - k0 for k0, k1 in (layers._tp_ranges(cfg, positions, i)[
+            "kv_heads"] for i in range(positions))]
     for got, want in zip(_serve_run(placed, cfg, prompts, toks, cache),
                          whole):
         _close(got, want, SPLIT_TOL)
+
+
+STRADDLE = [("internlm2-20b", 48, 8, 6), (SCOUT, 40, 8, 3)]
+
+
+@pytest.mark.parametrize("arch,heads,kv_heads,positions", STRADDLE,
+                         ids=[f"{h}_over_{k}_on_{n}"
+                              for _, h, k, n in STRADDLE])
+def test_heads_that_straddle_kv_groups_serve_and_train_as_unsplit(
+        arch, heads, kv_heads, positions):
+    """48 query heads over 8 KV heads on 6 positions (internlm2-20b's
+    ratio), and 40 over 8 on 3 (scout's, shares of 13, 13 and 14 heads):
+    every position's share straddles KV groups. A prefill and 4 decode
+    steps serve as unsplit (``SPLIT_TOL``); ``loss_and_grads`` gives the
+    unsplit loss within 1e-6 and each gradient within 1e-6 of max(1,
+    max|g|), as ``test_split_loss_and_grads_match_unsplit``'s dense and
+    MoE cases; a 2048-token ``hopper`` prefill runs K6's plain version
+    once per layer and position at the position's heads, each over as
+    many KV heads."""
+    cfg = dataclasses.replace(_cfg(arch), n_heads=heads,
+                              n_kv_heads=kv_heads, head_dim=4)
+    shares = [layers._tp_ranges(cfg, positions, i) for i in range(positions)]
+    assert all(r["q_offset"] is not None for r in shares)
+    params = steps.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    placed, rules = _placed(params, (1, positions))
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 8), dtype=np.int32)
+    toks = [prompts[:, i:i + 1] for i in range(N_DECODE)]
+    whole = _serve_run(params, cfg, prompts, toks, steps.init_cache(
+        cfg, 2, 8 + N_DECODE, "cpu"))
+    with sharding.use_rules(rules):
+        cache = steps.init_cache(cfg, 2, 8 + N_DECODE, "cpu")
+    for got, want in zip(_serve_run(placed, cfg, prompts, toks, cache),
+                         whole):
+        _close(got, want, SPLIT_TOL)
+    b = _batch(cfg)
+    loss, grads = steps.loss_and_grads(params, b, cfg)
+    s_loss, s_grads = steps.loss_and_grads(placed, b, cfg)
+    assert abs(float(s_loss) - float(loss)) <= 1e-6 * float(loss)
+    for g, want in zip(pytree.tree_leaves(sharding.gather(s_grads)),
+                       pytree.tree_leaves(grads)):
+        _close(g, want, 1e-6)
+    calls = []
+    real = layers.flash_attention
+
+    def spy(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return real(q, k, v, **kw)
+    long = {"tokens": torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (1, 2048), dtype=np.int32))}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(layers, "flash_attention", spy)
+        got = steps.forward_logits(placed, long, cfg, backend="hopper")
+    want = steps.forward_logits(params, long, cfg, backend="hopper")
+    _close(got, want, SPLIT_TOL)
+    assert calls == [((1, h1 - h0, 2048, 4), (1, h1 - h0, 2048, 4))
+                     for _ in range(cfg.n_layers)
+                     for h0, h1 in (r["heads"] for r in shares)]
 
 
 # ---------------------------------------------------------------------------
@@ -753,29 +826,40 @@ def test_split_step_declares_its_collectives_forward_and_backward():
     remat: a recomputed group would declare its forward collectives
     again), counted: the embedding's all-gather on each position and its
     backward's reduce-scatter; two all-reduces a layer on each position,
-    and as many in the backward; the head's gather of the logits on the
-    first position and its backward's reduce-scatter; and each
-    ``Placed.take`` of another position's shard (the 2 KV heads of 16
-    columns split 8 a position: each position reads half its ``wk`` and
-    ``wv`` columns from its neighbour) once forward and once backward, as
-    a collective-permute."""
+    and as many in the backward; the loss's three all-reduces of (N,)
+    rows on each position (the row max, the float64 sum, the gold logit)
+    and none of the logits, forward or backward (no collective as large
+    as a position's (B, S, V_i) share); and each ``Placed.take`` of
+    another position's shard (the 2 KV heads of 16 columns split 8 a
+    position: each position reads half its ``wk`` and ``wv`` columns from
+    its neighbour) once forward and once backward, as a
+    collective-permute."""
     cfg = dataclasses.replace(get_config("minitron-8b").reduced(),
                               remat=False)
     rows, seq, n = 4, 16, 4
     opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
     params, state, step, _ = train_mod.build(cfg, opt, _mesh((1, n)))
-    _, st = rl.count(step, params, state, _batch(cfg, rows, seq))
+    seen, declare = [], rl.declare_collective
+
+    def record(kind, nbytes, counters=None, device=None):
+        seen.append(nbytes)
+        return declare(kind, nbytes, counters, device)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rl, "declare_collective", record)
+        _, st = rl.count(step, params, state, _batch(cfg, rows, seq))
     act = rows * seq * cfg.d_model * 4
-    logits = rows * seq * cfg.vocab_size * 4
+    loss_rows = rows * seq * (4 + 8 + 4)
     piece = cfg.n_layers * cfg.d_model * (cfg.n_kv_heads * cfg.head_dim
                                           // n) * 4
     remote = n * 2        # a piece of wk and of wv on every position
     assert st.collective_counts == {
-        "all-gather": n + 1, "reduce-scatter": n + 1,
-        "all-reduce": 2 * (2 * cfg.n_layers * n),
+        "all-gather": n, "reduce-scatter": n,
+        "all-reduce": 2 * (2 * cfg.n_layers * n) + 3 * n,
         "collective-permute": 2 * remote}
     assert st.collective_bytes == 2 * (
-        n * act + logits + 2 * cfg.n_layers * n * act + remote * piece)
+        n * act + 2 * cfg.n_layers * n * act + remote * piece) \
+        + n * loss_rows
+    assert max(seen) < rows * seq * (cfg.vocab_size // n) * 4
 
 
 def assert_steps_match(monkeypatch, cfg, params, mesh_shape, batch):

@@ -12,11 +12,12 @@ and audio families against the unsplit port and the reference are
   unsplit, and so do 8 over 16, where every other position holds none
   (it still multiplies by its ``in_proj`` shard, for the others, and
   gives zeros to both all-reduces); attention heads split likewise
-  (whisper-base's 8 over 16: one or none); only query heads that would
-  straddle KV groups raise.
+  (whisper-base's 8 over 16: one or none), and query heads that
+  straddle KV groups carry their place in their first group.
 * The collectives a split mamba2 step declares, forward and backward
   (the gated norm's variance and ``out_proj``'s all-reduces, the
-  embedding's gather, the head's, each piece of a layer's ``in_proj``
+  embedding's gather, the loss's three (N,) all-reduces, each piece of a
+  layer's ``in_proj``
   product and of the conv a position reads from another position),
   against their sum from the shapes.
 """
@@ -105,8 +106,9 @@ def test_uneven_ssm_heads_and_the_shares_that_raise():
     where every even position holds none (its tree keeps ``norm`` and
     ``in_proj`` only, its cache share is empty); whisper-base's 8
     attention heads over 16 positions give one or none. A share of 8
-    query heads over 2 KV heads on 3 positions straddles a group and
-    raises."""
+    query heads over 2 KV heads on 3 positions straddles a group: its
+    ``q_offset`` is its first head's place in its first group (heads
+    [2, 5) over KV heads [0, 2): 2), which ``attention`` pairs by."""
     cfg = get_config("mamba2-130m").reduced()
     params = steps.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
     prompts = np.random.default_rng(3).integers(
@@ -140,9 +142,10 @@ def test_uneven_ssm_heads_and_the_shares_that_raise():
             1.0, float(want.abs().max()))
     assert [layers._tp_ranges(get_config("whisper-base"), 16, i)["heads"]
             for i in (0, 1, 14, 15)] == [(0, 0), (0, 1), (7, 7), (7, 8)]
-    with pytest.raises(ValueError, match="whole groups of 4"):
-        layers._tp_ranges(dataclasses.replace(
-            get_config("minitron-8b").reduced(), n_heads=8), 3, 1)
+    straddles = layers._tp_ranges(dataclasses.replace(
+        get_config("minitron-8b").reduced(), n_heads=8), 3, 1)
+    assert (straddles["heads"], straddles["kv_heads"],
+            straddles["q_offset"]) == ((2, 5), (0, 2), 2)
 
 
 def _remote(ranges, width, i, elems):
@@ -171,7 +174,9 @@ def test_split_mamba_step_declares_its_collectives_forward_and_backward():
     ``conv_b`` it reads from the other's shard, once forward and once
     backward, as a collective-permute (the SSM heads' ``A_log``, ``D``,
     ``dt_bias`` and ``out_proj`` rows are the position's own shards; no
-    piece of ``in_proj`` itself moves)."""
+    piece of ``in_proj`` itself moves); and the loss's three all-reduces
+    of (N,) rows on each position (the row max, the float64 sum, the gold
+    logit), with no gather of the logits."""
     cfg = dataclasses.replace(get_config("mamba2-130m").reduced(),
                               remat=False)
     rows, seq, n = 4, 16, 2
@@ -182,7 +187,7 @@ def test_split_mamba_step_declares_its_collectives_forward_and_backward():
     _, st = rl.count(step, params, state, batch)
     act = rows * seq * cfg.d_model * 4
     var = rows * seq * 4
-    logits = rows * seq * cfg.vocab_size * 4
+    loss_rows = rows * seq * (4 + 8 + 4)
     in_w = (2 * di + 2 * ns + cfg.n_ssm_heads) // n
     conv_w = (di + 2 * ns) // n
     pieces = nbytes = 0
@@ -199,7 +204,8 @@ def test_split_mamba_step_declares_its_collectives_forward_and_backward():
             pieces, nbytes = pieces + times * k, nbytes + times * b
     assert pieces > 0
     assert st.collective_counts == {
-        "all-gather": n + 1, "reduce-scatter": n + 1,
-        "all-reduce": 2 * (2 * L * n), "collective-permute": 2 * pieces}
+        "all-gather": n, "reduce-scatter": n,
+        "all-reduce": 2 * (2 * L * n) + 3 * n,
+        "collective-permute": 2 * pieces}
     assert st.collective_bytes == 2 * (
-        n * act + logits + L * n * (act + var) + nbytes)
+        n * act + L * n * (act + var) + nbytes) + n * loss_rows
