@@ -248,6 +248,18 @@ reduced archs above. Every split training step above (7d) computes its
 loss over the positions' vocabulary shares of the logits, where they
 lie: no position gathers the (B, S, V) logits.
 
+Every LM decode above runs as the port serves it: one CUDA graph a
+request (``train.steps.DecodeStep``), captured on the first decode step
+and replayed for every token after it. Phase 5 holds each of its seven
+paths' captured decode to its eager step (``decode.fn`` with the position
+as a 0-d tensor on the card, from a copy of the same prefilled cache):
+the 16 greedy tokens equal, the logits ``torch.equal`` at every step, one
+capture; it prints the capture's host ms, the replay ms/token beside the
+eager ms/token, and one profiled replay and one profiled eager step
+(device busy share, kernels), and the route. Phase 7d does the same for
+every full-width decode it runs, split (over (1, 2), (1, 6) and (1, 16)
+of the repeated card, captured whole on the card's stream) and unsplit.
+
 Phase 2 also runs F6's shape through K1: ``resnet18_specs(16, 8)``'s
 ``s4b1_proj`` (a 1x1 stride-2 conv from 2x2 to 1x1, batch 2), whose
 patches ``im2col`` must hand over contiguous; and K6 at the per-position
@@ -2338,7 +2350,8 @@ def serve_cut(cfg, params, backend: str, batch: int, prompt: int,
               gen: int):
     """``launch.serve.serve`` on a config cut in depth: the same draws
     from seed 0, then the prefill and ``gen`` greedy decode steps through
-    ``train.steps``' serve steps, timed as ``serve`` times them."""
+    ``train.steps``' serve steps (the decode captured), timed as
+    ``serve`` times them."""
     from repro_torch.launch.serve import LMServeResult, lm_inputs
     from repro_torch.train import steps
 
@@ -2355,20 +2368,133 @@ def serve_cut(cfg, params, backend: str, batch: int, prompt: int,
     prefill_ms = (time.perf_counter() - t0) * 1e3
     first, outs = logits, []
     tok = logits.argmax(-1)[:, None]
-    t0 = time.perf_counter()
+    t0 = t1 = time.perf_counter()
     for i in range(gen):
         outs.append(tok[:, 0])
         logits, cache = decode(params, tok, cache, prompt + i, extras)
         tok = logits.argmax(-1)[:, None]
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
     torch.cuda.synchronize()
-    per_token = (time.perf_counter() - t0) * 1e3 / gen
+    t2 = time.perf_counter()
+    per_token = (t2 - t0) * 1e3 / gen
+    replay = (t2 - t1) * 1e3 / (gen - 1)
     print(f"{cfg.name} (cut to {cfg.n_layers} layers, {cfg.dtype}), backend "
           f"{backend}: prefill {prompt} toks x{batch}: {prefill_ms:.1f}ms; "
-          f"decode {gen} steps: {per_token:.2f}ms/tok", flush=True)
+          f"decode {gen} steps: {per_token:.2f}ms/tok ({decode.route}, "
+          f"capture {decode.last_capture_ms:.1f}ms, replay "
+          f"{replay:.2f}ms/tok after the first)", flush=True)
     return LMServeResult(tokens=torch.stack(outs, 1).cpu().numpy(),
                          prefill_logits=first, build_ms=None,
                          prefill_ms=prefill_ms,
-                         decode_ms_per_token=per_token)
+                         decode_ms_per_token=per_token,
+                         replay_ms_per_token=replay,
+                         capture_ms=decode.last_capture_ms,
+                         decode_route=decode.route,
+                         decode_captures=decode.trace_count)
+
+
+def captured_vs_eager(label: str, decode, params, first: torch.Tensor,
+                      cache, prompt: int, gen: int, extras=None) -> dict:
+    """The captured decode against its eager step. ``gen`` greedy tokens
+    through ``decode`` (a ``train.steps.DecodeStep``: its first step runs
+    ``decode.fn`` and captures one CUDA graph, the others replay it) from
+    the prefilled ``cache`` whose last-token logits are ``first``; then
+    the same steps through ``decode.fn`` with the position as a 0-d
+    tensor on the card, from a copy of the cache made before them. Every
+    step's logits must be ``torch.equal`` (so the tokens too) and the run
+    must capture once. Returns the tokens fed to the steps (as ``serve``
+    returns them: the prefill's greedy token first), the capture's host
+    ms, the
+    first captured step's ms (warm-up and capture), the replays' ms/token
+    (the steps after the first), the eager ms/token (every step), the
+    route, and one profiled replay and one profiled eager step
+    (``device_profile``, by kernel) at the last position."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models.layers import SplitCache
+
+    def clone(c):
+        if isinstance(c, SplitCache):
+            out = SplitCache.__new__(SplitCache)
+            out.rows = pytree.tree_map(torch.clone, c.rows)
+            return out
+        return pytree.tree_map(torch.clone, c)
+
+    dev = first.device
+    at = lambda pos: torch.full((), pos, dtype=torch.int64,  # noqa: E731
+                                device=dev)
+    steps_of = {
+        "captured": lambda tok, c, pos: decode(params, tok, c, pos, extras),
+        "eager": lambda tok, c, pos: decode.fn(params, tok, c, at(pos),
+                                               extras)}
+    caches = {"eager": clone(cache), "captured": cache}
+    n0 = decode.trace_count
+    runs = {}
+    for how in ("captured", "eager"):
+        step, c = steps_of[how], caches[how]
+        tok, logits_all = first.argmax(-1)[:, None], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(gen):
+            logits, c = step(tok, c, prompt + i)
+            if i == 0:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            logits_all.append(logits)
+            tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        runs[how] = dict(logits=logits_all, first_ms=(t1 - t0) * 1e3,
+                         rest_ms=(t2 - t1) * 1e3 / max(gen - 1, 1),
+                         all_ms=(t2 - t0) * 1e3 / gen, cache=c)
+    captures = decode.trace_count - n0
+    cap, eag = runs["captured"], runs["eager"]
+    diffs = [float((a.float() - b.float()).abs().max())
+             for a, b in zip(cap["logits"], eag["logits"])]
+    equal = all(torch.equal(a, b)
+                for a, b in zip(cap["logits"], eag["logits"]))
+    # the tokens fed to the steps, as ``serve`` returns them
+    tokens = [torch.stack([first.argmax(-1)] + [x.argmax(-1) for x in
+                                                r["logits"][:-1]], 1)
+              for r in (cap, eag)]
+    if decode.route != "captured" or captures != 1 or not equal:
+        raise AssertionError(
+            f"{label}: the captured decode ({decode.route}, {captures} "
+            f"captures) against its eager step: logits equal at every step "
+            f"{equal} (max|diff| per step {diffs}), tokens equal "
+            f"{torch.equal(*tokens)}")
+    tok, pos = cap["logits"][-1].argmax(-1)[:, None], prompt + gen - 1
+    prof_replay = device_profile(
+        lambda: decode(params, tok, cap["cache"], pos, extras),
+        by_kernel=True)
+    prof_eager = device_profile(
+        lambda: decode.fn(params, tok, eag["cache"], at(pos), extras),
+        by_kernel=True)
+    if decode.trace_count - n0 != 1:
+        raise AssertionError(f"{label}: the profiled replay captured again")
+    return dict(route=decode.route, captures=captures,
+                capture_ms=decode.last_capture_ms,
+                first_step_ms=cap["first_ms"], replay_ms=cap["rest_ms"],
+                eager_ms=eag["all_ms"], tokens=tokens[0].cpu().numpy(),
+                profile_replay=prof_replay, profile_eager=prof_eager)
+
+
+def graph_line(g: dict) -> str:
+    """One line of :func:`captured_vs_eager`'s numbers."""
+    r, e = g["profile_replay"], g["profile_eager"]
+    return (f"decode {g['route']}: capture {g['capture_ms']:.1f}ms (host; "
+            f"the first step {g['first_step_ms']:.1f}ms with its warm-up), "
+            f"replay {g['replay_ms']:.2f}ms/token against eager "
+            f"{g['eager_ms']:.2f}ms/token, tokens equal, logits torch.equal "
+            f"at every step; one replay: device busy "
+            f"{r['device_busy_ms']:.2f}ms of {r['wall_ms']:.2f}ms "
+            f"({r['device_busy_ms'] / r['wall_ms']:.1%}) over "
+            f"{r['n_kernels']} kernels; one eager step: "
+            f"{e['device_busy_ms']:.2f}ms of {e['wall_ms']:.2f}ms "
+            f"({e['device_busy_ms'] / e['wall_ms']:.1%}) over "
+            f"{e['n_kernels']} kernels")
 
 
 class Routing:
@@ -2436,7 +2562,9 @@ def serve_lm(path: str, k6_ms: float) -> dict:
     through ``launch.serve.serve`` (a path cut in depth through
     ``serve_cut``) on the hopper backend, with the launch counts set to 0
     just before and checked just after; check them per phase on a second
-    prefill and one decode step; hold the last-token prefill logits
+    prefill and on the captured decode, held to its eager step from that
+    prefill (:func:`captured_vs_eager`; the served decode captured once);
+    hold the last-token prefill logits
     against ``backend="torch"`` on the same params (within
     ``LM_TOL * max|logit|``, or equal where no kernel is on the path). An
     MoE path prints each MoE layer's routing of the prefill and the tokens
@@ -2497,26 +2625,31 @@ def serve_lm(path: str, k6_ms: float) -> dict:
     warm_prefill_ms = (time.perf_counter() - t0) * 1e3
     n_prefill = common.LAUNCHES["flash_attention"]
     common.reset_launches()
-    decode(params, logits.argmax(-1)[:, None], cache, prompt, extras)
-    torch.cuda.synchronize()
+    # the captured decode against its eager step, from this prefill
+    graph = captured_vs_eager(path, decode, params, logits, cache, prompt,
+                              gen, extras)
     n_decode = common.LAUNCHES["flash_attention"]
     want = expected.get("flash_attention", 0)
     if (n_prefill, n_decode) != (want, 0):
         raise AssertionError(f"{path}: K6 launched {n_prefill} times in "
-                             f"a prefill and {n_decode} in a decode step, "
-                             f"expected {want} and 0")
+                             f"a prefill and {n_decode} in {2 * gen + 2} "
+                             f"decode steps, expected {want} and 0")
+    if (out.decode_route, out.decode_captures) != ("captured", 1):
+        raise AssertionError(f"{path}: the served decode ran "
+                             f"{out.decode_route!r} with "
+                             f"{out.decode_captures} captures")
+    served_tokens_equal = bool(np.array_equal(out.tokens, graph["tokens"]))
     repeat_diff = float((logits.float() - y).abs().max())
     # where the device time goes, and how much of the wall time it fills
     # (a prefill restarts the SSM states; the attention's cache rows are
     # rewritten with the same values)
     prof_prefill = device_profile(
         lambda: prefill(params, prompts, cache, extras), by_kernel=True)
-    tok = logits.argmax(-1)[:, None]
-    prof_decode = device_profile(
-        lambda: decode(params, tok, cache, prompt + 1, extras),
-        by_kernel=True)
+    prof_decode = graph.pop("profile_replay")
+    prof_eager = graph.pop("profile_eager")
     split = {"prefill": profile_split(prof_prefill),
-             "decode_step": profile_split(prof_decode)}
+             "decode_step": profile_split(prof_decode),
+             "eager_decode_step": profile_split(prof_eager)}
     del cache, logits, extras
 
     routed_ref = Routing()
@@ -2578,9 +2711,18 @@ def serve_lm(path: str, k6_ms: float) -> dict:
           f"({'equal required' if path in LM_EXACT else 'tolerance'} "
           f"{tol:.3e}, max|logit| {float(y_ref.abs().max()):.3e})"
           f", greedy tokens agree {agree:.3f}", flush=True)
+    line = graph_line({**graph, "profile_replay": prof_decode,
+                       "profile_eager": prof_eager})
+    print(f"path {path} decode graph: {line}; "
+          f"served: {out.decode_ms_per_token:.2f}ms/token all steps, "
+          f"capture {out.capture_ms:.1f}ms, replay "
+          f"{out.replay_ms_per_token:.2f}ms/token; its tokens equal "
+          f"these {served_tokens_equal}", flush=True)
     for phase, pr, sp in (("prefill", prof_prefill, split["prefill"]),
-                          ("decode step", prof_decode,
-                           split["decode_step"])):
+                          ("decode step (replay)", prof_decode,
+                           split["decode_step"]),
+                          ("decode step (eager)", prof_eager,
+                           split["eager_decode_step"])):
         print(f"path {path} profile, one {phase}: wall "
               f"{pr['wall_ms']:.1f}ms under the profiler, device busy "
               f"{pr['device_busy_ms']:.2f}ms "
@@ -2604,8 +2746,14 @@ def serve_lm(path: str, k6_ms: float) -> dict:
         "repeat_prefill_max_abs_diff": repeat_diff,
         "greedy_token_agreement": agree, "fp32_held": drift,
         "routing_prefill": routing, "routing_flips_vs_torch": flips,
+        "decode_route": out.decode_route,
+        "decode_capture_ms": out.capture_ms,
+        "decode_replay_ms_per_token": out.replay_ms_per_token,
+        "graph_check": {k: v for k, v in graph.items() if k != "tokens"},
+        "served_tokens_equal_graph_check": served_tokens_equal,
         "profile_split": split,
-        "profile_prefill": prof_prefill, "profile_decode_step": prof_decode}),
+        "profile_prefill": prof_prefill, "profile_decode_step": prof_decode,
+        "profile_eager_decode_step": prof_eager}),
         flush=True)
     return dict(launches=launches)
 
@@ -3627,23 +3775,21 @@ def tp_full_width(card: str) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         k6 = common.LAUNCHES["flash_attention"] / (ROOF_TIMED + 1)
         first = logits
-        tok = logits.argmax(-1)[:, None]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(ROOF_GEN):
-            logits, cache = decode(p, tok, cache, ROOF_PROMPT + i)
-            tok = logits.argmax(-1)[:, None]
-        torch.cuda.synchronize()
-        decode_ms = (time.perf_counter() - t0) * 1e3 / ROOF_GEN
+        graph = captured_vs_eager(f"7d {ROOF_ARCH} over {rules.mesh!r}",
+                                  decode, p, first, cache, ROOF_PROMPT,
+                                  ROOF_GEN)
         launches = dict(common.LAUNCHES)
         if launches["flash_attention"] != k6 * (ROOF_TIMED + 1):
             raise AssertionError(f"7d: decode launched K6 ({launches})")
         if not bool(torch.isfinite(first.float()).all()):
             raise AssertionError("7d: prefill logits not finite")
+        for name in ("profile_replay", "profile_eager"):
+            graph[name].pop("by_kernel")
+        graph.pop("tokens")
         return dict(prefill_ms=statistics.median(times), times=times,
-                    decode_ms=decode_ms, k6_per_prefill=k6,
+                    decode_ms=graph["replay_ms"], k6_per_prefill=k6,
                     peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                    logits=first, launches=launches)
+                    logits=first, launches=launches, graph=graph)
 
     one = sharding.make_rules(make_mesh((1, 1), ("data", "model"),
                                         devices=[dev]))
@@ -3691,7 +3837,7 @@ def tp_full_width(card: str) -> dict:
           f"{TP_POSITIONS} positions of the repeated card: prefill "
           f"{split['prefill_ms']:.1f}ms (times "
           f"{[round(t, 1) for t in split['times']]}; K6 "
-          f"{split['k6_per_prefill']:.0f} a prefill), decode "
+          f"{split['k6_per_prefill']:.0f} a prefill), decode (replays) "
           f"{split['decode_ms']:.2f}ms/token, peak {split['peak_gb']:.2f} "
           f"GB; unsplit prefill {whole['prefill_ms']:.1f}ms (K6 "
           f"{whole['k6_per_prefill']:.0f}), decode "
@@ -3699,6 +3845,7 @@ def tp_full_width(card: str) -> dict:
           f"GB; split vs unsplit prefill logits max|diff| {err:.4f} "
           f"(limit {lim:.4f}); through launch.serve.serve over that mesh "
           f"(first prefill, cold): {serve_err:.4f}", flush=True)
+    graph_lines(f"{ROOF_ARCH} over (1, {TP_POSITIONS})", split, whole)
     launches = split.pop("launches")
     for name, n in serve_launches.items():
         launches[name] += n
@@ -3707,16 +3854,24 @@ def tp_full_width(card: str) -> dict:
                 serve_err=serve_err, launches=launches)
 
 
+def graph_lines(label: str, split: dict, whole: dict) -> None:
+    """7d's captured-vs-eager lines of a split run and its unsplit run."""
+    for name, r in (("split", split), ("unsplit", whole)):
+        print(f"tensor parallel (7d) {label}, {name}: "
+              f"{graph_line(r['graph'])}", flush=True)
+
+
 def full_width_run(path: str, cfg, p, rules) -> dict:
     """One side of phase 7d's full-width split-against-unsplit runs of
     ``path`` (bf16 on hopper, LM_PATHS' batch, prompt and greedy tokens):
     ``p`` over ``rules``' mesh, its inputs drawn from seed 0 as
     ``launch.serve.serve`` draws them (whisper's frames encoded over
     ``p``, outside the timings); a prefill whose MoE routing is recorded,
-    ROOF_TIMED timed prefills and the decode steps, timed. Returns the
-    median prefill ms and its times, decode ms/token, K6 per prefill,
-    encode ms, peak GB, the first prefill's logits, the launches and the
-    routing."""
+    ROOF_TIMED timed prefills and the decode steps, captured and held to
+    their eager step (:func:`captured_vs_eager`). Returns the median
+    prefill ms and its times, the replays' ms/token, K6 per prefill,
+    encode ms, peak GB, the first prefill's logits, the launches, the
+    routing and the captured-vs-eager numbers."""
     from repro_torch.kernels import common
     from repro_torch.launch.serve import lm_inputs
     from repro_torch.parallel import sharding
@@ -3743,23 +3898,21 @@ def full_width_run(path: str, cfg, p, rules) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     k6 = common.LAUNCHES["flash_attention"] / (ROOF_TIMED + 1)
-    tok = first.argmax(-1)[:, None]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(gen):
-        logits, cache = decode(p, tok, cache, prompt + i, extras)
-        tok = logits.argmax(-1)[:, None]
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / gen
+    graph = captured_vs_eager(f"7d {path} over {rules.mesh!r}", decode, p,
+                              first, cache, prompt, gen, extras)
     ran = dict(common.LAUNCHES)
     if ran["flash_attention"] != k6 * (ROOF_TIMED + 1):
         raise AssertionError(f"7d {path}: decode launched K6 ({ran})")
     if not bool(torch.isfinite(first.float()).all()):
         raise AssertionError(f"7d {path}: prefill logits not finite")
+    for name in ("profile_replay", "profile_eager"):
+        graph[name].pop("by_kernel")
+    graph.pop("tokens")
     return dict(prefill_ms=statistics.median(times), times=times,
-                decode_ms=decode_ms, k6_per_prefill=k6, encode_ms=encode_ms,
+                decode_ms=graph["replay_ms"], k6_per_prefill=k6,
+                encode_ms=encode_ms,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                logits=first, launches=ran, routed=routed)
+                logits=first, launches=ran, routed=routed, graph=graph)
 
 
 def tp_families_full_width(card: str, paths: dict = TP_FAMILY_PATHS,
@@ -3879,7 +4032,7 @@ def tp_families_full_width(card: str, paths: dict = TP_FAMILY_PATHS,
               f"{positions} positions of the repeated card: prefill "
               f"{split['prefill_ms']:.1f}ms (times "
               f"{[round(t, 1) for t in split['times']]}; K6 "
-              f"{split['k6_per_prefill']:.0f} a prefill), decode "
+              f"{split['k6_per_prefill']:.0f} a prefill), decode (replays) "
               f"{split['decode_ms']:.2f}ms/token, peak "
               f"{split['peak_gb']:.2f} GB (both trees); unsplit prefill "
               f"{whole['prefill_ms']:.1f}ms (K6 "
@@ -3888,6 +4041,7 @@ def tp_families_full_width(card: str, paths: dict = TP_FAMILY_PATHS,
               f"{whole['peak_gb']:.2f} GB; split vs unsplit prefill logits "
               f"max|diff| {err:.4f} (limit {lim:.4f}){moe_line}",
               flush=True)
+        graph_lines(f"{arch} over (1, {positions})", split, whole)
         out[path] = r
     return dict(paths=out, launches=launches)
 
@@ -4068,7 +4222,7 @@ def tp_ssm_full_width(card: str, paths: tuple = TP_SSM_PATHS,
               f"{positions} positions of the repeated card: {enc}prefill "
               f"{split['prefill_ms']:.1f}ms (times "
               f"{[round(t, 1) for t in split['times']]}; K6 "
-              f"{split['k6_per_prefill']:.0f} a prefill), decode "
+              f"{split['k6_per_prefill']:.0f} a prefill), decode (replays) "
               f"{split['decode_ms']:.2f}ms/token, peak "
               f"{split['peak_gb']:.2f} GB (both trees); unsplit prefill "
               f"{whole['prefill_ms']:.1f}ms (K6 "
@@ -4078,6 +4232,7 @@ def tp_ssm_full_width(card: str, paths: tuple = TP_SSM_PATHS,
               f"max|diff| {err:.4f} ({gate}){drift_line}; through "
               f"launch.serve.serve over that mesh: {r['serve_err']:.4f}",
               flush=True)
+        graph_lines(f"{arch} over (1, {positions})", split, whole)
         out[path] = r
     return dict(paths=out, launches=launches)
 

@@ -817,28 +817,69 @@ def lower_program(program: Program, *, backend: str = "torch",
 # with it
 STREAMS_PER_WEIGHTS = 4
 
-# one private memory pool, one capture stream and one lock per (device,
-# stream): every graph replayed on a stream shares its pool (captured on
-# one side stream, so the allocator can hand one capture's freed blocks to
-# the next), and a replay holds the lock from the copy into its static
-# input to the copy out of its static output, so replays on the stream
-# never interleave and no output is read after another graph reused its
-# memory. Graphs replayed on different streams never share a pool.
-_stream_pools: dict[tuple[int, int], tuple] = {}
+@dataclasses.dataclass(eq=False)
+class _StreamPool:
+    """One private memory pool, one capture stream and one lock per
+    (device, stream): every live graph replayed on a stream shares its
+    pool (captured on one side stream, so the allocator can hand one
+    capture's freed blocks to the next), and a replay holds the lock from
+    the copy into its static input to the copy out of its static output,
+    so replays on the stream never interleave and no output is read after
+    another graph reused its memory. Graphs replayed on different streams
+    never share a pool. Once every graph of the pool has died the
+    allocator may release the pool, which then takes no capture: the next
+    capture opens a new one (``graphs`` holds the live ones weakly)."""
+    side: "torch.cuda.Stream"
+    lock: threading.Lock
+    pool: tuple | None = None
+    graphs: weakref.WeakSet = dataclasses.field(
+        default_factory=weakref.WeakSet)
+
+
+_stream_pools: dict[tuple[int, int], _StreamPool] = {}
 _stream_pools_lock = threading.Lock()
 
 
-def _stream_pool(device: torch.device, stream):
-    """``(pool, capture stream, lock)`` of the graphs replayed on
+def _stream_pool(device: torch.device, stream) -> _StreamPool:
+    """The pool, capture stream and lock of the graphs replayed on
     ``stream``."""
     key = (device.index, stream.cuda_stream)
     with _stream_pools_lock:
         got = _stream_pools.get(key)
         if got is None:
-            got = _stream_pools[key] = (torch.cuda.graph_pool_handle(),
-                                        torch.cuda.Stream(device),
-                                        threading.Lock())
+            got = _stream_pools[key] = _StreamPool(torch.cuda.Stream(device),
+                                                   threading.Lock())
     return got
+
+
+def capture_graph(fn: Callable, device: torch.device, stream) -> tuple:
+    """Capture ``fn()`` into one ``torch.cuda.CUDAGraph`` to replay on
+    ``stream``: on the stream's side stream, into its pool
+    (:func:`_stream_pool`), thread-local (the session's drain thread and
+    other streams keep working meanwhile: event waits, pinned copies),
+    recording the kernel launches and holding the cached device constants
+    ``fn`` reads. The caller holds the stream's lock and has warmed ``fn``
+    up. Returns (graph, ``fn``'s output, launches, constants, the
+    capture's host ms). A failed capture raises."""
+    sp = _stream_pool(device, stream)
+    graph = torch.cuda.CUDAGraph()
+    with _stream_pools_lock:
+        if not sp.graphs:
+            sp.pool = torch.cuda.graph_pool_handle()
+        sp.graphs.add(graph)
+        pool, side = sp.pool, sp.side
+    side.wait_stream(stream)
+    t0 = time.perf_counter()
+    with (torch.cuda.stream(side), recording_launches() as counts,
+          holding_constants() as constants):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    stream.wait_stream(side)
+    return (graph, out, {k: v for k, v in counts.items() if v}, constants,
+            (time.perf_counter() - t0) * 1e3)
 
 
 @dataclasses.dataclass
@@ -883,6 +924,12 @@ class _GraphTable:
     def __len__(self) -> int:
         return len(self._graphs)
 
+    def drop_dead(self) -> None:
+        """Drop every graph whose params died."""
+        with self._lock:
+            for k in [k for k, v in self._graphs.items() if not v.alive()]:
+                del self._graphs[k]
+
     def get(self, key):
         with self._lock:
             g = self._graphs.get(key)
@@ -895,9 +942,8 @@ class _GraphTable:
             return g
 
     def put(self, key, g) -> None:
+        self.drop_dead()
         with self._lock:
-            for k in [k for k, v in self._graphs.items() if not v.alive()]:
-                del self._graphs[k]
             self._graphs[key] = g
             self._graphs.move_to_end(key)
             same = [k for k in self._graphs if k[1] == key[1]]  # oldest first
@@ -997,7 +1043,7 @@ class CompiledExecutor:
         """Warm up, then capture this entry's graph for ``key``; returns the
         warm-up's result, or None when another thread captured ``key``
         meanwhile."""
-        pool, side, lock = _stream_pool(device, stream)
+        lock = _stream_pool(device, stream).lock
         with self._capture_lock, lock:
             if self._graphs.get(key) is not None:
                 return None
@@ -1006,25 +1052,13 @@ class CompiledExecutor:
             y = self.fn(params, x_dev)
             static_x = torch.empty_like(x_dev)
             static_x.copy_(x_dev)
-            graph = torch.cuda.CUDAGraph()
-            side.wait_stream(stream)
-            # thread-local capture: the session's drain thread and other
-            # streams keep working (event waits, pinned copies) meanwhile
-            t0 = time.perf_counter()
-            with (torch.cuda.stream(side), recording_launches() as counts,
-                  holding_constants() as constants):
-                graph.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    static_y = self.fn(params, static_x)
-                finally:
-                    graph.capture_end()
-            stream.wait_stream(side)
-            self.last_capture_ms = (time.perf_counter() - t0) * 1e3
+            graph, static_y, launches, constants, self.last_capture_ms = (
+                capture_graph(lambda: self.fn(params, static_x), device,
+                              stream))
             self._graphs.put(key, _Graph(
                 graph, static_x, static_y,
                 tuple(weakref.ref(t) for p in params for t in p), constants,
-                {k: v for k, v in counts.items() if v}, lock))
+                launches, lock))
             self._trace_count += 1
         return y
 

@@ -191,9 +191,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                     out = prefill_fn(placed, ins["tokens"], cache,
                                      ins["extras"])
                 else:
-                    # the position as a Python int (the cache slice): the
-                    # step attends to the whole cache, so its work does
-                    # not depend on it
+                    # the position as a host int (the step hands its
+                    # eager function a 0-d tensor of it): the step attends
+                    # to the whole cache, so its work does not depend on it
                     out = decode_fn(placed, ins["token"], cache, 0,
                                     ins["extras"])
     new = [t for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor)

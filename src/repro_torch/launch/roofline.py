@@ -73,6 +73,11 @@ _ALLOCATIONS = frozenset({
 })
 # ops that overwrite their first operand without reading it
 _OVERWRITES = frozenset({"aten::copy_", "aten::fill_", "aten::zero_"})
+# ops that write rows of their first operand at an index and read none of
+# it (a KV cache written at its position): the index, the source read and
+# the source's rows written, not the whole operand
+_ROW_WRITES = frozenset({"aten::index_copy_"})
+_FIRST_UNREAD = _OVERWRITES | _ROW_WRITES
 
 
 def peak_flops(dtype: torch.dtype) -> float:
@@ -251,8 +256,9 @@ class Counter(TorchDispatchMode):
         packet = func.overloadpacket
         flops = (flop_registry[packet](*args, **kwargs, out_val=out)
                  if packet in flop_registry else 0)
-        ins = operands[1:] if name in _OVERWRITES else operands
-        nbytes = sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+        ins = operands[1:] if name in _FIRST_UNREAD else operands
+        nbytes = sum(map(_nbytes, ins)) + sum(map(_nbytes, (
+            operands[-1:] if name in _ROW_WRITES else outs)))
         for st in (self.stats, self.stats.at((outs or operands)[0].device)):
             st.flops += flops
             st.bytes_accessed += nbytes

@@ -11,16 +11,23 @@ Prompts of 2048 tokens and more take the long-sequence attention: K6 with
 ``--backend hopper``, the scan-flash port with ``--backend torch``. A VLM
 (llama-3.2-vision-11b) draws its stub image embeddings and whisper its
 stub frame embeddings from the seed before the prompts, as the reference
-does; whisper encodes them outside the timed prefill. Prints the build
-(random weights from seed 0), prefill and per-token decode times (and
-whisper's encode time). As the reference's ``serve``, it runs over the
-host's mesh (``launch.mesh.make_host_mesh``, ``(1, n)`` over every local
-card) under its rules, with the parameters placed by ``train.steps.place``
-(``param_shardings``): on several cards every LM family is split along
-``model`` (attention and SSM heads, hidden units and experts; each model
-module over its positions, ROADMAP 11i); on one card, or on the CPU, the
-mesh is ``(1, 1)`` and nothing is split. whisper encodes over the same
-positions, outside the timed prefill.
+does; whisper encodes them outside the timed prefill. On the card the
+decode step runs as a CUDA graph, as the reference jits it
+(``train.steps.DecodeStep``): the request's first decode step runs
+eagerly and captures the graph, every later token replays it. Prints the
+build (random weights from seed 0), prefill and per-token decode times
+(all steps, the capture's host ms and the replays' ms/token apart, and
+the decode's route; whisper's encode time). As the reference's ``serve``,
+it runs over the host's mesh (``launch.mesh.make_host_mesh``, ``(1, n)``
+over every local card) under its rules, with the parameters placed by
+``train.steps.place`` (``param_shardings``): on several cards every LM
+family is split along ``model`` (attention and SSM heads, hidden units
+and experts; each model module over its positions, ROADMAP 11i); on one
+card, or on the CPU, the mesh is ``(1, 1)`` and nothing is split.
+whisper encodes over the same positions, outside the timed prefill. A
+mesh whose positions lie on one card decodes captured; one over several
+distinct cards decodes eagerly (``"eager: N cards"``: one stream's graph
+cannot span them).
 
 CNN serving through the ported HybridDNN pipeline — DSE -> compile ->
 validated, cached executor:
@@ -79,13 +86,23 @@ def _sync(where):
 @dataclasses.dataclass
 class LMServeResult:
     """What :func:`serve` returns: the generated tokens (B, gen), the
-    prefill's last-token logits (B, V) on the device, and the timings."""
+    prefill's last-token logits (B, V) on the device, and the timings.
+    ``decode_ms_per_token`` is over all ``gen`` steps (the first one's
+    warm-up and capture included); ``replay_ms_per_token`` over the steps
+    after the first; ``capture_ms`` the capture's host ms (None where
+    nothing was captured); ``decode_route`` how the decode ran
+    (``train.steps.decode_route``; ``"eager: cpu"`` on the CPU) and
+    ``decode_captures`` its CUDA-graph captures."""
     tokens: np.ndarray
     prefill_logits: torch.Tensor
     build_ms: float | None      # None when the caller passed ``params``
     prefill_ms: float
     decode_ms_per_token: float
     encode_ms: float | None = None   # whisper's encoder, outside prefill
+    replay_ms_per_token: float | None = None   # None for gen < 2
+    capture_ms: float | None = None
+    decode_route: str = ""
+    decode_captures: int = 0
 
 
 def lm_inputs(cfg, params, rng: np.random.Generator, batch: int,
@@ -153,7 +170,8 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
         _sync(mesh)
         build_ms = (time.perf_counter() - t0) * 1e3 if drawn else None
         cache = steps_lib.init_cache(cfg, batch, prompt_len + gen, dev)
-    prefill_fn, decode_fn = steps_lib.make_serve_steps(cfg, backend=backend)
+    prefill_fn, decode_fn = steps_lib.make_serve_steps(cfg, backend=backend,
+                                                       mesh=mesh)
     extras, prompts, encode_ms = lm_inputs(cfg, params, rng, batch,
                                            prompt_len, backend, dev)
 
@@ -167,17 +185,23 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     prefill_logits = logits
     outs = []
     tok = logits.argmax(-1)[:, None]
-    t0 = time.perf_counter()
+    t0 = t1 = time.perf_counter()
     for i in range(gen):
         outs.append(tok[:, 0])
         logits, cache = decode_fn(params, tok, cache, prompt_len + i,
                                   extras)
         tok = logits.argmax(-1)[:, None]
+        if i == 0:          # the warm-up and capture end here
+            _sync(mesh)
+            t1 = time.perf_counter()
     _sync(mesh)
-    t_decode = time.perf_counter() - t0
+    t_end = time.perf_counter()
     gen_tokens = (torch.stack(outs, 1).cpu().numpy() if outs
                   else np.zeros((batch, 0), np.int64))
-    per_token = t_decode / gen * 1e3 if gen else 0.0
+    per_token = (t_end - t0) / gen * 1e3 if gen else 0.0
+    replay = (t_end - t1) / (gen - 1) * 1e3 if gen > 1 else None
+    captures = decode_fn.trace_count
+    capture_ms = decode_fn.last_capture_ms if captures else None
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     built = f"build {build_ms:.0f}ms; " if build_ms is not None else ""
     if encode_ms is not None:
@@ -185,13 +209,21 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
                   f"{encode_ms:.1f}ms; ")
     placed = (f" over {mesh!r}, split along model"
               if sharding.is_split(params) else "")
+    replayed = ("" if replay is None else
+                f", replay {replay:.2f}ms/tok after the first")
+    captured = ("" if capture_ms is None else
+                f", capture {capture_ms:.1f}ms")
     print(f"{cfg.name} ({'reduced' if reduced else 'full'}, {cfg.dtype}) "
           f"on {dev} ({name}){placed}, backend {backend}: {built}prefill "
           f"{prompt_len} toks x{batch}: {t_prefill * 1e3:.1f}ms; decode "
-          f"{gen} steps: {per_token:.2f}ms/tok")
+          f"{gen} steps: {per_token:.2f}ms/tok ({decode_fn.route}"
+          f"{captured}{replayed})")
     return LMServeResult(tokens=gen_tokens, prefill_logits=prefill_logits,
                          build_ms=build_ms, prefill_ms=t_prefill * 1e3,
-                         decode_ms_per_token=per_token, encode_ms=encode_ms)
+                         decode_ms_per_token=per_token, encode_ms=encode_ms,
+                         replay_ms_per_token=replay, capture_ms=capture_ms,
+                         decode_route=decode_fn.route,
+                         decode_captures=captures)
 
 
 def serve_cnn(arch: str = "vgg16", *, reduced: bool = True, batch: int = 8,

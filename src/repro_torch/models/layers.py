@@ -204,9 +204,18 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
+def at_positions(pos, s: int, device) -> torch.Tensor:
+    """The positions ``pos .. pos + s - 1`` as int64 on ``device``:
+    ``pos`` a host int, or a 0-d integer tensor (the captured decode's,
+    read on the device: the reference's traced ``pos``)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device) + torch.arange(s, device=device)
+    return torch.arange(pos, pos + s, device=device)
+
+
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions=None, causal: bool = True, kv_cache=None,
-              cache_pos: int | None = None, xattn_kv=None,
+              cache_pos: int | torch.Tensor | None = None, xattn_kv=None,
               use_rope: bool = True, q_offset: int | None = None,
               backend: str = "torch"):
     """Attention of x (B, S, D) to itself, or with ``xattn_kv`` (B, Skv, D)
@@ -218,6 +227,13 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     reference donates the cache, so nothing else reads the old one) and
     the queries attend to the whole cache; without, the cache is being
     built and the result carries this call's K/V. Returns (out, cache).
+    ``cache_pos`` is a host int or a 0-d integer tensor: the K/V go in by
+    ``index_copy_`` at ``cache_pos + arange(s)`` (the reference's
+    ``dynamic_update_slice_in_dim``) and the causal mask's row offset is
+    read on the device, so a decode step reads no position on the host
+    and can be captured. The long-sequence branches (s >= ``LONG_SEQ``)
+    need a host int: a tensor ``cache_pos`` there raises ``TypeError``;
+    an int past the cache's end raises ``ValueError``.
 
     The query heads of ``p`` read its KV heads in equal blocks of
     ``H // KV``, unless ``q_offset`` is given: a model position's query
@@ -229,6 +245,15 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """
     backend = resolve_backend(backend)
     b, s, _ = x.shape
+    if isinstance(cache_pos, torch.Tensor) and s >= LONG_SEQ:
+        raise TypeError(f"attention: {s} queries take the long-sequence "
+                        f"branch, which needs cache_pos as a host int, "
+                        f"not a tensor")
+    if (kv_cache is not None and cache_pos is not None
+            and not isinstance(cache_pos, torch.Tensor)
+            and cache_pos + s > kv_cache["k"].shape[1]):
+        raise ValueError(f"attention: positions up to {cache_pos + s} "
+                         f"exceed the cache's {kv_cache['k'].shape[1]}")
     # the heads these weights hold: all of them, or a model position's
     hd = cfg.head_dim
     h, kv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
@@ -252,8 +277,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     new_cache = None
     if kv_cache is not None:
         if cache_pos is not None:   # decode: insert new K/V at position
-            kv_cache["k"][:, cache_pos:cache_pos + s] = k
-            kv_cache["v"][:, cache_pos:cache_pos + s] = v
+            at = at_positions(cache_pos, s, k.device)
+            kv_cache["k"].index_copy_(1, at, k.to(kv_cache["k"].dtype))
+            kv_cache["v"].index_copy_(1, at, v.to(kv_cache["v"].dtype))
             new_cache = kv_cache
             k, v = kv_cache["k"], kv_cache["v"]
             skv = k.shape[1]
@@ -284,8 +310,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         scale = hd ** -0.5
         logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float() * scale
         if masked:
-            rows_abs = row_offset + torch.arange(
-                s, device=x.device)[None, None, None, :, None]
+            rows_abs = at_positions(row_offset, s, x.device)[
+                None, None, None, :, None]
             col = torch.arange(skv, device=x.device)[None, None, None, None, :]
             logits = torch.where(col <= rows_abs, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)

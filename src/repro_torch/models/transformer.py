@@ -56,6 +56,7 @@ from repro_torch.models.layers import (  # noqa: F401 (params_from_numpy)
     _init,
     _tp_ranges,
     _tree_map,
+    at_positions,
     attention,
     decode_rows,
     embed_positions,
@@ -238,22 +239,23 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device,
             for _ in range(period)]
 
 
-def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
+def decode_step(params: Params, token: torch.Tensor, cache, pos,
                 cfg: ModelConfig, *, image_embeds=None,
                 backend: str = "torch"):
     """One token for every sequence: token (B, 1) integers at position
-    ``pos``. Returns (logits (B, V), cache), the cache updated in place.
-    The same path serves prefill: token (B, S_prompt) with pos=0
-    (causality is cache-relative). Placed parameters decode into a
+    ``pos``, a host int or a 0-d integer tensor on the device (read
+    there: the step the card captures, ``train.steps.DecodeStep``).
+    Returns (logits (B, V), cache), the cache updated in place. The same
+    path serves prefill: token (B, S_prompt) with pos=0 (causality is
+    cache-relative). Placed parameters decode into a
     :class:`SplitCache`, each data row its share of the batch (and of
     ``image_embeds``); the logits are on the mesh's first device."""
     kinds = _layer_kinds(cfg)
-    pos = int(pos)
 
     def row(params, token, caches, image_embeds):
         trees = position_trees(params, cfg, _position_tree)
         s = token.shape[1]
-        where = [pos + torch.arange(s, device=t["embed"].device)[None, :]
+        where = [at_positions(pos, s, t["embed"].device)[None, :]
                  for t in trees]
         xs = embed_positions(trees, token)
         for g in range(cfg.n_layers // len(kinds)):

@@ -27,6 +27,7 @@ from repro_torch.models.layers import (
     Params,
     _init,
     _tp_ranges,
+    at_positions,
     decode_rows,
     embed_positions,
     head_logits,
@@ -158,12 +159,14 @@ def _dec_layer(ps: list, xs: list, enc_out, cfg: ModelConfig, *,
     return _residual_mlp(ps, xs, cfg)
 
 
-def _tokens(trees: list, tokens: torch.Tensor, pos: int) -> list:
+def _tokens(trees: list, tokens: torch.Tensor, pos) -> list:
     """The token embeddings plus their learned positions, a copy a
-    position."""
+    position: the table's rows ``pos + arange(s)`` by ``index_select``,
+    ``pos`` a host int or a 0-d integer tensor on the device."""
     s = tokens.shape[1]
-    return [x + t["pos_embed"][pos:pos + s][None]
-            for x, t in zip(embed_positions(trees, tokens), trees)]
+    return [x + t["pos_embed"].index_select(
+        0, at_positions(pos, s, t["pos_embed"].device))[None]
+        for x, t in zip(embed_positions(trees, tokens), trees)]
 
 
 def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
@@ -197,18 +200,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
 
-def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
-                enc_out: torch.Tensor, cfg: ModelConfig, *,
-                backend: str = "torch"):
-    """token (B, s) at positions ``pos``..; ``enc_out`` the encoder's
-    states. Returns (logits (B, V), cache), the cache updated in place
-    (placed parameters: a ``layers.SplitCache``, each data row its share
-    of the batch and of ``enc_out``)."""
-    pos = int(pos)
-    s = token.shape[1]
+def check_positions(pos: int, s: int) -> None:
+    """``ValueError`` unless the positions ``pos .. pos + s - 1`` lie in
+    the ``POS_ROWS``-row position table (a host check: the captured
+    decode step, ``train.steps.DecodeStep``, makes it before any
+    replay)."""
     if pos + s > POS_ROWS:
         raise ValueError(f"whisper: positions up to {pos + s} exceed the "
                          f"{POS_ROWS}-row position table")
+
+
+def decode_step(params: Params, token: torch.Tensor, cache, pos,
+                enc_out: torch.Tensor, cfg: ModelConfig, *,
+                backend: str = "torch"):
+    """token (B, s) at positions ``pos``..; ``enc_out`` the encoder's
+    states. ``pos`` is a host int (checked against the position table
+    here) or a 0-d integer tensor on the device (checked by the caller on
+    the host, :func:`check_positions`). Returns (logits (B, V), cache),
+    the cache updated in place (placed parameters: a
+    ``layers.SplitCache``, each data row its share of the batch and of
+    ``enc_out``)."""
+    if not isinstance(pos, torch.Tensor):
+        check_positions(pos, token.shape[1])
 
     def row(params, token, caches, enc_out):
         trees = position_trees(params, cfg, _position_tree)

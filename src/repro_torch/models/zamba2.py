@@ -28,6 +28,7 @@ from repro_torch.models.layers import (
     Params,
     _init,
     _tp_ranges,
+    at_positions,
     decode_rows,
     embed_positions,
     head_logits,
@@ -164,20 +165,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     return cache
 
 
-def decode_step(params: Params, token: torch.Tensor, cache, pos: int,
+def decode_step(params: Params, token: torch.Tensor, cache, pos,
                 cfg: ModelConfig, *, backend: str = "torch"):
     """token (B, s): s = 1 decodes, s > 1 prefills into the cache at
-    ``pos``. Returns (logits (B, V), cache), the cache updated in place
-    (placed parameters: a ``layers.SplitCache``)."""
+    ``pos`` (a host int or a 0-d integer tensor on the device, as
+    ``transformer.decode_step``'s). Returns (logits (B, V), cache), the
+    cache updated in place (placed parameters: a ``layers.SplitCache``)."""
     per, n_groups, tail = _geometry(cfg)
-    pos = int(pos)
 
     def row(params, token, caches):
         s = token.shape[1]
         prefill = s > 1
         trees = position_trees(params, cfg, _position_tree)
         shared = [t["shared"] for t in trees]
-        where = [pos + torch.arange(s, device=t["embed"].device)[None, :]
+        where = [at_positions(pos, s, t["embed"].device)[None, :]
                  for t in trees]
         xs = embed_positions(trees, token)
         for g in range(n_groups):

@@ -3,9 +3,12 @@ the reference's ``train/steps.py``).
 
 ``make_train_step(cfg, opt)`` returns a step function ``(params,
 opt_state, batch) -> (params, opt_state, metrics)``; ``make_serve_steps``
-returns (prefill, decode). Every LM family serves and trains: dense and
-MoE (``models/transformer.py``), VLM (the same module, with image
-embeddings), SSM (mamba2), hybrid (zamba2) and audio (whisper).
+returns (prefill, decode), the decode a :class:`DecodeStep`: on the card
+one CUDA graph a request, captured on its first decode step and replayed
+for every token after it (the reference jits its decode step), the
+position a 0-d tensor on the device. Every LM family serves and trains:
+dense and MoE (``models/transformer.py``), VLM (the same module, with
+image embeddings), SSM (mamba2), hybrid (zamba2) and audio (whisper).
 
 Every LM family runs tensor parallel along the mesh's ``model`` axis
 (ROADMAP 11i): :func:`place` splits a model's parameters by
@@ -18,7 +21,11 @@ logits as the positions' vocabulary shares, where they lie.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
+import operator
+import threading
+import weakref
 from typing import Any, Callable
 
 import torch
@@ -26,6 +33,13 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.compat import resolve_backend, resolve_device, to_tensor
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.executor import (
+    STREAMS_PER_WEIGHTS,
+    _GraphTable,
+    _stream_pool,
+    capture_graph,
+)
+from repro_torch.kernels.common import add_launches
 from repro_torch.models import mamba2, transformer, whisper, zamba2
 from repro_torch.models.layers import SplitCache
 from repro_torch.models.layers import params_from_numpy  # noqa: F401
@@ -269,15 +283,189 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return make(batch, device, None)
 
 
-def make_serve_steps(cfg: ModelConfig, backend: str = "torch"):
+def decode_route(mesh=None) -> str:
+    """How a decode step over ``mesh`` runs on the card, decided once
+    when the step is built: ``"captured"`` where every position lies on
+    one CUDA device (no mesh, the unsplit (1, 1) mesh, a mesh that
+    repeats one card); ``"eager: N cards"`` over N distinct cards (one
+    stream's graph cannot span them); ``"eager: <type>"`` on a mesh of
+    another device type (the CPU: nothing to capture)."""
+    if mesh is None:
+        return "captured"
+    devices = list(dict.fromkeys(torch.device(d) for d in mesh.devices.flat))
+    if devices[0].type != "cuda":
+        return f"eager: {devices[0].type}"
+    return "captured" if len(devices) == 1 else f"eager: {len(devices)} cards"
+
+
+def _cache_len(cache) -> int | None:
+    """The positions a serving cache holds (None: an SSM cache, which
+    holds none)."""
+    if isinstance(cache, SplitCache):
+        cache = cache.rows[0][0]
+    if isinstance(cache, list):              # a transformer's period slots
+        return cache[0]["k"].shape[2]
+    for name in ("attn_k", "k"):             # zamba2's, whisper's
+        if name in cache:
+            return cache[name].shape[2]
+    return None
+
+
+def _held(params, cache, extras) -> list[torch.Tensor]:
+    """Every tensor a decode step reads by address: each parameter leaf
+    (each part of a ``Placed``), each cache leaf (each position's, of a
+    ``SplitCache``) and the ``extras`` tensors."""
+    rows = cache.rows if isinstance(cache, SplitCache) else cache
+    return [t for t in pytree.tree_leaves((params, rows, extras or {}))
+            if isinstance(t, torch.Tensor)]
+
+
+@dataclasses.dataclass(eq=False)
+class _DecodeGraph:
+    """One capture of a decode step: the graph, its static token, position
+    and logits, weak references to the tensors it reads by address, the
+    cached device constants its capture read, the kernel launches it
+    recorded and its stream's lock."""
+    graph: "torch.cuda.CUDAGraph"
+    token: torch.Tensor
+    pos: torch.Tensor
+    logits: torch.Tensor
+    held: tuple
+    constants: list
+    launches: dict[str, int]
+    lock: threading.Lock
+
+    def alive(self) -> bool:
+        """Every tensor it was captured over is still referenced outside
+        the graph. A dead one may have freed its memory, which a new
+        tensor may take, so the graph is dropped, never replayed."""
+        return all(ref() is not None for ref in self.held)
+
+
+class DecodeStep:
+    """``decode(params, token, cache, pos, extras=None) -> (logits (B, V),
+    cache)``, the cache written in place: the port's counterpart of the
+    reference's ``jax.jit(_decode, donate_argnums=(2,))``. ``pos`` is a
+    host int; ``fn`` is the eager step, which also takes it as a 0-d
+    integer tensor on the device and then reads no position on the host.
+    Every call first checks on the host that the positions ``pos ..
+    pos + s - 1`` lie in the cache (and in whisper's position table):
+    ``ValueError`` before any work.
+
+    On a CUDA device with the route ``"captured"`` (:func:`decode_route`)
+    the first call on a stream runs ``fn`` once on a static token buffer
+    (B, s) and a static 0-d position tensor (the warm-up, whose result
+    answers the call), then captures it into one ``torch.cuda.CUDAGraph``
+    (``core.executor.capture_graph``: the stream's side stream and pool);
+    every later call copies the token in, sets the position (no host
+    sync), replays the graph and returns a clone of its static logits,
+    which the caller owns. The graph reads every parameter leaf, cache
+    leaf and ``extras`` tensor by address, so it is kept per (stream,
+    token shape and dtype, ``data_ptr`` of each) and holds them by weak
+    reference: graphs whose referents died are dropped before every
+    lookup, so a new cache at a freed cache's address captures anew.
+    ``trace_count`` counts the captures, ``last_capture_ms`` is the last
+    capture's host ms. A failed capture raises; nothing falls back to
+    ``fn``. On the route ``"eager: N cards"`` ``fn`` runs with the host
+    int. On any other device (the CPU) ``fn`` runs with the position as a
+    0-d tensor: the function the card captures."""
+
+    def __init__(self, cfg: ModelConfig, fn: Callable, route: str):
+        self.cfg = cfg
+        self.fn = fn
+        self.route = route
+        self._graphs = _GraphTable(STREAMS_PER_WEIGHTS)
+        self._capture_lock = threading.Lock()
+        self.trace_count = 0
+        self.last_capture_ms = 0.0
+
+    def check(self, cache, pos: int, s: int) -> None:
+        """``ValueError`` unless positions ``pos .. pos + s - 1`` lie in
+        the cache (and in whisper's position table)."""
+        if pos < 0:
+            raise ValueError(f"decode: position {pos} is negative")
+        if self.cfg.family == "audio":
+            whisper.check_positions(pos, s)
+        n = _cache_len(cache)
+        if n is not None and pos + s > n:
+            raise ValueError(f"decode: positions up to {pos + s} exceed "
+                             f"the cache's {n}")
+
+    def __call__(self, params, token, cache, pos, extras=None):
+        pos = operator.index(pos)
+        self.check(cache, pos, token.shape[1])
+        held = _held(params, cache, extras)
+        device = held[0].device
+        if device.type != "cuda":
+            return self.fn(params, token, cache,
+                           torch.tensor(pos, device=device), extras)
+        if self.route != "captured":
+            return self.fn(params, token, cache, pos, extras)
+        stream = torch.cuda.current_stream(device)
+        key = (stream.cuda_stream, (tuple(t.data_ptr() for t in held),
+                                    tuple(token.shape), token.dtype))
+        self._graphs.drop_dead()
+        while (g := self._graphs.get(key)) is None:
+            out = self._capture(key, held, params, token, cache, pos, extras,
+                                device, stream)
+            if out is not None:
+                return out
+            # another thread captured it first: look it up again
+        with g.lock:
+            g.token.copy_(token, non_blocking=True)
+            g.pos.fill_(pos)
+            g.graph.replay()
+            logits = g.logits.clone()
+            add_launches(g.launches)
+        return logits, cache
+
+    def _capture(self, key, held, params, token, cache, pos: int, extras,
+                 device: torch.device, stream):
+        """Warm up, then capture the step for ``key``; returns the warm-up's
+        result, or None when another thread captured ``key`` meanwhile."""
+        away = {str(t.device) for t in held if t.device != device}
+        if away:
+            raise ValueError(f"a captured decode step reads tensors on "
+                             f"{sorted(away)} besides {device}: build it "
+                             f"with make_serve_steps(cfg, mesh=...) for a "
+                             f"mesh over several cards")
+        lock = _stream_pool(device, stream).lock
+        with self._capture_lock, lock:
+            if self._graphs.get(key) is not None:
+                return None
+            static_token = torch.empty(token.shape, dtype=token.dtype,
+                                       device=device)
+            static_token.copy_(token)
+            static_pos = torch.full((), pos, dtype=torch.int64,
+                                    device=device)
+            # the warm-up on the static inputs: its result answers this call
+            out = self.fn(params, static_token, cache, static_pos, extras)
+            graph, (logits, _), launches, constants, self.last_capture_ms = (
+                capture_graph(lambda: self.fn(params, static_token, cache,
+                                              static_pos, extras),
+                              device, stream))
+            self._graphs.put(key, _DecodeGraph(
+                graph, static_token, static_pos, logits,
+                tuple(weakref.ref(t) for t in held), constants, launches,
+                lock))
+            self.trace_count += 1
+        return out
+
+
+def make_serve_steps(cfg: ModelConfig, backend: str = "torch", mesh=None):
     """Returns (prefill, decode): ``decode(params, token, cache, pos,
-    extras=None)`` and ``prefill(params, tokens, cache, extras=None)``,
-    each -> (last-token logits, cache), run without autograd. ``extras``
-    carries a VLM's ``image_embeds`` and whisper's ``enc_out`` (the
-    encoder's states, :func:`whisper.encode`). ``backend`` picks the
-    long-sequence attention ("hopper": K6, "torch": the scan)."""
+    extras=None)`` (a :class:`DecodeStep`, captured as a CUDA graph on
+    the card) and ``prefill(params, tokens, cache, extras=None)`` (eager,
+    the position a host 0), each -> (last-token logits, cache), run
+    without autograd. ``extras`` carries a VLM's ``image_embeds`` and
+    whisper's ``enc_out`` (the encoder's states, :func:`whisper.encode`).
+    ``backend`` picks the long-sequence attention ("hopper": K6, "torch":
+    the scan). ``mesh`` (default: that of the current ``use_rules``, if
+    any) decides the decode's route (:func:`decode_route`)."""
     _family(cfg)
     backend = resolve_backend(backend)
+    if mesh is None and (rules := sharding.current_rules()) is not None:
+        mesh = rules.mesh
 
     @torch.no_grad()
     def decode(params, token, cache, pos, extras=None):
@@ -295,7 +483,10 @@ def make_serve_steps(cfg: ModelConfig, backend: str = "torch"):
             params, token, cache, pos, cfg,
             image_embeds=extras.get("image_embeds"), backend=backend)
 
+    step = DecodeStep(cfg, decode, decode_route(mesh))
+
     def prefill(params, tokens, cache, extras=None):
+        step.check(cache, 0, tokens.shape[1])
         return decode(params, tokens, cache, 0, extras)
 
-    return prefill, decode
+    return prefill, step

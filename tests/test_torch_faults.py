@@ -16,9 +16,10 @@ session counters balance exactly::
 Isolation is held bit for bit: when one poisoned request fails a batch,
 every innocent co-batched request returns the same bits as a fault-free
 run. The two packages' ``FaultPlan``s fire on the same visits for the same
-seed. The reference's ``aot_load`` case waits for the port's AOT loader
-(ROADMAP Queue 1, item 9). Every wait takes a timeout and every session
-closes in a ``with`` block or a ``finally``.
+seed. The reference's ``aot_load`` case is driven in
+``tests/test_torch_aot.py``
+(``test_aot_load_fault_takes_warn_and_rebuild_path``). Every wait takes a
+timeout and every session closes in a ``with`` block or a ``finally``.
 """
 import dataclasses
 import logging

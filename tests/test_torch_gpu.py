@@ -1225,6 +1225,8 @@ def test_gpu_tensor_parallel_over_two_cards(cuda):
     placed = steps.place(cfg, params, rules)
     assert [t.device for t in placed["lm_head"].shards] == cards
     prefill, decode = steps.make_serve_steps(cfg)
+    _, decode2 = steps.make_serve_steps(cfg, mesh=mesh)
+    assert (decode.route, decode2.route) == ("captured", "eager: 2 cards")
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (4, 32)).astype(np.int32)).to(cards[0])
     c1 = steps.init_cache(cfg, 4, 36, cards[0])
@@ -1240,7 +1242,8 @@ def test_gpu_tensor_parallel_over_two_cards(cuda):
             break
         tok = l1.argmax(-1)[:, None]
         l1, c1 = decode(params, tok, c1, 32 + i)
-        l2, c2 = decode(placed, tok, c2, 32 + i)
+        l2, c2 = decode2(placed, tok, c2, 32 + i)
+    assert (decode.trace_count, decode2.trace_count) == (1, 0)
     opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
     p1, s1, f1, _ = train_mod.build(
         cfg, opt, make_mesh((1, 1), ("data", "model"), devices=cards[:1]),
@@ -1283,6 +1286,8 @@ def test_gpu_expert_parallel_over_two_cards(cuda):
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 2048)).astype(np.int32)).to(cards[0])
     prefill, _ = steps.make_serve_steps(cfg, backend="hopper")
+    assert steps.make_serve_steps(cfg, mesh=rules.mesh)[1].route == \
+        "eager: 2 cards"
     whole, _ = prefill(params, prompts, steps.init_cache(cfg, 2, 2048,
                                                          cards[0]))
     placed = steps.place(cfg, params, rules)
@@ -1434,6 +1439,8 @@ def test_gpu_ssm_hybrid_audio_tensor_parallel_over_two_cards(cuda):
                 serve_extras = [{"enc_out": whisper.encode(
                     p, extras["frames"], cfg)} for p in (params, placed)]
         prefill, decode = steps.make_serve_steps(cfg)
+        _, decode2 = steps.make_serve_steps(cfg, mesh=mesh)
+        assert decode2.route == "eager: 2 cards"
         prompts = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (4, 32)).astype(np.int32)).to(cards[0])
         c1 = steps.init_cache(cfg, 4, 36, cards[0])
@@ -1449,7 +1456,8 @@ def test_gpu_ssm_hybrid_audio_tensor_parallel_over_two_cards(cuda):
                 break
             tok = l1.argmax(-1)[:, None]
             l1, c1 = decode(params, tok, c1, 32 + i, serve_extras[0])
-            l2, c2 = decode(placed, tok, c2, 32 + i, serve_extras[1])
+            l2, c2 = decode2(placed, tok, c2, 32 + i, serve_extras[1])
+        assert decode2.trace_count == 0
         p1, s1, f1, _ = train_mod.build(
             cfg, opt, make_mesh((1, 1), ("data", "model"),
                                 devices=cards[:1]),
@@ -1473,3 +1481,113 @@ def test_gpu_ssm_hybrid_audio_tensor_parallel_over_two_cards(cuda):
                                seen[0], p1)
         assert gaps["grad"] <= 1e-4 and gaps["param"] <= 1e-4, (arch, gaps)
         assert gaps["unmoved"] == 0, (arch, gaps)
+
+
+# ---------------------------------------------------------------------------
+# the decode step captured as a CUDA graph (``train.steps.DecodeStep``)
+# ---------------------------------------------------------------------------
+
+DECODE_ARCHS = ("minitron-8b", "llama4-scout-17b-16e", "llama-3.2-vision-11b",
+                "mamba2-130m", "zamba2-7b", "whisper-base")
+
+
+def _decode_model(arch: str, device, mesh=None):
+    """A reduced fp32 model (a VLM's gates open), its extras and 2 x 8
+    prompts from seed 0, placed over ``mesh`` of the repeated card when
+    given; and the rules to build its caches under (None unsplit)."""
+    from repro_torch.compat import make_mesh
+    from repro_torch.models import whisper
+    from repro_torch.parallel import sharding
+
+    cfg = get_config(arch).reduced()
+    params = steps.init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(0), device)
+    rng = np.random.default_rng(0)
+    extras = {}
+    if cfg.family == "vlm":
+        for slot in params["layers"]:
+            if "xattn_gate" in slot:
+                slot["xattn_gate"].fill_(0.5)
+        extras["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)).to(
+                device)
+    if cfg.family == "audio":
+        frames = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)).to(
+                device)
+        with torch.no_grad():
+            extras["enc_out"] = whisper.encode(params, frames, cfg)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8),
+                                            dtype=np.int32)).to(device)
+    rules = None
+    if mesh is not None:
+        rules = sharding.make_rules(make_mesh(
+            mesh, ("data", "model"), devices=[device] * (mesh[0] * mesh[1])))
+        params = steps.place(cfg, params, rules)
+    return cfg, params, extras, prompts, rules
+
+
+@pytest.mark.parametrize("arch,mesh", [
+    *((a, None) for a in DECODE_ARCHS), ("minitron-8b", (1, 2)),
+    ("minitron-8b", (2, 2))])
+def test_gpu_captured_decode_equals_its_eager_step(cuda, arch, mesh):
+    """Four greedy decode steps through the step object (the first runs
+    ``fn`` and captures, the other three replay) against four through its
+    eager ``fn`` on a second cache from the same prefill: the logits at
+    every step ``torch.equal``, so the tokens too; one capture, one graph
+    (unsplit, and the dense model split over (1, 2) and (2, 2) of the
+    repeated card, captured whole on its stream)."""
+    from repro_torch.parallel import sharding
+
+    cfg, params, extras, prompts, rules = _decode_model(arch, cuda, mesh)
+    prefill, decode = steps.make_serve_steps(cfg)
+    assert decode.route == "captured"
+    runs = []
+    for captured in (True, False):
+        with sharding.use_rules(rules):
+            cache = steps.init_cache(cfg, 2, 12, cuda)
+        logits, cache = prefill(params, prompts, cache, extras)
+        got = []
+        for i in range(4):
+            tok = logits.argmax(-1)[:, None]
+            if captured:
+                logits, cache = decode(params, tok, cache, 8 + i, extras)
+            else:
+                logits, cache = decode.fn(params, tok, cache,
+                                          torch.tensor(8 + i, device=cuda),
+                                          extras)
+            got.append(logits)
+        runs.append(got)
+    assert (decode.trace_count, len(decode._graphs)) == (1, 1)
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a, b), (arch, mesh, i,
+                                   float((a - b).abs().max()))
+
+
+def test_gpu_decode_graph_of_a_freed_cache_is_never_replayed(cuda):
+    """Two requests of reduced minitron-8b through one step object, each
+    with its own cache, the first freed before the second is allocated
+    (the allocator hands its blocks back: the caches share addresses):
+    the second captures anew (two captures), the first's graph is gone
+    (one graph), and both requests' logits equal, bit for bit."""
+    from torch.utils import _pytree as pytree
+
+    cfg, params, _, prompts, _ = _decode_model("minitron-8b", cuda)
+    prefill, decode = steps.make_serve_steps(cfg)
+
+    def request():
+        cache = steps.init_cache(cfg, 2, 12, cuda)
+        logits, cache = prefill(params, prompts, cache)
+        out = []
+        for i in range(3):
+            logits, cache = decode(params, logits.argmax(-1)[:, None],
+                                   cache, 8 + i)
+            out.append(logits)
+        return out, {t.data_ptr() for t in pytree.tree_leaves(cache)}
+
+    first, ptrs = request()
+    torch.cuda.synchronize()
+    second, again = request()
+    assert ptrs & again
+    assert (decode.trace_count, len(decode._graphs)) == (2, 1)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

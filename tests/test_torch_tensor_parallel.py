@@ -1037,7 +1037,7 @@ def test_recovery_and_elastic_restore_keep_the_placement(tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])
-def test_families_not_yet_split_stay_whole(monkeypatch, arch):
+def test_ssm_and_hybrid_families_split_over_two_by_two(monkeypatch, arch):
     """The SSM and hybrid families split like every other: ``steps.place``
     on a (2, 2) mesh gives ``Placed`` leaves, ``init_cache`` under its
     rules a ``layers.SplitCache`` over both data rows, ``forward_logits``
