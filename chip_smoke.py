@@ -144,17 +144,30 @@ two steps, its params and AdamW state saved blocking and async and
 restored onto ``cuda:0``, every leaf ``torch.equal`` (ms and bytes); (c)
 minitron-8b at full width cut to 4 of its 32 layers (d_model 4096, 32
 heads over 8 KV heads, d_ff 16384, vocab 256000, bf16, remat), batch 2 x
-4096 from ``batch_for_step``, six steps through ``launch.train.build``'s
-step function: ms/step (median of steps 2-6), tokens/s, peak allocated
-memory, loss (near ln(256000) at step 0) and grad norm, both finite, and
-one more step under ``torch.profiler``: device busy share, the ten longest
-kernels, the GEMM kernels' time, and the scan attention, the loss and the
-AdamW update timed by CUDA events; (d) reduced llama4-scout, mamba2-130m,
+4096 from ``batch_for_step``, six steps through the eager ``.fn`` of
+``launch.train.build``'s step: ms/step (median of steps 2-6), tokens/s,
+peak allocated and reserved memory, loss (near ln(256000) at step 0) and
+grad norm, both finite, and one more step under ``torch.profiler``:
+device busy share, the ten longest kernels, the GEMM kernels' time, and
+the scan attention, the loss and the AdamW update timed by CUDA events;
+then the same seed and batches through the step itself, captured
+(``train.steps.TrainStep``: the first call warms up and captures, every
+later one replays): ms/step (median of the replays), the capture's host
+ms, peak allocated and reserved, one profiled replay (busy share, device
+ms, longest kernels), one capture, AdamW's ``step`` equal to the calls,
+and every step's loss and grad norm within ``1e-3`` relative of the eager
+run's (the gap printed); (d) reduced llama4-scout, mamba2-130m,
 zamba2-7b, whisper-base and llama-3.2-vision-11b in fp32, each built on
-the card by ``launch.train.build``, three steps on the card held to the
-same steps on the CPU from the same parameters within ``1e-4``; (e)
-llama4-scout at full width cut to 1 of its 48 layers and all 24 layers of
-mamba2-130m, bf16, batch 2 x 4096, four steps each, measured as (c).
+the card by ``launch.train.build``, three captured steps on the card held
+to the same steps on the CPU from the same parameters within ``1e-4``,
+and to three steps of the eager ``.fn`` from copies of the same
+parameters and state: ``torch.equal`` where two eager runs are
+bit-identical, else ``adamw.step_gaps`` within 7d's limits (one capture,
+AdamW's ``step`` 3); (e) llama4-scout at full width cut to 1 of its 48
+layers and all 24 layers of mamba2-130m, bf16, batch 2 x 4096, four steps
+each, measured and held as (c). Every other training step on the card
+runs captured, in phase 7 too, but 7a's counted step, which runs ``.fn``
+(a replay dispatches no op) before the timed steps replay.
 
 Each CNN path answers one first request and several steady ones, with the
 launch counts set to 0 just before it and checked per request just after,
@@ -2879,10 +2892,16 @@ def families_vs_cpu(card: str) -> None:
 # five families reduced in fp32, three steps on the card held to the CPU;
 # (e) llama4-scout at full width cut to 1 of its 48 layers (8.5 GB of bf16
 # params, 34 GB of AdamW state) and all 24 layers of mamba2-130m, batch 2 x
-# 4096, four steps each
+# 4096, four steps each. The step is captured (``steps.TrainStep``): (c)
+# and (e) run its eager ``.fn`` and then the captured step from the same
+# seed and batches, held within CAPTURED_TOL relative at every step; (d)
+# holds three captured steps to three ``.fn`` steps from copies of the
+# same parameters and state
 TRAIN_ARCH = "minitron-8b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_EVERY = 20, 8, 64, 10
 TRAIN_TOL = 1e-4
+# a full-width bf16 step's loss and grad norm, captured against eager
+CAPTURED_TOL = 1e-3
 FULL_LAYERS, FULL_BATCH, FULL_SEQ, FULL_STEPS = 4, 2, 4096, 6
 TRAIN_FAMILIES = ("llama4-scout-17b-16e", "mamba2-130m", "zamba2-7b",
                   "whisper-base", "llama-3.2-vision-11b")
@@ -2953,8 +2972,12 @@ def train_reduced(root: Path, card: str) -> dict:
           f"(checkpoints every {TRAIN_EVERY}): loss {full[0]:.4f} -> "
           f"{full[-1]:.4f}; resumed from step {TRAIN_EVERY}: largest "
           f"relative gap to the uninterrupted losses {resume_gap:.3e} "
-          f"(steps 0-9 {first_gap:.3e}); three steps on the card vs the "
-          f"CPU from the same parameters: gap {cpu_gap:.3e}", flush=True)
+          f"(steps 0-9 {first_gap:.3e}); three steps on the card (step "
+          f"{step_fn.route}, {step_fn.trace_count} capture) vs the CPU from "
+          f"the same parameters: gap {cpu_gap:.3e}", flush=True)
+    if (step_fn.route, step_fn.trace_count) != ("captured", 1):
+        raise AssertionError(f"reduced training: route {step_fn.route!r}, "
+                             f"{step_fn.trace_count} captures")
     return dict(reduced_ms=t_full, losses=full, resume_gap=resume_gap,
                 first_half_gap=first_gap, cpu_gap=cpu_gap)
 
@@ -3067,12 +3090,107 @@ class _Marks:
                    if a is not None and b is not None)
 
 
+class _GradSpy:
+    """Stands in for ``adamw.update`` and keeps a clone of the gradients
+    each call receives. Called inside a capture, the clone is one more
+    kernel of the graph, so its tensors hold each replay's gradients once
+    that replay has run: ``last()`` gives the eager call's clone when the
+    step ran eagerly since ``reset()``, else the graph's."""
+
+    def __init__(self):
+        from repro_torch.optim import adamw
+        self.update = adamw.update
+        self.eager = self.captured = None
+
+    def reset(self) -> None:
+        self.eager = None
+
+    def __call__(self, cfg, grads, state, params):
+        from torch.utils import _pytree as pytree
+        got = [t.clone() for t in pytree.tree_leaves(grads)]
+        if torch.cuda.is_current_stream_capturing():
+            self.captured = got
+        else:
+            self.eager = got
+        return self.update(cfg, grads, state, params)
+
+    def last(self) -> list:
+        got = self.eager if self.eager is not None else self.captured
+        return [t.clone() for t in got]
+
+
+def captured_vs_fn(step_fn, opt, params, state, batches: list) -> dict:
+    """Phase 6d's hold of a captured train step: ``len(batches)`` steps
+    through ``step_fn`` (the first warms up and captures, the rest
+    replay) from ``params`` and ``state``, and twice through its eager
+    ``.fn`` from copies of them. Where the two eager runs are bit
+    identical, the captured run must equal them (``torch.equal``: every
+    parameter, state leaf and metric at every step); else each step is
+    held by ``adamw.step_gaps`` to the eager one, with phase 7d's limits
+    (gradients TP_STEP_GRAD_TOL of a leaf's max|g|, parameters
+    MESH_PARAM_TOL, nothing unmoved; loss and grad norm MESH_TOL)."""
+    from unittest import mock
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.optim import adamw
+
+    clone = lambda t: pytree.tree_map(lambda x: x.clone(), t)  # noqa: E731
+    runs = {}
+    spy = _GradSpy()
+    starts = {"eager": clone((params, state)), "again": clone((params,
+                                                               state))}
+    with mock.patch.object(adamw, "update", spy):
+        for name, run in (("eager", step_fn.fn), ("again", step_fn.fn),
+                          ("captured", step_fn)):
+            p, s = starts[name] if name in starts else (params, state)
+            out = []
+            for b in batches:
+                before = clone(p)
+                spy.reset()
+                p, s, m = run(p, s, b)
+                out.append(dict(before=before, grads=spy.last(),
+                                after=clone((p, s)),
+                                metrics={k: v.clone() for k, v in m.items()}))
+            runs[name] = out
+    leaves = lambda r: pytree.tree_leaves(  # noqa: E731
+        (r["after"], r["metrics"]))
+    same = lambda a, b: all(  # noqa: E731
+        torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+    bitwise = all(map(same, runs["eager"], runs["again"]))
+    gaps = []
+    for i, (c, e) in enumerate(zip(runs["captured"], runs["eager"])):
+        if bitwise:
+            if not same(c, e):
+                raise AssertionError(f"captured step {i} differs from the "
+                                     f"bit-identical eager steps")
+            continue
+        for k in ("loss", "grad_norm"):
+            a, r = float(c["metrics"][k]), float(e["metrics"][k])
+            if not abs(a - r) <= MESH_TOL * max(1.0, abs(r)):
+                raise AssertionError(f"captured step {i}: {k} {a} vs {r}")
+        gap = adamw.step_gaps(opt, e["before"], c["grads"],
+                              c["after"][0], e["grads"], e["after"][0])
+        if not (gap["grad"] <= TP_STEP_GRAD_TOL
+                and gap["param"] <= MESH_PARAM_TOL and gap["unmoved"] == 0):
+            raise AssertionError(f"captured step {i}: {gap} (limits "
+                                 f"{TP_STEP_GRAD_TOL}, {MESH_PARAM_TOL}, 0)")
+        gaps.append(gap)
+    return dict(bitwise=bitwise, gaps=gaps,
+                losses=[float(r["metrics"]["loss"])
+                        for r in runs["captured"]],
+                eager_losses=[float(r["metrics"]["loss"])
+                              for r in runs["eager"]])
+
+
 def train_families(card: str) -> dict:
     """Phase 6d: each family besides the dense one, reduced and in fp32,
     built on the card by ``launch.train.build`` (a VLM's cross gates set
     to ``VISION_GATE``), its params copied to the CPU, and three steps of
     the same batches (``batch_for_step`` and the stub frontends' inputs
-    from ``launch.train.extras_for``) on both: losses within TRAIN_TOL."""
+    from ``launch.train.extras_for``) on both: losses within TRAIN_TOL.
+    The card's three steps are captured (one capture; AdamW's ``step``
+    reads 3 after them) and held to ``.fn``'s (:func:`captured_vs_fn`)."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import get_config
@@ -3094,13 +3212,15 @@ def train_families(card: str) -> dict:
         cpu = pytree.tree_map(lambda t: t.cpu(), params)
         cpu_state, cpu_step = adamw.init(cpu), steps.make_train_step(cfg, opt)
         data = DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
-        card_losses, cpu_losses = [], []
+        batches = []
         for i in range(3):
             b = batch_for_step(data, i)
             b.update(train_mod.extras_for(cfg, TRAIN_BATCH,
                                           np.random.default_rng(i)))
-            params, state, m = step_fn(params, state, b)
-            card_losses.append(float(m["loss"]))
+            batches.append(b)
+        held = captured_vs_fn(step_fn, opt, params, state, batches)
+        card_losses, cpu_losses = held["losses"], []
+        for b in batches:
             cpu, cpu_state, m = cpu_step(cpu, cpu_state, b)
             cpu_losses.append(float(m["loss"]))
         gap = _rel_gap(card_losses, cpu_losses)
@@ -3108,27 +3228,63 @@ def train_families(card: str) -> dict:
             raise AssertionError(f"{arch} (reduced, fp32): card losses "
                                  f"{card_losses} vs CPU {cpu_losses}: gap "
                                  f"{gap:.3e}")
+        if (step_fn.route, step_fn.trace_count, int(state["step"])) != (
+                "captured", 1, 3):
+            raise AssertionError(f"{arch}: route {step_fn.route!r}, "
+                                 f"{step_fn.trace_count} captures, AdamW "
+                                 f"step {int(state['step'])} after 3 calls")
+        how = ("two eager runs bit-identical, captured torch.equal to them"
+               if held["bitwise"] else
+               "two eager runs not bit-identical; captured held by "
+               "step_gaps: gradients "
+               f"{max(g['grad'] for g in held['gaps']):.2e}, parameters "
+               f"{max(g['param'] for g in held['gaps']):.2e}, unmoved "
+               f"{sum(g['unmoved'] for g in held['gaps'])}")
         print(f"train (d) ({card}): reduced {arch} fp32, three steps of "
               f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {card_losses} on the "
-              f"card, largest relative gap to the CPU's {gap:.3e}",
+              f"card, largest relative gap to the CPU's {gap:.3e}; step "
+              f"{step_fn.route}, trace_count {step_fn.trace_count}, AdamW "
+              f"step {int(state['step'])}, against .fn: {how}",
               flush=True)
-        out[arch] = dict(losses=card_losses, cpu_losses=cpu_losses, gap=gap)
+        out[arch] = dict(losses=card_losses, cpu_losses=cpu_losses, gap=gap,
+                         eager_losses=held["eager_losses"],
+                         bitwise=held["bitwise"], step_gaps=held["gaps"],
+                         trace_count=step_fn.trace_count,
+                         capture_ms=step_fn.last_capture_ms)
     return out
+
+
+def _profile_split(prof) -> dict:
+    """Device ms of a profiled window: every kernel's, the GEMMs', and the
+    ten longest kernels [name, ms, count]."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return dict(busy_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+                gemm_ms=sum(e.self_device_time_total for e in kernels
+                            if GEMM_NAMES.search(e.key)) / 1e3,
+                top=[[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                     for e in top])
 
 
 def train_full_width(card: str, arch: str = TRAIN_ARCH,
                      n_layers: int = FULL_LAYERS, n_steps: int = FULL_STEPS,
                      label: str = "c") -> dict:
     """Phase 6c (and 6e): ``arch`` at full width cut to ``n_layers``
-    layers (every width whole, bf16, remat) through ``launch.train.build``
-    and its step function, ``n_steps`` steps of ``batch_for_step`` batches
-    of FULL_BATCH x FULL_SEQ, then one more under ``torch.profiler`` with
-    the scan attention, the loss and the AdamW update timed by CUDA
-    events."""
+    layers (every width whole, bf16, remat) through ``launch.train.build``,
+    twice from the same seed and batches (``batch_for_step``, FULL_BATCH x
+    FULL_SEQ): ``n_steps`` steps of the step's eager ``.fn`` and one more
+    under ``torch.profiler`` with the scan attention, the loss and the
+    AdamW update timed by CUDA events; then ``n_steps`` steps of the
+    captured step (the first warms up and captures, the rest replay) and
+    one more replay under the profiler. The captured losses and grad norms
+    lie within CAPTURED_TOL relative of the eager ones at every step; one
+    capture, AdamW's ``step`` equal to the calls."""
     import dataclasses
     import math
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from torch.utils import _pytree as pytree
 
@@ -3143,86 +3299,146 @@ def train_full_width(card: str, arch: str = TRAIN_ARCH,
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=n_layers)
     opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=n_steps)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params, state, step_fn, _ = train_mod.build(cfg, opt,
-                                                make_host_mesh("cuda"))
-    torch.cuda.synchronize()
-    build_ms = (time.perf_counter() - t0) * 1e3
-    n_params = sum(p.numel() for p in pytree.tree_leaves(params))
     data = DataConfig(cfg.vocab_size, FULL_SEQ, FULL_BATCH)
-    ms, losses, norms = [], [], []
-    for i in range(n_steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, state, m = step_fn(params, state, batch_for_step(data, i))
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-        ms.append((time.perf_counter() - t0) * 1e3)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    step_ms = statistics.median(ms[1:])
     tokens = FULL_BATCH * FULL_SEQ
     ln_v = math.log(cfg.vocab_size)
-    if not (np.isfinite(losses).all() and np.isfinite(norms).all()
-            and abs(losses[0] - ln_v) < 1.0):
-        raise AssertionError(f"full-width training: losses {losses}, grad "
-                             f"norms {norms} (ln V = {ln_v:.3f})")
-
-    # one more step under the profiler, its parts timed by CUDA events
-    marks = {k: _Marks() for k in ("scan", "loss", "adamw")}
-    scan, ce, upd = layers._flash_attention_scan, steps.cross_entropy, \
-        adamw.update
-    layers._flash_attention_scan = marks["scan"].wrap(scan)
-    steps.cross_entropy = marks["loss"].wrap(ce)
-    adamw.update = marks["adamw"].wrap(upd)
-    try:
-        b = batch_for_step(data, n_steps)
+    runs = {}
+    for how in ("eager", "captured"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, step_fn, _ = train_mod.build(cfg, opt,
+                                                    make_host_mesh("cuda"))
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            params, state, m = step_fn(params, state, b)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        n_params = sum(p.numel() for p in pytree.tree_leaves(params))
+        run = step_fn if how == "captured" else step_fn.fn
+        ms, losses, norms = [], [], []
+        for i in range(n_steps):
             torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        layers._flash_attention_scan, steps.cross_entropy = scan, ce
-        adamw.update = upd
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    gemm_ms = sum(e.self_device_time_total for e in kernels
-                  if GEMM_NAMES.search(e.key)) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    parts = {k: v.ms() for k, v in marks.items()}
+            t0 = time.perf_counter()
+            params, state, m = run(params, state, batch_for_step(data, i))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()
+                and abs(losses[0] - ln_v) < 1.0):
+            raise AssertionError(f"full-width training ({how}): losses "
+                                 f"{losses}, grad norms {norms} (ln V = "
+                                 f"{ln_v:.3f})")
+
+        # one more step under the profiler; the eager one's parts timed by
+        # CUDA events (a replay runs no Python to mark)
+        marks = {k: _Marks() for k in ("scan", "loss", "adamw")}
+        scan, ce, upd = layers._flash_attention_scan, steps.cross_entropy, \
+            adamw.update
+        if how == "eager":
+            layers._flash_attention_scan = marks["scan"].wrap(scan)
+            steps.cross_entropy = marks["loss"].wrap(ce)
+            adamw.update = marks["adamw"].wrap(upd)
+        try:
+            b = batch_for_step(data, n_steps)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, state, m = run(params, state, b)
+                torch.cuda.synchronize()
+                prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            layers._flash_attention_scan, steps.cross_entropy = scan, ce
+            adamw.update = upd
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        split = _profile_split(prof)
+        runs[how] = dict(
+            build_ms=build_ms, step_ms=ms, median_step_ms=statistics.median(
+                ms[1:]), peak_allocated_gb=peak_gb,
+            peak_reserved_gb=reserved_gb, losses=losses, grad_norms=norms,
+            profiled_wall_ms=prof_wall_ms, device_busy_ms=split["busy_ms"],
+            gemm_ms=split["gemm_ms"], top=split["top"],
+            trace_count=step_fn.trace_count,
+            capture_ms=step_fn.last_capture_ms, route=step_fn.route,
+            adamw_step=int(state["step"]))
+        if how == "eager":
+            runs[how].update({f"{k}_ms": v.ms() for k, v in marks.items()})
+        del params, state, step_fn, run, m
+
+    eager, cap = runs["eager"], runs["captured"]
+    loss_gap, norm_gap = (_rel_gap(cap[k], eager[k])
+                          for k in ("losses", "grad_norms"))
+    if not max(loss_gap, norm_gap) <= CAPTURED_TOL:
+        raise AssertionError(f"{arch}: captured losses {cap['losses']} and "
+                             f"grad norms {cap['grad_norms']} against eager "
+                             f"{eager['losses']}, {eager['grad_norms']}: "
+                             f"gaps {loss_gap:.3e}, {norm_gap:.3e} > "
+                             f"{CAPTURED_TOL}")
+    if (cap["route"], cap["trace_count"], cap["adamw_step"]) != (
+            "captured", 1, n_steps + 1):
+        raise AssertionError(f"{arch}: route {cap['route']!r}, "
+                             f"{cap['trace_count']} captures, AdamW step "
+                             f"{cap['adamw_step']} after {n_steps + 1} calls")
+    step_ms = eager["median_step_ms"]
     out = dict(arch=arch, n_layers=n_layers, batch=FULL_BATCH,
-               seq=FULL_SEQ, n_params=n_params, build_ms=build_ms,
-               step_ms=ms, median_step_ms=step_ms,
+               seq=FULL_SEQ, n_params=n_params, build_ms=eager["build_ms"],
+               step_ms=eager["step_ms"], median_step_ms=step_ms,
                tokens_per_s=tokens / step_ms * 1e3,
-               peak_allocated_gb=peak_gb, losses=losses, grad_norms=norms,
-               profiled_wall_ms=prof_wall_ms, device_busy_ms=busy_ms,
-               gemm_ms=gemm_ms, scan_attention_ms=parts["scan"],
-               loss_ms=parts["loss"], adamw_ms=parts["adamw"],
-               top=[[e.key[:80], e.self_device_time_total / 1e3, e.count]
-                    for e in top])
+               peak_allocated_gb=eager["peak_allocated_gb"],
+               losses=eager["losses"], grad_norms=eager["grad_norms"],
+               profiled_wall_ms=eager["profiled_wall_ms"],
+               device_busy_ms=eager["device_busy_ms"],
+               gemm_ms=eager["gemm_ms"],
+               scan_attention_ms=eager["scan_ms"], loss_ms=eager["loss_ms"],
+               adamw_ms=eager["adamw_ms"], top=eager["top"],
+               captured=cap, loss_gap=loss_gap, grad_norm_gap=norm_gap)
+    rnd = lambda xs: [round(t, 1) for t in xs]  # noqa: E731
     print(f"train ({label}) ({card}): {arch} at full width, {n_layers} "
           f"of {full.n_layers} layers ({n_params / 1e9:.3f} G parameters, "
-          f"bf16, remat), batch {FULL_BATCH} x {FULL_SEQ}: {step_ms:.1f}"
-          f"ms/step (median of steps 2-{n_steps}; all "
-          f"{[round(t, 1) for t in ms]}), "
-          f"{out['tokens_per_s']:.0f} tokens/s, peak allocated "
-          f"{peak_gb:.2f} GB; loss {losses[0]:.4f} (ln V {ln_v:.4f}) -> "
-          f"{losses[-1]:.4f}, grad norm {norms[0]:.3f} -> {norms[-1]:.3f}; "
-          f"build {build_ms:.0f}ms", flush=True)
-    print(f"train ({label}) profile ({card}), {arch}, one step: wall "
-          f"{prof_wall_ms:.1f}ms "
-          f"under the profiler, device busy {busy_ms:.1f}ms "
-          f"({busy_ms / prof_wall_ms:.1%}); GEMM kernels {gemm_ms:.1f}ms "
-          f"(the scan's products included); by CUDA events: scan attention "
-          f"(forward, remat recompute, backward) {parts['scan']:.1f}ms, "
-          f"loss (forward, backward) {parts['loss']:.1f}ms, AdamW update "
-          f"{parts['adamw']:.1f}ms; longest kernels: "
-          + "; ".join(f"{k} {t:.2f}ms x{n}" for k, t, n in out["top"]),
+          f"bf16, remat), batch {FULL_BATCH} x {FULL_SEQ}, eager .fn: "
+          f"{step_ms:.1f}ms/step (median of steps 2-{n_steps}; all "
+          f"{rnd(eager['step_ms'])}), {out['tokens_per_s']:.0f} tokens/s, "
+          f"peak allocated {eager['peak_allocated_gb']:.2f} GB, reserved "
+          f"{eager['peak_reserved_gb']:.2f} GB; loss {eager['losses'][0]:.4f}"
+          f" (ln V {ln_v:.4f}) -> {eager['losses'][-1]:.4f}, grad norm "
+          f"{eager['grad_norms'][0]:.3f} -> {eager['grad_norms'][-1]:.3f}; "
+          f"build {eager['build_ms']:.0f}ms", flush=True)
+    print(f"train ({label}) profile ({card}), {arch}, one eager step: wall "
+          f"{eager['profiled_wall_ms']:.1f}ms under the profiler, device "
+          f"busy {eager['device_busy_ms']:.1f}ms "
+          f"({eager['device_busy_ms'] / eager['profiled_wall_ms']:.1%}); "
+          f"GEMM kernels {eager['gemm_ms']:.1f}ms (the scan's products "
+          f"included); by CUDA events: scan attention (forward, remat "
+          f"recompute, backward) {eager['scan_ms']:.1f}ms, loss (forward, "
+          f"backward) {eager['loss_ms']:.1f}ms, AdamW update "
+          f"{eager['adamw_ms']:.1f}ms; longest kernels: "
+          + "; ".join(f"{k} {t:.2f}ms x{n}" for k, t, n in eager["top"]),
+          flush=True)
+    print(f"train ({label}) captured ({card}): {arch}, {n_layers} layers, "
+          f"the same seed and batches through the captured step (route "
+          f"{cap['route']}, {cap['trace_count']} capture, AdamW step "
+          f"{cap['adamw_step']} after {n_steps + 1} calls): "
+          f"{cap['median_step_ms']:.1f}ms/step (median of the replays, "
+          f"steps 2-{n_steps}; all {rnd(cap['step_ms'])}; the first: the "
+          f"warm-up step and the capture), "
+          f"{tokens / cap['median_step_ms'] * 1e3:.0f} tokens/s, capture "
+          f"{cap['capture_ms']:.1f}ms of host time; peak allocated "
+          f"{cap['peak_allocated_gb']:.2f} GB, reserved "
+          f"{cap['peak_reserved_gb']:.2f} GB (eager "
+          f"{eager['peak_allocated_gb']:.2f}, "
+          f"{eager['peak_reserved_gb']:.2f}); losses captured "
+          f"{cap['losses']} / eager {eager['losses']}, grad norms captured "
+          f"{cap['grad_norms']} / eager {eager['grad_norms']}: largest "
+          f"relative gaps {loss_gap:.3e} and {norm_gap:.3e} (limit "
+          f"{CAPTURED_TOL})", flush=True)
+    print(f"train ({label}) replay profile ({card}), {arch}, one replay: "
+          f"wall {cap['profiled_wall_ms']:.1f}ms under the profiler, device "
+          f"busy {cap['device_busy_ms']:.1f}ms "
+          f"({cap['device_busy_ms'] / cap['profiled_wall_ms']:.1%}), of "
+          f"the timed replay {cap['device_busy_ms'] / cap['median_step_ms']:.1%}"
+          f"; GEMM kernels {cap['gemm_ms']:.1f}ms; longest kernels: "
+          + "; ".join(f"{k} {t:.2f}ms x{n}" for k, t, n in cap["top"]),
           flush=True)
     return out
 
@@ -3479,17 +3695,24 @@ def roofline_train(card: str) -> dict:
     torch.cuda.empty_cache()
     params, state, step, _ = train_mod.build(
         cfg, opt, make_mesh((1, 1), ("data", "model"), devices=[dev]))
-    params, state, ms, all_ms, peak = _timed_steps(step, params, state, data,
-                                                   ROOF_STEPS)
+    # the eager runs first: once captured, the step's graph keeps its
+    # temporaries' pool, beside which an eager step does not fit
     fb_gb = _loss_peak_gb(params, cfg, batch_for_step(data, 0))
     (params, state, _), st = rl.count(step, params, state,
                                       batch_for_step(data, ROOF_STEPS))
+    params, state, ms, all_ms, peak = _timed_steps(step, params, state, data,
+                                                   ROOF_STEPS)
     out = {"train": roofline_line(
         f"{ROOF_ARCH} training step, {FULL_LAYERS} of 32 layers, bf16, "
         f"{FULL_BATCH} x {FULL_SEQ} (median of steps 2-{ROOF_STEPS}: "
         f"{[round(t, 1) for t in all_ms]})", card, ms, st, cfg, "train",
         FULL_BATCH * FULL_SEQ)}
-    out["train"].update(peak_gb=peak)
+    out["train"].update(peak_gb=peak, route=step.route,
+                        trace_count=step.trace_count)
+    print(f"roofline (7a) ({card}): the counted step ran the step's "
+          f"eager .fn (before the timed steps); the timed steps ran "
+          f"{step.route} ({step.trace_count} capture; the first step warms "
+          f"up and captures, the median reads the replays)", flush=True)
     del state, step
     torch.cuda.empty_cache()
     mesh = make_mesh((MESH_POSITIONS, 1), ("data", "model"),
@@ -3498,10 +3721,12 @@ def roofline_train(card: str) -> dict:
     _, _, split_ms, split_all, split_peak = _timed_steps(
         step, params, state, data, ROOF_STEPS)
     out["split"] = dict(ms=split_ms, all_ms=split_all, peak_gb=split_peak,
-                        unsplit_ms=ms, unsplit_peak_gb=peak)
+                        unsplit_ms=ms, unsplit_peak_gb=peak,
+                        route=step.route, trace_count=step.trace_count)
     print(f"mesh (7c) ({card}): the {FULL_LAYERS}-layer step with its "
           f"batch split over {MESH_POSITIONS} data positions of the repeated "
-          f"card: {split_ms:.1f}ms/step (median of steps 2-{ROOF_STEPS}: "
+          f"card, {step.route} ({step.trace_count} capture): "
+          f"{split_ms:.1f}ms/step (median of steps 2-{ROOF_STEPS}: "
           f"{[round(t, 1) for t in split_all]}), peak {split_peak:.2f} GB; "
           f"unsplit {ms:.1f}ms/step, peak {peak:.2f} GB (one card: the "
           f"split, the reduction and the bookkeeping, not scaling)",
@@ -3515,16 +3740,18 @@ def roofline_train(card: str) -> dict:
     placed, state, step, _ = train_mod.build(cfg, opt, mesh, params=params)
     del params
     torch.cuda.empty_cache()
+    tp_fb_gb = _loss_peak_gb(placed, cfg, batch_for_step(data, 0))
     placed, _, tp_ms, tp_all, tp_peak = _timed_steps(step, placed, state,
                                                      data, ROOF_STEPS)
-    tp_fb_gb = _loss_peak_gb(placed, cfg, batch_for_step(data, 0))
     out["tp_split"] = dict(ms=tp_ms, all_ms=tp_all, peak_gb=tp_peak,
                            loss_and_grads_gb=tp_fb_gb, unsplit_ms=ms,
                            unsplit_peak_gb=peak,
-                           unsplit_loss_and_grads_gb=fb_gb)
+                           unsplit_loss_and_grads_gb=fb_gb,
+                           route=step.route, trace_count=step.trace_count)
     print(f"tensor parallel (7d) ({card}): the {FULL_LAYERS}-layer step "
           f"split along model over {TP_POSITIONS} positions of the "
-          f"repeated card: {tp_ms:.1f}ms/step (median of steps "
+          f"repeated card, {step.route} ({step.trace_count} capture): "
+          f"{tp_ms:.1f}ms/step (median of steps "
           f"2-{ROOF_STEPS}: {[round(t, 1) for t in tp_all]}), peak "
           f"{tp_peak:.2f} GB; unsplit {ms:.1f}ms/step, peak {peak:.2f} GB "
           f"(one card: the split and its collectives, not scaling or "
@@ -3571,10 +3798,16 @@ def mesh_reduced(card: str) -> dict:
         if not gap <= MESH_PARAM_TOL:
             raise AssertionError(f"7c step {i}: parameters {gap:.3e} apart")
         gaps.append(gap)
+    if (f1.route, f2.route, f1.trace_count, f2.trace_count) != (
+            "captured", "captured", 1, 1):
+        raise AssertionError(f"7c: routes {f1.route!r}, {f2.route!r}, "
+                             f"captures {f1.trace_count}, {f2.trace_count}")
     print(f"mesh (7c) ({card}): reduced {ROOF_ARCH} fp32 over "
           f"{MESH_POSITIONS} data positions of the repeated card vs one "
-          f"position, two steps of 8 x 64: losses {float(m2['loss']):.6f} / "
-          f"{float(m1['loss']):.6f}, parameter gaps {gaps}", flush=True)
+          f"position, both steps {f2.route} (one capture each; the second "
+          f"step replays), two steps of 8 x 64: losses "
+          f"{float(m2['loss']):.6f} / {float(m1['loss']):.6f}, parameter "
+          f"gaps {gaps}", flush=True)
     return dict(gaps=gaps, loss=float(m2["loss"]), ref_loss=float(m1["loss"]))
 
 
@@ -3618,8 +3851,11 @@ def tp_reduced(card: str) -> dict:
     seen, update = [], adamw.update
 
     def spy(cfg, grads, state, params):
-        seen.append(pytree.tree_leaves(sharding.gather(pytree.tree_map(
-            lambda t: t.clone(), grads))))
+        # the step's first call runs it eagerly, then captures it: the
+        # capture's gradients are never computed
+        if not torch.cuda.is_current_stream_capturing():
+            seen.append(pytree.tree_leaves(sharding.gather(pytree.tree_map(
+                lambda t: t.clone(), grads))))
         return update(cfg, grads, state, params)
 
     cases = [(arch, {} if n is None else dict(n_layers=n), TP_MESHES + (
@@ -3726,7 +3962,8 @@ def tp_reduced(card: str) -> dict:
                   f"{float(m1['grad_norm']):.6f}, gradients {ggap:.2e} "
                   f"apart (of each leaf's max|g|), parameters {pgap:.2e} "
                   f"apart where |g| > {adamw.NEAR_EPS:.0e} eps, every "
-                  f"moved element moved",
+                  f"moved element moved; the split step {f2.route} (its "
+                  f"first call, eager, then captured)",
                   flush=True)
             del placed, p2, s2
         del params, p1, s1

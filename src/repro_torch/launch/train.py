@@ -165,8 +165,13 @@ def build(cfg, opt_cfg, mesh, seed=0, params=None):
     is a copy: ``params`` stays as it was), zeroed AdamW state beside
     them, and the train step run under the mesh's rules; over several
     positions the mesh step (module doc), which keeps the other data
-    rows' parameter copies."""
-    step_fn = steps_lib.make_train_step(cfg, opt_cfg)   # refuses first
+    rows' parameter copies. ``step_fn`` is a ``steps.TrainStep`` whose
+    route the mesh decides: on one card (the repeated card's meshes
+    included) the whole step, the mesh step's reduction and row copies
+    too, is one CUDA graph per parameter set, replayed every step; its
+    first call for a parameter set runs the step eagerly (the mesh step's
+    first copy to the other rows included) and captures it."""
+    train_step = steps_lib.make_train_step(cfg, opt_cfg, mesh)  # refuses
     rules = make_rules(mesh)
     device = mesh.devices.flat[0]
     with use_rules(rules):
@@ -176,13 +181,14 @@ def build(cfg, opt_cfg, mesh, seed=0, params=None):
         params = steps_lib.place(cfg, params, rules)
         opt_state = adamw.init(params)
     if mesh.size > 1:
-        return params, opt_state, _mesh_step(cfg, opt_cfg, rules), rules
+        fn = _mesh_step(cfg, opt_cfg, rules)
+    else:
+        def fn(params, opt_state, batch):
+            with use_rules(rules):
+                return train_step.fn(params, opt_state, batch)
 
-    def wrapped(params, opt_state, batch):
-        with use_rules(rules):
-            return step_fn(params, opt_state, batch)
-
-    return params, opt_state, wrapped, rules
+    return (params, opt_state,
+            steps_lib.TrainStep(cfg, fn, train_step.route), rules)
 
 
 def extras_for(cfg, batch_rows, rng):
@@ -231,6 +237,7 @@ def train(arch: str, *, reduced: bool = True, steps: int = 20, batch: int = 8,
             ckpt_dir, (params, opt_state), device=mesh.devices.flat[0])
         print(f"resumed from step {start}")
 
+    print(f"train step: {step_fn.route}")
     losses = []
     pending_ckpt = None
     for step in range(start, steps):

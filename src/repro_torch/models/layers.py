@@ -81,10 +81,13 @@ def remat_wrap(fn, cfg: ModelConfig):
     ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, which keeps
     only its inputs and recomputes its body in the backward ("none"), or
     also keeps the outputs of its matmuls without batch dimensions
-    ("dots")."""
+    ("dots"). No RNG state is stashed for the recompute
+    (``preserve_rng_state=False``): no model draws random numbers, and a
+    CUDA generator's state cannot be read while a train step is captured
+    (``steps.TrainStep``)."""
     if not cfg.remat:
         return fn
-    kw = {}
+    kw = {"preserve_rng_state": False}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)

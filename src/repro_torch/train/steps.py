@@ -1,8 +1,11 @@
 """Model-family dispatch: train step, prefill and decode builders (port of
 the reference's ``train/steps.py``).
 
-``make_train_step(cfg, opt)`` returns a step function ``(params,
-opt_state, batch) -> (params, opt_state, metrics)``; ``make_serve_steps``
+``make_train_step(cfg, opt)`` returns a :class:`TrainStep` ``(params,
+opt_state, batch) -> (params, opt_state, metrics)``: on the card one CUDA
+graph per parameter set, captured after its first step and replayed for
+every step after it, parameters and optimizer state updated in place (the
+reference jits its train step with both donated). ``make_serve_steps``
 returns (prefill, decode), the decode a :class:`DecodeStep`: on the card
 one CUDA graph a request, captured on its first decode step and replayed
 for every token after it (the reference jits its decode step), the
@@ -40,6 +43,7 @@ from repro_torch.core.executor import (
     capture_graph,
 )
 from repro_torch.kernels.common import add_launches
+from repro_torch.launch import roofline
 from repro_torch.models import mamba2, transformer, whisper, zamba2
 from repro_torch.models.layers import SplitCache
 from repro_torch.models.layers import params_from_numpy  # noqa: F401
@@ -238,20 +242,183 @@ def loss_and_grads(params, batch: dict[str, Any], cfg: ModelConfig):
     return loss.detach(), pytree.tree_unflatten(list(grads), spec)
 
 
-def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig) -> Callable:
+class _GraphStep:
+    """What the captured step objects (:class:`TrainStep`,
+    :class:`DecodeStep`) share: the eager ``fn`` and the ``route`` they
+    were built with (:func:`decode_route`), their graphs by key
+    (``core.executor._GraphTable``: the stream and the addresses of what a
+    graph reads), ``trace_count`` (the captures) and ``last_capture_ms``
+    (the last capture's host ms)."""
+
+    WHAT = ""        # the step, and the builder that takes a mesh, for
+    BUILT_BY = ""    # the error of a step over several cards
+
+    def __init__(self, cfg: ModelConfig, fn: Callable, route: str):
+        self.cfg = cfg
+        self.fn = fn
+        self.route = route
+        self._graphs = _GraphTable(STREAMS_PER_WEIGHTS)
+        self._capture_lock = threading.Lock()
+        self.trace_count = 0
+        self.last_capture_ms = 0.0
+
+    def _graph(self, key, held: list, device: torch.device, stream,
+               capture: Callable):
+        """``(graph, None)`` with ``key``'s live graph (dead ones dropped
+        first), else ``(None, out)`` once ``capture(lock)`` warmed the step
+        up and captured it, returning the warm-up's result ``out`` and the
+        graph, under this step's capture lock and the stream's ``lock``.
+        A step that reads tensors off ``device`` raises ``ValueError``."""
+        self._graphs.drop_dead()
+        while (g := self._graphs.get(key)) is None:
+            away = sorted({str(t.device) for t in held
+                           if t.device != device})
+            if away:
+                raise ValueError(f"a captured {self.WHAT} reads tensors on "
+                                 f"{away} besides {device}: build it with "
+                                 f"{self.BUILT_BY} for a mesh over several "
+                                 f"cards")
+            lock = _stream_pool(device, stream).lock
+            with self._capture_lock, lock:
+                if self._graphs.get(key) is not None:
+                    continue         # another thread captured it first
+                out, g = capture(lock)
+                self._graphs.put(key, g)
+                self.trace_count += 1
+                return None, out
+        return g, None
+
+
+def _state_leaves(params, opt_state) -> list[torch.Tensor]:
+    """Every tensor a train step reads and updates by address: each
+    parameter leaf (each part of a ``Placed``) and each AdamW ``m``, ``v``
+    and ``step`` leaf."""
+    return [t for t in pytree.tree_leaves((params, opt_state))
+            if isinstance(t, torch.Tensor)]
+
+
+@dataclasses.dataclass(eq=False)
+class _TrainGraph:
+    """One capture of a train step: the graph, its static batch buffers and
+    metrics, weak references to the parameter and state leaves it updates
+    by address, the cached device constants its capture read, the kernel
+    launches it recorded and its stream's lock."""
+    graph: "torch.cuda.CUDAGraph"
+    batch: dict[str, torch.Tensor]
+    metrics: dict[str, torch.Tensor]
+    held: tuple
+    constants: list
+    launches: dict[str, int]
+    lock: threading.Lock
+
+    def alive(self) -> bool:
+        """Every leaf it was captured over is still referenced outside the
+        graph (a dead one may have freed its memory to a new tensor)."""
+        return all(ref() is not None for ref in self.held)
+
+
+class TrainStep(_GraphStep):
+    """``step(params, opt_state, batch) -> (params, opt_state, {"loss",
+    "grad_norm", "lr"})``, ``params`` and ``opt_state`` updated in place
+    and returned: the port's counterpart of the reference's
+    ``jax.jit(step, donate_argnums=(0, 1))``. ``fn`` is the eager step.
+
+    On a CUDA device with the route ``"captured"`` (:func:`decode_route`:
+    every position on one card) the first call for a parameter set copies
+    the batch (numpy arrays or tensors: ``tokens``, ``targets``, a VLM's
+    ``image_embeds``, whisper's ``frames``) into static buffers on the card
+    and runs ``fn`` on them once (the warm-up: the call's real step, which
+    answers it), releases the warm-up's cached temporaries, then captures
+    ``fn`` on the same buffers into one ``torch.cuda.CUDAGraph``
+    (``core.executor.capture_graph``: the stream's side stream and pool);
+    the capture runs nothing, so AdamW's ``step`` counter advances once a
+    replay and never at capture. Every later call copies the batch in,
+    replays the graph and returns clones of its static metrics. The graph
+    reads and writes every parameter and state leaf by address, so it is
+    kept per (stream, each batch key's shape and dtype, ``data_ptr`` of
+    every leaf) and holds the leaves by weak reference: graphs whose leaves
+    died are dropped before every lookup, so parameters restored from a
+    checkpoint (new tensors) warm up and capture anew. ``trace_count``
+    counts the captures, ``last_capture_ms`` is the last capture's host
+    ms. A failed capture raises; nothing falls back to ``fn``.
+
+    ``fn`` runs as it is off CUDA (the CPU, the dry-run's fake and meta
+    devices), on the route ``"eager: N cards"``, and while a roofline
+    counter is active (``launch.roofline.counting()``): a replay
+    dispatches no op, so a counted replay would count nothing."""
+
+    WHAT, BUILT_BY = "train step", "launch.train.build"
+
+    def __call__(self, params, opt_state, batch):
+        held = _state_leaves(params, opt_state)
+        device = held[0].device
+        if (device.type != "cuda" or self.route != "captured"
+                or roofline.counting()):
+            return self.fn(params, opt_state, batch)
+        # the batch as _on_device would make it, still on the host
+        host = {k: b if isinstance(b, torch.Tensor) else to_tensor(b, "cpu")
+                for k, b in batch.items()}
+        stream = torch.cuda.current_stream(device)
+        key = (stream.cuda_stream, (
+            tuple(t.data_ptr() for t in held),
+            tuple((k, tuple(t.shape), t.dtype)
+                  for k, t in sorted(host.items()))))
+        g, out = self._graph(key, held, device, stream, lambda lock: (
+            self._capture(held, params, opt_state, host, device, stream,
+                          lock)))
+        if g is None:
+            return out
+        with g.lock:
+            for k, t in host.items():
+                g.batch[k].copy_(t, non_blocking=True)
+            g.graph.replay()
+            metrics = {k: v.clone() for k, v in g.metrics.items()}
+            add_launches(g.launches)
+        return params, opt_state, metrics
+
+    def _capture(self, held, params, opt_state, host: dict,
+                 device: torch.device, stream, lock):
+        """(the warm-up's result, the graph captured after it)."""
+        static = {k: torch.empty(t.shape, dtype=t.dtype,
+                                 device=device).copy_(t)
+                  for k, t in host.items()}
+        # the warm-up on the static batch: its result answers this call
+        out = self.fn(params, opt_state, static)
+        got = _state_leaves(out[0], out[1])
+        if len(got) != len(held) or not all(map(operator.is_, got, held)):
+            raise ValueError("a captured train step must update params and "
+                             "opt_state in place and return them")
+        # the graph's pool takes the step's temporaries: the warm-up's,
+        # cached in the default pool, must not stay beside them
+        torch.cuda.empty_cache()
+        graph, (_, _, metrics), launches, constants, self.last_capture_ms = (
+            capture_graph(lambda: self.fn(params, opt_state, static),
+                          device, stream))
+        return out, _TrainGraph(graph, static, metrics,
+                                tuple(weakref.ref(t) for t in held),
+                                constants, launches, lock)
+
+
+def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig,
+                    mesh=None) -> TrainStep:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm", "lr"})``. The step updates ``params`` and
+    {"loss", "grad_norm", "lr"})``, a :class:`TrainStep` (one CUDA graph
+    per parameter set on the card). The step updates ``params`` and
     ``opt_state`` in place (the reference donates both) and returns them;
     the metrics are 0-dim float32 tensors on the params' device. Training
-    attention at 2048 tokens and more is the scan, as in the reference."""
+    attention at 2048 tokens and more is the scan, as in the reference.
+    ``mesh`` (default: that of the current ``use_rules``, if any) decides
+    the route (:func:`decode_route`)."""
     _family(cfg)
+    if mesh is None and (rules := sharding.current_rules()) is not None:
+        mesh = rules.mesh
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(params, batch, cfg)
         params, opt_state, om = adamw.update(opt, grads, opt_state, params)
         return params, opt_state, {"loss": loss, **om}
 
-    return train_step
+    return TrainStep(cfg, train_step, decode_route(mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -284,8 +451,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
 
 
 def decode_route(mesh=None) -> str:
-    """How a decode step over ``mesh`` runs on the card, decided once
-    when the step is built: ``"captured"`` where every position lies on
+    """How a decode or train step over ``mesh`` runs on the card, decided
+    once when the step is built: ``"captured"`` where every position lies on
     one CUDA device (no mesh, the unsplit (1, 1) mesh, a mesh that
     repeats one card); ``"eager: N cards"`` over N distinct cards (one
     stream's graph cannot span them); ``"eager: <type>"`` on a mesh of
@@ -342,7 +509,7 @@ class _DecodeGraph:
         return all(ref() is not None for ref in self.held)
 
 
-class DecodeStep:
+class DecodeStep(_GraphStep):
     """``decode(params, token, cache, pos, extras=None) -> (logits (B, V),
     cache)``, the cache written in place: the port's counterpart of the
     reference's ``jax.jit(_decode, donate_argnums=(2,))``. ``pos`` is a
@@ -370,14 +537,7 @@ class DecodeStep:
     int. On any other device (the CPU) ``fn`` runs with the position as a
     0-d tensor: the function the card captures."""
 
-    def __init__(self, cfg: ModelConfig, fn: Callable, route: str):
-        self.cfg = cfg
-        self.fn = fn
-        self.route = route
-        self._graphs = _GraphTable(STREAMS_PER_WEIGHTS)
-        self._capture_lock = threading.Lock()
-        self.trace_count = 0
-        self.last_capture_ms = 0.0
+    WHAT, BUILT_BY = "decode step", "make_serve_steps(cfg, mesh=...)"
 
     def check(self, cache, pos: int, s: int) -> None:
         """``ValueError`` unless positions ``pos .. pos + s - 1`` lie in
@@ -404,13 +564,11 @@ class DecodeStep:
         stream = torch.cuda.current_stream(device)
         key = (stream.cuda_stream, (tuple(t.data_ptr() for t in held),
                                     tuple(token.shape), token.dtype))
-        self._graphs.drop_dead()
-        while (g := self._graphs.get(key)) is None:
-            out = self._capture(key, held, params, token, cache, pos, extras,
-                                device, stream)
-            if out is not None:
-                return out
-            # another thread captured it first: look it up again
+        g, out = self._graph(key, held, device, stream, lambda lock: (
+            self._capture(params, token, cache, pos, extras, held, device,
+                          stream, lock)))
+        if g is None:
+            return out
         with g.lock:
             g.token.copy_(token, non_blocking=True)
             g.pos.fill_(pos)
@@ -419,37 +577,22 @@ class DecodeStep:
             add_launches(g.launches)
         return logits, cache
 
-    def _capture(self, key, held, params, token, cache, pos: int, extras,
-                 device: torch.device, stream):
-        """Warm up, then capture the step for ``key``; returns the warm-up's
-        result, or None when another thread captured ``key`` meanwhile."""
-        away = {str(t.device) for t in held if t.device != device}
-        if away:
-            raise ValueError(f"a captured decode step reads tensors on "
-                             f"{sorted(away)} besides {device}: build it "
-                             f"with make_serve_steps(cfg, mesh=...) for a "
-                             f"mesh over several cards")
-        lock = _stream_pool(device, stream).lock
-        with self._capture_lock, lock:
-            if self._graphs.get(key) is not None:
-                return None
-            static_token = torch.empty(token.shape, dtype=token.dtype,
-                                       device=device)
-            static_token.copy_(token)
-            static_pos = torch.full((), pos, dtype=torch.int64,
-                                    device=device)
-            # the warm-up on the static inputs: its result answers this call
-            out = self.fn(params, static_token, cache, static_pos, extras)
-            graph, (logits, _), launches, constants, self.last_capture_ms = (
-                capture_graph(lambda: self.fn(params, static_token, cache,
-                                              static_pos, extras),
-                              device, stream))
-            self._graphs.put(key, _DecodeGraph(
-                graph, static_token, static_pos, logits,
-                tuple(weakref.ref(t) for t in held), constants, launches,
-                lock))
-            self.trace_count += 1
-        return out
+    def _capture(self, params, token, cache, pos: int, extras, held,
+                 device: torch.device, stream, lock):
+        """(the warm-up's result, the graph captured after it)."""
+        static_token = torch.empty(token.shape, dtype=token.dtype,
+                                   device=device)
+        static_token.copy_(token)
+        static_pos = torch.full((), pos, dtype=torch.int64, device=device)
+        # the warm-up on the static inputs: its result answers this call
+        out = self.fn(params, static_token, cache, static_pos, extras)
+        graph, (logits, _), launches, constants, self.last_capture_ms = (
+            capture_graph(lambda: self.fn(params, static_token, cache,
+                                          static_pos, extras),
+                          device, stream))
+        return out, _DecodeGraph(graph, static_token, static_pos, logits,
+                                 tuple(weakref.ref(t) for t in held),
+                                 constants, launches, lock)
 
 
 def make_serve_steps(cfg: ModelConfig, backend: str = "torch", mesh=None):

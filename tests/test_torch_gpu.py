@@ -1591,3 +1591,175 @@ def test_gpu_decode_graph_of_a_freed_cache_is_never_replayed(cuda):
     assert ptrs & again
     assert (decode.trace_count, len(decode._graphs)) == (2, 1)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# ---------------------------------------------------------------------------
+# the captured train step (``steps.TrainStep``)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ["minitron-8b", "llama4-scout-17b-16e", "llama-3.2-vision-11b",
+               "mamba2-130m", "zamba2-7b", "whisper-base"]
+
+
+def _train_batches(cfg, n: int, rows: int = 4, seq: int = 32) -> list:
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch.train import extras_for
+
+    data = DataConfig(cfg.vocab_size, seq, rows)
+    out = []
+    for i in range(n):
+        b = batch_for_step(data, i)
+        b.update(extras_for(cfg, rows, np.random.default_rng(i)))
+        out.append(b)
+    return out
+
+
+def _train_run(step, params, state, batches) -> list:
+    """Each step's parameters, state and metrics (copies)."""
+    from torch.utils import _pytree as pytree
+
+    out = []
+    for b in batches:
+        params, state, m = step(params, state, b)
+        out.append([t.clone() for t in pytree.tree_leaves(
+            (params, state, m))])
+    return out
+
+
+@pytest.mark.parametrize("arch,mesh", [
+    *((a, (1, 1)) for a in TRAIN_ARCHS), ("minitron-8b", (2, 1)),
+    ("minitron-8b", (1, 2)), ("mamba2-130m", (2, 2))])
+def test_gpu_captured_train_step_equals_its_eager_fn(cuda, arch, mesh):
+    """Reduced configs in fp32 through ``launch.train.build`` (whole, and
+    over data rows or ``model`` positions of the repeated card): three
+    steps through the step object (the first runs ``fn`` and captures, two
+    replay) against three through its eager ``fn`` twice, each from copies
+    of the same parameters and state. Where the two eager runs are bit
+    identical the captured one equals them bit for bit; else every
+    parameter within 1e-4 of max(1, max|p|) and loss and grad norm within
+    1e-5 relative (the mesh step's limits). One capture, one graph, and
+    AdamW's ``step`` at 3."""
+    from repro_torch.compat import make_mesh
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config(arch).reduced()
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    m = make_mesh(mesh, ("data", "model"), devices=[cuda] * (mesh[0] *
+                                                             mesh[1]))
+    params, state, step, _ = train_mod.build(cfg, opt, m)
+    assert step.route == "captured"
+    batches = _train_batches(cfg, 3)
+    copies = [pytree.tree_map(lambda t: t.clone(), (params, state))
+              for _ in range(2)]
+    eager = [_train_run(step.fn, *c, batches) for c in copies]
+    got = _train_run(step, params, state, batches)
+    assert (step.trace_count, len(step._graphs)) == (1, 1)
+    assert int(state["step"]) == 3
+    bitwise = all(torch.equal(a, b) for x, y in zip(*eager)
+                  for a, b in zip(x, y))
+    for i, (x, y) in enumerate(zip(got, eager[0])):
+        assert len(x) == len(y)
+        if bitwise:
+            assert all(torch.equal(a, b) for a, b in zip(x, y)), i
+            continue
+        for a, b in zip(x[:-3], y[:-3]):
+            assert float((a.float() - b.float()).abs().max()) <= 1e-4 * max(
+                1.0, float(b.float().abs().max())), i
+        for a, b in zip(x[-3:], y[-3:]):
+            assert abs(float(a) - float(b)) <= 1e-5 * abs(float(b)), i
+
+
+def test_gpu_train_step_captures_once_per_parameter_set(cuda):
+    """Two parameter sets of reduced minitron-8b taking turns through one
+    step object: each captures once (two captures, two graphs), every
+    later call replays its own, and each set's AdamW ``step`` counts its
+    own calls; each set's losses equal those of a step object that saw
+    only that set, bit for bit."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+
+    cfg = get_config("minitron-8b").reduced()
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    batches = _train_batches(cfg, 3)
+    sets, alone, step = [], [], None
+    for seed in (0, 1):
+        p, s, built, _ = train_mod.build(cfg, opt, make_host_mesh("cuda"),
+                                         seed=seed)
+        sets.append([p, s])
+        step = step or built               # the first set's step object
+        p2, s2, own, _ = train_mod.build(cfg, opt, make_host_mesh("cuda"),
+                                         seed=seed)
+        alone.append([float(m[-3]) for m in _train_run(own, p2, s2,
+                                                       batches)])
+    losses = [[], []]
+    for b in batches:
+        for i, (p, s) in enumerate(sets):
+            p, s, m = step(p, s, b)
+            losses[i].append(float(m["loss"]))
+    assert (step.trace_count, len(step._graphs)) == (2, 2)
+    assert [int(s["step"]) for _, s in sets] == [3, 3]
+    assert losses == alone
+
+
+def test_gpu_restored_parameters_capture_anew(cuda, tmp_path):
+    """Reduced minitron-8b: three captured steps, a checkpoint, the
+    parameters and state restored from it (new tensors) and the old ones
+    dropped, three more steps through the same step object: the restored
+    set warms up and captures anew, the dead set's graph is gone (two
+    captures, one graph), and the six losses equal an uninterrupted run's
+    within 1e-5 relative."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+
+    cfg = get_config("minitron-8b").reduced()
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    batches = _train_batches(cfg, 6)
+    p, s, whole, _ = train_mod.build(cfg, opt, make_host_mesh("cuda"))
+    want = [float(m[-3]) for m in _train_run(whole, p, s, batches)]
+    del p, s, whole
+    p, s, step, _ = train_mod.build(cfg, opt, make_host_mesh("cuda"))
+    got = [float(m[-3]) for m in _train_run(step, p, s, batches[:3])]
+    ckpt.save(str(tmp_path), 3, (p, s))
+    template = (p, s)
+    del p, s
+    (p, s), at = ckpt.restore(str(tmp_path), template, device=cuda)
+    del template
+    assert at == 3
+    got += [float(m[-3]) for m in _train_run(step, p, s, batches[3:])]
+    assert (step.trace_count, len(step._graphs)) == (2, 1)
+    assert int(s["step"]) == 6
+    for a, b in zip(got, want):
+        assert abs(a - b) <= 1e-5 * abs(b)
+
+
+def test_gpu_train_step_over_two_cards_stays_eager(cuda):
+    """Over a (1, 2) mesh of two distinct cards the step's route is
+    ``"eager: 2 cards"``: it runs ``fn`` (no capture), and its loss
+    equals the one-card captured step's within 1e-5 relative."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.compat import make_mesh
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import adamw
+    from torch.utils import _pytree as pytree
+
+    cfg = get_config("minitron-8b").reduced()
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    p1, s1, f1, _ = train_mod.build(
+        cfg, opt, make_mesh((1, 1), ("data", "model"), devices=cards[:1]))
+    p2, s2, f2, _ = train_mod.build(
+        cfg, opt, make_mesh((1, 2), ("data", "model"), devices=cards),
+        params=pytree.tree_map(lambda t: t.clone(), p1))
+    assert (f1.route, f2.route) == ("captured", "eager: 2 cards")
+    for b in _train_batches(cfg, 2):
+        p1, s1, m1 = f1(p1, s1, b)
+        p2, s2, m2 = f2(p2, s2, b)
+        assert abs(float(m2["loss"]) - float(m1["loss"])) <= 1e-5 * abs(
+            float(m1["loss"]))
+    assert (f1.trace_count, f2.trace_count) == (1, 0)
