@@ -42,9 +42,10 @@ path's images/s and at 80 % of what the session sustained (the lower of
 its bulk rate and the first window's served rate; each held to its row of
 ``acc(x)``: int8 bit for bit, fp32 within
 ``1e-3 * max|logit|``; the served rate beside the offered one, and no
-latency percentile where the session fell behind; each window traced by
-``serving.trace.SessionTrace``: device busy share, device ms per bucket,
-garbage-collection pauses, the slowest requests' parts), every session ending
+latency percentile where the session fell behind; each window read by
+``serving.trace.summary`` from the session's spans: device busy share,
+device ms per bucket, the window's split, garbage-collection pauses, the
+slowest requests' parts), every session ending
 with ``errors == 0``, no retry, ``submitted == requests + errors + shed``,
 its launch counts the per-request launches times its batches; on
 ResNet-18 fp32 a one-shot ``execute`` error in the middle of a ``run_many``
@@ -1225,7 +1226,9 @@ def capture_check(path: str, acc, x: torch.Tensor) -> dict:
     """The direct entry of ``path``'s accelerator, captured by its first
     request: its replays against its uncaptured lowering (``entry.fn``) on
     the same DRAM image and input, ``torch.equal``, each timed over
-    ``STEADY_REQUESTS`` batches (host clock, ending in a synchronise)."""
+    ``STEADY_REQUESTS`` batches (host clock, ending in a synchronise),
+    and its capture's host time (its ``executor.capture`` span)."""
+    from repro_torch import spans
     entry, params = acc.runtime.executor_entry(BATCH, acc.input_dtype)
     inp = acc.quant.quantize_input(x) if acc.quant is not None else x
     if entry.trace_count != 1:
@@ -1247,7 +1250,9 @@ def capture_check(path: str, acc, x: torch.Tensor) -> dict:
                 fn(params, inp)
             torch.cuda.synchronize()
             times[name] = (time.perf_counter() - t0) / STEADY_REQUESTS * 1e3
-    return dict(times, capture_ms=entry.last_capture_ms,
+    cap = [s for s in spans.LOG.between()
+           if s.name == spans.CAPTURE and s.id == id(entry)]
+    return dict(times, capture_ms=(cap[-1].t1 - cap[-1].t0) * 1e3,
                 trace_count=entry.trace_count)
 
 
@@ -1409,33 +1414,36 @@ def arrival_window(label: str, acc, images: np.ndarray, refs: np.ndarray,
     route). The served rate is the images over the time from the first
     submit to the last result; below ``OVERLOAD`` of the offered rate the
     window is overloaded, and its percentiles would only measure the
-    window's length, so none is reported."""
+    window's length, so none is reported. The window runs inside
+    ``spans.recording()`` and its percentiles and trace are read from the
+    session's spans."""
+    from repro_torch import spans
     from repro_torch.kernels import common
-    from repro_torch.serving.trace import SessionTrace
+    from repro_torch.serving import trace
     pick = rng.integers(len(images), size=SESSION_ARRIVALS)
     at = np.cumsum(rng.exponential(1.0 / rate, SESSION_ARRIVALS))
     session = acc.serve(max_batch=BATCH, warmup=True)
-    trace = SessionTrace().attach(session)
     try:
-        common.reset_launches()
-        futs = []
-        t0, tm0 = time.perf_counter(), time.monotonic()
-        for i, t_at in zip(pick, at):
-            delay = t0 + t_at - time.perf_counter()
-            if delay > 0:
-                time.sleep(delay)
-            futs.append(session.submit(images[i]))
-        submit_s = time.perf_counter() - t0
-        got = [f.result(timeout=300) for f in futs]
-        # the window ends with its last result, before any host work on
-        # the results (stacking 4096 rows took about 1 % of a 0.8 s window)
-        window_s = time.perf_counter() - t0
-        tm1 = time.monotonic()
+        with spans.recording(), trace.GcPauses() as pauses:
+            common.reset_launches()
+            futs = []
+            t0 = spans.clock()
+            for i, t_at in zip(pick, at):
+                delay = t0 + t_at - spans.clock()
+                if delay > 0:
+                    time.sleep(delay)
+                futs.append(session.submit(images[i]))
+            submit_s = spans.clock() - t0
+            got = [f.result(timeout=300) for f in futs]
+            # the window ends with its last result, before any host work
+            # on the results (stacking 4096 rows took about 1 % of a 0.8 s
+            # window)
+            t1 = spans.clock()
+            window_s = t1 - t0
         rows = np.stack(got)
         counts = {k: v for k, v in common.LAUNCHES.items() if v}
     finally:
         session.close()
-        trace.detach()
     st = session.stats
     check_session_ledger(label, st)
     check_session_launches(label, counts, st.batches, per_bucket,
@@ -1457,17 +1465,18 @@ def arrival_window(label: str, acc, images: np.ndarray, refs: np.ndarray,
     return {"rate": rate, "offered_images_per_s": offered,
             "served_images_per_s": served, "window_s": window_s,
             "overloaded": overloaded,
-            "latency_p50_ms": None if overloaded else st.p50_ms(),
-            "latency_p95_ms": None if overloaded else st.p95_ms(),
-            "wait_p50_ms": None if overloaded else st.wait_p50_ms(),
-            "wait_p95_ms": None if overloaded else st.wait_p95_ms(),
+            "latency_p50_ms": None if overloaded else st.p50_ms(t0, t1),
+            "latency_p95_ms": None if overloaded else st.p95_ms(t0, t1),
+            "wait_p50_ms": None if overloaded else st.wait_p50_ms(t0, t1),
+            "wait_p95_ms": None if overloaded else st.wait_p95_ms(t0, t1),
             "batches": st.batches, "padded_rows": st.padded_rows,
             "occupancy": st.occupancy(), "max_abs_diff": err, "tol": tol,
-            "launches": counts, "trace": trace.summary(tm0, tm1)}
+            "launches": counts,
+            "trace": trace.summary(st.session, t0, t1, pauses.pauses)}
 
 
 def trace_line(t: dict) -> str:
-    """One window's ``SessionTrace`` summary in a line."""
+    """One window's ``serving.trace.summary`` in a line."""
     busy = t["device_busy_share"]
     parts = ", ".join(f"{k[:-3]} {v:.2f}" for k, v in
                       t["tail_parts_ms"].items())
@@ -1475,6 +1484,7 @@ def trace_line(t: dict) -> str:
             f"{t['latency_max_ms']:.2f}ms; device busy "
             f"{'not measured' if busy is None else f'{busy:.3f}'} of the "
             f"window; device ms by bucket {t['device_ms_by_bucket']}; "
+            f"split of the window {t['split']}; "
             f"{t['gc_pauses']} gc pauses, {t['gc_ms']:.1f}ms in all, longest "
             f"{t['gc_max_ms']:.1f}ms (of 5ms or more, as (at s, ms, "
             f"generation, collected): {t['gc_long_pauses']}); "

@@ -65,6 +65,7 @@ import gc
 import itertools
 import json
 import logging
+import math
 import os
 import threading
 import time
@@ -83,6 +84,7 @@ from repro_torch.compat import (
     to_numpy,
     to_tensor,
 )
+from repro_torch import spans
 from repro_torch.core import perf_model as pm
 from repro_torch.core.compiler import (
     NO_PLAN,
@@ -405,58 +407,70 @@ class Accelerator:
                              "(the sidecar is keyed to one schedule)")
         device = resolve_device(device)
         specs = list(specs)
-        dse = None
-        if plans is None:
-            if not isinstance(target, Target):
-                raise TypeError(
-                    f"target {target!r} does not implement the Target "
-                    f"protocol (needs a run_dse(specs, batch) method) — pass "
-                    f"e.g. pm.V5E, pm.VU9P, pm.PYNQ_Z1, or supply plans=")
-            # dtype is only passed when quantizing, so custom fp32 targets
-            # without the dtype parameter keep working
-            dse = (target.run_dse(specs, batch=batch, dtype=dtype)
-                   if dtype != "float32"
-                   else target.run_dse(specs, batch=batch))
-            plans = list(dse.plans)
-        else:
-            plans = list(plans)
-        if params is None:
-            params = random_params(specs, seed, device)
+        build_id = spans.new_id()
+        with spans.span(spans.BUILD, build_id, count=batch):
+            dse = None
+            if plans is None:
+                if not isinstance(target, Target):
+                    raise TypeError(
+                        f"target {target!r} does not implement the Target "
+                        f"protocol (needs a run_dse(specs, batch) method) — "
+                        f"pass e.g. pm.V5E, pm.VU9P, pm.PYNQ_Z1, or supply "
+                        f"plans=")
+                # dtype is only passed when quantizing, so custom fp32
+                # targets without the dtype parameter keep working
+                with spans.span(spans.BUILD_DSE, parent=build_id):
+                    dse = (target.run_dse(specs, batch=batch, dtype=dtype)
+                           if dtype != "float32"
+                           else target.run_dse(specs, batch=batch))
+                plans = list(dse.plans)
+            else:
+                plans = list(plans)
+            if params is None:
+                params = random_params(specs, seed, device)
 
-        quant, calib_ms = None, None
-        if dtype == "int8":
-            if calib is None:
-                # stand-in calibration data, seeded like random_params
-                s0 = specs[0]
-                shape = ((8, s0.d_in) if isinstance(s0, FCSpec)
-                         else (8, s0.h, s0.w, s0.c))
-                calib = np.random.default_rng(seed + 1).standard_normal(
-                    shape).astype(np.float32)
-            t0 = time.perf_counter()
-            quant = calibrate(specs, params, calib, observer=observer,
-                              device=device)
-            calib_ms = (time.perf_counter() - t0) * 1e3
-            params = quantize_params(specs, params, quant, device=device)
+            quant, calib_ms = None, None
+            if dtype == "int8":
+                if calib is None:
+                    # stand-in calibration data, seeded like random_params
+                    s0 = specs[0]
+                    shape = ((8, s0.d_in) if isinstance(s0, FCSpec)
+                             else (8, s0.h, s0.w, s0.c))
+                    calib = np.random.default_rng(seed + 1).standard_normal(
+                        shape).astype(np.float32)
+                with spans.span(spans.BUILD_CALIBRATE, parent=build_id):
+                    t0 = time.perf_counter()
+                    quant = calibrate(specs, params, calib,
+                                      observer=observer, device=device)
+                    calib_ms = (time.perf_counter() - t0) * 1e3
+                    params = quantize_params(specs, params, quant,
+                                             device=device)
 
-        common = dict(specs=specs, plans=plans, params=params, target=target,
-                      batch=batch, dse=dse, backend=backend,
-                      opt_level=opt_level, device=device)
-        if segmented:
-            request, seg_rts, _ = build_segmented_request(
-                specs, plans, params, strict=strict, cache=cache,
-                backend=backend, opt_level=opt_level, device=device)
-            return cls(request=request, segmented=True,
-                       segment_runtimes=seg_rts, **common)
+            common = dict(specs=specs, plans=plans, params=params,
+                          target=target, batch=batch, dse=dse,
+                          backend=backend, opt_level=opt_level,
+                          device=device)
+            if segmented:
+                with spans.span(spans.BUILD_COMPILE, parent=build_id):
+                    request, seg_rts, _ = build_segmented_request(
+                        specs, plans, params, strict=strict, cache=cache,
+                        backend=backend, opt_level=opt_level, device=device)
+                return cls(request=request, segmented=True,
+                           segment_runtimes=seg_rts, **common)
 
-        program = compile_network(specs, plans)
-        rt = HybridRuntime(program, backend=backend, opt_level=opt_level,
-                           strict=strict, cache=cache, device=device,
-                           quant=quant)
-        rt.load_params(params)
-        if not strict:
-            rt.cache.validate(program)  # schedule check once, at build time
-        return cls(request=rt.run, program=program, runtime=rt, quant=quant,
-                   calib_ms=calib_ms, **common)
+            with spans.span(spans.BUILD_COMPILE, parent=build_id):
+                program = compile_network(specs, plans)
+                rt = HybridRuntime(program, backend=backend,
+                                   opt_level=opt_level, strict=strict,
+                                   cache=cache, device=device, quant=quant)
+            with spans.span(spans.BUILD_LOAD, parent=build_id):
+                rt.load_params(params)
+            if not strict:
+                # schedule check once, at build time
+                with spans.span(spans.BUILD_VALIDATE, parent=build_id):
+                    rt.cache.validate(program)
+            return cls(request=rt.run, program=program, runtime=rt,
+                       quant=quant, calib_ms=calib_ms, **common)
 
     # -- inference ----------------------------------------------------------
     def __call__(self, x) -> torch.Tensor:
@@ -782,57 +796,71 @@ class SessionStats:
     # one (a sharded batch counts on every position, a straggler on
     # position 0; on make_fleet_mesh the position is the device index)
     device_batches: dict = dataclasses.field(default_factory=dict)
-    # per-request latency samples (submit -> result ready), most recent
-    # window only. Appends (drain thread) and percentile reads (any caller)
-    # share _lat_lock: sorting a deque the drain thread is appending to
-    # would raise "deque mutated during iteration".
-    latencies_ms: deque = dataclasses.field(
-        default_factory=lambda: deque(maxlen=4096))
-    # per-request queue-wait samples (submit -> admitted into a dispatched
-    # device batch) — the scheduler-health metric
-    waits_ms: deque = dataclasses.field(
-        default_factory=lambda: deque(maxlen=4096))
-    _lat_lock: threading.Lock = dataclasses.field(
+    # the session's id in the span log (``repro_torch.spans``), whose
+    # ``serving.request`` spans the latency and wait percentiles read
+    session: int = 0
+    # guards the counters bumped from several threads
+    _lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False)
 
     def bump(self, name: str, k: int = 1):
         """Thread-safe counter increment — the failure counters are bumped
         from the worker, drain, supervisor AND caller threads, and a bare
         ``+=`` read-modify-write can drop updates across them."""
-        with self._lat_lock:
+        with self._lock:
             setattr(self, name, getattr(self, name) + k)
 
-    def record_latencies(self, ms_list):
-        """Batch append — one lock acquisition per device batch."""
-        with self._lat_lock:
-            self.latencies_ms.extend(ms_list)
+    def _samples_ms(self, t0, t1, wait: bool) -> list[float] | None:
+        """Per request of the session answered and submitted inside
+        ``[t0, t1]`` (everything the log holds of it when ``t0`` is
+        None): its latency (submit -> result), or its wait (submit -> its
+        batch's launch). None when the log no longer holds ``t0``."""
+        got = spans.LOG.between(t0, math.inf if t1 is None else t1)
+        if got is None:
+            return None
+        lo = -math.inf if t0 is None else t0
+        hi = math.inf if t1 is None else t1
+        mine = [s for s in got if s.session == self.session]
+        reqs = [s for s in mine
+                if s.name == spans.REQUEST and lo <= s.t0 <= hi]
+        if not wait:
+            return [(s.t1 - s.t0) * 1e3 for s in reqs]
+        launch = {s.id: s.t0 for s in mine if s.name == spans.LAUNCH}
+        return [(launch[s.parent] - s.t0) * 1e3 for s in reqs
+                if s.parent in launch]
 
-    def record_waits(self, ms_list):
-        with self._lat_lock:
-            self.waits_ms.extend(ms_list)
-
-    def _pct(self, xs_deque, q: float) -> float:
-        with self._lat_lock:
-            xs = sorted(xs_deque)
+    def _pct(self, q: float, t0, t1, wait: bool = False) -> float:
+        xs = self._samples_ms(t0, t1, wait)
+        if xs is None:
+            return math.nan
         if not xs:
             return 0.0
+        xs.sort()
         return xs[min(len(xs) - 1, int(q * len(xs)))]
 
-    def p50_ms(self) -> float:
-        """Median request latency over the recent window."""
-        return self._pct(self.latencies_ms, 0.50)
+    def p50_ms(self, t0: float | None = None,
+               t1: float | None = None) -> float:
+        """Median request latency (submit -> result) over the requests
+        submitted in ``[t0, t1]`` (``spans.clock`` seconds; by default
+        every one the span log still holds); NaN when the log no longer
+        holds ``t0``, 0.0 when no request was answered."""
+        return self._pct(0.50, t0, t1)
 
-    def p95_ms(self) -> float:
-        """95th-percentile request latency over the recent window."""
-        return self._pct(self.latencies_ms, 0.95)
+    def p95_ms(self, t0: float | None = None,
+               t1: float | None = None) -> float:
+        """95th-percentile request latency, as :meth:`p50_ms`."""
+        return self._pct(0.95, t0, t1)
 
-    def wait_p50_ms(self) -> float:
-        """Median queue wait (submit -> dispatch) over the recent window."""
-        return self._pct(self.waits_ms, 0.50)
+    def wait_p50_ms(self, t0: float | None = None,
+                    t1: float | None = None) -> float:
+        """Median queue wait (submit -> its batch's launch), as
+        :meth:`p50_ms`."""
+        return self._pct(0.50, t0, t1, wait=True)
 
-    def wait_p95_ms(self) -> float:
-        """95th-percentile queue wait over the recent window."""
-        return self._pct(self.waits_ms, 0.95)
+    def wait_p95_ms(self, t0: float | None = None,
+                    t1: float | None = None) -> float:
+        """95th-percentile queue wait, as :meth:`wait_p50_ms`."""
+        return self._pct(0.95, t0, t1, wait=True)
 
     def occupancy(self) -> float:
         """Real-row fraction of all dispatched device rows (1.0 = no
@@ -958,15 +986,24 @@ class _Stage:
 
 
 class _InFlight:
-    """A launched batch's logits: the asynchronous copy into a pinned host
-    buffer and the event recorded after it on the session's stream. The
-    drainer waits on this event only, never on the stream."""
+    """A launched batch's logits: on the card the asynchronous copy into a
+    pinned host buffer and the event recorded after it on the session's
+    stream (the drainer waits on this event only, never on the stream),
+    on the CPU the logits themselves (``event`` None). ``bid`` is the
+    batch's id in the span log; ``ev0`` the timed event recorded before
+    its copy in while ``spans.on()`` (``event`` is then timed too);
+    ``t_drained`` when its wait ended, where its ``serving.deliver`` span
+    (profiler range ``rng``) begins."""
 
-    __slots__ = ("out", "event")
+    __slots__ = ("out", "event", "bid", "ev0", "t_drained", "rng")
 
-    def __init__(self, out: torch.Tensor, event):
+    def __init__(self, out: torch.Tensor, event, bid: int, ev0=None):
         self.out = out
         self.event = event
+        self.bid = bid
+        self.ev0 = ev0
+        self.t_drained = 0.0
+        self.rng = None
 
 
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.int8: np.int8}
@@ -1054,9 +1091,13 @@ class ServingSession:
 
     ``stats`` records request/batch counts, the first-use time of each
     bucket (``compile_ms``, or ``warm_load_ms`` for an entry loaded from an
-    AOT bundle), recent windows of per-request latency
-    (``p50_ms()`` / ``p95_ms()``) and queue wait (``wait_p50_ms()``),
-    per-device batch counts and padding ``occupancy()``. ``slot_pool``
+    AOT bundle), per-device batch counts and padding ``occupancy()``, and
+    reads per-request latency (``p50_ms()`` / ``p95_ms()``) and queue wait
+    (``wait_p50_ms()``) over any interval from the session's spans in
+    ``repro_torch.spans.LOG``: each batch's admission, slot wait, staging,
+    launch, drain and delivery, and each request from ``submit`` to its
+    result, recorded always (and, while a ``torch.profiler`` records or
+    inside ``spans.recording()``, as profiler ranges too). ``slot_pool``
     shares the pipeline slots with other sessions (a :class:`Fleet`).
 
     **Failure model** (the reference's):
@@ -1128,7 +1169,9 @@ class ServingSession:
         if self.buckets[-1] < self.max_batch or self.buckets[0] < 1:
             raise ValueError(
                 f"buckets {self.buckets} must cover max_batch={max_batch}")
-        self.stats = SessionStats()
+        self._sid = spans.new_session()
+        self._batch_ids = itertools.count()
+        self.stats = SessionStats(session=self._sid)
         # resolve once: input_dtype/input_shape walk the param image
         self._in_torch_dtype = acc.input_dtype
         self._in_dtype = np.dtype(_NUMPY_DTYPES[self._in_torch_dtype])
@@ -1502,24 +1545,29 @@ class ServingSession:
         groups.append((start, len(reqs), n))
         out: list = [None] * len(reqs)
         errs: list[Exception] = []
-        inflight: deque = deque()   # (start, end, y, bucket, stage)
+        inflight: deque = deque()   # (start, end, y, bucket, stage, bid)
 
-        def _deliver_bulk(s0, outcomes):
+        def _deliver_bulk(s0, outcomes, bid):
             st = self.stats
+            done_t = time.monotonic()
+            n_ok = 0
             for i, (r, ok, val) in enumerate(outcomes):
                 if ok:
                     gexc = self._guard(r, val)
                     if gexc is None:
                         out[s0 + i] = val[0] if r.single else val
                         st.bump("requests")
+                        self._answered(r, done_t, bid)
+                        n_ok += 1
                         continue
                     st.bump("isolated")
                     val = gexc
                 errs.append(val)
                 st.bump("errors")
+            return n_ok
 
         def _sync_oldest():
-            s0, e0, y, bucket, stage = inflight.popleft()
+            s0, e0, y, bucket, stage, bid = inflight.popleft()
             group = reqs[s0:e0]
             try:
                 if self._faults is not None:
@@ -1530,21 +1578,19 @@ class ServingSession:
                 # bisect BEFORE giving the entry back: it must not be
                 # refilled until the bisection has re-read it
                 try:
-                    _deliver_bulk(s0, self._bisect(group, bucket,
-                                                   stage.host, exc))
+                    self._delivered(y, _deliver_bulk(
+                        s0, self._bisect(group, bucket, stage.host, exc),
+                        bid))
                 finally:
                     self._give_stage(bucket, stage, settled=False)
                     self._slots.release()
                 return
             self._give_stage(bucket, stage, settled=True)
             self._slots.release()
-            done_t = time.monotonic()
             self.stats.bump("batches")
-            _deliver_bulk(
+            self._delivered(y, _deliver_bulk(
                 s0, [(r, True, y_np[r.off:r.off + r.x.shape[0]])
-                     for r in group])
-            self.stats.record_latencies(
-                [(done_t - t0) * 1e3] * (e0 - s0))
+                     for r in group], bid))
 
         try:
             for s0, e0, n in groups:
@@ -1560,16 +1606,18 @@ class ServingSession:
                     self._slots.acquire()
                 group = reqs[s0:e0]
                 bucket = stage = None
+                bid = next(self._batch_ids)
                 try:
                     with self._dispatch_mutex:
-                        bucket, stage = self._stage_group(group, n)
-                    y = self._launch(bucket, stage, group)
+                        bucket, stage = self._stage_group(group, n, bid)
+                    y = self._launch(bucket, stage, group, bid)
                 except Exception as e:  # noqa: BLE001 — recover per request
                     try:
                         if stage is None:
                             raise    # staging failed: nothing to recover
                         _deliver_bulk(
-                            s0, self._bisect(group, bucket, stage.host, e))
+                            s0, self._bisect(group, bucket, stage.host, e),
+                            bid)
                     finally:
                         if stage is not None:
                             self._give_stage(bucket, stage, settled=False)
@@ -1578,7 +1626,7 @@ class ServingSession:
                 except BaseException:
                     self._slots.release()
                     raise
-                inflight.append((s0, e0, y, bucket, stage))
+                inflight.append((s0, e0, y, bucket, stage, bid))
         finally:
             while inflight:     # release EVERY held slot even on error
                 try:
@@ -1694,19 +1742,30 @@ class ServingSession:
         capped at the earliest deadline in the open batch, and a retired
         generation hands its partial batch back and stands down.
 
-        Returns ``(group, n, stale)``.
+        Spans: ``serving.await`` while the queue is empty, then the
+        batch's ``serving.admit`` (rows) and, where the slot pool held no
+        batch while the admitter waited, its ``serving.hold``.
+
+        Returns ``(group, n, stale, bid)``, ``bid`` the batch's id.
         """
         continuous = self.scheduler == "continuous"
+        sid = self._sid
         with self._cv:
-            while (not self._pending and not self._closed
-                   and self._gen == gen):
-                self._beat("dispatch")
-                self._cv.wait(0.25)
+            if not self._pending and not self._closed and self._gen == gen:
+                t_await, rng = spans.clock(), spans.enter(spans.AWAIT)
+                while (not self._pending and not self._closed
+                       and self._gen == gen):
+                    self._beat("dispatch")
+                    self._cv.wait(0.25)
+                spans.close(rng, spans.AWAIT, t_await, session=sid)
             if self._gen != gen:
-                return None, 0, True
+                return None, 0, True, -1
             if not self._pending:
-                return None, 0, False    # closed and drained
+                return None, 0, False, -1    # closed and drained
+            bid = next(self._batch_ids)
             group, n = [], 0
+            t_admit, rng_admit = spans.clock(), spans.enter(spans.ADMIT)
+            t_hold = rng_hold = None
             deadline = time.monotonic() + self._max_wait
             hard_deadline = deadline + 8 * self._max_wait
             while True:
@@ -1726,7 +1785,12 @@ class ServingSession:
                 now = time.monotonic()
                 if batch_cap is not None and now >= batch_cap:
                     break                # earliest deadline reached: cut
-                if (continuous and self._slots.busy() and now < hard_deadline
+                busy = self._slots.busy()
+                if t_hold is not None and busy:
+                    # another caller took a slot: the idle hold ends
+                    spans.close(rng_hold, spans.HOLD, t_hold, bid, -1, sid)
+                    t_hold = rng_hold = None
+                if (continuous and busy and now < hard_deadline
                         and (batch_cap is None or now < batch_cap)):
                     self._cv.wait(0.005)     # device busy: keep admitting
                     continue
@@ -1735,12 +1799,17 @@ class ServingSession:
                     timeout = min(timeout, batch_cap - now)
                 if timeout <= 0:
                     break                # batching window expired
+                if t_hold is None and not busy:
+                    t_hold, rng_hold = spans.clock(), spans.enter(spans.HOLD)
                 self._cv.wait(timeout)
+            if t_hold is not None:
+                spans.close(rng_hold, spans.HOLD, t_hold, bid, -1, sid)
+            spans.close(rng_admit, spans.ADMIT, t_admit, bid, -1, sid, n)
             if self._gen != gen:
                 # retired mid-take: hand the batch to the new pipeline
                 self._pending.extendleft(reversed(group))
-                return None, 0, True
-            return group, n, False
+                return None, 0, True, -1
+            return group, n, False, bid
 
     def _to_host(self, y) -> np.ndarray:
         """Wait for one launched batch's logits and return them as a host
@@ -1749,9 +1818,21 @@ class ServingSession:
 
         Dequantization is gated on the ARRAY dtype, not just the session:
         the ``acc(x)`` path of segmented/strict accelerators already
-        returns dequantized fp32."""
+        returns dequantized fp32.
+
+        A launched batch's wait is its ``serving.drain`` span (never a
+        profiler range: the card sets it), and while ``spans.on()`` its
+        timed events give its ``serving.device`` count."""
         if isinstance(y, _InFlight):
-            y.event.synchronize()          # this batch only, not the stream
+            t0 = spans.clock()
+            if y.event is not None:
+                y.event.synchronize()      # this batch only, not the stream
+            y.t_drained = t1 = spans.clock()
+            spans.LOG.record(spans.DRAIN, t0, t1, y.bid, -1, self._sid)
+            y.rng = spans.enter(spans.DELIVER)
+            if y.ev0 is not None:
+                spans.LOG.record(spans.DEVICE, t1, t1, y.bid, -1, self._sid,
+                                 round(y.ev0.elapsed_time(y.event) * 1e3))
             y_np = y.out.numpy().copy()
         else:
             y_np = to_numpy(y)
@@ -1759,6 +1840,13 @@ class ServingSession:
             return (y_np.astype(np.float32)
                     * np.float32(self._quant.output_scale))
         return y_np
+
+    def _delivered(self, y, n_ok: int):
+        """End a drained batch's ``serving.deliver`` span, begun where its
+        wait ended (``_to_host``)."""
+        if isinstance(y, _InFlight) and y.t_drained:
+            spans.close(y.rng, spans.DELIVER, y.t_drained, y.bid, -1,
+                        self._sid, n_ok)
 
     def _run_bucket(self, x: torch.Tensor) -> torch.Tensor:
         entry = self._sharded_entries.get(x.shape[0])
@@ -1769,14 +1857,15 @@ class ServingSession:
             return entry(self._params, x)
         return self.acc(x)
 
-    def _stage_group(self, group, n):
-        """Assemble one device batch into a staging entry — no dispatch.
-        The caller holds the batch's slot and gives the entry back where it
-        releases that slot.
+    def _stage_group(self, group, n, bid: int):
+        """Assemble one device batch into a staging entry — no dispatch;
+        its ``serving.stage`` span. The caller holds the batch's slot and
+        gives the entry back where it releases that slot.
 
         Records each request's row offset (``req.off``) so a failed batch
         can be bisected at the same offsets. Returns ``(bucket, stage)``;
         ``_launch`` dispatches it."""
+        t0, rng = spans.clock(), spans.enter(spans.STAGE)
         bucket = next(b for b in self.buckets if b >= n)
         stage = self._take_stage(bucket)
         buf = stage.host
@@ -1790,23 +1879,22 @@ class ServingSession:
             buf[n:] = 0
             self.stats.padded_rows += bucket - n
         self.stats.dispatched_rows += n
-        now = time.monotonic()
-        self.stats.record_waits([(now - r.t_submit) * 1e3 for r in group])
         for d in (self._fleet_ids if bucket in self._sharded_entries
                   else self._local_ids):
             self.stats.device_batches[d] = \
                 self.stats.device_batches.get(d, 0) + 1
+        spans.close(rng, spans.STAGE, t0, bid, -1, self._sid, bucket)
         return bucket, stage
 
-    def _launch(self, bucket, stage: _Stage, group):
+    def _launch(self, bucket, stage: _Stage, group, bid: int) -> _InFlight:
         """Launch a staged batch — no host sync. The fault harness's
         ``dispatch`` and ``execute`` sites fire here. On the card: the
         staged input's asynchronous copy into the bucket entry's graph
         input (or, through ``acc(x)``, into the staging entry's device
         buffer), the graph's replay, the logits' asynchronous copy into the
         staging entry's pinned output buffer and an event, all on the
-        session's stream; the drain thread (or the bulk path) waits on the
-        event."""
+        session's stream, timed as the batch's ``serving.launch`` span;
+        the drain thread (or the bulk path) waits on the event."""
         if self._faults is not None:
             rids = [r.rid for r in group]
             self._faults.visit("dispatch", requests=rids)
@@ -1816,7 +1904,12 @@ class ServingSession:
                 backend=self._backend_tag)
         first_use = bucket not in self._warm
         t0 = time.monotonic()
+        t_launch, rng = spans.clock(), spans.enter(spans.LAUNCH)
+        ev0 = None
         with self._on_stream():
+            if self._cuda and spans.on():
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
             if stage.dev is None:
                 y = self._run_bucket(stage.host_t)
             else:
@@ -1828,9 +1921,14 @@ class ServingSession:
                     stage.out = torch.empty(y.shape, dtype=y.dtype,
                                             pin_memory=True)
                 stage.out.copy_(y, non_blocking=True)
-                event = torch.cuda.Event()
+                if y.device != self._device:
+                    ev0 = None      # a sharded batch ends on another card
+                event = torch.cuda.Event(enable_timing=ev0 is not None)
                 event.record(torch.cuda.current_stream(y.device))
-                y = _InFlight(stage.out, event)
+                y = _InFlight(stage.out, event, bid, ev0)
+            else:
+                y = _InFlight(y, None, bid)
+        spans.close(rng, spans.LAUNCH, t_launch, bid, -1, self._sid, bucket)
         if first_use:
             self._count_first_use(bucket, t0)
         return y
@@ -1865,7 +1963,7 @@ class ServingSession:
         except InvalidStateError:
             return False
         st = self.stats
-        with st._lat_lock:
+        with st._lock:
             st.errors += 1
             if isinstance(exc, DeadlineExceeded):
                 st.deadline_exceeded += 1
@@ -1885,35 +1983,41 @@ class ServingSession:
             return False    # expired/cancelled first; already accounted
         return True
 
-    def _deliver(self, group, y_np):
+    def _answered(self, r: _Request, done_t: float, bid: int):
+        """Request ``r`` answered at ``done_t``: its ``serving.request``
+        span, a child of its batch's."""
+        spans.LOG.record(spans.REQUEST, r.t_submit, done_t, r.rid, bid,
+                         self._sid, r.x.shape[0])
+
+    def _deliver(self, group, y_np, bid: int):
         """Scatter a drained batch's rows to its futures + count it."""
         done_t = time.monotonic()
-        n_ok, lats = 0, []
+        n_ok = 0
         for r in group:
             rows = y_np[r.off:r.off + r.x.shape[0]]
             if self._resolve_req(r, rows):
                 n_ok += 1
-                lats.append((done_t - r.t_submit) * 1e3)
+                self._answered(r, done_t, bid)
         st = self.stats
         st.bump("batches")
         if n_ok:
             st.bump("requests", n_ok)
-            st.record_latencies(lats)
+        return n_ok
 
-    def _deliver_outcomes(self, group, outcomes):
+    def _deliver_outcomes(self, group, outcomes, bid: int):
         """Resolve per-request recovery outcomes ``(req, ok, rows|exc)``."""
         done_t = time.monotonic()
-        n_ok, lats = 0, []
+        n_ok = 0
         for r, ok, val in outcomes:
             if ok:
                 if self._resolve_req(r, val):
                     n_ok += 1
-                    lats.append((done_t - r.t_submit) * 1e3)
+                    self._answered(r, done_t, bid)
             else:
                 self._reject_req(r, val)
         if n_ok:
             self.stats.bump("requests", n_ok)
-            self.stats.record_latencies(lats)
+        return n_ok
 
     def _execute_staged(self, bucket, buf, group):
         """Synchronously execute an already-staged host buffer — the
@@ -1976,7 +2080,7 @@ class ServingSession:
         worker hands unstarted work back to the queue and stands down."""
         try:
             while True:
-                group, n, stale = self._take_group(gen)
+                group, n, stale, bid = self._take_group(gen)
                 if stale:
                     return
                 if group is None:
@@ -1994,8 +2098,10 @@ class ServingSession:
                 # acquire the pipeline slot BEFORE launching, so at most
                 # pool-capacity device batches are ever outstanding. The
                 # wait is cancellable on generation retirement.
-                if not self._slots.acquire(
-                        cancelled=lambda: self._gen != gen):
+                t_slot, rng = spans.clock(), spans.enter(spans.SLOT)
+                got = self._slots.acquire(cancelled=lambda: self._gen != gen)
+                spans.close(rng, spans.SLOT, t_slot, bid, -1, self._sid)
+                if not got:
                     with self._cv:
                         self._pending.extendleft(reversed(group))
                     self._worker_group = None
@@ -2004,8 +2110,8 @@ class ServingSession:
                 bucket = stage = None
                 try:
                     with self._dispatch_mutex:
-                        bucket, stage = self._stage_group(group, n)
-                    y = self._launch(bucket, stage, group)
+                        bucket, stage = self._stage_group(group, n, bid)
+                    y = self._launch(bucket, stage, group, bid)
                 except Exception as e:  # noqa: BLE001 — recover per request
                     try:
                         outcomes = (self._bisect(group, bucket, stage.host, e)
@@ -2018,7 +2124,7 @@ class ServingSession:
                     if outcomes is None:    # staging failed: nothing staged
                         self._fail_group(group, e)
                     else:
-                        self._deliver_outcomes(group, outcomes)
+                        self._deliver_outcomes(group, outcomes, bid)
                     self._worker_group = None
                     continue
                 retired = False
@@ -2026,7 +2132,7 @@ class ServingSession:
                     if self._gen != gen:
                         retired = True    # watchdog owns cleanup now
                     else:
-                        self._inflight.append((group, y, bucket, stage))
+                        self._inflight.append((group, y, bucket, stage, bid))
                         self._worker_holds_slot = False
                         self._worker_group = None
                         self._inflight_cv.notify_all()
@@ -2066,7 +2172,7 @@ class ServingSession:
                 if item is None:
                     return
                 self._beat("drain")
-                group, y, bucket, stage = item
+                group, y, bucket, stage, bid = item
                 exc = None
                 try:
                     if self._faults is not None:
@@ -2090,9 +2196,10 @@ class ServingSession:
                 self._slots.release()            # batch done: free the slot
                 self._drain_popped_unreleased = False
                 if outcomes is not None:
-                    self._deliver_outcomes(group, outcomes)
+                    n_ok = self._deliver_outcomes(group, outcomes, bid)
                 else:
-                    self._deliver(group, y_np)
+                    n_ok = self._deliver(group, y_np, bid)
+                self._delivered(y, n_ok)
                 self._drain_group = None
         except BaseException as e:  # noqa: BLE001 — watchdog handles it
             self._thread_exc = e

@@ -63,6 +63,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import spans
 from repro_torch.compat import resolve_backend
 from repro_torch.core import layouts
 from repro_torch.core import winograd as wino
@@ -973,8 +974,10 @@ class CompiledExecutor:
     taking turns on one stream replay without capturing again. It keeps
     the cached device constants its capture read (the requantize
     multipliers). ``trace_count``
-    counts the captures (0 on the CPU, where ``fn`` runs as it is). A
-    failed capture raises; nothing falls back to the uncaptured path.
+    counts the captures (0 on the CPU, where ``fn`` runs as it is), and
+    each capture is an ``executor.capture`` span in ``repro_torch.spans``
+    (id: the entry's ``id()``; count: the batch). A failed capture raises; nothing falls back to the
+    uncaptured path.
 
     ``donate_input`` (the reference's input donation) marks an entry whose
     caller hands over its input buffer until the batch completes: it may
@@ -998,8 +1001,6 @@ class CompiledExecutor:
         default_factory=lambda: _GraphTable(STREAMS_PER_WEIGHTS),
         repr=False)
     _trace_count: int = dataclasses.field(default=0, repr=False)
-    # host ms from the capture's start to its end, of the last capture
-    last_capture_ms: float = dataclasses.field(default=0.0, repr=False)
     _capture_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False)
     mesh_key = None                # unsharded (see ShardedExecutor)
@@ -1052,9 +1053,9 @@ class CompiledExecutor:
             y = self.fn(params, x_dev)
             static_x = torch.empty_like(x_dev)
             static_x.copy_(x_dev)
-            graph, static_y, launches, constants, self.last_capture_ms = (
-                capture_graph(lambda: self.fn(params, static_x), device,
-                              stream))
+            with spans.span(spans.CAPTURE, id(self), count=x.shape[0]):
+                graph, static_y, launches, constants, _ = capture_graph(
+                    lambda: self.fn(params, static_x), device, stream)
             self._graphs.put(key, _Graph(
                 graph, static_x, static_y,
                 tuple(weakref.ref(t) for p in params for t in p), constants,

@@ -464,9 +464,11 @@ if HAVE_HYPOTHESIS:
 # -- the session trace and the settled heap ------------------------------------
 
 def test_session_trace_accounts_for_every_request(acc):
-    """``serving.trace.run_window`` wraps a session's own methods: every
-    request lands in a traced batch, its latency splits into the parts
-    the trace names, and the CPU records no device time."""
+    """``serving.trace.run_window`` reads the session's own spans from the
+    span log, and patches nothing: every request lands in a batch, its
+    latency splits into the parts the trace names, the CPU records no
+    device time (timed events are made on a card only), and the window
+    splits into time with a batch in flight and the idle parts."""
     from repro_torch.serving.trace import run_window
     images = np.stack(_requests(8, seed=5))
     s = run_window(acc, images, 2000.0, 40, clients=2, max_batch=MAX_BATCH)
@@ -476,8 +478,16 @@ def test_session_trace_accounts_for_every_request(acc):
     assert s["tail_requests"] >= 2
     assert set(s["tail_parts_ms"]) == {"queue_ms", "slot_ms", "launch_ms",
                                        "launch_to_drained_ms", "deliver_ms"}
+    assert all(v >= 0 for v in s["tail_parts_ms"].values())
     assert sum(b["requests"] for b in s["tail_bursts"]) <= s["tail_requests"]
     assert s["served_images_per_s"] > 0 and s["clients"] == 2
+    split = s["split"]
+    assert set(split) == {"in_flight", "queue_empty", "idle_hold",
+                          "staging", "other"}
+    assert 0 < split["in_flight"] <= 1
+    assert all(split[k] >= 0 for k in ("queue_empty", "idle_hold",
+                                       "staging"))
+    assert sum(split.values()) == pytest.approx(1.0)
 
 
 def test_settled_heap_freezes_only_inside_the_block():
