@@ -326,22 +326,26 @@ KERNEL_REPS = 10
 # per-request launches on each main path, from its program (pm.V5E plans,
 # batch 8, opt_level 1: one dispatch per layer)
 PATHS = {
-    # 9 Spatial CONVs (K1); 4 Winograd GEMMs + 3 FC (K2); 4 Winograd CONVs
-    "vgg16_fp32": {"conv_gemm_f32": 9, "bmm_f32": 7,
+    # 9 Spatial CONVs (K1: conv0's 3 channels over im2col's patches, the
+    # other 8 over the map itself); 4 Winograd GEMMs + 3 FC (K2); 4
+    # Winograd CONVs
+    "vgg16_fp32": {"conv_gemm_f32": 1, "conv_implicit_f32": 8, "bmm_f32": 7,
                    "wino_input_transform_f32": 4,
                    "wino_output_transform_f32": 4},
     # 13 CONVs + 3 FC, all Spatial under the int8 DSE
     "vgg16_int8": {"qmm_i8": 16},
-    # 16 Spatial CONVs (K1); 4 Winograd GEMMs + 1 FC (K2); 4 Winograd CONVs
-    "resnet18_fp32": {"conv_gemm_f32": 16, "bmm_f32": 5,
+    # 16 Spatial CONVs (K1: the stem over patches, 15 over the map); 4
+    # Winograd GEMMs + 1 FC (K2); 4 Winograd CONVs
+    "resnet18_fp32": {"conv_gemm_f32": 1, "conv_implicit_f32": 15,
+                      "bmm_f32": 5,
                       "wino_input_transform_f32": 4,
                       "wino_output_transform_f32": 4},
     # 20 CONVs + 1 FC
     "resnet18_int8": {"qmm_i8": 21},
     # the reference's depthwise chain (tests/test_residual_ops.py) at
     # 56x56x128, a check input for DEPTHWISE_CONV: one Spatial CONV and the
-    # FC on the PE, the two depthwise layers in aten
-    "dwchain_fp32": {"conv_gemm_f32": 1, "bmm_f32": 1},
+    # FC on the PE (K1 over the map), the two depthwise layers in aten
+    "dwchain_fp32": {"conv_implicit_f32": 1, "bmm_f32": 1},
     "dwchain_int8": {"qmm_i8": 2},
     # one K6 per layer of the prefill (prompt >= 2048 tokens); a decode
     # step attends one token through the einsum branch
@@ -428,6 +432,8 @@ BF16_STEP, BF16_ABS = 2.0 ** -7, 1e-6
 SOURCES = {
     "conv_gemm_f32": ("src/repro_torch/csrc/gemm_f32.cu",
                       "src/repro/kernels/spatial_conv/kernel.py:51"),
+    "conv_implicit_f32": ("src/repro_torch/csrc/gemm_f32.cu",
+                          "src/repro/kernels/spatial_conv/kernel.py:51"),
     "bmm_f32": ("src/repro_torch/csrc/gemm_f32.cu",
                 "src/repro/kernels/gemm/kernel.py:68"),
     "wino_input_transform_f32": ("src/repro_torch/csrc/winograd_f32.cu",
@@ -542,6 +548,7 @@ def kernel_cases(program, batch: int, dtype: str, per_block: bool = False):
     ``(kernel, label, shape dict, launches)``, one entry per PE dispatch
     (:func:`pe_calls`)."""
     from repro_torch.core.executor import width_pad
+    from repro_torch.core.hybrid_conv import explicit_pads
     from repro_torch.core.winograd import pt_for
     from repro_torch.kernels.common import cdiv
     cases = []
@@ -559,9 +566,22 @@ def kernel_cases(program, batch: int, dtype: str, per_block: bool = False):
                 g=1, m=batch, k=s.d_in, n=s.d_out, df="is"), 1))
         elif cl.plan.mode == "spat":
             wo = s.out_hw[1]
-            cases.append(("conv_gemm_f32", label, dict(
-                t=batch * rows * wo, crs=s.r * s.s * s.c, k=k,
-                df=cl.plan.dataflow), 1))
+            t = batch * rows * wo
+            # K1 reads the map itself where takes_implicit holds (these
+            # operands are 16-byte aligned): the whole map with its pads
+            # (a fused layer) or the block's row slab with its width pads
+            if s.c % 4 == 0 and k % 4 == 0 and t >= 64:
+                h, pads = ((s.h, explicit_pads(s.padding, s.h, s.w, s.r,
+                                               s.s, s.stride))
+                           if not per_block else
+                           ((rows - 1) * s.stride + s.r,
+                            ((0, 0), width_pad(cl))))
+                cases.append(("conv_implicit_f32", label, dict(
+                    n=batch, h=h, w=s.w, c=s.c, k=k, r=s.r,
+                    stride=s.stride, pads=pads, df=cl.plan.dataflow), 1))
+            else:
+                cases.append(("conv_gemm_f32", label, dict(
+                    t=t, crs=s.r * s.s * s.c, k=k, df=cl.plan.dataflow), 1))
         else:
             # K3 reads the executor's slab (the vertical pad materialized,
             # rows + 2) with the width pad as geometry; K4 writes the
@@ -859,6 +879,11 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         conv_gemm_f32,
         conv_gemm_ref,
         conv_gemm_work,
+        conv_implicit_f32,
+        conv_implicit_ref,
+        conv_implicit_work,
+        im2col,
+        out_hw,
     )
     from repro_torch.core.winograd import tile_input, transform_matrices
     from repro_torch.kernels.winograd.kernel import (
@@ -933,7 +958,6 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         p, w, b = rnd(t, crs), rnd(crs, k), rnd(k)
         if "im2col" in shape:
             # the patches as spatial_conv2d hands them to the kernel
-            from repro_torch.kernels.spatial_conv.ops import im2col
             n, h, w_, c, stride = shape["im2col"]
             p, _ = im2col(rnd(n, h, w_, c), 1, 1, stride, ((0, 0), (0, 0)))
             if p.shape != (t, crs) or not p.is_contiguous():
@@ -944,6 +968,39 @@ def run_case(name: str, shape: dict, gen: torch.Generator) -> dict:
         lib = lambda: torch.addmm(b, p, w)   # bias + GEMM (ReLU not fused)
         ops, nbytes = conv_gemm_work(t, crs, k)
         gemm = (t, crs, k)
+    elif name == "conv_implicit_f32":
+        n, h, w_, c, k, r, st, pads, df = (
+            shape[x] for x in ("n", "h", "w", "c", "k", "r", "stride",
+                               "pads", "df"))
+        x, g, b = rnd(n, h, w_, c), rnd(r, r, c, k), rnd(k)
+        ho, wo = out_hw(h, w_, r, r, st, pads)
+        kern = lambda: conv_implicit_f32(x, g, b, stride=st, pads=pads,
+                                         relu=True, dataflow=df)
+        plain = lambda: conv_implicit_ref(x, g, b, stride=st, pads=pads,
+                                          relu=True)
+        (pt, pb), (pl, pr) = pads
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(3, 2, 0, 1)
+        def lib():
+            # the yardstick: cuDNN's fp32 conv (no TF32) on the padded map,
+            # bias added, no ReLU
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return torch.nn.functional.conv2d(
+                    torch.nn.functional.pad(xn, (pl, pr, pt, pb)), gn, b, st)
+        # what K1 ran before it read the map: im2col, then the patch GEMM
+        patch = lambda: conv_gemm_f32(im2col(x, r, r, st, pads)[0],
+                                      g.view(-1, k), b, True, df)
+        if not torch.equal(kern(), patch().view(n, ho, wo, k)):
+            raise AssertionError(f"conv_implicit_f32 {shape}: not equal to "
+                                 f"conv_gemm_f32 over im2col's patches")
+        extra["patch_max_abs_diff"] = 0.0
+        extra["patch_route_ms"] = time_ms(patch)
+        # the patch GEMM alone, over patches built beforehand
+        patches = im2col(x, r, r, st, pads)[0]
+        extra["patch_gemm_ms"] = time_ms(
+            lambda: conv_gemm_f32(patches, g.view(-1, k), b, True, df))
+        del patches
+        ops, nbytes = conv_implicit_work(n, h, w_, c, k, r, r, ho, wo)
+        gemm = (n * ho * wo, r * r * c, k)
     elif name == "bmm_f32":
         g, m, k, n, df = (shape[x] for x in ("g", "m", "k", "n", "df"))
         a, bm = rnd(g, m, k), rnd(g, k, n)

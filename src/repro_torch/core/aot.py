@@ -12,7 +12,7 @@ The artifact
 shapes, traced with fake tensors (no device math at save time), saved with
 ``torch.export.save``. The params are inputs of the exported program, so
 the weights are not stored: the instruction image and the params stay in
-their own files. The five CNN kernels appear in it as their
+their own files. The CNN kernels appear in it as their
 ``torch.ops.repro_torch`` ops (``kernels/common.py``), whose CUDA
 implementation is the kernel's launch; a loaded entry is captured into a
 CUDA graph on first use like any other (``executor.CompiledExecutor``).

@@ -350,21 +350,35 @@ def slice_input_rows(cl: CompiledLayer, x_nhwc: torch.Tensor,
     return slice_input_span(cl, x_nhwc, r0, r1)
 
 
+def _input_span(cl: CompiledLayer, r0: int, r1: int) -> tuple[int, int]:
+    """Input rows ``[in_lo, in_hi)`` (spec-derived halo included; they may
+    reach past the map, into the vertical padding) of output rows
+    ``[r0, r1)``."""
+    spec = cl.spec
+    pad = (same_pad(spec.h, spec.r, spec.stride)[0]
+           if spec.padding.upper() == "SAME" else 0)
+    return r0 * spec.stride - pad, (r1 - 1) * spec.stride + spec.r - pad
+
+
 def slice_input_span(cl: CompiledLayer, x_nhwc: torch.Tensor,
                      r0: int, r1: int) -> torch.Tensor:
     """Input rows (plus spec-derived halo) for output rows ``[r0, r1)``,
     with the vertical padding materialized."""
-    spec = cl.spec
-    pad = (same_pad(spec.h, spec.r, spec.stride)[0]
-           if spec.padding.upper() == "SAME" else 0)
-    in_lo = r0 * spec.stride - pad
-    in_hi = (r1 - 1) * spec.stride + spec.r - pad
+    in_lo, in_hi = _input_span(cl, r0, r1)
+    h = cl.spec.h
     pad_top = max(0, -in_lo)
-    pad_bot = max(0, in_hi - spec.h)
-    sl = x_nhwc[:, max(0, in_lo):min(spec.h, in_hi)]
+    pad_bot = max(0, in_hi - h)
+    sl = x_nhwc[:, max(0, in_lo):min(h, in_hi)]
     if pad_top or pad_bot:
         sl = torch.nn.functional.pad(sl, (0, 0, 0, 0, pad_top, pad_bot))
     return sl
+
+
+def height_pad(cl: CompiledLayer) -> tuple[int, int]:
+    """Vertical conv padding of the whole layer: the rows
+    :func:`slice_input_span` materializes for all of its output rows."""
+    in_lo, in_hi = _input_span(cl, 0, cl.spec.out_hw[0])
+    return max(0, -in_lo), max(0, in_hi - cl.spec.h)
 
 
 def width_pad(cl: CompiledLayer) -> tuple[int, int]:
@@ -378,15 +392,16 @@ def conv_block_forward(cl: CompiledLayer, x_slab: torch.Tensor,
                        w_grp: torch.Tensor, b_grp: torch.Tensor, relu: bool,
                        *, backend: str = "torch",
                        quant: LayerQuant | None = None,
-                       k_range: tuple[int, int] | None = None
-                       ) -> torch.Tensor:
+                       k_range: tuple[int, int] | None = None,
+                       hpad: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """One COMP block on the selected PE backend.
 
     ``x_slab`` is the row-group slice (halo included, vertical padding
-    materialized); ``w_grp`` the k-group slice of the DRAM weight image
-    (U-space for Winograd). ``quant`` switches the block to the int8 PE
-    (int8 in and weights, int32 accumulate, fused requantize(+ReLU)
-    epilogue) — Spatial mode only. When ``w_grp``/``b_grp`` are a k-group
+    materialized), or for a fp32 Spatial block the whole map with its
+    vertical padding ``hpad`` (read as geometry); ``w_grp`` the k-group
+    slice of the DRAM weight image (U-space for Winograd). ``quant``
+    switches the block to the int8 PE (int8 in and weights, int32
+    accumulate, fused requantize(+ReLU) epilogue) — Spatial mode only. When ``w_grp``/``b_grp`` are a k-group
     slice of the layer, ``k_range=(lo, hi)`` slices a per-channel
     multiplier to match.
     """
@@ -420,7 +435,7 @@ def conv_block_forward(cl: CompiledLayer, x_slab: torch.Tensor,
     return hybrid_conv2d(
         x_slab, w_grp, b_grp, mode="spat",
         dataflow=plan.dataflow if hopper else "is", stride=spec.stride,
-        relu=relu, padding=((0, 0), wpad), backend=backend)
+        relu=relu, padding=(hpad, wpad), backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -543,9 +558,15 @@ def _layer_forward_fused(cl: CompiledLayer, w_eff: torch.Tensor,
     int32 sums equal the per-block sums bit for bit and the elementwise
     requantize epilogue commutes with the block partition."""
     ho, _ = cl.spec.out_hw
-    x_slab = slice_input_span(cl, x, 0, ho)
-    blk = conv_block_forward(cl, x_slab, w_eff, bias, relu, backend=backend,
-                             quant=quant)
+    if backend == "hopper" and quant is None and cl.plan.mode == "spat":
+        # K1 takes the map as it lies and every pad as geometry: no padded
+        # slab is copied
+        blk = conv_block_forward(cl, x, w_eff, bias, relu, backend=backend,
+                                 hpad=height_pad(cl))
+    else:
+        x_slab = slice_input_span(cl, x, 0, ho)
+        blk = conv_block_forward(cl, x_slab, w_eff, bias, relu,
+                                 backend=backend, quant=quant)
     return blk[:, :ho]
 
 

@@ -1,8 +1,13 @@
-// K1 conv_gemm_f32 and K2 bmm_f32: one fp32 GEMM, two entries, two bodies.
+// K1 conv_gemm_f32 and conv_implicit_f32, K2 bmm_f32: one fp32 GEMM, three
+// entries, two bodies.
 //
 // Replaces
 //   K1  src/repro/kernels/spatial_conv/kernel.py :: conv_gemm_kernel
-//       (the Spatial-mode PE: (T, C*R*S) @ (C*R*S, K) + bias, optional ReLU)
+//       (the Spatial-mode PE: (T, C*R*S) @ (C*R*S, K) + bias, optional ReLU;
+//       conv_gemm_f32 over a patch matrix, conv_implicit_f32 over the NHWC
+//       map itself, where the tensor-core body finds each chunk of a patch
+//       in the map and the pads read as zeros, so no patch matrix and no
+//       padded copy of the map is written)
 //   K2  src/repro/kernels/gemm/kernel.py :: batched_matmul_kernel
 //       ((G, M, K) @ (G, K, N), optional (G, N) bias + ReLU epilogue; the
 //       PT^2-batched Winograd GEMM and, with G = 1, the FC layer)
@@ -345,6 +350,10 @@ constexpr int kTcKSteps = kTcBK / 8;   // k8 steps of wgmma a slab
 constexpr int kConsumers = 256;  // two warpgroups: the products
 constexpr int kProducers = 256;  // two warpgroups: copies and B's split
 constexpr int kTcThreads = kConsumers + kProducers;
+// A's 16-byte chunks a producer thread copies of each slab, and the rows
+// between them
+constexpr int kTcLA = kTcBM * kTcBK / 4 / kProducers;
+constexpr int kARows = kProducers / 8;
 constexpr int kRawStages = 4;    // fp32 slabs in the cp.async ring
 constexpr int kSplitStages = 3;  // B's hi and lo planes, ready for wgmma
 // slabs whose copies are in flight ahead of the one being split
@@ -366,7 +375,6 @@ struct TcTile {
   static constexpr int kSmem = kRawBase + kRawStages * kRaw + 1024;  // align
   static constexpr int kAChunks = kTcBM * kTcBK / 4;   // 16-byte chunks
   static constexpr int kBChunks = kTcBK * BN / 4;
-  static constexpr int LA = kAChunks / kProducers;
   static constexpr int LB = kBChunks / kProducers;
   static constexpr int kBBlocks = (BN / 4) * (kTcBK / 4);   // 4 x 4 blocks
   static constexpr int LBB = (kBBlocks + kProducers - 1) / kProducers;
@@ -505,11 +513,126 @@ __device__ __forceinline__ uint32_t raw_b(int k, int n4) {
   return static_cast<uint32_t>(k * BN * 4 + ((n4 ^ ((k >> 2) & 7)) << 4));
 }
 
-// One 32-deep slab of A (128 x 32 of a row-major M x K) and B (32 x BN of
-// a row-major K x N). A Copier (producer thread p) moves it as fp32 into a
-// raw stage with cp.async, 16-byte chunks, those outside [M) x [k_end) and
-// [k_end) x [N) zero-filled (K and N are multiples of 4); A chunk e is row
-// e / 8, chunk e % 8, swizzled. split_b() (producer thread p) splits B into
+// Where the tensor-core body finds A. Each source has Rows: a producer
+// thread's kTcLA chunks of one work item, rows m + l * kARows, all at the
+// column k (a multiple of 4) of the item's first slab; copy() moves them
+// for one slab, zero-filling those outside [M) x [k_end), and moves on to
+// the next slab's column, k + kTcBK.
+//
+// DenseA: a row-major (G, M, K) array (K2, and K1 over im2col patches).
+struct DenseA {
+  const float* a;
+
+  struct Rows {
+    const float* at;    // row m of product g, at the slab's column
+    int64_t k, step;    // the slab's column; floats from chunk l to l + 1
+    uint32_t ok;        // bit l: chunk l's row is inside M
+
+    __device__ __forceinline__ Rows(const DenseA& src, int64_t g, int64_t M,
+                                    int64_t K, int64_t m, int64_t k0)
+        : at(src.a + (g * M + m) * K + k0), k(k0), step(kARows * K) {
+      ok = 0;
+#pragma unroll
+      for (int l = 0; l < kTcLA; ++l)
+        if (m + l * kARows < M) ok |= 1u << l;
+    }
+
+    // the chunks into dst + l * kARows * 128 (one swizzled row of 128
+    // bytes a row)
+    __device__ __forceinline__ void copy(uint32_t dst, const DenseA& src,
+                                         int64_t k_end) {
+      const bool k_ok = k < k_end;
+#pragma unroll
+      for (int l = 0; l < kTcLA; ++l) {
+        const bool in = k_ok && ((ok >> l) & 1u);
+        cp_async16(dst + l * kARows * 128,
+                   in ? static_cast<const void*>(at + l * step) : src.a,
+                   in ? 16 : 0);
+      }
+      k += kTcBK;
+      at += kTcBK;
+    }
+  };
+};
+
+// ConvA: the patch matrix of an NHWC map x, never built (K1's implicit
+// GEMM). Row m = (n HO + oh) WO + ow is output pixel (n, oh, ow); column
+// k = (r S + s) C + ch is channel ch of tap (r, s), which reads
+// x[n, oh stride - pad_top + r, ow stride - pad_left + s, ch], and 0 where
+// that lies outside the map: the pads are geometry, never copies. C % 4 ==
+// 0, so a chunk never straddles two taps, and with C a multiple of 32 a
+// slab's row is one contiguous 128-byte run of the map. Rows finds its
+// rows' pixels once an item (M < 2**31) and walks (r, s, ch) from slab to
+// slab without dividing.
+struct ConvA {
+  const float* x;
+  int64_t sn, sh, sw;   // strides in floats (multiples of 4); C contiguous
+  int h, w, c, s, stride, pad_top, pad_left, ho, wo;
+
+  struct Rows {
+    int64_t base[kTcLA];         // offset of x[n, ih0, iw0, 0], maybe outside
+    int ih0[kTcLA], iw0[kTcLA];  // the patch's corner in the map
+    int64_t k, off;              // the slab's column; r sh + s sw + ch
+    int r, s, ch;                // its tap and channel
+
+    __device__ __forceinline__ Rows(const ConvA& src, int64_t, int64_t M,
+                                    int64_t, int64_t m, int64_t k0)
+        : k(k0) {
+      const int hw = src.ho * src.wo;
+#pragma unroll
+      for (int l = 0; l < kTcLA; ++l) {
+        const int ml = static_cast<int>(m) + l * kARows;
+        const int n = ml / hw, q = ml - n * hw;
+        const int oh = q / src.wo, ow = q - oh * src.wo;
+        // a row past M starts below the map: each of its taps reads 0
+        ih0[l] = ml < M ? oh * src.stride - src.pad_top : src.h;
+        iw0[l] = ow * src.stride - src.pad_left;
+        base[l] = n * src.sn + static_cast<int64_t>(ih0[l]) * src.sh +
+                  static_cast<int64_t>(iw0[l]) * src.sw;
+      }
+      const int kk = static_cast<int>(k0), tap = kk / src.c;
+      ch = kk - tap * src.c;
+      r = tap / src.s;
+      s = tap - r * src.s;
+      off = r * src.sh + s * src.sw + ch;
+    }
+
+    __device__ __forceinline__ void copy(uint32_t dst, const ConvA& src,
+                                         int64_t k_end) {
+      const bool k_ok = k < k_end;
+#pragma unroll
+      for (int l = 0; l < kTcLA; ++l) {
+        const bool in =
+            k_ok &&
+            static_cast<unsigned>(ih0[l] + r) < static_cast<unsigned>(src.h) &&
+            static_cast<unsigned>(iw0[l] + s) < static_cast<unsigned>(src.w);
+        cp_async16(dst + l * kARows * 128,
+                   in ? static_cast<const void*>(src.x + base[l] + off)
+                      : src.x,
+                   in ? 16 : 0);
+      }
+      k += kTcBK;
+      ch += kTcBK;
+      off += kTcBK;
+      while (ch >= src.c) {   // once at most where C % 32 == 0
+        ch -= src.c;
+        off += src.sw - src.c;
+        if (++s == src.s) {
+          s = 0;
+          ++r;
+          off += src.sh - src.s * src.sw;
+        }
+      }
+    }
+  };
+};
+
+// One 32-deep slab of A (128 x 32 of an M x K operand, from a DenseA or a
+// ConvA) and B (32 x BN of a row-major K x N). A Copier (producer thread p)
+// moves it as fp32 into a raw stage with cp.async, 16-byte chunks, those
+// outside [M) x [k_end) and [k_end) x [N) zero-filled (K and N are
+// multiples of 4); A chunk e is row e / 8, chunk e % 8, swizzled. split_b()
+// (producer thread p) splits B into
 // TF32 hi and lo planes, K-major: 4 x 4 block e covers k = 4 (e % 8) + j,
 // j < 4, and columns 4 (e / 8) + i, i < 4; its four row chunks are read and
 // transposed in registers into one 16-byte chunk of each column's rows.
@@ -521,28 +644,25 @@ struct TcSlab {
   using T = TcTile<BN>;
 
   // What a producer thread p copies of every slab: A chunks e = p + l *
-  // kProducers are rows p / 8 + l * (kProducers / 8), all at chunk p % 8;
-  // B chunks are rows e / (BN / 4), all at column chunk p % (BN / 4).
+  // kProducers are rows p / 8 + l * kARows, all at chunk p % 8 (Src's
+  // Rows); B chunks are rows e / (BN / 4), all at column chunk p % (BN / 4).
+  template <class Src>
   struct Copier {
-    const float* a;    // A's row of chunk 0, at the thread's column
+    typename Src::Rows a;
     const float* b;    // B's row of chunk 0 of slab 0, at its column
-    int64_t a_row_step, b_row_step;  // floats from chunk l to l + 1
-    int a_col, b_row0;
-    uint32_t a_dst0, a_row_ok;   // bit l: A chunk l's row is inside M
+    int64_t b_row_step;  // floats from chunk l to l + 1
+    int b_row0;
+    uint32_t a_dst0;
     bool b_col_ok;
 
-    __device__ __forceinline__ Copier(const float* A, const float* B,
-                                      int64_t M, int64_t K, int64_t N,
-                                      int64_t m0, int64_t n0, int p) {
-      constexpr int kARows = kProducers / 8, kBRows = kProducers / (BN / 4);
-      a_col = (p % 8) * 4;
-      a = A + (m0 + p / 8) * K + a_col;
-      a_row_step = kARows * K;
+    // the item's slabs start at column k_begin
+    __device__ __forceinline__ Copier(const Src& src, const float* B,
+                                      int64_t g, int64_t M, int64_t K,
+                                      int64_t N, int64_t m0, int64_t n0,
+                                      int64_t k_begin, int p)
+        : a(src, g, M, K, m0 + p / 8, k_begin + (p % 8) * 4) {
+      constexpr int kBRows = kProducers / (BN / 4);
       a_dst0 = swizzled(kTcBM, p / 8, p % 8);   // + l * kARows * 128
-      a_row_ok = 0;
-#pragma unroll
-      for (int l = 0; l < T::LA; ++l)
-        if (m0 + p / 8 + l * kARows < M) a_row_ok |= 1u << l;
       b_row0 = p / (BN / 4);
       const int64_t gn = n0 + (p % (BN / 4)) * 4;
       b = B + b_row0 * N + gn;
@@ -550,21 +670,14 @@ struct TcSlab {
       b_col_ok = gn < N;
     }
 
-    // slab at k0 (k_end the end of the block's K chunk) into a raw stage
-    __device__ __forceinline__ void operator()(uint32_t raw, const float* A,
+    // slab at k0, the item's next (k_end the end of the block's K chunk),
+    // into a raw stage
+    __device__ __forceinline__ void operator()(uint32_t raw, const Src& src,
                                                const float* B, int64_t N,
                                                int64_t k0, int64_t k_end,
-                                               int p) const {
-      constexpr int kARows = kProducers / 8, kBRows = kProducers / (BN / 4);
-      const bool a_k_ok = k0 + a_col < k_end;
-      const float* as = a + k0;
-#pragma unroll
-      for (int l = 0; l < T::LA; ++l) {
-        const bool ok = a_k_ok && ((a_row_ok >> l) & 1u);
-        cp_async16(raw + a_dst0 + l * kARows * 128,
-                   ok ? static_cast<const void*>(as + l * a_row_step) : A,
-                   ok ? 16 : 0);
-      }
+                                               int p) {
+      constexpr int kBRows = kProducers / (BN / 4);
+      a.copy(raw + a_dst0, src, k_end);
       const float* bs = b + k0 * N;
 #pragma unroll
       for (int l = 0; l < T::LB; ++l) {
@@ -620,7 +733,6 @@ struct TcSlab {
 // One output tile of one split of one of the G products: a work item.
 // Items run tile first, then g, then split.
 struct TcWork {
-  const float* a;     // A of this g
   const float* b;     // B of this g
   float* c;           // C of this g and split (the workspace when split)
   int64_t g, m0, n0, k_begin, k_end;
@@ -633,14 +745,14 @@ struct TcWork {
 // run on across items and one item's epilogue overlaps the next one's
 // copies. With splits > 1 item (split, g, tile) writes the partial product
 // over its K chunk into the (splits, G, M, N) workspace. Every item has at
-// least one slab (the plan keeps every split's chunk inside [0, K)).
-template <int BN>
-__global__ void __launch_bounds__(kTcThreads, 1)
-gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
-               const float* __restrict__ bias, float* __restrict__ C,
-               int64_t G, int64_t M, int64_t K, int64_t N,
-               int64_t bias_stride, int64_t tiles_m, int64_t tiles_n,
-               int64_t splits, int64_t k_chunk, int relu, int ws) {
+// least one slab (the plan keeps every split's chunk inside [0, K)). A
+// comes from `src` (DenseA or ConvA); nothing else depends on it.
+template <int BN, class Src>
+__device__ __forceinline__ void tc_gemm(
+    const Src& src, const float* __restrict__ B,
+    const float* __restrict__ bias, float* __restrict__ C, int64_t G,
+    int64_t M, int64_t K, int64_t N, int64_t bias_stride, int64_t tiles_m,
+    int64_t tiles_n, int64_t splits, int64_t k_chunk, int relu, int ws) {
   using T = TcTile<BN>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -667,7 +779,6 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
     }
     it.m0 = tm * kTcBM;
     it.n0 = tn * BN;
-    it.a = A + it.g * M * K;
     it.b = B + it.g * K * N;
     it.c = C + (split * G + it.g) * M * N;
     it.k_begin = split * k_chunk;
@@ -700,18 +811,19 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
     int64_t w = blockIdx.x;
     int s = 0;
     TcWork it = work(w);
-    typename TcSlab<BN>::Copier copier(it.a, it.b, M, K, N, it.m0, it.n0, p);
+    using Copier = typename TcSlab<BN>::template Copier<Src>;
+    Copier copier(src, it.b, it.g, M, K, N, it.m0, it.n0, it.k_begin, p);
     auto copy = [&](int v) {
       if (w < items) {
-        copier(raw(v), it.a, it.b, N,
+        copier(raw(v), src, it.b, N,
                it.k_begin + static_cast<int64_t>(s) * kTcBK, it.k_end, p);
         if (++s == it.n_slabs) {
           s = 0;
           w += gridDim.x;
           if (w < items) {
             it = work(w);
-            copier = typename TcSlab<BN>::Copier(it.a, it.b, M, K, N, it.m0,
-                                                 it.n0, p);
+            copier = Copier(src, it.b, it.g, M, K, N, it.m0, it.n0,
+                            it.k_begin, p);
           }
         }
       }
@@ -815,6 +927,39 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
     }
   }
 }
+
+// K2, and K1 over im2col patches: A a row-major (G, M, K) array.
+template <int BN>
+__global__ void __launch_bounds__(kTcThreads, 1)
+gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
+               const float* __restrict__ bias, float* __restrict__ C,
+               int64_t G, int64_t M, int64_t K, int64_t N,
+               int64_t bias_stride, int64_t tiles_m, int64_t tiles_n,
+               int64_t splits, int64_t k_chunk, int relu, int ws) {
+  tc_gemm<BN>(DenseA{A}, B, bias, C, G, M, K, N, bias_stride, tiles_m,
+              tiles_n, splits, k_chunk, relu, ws);
+}
+
+// K1 over the map itself (G = 1): the same body, its A chunks read from
+// the NHWC map where the patch matrix would have them.
+template <int BN>
+__global__ void __launch_bounds__(kTcThreads, 1)
+conv_tc_kernel(const ConvA A, const float* __restrict__ B,
+               const float* __restrict__ bias, float* __restrict__ C,
+               int64_t G, int64_t M, int64_t K, int64_t N,
+               int64_t bias_stride, int64_t tiles_m, int64_t tiles_n,
+               int64_t splits, int64_t k_chunk, int relu, int ws) {
+  tc_gemm<BN>(A, B, bias, C, G, M, K, N, bias_stride, tiles_m, tiles_n,
+              splits, k_chunk, relu, ws);
+}
+
+// the entry of each A source, and what it takes as A
+template <int BN>
+auto tc_entry(const DenseA&) { return gemm_tc_kernel<BN>; }
+template <int BN>
+auto tc_entry(const ConvA&) { return conv_tc_kernel<BN>; }
+inline const float* tc_arg(const DenseA& src) { return src.a; }
+inline const ConvA& tc_arg(const ConvA& src) { return src; }
 
 // ---------------------------------------------------------------------------
 // Plans and dispatch
@@ -966,8 +1111,8 @@ cudaError_t launch_plan(const Plan& p, bool vec, const float* A,
                        stream);
 }
 
-template <int BN>
-cudaError_t launch_tc(const Plan& p, const float* A, const float* B,
+template <int BN, class Src>
+cudaError_t launch_tc(const Plan& p, const Src& A, const float* B,
                       const float* bias, float* C, float* workspace,
                       int64_t G, int64_t M, int64_t K, int64_t N,
                       int64_t bias_stride, int64_t relu, int64_t ws,
@@ -975,8 +1120,9 @@ cudaError_t launch_tc(const Plan& p, const float* A, const float* B,
   cudaError_t err = check_grid(p, G, M, N, workspace);
   if (err != cudaSuccess) return err;
   constexpr int smem = TcTile<BN>::kSmem;
-  auto kernel = gemm_tc_kernel<BN>;
-  // once per device (the launch is on the caller's device, set above)
+  auto kernel = tc_entry<BN>(A);
+  // once per device and entry (the launch is on the caller's device, set
+  // above)
   static bool attr_set[64] = {false};
   int device = 0;
   err = cudaGetDevice(&device);
@@ -997,8 +1143,8 @@ cudaError_t launch_tc(const Plan& p, const float* A, const float* B,
   const unsigned blocks = static_cast<unsigned>(items < sms ? items : sms);
   const int r = static_cast<int>(relu != 0), w = static_cast<int>(ws != 0);
   kernel<<<blocks, kTcThreads, smem, stream>>>(
-      A, B, bias, split ? workspace : C, G, M, K, N, bias_stride, tiles_m,
-      tiles_n, p.splits, p.k_chunk, r, w);
+      tc_arg(A), B, bias, split ? workspace : C, G, M, K, N, bias_stride,
+      tiles_m, tiles_n, p.splits, p.k_chunk, r, w);
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
   return launch_reduce(p, bias, C, workspace, G, M, N, bias_stride, r,
@@ -1022,10 +1168,10 @@ cudaError_t gemm_dispatch(const float* A, const float* B, const float* bias,
                    (workspace == nullptr || aligned16(workspace));
   switch (p.tile) {
     case Tile::kTc64:
-      return launch_tc<64>(p, A, B, bias, C, workspace, G, M, K, N,
+      return launch_tc<64>(p, DenseA{A}, B, bias, C, workspace, G, M, K, N,
                            bias_stride, relu, ws, stream);
     case Tile::kTc128:
-      return launch_tc<128>(p, A, B, bias, C, workspace, G, M, K, N,
+      return launch_tc<128>(p, DenseA{A}, B, bias, C, workspace, G, M, K, N,
                             bias_stride, relu, ws, stream);
     case Tile::kSkinny:
       return launch_plan<16, 64, 32, 4, 4>(p, vec, A, B, bias, C, workspace,
@@ -1040,6 +1186,31 @@ cudaError_t gemm_dispatch(const float* A, const float* B, const float* bias,
                                             G, M, K, N, bias_stride, relu, ws,
                                             stream);
   }
+}
+
+// K1 over the map itself: the tensor-core route only, where it would take
+// the patch GEMM (takes_tc) and the map's chunks are 16-byte aligned: C and
+// the strides multiples of 4 (kernels/spatial_conv/kernel.py's
+// takes_implicit, the same rule). The plan is the patch GEMM's, so every
+// sum runs in the same order and the output is conv_gemm_f32's over the
+// im2col patches, bit for bit.
+cudaError_t conv_implicit_dispatch(const ConvA& a, const float* W,
+                                   const float* bias, float* C,
+                                   float* workspace, int64_t n, int64_t r,
+                                   int64_t N, int64_t relu, int64_t ws,
+                                   int64_t device, cudaStream_t stream) {
+  const int64_t M = n * a.ho * a.wo, K = r * a.s * a.c;
+  if (a.c % 4 != 0 || a.sn % 4 != 0 || a.sh % 4 != 0 || a.sw % 4 != 0 ||
+      !takes_tc(a.x, W, C, workspace, M, K, N))
+    return cudaErrorInvalidValue;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
+  const Plan p = plan_gemm(true, 1, M, K, N, static_cast<int>(device));
+  if (p.tile == Tile::kTc64)
+    return launch_tc<64>(p, a, W, bias, C, workspace, 1, M, K, N, 0, relu,
+                         ws, stream);
+  return launch_tc<128>(p, a, W, bias, C, workspace, 1, M, K, N, 0, relu, ws,
+                        stream);
 }
 
 }  // namespace
@@ -1082,6 +1253,45 @@ int conv_gemm_f32(const float* patches, const float* weights,
                                         workspace, 1, t, crs, k, 0, relu, ws,
                                         device,
                                         static_cast<cudaStream_t>(stream)));
+}
+
+// K1 over the map itself (implicit GEMM): Y (N HO WO, K) = the patches of
+// x (N, H, W, C; strides sn, sh, sw in floats, channels contiguous) @ W
+// (R S C, K) + bias (K) [ReLU], taps at (oh stride - pad_top + r, ow
+// stride - pad_left + s); a tap outside the map reads 0, so the bottom and
+// right pads follow from HO and WO. bias may be null. Refused
+// (cudaErrorInvalidValue) where conv_implicit_dispatch's rule fails.
+int conv_implicit_f32(const float* x, const float* weights, const float* bias,
+                      float* out, float* workspace, int64_t sn, int64_t sh,
+                      int64_t sw, int64_t n, int64_t h, int64_t w, int64_t c,
+                      int64_t k, int64_t r, int64_t s, int64_t stride,
+                      int64_t pad_top, int64_t pad_left, int64_t ho,
+                      int64_t wo, int64_t relu, int64_t ws, int64_t device,
+                      void* stream) {
+  // the geometry fits the kernel's 32-bit index arithmetic
+  constexpr int64_t kMax = INT32_MAX / 4;
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || k <= 0 || r <= 0 || s <= 0 ||
+      stride <= 0 || ho <= 0 || wo <= 0 || pad_top < 0 || pad_left < 0 ||
+      h > kMax || w > kMax || r * s * c > kMax || n * ho * wo > kMax ||
+      (ho - 1) * stride + r > kMax || (wo - 1) * stride + s > kMax ||
+      pad_top > kMax || pad_left > kMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ConvA a{x,
+                sn,
+                sh,
+                sw,
+                static_cast<int>(h),
+                static_cast<int>(w),
+                static_cast<int>(c),
+                static_cast<int>(s),
+                static_cast<int>(stride),
+                static_cast<int>(pad_top),
+                static_cast<int>(pad_left),
+                static_cast<int>(ho),
+                static_cast<int>(wo)};
+  return static_cast<int>(conv_implicit_dispatch(
+      a, weights, bias, out, workspace, n, r, k, relu, ws, device,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K2: C (G, M, N) = A (G, M, K) @ B (G, K, N) + bias (G, N) [ReLU].

@@ -24,8 +24,8 @@ its kernel's work once per call, from the one formula beside it (the
 its launch or its plain version uncounted (:func:`counted`): the
 ``hopper`` backend counts the same on the CPU as on the card.
 
-The five CNN kernels are also ``torch.library`` ops in the ``repro_torch``
-namespace (``torch.ops.repro_torch.<name>``), each with a fake
+The CNN kernels' entries are also ``torch.library`` ops in the
+``repro_torch`` namespace (``torch.ops.repro_torch.<name>``), each with a fake
 implementation, so ``torch.export`` can trace an executor through them
 (``core/aot.py``): their CUDA implementation is the same launch, their CPU
 one the plain version. A wrapper takes the op only while it is traced
@@ -49,8 +49,9 @@ import torch
 
 from repro_torch.launch import roofline
 
-KERNELS = ("conv_gemm_f32", "bmm_f32", "wino_input_transform_f32",
-           "wino_output_transform_f32", "qmm_i8", "flash_attention")
+KERNELS = ("conv_gemm_f32", "conv_implicit_f32", "bmm_f32",
+           "wino_input_transform_f32", "wino_output_transform_f32", "qmm_i8",
+           "flash_attention")
 
 # launches per kernel since the last reset_launches()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -65,6 +66,7 @@ WINO_ROUTES = ("scalar", "vec4")
 # and the names of its codes
 _ROUTES = {
     "conv_gemm_f32": ("gemm_f32_route", GEMM_ROUTES),
+    "conv_implicit_f32": ("gemm_f32_route", GEMM_ROUTES),
     "bmm_f32": ("gemm_f32_route", GEMM_ROUTES),
     "qmm_i8": ("qmm_i8_route", QMM_ROUTES),
     "wino_input_transform_f32": ("wino_f32_route", WINO_ROUTES),
@@ -85,6 +87,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     # P, W, bias, Y, workspace; T, CRS, K, relu, ws
     "conv_gemm_f32": (5, 5),
+    # x, W, bias, Y, workspace; x's N, H, W strides, N, H, W, C, K, R, S,
+    # stride, pad top, pad left, HO, WO, relu, ws
+    "conv_implicit_f32": (5, 17),
     # A, B, bias, C, workspace; G, M, K, N, relu, ws
     "bmm_f32": (5, 6),
     # x, V; N, H, W, C, pad top, pad left, nh, nw, m
@@ -280,32 +285,38 @@ def library() -> ctypes.CDLL:
 
 
 def on_cpu(name: str, *tensors: torch.Tensor | None,
-           dtypes: torch.dtype | tuple = torch.float32) -> bool:
+           dtypes: torch.dtype | tuple = torch.float32,
+           strided: int = 0) -> bool:
     """Check a kernel's operands; True when they lie on the CPU (run the
     plain version), False on CUDA (launch the kernel). ``dtypes`` is the
     type every operand must have, or one type per operand. Anything the
     kernel does not take raises: an operand that requires grad while grad
     mode is on (no kernel has a backward), mixed devices, another device
-    type, a wrong dtype, or a non-contiguous tensor."""
+    type, a wrong dtype, or a non-contiguous tensor, except among the first
+    ``strided`` operands, which the kernel reads through their strides
+    (the caller checks those)."""
     if not isinstance(dtypes, tuple):
         dtypes = (dtypes,) * len(tensors)
     if len(dtypes) != len(tensors):
         raise ValueError(f"{name}: {len(tensors)} operands, "
                          f"{len(dtypes)} dtypes")
-    present = [(t, d) for t, d in zip(tensors, dtypes) if t is not None]
-    if torch.is_grad_enabled() and any(t.requires_grad for t, _ in present):
+    present = [(t, d, i < strided)
+               for i, (t, d) in enumerate(zip(tensors, dtypes))
+               if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t, _, _ in present):
         raise RuntimeError(
             f"{name}: the kernel has no backward (neither has the "
             f"reference's), so its output would drop the gradient; call it "
             f"under torch.no_grad() or on inputs that do not require grad")
-    devices = {t.device for t, _ in present}
+    devices = {t.device for t, _, _ in present}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on several devices {devices}")
-    for t, dtype in present:
+    for t, dtype, is_strided in present:
         if t.dtype != dtype:
             raise TypeError(f"{name}: expected {str(dtype)[6:]}, got "
                             f"{t.dtype}")
-        if not t.is_contiguous():
+        if not is_strided and not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     device = devices.pop()
     if device.type == "cpu":
@@ -333,7 +344,8 @@ def gemm_workspace(g: int, m: int, k: int, n: int,
 def launch_gemm(name: str, tensors: list[torch.Tensor | None],
                 sizes: list[int], route_sizes: tuple[int, ...]) -> None:
     """Launch a GEMM entry (``conv_gemm_f32``, ``bmm_f32``: A, B, bias, out,
-    workspace; ``qmm_i8``: A, B, bias, mult, out, workspace) and keep what
+    workspace; ``conv_implicit_f32``: the map as A; ``qmm_i8``: A, B, bias,
+    mult, out, workspace) and keep what
     decides its route for :func:`last_route`: the operands' addresses and
     ``route_sizes``, the sizes its route function takes after them."""
     a, b, out, ws = tensors[0], tensors[1], tensors[-2], tensors[-1]
@@ -344,8 +356,8 @@ def launch_gemm(name: str, tensors: list[torch.Tensor | None],
 
 def last_route(name: str) -> str | None:
     """The route of the last launch of entry ``name``, as the kernel
-    library decides it: ``GEMM_ROUTES`` for ``conv_gemm_f32`` and
-    ``bmm_f32``, ``QMM_ROUTES`` for ``qmm_i8``, ``WINO_ROUTES`` for the
+    library decides it: ``GEMM_ROUTES`` for ``conv_gemm_f32``,
+    ``conv_implicit_f32`` and ``bmm_f32``, ``QMM_ROUTES`` for ``qmm_i8``, ``WINO_ROUTES`` for the
     Winograd transforms; None before the first launch."""
     if name not in _LAST_ROUTE:
         return None

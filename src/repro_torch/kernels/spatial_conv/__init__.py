@@ -1,7 +1,8 @@
 """Spatial (direct) convolution on the Spatial-mode PE (K1).
 
 The paper's Spatial mode merges all GEMM cores into one large broadcast array
-(Sec. 4.2.2) — here: im2col patch extraction followed by one patch GEMM.
+(Sec. 4.2.2) — here: one patch GEMM, which reads its patches from the map
+itself or, for the shapes it cannot, from im2col's patch matrix.
 """
 from repro_torch.kernels.spatial_conv.ops import spatial_conv2d
 

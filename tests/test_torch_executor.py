@@ -40,10 +40,13 @@ from repro_torch.core import perf_model as t_pm  # noqa: E402
 from repro_torch.core.executor import (  # noqa: E402
     CompiledExecutor,
     compile_executor,
+    height_pad,
+    width_pad,
 )
 from repro_torch.core.program_cache import ProgramCache, cache_key  # noqa: E402
 from repro_torch.core.runtime import HybridRuntime  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.spatial_conv import ops as conv_ops  # noqa: E402
 from repro_torch.models import vgg as t_vgg  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -312,6 +315,53 @@ def test_reduced_vgg16_hopper_winograd_copies_nothing(reference_logits,
     state["pe"] += 1
     with pytest.raises(AssertionError, match="F.pad"):
         torch.nn.functional.pad(torch.zeros(1, 2), (1, 1))
+
+
+def test_reduced_vgg16_hopper_fused_spatial_reads_the_map(reference_logits,
+                                                          monkeypatch):
+    """``opt_level=1`` on hopper: a fused Spatial layer hands K1 the stored
+    map itself with all four pads (no ``slice_input_span``, so no padded
+    slab), and where K1 reads it in place (``conv_implicit_f32``) the map
+    reaches the kernel as it lies; the logits still match the
+    reference's."""
+    t_specs, plans, params_np, x, ref = reference_logits
+    seen, current = {"fused": 0, "implicit": 0}, []
+    fused, span = t_executor._layer_forward_fused, t_executor.slice_input_span
+    implicit = conv_ops.conv_implicit_f32
+
+    def watched(cl, w, bias, x_map, relu, **kw):
+        watch = cl.plan.mode == "spat" and kw["backend"] == "hopper"
+        seen["fused"] += watch
+        if watch:
+            current.append((cl, x_map))
+        try:
+            return fused(cl, w, bias, x_map, relu, **kw)
+        finally:
+            if watch:
+                current.pop()
+
+    def no_slab(*a, **kw):
+        assert not current, "slice_input_span in a fused Spatial layer"
+        return span(*a, **kw)
+
+    def spy(x_map, *a, **kw):
+        cl, whole = current[-1]
+        assert x_map is whole
+        assert kw["pads"] == (height_pad(cl), width_pad(cl))
+        seen["implicit"] += 1
+        return implicit(x_map, *a, **kw)
+
+    monkeypatch.setattr(t_executor, "_layer_forward_fused", watched)
+    monkeypatch.setattr(t_executor, "slice_input_span", no_slab)
+    monkeypatch.setattr(conv_ops, "conv_implicit_f32", spy)
+    acc = t_api.Accelerator.build(
+        t_specs, plans=[p and t_compiler.LayerPlan(*p) for p in plans],
+        params=t_api.params_from_numpy(params_np, "cpu"), batch=2,
+        backend="hopper", opt_level=1, device="cpu", cache=ProgramCache())
+    y = acc(x).numpy()
+    assert seen["implicit"] >= 1 and seen["fused"] >= seen["implicit"]
+    np.testing.assert_allclose(y, ref["pallas"], **TOL)
+    assert np.abs(y - ref["xla"]).max() <= 1e-4 * np.abs(ref["xla"]).max()
 
 
 def test_params_from_numpy_and_seeded_build_agree():

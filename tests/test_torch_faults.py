@@ -332,6 +332,7 @@ def test_refused_kernel_launch_fails_typed_never_torch(acc_hopper,
         raise RuntimeError("kernel launch failed (refused)")
 
     monkeypatch.setattr(conv_ops, "conv_gemm_f32", refuse)
+    monkeypatch.setattr(conv_ops, "conv_implicit_f32", refuse)
     monkeypatch.setattr(gemm_ops, "bmm_f32", refuse)
     with pytest.raises(RuntimeError, match="refused"):
         acc_hopper(_x(n=2))

@@ -34,13 +34,18 @@ from repro_torch.core.hybrid_conv import (  # noqa: E402
     DepthwiseSpec,
     FCSpec,
     PoolSpec,
+    explicit_pads,
 )
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.gemm.int8 import qmm_i8, qmm_ref  # noqa: E402
 from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref  # noqa: E402
+from repro_torch.kernels.spatial_conv import ops as conv_ops  # noqa: E402
 from repro_torch.kernels.spatial_conv.kernel import (  # noqa: E402
     conv_gemm_f32,
     conv_gemm_ref,
+    conv_implicit_f32,
+    im2col,
+    takes_implicit,
 )
 from repro_torch.kernels.winograd.kernel import (  # noqa: E402
     wino_grid,
@@ -110,12 +115,101 @@ CONV_GEMM_CASES = [
 @pytest.mark.parametrize("t,crs,k,route", CONV_GEMM_CASES)
 def test_gpu_conv_gemm(cuda, t, crs, k, route):
     p, w, b = (torch.randn(*s, device=cuda) for s in ((t, crs), (crs, k), (k,)))
-    before = common.LAUNCHES["conv_gemm_f32"]
+    before = dict(common.LAUNCHES)
     for relu, df in [(True, "is"), (False, "ws")]:
         _gpu_close(conv_gemm_f32(p, w, b, relu, df),
                    conv_gemm_ref(p, w, b, relu, df))
         assert common.last_route("conv_gemm_f32") == route
-    assert common.LAUNCHES["conv_gemm_f32"] == before + 2
+    # each K1 launch counts once, under the entry that ran
+    assert common.LAUNCHES["conv_gemm_f32"] == before["conv_gemm_f32"] + 2
+    assert (common.LAUNCHES["conv_implicit_f32"]
+            == before["conv_implicit_f32"])
+
+
+# K1 over the map itself: (n, h, c, k, r, stride) of every Spatial conv of
+# VGG16's main path (the DSE's plans at buckets 1 and 8 at 224x224: conv1
+# and conv7 only at bucket 1, conv10-12 split K; conv2-6 at bucket 128) and
+# ResNet-18's 3x3/2 and 1x1/2 convs at batch 8, SAME padding (asymmetric at
+# stride 2)
+_VGG16_SPATIAL = [("conv1", 224, 64, 64), ("conv2", 112, 64, 128),
+                  ("conv3", 112, 128, 128), ("conv4", 56, 128, 256),
+                  ("conv5", 56, 256, 256), ("conv7", 28, 256, 512),
+                  ("conv10", 14, 512, 512)]
+IMPLICIT_CASES = [
+    pytest.param(n, hw, c, k, 3, 1, id=f"vgg16-{name}-b{n}")
+    for n in (1, 8) for name, hw, c, k in _VGG16_SPATIAL
+    if n == 1 or name not in ("conv1", "conv7")
+] + [
+    pytest.param(128, hw, c, k, 3, 1, id=f"vgg16-{name}-b128")
+    for name, hw, c, k in _VGG16_SPATIAL[1:5]
+] + [
+    pytest.param(8, hw, c, 2 * c, r, 2, id=f"resnet18-{hw}-{c}-{r}x{r}s2")
+    for hw, c in ((56, 64), (28, 128), (14, 256)) for r in (3, 1)
+]
+
+
+@pytest.mark.parametrize("n,hw,c,k,r,stride", IMPLICIT_CASES)
+def test_gpu_conv_implicit_equals_patch_gemm(cuda, n, hw, c, k, r, stride):
+    """conv_implicit_f32 on the map is torch.equal to conv_gemm_f32 on
+    im2col's patches (the same plan, the same sums), on the tensor-core
+    route, counted once a call under its own entry."""
+    x, g, b = (torch.randn(*s, device=cuda)
+               for s in ((n, hw, hw, c), (r, r, c, k), (k,)))
+    pads = explicit_pads("SAME", hw, hw, r, r, stride)
+    assert takes_implicit(x, g, stride, pads)
+    patches, (ho, wo) = im2col(x, r, r, stride, pads)
+    for relu, df in [(True, "is"), (False, "ws")]:
+        before = dict(common.LAUNCHES)
+        y = conv_implicit_f32(x, g, b, stride=stride, pads=pads, relu=relu,
+                              dataflow=df)
+        assert common.last_route("conv_implicit_f32") == "tc3xtf32"
+        y_patch = conv_gemm_f32(patches, g.view(-1, k), b, relu, df)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y_patch.view(n, ho, wo, k))
+        for name in ("conv_implicit_f32", "conv_gemm_f32"):
+            assert common.LAUNCHES[name] == before[name] + 1
+    _gpu_close(y.view(-1, k), conv_gemm_ref(patches, g.view(-1, k), b))
+
+
+def test_gpu_conv_implicit_reads_a_row_slab_view(cuda):
+    """A row slab of a larger map (a strided view, as the blocked lowering
+    hands it) with only the width pads: torch.equal to the patch GEMM."""
+    big = torch.randn(8, 30, 56, 128, device=cuda)
+    x, g = big[:, 5:23], torch.randn(3, 3, 128, 256, device=cuda)
+    pads = ((0, 0), (1, 1))
+    assert not x.is_contiguous() and takes_implicit(x, g, 1, pads)
+    y = conv_implicit_f32(x, g, None, pads=pads)
+    patches, (ho, wo) = im2col(x, 3, 3, 1, pads)
+    y_patch = conv_gemm_f32(patches, g.view(-1, 256))
+    torch.cuda.synchronize()
+    assert (ho, wo) == (16, 56)
+    assert torch.equal(y, y_patch.view(8, ho, wo, 256))
+
+
+def test_gpu_vgg16_k1_reads_the_map(cuda, monkeypatch):
+    """Full VGG16 fp32 at batch 8 on hopper (the default DSE: 9 Spatial
+    convs): a captured replay launches K1 once over patches (conv0, C = 3)
+    and 8 times over the map, and its logits are torch.equal to the same
+    lowering with every Spatial conv over im2col's patches."""
+    acc = api.Accelerator.build(vgg.network_specs(), batch=8,
+                                backend="hopper", device=cuda,
+                                cache=ProgramCache())
+    entry, params = acc.runtime.executor_entry(8, acc.input_dtype)
+    x = _entry_input(acc, np.random.default_rng(3).standard_normal(
+        (8, 224, 224, 3)).astype(np.float32))
+    entry(params, x)                   # warm-up and capture
+    common.reset_launches()
+    y = entry(params, x).clone()       # a replay
+    torch.cuda.synchronize()
+    assert (common.LAUNCHES["conv_gemm_f32"],
+            common.LAUNCHES["conv_implicit_f32"]) == (1, 8)
+    monkeypatch.setattr(conv_ops, "takes_implicit", lambda *a: False)
+    common.reset_launches()
+    y_patch = entry.fn(params, x)
+    torch.cuda.synchronize()
+    assert (common.LAUNCHES["conv_gemm_f32"],
+            common.LAUNCHES["conv_implicit_f32"]) == (9, 0)
+    assert torch.equal(y, y_patch)
 
 
 BMM_CASES = [

@@ -49,10 +49,15 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.gemm import batched_matmul, matmul  # noqa: E402
 from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref  # noqa: E402
 from repro_torch.kernels.gemm.ref import batched_matmul_ref  # noqa: E402
+from repro_torch.core.hybrid_conv import explicit_pads  # noqa: E402
+from repro_torch.kernels.spatial_conv import ops as conv_ops  # noqa: E402
 from repro_torch.kernels.spatial_conv import spatial_conv2d  # noqa: E402
 from repro_torch.kernels.spatial_conv.kernel import (  # noqa: E402
     conv_gemm_f32,
     conv_gemm_ref,
+    conv_implicit_f32,
+    conv_implicit_ref,
+    takes_implicit,
 )
 from repro_torch.kernels.spatial_conv.ref import spatial_conv2d_ref  # noqa: E402
 from repro_torch.kernels.winograd import (  # noqa: E402
@@ -130,6 +135,135 @@ def test_conv_gemm_plain_version_matches_pallas_kernel():
         args = [torch.from_numpy(a) for a in (p, w, b)]
         _close(conv_gemm_ref(*args, relu, df), y_ref)
         _close(conv_gemm_f32(*args, relu, df), y_ref)
+
+
+# K1 over the map itself: (h, w, c, k, r, stride, padding) with C and K in
+# fours and N*HO*WO >= 64 at batch 2, each on a contiguous map and on a row
+# slab of a taller one (a strided view, as the blocked lowering hands it)
+IMPLICIT_CASES = [
+    (9, 9, 4, 8, 3, 1, "SAME"),
+    (12, 12, 8, 8, 3, 2, "SAME"),             # strided SAME: pads (0, 1)
+    (14, 14, 8, 12, 1, 2, "SAME"),            # 1x1 projection, stride 2
+    (9, 11, 4, 8, 3, 1, ((1, 2), (0, 1))),    # asymmetric explicit pads
+    (8, 8, 4, 8, 3, 1, ((0, 0), (1, 1))),     # a row slab's width pads
+]
+
+
+def _spy(monkeypatch, *names):
+    """Count the calls ``spatial_conv2d`` makes to each K1 entry."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def call(*a, _name=name, _fn=getattr(conv_ops, name), **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(conv_ops, name, call)
+    return calls
+
+
+@pytest.mark.parametrize("view", [False, True], ids=["map", "row_slab"])
+@pytest.mark.parametrize("case", IMPLICIT_CASES, ids=str)
+def test_spatial_conv2d_reads_the_map_where_it_can(case, view, monkeypatch):
+    """Where the rule holds, ``spatial_conv2d`` hands K1 the map as it lies
+    (``conv_implicit_f32``, whose plain version is ``im2col`` then
+    ``conv_gemm_ref``), equal to the reference's Pallas conv and to the
+    direct conv."""
+    h, w, c, k, r, stride, padding = case
+    rng = np.random.default_rng(h * 100 + c + view)
+    x = torch.from_numpy(_np(rng, 2, h + 3 * view, w, c))[:, 2 * view:][
+        :, :h]
+    g, b = (torch.from_numpy(_np(rng, *s)) for s in ((r, r, c, k), (k,)))
+    assert x.is_contiguous() != view
+    pads = explicit_pads(padding, h, w, r, r, stride)
+    assert takes_implicit(x, g, stride, pads)
+    calls = _spy(monkeypatch, "conv_implicit_f32", "conv_gemm_f32")
+    y = spatial_conv2d(x, g, b, stride=stride, padding=padding, relu=True)
+    assert calls == {"conv_implicit_f32": 1, "conv_gemm_f32": 0}
+    assert torch.equal(y, conv_implicit_ref(x, g, b, stride=stride,
+                                            pads=pads, relu=True))
+    _close(y, r_spatial(jnp.asarray(x.numpy()), jnp.asarray(g.numpy()),
+                        jnp.asarray(b.numpy()), stride=stride,
+                        padding=padding, relu=True))
+    _close(y, spatial_conv2d_ref(x, g, b, stride=stride, padding=padding,
+                                 relu=True).numpy())
+
+
+def _misaligned_map(n, h, w, c):
+    """A contiguous map whose data pointer is 4 bytes off a 16-byte
+    boundary."""
+    return torch.randn(n * h * w * c + 1)[1:].view(n, h, w, c)
+
+
+# (label, map, weights, stride, pads, implicit?): which shapes K1 reads in
+# place and which keep im2col's patches
+ROUTE_CASES = [
+    ("c4_k8", lambda: torch.randn(2, 8, 8, 4), (3, 3, 4, 8), 1,
+     ((1, 1), (1, 1)), True),
+    ("channel_slice", lambda: torch.randn(2, 8, 8, 12)[..., 4:8],
+     (3, 3, 4, 8), 1, ((1, 1), (1, 1)), True),
+    ("first_conv_c3", lambda: torch.randn(2, 8, 8, 3), (3, 3, 3, 8), 1,
+     ((1, 1), (1, 1)), False),
+    ("k6", lambda: torch.randn(2, 8, 8, 4), (3, 3, 4, 6), 1,
+     ((1, 1), (1, 1)), False),
+    ("m_below_64", lambda: torch.randn(1, 7, 7, 4), (3, 3, 4, 8), 1,
+     ((1, 1), (1, 1)), False),
+    ("misaligned", lambda: _misaligned_map(2, 8, 8, 4), (3, 3, 4, 8), 1,
+     ((1, 1), (1, 1)), False),
+    ("channels_strided", lambda: torch.randn(2, 8, 8, 8)[..., ::2],
+     (3, 3, 4, 8), 1, ((1, 1), (1, 1)), False),
+    ("row_stride_off_4", lambda: torch.randn(2 * 8 * 9 * 4 + 32).as_strided(
+        (2, 8, 8, 4), (8 * 9 * 4 + 2, 9 * 4 + 2, 4, 1)), (3, 3, 4, 8), 1,
+     ((1, 1), (1, 1)), False),
+    ("negative_pad", lambda: torch.randn(2, 10, 10, 4), (3, 3, 4, 8), 1,
+     ((-1, 0), (1, 1)), False),
+]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: c[0])
+def test_k1_route_by_shape_and_alignment(case, monkeypatch):
+    """``takes_implicit`` decides by shape, layout and alignment alone, and
+    ``spatial_conv2d`` launches exactly that entry; either way it equals
+    the direct conv. ``conv_implicit_f32`` itself refuses what the rule
+    refuses."""
+    _, make, wshape, stride, pads, implicit = case
+    x, g = make(), torch.randn(*wshape)
+    assert takes_implicit(x, g, stride, pads) is implicit
+    calls = _spy(monkeypatch, "conv_implicit_f32", "conv_gemm_f32")
+    y = spatial_conv2d(x, g, None, stride=stride, padding=pads)
+    assert calls == {"conv_implicit_f32": int(implicit),
+                     "conv_gemm_f32": int(not implicit)}
+    if min(min(p) for p in pads) >= 0:
+        _close(y, spatial_conv2d_ref(x, g, stride=stride,
+                                     padding=pads).numpy())
+    if not implicit:
+        with pytest.raises(ValueError, match="takes_implicit"):
+            conv_implicit_f32(x, g, stride=stride, pads=pads)
+
+
+@pytest.mark.parametrize("entry,c", [("conv_implicit_f32", 4),
+                                     ("conv_gemm_f32", 3)])
+def test_k1_ops_export(entry, c):
+    """``torch.export`` traces ``spatial_conv2d`` through the K1 entry its
+    rule picks, as a ``torch.ops.repro_torch`` op (a row slab of a taller
+    map stays a view: a slice, no copy), and the exported program answers
+    as the eager call; ``opcheck`` passes on the op."""
+    class Conv(torch.nn.Module):
+        def forward(self, x, g, b):
+            return spatial_conv2d(x[:, 1:9], g, b,
+                                  padding=((0, 0), (1, 1)), relu=True)
+
+    x, g, b = torch.randn(2, 10, 9, c), torch.randn(3, 3, c, 8), \
+        torch.randn(8)
+    ep = torch.export.export(Conv(), (x, g, b))
+    ops = {str(n.target) for n in ep.graph.nodes if n.op == "call_function"}
+    assert f"repro_torch.{entry}.default" in ops
+    assert torch.equal(ep.module()(x, g, b), Conv()(x, g, b))
+    if entry == "conv_implicit_f32":
+        assert ops == {"aten.slice.Tensor", f"repro_torch.{entry}.default"}
+        args = (x[:, 1:9], g, b, 1, [0, 0, 1, 1], True, False)
+    else:
+        args = (torch.randn(48, 27), torch.randn(27, 8), b, True, False)
+    torch.library.opcheck(getattr(torch.ops.repro_torch, entry).default,
+                          args)
 
 
 # ---------------------------------------------------------------------------

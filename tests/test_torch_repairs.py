@@ -72,6 +72,8 @@ from repro_torch.kernels.gemm.kernel import bmm_f32, bmm_ref  # noqa: E402
 from repro_torch.kernels.spatial_conv.kernel import (  # noqa: E402
     conv_gemm_f32,
     conv_gemm_ref,
+    conv_implicit_f32,
+    conv_implicit_ref,
 )
 from repro_torch.kernels.spatial_conv.ops import im2col  # noqa: E402
 from repro_torch.kernels.winograd import kernel as wino  # noqa: E402
@@ -359,9 +361,13 @@ def _wrapper_cases():
     qbias = torch.from_numpy(rng.integers(-99, 99, 4).astype(np.int32))
     mult = torch.full((4,), 0.01)
     q, k, v = _f(4, 9, 8), _f(2, 9, 8, seed=1), _f(2, 9, 8, seed=2)
+    xm, g = _f(2, 8, 8, 4, seed=3), _f(3, 3, 4, 8, seed=4)
+    pads = ((1, 1), (1, 1))
     return [
         ("conv_gemm_f32", lambda: conv_gemm_f32(p, w, b),
          lambda: conv_gemm_ref(p, w, b), (p, w, b)),
+        ("conv_implicit_f32", lambda: conv_implicit_f32(xm, g, pads=pads),
+         lambda: conv_implicit_ref(xm, g, pads=pads), (xm, g)),
         ("bmm_f32", lambda: bmm_f32(a3, b3, bias3),
          lambda: bmm_ref(a3, b3, bias3), (a3, b3, bias3)),
         ("wino_input_transform_f32",
