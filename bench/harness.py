@@ -2,27 +2,30 @@
 metrics.
 
 A cell is an entry of ``BENCHMARK.json``'s ``workloads``. Everything that
-belongs to one configuration, traffic mix or metric is a file found by its
-name: ``bench/configs/<config>.json`` (through the ``file`` of its entry),
-``bench/traffic/<traffic>.json`` and ``bench/metrics/<metric>.py``, whose
-``read(run)`` returns the metric's value from a :class:`Run`, or None where
-the run holds nothing to read. A metric ``<base>.<part>`` with no file of
-its own is read by ``<base>.py``: the same quantity, split by the cells
-whose end-to-end metric it moves. A cell reports every metric whose
-``workloads`` name it, or that names none. The traffic sets the batch: the
-accelerator is built for, and the session serves up to, its largest
-bucket.
+belongs to one configuration, traffic mix, layer kind or metric is a file
+found by its name: ``bench/configs/<config>.json`` (through the ``file`` of
+its entry), ``bench/traffic/<traffic>.json``, ``bench/layers/<kind>.py``
+and ``bench/reference/<kind>.py`` (``bench/layers/__init__.py``), and
+``bench/metrics/<metric>.py``, whose ``read(run)`` returns the metric's
+value from a :class:`Run`, or None where the run holds nothing to read. A
+metric ``<base>.<part>`` with no file of its own is read by
+``<base>.py``: the same quantity, split by the cells whose end-to-end
+metric it moves. A cell reports every metric whose ``workloads`` name it,
+or that names none. The traffic sets the batch: the accelerator is built
+for, and the session serves up to, its largest bucket.
 
 The program under test is ``repro_torch``: the harness builds an
 ``Accelerator`` from the configuration's layer table with weights it makes
 from the seed, opens a ``ServingSession`` over it as a serving process does
 (``settled_heap``, every bucket of the traffic warmed up), and sends the
-traffic through ``submit`` for the window. A traced run then profiles a
-segment of the same traffic (``_Tracer``), starting and stopping the
-profiler only while the session has nothing in flight: switched on and
-off under load, it once left a run hanging. Once the program's state is freed,
-every answer is held to the plain reference (``bench/reference/net.py``)
-on the same weights and images."""
+traffic through ``submit`` for the window; a traffic that sets ``slots``
+gives the session that many device batches in flight, and each of its
+staging entries carries a batch before the window. A traced run then
+profiles a segment of the same traffic (``_Tracer``), starting and
+stopping the profiler only while the session has nothing in flight:
+switched on and off under load, it once left a run hanging. Once the
+program's state is freed, every answer is held to the plain reference
+(``bench/reference/net.py``) on the same weights and images."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,12 +42,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from bench.layers import INPUT, find
 from bench.reference import net
 from bench.yardstick import compare, inputs, traffic as traffic_mod
 from bench.yardstick import trace as trace_mod
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+# a table's wiring keys and the spec fields they fill
+WIRING = {"from": "inp_from", "skip": "skip_from"}
 COUNTERS = ("submitted", "requests", "errors", "shed", "batches",
             "dispatched_rows", "padded_rows")
 # a traced run profiles a segment of the cell's traffic after the window:
@@ -119,27 +125,45 @@ class Run:
         return self.config["layers"]
 
 
+def _spec_value(v):
+    """A table's value as the spec takes it: lists as tuples."""
+    return tuple(map(_spec_value, v)) if isinstance(v, list) else v
+
+
 def to_specs(layers: list[dict]) -> list:
-    """The layer table as ``repro_torch``'s spec chain."""
-    from repro_torch.core.hybrid_conv import ConvSpec, FCSpec, PoolSpec
-    specs = []
-    for layer in layers:
-        kind = layer["kind"]
-        if kind == "conv":
-            specs.append(ConvSpec(
-                layer["name"], layer["h"], layer["w"], layer["c"],
-                layer["k"], r=layer["r"], s=layer["s"],
-                stride=layer["stride"], padding=layer["padding"],
-                relu=layer["relu"]))
-        elif kind == "pool":
-            specs.append(PoolSpec(layer["name"], layer["h"], layer["w"],
-                                  layer["c"], window=layer["window"],
-                                  stride=layer["stride"]))
-        elif kind == "fc":
-            specs.append(FCSpec(layer["name"], layer["d_in"], layer["d_out"],
-                                relu=layer["relu"]))
-        else:
-            raise ValueError(f"unknown layer kind {kind!r}")
+    """The layer table as ``repro_torch``'s spec chain: each entry as its
+    kind's spec class (``bench/layers/<kind>.py``) built from every key but
+    ``kind``, ``from`` and ``skip``, by the class's own field names, and
+    ``from`` and ``skip`` as the indices the spec's ``inp_from`` and
+    ``skip_from`` take (-1 for the input). A key the spec has no field for
+    is refused, never dropped."""
+    index, specs = {INPUT: -1}, []
+    for i, layer in enumerate(layers):
+        name = layer["name"]
+        cls = find(layer["kind"]).spec()
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kw = {}
+        for key, value in layer.items():
+            if key == "kind":
+                continue
+            if key in WIRING.values():
+                raise ValueError(f"layer {name!r}: {key!r} is wired by "
+                                 f"name, with {sorted(WIRING)}")
+            field = WIRING.get(key, key)
+            if field not in fields:
+                raise ValueError(f"layer {name!r}: the port's "
+                                 f"{cls.__name__} has no field {field!r} "
+                                 f"for {key!r}")
+            if key in WIRING:
+                if value not in index:
+                    raise ValueError(f"layer {name!r}: {key!r} names "
+                                     f"{value!r}, no earlier layer")
+                value = index[value]
+            kw[field] = _spec_value(value)
+        if name in index:
+            raise ValueError(f"layer {name!r}: the name is taken")
+        index[name] = i
+        specs.append(cls(**kw))
     return specs
 
 
@@ -282,6 +306,29 @@ def _plan(traffic: dict, seconds: float, seed: int,
     raise ValueError(f"unknown arrival {traffic['arrival']!r}")
 
 
+def _pipeline(traffic: dict) -> dict:
+    """The session's keywords for the traffic's pipeline depth: ``slots``
+    device batches in flight where the traffic sets it, else the
+    session's own."""
+    if "slots" not in traffic:
+        return {}
+    from repro_torch import api
+    return {"slot_pool": api._SlotPool(int(traffic["slots"]))}
+
+
+def _fill(session, images, traffic: dict, w) -> None:
+    """Where the traffic sets ``slots``: one request for each slot at
+    once, every one waited for, so that each staging entry of the session
+    has carried a batch before the window. Their answers are folded into
+    the window's ``w``, to be compared with the rest."""
+    if "slots" not in traffic:
+        return
+    k = int(traffic["images_per_request"])
+    x = images[0] if traffic.get("single") else images[:k]
+    for fut in session.submit_many([x] * int(traffic["slots"])):
+        w.fold(0, fut.result())
+
+
 def _drive(session, images, traffic: dict, w, seconds: float, hooks=()):
     """Send ``w``'s requests; returns once every one is resolved."""
     if traffic["arrival"] == "closed":
@@ -331,9 +378,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     tracer = segment = None
     with api.settled_heap():
         session = acc.serve(max_batch=batch,
-                            buckets=tuple(traffic["buckets"]), warmup=True)
+                            buckets=tuple(traffic["buckets"]), warmup=True,
+                            **_pipeline(traffic))
         try:
             capture_s = session.stats.compile_ms / 1e3
+            _fill(session, images, traffic, window)
             before = _counters(session.stats)
             common.reset_launches()
             _drive(session, images, traffic, window, seconds)

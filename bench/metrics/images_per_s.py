@@ -1,5 +1,5 @@
-"""Images answered inside the window, over its length: a closed loop on a
-card-bound cell."""
+"""Images answered per second of the window: a closed loop on a card-bound
+cell (``rates.images_in_window_per_s``)."""
 from bench.yardstick import rates
 
 

@@ -1,17 +1,21 @@
 """A network of the benchmark's layer tables in plain PyTorch, float32.
 
-Convolutions, max pools and fully-connected layers, in sequence, run as
-``torch.nn.functional`` operations on NHWC maps (each conv through NCHW),
+The walker over a layer table: each entry runs as its kind's
+``forward`` (``bench/reference/<kind>.py``, found by name) on NHWC maps,
 with TensorFloat-32 off in cuBLAS and cuDNN and cuDNN itself off, so every
-product is a plain float32 GEMM. ``SAME`` padding follows TensorFlow's
-rule (``total = (ceil(h / stride) - 1) * stride + r - h``, the smaller half
-on top and left), which is asymmetric for stride 2. FC layers read the
-NHWC map flattened in (h, w, c) order.
+product is a plain float32 GEMM. An entry reads the map its ``from`` names
+(an earlier entry's ``name``, or ``"input"``), by default the one before
+it, and an ``add`` its ``skip`` besides; a map is kept only while a later
+entry still reads it. An entry with ``relu`` true is followed by a ReLU.
+``SAME`` padding follows TensorFlow's rule (``total = (ceil(h / stride) -
+1) * stride + r - h``, the smaller half on top and left), which is
+asymmetric for stride 2.
 
-``tf32=True`` is the control: every conv's and FC's operands rounded to
-TensorFloat-32 (10 mantissa bits, to nearest even) before the float32
-product, which is what the tensor cores' TF32 mode does to its inputs.
-This file imports nothing of the program."""
+``tf32=True`` is the control: every product's operands (the kinds'
+``cast``) rounded to TensorFloat-32 (10 mantissa bits, to nearest even)
+before the float32 product, which is what the tensor cores' TF32 mode
+does to its inputs.
+This file and its kinds import nothing of the program."""
 from __future__ import annotations
 
 import contextlib
@@ -19,7 +23,8 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from bench.layers import INPUT, find
 
 
 def round_tf32(t: torch.Tensor) -> torch.Tensor:
@@ -47,34 +52,48 @@ def plain_float32():
         torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
+def _reads(layers: list[dict]) -> list[list[str]]:
+    """The maps each entry reads: its ``from`` (by default the entry before
+    it), then its ``skip`` if it has one; a name of no earlier entry is
+    refused."""
+    seen, prev, out = {INPUT}, INPUT, []
+    for layer in layers:
+        names = [layer.get("from", prev)] + (
+            [layer["skip"]] if "skip" in layer else [])
+        for key, name in zip(("from", "skip"), names):
+            if name not in seen:
+                raise ValueError(f"layer {layer['name']!r}: {key!r} names "
+                                 f"{name!r}, no earlier layer")
+        out.append(names)
+        prev = layer["name"]
+        seen.add(prev)
+    return out
+
+
 def forward(layers: list[dict], weights: list, x: torch.Tensor, *,
             tf32: bool = False) -> torch.Tensor:
     """Logits (n, classes) of NHWC images ``x``; ``weights`` is one (w, b)
-    per conv (HWIO) and FC ((d_in, d_out)) layer, in layer order."""
+    per entry whose kind has a weight (``weight_shape``), in layer order."""
     cast = round_tf32 if tf32 else (lambda t: t)
     params = iter(weights)
-    y = x
+    reads = _reads(layers)
+    last = {name: i for i, names in enumerate(reads) for name in names}
+    maps = {INPUT: x}
     with plain_float32(), torch.no_grad():
-        for layer in layers:
-            kind = layer["kind"]
-            if kind == "conv":
-                w, b = next(params)
-                pt, pb = same_pads(layer["h"], layer["r"], layer["stride"])
-                pl, pr = same_pads(layer["w"], layer["s"], layer["stride"])
-                xin = F.pad(y.permute(0, 3, 1, 2), (pl, pr, pt, pb))
-                y = F.conv2d(cast(xin), cast(w.permute(3, 2, 0, 1)), b,
-                             stride=layer["stride"]).permute(0, 2, 3, 1)
-            elif kind == "pool":
-                y = F.max_pool2d(y.permute(0, 3, 1, 2), layer["window"],
-                                 layer["stride"]).permute(0, 2, 3, 1)
-            elif kind == "fc":
-                w, b = next(params)
-                y = cast(y.reshape(y.shape[0], -1)) @ cast(w) + b
-            else:
-                raise ValueError(f"unknown layer kind {kind!r}")
+        for i, (layer, names) in enumerate(zip(layers, reads)):
+            kind = find(layer["kind"], "reference")
+            y = kind.forward(
+                layer, maps[names[0]],
+                next(params) if kind.weight_shape(layer) else None,
+                maps[names[1]] if len(names) > 1 else None, cast)
             if layer.get("relu", False):
                 y = torch.relu(y)
             y = y.contiguous()
+            for name in names:
+                if last[name] == i:
+                    maps.pop(name, None)
+            if layer["name"] in last:
+                maps[layer["name"]] = y
         return y
 
 

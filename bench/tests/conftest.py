@@ -23,12 +23,13 @@ def pytest_configure(config):
 @pytest.fixture
 def tiny_cell():
     """A cell of BENCHMARK.json on a tiny configuration of the same
-    network, its traffic slowed to what the CPU serves."""
+    network, or of the spec chain ``specs``, its traffic slowed to what the
+    CPU serves."""
     from bench import harness
 
-    def make(workload: str, **traffic):
+    def make(workload: str, specs=None, **traffic):
         cell = copy.deepcopy(harness.load_cell(workload))
-        cell.config = tiny_config(cell.config["name"])
+        cell.config = tiny_config(cell.config["name"], specs)
         cell.traffic.update(traffic)
         return cell
     return make

@@ -7,7 +7,7 @@ import torch
 from bench import harness
 from bench.reference import net
 from bench.yardstick import compare, inputs
-from bench_tiny import tiny_config
+from bench_tiny import tiny_config, tiny_resnet18
 
 CELLS = ["vgg16-fp32.bulk", "vgg16-fp32.bulk-b128", "vgg16-fp32.online"]
 SLOW = {"vgg16-fp32.online": {"rate_per_s": 100}}
@@ -53,6 +53,21 @@ def test_a_broken_path_is_not_correct(tiny_cell, monkeypatch, workload,
         monkeypatch.setattr(api.ServingSession, "_to_host",
                             lambda self, y: broken(to_host(self, y)))
     cell = tiny_cell(workload, **SLOW.get(workload, {}))
+    result = harness.run_cell(cell, 11, 1.0, False, device="cpu")
+    assert result["correct"] is False
+    gap = result["checks"]["logit_gap"]
+    assert gap["value"] > gap["limit"]
+
+
+def test_a_dropped_skip_add_is_not_correct(tiny_cell, monkeypatch):
+    """The program's residual adds leave out their skip operand."""
+    from repro_torch.core import executor
+    eltwise = executor.eltwise_forward
+
+    def no_skip(cl, x, skip, relu, quant=None):
+        return eltwise(cl, x, torch.zeros_like(skip), relu, quant=quant)
+    monkeypatch.setattr(executor, "eltwise_forward", no_skip)
+    cell = tiny_cell("vgg16-fp32.bulk", tiny_resnet18())
     result = harness.run_cell(cell, 11, 1.0, False, device="cpu")
     assert result["correct"] is False
     gap = result["checks"]["logit_gap"]

@@ -5,6 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from bench.reference import net
+from bench.yardstick import inputs, work
 
 
 def _conv(name, h, c, k, r, stride, **kw):
@@ -43,6 +44,87 @@ def test_reference_against_functional():
     # in blocks, from host arrays
     blocks = net.logits(layers, weights, x.numpy(), "cpu", block=1)
     np.testing.assert_allclose(blocks, want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1)
+
+
+def test_residual_table_against_functional():
+    """Inputs rerouted by ``from``, an add by ``skip``: a padded 3x3/2 max
+    pool, a block whose 1x1/2 projection and first conv both read the
+    pool, and an explicit-pad conv."""
+    g = torch.Generator().manual_seed(1)
+    layers = [
+        dict(_conv("stem", 8, 3, 4, 3, 1), padding=[[2, 0], [1, 1]]),
+        {"kind": "pool", "name": "p0", "h": 8, "w": 8, "c": 4, "window": 3,
+         "stride": 2, "pad": 1},
+        dict(_conv("proj", 4, 4, 6, 1, 2, relu=False), padding="VALID",
+             **{"from": "p0"}),
+        dict(_conv("c1", 4, 4, 6, 3, 2), **{"from": "p0"}),
+        _conv("c2", 2, 6, 6, 3, 1, relu=False),
+        {"kind": "add", "name": "add", "h": 2, "w": 2, "c": 6,
+         "skip": "proj", "relu": True},
+        {"kind": "fc", "name": "f0", "d_in": 24, "d_out": 5, "relu": False},
+    ]
+    shapes = [(3, 3, 3, 4), (1, 1, 4, 6), (3, 3, 4, 6), (3, 3, 6, 6),
+              (24, 5)]
+    assert [s for s, _ in inputs.weight_shapes(layers)] == shapes
+    weights = [(torch.randn(s, generator=g), torch.randn(s[-1], generator=g))
+               for s in shapes]
+    x = torch.randn(2, 8, 8, 3, generator=g)
+
+    def conv(t, wb, pads, stride):
+        w, b = wb
+        return _nhwc(F.conv2d(F.pad(_nchw(t), pads), w.permute(3, 2, 0, 1),
+                              b, stride=stride))
+    stem = torch.relu(conv(x, weights[0], (1, 1, 2, 0), 1))
+    pool = _nhwc(F.max_pool2d(_nchw(stem), 3, 2, padding=1))
+    proj = conv(pool, weights[1], (0, 0, 0, 0), 2)
+    c1 = torch.relu(conv(pool, weights[2], (0, 1, 0, 1), 2))
+    c2 = conv(c1, weights[3], (1, 1, 1, 1), 1)
+    y = torch.relu(c2 + proj)
+    want = y.reshape(2, -1) @ weights[4][0] + weights[4][1]
+    assert pool.shape[1:3] == (4, 4) == work.out_hw(layers[1])
+    torch.testing.assert_close(net.forward(layers, weights, x), want,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_depthwise_table_against_functional():
+    g = torch.Generator().manual_seed(2)
+    dw = dict(kind="depthwise", name="d0", h=8, w=8, c=4, r=3, s=3,
+              stride=2, padding="SAME", relu=True)
+    layers = [
+        _conv("c0", 8, 3, 4, 3, 1),
+        dw,
+        dict(dw, name="d1", h=4, w=4, stride=1, padding=[[0, 2], [1, 0]],
+             relu=False),
+        {"kind": "fc", "name": "f0", "d_in": 4 * 3 * 4, "d_out": 3,
+         "relu": False},
+    ]
+    shapes = [(3, 3, 3, 4), (3, 3, 1, 4), (3, 3, 1, 4), (48, 3)]
+    assert inputs.weight_shapes(layers) == [
+        ((3, 3, 3, 4), 27), ((3, 3, 1, 4), 9), ((3, 3, 1, 4), 9),
+        ((48, 3), 48)]
+    weights = [(torch.randn(s, generator=g), torch.randn(s[-1], generator=g))
+               for s in shapes]
+    x = torch.randn(2, 8, 8, 3, generator=g)
+
+    def conv(t, wb, pads, stride, groups=1):
+        w, b = wb
+        return _nhwc(F.conv2d(F.pad(_nchw(t), pads), w.permute(3, 2, 0, 1),
+                              b, stride=stride, groups=groups))
+    y0 = torch.relu(conv(x, weights[0], (1, 1, 1, 1), 1))
+    y1 = torch.relu(conv(y0, weights[1], (0, 1, 0, 1), 2, groups=4))
+    y2 = conv(y1, weights[2], (1, 0, 0, 2), 1, groups=4)
+    assert y2.shape[1:3] == (4, 3) == work.out_hw(layers[2])
+    want = y2.reshape(2, -1) @ weights[3][0] + weights[3][1]
+    torch.testing.assert_close(net.forward(layers, weights, x), want,
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_same_pads_follow_tensorflow():

@@ -9,7 +9,7 @@ import sys
 import pytest
 import torch
 
-from bench_tiny import ROOT
+from bench_tiny import ROOT, tiny_dw_chain, tiny_resnet18
 from bench import harness
 
 SLOW = {"vgg16-fp32.online": {"rate_per_s": 100}}
@@ -41,6 +41,17 @@ def test_last_line_shape(tiny_cell, workload, traced):
         assert set(line["metrics"]) == set(units)
     for c in line["checks"].values():
         assert set(c) == {"value", "limit"} and c["value"] <= c["limit"]
+
+
+@pytest.mark.parametrize("specs", [tiny_resnet18, tiny_dw_chain])
+def test_other_networks_are_served_and_checked(tiny_cell, specs):
+    """A residual table (inputs rerouted by ``from``, adds by ``skip``)
+    and a depthwise one, served by the program and held to the
+    reference."""
+    cell = tiny_cell("vgg16-fp32.bulk", specs())
+    result = harness.run_cell(cell, 2 ** 31 + 9, 1.0, False, device="cpu")
+    assert result["correct"] is True and result["failed"] == 0
+    assert result["attempted"] > 0
 
 
 def _run(args, cwd, env=None):

@@ -108,3 +108,57 @@ def test_percentile_is_nearest_rank():
     assert stats.percentile(xs, 95) == 95
     assert stats.percentile([3.0, math.inf], 50) == 3.0
     assert stats.percentile([3.0, math.inf], 95) == math.inf
+
+
+def _closed_run(traffic_extra: dict):
+    """A closed loop's record of four requests of two images, the window
+    opening at 10 s and lasting 1 s; the last answer comes at 11.5 s."""
+    import types
+    w = traffic.Window(np.zeros(4, np.int64), np.full(4, 2, np.int64),
+                       False, 8)
+    w.t0, w.n = 10.0, 4
+    w.t_done[:] = [10.2, 10.6, 10.9, 11.5]
+    w.ok[:] = True
+    tr = dict({"arrival": "closed", "outstanding": 2,
+               "images_per_request": 2}, **traffic_extra)
+    return types.SimpleNamespace(window=w, traffic=tr, seconds=1.0,
+                                 t_end=11.0)
+
+
+@pytest.mark.parametrize("extra, rate", [({}, 6.0), ({"slots": 2}, 8 / 1.5)])
+def test_closed_loop_rate_over_its_window(extra, rate):
+    """Without ``slots`` the answers inside the window count, over its
+    length; with them, every answer counts, over the time to the last."""
+    from bench.yardstick import rates
+    assert rates.images_in_window_per_s(_closed_run(extra)) == \
+        pytest.approx(rate)
+
+
+def test_slots_set_the_sessions_pipeline_and_each_is_filled():
+    from bench import harness
+    assert harness._pipeline({"buckets": [8]}) == {}
+    pool = harness._pipeline({"slots": 5})["slot_pool"]
+    assert pool.capacity == 5
+
+    class Session:
+        def __init__(self):
+            self.sent = []
+
+        def submit_many(self, xs):
+            self.sent += xs
+            futs = [Future() for _ in xs]
+            for f in futs:
+                f.set_result(np.asarray(xs[0]).reshape(len(xs[0]), -1))
+            return futs
+    images = np.arange(16 * 4, dtype=np.float32).reshape(16, 2, 2, 1)
+    s = Session()
+    w = traffic.Window(np.zeros(1, np.int64), np.ones(1, np.int64), False,
+                       16)
+    harness._fill(s, images, {"images_per_request": 3, "slots": 5}, w)
+    assert len(s.sent) == 5 and all(x.shape == (3, 2, 2, 1) for x in s.sent)
+    # the answers are folded in to be compared with the window's
+    assert w.seen.tolist() == [True] * 3 + [False] * 13
+    assert np.array_equal(w.hi[:3], images[:3].reshape(3, 4))
+    s = Session()
+    harness._fill(s, images, {"images_per_request": 3}, w)
+    assert s.sent == []

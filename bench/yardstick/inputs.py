@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bench.layers import find
+
 POOL = 256      # images a cell's requests draw from
 BIAS_SCALE = 0.1
 
@@ -18,20 +20,15 @@ def _generator(seed: int, stream: int, device) -> torch.Generator:
 
 
 def weight_shapes(layers: list[dict]) -> list[tuple[tuple, int]]:
-    """(shape, fan_in) of each conv's HWIO and each FC's (d_in, d_out)
-    weight, in layer order."""
-    out = []
-    for layer in layers:
-        if layer["kind"] == "conv":
-            r, s, c = layer["r"], layer["s"], layer["c"]
-            out.append(((r, s, c, layer["k"]), r * s * c))
-        elif layer["kind"] == "fc":
-            out.append(((layer["d_in"], layer["d_out"]), layer["d_in"]))
-    return out
+    """(shape, fan_in) of each weight, in layer order: the entries whose
+    kind's reference (``bench/reference/<kind>.py``) has one."""
+    shapes = (find(layer["kind"], "reference").weight_shape(layer)
+              for layer in layers)
+    return [shape for shape in shapes if shape is not None]
 
 
 def make_weights(layers: list[dict], seed: int, device) -> list:
-    """[(w, b), ...] of every conv and FC layer, float32: weights normal with
+    """[(w, b), ...] of every layer with a weight, float32: weights normal with
     the variance 2 / fan_in (He et al., arXiv:1502.01852), which keeps each
     layer's outputs of the order of 1 through the ReLUs, and biases normal
     times ``BIAS_SCALE``, a tenth of that order."""

@@ -6,11 +6,20 @@ from bench.yardstick import peaks, work
 
 def images_in_window_per_s(run) -> float | None:
     """Images whose logits came back inside the window, over its length
-    (closed loops only: an open loop's rate is the one it offered)."""
+    (closed loops only: an open loop's rate is the one it offered). Where
+    the traffic dispatches work ahead (``slots``), the window closes when
+    the last request sent is answered: every image answered counts, over
+    the time from the window's opening to that last answer."""
     w = run.window
     if w.due is not None:
         return None
-    inside = w.sent("ok") & (w.sent("t_done") <= run.t_end)
+    ok = w.sent("ok")
+    if "slots" in run.traffic:
+        done = w.sent("t_done")[ok]
+        if not len(done):
+            return None
+        return float(w.sent("count")[ok].sum()) / (float(done.max()) - w.t0)
+    inside = ok & (w.sent("t_done") <= run.t_end)
     return float(w.sent("count")[inside].sum()) / run.seconds
 
 

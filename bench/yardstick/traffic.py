@@ -8,6 +8,10 @@ timed. One generator reads every traffic file (``bench/traffic/*.json``):
 - ``images_per_request``: the images of every request.
 - ``single``: each request is one (H, W, C) image rather than a batch.
 - ``buckets``: the batch sizes the session serves (and warms up).
+- ``slots`` (optional): the device batches the session keeps in flight,
+  where the traffic needs more than the session's own three, so that a
+  stall of the host does not leave the card without work; the window of
+  such a traffic closes when its last request is answered.
 
 Every seed gets the same set of gaps between arrivals, in another order: each second's worth of arrivals (``rate``
 of them) takes the midpoint quantiles of the exponential distribution as
@@ -98,6 +102,13 @@ class Window:
             self._settled += 1
             if self._closed and self._settled == self.n:
                 self._all.set()
+
+    def fold(self, s: int, answer) -> None:
+        """Fold in an answer for images ``s :`` of the pool to a request
+        sent before the window, so that it is compared as well."""
+        rows = np.asarray(answer, np.float32)
+        with self._lock:
+            self._fold(s, rows.reshape(-1, rows.shape[-1]))
 
     def _fold(self, s: int, rows: np.ndarray) -> None:
         if self.hi is None:

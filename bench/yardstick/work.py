@@ -1,66 +1,33 @@
 """The work a network asks for, counted from its layer table alone.
 
-A layer's FLOPs are 2 x the multiply-accumulates of the direct convolution
-or of the fully-connected product; pooling counts none.
-A Winograd plan is counted as the same work as a spatial one, so a faster
+Each entry's FLOPs, bytes and output size come from its kind's file,
+``bench/layers/<kind>.py``, found by name. A layer's FLOPs are 2 x the
+multiply-accumulates of its product; pooling and adds count none. A
+Winograd plan is counted as the same work as a spatial one, so a faster
 algorithm shows as a higher share of the bound, not as less work. A
-layer's bytes are its input, weights, bias and output, each once, in
+layer's bytes are its inputs, weights, bias and output, each once, in
 float32; weights once per batch. Its bound is the larger of FLOPs over the
 TF32 peak and bytes over the HBM bandwidth, and a network's bound is the
-sum over its layers.
-
-Layer table entries (``kind``): ``conv`` (h, w, c, k, r, s, stride,
-padding "SAME"), ``pool`` (h, w, c, window, stride; VALID), ``fc`` (d_in,
-d_out)."""
+sum over its layers."""
 from __future__ import annotations
 
+from bench.layers import find
 from bench.yardstick import peaks
 
 FLOAT_BYTES = 4
 
 
 def out_hw(layer: dict) -> tuple[int, int]:
-    """Output height and width of a conv or pool layer."""
-    h, w, stride = layer["h"], layer["w"], layer.get("stride", 1)
-    if layer["kind"] == "pool":
-        win = layer["window"]
-        return (h - win) // stride + 1, (w - win) // stride + 1
-    if layer.get("padding", "SAME") != "SAME":
-        raise ValueError(f"{layer['name']}: only SAME padding is counted")
-    return -(-h // stride), -(-w // stride)
+    """Output height and width of an entry."""
+    return find(layer["kind"]).out_hw(layer)
 
 
 def layer_flops(layer: dict, batch: int) -> int:
-    kind = layer["kind"]
-    if kind == "conv":
-        ho, wo = out_hw(layer)
-        macs = layer["k"] * layer["c"] * layer["r"] * layer["s"] * ho * wo
-        return 2 * macs * batch
-    if kind == "fc":
-        return 2 * layer["d_in"] * layer["d_out"] * batch
-    if kind == "pool":
-        return 0
-    raise ValueError(f"unknown layer kind {kind!r}")
+    return find(layer["kind"]).flops(layer, batch)
 
 
 def layer_bytes(layer: dict, batch: int) -> int:
-    kind = layer["kind"]
-    if kind == "conv":
-        ho, wo = out_hw(layer)
-        acts = batch * (layer["h"] * layer["w"] * layer["c"]
-                        + ho * wo * layer["k"])
-        params = layer["r"] * layer["s"] * layer["c"] * layer["k"] \
-            + layer["k"]
-        return FLOAT_BYTES * (acts + params)
-    if kind == "fc":
-        acts = batch * (layer["d_in"] + layer["d_out"])
-        params = layer["d_in"] * layer["d_out"] + layer["d_out"]
-        return FLOAT_BYTES * (acts + params)
-    if kind == "pool":
-        ho, wo = out_hw(layer)
-        return FLOAT_BYTES * batch * layer["c"] * (layer["h"] * layer["w"]
-                                                   + ho * wo)
-    raise ValueError(f"unknown layer kind {kind!r}")
+    return find(layer["kind"]).bytes(layer, batch)
 
 
 def flops_per_image(layers: list[dict]) -> int:
